@@ -1,0 +1,55 @@
+"""Public kernel entry points with the signatures and layouts of
+``repro/kernels/ops.py``.
+
+Each entry takes its plain PyTorch version for a CPU tensor and launches its
+hand-written CUDA kernel for a CUDA tensor, or raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import swiglu as sg
+
+KERNEL_MODULES = {"flash_attention": fa, "rmsnorm": rn, "swiglu": sg}
+
+
+def flash_attention(
+    q: torch.Tensor,   # (B, Sq, Hq, hd) — model layout
+    k: torch.Tensor,   # (B, Skv, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sliding_window: int | None = None,
+    softcap: float | None = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """FlashAttention over the model's (B, S, H, hd) layout; the kernel reads
+    it through strides, so no transposes are made on the card."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"query heads {q.shape[2]} not a multiple of KV "
+                         f"heads {k.shape[2]}")
+    return fa.flash_attention(q, k, v, causal=causal,
+                              sliding_window=sliding_window, softcap=softcap,
+                              q_offset=q_offset)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return rn.rmsnorm(x, w, eps)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """Fused silu(x@w1) * (x@w3); x: (..., d)."""
+    shape = x.shape
+    out = sg.swiglu(x.reshape(-1, shape[-1]), w1, w3)
+    return out.reshape(*shape[:-1], w1.shape[1])
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNEL_MODULES.values():
+        mod.launches = 0

@@ -1,0 +1,55 @@
+"""Fused SwiGLU gate forward, silu(x @ w1) * (x @ w3): the CUDA kernel of
+``csrc/swiglu.cu`` (ported from ``repro/kernels/swiglu.py:_swiglu_kernel``)
+and its plain version.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.  ``launches`` counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import swiglu_ref
+
+launches = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("swiglu")
+    lib.swiglu_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.swiglu_fwd.restype = ctypes.c_int
+    return lib
+
+
+def swiglu_cuda(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """x2d: (N, d), w1/w3: (d, F), all on the card in one dtype -> (N, F)."""
+    global launches
+    code = _build.dtype_code(x2d)
+    N, d = x2d.shape
+    F = w1.shape[1]
+    if (not x2d.is_cuda or w1.shape != (d, F) or w3.shape != (d, F)
+            or {w1.dtype, w3.dtype} != {x2d.dtype}
+            or w1.device != x2d.device or w3.device != x2d.device):
+        raise ValueError(f"swiglu: x {x2d.dtype} {tuple(x2d.shape)}, w1 {w1.dtype} "
+                         f"{tuple(w1.shape)}, w3 {w3.dtype} {tuple(w3.shape)}")
+    if x2d.dtype == torch.bfloat16 and (d % 8 or F % 8):
+        raise ValueError(f"swiglu: bf16 needs d and F multiples of 8, got {d}, {F}")
+    x2d, w1, w3 = (_build.aligned(t) for t in (x2d, w1, w3))
+    out = torch.empty((N, F), dtype=x2d.dtype, device=x2d.device)
+    lib = _lib()
+    err = lib.swiglu_fwd(x2d.data_ptr(), w1.data_ptr(), w3.data_ptr(), out.data_ptr(),
+                         N, d, F, code, _build.stream_of(x2d))
+    _build.check(lib, err, "swiglu_fwd")
+    launches += 1
+    return out
+
+
+def swiglu(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    if x2d.device.type == "cpu":
+        return swiglu_ref(x2d, w1, w3)
+    return swiglu_cuda(x2d, w1, w3)

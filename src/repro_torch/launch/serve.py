@@ -1,0 +1,125 @@
+"""Serving launcher (port of ``repro/launch/serve.py``): the continuous-batching
+ServeEngine over synthetic Poisson traffic, reporting per-request latency /
+TTFT percentiles and goodput.  Runs on the card unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
+      --device cpu --dtype fp32 --requests 8
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ASSIGNED, PAPER, get_config
+from repro_torch.core.compute import ComputePolicy
+from repro_torch.models.model import Model
+from repro_torch.runtime.serve_engine import Request, ServeEngine
+
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def synthetic_requests(cfg, n: int, *, rate: float | None = None,
+                       prompt_lens: tuple[int, int] = (4, 16),
+                       max_new: tuple[int, int] = (4, 16),
+                       temperature: float = 0.0, top_p: float = 1.0,
+                       seed: int = 0) -> list[Request]:
+    """Poisson arrivals at ``rate`` req/s (all at t=0 when None), uniform
+    prompt and new-token lengths, per-request seeds."""
+    rng = np.random.RandomState(seed)
+    t = 0.0
+    reqs = []
+    for rid in range(n):
+        if rate:
+            t += float(rng.exponential(1.0 / rate))
+        length = int(rng.randint(prompt_lens[0], prompt_lens[1] + 1))
+        n_new = int(rng.randint(max_new[0], max_new[1] + 1))
+        prompt = rng.randint(0, cfg.vocab_size, size=length).astype(np.int32)
+        reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=n_new,
+                            temperature=temperature, top_p=top_p,
+                            seed=seed + rid, arrival=t))
+    return reqs
+
+
+def summarize(records: list[dict]) -> dict:
+    """Latency/TTFT percentiles + goodput (completed tokens over the
+    makespan, first arrival to last completion)."""
+    lat = [r["t_done"] - r["t_arrival"] for r in records]
+    ttft = [r["t_first_token"] - r["t_arrival"] for r in records]
+    total = sum(r["n_generated"] for r in records)
+    makespan = max(r["t_done"] for r in records) - min(r["t_arrival"] for r in records)
+    return {
+        "n_requests": len(records),
+        "completed_tokens": int(total),
+        "makespan_s": float(makespan),
+        "goodput_tok_s": float(total / makespan) if makespan > 0 else 0.0,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "evictions": int(sum(r["evictions"] for r in records)),
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ASSIGNED + PAPER), default="yi-6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=None,
+                    help="Poisson arrival rate (req/s); default: all at t=0")
+    ap.add_argument("--n-slots", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--static", action="store_true",
+                    help="static-batch baseline (no slot refill mid-flight)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
+                    help="default: bf16 on the card, fp32 on the CPU")
+    ap.add_argument("--kernels", action=argparse.BooleanOptionalAction, default=True,
+                    help="RMSNorm, SwiGLU and prefill attention in the CUDA kernels")
+    args = ap.parse_args()
+
+    device = resolve_device(args.device)
+    dtype = DTYPES[args.dtype or ("bf16" if device.type == "cuda" else "fp32")]
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = Model(cfg, dtype, compute=ComputePolicy(kernels=args.kernels),
+                  device=device)
+    model.init(torch.Generator(device=device).manual_seed(args.seed))
+
+    engine = ServeEngine(model, n_slots=args.n_slots, cache_len=args.cache_len,
+                         block_size=args.block_size, continuous=not args.static)
+    reqs = synthetic_requests(
+        cfg, args.requests, rate=args.rate, prompt_lens=(4, args.cache_len // 4),
+        max_new=(2, args.max_new), temperature=args.temperature,
+        top_p=args.top_p, seed=args.seed)
+
+    mode = "static" if args.static else "continuous"
+    print(f"{cfg.name} [{cfg.family}] {mode} batching, {args.n_slots} slots, "
+          f"paged pool: {engine.n_blocks}x{engine.block_size} blocks, "
+          f"{device} {str(dtype).removeprefix('torch.')}, kernels={args.kernels}")
+    t0 = time.monotonic()
+    engine.run(reqs)
+    wall = time.monotonic() - t0
+    s = summarize(engine.records)
+    print(f"{s['n_requests']} requests, {s['completed_tokens']} tokens in "
+          f"{wall:.2f}s wall ({engine.n_ticks} decode ticks, "
+          f"{engine.n_prefills} prefills, {s['evictions']} evictions)")
+    print(f"goodput {s['goodput_tok_s']:,.1f} tok/s | latency p50 "
+          f"{s['latency_p50_s'] * 1e3:.0f} ms p99 "
+          f"{s['latency_p99_s'] * 1e3:.0f} ms | ttft p50 "
+          f"{s['ttft_p50_s'] * 1e3:.0f} ms p99 {s['ttft_p99_s'] * 1e3:.0f} ms")
+
+
+if __name__ == "__main__":
+    main()

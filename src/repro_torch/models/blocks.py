@@ -1,0 +1,176 @@
+"""Transformer blocks, the dense subset of ``repro/models/blocks.py``:
+self-attention (GQA, RoPE, optional qk-norm and softcap) for prefill, for
+per-slot cached decode and for decode over a paged KV pool, and the MLP
+block.  Under ``policy.kernels`` every RMSNorm and SwiGLU gate runs in its
+CUDA kernel, in prefill and in decode, and prefill attention runs in the
+flash kernel; decode attention over the cache stays plain PyTorch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
+from repro_torch.models import layers
+from repro_torch.models.common import ModelConfig, Spec
+
+
+def norm_spec(d: int, kind: str, axis: str = "embed") -> dict:
+    spec = {"scale": Spec((d,), (axis,), init="ones")}
+    if kind == "layernorm":
+        spec["bias"] = Spec((d,), (axis,), init="zeros")
+    return spec
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    spec = {
+        "ln": norm_spec(d, cfg.norm),
+        "wq": Spec((d, hq * hd), ("embed", "heads")),
+        "wk": Spec((d, hkv * hd), ("embed", "kv_heads")),
+        "wv": Spec((d, hkv * hd), ("embed", "kv_heads")),
+        "wo": Spec((hq * hd, d), ("heads", "embed")),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = Spec((hd,), ("head_dim",), init="ones")
+        spec["k_norm"] = Spec((hd,), ("head_dim",), init="ones")
+    return spec
+
+
+def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
+                 cfg: ModelConfig, use_kernel: bool = False):
+    B, Sq, _ = xq.shape
+    Skv = xkv.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (xq @ params["wq"]).reshape(B, Sq, cfg.n_heads, hd)
+    k = (xkv @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = (xkv @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    if "q_norm" in params:
+        q = layers.apply_norm(q, {"scale": params["q_norm"]}, "rmsnorm",
+                              cfg.rms_eps, use_kernel)
+        k = layers.apply_norm(k, {"scale": params["k_norm"]}, "rmsnorm",
+                              cfg.rms_eps, use_kernel)
+    return q, k, v
+
+
+def self_attn_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor | None = None, causal: bool = True,
+                    return_kv: bool = False,
+                    policy: ComputePolicy | None = None):
+    """Full-sequence (prefill) self attention with residual; with
+    ``return_kv`` also the RoPE'd K and V that prefill places in the cache."""
+    pol = resolve_policy(policy)
+    h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
+                          use_kernel=pol.kernels)
+    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
+    if cfg.pos == "rope":
+        pos = positions if positions is not None else torch.arange(
+            x.shape[1], device=x.device)
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    out = layers.attention(
+        q, k, v, causal=causal,
+        sliding_window=cfg.sliding_window if causal else None,
+        softcap=cfg.attn_logit_softcap, policy=pol)
+    B, S = x.shape[:2]
+    out = x + out.reshape(B, S, -1) @ params["wo"]
+    if return_kv:
+        return out, k, v
+    return out
+
+
+def self_attn_decode(params: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, cfg: ModelConfig,
+                     policy: ComputePolicy | None = None):
+    """One-token cached attention; ``cache`` = {"k", "v"} of (B, C, Hkv, hd)
+    (C may be a ring) is written in place.  ``pos`` is a scalar (lockstep
+    batch) or a (B,) vector (a position per slot)."""
+    pol = resolve_policy(policy)
+    if "k_scale" in cache:
+        raise NotImplementedError("kv_quant caches are not ported yet (ROADMAP.md)")
+    h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
+                          use_kernel=pol.kernels)
+    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
+    batched = pos.ndim == 1
+    if cfg.pos == "rope":
+        p = pos[:, None] if batched else pos[None]
+        q = layers.apply_rope(q, p, cfg.rope_theta)
+        k = layers.apply_rope(k, p, cfg.rope_theta)
+    clen = cache["k"].shape[1]
+    slot = torch.remainder(pos, clen)
+    ck, cv = layers.cache_update(cache["k"], cache["v"], k, v, slot)
+    # absolute position held by each ring slot (negative = not yet written)
+    slots = torch.arange(clen, device=x.device)
+    if batched:
+        kv_positions = pos[:, None] - torch.remainder(pos[:, None] - slots[None, :], clen)
+    else:
+        kv_positions = pos - torch.remainder(pos - slots, clen)
+    out = layers.attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
+                           q_offset=pos, sliding_window=cfg.sliding_window,
+                           softcap=cfg.attn_logit_softcap,
+                           kv_positions=kv_positions)
+    out = x + out.reshape(x.shape[0], 1, -1) @ params["wo"]
+    return out, {"k": ck, "v": cv}
+
+
+def paged_attn_decode(params: dict, x: torch.Tensor, cache: dict,
+                      block_table: torch.Tensor, pos: torch.Tensor,
+                      cfg: ModelConfig, active: torch.Tensor | None = None,
+                      policy: ComputePolicy | None = None):
+    """One-token attention over a paged KV pool: ``cache`` = {"k", "v"} of
+    (n_blocks, bs, Hkv, hd), ``block_table`` (B, max_blocks) maps a slot's
+    logical block j (positions [j*bs, (j+1)*bs)) to a physical block.  The
+    new token's KV is written into the pool in place before the gather, so
+    position ``pos`` itself is attended; inactive slots write to block 0,
+    the reserved garbage block."""
+    pol = resolve_policy(policy)
+    if cfg.sliding_window is not None:
+        raise ValueError("paged KV pool serves full-attention caches; "
+                         "SWA rings are fixed-size (whole-slot swap)")
+    if "k_scale" in cache:
+        raise NotImplementedError("kv_quant caches are not ported yet (ROADMAP.md)")
+    h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
+                          use_kernel=pol.kernels)
+    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
+    if cfg.pos == "rope":
+        q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
+    B = x.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    bs = ck.shape[1]
+    b = torch.arange(B, device=x.device)
+    phys = block_table[b, torch.div(pos, bs, rounding_mode="floor")].long()
+    if active is not None:
+        phys = torch.where(active, phys, 0)
+    off = torch.remainder(pos, bs).long()
+    ck[phys, off] = k[:, 0].to(ck.dtype)
+    cv[phys, off] = v[:, 0].to(cv.dtype)
+    skv = block_table.shape[1] * bs
+    bt = block_table.long()
+    gk = ck[bt].reshape(B, skv, *ck.shape[2:]).to(q.dtype)
+    gv = cv[bt].reshape(B, skv, *cv.shape[2:]).to(q.dtype)
+    out = layers.attention(q, gk, gv, causal=True, q_offset=pos,
+                           softcap=cfg.attn_logit_softcap,
+                           kv_positions=torch.arange(skv, device=x.device))
+    out = x + out.reshape(B, 1, -1) @ params["wo"]
+    return out, {"k": ck, "v": cv}
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    spec = {
+        "ln": norm_spec(d, cfg.norm),
+        "w1": Spec((d, ff), ("embed", "mlp")),
+        "w2": Spec((ff, d), ("mlp", "embed")),
+    }
+    if cfg.act == "swiglu":
+        spec["w3"] = Spec((d, ff), ("embed", "mlp"))
+    return spec
+
+
+def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              policy: ComputePolicy | None = None) -> torch.Tensor:
+    pol = resolve_policy(policy)
+    h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
+                          use_kernel=pol.kernels)
+    return x + layers.mlp(h, params, cfg.act, use_kernel=pol.kernels)

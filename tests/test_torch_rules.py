@@ -1,0 +1,133 @@
+"""Ground rules of the PyTorch/CUDA port: it imports nothing of JAX or of the
+JAX package; its entry points refuse to run without a card unless asked for
+the CPU; the CPU path never counts a kernel launch and a CUDA wrapper never
+takes a CPU tensor; weight carry-over is strict; what the slice does not
+cover raises."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.core.compute import ComputePolicy
+from repro_torch.interop import from_jax_params
+from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn, swiglu as sg
+from repro_torch.models.model import Model
+
+# tiny shapes: intra-op threads only add overhead here, and they
+# oversubscribe the cores shared by parallel test workers
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            roots.update(a.value.split(".")[0] for a in node.args
+                         if isinstance(a, ast.Constant) and isinstance(a.value, str))
+    return roots
+
+
+def test_port_imports_no_jax_and_no_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
+           for f in files}
+    assert not {f: r for f, r in bad.items() if r}
+
+
+def _tiny():
+    return get_config("yi-6b").reduced()
+
+
+def test_entry_points_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(_tiny())
+
+
+def test_launcher_runs_on_cpu_only_when_asked():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+           "--requests", "3", "--max-new", "4"]
+    ok = subprocess.run(cmd + ["--device", "cpu"], env=env, capture_output=True,
+                        text=True, timeout=300)
+    assert ok.returncode == 0, ok.stderr
+    assert "3 requests" in ok.stdout and "kernels=True" in ok.stdout
+    if not torch.cuda.is_available():
+        bad = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+        assert bad.returncode != 0 and "device='cpu'" in bad.stderr
+
+
+def test_cpu_path_launches_no_kernel():
+    m = Model(_tiny(), torch.float32, compute=ComputePolicy(kernels=True),
+              device="cpu").init(torch.Generator().manual_seed(0))
+    ops.reset_launch_counts()
+    toks = torch.randint(0, 512, (2, 9), generator=torch.Generator().manual_seed(1))
+    logits, cache = m.prefill({"tokens": toks}, 16)
+    m.decode_step(cache, {"token": torch.argmax(logits, -1)[:, None]})
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0, "swiglu": 0}
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: rn.rmsnorm_cuda(x, torch.ones(64), 1e-5),
+    lambda x: sg.swiglu_cuda(x, torch.ones(64, 8), torch.ones(64, 8)),
+    lambda x: fa.flash_attention_fwd_cuda(x.reshape(1, 4, 1, 64), x.reshape(1, 4, 1, 64),
+                                          x.reshape(1, 4, 1, 64)),
+], ids=["rmsnorm", "swiglu", "flash_attention"])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    with pytest.raises(ValueError):
+        call(torch.ones(4, 64))
+
+
+def _numpy_tree(model):
+    tree = {}
+    for key, t in model.state_dict().items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.zeros(tuple(t.shape), np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("fault", ["missing", "misshapen", "unused"])
+def test_from_jax_params_is_strict(fault):
+    m = Model(_tiny(), torch.float32, device="cpu")
+    tree = _numpy_tree(m)
+    assert set(from_jax_params(tree, m)) == set(m.state_dict())
+    if fault == "missing":
+        del tree["layers"]["mlp"]["w3"]
+    elif fault == "misshapen":
+        tree["layers"]["attn"]["wq"] = np.zeros((1, 2), np.float32)
+    else:
+        tree["layers"]["attn"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError if fault != "misshapen" else ValueError):
+        from_jax_params(tree, m)
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("llama4-maverick-400b-a17b", False),   # moe family
+    ("h2o-danube-1.8b", False),             # sliding-window ring cache
+    ("gpt-1.4b", True),                     # LayerNorm/GELU kernels not ported
+], ids=["moe", "swa", "gpt_kernels"])
+def test_out_of_scope_raises(arch, kernels):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(get_config(arch).reduced(), torch.float32,
+              compute=ComputePolicy(kernels=kernels), device="cpu")
