@@ -1,9 +1,13 @@
-"""FlashAttention-2 forward: the CUDA kernel of ``csrc/flash_attention.cu``
-(ported from ``repro/kernels/flash_attention.py:_fwd_kernel``) and its plain
-version, on the model's (B, S, H, hd) layout.
+"""FlashAttention-2 on the model's (B, S, H, hd) layout: the CUDA forward
+kernel of ``csrc/flash_attention.cu`` (ported from
+``repro/kernels/flash_attention.py:_fwd_kernel``), the dQ and dK/dV kernels
+of ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``),
+their plain versions, and the ``torch.autograd.Function`` that joins them.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``launches`` counts the kernel's launches.
+The Function saves (q, k, v, o, lse) from the forward.  For CUDA tensors its
+forward and backward launch the kernels or raise; for CPU tensors they take
+the plain versions (``kernels/ref.py``).  ``launches``, ``launches_bwd_dq``
+and ``launches_bwd_dkv`` count the three kernels' launches.
 """
 from __future__ import annotations
 
@@ -14,10 +18,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (64, 128)
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 
 
 @functools.cache
@@ -31,6 +37,19 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+               ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _head_contiguous(t: torch.Tensor) -> torch.Tensor:
     """Unit stride on hd and 16-byte aligned rows, as the kernel reads them."""
     vec = 16 // t.element_size()
@@ -40,17 +59,11 @@ def _head_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def flash_attention_fwd_cuda(q, k, v, *, causal=True, sliding_window=None,
-                             softcap=None, q_offset=0):
-    """q: (B, Sq, Hq, hd), k/v: (B, Skv, Hkv, hd) on the card in one dtype ->
-    (O like q, LSE (B, Hq, Sq) fp32)."""
-    global launches
-    code = _build.dtype_code(q)
+def _check_args(q, k, v, sliding_window, softcap):
     B, Sq, Hq, hd = q.shape
-    _, Skv, Hkv, _ = k.shape
     if (not q.is_cuda or {k.dtype, v.dtype} != {q.dtype} or k.device != q.device
             or v.device != q.device or v.shape != k.shape or k.shape[0] != B
-            or k.shape[3] != hd or Hq % Hkv):
+            or k.shape[3] != hd or Hq % k.shape[2]):
         raise ValueError(f"flash_attention: q {q.dtype} {tuple(q.shape)}, "
                          f"k {k.dtype} {tuple(k.shape)}, v {v.dtype} {tuple(v.shape)}")
     if hd not in HEAD_DIMS:
@@ -59,6 +72,17 @@ def flash_attention_fwd_cuda(q, k, v, *, causal=True, sliding_window=None,
         raise ValueError(f"flash_attention: sliding_window={sliding_window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap={softcap}")
+    return _build.dtype_code(q)
+
+
+def flash_attention_fwd_cuda(q, k, v, *, causal=True, sliding_window=None,
+                             softcap=None, q_offset=0):
+    """q: (B, Sq, Hq, hd), k/v: (B, Skv, Hkv, hd) on the card in one dtype ->
+    (O like q, LSE (B, Hq, Sq) fp32)."""
+    global launches
+    code = _check_args(q, k, v, sliding_window, softcap)
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
     q, k, v = (_head_contiguous(t) for t in (q, k, v))
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
@@ -74,15 +98,94 @@ def flash_attention_fwd_cuda(q, k, v, *, causal=True, sliding_window=None,
     return o, lse
 
 
+def bwd_args(q, k, v, o, lse, do, *, causal=True, sliding_window=None,
+             softcap=None, q_offset=0):
+    """The C arguments of both backward kernels and the gradients they will
+    fill, (dq like q, dk/dv like k and v, in their dtype), for the attention
+    whose forward gave ``o`` and ``lse`` (B, Hq, Sq) fp32 and the output
+    cotangent ``do`` like q.  delta = rowsum(dO*O) is a plain torch op here,
+    as the reference computes it outside its kernels."""
+    code = _check_args(q, k, v, sliding_window, softcap)
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if (o.shape != q.shape or do.shape != q.shape or lse.shape != (B, Hq, Sq)
+            or lse.dtype != torch.float32 or not (o.is_cuda and do.is_cuda)):
+        raise ValueError(f"flash_attention bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {lse.dtype} {tuple(lse.shape)}")
+    do = do.to(q.dtype)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    q, k, v, do = (_head_contiguous(t) for t in (q, k, v, do))
+    lse = lse.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    strides = (ctypes.c_longlong * 21)(
+        *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
+    # the tensors ride along so that they outlive the launches
+    args = ((q, k, v, do, lse, delta, dq, dk, dv),
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, Hq, Hkv, Sq, Skv, hd, strides, int(causal), sliding_window or 0,
+             softcap or 0.0, int(q_offset), float(1.0 / np.sqrt(hd)), code,
+             _build.stream_of(q)))
+    return args, (dq, dk, dv)
+
+
+def launch_bwd_dq(args) -> None:
+    """One launch of the dQ kernel (``_bwd_dq_kernel``) on :func:`bwd_args`."""
+    global launches_bwd_dq
+    lib = _bwd_lib()
+    _build.check(lib, lib.flash_attention_bwd_dq(*args[1]), "flash_attention_bwd_dq")
+    launches_bwd_dq += 1
+
+
+def launch_bwd_dkv(args) -> None:
+    """One launch of the dK/dV kernel (``_bwd_dkv_kernel``) on :func:`bwd_args`."""
+    global launches_bwd_dkv
+    lib = _bwd_lib()
+    _build.check(lib, lib.flash_attention_bwd_dkv(*args[1]), "flash_attention_bwd_dkv")
+    launches_bwd_dkv += 1
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw):
+    """(dq, dk, dv) on the card: delta, then the dQ and the dK/dV kernels."""
+    args, grads = bwd_args(q, k, v, o, lse, do, **kw)
+    launch_bwd_dq(args)
+    launch_bwd_dkv(args)
+    return grads
+
+
+def _bhsd(*ts):
+    return tuple(t.transpose(1, 2) for t in ts)
+
+
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window, softcap, q_offset):
+        kw = dict(causal=causal, sliding_window=sliding_window, softcap=softcap,
+                  q_offset=q_offset)
+        if q.device.type == "cpu":
+            o, lse = flash_attention_ref(*_bhsd(q, k, v), return_lse=True, **kw)
+            o = o.transpose(1, 2)
+        else:
+            o, lse = flash_attention_fwd_cuda(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = _bhsd(*flash_attention_bwd_ref(*_bhsd(q, k, v, o), lse,
+                                                   do.transpose(1, 2), **ctx.kw))
+        else:
+            grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **ctx.kw)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, sliding_window=None, softcap=None,
                     q_offset=0):
-    """(B, Sq, Hq, hd) attention output; GQA reads KV head h // (Hq/Hkv)."""
-    if q.device.type == "cpu":
-        out = flash_attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, sliding_window=sliding_window, softcap=softcap,
-            q_offset=q_offset)
-        return out.transpose(1, 2)
-    return flash_attention_fwd_cuda(q, k, v, causal=causal,
-                                    sliding_window=sliding_window,
-                                    softcap=softcap, q_offset=q_offset)[0]
+    """(B, Sq, Hq, hd) attention output; GQA reads KV head h // (Hq/Hkv).
+    Differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v, causal, sliding_window, softcap, q_offset)

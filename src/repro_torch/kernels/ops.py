@@ -1,18 +1,28 @@
 """Public kernel entry points with the signatures and layouts of
 ``repro/kernels/ops.py``.
 
-Each entry takes its plain PyTorch version for a CPU tensor and launches its
+Each entry is differentiable through its ``torch.autograd.Function``: it
+takes its plain PyTorch version for a CPU tensor and launches its
 hand-written CUDA kernel for a CUDA tensor, or raises; nothing falls back.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import swiglu as sg
 
-KERNEL_MODULES = {"flash_attention": fa, "rmsnorm": rn, "swiglu": sg}
+# kernel name -> (module, name of its launch counter)
+KERNEL_COUNTERS = {
+    "flash_attention": (fa, "launches"),
+    "flash_attention_bwd_dq": (fa, "launches_bwd_dq"),
+    "flash_attention_bwd_dkv": (fa, "launches_bwd_dkv"),
+    "rmsnorm": (rn, "launches"),
+    "swiglu": (sg, "launches"),
+    "cross_entropy": (ce, "launches"),
+}
 
 
 def flash_attention(
@@ -25,7 +35,7 @@ def flash_attention(
     softcap: float | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """FlashAttention over the model's (B, S, H, hd) layout; the kernel reads
+    """FlashAttention over the model's (B, S, H, hd) layout; the kernels read
     it through strides, so no transposes are made on the card."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"query heads {q.shape[2]} not a multiple of KV "
@@ -46,10 +56,24 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     return out.reshape(*shape[:-1], w1.shape[1])
 
 
+def cross_entropy_tokens(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                         valid_vocab: int | None = None) -> torch.Tensor:
+    """Per-token CE losses (N,) fp32, the train path's entry (callers apply
+    their own loss mask and normalisation); the (N, V) logits are never
+    written whole."""
+    return ce.cross_entropy_tokens(h, w, labels, valid_vocab)
+
+
+def cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                  valid_vocab: int | None = None) -> torch.Tensor:
+    """Mean blocked CE over the tokens."""
+    return cross_entropy_tokens(h, w, labels, valid_vocab).mean()
+
+
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)

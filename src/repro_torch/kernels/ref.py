@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the ported kernels (``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the ported kernels (``repro/kernels/ref.py``)
+and of the backward formulas their ``torch.autograd.Function`` s use.
 
 They are the CPU path of the kernel wrappers and the oracle that the CUDA
 kernels are held against on the card.
@@ -8,6 +9,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def _attention_mask(Sq: int, Skv: int, device, *, causal: bool,
+                    sliding_window: int | None, q_offset: int):
+    """(Sq, Skv) bool of the (query, key) pairs that attend, or None."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    kpos = torch.arange(Skv, device=device)
+    mask = None
+    if causal:
+        mask = kpos[None, :] <= qpos[:, None]
+    if sliding_window is not None:
+        w = qpos[:, None] - kpos[None, :] < sliding_window
+        mask = w if mask is None else mask & w
+    return mask
 
 
 def flash_attention_ref(
@@ -33,14 +48,8 @@ def flash_attention_ref(
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
-    qpos = torch.arange(Sq, device=q.device) + q_offset
-    kpos = torch.arange(Skv, device=q.device)
-    mask = None
-    if causal:
-        mask = kpos[None, :] <= qpos[:, None]
-    if sliding_window is not None:
-        w = qpos[:, None] - kpos[None, :] < sliding_window
-        mask = w if mask is None else mask & w
+    mask = _attention_mask(Sq, Skv, q.device, causal=causal,
+                           sliding_window=sliding_window, q_offset=q_offset)
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)  # fully masked rows
@@ -50,11 +59,113 @@ def flash_attention_ref(
     return out
 
 
+def flash_attention_bwd_ref(
+    q: torch.Tensor,     # (B, Hq, Sq, hd)
+    k: torch.Tensor,     # (B, Hkv, Skv, hd)
+    v: torch.Tensor,     # (B, Hkv, Skv, hd)
+    o: torch.Tensor,     # (B, Hq, Sq, hd)
+    lse: torch.Tensor,   # (B, Hq, Sq) fp32
+    do: torch.Tensor,    # (B, Hq, Sq, hd)
+    *,
+    causal: bool = True,
+    sliding_window: int | None = None,
+    softcap: float | None = None,
+    q_offset: int = 0,
+    return_scales: bool = False,
+):
+    """(dq, dk, dv) in the inputs' dtypes by the algebra of
+    ``repro/kernels/flash_attention.py:_bwd_dq_kernel``/``_bwd_dkv_kernel``,
+    in fp32: P from the saved LSE, delta = rowsum(dO*O), dS = P*(dP - delta)
+    (times 1 - t^2 under the softcap), dK/dV summed over each KV head's G
+    query heads.  Masked pairs get p = 0 exactly.
+
+    ``return_scales`` also returns the fp32 magnitudes |dS|@|K|*scale,
+    |dS|^T@|Q|*scale and P^T@|dO| (at dq's, dk's and dv's shapes), by which
+    a bf16 rounding of dS or P inside a kernel bounds its error, and the
+    magnitudes C@|K|*scale and C^T@|Q|*scale (dq's and dk's shapes) with
+    C = P*(|dO|@|V|^T + rowsum|dO*O|): dP - delta is a difference of two
+    sums that cancel where dS is near 0 (the first causal row exactly), so
+    another summation order moves dS by a share of C, not of |dS|."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(hd)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    kr = k32.repeat_interleave(G, dim=1) if G > 1 else k32
+    vr = v32.repeat_interleave(G, dim=1) if G > 1 else v32
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, kr) * scale
+    tcap = None
+    if softcap is not None:
+        tcap = torch.tanh(s / softcap)
+        s = tcap * softcap
+    mask = _attention_mask(Sq, Skv, q.device, causal=causal,
+                           sliding_window=sliding_window, q_offset=q_offset)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), device=q.device))
+    delta = (do32 * o.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, vr)
+    ds = p * (dp - delta[..., None])
+    if tcap is not None:
+        ds = ds * (1.0 - tcap * tcap)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+
+    def group_sum(t):                 # (B, Hq, Skv, hd) -> (B, Hkv, Skv, hd)
+        return t.reshape(B, Hkv, G, Skv, hd).sum(2)
+
+    grads = (dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype))
+    if not return_scales:
+        return grads
+    ads = ds.abs()
+    del dp, ds
+    scales = (torch.einsum("bhqk,bhkd->bhqd", ads, kr.abs()) * scale,
+              group_sum(torch.einsum("bhqk,bhqd->bhkd", ads, q32.abs())) * scale,
+              group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do32.abs())))
+    del ads
+    c = p * (torch.einsum("bhqd,bhkd->bhqk", do32.abs(), vr.abs())
+             + (do32 * o.float()).abs().sum(-1)[..., None])
+    cancel = (torch.einsum("bhqk,bhkd->bhqd", c, kr.abs()) * scale,
+              group_sum(torch.einsum("bhqk,bhqd->bhkd", c, q32.abs())) * scale)
+    return grads, scales, cancel
+
+
+def cross_entropy_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                      valid_vocab: int | None = None):
+    """Per-token (lse, label_logit) in fp32 from the materialized logits
+    (``repro/kernels/ref.py:cross_entropy_ref`` before its mean): h (N, d),
+    w (d, V), labels (N,); columns at or past ``valid_vocab`` are -1e30."""
+    logits = h.float() @ w.float()
+    V = logits.shape[-1]
+    if valid_vocab is not None and valid_vocab < V:
+        logits[:, valid_vocab:] = -1e30
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    return lse, ll
+
+
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-5):
+    """(dx, dw) of RMSNorm in fp32 from the saved x and w
+    (``repro/kernels/rmsnorm.py:_bwd``)."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(-1, d)
+    g32 = g.float().reshape(-1, d)
+    w32 = w.float()
+    inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * inv
+    gw = g32 * w32
+    dx = inv * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = (g32 * xhat).sum(0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
 def swiglu_ref(x: torch.Tensor, w1: torch.Tensor,
@@ -63,3 +174,45 @@ def swiglu_ref(x: torch.Tensor, w1: torch.Tensor,
     a = x @ w1
     b = x @ w3
     return (F.silu(a.float()) * b.float()).to(x.dtype)
+
+
+def swiglu_bwd_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                   g: torch.Tensor):
+    """(dx, dw1, dw3) of the SwiGLU gate by an fp32 recompute of both
+    products (``repro/kernels/swiglu.py:_swiglu_bwd``); x (N, d)."""
+    x32, w1_32, w3_32, g32 = x.float(), w1.float(), w3.float(), g.float()
+    a = x32 @ w1_32
+    b = x32 @ w3_32
+    sig = torch.sigmoid(a)
+    da = g32 * b * (sig * (1.0 + a * (1.0 - sig)))   # d silu(a)/da
+    db = g32 * (a * sig)
+    dx = da @ w1_32.T + db @ w3_32.T
+    return (dx.to(x.dtype), (x32.T @ da).to(w1.dtype), (x32.T @ db).to(w3.dtype))
+
+
+def cross_entropy_bwd_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                          lse: torch.Tensor, g: torch.Tensor,
+                          valid_vocab: int | None = None, chunk: int | None = None):
+    """(dh, dw) of the per-token losses lse - label_logit for the cotangent
+    ``g`` (N,), by the reference's ``cross_entropy.py:_ce_tokens_bwd``:
+    token chunks recompute fp32 logits and p = exp(logits - lse) from the
+    saved lse, so the (N, V) logits never exist whole; dw sums in fp32.
+    ``chunk`` rows per chunk (default: about 64 MB of fp32 logits)."""
+    N, d = h.shape
+    V = w.shape[1]
+    chunk = chunk or max(1, (1 << 24) // V)
+    w32 = w.float()
+    dw = torch.zeros((d, V), dtype=torch.float32, device=h.device)
+    dh = torch.empty_like(h)
+    for s in range(0, N, chunk):
+        hb = h[s:s + chunk].float()
+        logits = hb @ w32
+        if valid_vocab is not None and valid_vocab < V:
+            logits[:, valid_vocab:] = -1e30
+        dl = torch.exp(logits - lse[s:s + chunk, None])
+        rows = torch.arange(hb.shape[0], device=h.device)
+        dl[rows, labels[s:s + chunk].long()] -= 1.0
+        dl *= g[s:s + chunk, None].float()
+        dh[s:s + chunk] = (dl @ w32.T).to(h.dtype)
+        dw += hb.T @ dl
+    return dh, dw.to(w.dtype)

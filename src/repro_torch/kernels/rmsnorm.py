@@ -1,8 +1,11 @@
-"""Fused RMSNorm forward: the CUDA kernel of ``csrc/rmsnorm.cu`` (ported from
-``repro/kernels/rmsnorm.py:_rmsnorm_kernel``) and its plain version.
+"""Fused RMSNorm: the CUDA forward kernel of ``csrc/rmsnorm.cu`` (ported
+from ``repro/kernels/rmsnorm.py:_rmsnorm_kernel``), its plain version, and
+the ``torch.autograd.Function`` that carries the gradient.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``launches`` counts the kernel's launches.
+The Function's forward is the kernel for a CUDA tensor (or raises) and the
+plain version for a CPU tensor; its backward is the reference's fp32
+formula in plain torch (``kernels/ref.py:rmsnorm_bwd_ref``) on both, as the
+reference's backward is jnp.  ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 launches = 0
 
@@ -48,7 +51,22 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return y.reshape(x.shape)
 
 
+class RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return rmsnorm_ref(x, w, eps)
+        return rmsnorm_cuda(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_ref(x, w, g, ctx.eps)
+        return dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, w, eps)
-    return rmsnorm_cuda(x, w, eps)
+    """x: (..., d), w: (d,); differentiable in x and w."""
+    return RMSNorm.apply(x, w, eps)

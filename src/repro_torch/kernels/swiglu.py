@@ -1,9 +1,13 @@
-"""Fused SwiGLU gate forward, silu(x @ w1) * (x @ w3): the CUDA kernel of
-``csrc/swiglu.cu`` (ported from ``repro/kernels/swiglu.py:_swiglu_kernel``)
-and its plain version.
+"""Fused SwiGLU gate, silu(x @ w1) * (x @ w3): the CUDA forward kernel of
+``csrc/swiglu.cu`` (ported from ``repro/kernels/swiglu.py:_swiglu_kernel``),
+its plain version, and the ``torch.autograd.Function`` that carries the
+gradient.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``launches`` counts the kernel's launches.
+The Function's forward is the kernel for a CUDA tensor (or raises) and the
+plain version for a CPU tensor.  It saves only (x, w1, w3); its backward
+recomputes both products in fp32 in plain torch
+(``kernels/ref.py:swiglu_bwd_ref``), as the reference's jnp backward does.
+``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import swiglu_ref
+from repro_torch.kernels.ref import swiglu_bwd_ref, swiglu_ref
 
 launches = 0
 
@@ -49,7 +53,19 @@ def swiglu_cuda(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.
     return out
 
 
+class SwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, w1, w3):
+        ctx.save_for_backward(x2d, w1, w3)
+        if x2d.device.type == "cpu":
+            return swiglu_ref(x2d, w1, w3)
+        return swiglu_cuda(x2d, w1, w3)
+
+    @staticmethod
+    def backward(ctx, g):
+        return swiglu_bwd_ref(*ctx.saved_tensors, g)
+
+
 def swiglu(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-    if x2d.device.type == "cpu":
-        return swiglu_ref(x2d, w1, w3)
-    return swiglu_cuda(x2d, w1, w3)
+    """x2d: (N, d), w1/w3: (d, F) -> (N, F); differentiable in all three."""
+    return SwiGLU.apply(x2d, w1, w3)

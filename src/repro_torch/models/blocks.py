@@ -1,9 +1,11 @@
 """Transformer blocks, the dense subset of ``repro/models/blocks.py``:
-self-attention (GQA, RoPE, optional qk-norm and softcap) for prefill, for
-per-slot cached decode and for decode over a paged KV pool, and the MLP
-block.  Under ``policy.kernels`` every RMSNorm and SwiGLU gate runs in its
-CUDA kernel, in prefill and in decode, and prefill attention runs in the
-flash kernel; decode attention over the cache stays plain PyTorch.
+self-attention (GQA, RoPE, optional qk-norm and softcap) for training and
+prefill, for per-slot cached decode and for decode over a paged KV pool, the
+MLP block, and ``segment_body``, the layer body of the training stack.
+Under ``policy.kernels`` every RMSNorm and SwiGLU gate runs in its CUDA
+kernel, in training, prefill and decode, and full-sequence attention runs in
+the flash kernels (forward and backward); decode attention over the cache
+stays plain PyTorch.
 """
 from __future__ import annotations
 
@@ -174,3 +176,13 @@ def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
     return x + layers.mlp(h, params, cfg.act, use_kernel=pol.kernels)
+
+
+def segment_body(cfg: ModelConfig, policy: ComputePolicy | None):
+    """The layer body of the dense training stack
+    (``repro/models/blocks.py:segment_body``): attention block then MLP
+    block, on one layer's slice of the stacked weights."""
+    def body(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        x = self_attn_block(lp["attn"], x, cfg, causal=True, policy=policy)
+        return mlp_block(lp["mlp"], x, cfg, policy=policy)
+    return body

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
+from repro_torch.core.compute import ComputePolicy, checkpointed, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import rmsnorm_ref, swiglu_ref
 
@@ -143,7 +143,11 @@ def attention(
     if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0 or q_positions.ndim == 2:
         out = block(qg, q_positions)
     else:
-        out = torch.cat([block(qg[:, i:i + Q_CHUNK], q_positions[i:i + Q_CHUNK])
+        # always checkpointed under autograd, whatever the remat policy:
+        # saving each chunk's (Q_CHUNK x Skv) probabilities would bring back
+        # the footprint the chunking exists to avoid
+        chunk = checkpointed(block)
+        out = torch.cat([chunk(qg[:, i:i + Q_CHUNK], q_positions[i:i + Q_CHUNK])
                          for i in range(0, Sq, Q_CHUNK)], dim=1)
     return out.reshape(B, Sq, Hq, hd)
 

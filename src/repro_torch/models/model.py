@@ -5,18 +5,28 @@
     paths (``layers.attn.wq``, ``layers.mlp.w1``, …) are the state_dict keys,
     so weights carry over from the JAX pytree 1:1 (``repro_torch.interop``)
   * ``init(generator)`` — draw the weights from an explicit generator
+  * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
+    blocked-kernel CE) and the full-sequence logits
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + KV cache
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``
   * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``
 
 Weights keep the JAX layout (``x @ W`` with W (d_in, d_out), per-layer
-leaves stacked on a leading ``L`` dim) and are stored in the compute dtype.
-Caches are dicts of tensors that decode updates in place (the JAX package
-returns new arrays; in place saves a copy of the KV cache per step).
+leaves stacked on a leading ``L`` dim).  They are stored in ``dtype`` (fp32
+master weights for training, bf16 for serving) and every forward casts them
+to ``compute_dtype`` (``dtype``, or the plan's in the view a train step
+runs through, ``with_policy``; the cast is free when the two agree).  The
+training stack casts each layer's slice inside its remat wrapper, as the
+reference casts inside its scan body, so the compute-dtype copies are
+recomputed in the backward instead of saved and the weight gradients
+arrive in fp32.  Caches are dicts of tensors that decode updates
+in place (the JAX package returns new arrays; in place saves a copy of the
+KV cache per step).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -25,7 +35,10 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
+from repro_torch.core.compute import (
+    ComputePolicy, checkpointed, resolve as resolve_policy,
+)
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import blocks, layers
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
@@ -33,10 +46,42 @@ from repro_torch.models.common import (
 )
 
 
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def grad_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Identity forward; casts the cotangent to ``dtype`` on the way back
+    (``repro/models/model.py:grad_cast``), so the fp32 loss cotangent does
+    not turn the whole backward through the layer stack into fp32."""
+    return _GradCast.apply(x, dtype)
+
+
 def stack_specs(tree: Any, n: int) -> Any:
     return spec_tree_map(
         lambda s: dataclasses.replace(s, shape=(n,) + s.shape, axes=("layers",) + s.axes),
         tree)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The dense parameter tree of ``repro/models/model.py:Model.param_specs``."""
+    d, V = cfg.d_model, cfg.padded_vocab
+    specs: dict[str, Any] = {
+        "embed": Spec((V, d), ("vocab", "embed"), scale=0.02),
+        "final_norm": blocks.norm_spec(d, cfg.norm),
+        "layers": stack_specs({"attn": blocks.attn_specs(cfg),
+                               "mlp": blocks.mlp_specs(cfg)}, cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Spec((d, V), ("embed", "vocab"), scale=0.02)
+    return specs
 
 
 def check_supported(cfg: ModelConfig, policy: ComputePolicy) -> None:
@@ -61,6 +106,21 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree through one ``unbind`` per leaf:
+    the backward then stacks the per-layer gradients once, where indexing
+    layer by layer would add a zero-filled full-stack gradient per layer."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
+    if isinstance(tree, dict):
+        return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
 class _Tree(nn.Module):
     """A node of the parameter tree: its children are sub-trees and leaves."""
 
@@ -78,7 +138,8 @@ class Model(nn.Module):
                  device: str | torch.device | None = None):
         super().__init__()
         self.cfg = cfg
-        self.dtype = dtype
+        self.dtype = dtype                # storage
+        self.compute_dtype = dtype        # with_policy gives another
         self.compute = resolve_policy(compute)
         check_supported(cfg, self.compute)
         self.device = resolve_device(device)
@@ -97,17 +158,7 @@ class Model(nn.Module):
     # Specs / init
     # ------------------------------------------------------------------
     def param_specs(self) -> dict:
-        cfg = self.cfg
-        d, V = cfg.d_model, cfg.padded_vocab
-        specs: dict[str, Any] = {
-            "embed": Spec((V, d), ("vocab", "embed"), scale=0.02),
-            "final_norm": blocks.norm_spec(d, cfg.norm),
-            "layers": stack_specs({"attn": blocks.attn_specs(cfg),
-                                   "mlp": blocks.mlp_specs(cfg)}, cfg.n_layers),
-        }
-        if not cfg.tie_embeddings:
-            specs["lm_head"] = Spec((d, V), ("embed", "vocab"), scale=0.02)
-        return specs
+        return param_specs(self.cfg)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None) -> "Model":
@@ -118,12 +169,27 @@ class Model(nn.Module):
             params[path].copy_(init_leaf(spec, generator, self.device, self.dtype))
         return self
 
+    def with_policy(self, compute: ComputePolicy, compute_dtype: torch.dtype) -> "Model":
+        """A view of this model's weights (the same Parameters) under another
+        compute policy and compute dtype, as the reference's train step
+        builds its own ``Model`` from the plan; this model is left as it is."""
+        check_supported(self.cfg, compute)
+        view = copy.copy(self)
+        view.compute = compute
+        view.compute_dtype = compute_dtype
+        return view
+
     def n_params(self) -> int:
         return param_count(self.param_specs())
 
     def params(self) -> dict:
         """The weights as a nested dict shaped like the JAX pytree."""
         return _as_dict(self)
+
+    def _cparams(self) -> dict:
+        """The weights cast to the compute dtype (the weights themselves when
+        it is the storage dtype)."""
+        return _cast_floating(self.params(), self.compute_dtype)
 
     def _unembed_matrix(self, params: dict) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -167,7 +233,59 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         return init_params(self.cache_specs(batch, cache_len), None,
-                           self.device, self.dtype)
+                           self.device, self.compute_dtype)
+
+    # ------------------------------------------------------------------
+    # Training forward / loss
+    # ------------------------------------------------------------------
+    def _embed(self, params: dict, batch: dict) -> torch.Tensor:
+        return params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+
+    def hidden_states(self, batch: dict) -> torch.Tensor:
+        """Final-normed hidden states (B, S, d) in the compute dtype: the
+        pp=1 path of ``repro/core/stage_program.py:run_program``, a loop
+        over the layers under the policy's remat wrapper."""
+        cfg = self.cfg
+        cdt = self.compute_dtype
+        params = self.params()
+        x = self._embed(params, batch)
+        body = blocks.segment_body(cfg, self.compute)
+
+        def layer(x, lp):     # lp in the storage dtype: cast inside the remat
+            return body(_cast_floating(lp, cdt), x)
+
+        layer = self.compute.checkpoint(layer)
+        for lp in _unstack(params["layers"], cfg.n_layers):
+            x = layer(x, lp)
+        return layers.apply_norm(x, _cast_floating(params["final_norm"], cdt),
+                                 cfg.norm, cfg.rms_eps,
+                                 use_kernel=self.compute.kernels)
+
+    def logits(self, batch: dict) -> torch.Tensor:
+        h = self.hidden_states(batch)
+        W = self._unembed_matrix(self.params()).to(self.compute_dtype)
+        return (h @ W).float()[..., :self.cfg.vocab_size]
+
+    def _loss_from_hidden(self, h: torch.Tensor, batch: dict
+                          ) -> tuple[torch.Tensor, dict]:
+        """LM loss tail: final-normed hidden states -> (loss, metrics)."""
+        cfg = self.cfg
+        h = grad_cast(h, self.compute_dtype)
+        tokens = batch["tokens"]
+        labels = tokens[:, 1:]
+        h = h[:, :-1, :]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+                if mask is None else mask[:, 1:].float())
+        W = self._unembed_matrix(self.params()).to(self.compute_dtype)
+        ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
+                                    policy=self.compute)
+        return ce, {"ce": ce}
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training objective of one (micro)batch {"tokens": (B, S)}
+        (optionally "loss_mask"): mean next-token CE, and {"ce": ...}."""
+        return self._loss_from_hidden(self.hidden_states(batch), batch)
 
     # ------------------------------------------------------------------
     # Prefill
@@ -181,7 +299,7 @@ class Model(nn.Module):
         read at ``lens - 1``, the cache holds only real positions, and
         ``cache["pos"]`` becomes the per-slot vector ``lens``."""
         cfg = self.cfg
-        params = self.params()
+        params = self._cparams()
         x = params["embed"][batch["tokens"].long()]
         B, S = x.shape[:2]
         if lens is None:
@@ -192,7 +310,7 @@ class Model(nn.Module):
             total = lens.to(device=self.device, dtype=torch.int32)
             cache = {"pos": total}
         kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
-                         None, self.device, self.dtype)
+                         None, self.device, self.compute_dtype)
         for i in range(cfg.n_layers):
             lp = _layer(params["layers"], i)
             x, k, v = blocks.self_attn_block(lp["attn"], x, cfg, causal=True,
@@ -217,7 +335,7 @@ class Model(nn.Module):
         vector.  The KV leaves are updated in place; returns (logits (B, V)
         fp32, cache with the advanced ``pos``)."""
         cfg = self.cfg
-        params = self.params()
+        params = self._cparams()
         pos = cache["pos"]
         active = batch.get("active")
         bt = batch.get("block_table")
@@ -263,3 +381,41 @@ def _ring_place(x: torch.Tensor, clen: int,
     gathered = x[torch.arange(B, device=x.device)[:, None], t.clamp(0, S - 1)]
     keep = (t >= 0).reshape(B, clen, *([1] * (x.ndim - 2)))
     return torch.where(keep, gathered, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _chunked_cross_entropy(h: torch.Tensor, W: torch.Tensor, labels: torch.Tensor,
+                           mask: torch.Tensor, target_chunk: int = 8192,
+                           valid_vocab: int | None = None,
+                           policy: ComputePolicy | None = None) -> torch.Tensor:
+    """Mean CE of (B, S, d) hidden states against the (d, V) unembedding
+    (``repro/models/model.py:_chunked_cross_entropy``).
+
+    ``policy.kernels`` takes the blocked CE kernel (per-token losses; the
+    mask and the normalisation stay outside).  Otherwise token chunks of
+    ``target_chunk`` rows (the last one ragged: torch needs no divisor of N)
+    each run under a checkpoint whatever ``policy.remat`` says, so the
+    (N, V) logits are never saved for the backward."""
+    pol = resolve_policy(policy)
+    B, S, d = h.shape
+    N = B * S
+    hf = h.reshape(N, d)
+    yf = labels.reshape(N)
+    mf = mask.reshape(N)
+    count = mf.sum().clamp(min=1.0)
+    if pol.kernels:
+        losses = kernel_ops.cross_entropy_tokens(hf, W, yf, valid_vocab)
+        return (losses * mf).sum() / count
+    Vp = W.shape[-1]
+
+    def body(hc, yc, mc):
+        logits = (hc @ W).float()
+        if valid_vocab is not None and valid_vocab < Vp:
+            logits[:, valid_vocab:] = -1e30
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, 1, yc.long()[:, None])[:, 0]
+        return ((logz - ll) * mc).sum()
+
+    body = checkpointed(body)
+    loss_sum = sum(body(hf[s:s + target_chunk], yf[s:s + target_chunk],
+                        mf[s:s + target_chunk]) for s in range(0, N, target_chunk))
+    return loss_sum / count

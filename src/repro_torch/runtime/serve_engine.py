@@ -81,7 +81,8 @@ class ServeEngine:
         # default pool: worst case for every slot, +1 garbage block
         self.n_blocks = n_blocks or (1 + n_slots * self.max_blocks)
         self.cache_specs = model.paged_cache_specs(n_slots, self.n_blocks, block_size)
-        self.cache = init_params(self.cache_specs, None, self.device, model.dtype)
+        self.cache = init_params(self.cache_specs, None, self.device,
+                                 model.compute_dtype)
         self.free_blocks = list(range(self.n_blocks - 1, 0, -1))
         self.bt = np.zeros((n_slots, self.max_blocks), np.int32)
         # prefill lengths: powers of two from max(4, block_size), then cache_len

@@ -22,3 +22,9 @@ def run_multidev(code: str, n_devices: int = 8) -> str:
 @pytest.fixture
 def multidev():
     return run_multidev
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc to build the port's "
+                   "kernels); skipped without one")

@@ -17,7 +17,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.compute import ComputePolicy
 from repro_torch.interop import from_jax_params
-from repro_torch.kernels import flash_attention as fa, ops, rmsnorm as rn, swiglu as sg
+from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa, ops,
+                                 rmsnorm as rn, swiglu as sg)
 from repro_torch.models.model import Model
 
 # tiny shapes: intra-op threads only add overhead here, and they
@@ -42,7 +43,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_imports_no_jax_and_no_reference():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+             + [REPO / "chip_smoke.py", REPO / "tools" / "step0_limits.py"])
     assert len(files) > 20
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in files}
@@ -82,7 +84,13 @@ def test_cpu_path_launches_no_kernel():
     toks = torch.randint(0, 512, (2, 9), generator=torch.Generator().manual_seed(1))
     logits, cache = m.prefill({"tokens": toks}, 16)
     m.decode_step(cache, {"token": torch.argmax(logits, -1)[:, None]})
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0, "swiglu": 0}
+    m.requires_grad_(True)
+    m.loss({"tokens": toks})[0].backward()
+    counts = ops.launch_counts()
+    assert set(counts) == {"flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "rmsnorm", "swiglu",
+                           "cross_entropy"}
+    assert set(counts.values()) == {0}
 
 
 @pytest.mark.parametrize("call", [
@@ -90,7 +98,10 @@ def test_cpu_path_launches_no_kernel():
     lambda x: sg.swiglu_cuda(x, torch.ones(64, 8), torch.ones(64, 8)),
     lambda x: fa.flash_attention_fwd_cuda(x.reshape(1, 4, 1, 64), x.reshape(1, 4, 1, 64),
                                           x.reshape(1, 4, 1, 64)),
-], ids=["rmsnorm", "swiglu", "flash_attention"])
+    lambda x: fa.flash_attention_bwd_cuda(*(x.reshape(1, 4, 1, 64),) * 4,
+                                          torch.zeros(1, 1, 4), x.reshape(1, 4, 1, 64)),
+    lambda x: ce.cross_entropy_cuda(x, torch.ones(64, 8), torch.zeros(4, dtype=torch.long)),
+], ids=["rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd", "cross_entropy"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
         call(torch.ones(4, 64))
@@ -131,3 +142,37 @@ def test_out_of_scope_raises(arch, kernels):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), torch.float32,
               compute=ComputePolicy(kernels=kernels), device="cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_functions_carry_gradients(cuda_device):
+    """On the card every kernel entry returns an output whose grad_fn is its
+    Function, and the backward reaches the flash dQ and dK/dV kernels."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(64, 128, device=cuda_device, generator=gen, requires_grad=True)
+    w = torch.ones(128, device=cuda_device, requires_grad=True)
+    w1 = torch.randn(128, 64, device=cuda_device, generator=gen, requires_grad=True)
+    q = torch.randn(1, 64, 4, 64, device=cuda_device, generator=gen, requires_grad=True)
+    kv = torch.randn(1, 64, 2, 64, device=cuda_device, generator=gen, requires_grad=True)
+    labels = torch.randint(0, 64, (64,), device=cuda_device, generator=gen)
+    ops.reset_launch_counts()
+    outs = [ops.rmsnorm(x, w), sg.swiglu(x, w1, w1),     # ops.swiglu adds a reshape
+            ops.flash_attention(q, kv, kv), ops.cross_entropy_tokens(x, w1, labels)]
+    names = ["RMSNormBackward", "SwiGLUBackward", "FlashAttentionBackward",
+             "CrossEntropyTokensBackward"]
+    for out, name in zip(outs, names):
+        assert type(out.grad_fn).__name__ == name
+    sum(o.float().square().sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (x, w, w1, q, kv))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 1
+    assert min(counts.values()) == 1
