@@ -7,25 +7,30 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      every ``src/repro_torch/csrc/*.cu`` for sm_90a, all started at once;
   2. kernels: each CUDA kernel against its plain PyTorch version on the same
      inputs, at the main paths' shapes in bf16 and fp32 (serve prefill and
-     decode; the train step's microbatch of 4 x 2048 tokens), plus small
+     decode; the train step's microbatch of 4 x 2048 tokens; yi-6b's and
+     gpt-1.4b's widths, the flash kernels at hd 128 and 88), plus small
      flavour cases (flash forward and backward: window, softcap, q_offset,
-     non-causal ragged, G = 1, G = 8 at hd 64; CE: ragged N, valid_vocab <
-     V, labels in the last partial block), then the kernel / plain /
-     library / bound times;
-  3. serve: yi-6b at full width in bf16 with kernels=True through
-     ``ServeEngine`` (8 requests, 4 slots, paged pool); the serving kernels'
-     launch counters must rise; the logits are held against a kernels=False
-     run on the card, and a reduced fp32 model against kernels=False
-     tightly; then a ``torch.profiler`` pass over prefill and decode;
-  4. train: a reduced fp32 yi-6b (2 layers, hd 128) with kernels on vs off
-     over 5 steps, tightly; then yi-6b at full width and 8 layers, bf16
-     compute over fp32 master weights, remat full, kernels=True, 5 steps of
-     global batch 8 (gas 2, 2048 tokens); all six kernels' counters must
-     rise; the same steps with kernels=False from the same weights and
-     batches, step 0 held to a bf16 limit; a ``torch.profiler`` pass over
-     one step;
-  5. the ``kernels`` line: per kernel its launches in the train step (and
-     in serving), its error, and the kernel / plain / library / bound times.
+     non-causal ragged, G = 1, G = 8 at hd 64, ragged and q_offset at hd 88;
+     CE: ragged N, valid_vocab < V, labels in the last partial block), the
+     flash C entries' refusal of a head dim they were not built for, then
+     the kernel / plain / library / bound times;
+  3. serve, for yi-6b and then gpt-1.4b: the model at full width in bf16
+     with kernels=True through ``ServeEngine`` (8 requests, 4 slots, paged
+     pool); the serving kernels' launch counters must rise; the logits are
+     held against a kernels=False run on the card, and a reduced fp32 model
+     against kernels=False tightly; then a ``torch.profiler`` pass over
+     prefill and decode;
+  4. train, for yi-6b (full width, 8 layers) and then gpt-1.4b (full width,
+     all 24 layers): a reduced fp32 model (at the arch's head dim) with
+     kernels on vs off over 5 steps, tightly; then the arch in bf16 compute
+     over fp32 master weights, remat full, kernels=True, 5 steps of global
+     batch 8 (gas 2, 2048 tokens); every kernel of the arch's step must
+     count its launches; the same steps with kernels=False from the same
+     weights and batches, step 0 held to the limits that
+     ``tools/step0_limits.py`` measured; a ``torch.profiler`` pass over one
+     step;
+  5. the ``kernels`` line: per kernel its launches on each path, its error,
+     and the kernel / plain / library / bound times.
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -59,8 +64,21 @@ KERNELS = {
     "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:223"),
     "cross_entropy": ("cross_entropy.cu", "src/repro/kernels/cross_entropy.py:33"),
+    "layernorm": ("layernorm.cu", "src/repro/kernels/layernorm.py:22"),
+    "gelu_mlp": ("gelu_mlp.cu", "src/repro/kernels/gelu_mlp.py:33"),
 }
-SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention")
+# the kernels each arch's paths run: (serving, the train step)
+ARCH_KERNELS = {
+    "yi-6b": (("rmsnorm", "swiglu", "flash_attention"),
+              ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "cross_entropy")),
+    "gpt-1.4b": (("layernorm", "gelu_mlp", "flash_attention"),
+                 ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "cross_entropy")),
+}
+# the reduced fp32 model each arch is first held against kernels=False with,
+# at the arch's own head dim (plain .reduced() has hd 64)
+REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2, head_dim=88)}
 
 
 def emit(obj: dict) -> None:
@@ -153,9 +171,29 @@ TOL = {  # dtype -> (rtol, atol), and the reason
                                "keys; bf16: one ULP between the output roundings, "
                                "plus the kernel's rounding of P to bf16 for P@V "
                                "(FA-2), at most 2^-8 of each p, so 2^-8*(P@|V|)"},
+    "layernorm": {torch.bfloat16: (1.1 * BF16_ULP, 1e-5), torch.float32: (1e-5, 1e-5),
+                  "why": "same fp32 two-pass formula, other summation order; bf16: "
+                         "one ULP between the two output roundings; plus 1e-5 of "
+                         "|x_hat|*|w| + |b| where x_hat*w + b cancels"},
+    "gelu_mlp": {torch.bfloat16: (1.1 * BF16_ULP, 1e-6), torch.float32: (1e-5, 1e-6),
+                 "why": "fp32 sums of exact products in another order over d "
+                        "(2e-5 of |x|@|w1|, times max |gelu'|); bf16: one ULP "
+                        "between the output roundings"},
 }
 # flash bf16: the bound on the P-rounding term, with 10% margin
 FLASH_P_TOL = 1.1 * 2.0 ** -8
+# layernorm: kernel and plain version take the mean and the variance in fp32
+# in another summation order over d, which moves x_hat by ~1e-6 of itself;
+# the output y = x_hat*w + b may cancel, so that error is held to 1e-5 of
+# |x_hat|*|w| + |b| (elementwise), besides the rmsnorm-like rule above it.
+LN_SCALE_TOL = 1e-5
+# gelu_mlp: both form fp32 sums of the same exact products (bf16 x bf16 is
+# exact in fp32; fp32 runs FFMA against cuBLAS without TF32) in another order
+# over d: 2e-5 of |x|@|w1| (as the CE check), times 1.13 >= |gelu'(a)|, plus
+# one ULP between the output roundings in bf16.
+GELU_SCALE_TOL = 2e-5 * 1.13
+# gpt-1.4b's widths (configs/gpt_paper.py): d 2112 = 24 heads of 88, 4d MLP
+GPT_D, GPT_F, GPT_HEADS, GPT_HD = 2112, 8448, 24, 88
 
 
 FLASH_FLAVOURS = [  # small cases of both flash checks: (name, B, Sq, Skv, Hq, Hkv, hd, kw)
@@ -169,6 +207,10 @@ FLASH_FLAVOURS = [  # small cases of both flash checks: (name, B, Sq, Skv, Hq, H
      dict(causal=True, sliding_window=48, q_offset=64)),
     ("window + q_offset + softcap", 1, 96, 160, 4, 2, 64,
      dict(causal=True, sliding_window=48, q_offset=64, softcap=20.0)),
+    ("non-causal, ragged", 1, 100, 200, 4, 4, 88, dict(causal=False)),
+    ("q_offset 192, Sq<Skv", 2, 64, 256, 4, 4, 88, dict(causal=True, q_offset=192)),
+    ("G=2, window + q_offset", 1, 96, 160, 4, 2, 88,
+     dict(causal=True, sliding_window=48, q_offset=64)),
 ]
 
 
@@ -181,6 +223,7 @@ def phase_kernels(timer: Timer) -> dict:
 
     # rmsnorm: the prefill norm of 2048 tokens of yi-6b, and the train
     # step's 4 x 2048 rows
+    rms_rows = []
     for rows_n, dtype in ((2048, torch.bfloat16), (2048, torch.float32),
                           (8192, torch.bfloat16), (8192, torch.float32)):
         rtol, atol = TOL["rmsnorm"][dtype]
@@ -189,17 +232,18 @@ def phase_kernels(timer: Timer) -> dict:
         err = check_close(f"rmsnorm {dtype} ({rows_n}, 4096)", rn.rmsnorm_cuda(x, w, 1e-5),
                           rmsnorm_ref(x, w, 1e-5), rtol=rtol, atol=atol,
                           why=TOL["rmsnorm"]["why"])
-        if rows_n == 2048 and dtype == torch.bfloat16:
+        if dtype == torch.bfloat16:
             nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
             b, by = bound_ms(nbytes, 4 * x.numel(), torch.float32)
-            rows["rmsnorm"] = {
-                "shape": "x (2048, 4096) bf16", "max_abs_err": err,
+            rms_rows.append({
+                "shape": f"x ({rows_n}, 4096) bf16", "max_abs_err": err,
                 "rtol": rtol, "atol": atol,
                 "ms": timer(lambda: rn.rmsnorm_cuda(x, w, 1e-5)),
                 "plain_ms": timer(lambda: rmsnorm_ref(x, w, 1e-5)),
                 "library_ms": (timer(lambda: F.rms_norm(x, (4096,), w, 1e-5))
                                if hasattr(F, "rms_norm") else None),
-                "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by}
+                "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by})
+    rows["rmsnorm"] = {**rms_rows[0], "cases": rms_rows[1:]}
 
     def check_swiglu(name, x, w1, w3):
         """bf16: against the plain version on the same values in fp32, rounded
@@ -256,38 +300,43 @@ def phase_kernels(timer: Timer) -> dict:
                         why="fp32 log-sum-exp, other summation order")
         return err, (q, k, v)
 
-    # flash attention: causal prefill of 2048 tokens (B = 1) and the train
-    # step's microbatch (B = 4), yi-6b heads
-    flash_rows = []
-    for B in (1, 4):
-        for dtype in (torch.bfloat16, torch.float32):
-            rtol, atol = TOL["flash_attention"][dtype]
-            err, (q, k, v) = flash_case(f"flash {dtype} ({B}, 2048, 32q/4kv, 128) causal",
-                                        B, 2048, 2048, 32, 4, 128, dtype, causal=True)
-            if dtype != torch.bfloat16:
-                continue
-            S, hd = 2048, 128
-            pairs = B * 32 * S * (S + 1) // 2           # unmasked (q, k) pairs
-            nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * 32 * S * 4
-            b, by = bound_ms(nbytes, 4 * hd * pairs, dtype)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            try:
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
-            except TypeError:                           # torch without enable_gqa
-                lib_ms = None
-            flash_rows.append({
-                "shape": f"q ({B}, 2048, 32, 128), k/v ({B}, 2048, 4, 128) bf16 causal",
+    def flash_row(err, q, k, v):
+        """The timed row of a causal bf16 forward at q's shape."""
+        B, S, Hq, hd = q.shape
+        pairs = B * Hq * S * (S + 1) // 2           # unmasked (q, k) pairs
+        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Hq * S * 4
+        b, by = bound_ms(nbytes, 4 * hd * pairs, q.dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        try:
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+        except TypeError:                           # torch without enable_gqa
+            lib_ms = None
+        rtol, atol = TOL["flash_attention"][q.dtype]
+        return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
                 "max_abs_err": err, "rtol": rtol, "atol": atol,
                 "p_rounding_tol": FLASH_P_TOL,
                 "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True)),
                 "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True)),
                 "library_ms": lib_ms,
                 "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
-                "bound_ms": b, "bound_by": by})
-            del q, k, v, qt, kt, vt
+                "bound_ms": b, "bound_by": by}
+
+    # flash attention: causal prefill of 2048 tokens (B = 1) and the train
+    # step's microbatch (B = 4), yi-6b heads (32 of 128, GQA 8), then the
+    # train step's microbatch with gpt-1.4b heads (24 of 88, MHA)
+    flash_rows = []
+    for B, Hq, Hkv, hd in ((1, 32, 4, 128), (4, 32, 4, 128), (4, GPT_HEADS, GPT_HEADS, GPT_HD)):
+        for dtype in (torch.bfloat16, torch.float32):
+            err, (q, k, v) = flash_case(
+                f"flash {dtype} ({B}, 2048, {Hq}q/{Hkv}kv, {hd}) causal",
+                B, 2048, 2048, Hq, Hkv, hd, dtype, causal=True)
+            if dtype == torch.bfloat16:
+                flash_rows.append(flash_row(err, q, k, v))
+            del q, k, v
         torch.cuda.empty_cache()
     rows["flash_attention"] = {**flash_rows[0], "cases": flash_rows[1:]}
+    check_head_dim_refused()
 
     for name, B, Sq, Skv, Hq, Hkv, hd, kw in FLASH_FLAVOURS:
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
@@ -304,7 +353,122 @@ def phase_kernels(timer: Timer) -> dict:
         check_close(f"rmsnorm {dtype} (37, 256)", rn.rmsnorm_cuda(x, w, 1e-5),
                     rmsnorm_ref(x, w, 1e-5), rtol=rtol, atol=atol,
                     why=TOL["rmsnorm"]["why"])
+    rows.update(gpt_kernels(timer, gen))
     return rows
+
+
+def check_layernorm(name: str, x, w, b) -> float:
+    from repro_torch.kernels import layernorm as ln
+    from repro_torch.kernels.ref import layernorm_ref
+
+    rtol, atol = TOL["layernorm"][x.dtype]
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    xhat = (x32 - mean) * torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + 1e-5)
+    scale = xhat.abs() * w.float().abs() + b.float().abs()
+    return check_close(name, ln.layernorm_cuda(x, w, b, 1e-5), layernorm_ref(x, w, b, 1e-5),
+                       rtol=rtol, atol=atol, why=TOL["layernorm"]["why"],
+                       terms=((scale, LN_SCALE_TOL, "|x_hat|*|w| + |b|"),))
+
+
+def check_gelu_mlp(name: str, x, w1) -> float:
+    from repro_torch.kernels import gelu_mlp as gm
+    from repro_torch.kernels.ref import gelu_mlp_in_ref
+
+    rtol, atol = TOL["gelu_mlp"][x.dtype]
+    scale = x.float().abs() @ w1.float().abs()
+    return check_close(name, gm.gelu_mlp_cuda(x, w1), gelu_mlp_in_ref(x, w1), rtol=rtol,
+                       atol=atol, why=TOL["gelu_mlp"]["why"],
+                       terms=((scale, GELU_SCALE_TOL, "1.13*|x|@|w1|"),))
+
+
+def gpt_kernels(timer: Timer, gen) -> dict:
+    """layernorm and gelu_mlp at gpt-1.4b's widths against their plain
+    versions, at a prefill of 256 tokens, decode's 4 slots and the train
+    step's microbatch of 4 x 2048 tokens (the timed headline row), plus
+    ragged rows; bf16 and fp32."""
+    from repro_torch.kernels import gelu_mlp as gm, layernorm as ln
+    from repro_torch.kernels.ref import gelu_mlp_in_ref, layernorm_ref
+
+    ln_rows, gelu_rows = [], []
+    for N in (8192, 256, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            # rows off zero mean: the variance is taken around the mean
+            x = (torch.randn(N, GPT_D, generator=gen, device="cuda") + 1.0).to(dtype)
+            w = (1 + 0.1 * torch.randn(GPT_D, generator=gen, device="cuda")).to(dtype)
+            b = randn(gen, GPT_D, dtype=dtype, scale=0.1)
+            err = check_layernorm(f"layernorm {dtype} ({N}, {GPT_D})", x, w, b)
+            if dtype == torch.bfloat16:
+                rtol, atol = TOL["layernorm"][dtype]
+                nbytes = 2 * x.numel() * 2 + 2 * GPT_D * 2
+                bnd, by = bound_ms(nbytes, 8 * x.numel(), torch.float32)
+                ln_rows.append({
+                    "shape": f"x ({N}, {GPT_D}) bf16", "max_abs_err": err, "rtol": rtol,
+                    "atol": atol, "scale_tol": LN_SCALE_TOL,
+                    "ms": timer(lambda: ln.layernorm_cuda(x, w, b, 1e-5)),
+                    "plain_ms": timer(lambda: layernorm_ref(x, w, b, 1e-5)),
+                    "library_ms": timer(lambda: F.layer_norm(x, (GPT_D,), w, b, 1e-5)),
+                    "library_call": "F.layer_norm", "bound_ms": bnd, "bound_by": by})
+            x = randn(gen, N, GPT_D, dtype=dtype)
+            w1 = randn(gen, GPT_D, GPT_F, dtype=dtype, scale=GPT_D ** -0.5)
+            err = check_gelu_mlp(f"gelu_mlp {dtype} ({N}, {GPT_D})x({GPT_D}, {GPT_F})", x, w1)
+            if dtype == torch.bfloat16:
+                rtol, atol = TOL["gelu_mlp"][dtype]
+                nbytes = (x.numel() + w1.numel() + N * GPT_F) * 2
+                bnd, by = bound_ms(nbytes, 2 * N * GPT_D * GPT_F, dtype)
+                gelu_rows.append({
+                    "shape": f"x ({N}, {GPT_D}), w1 ({GPT_D}, {GPT_F}) bf16",
+                    "max_abs_err": err, "rtol": rtol, "atol": atol,
+                    "scale_tol": GELU_SCALE_TOL,
+                    "ms": timer(lambda: gm.gelu_mlp_cuda(x, w1)),
+                    "plain_ms": timer(lambda: gelu_mlp_in_ref(x, w1)),
+                    "library_ms": timer(lambda: F.gelu(x @ w1, approximate="tanh")),
+                    "library_call": "F.gelu(x @ w1, approximate='tanh'), cuBLAS + "
+                                    "an elementwise pass",
+                    "bound_ms": bnd, "bound_by": by})
+            del x, w1
+    for dtype in (torch.bfloat16, torch.float32):       # ragged rows and columns
+        x = randn(gen, 37, 256, dtype=dtype)
+        check_gelu_mlp(f"gelu_mlp {dtype} ragged (37, 256)x(256, 520)", x,
+                       randn(gen, 256, 520, dtype=dtype, scale=1 / 16))
+        check_layernorm(f"layernorm {dtype} (37, 256)", x + 2.0,
+                        (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(dtype),
+                        randn(gen, 256, dtype=dtype, scale=0.1))
+    torch.cuda.empty_cache()
+    return {"layernorm": {**ln_rows[0], "cases": ln_rows[1:]},
+            "gelu_mlp": {**gelu_rows[0], "cases": gelu_rows[1:]}}
+
+
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+def check_head_dim_refused() -> None:
+    """The flash C entries refuse a head dim they were not built for (96):
+    they return cudaErrorInvalidValue and launch nothing, where they once
+    ran the 128-wide kernel.  Called past the Python guard (``HEAD_DIMS``)."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 64, 1, 96, dtype=torch.bfloat16, device="cuda")
+    out = torch.full_like(q, float("nan"))
+    lse = torch.zeros(1, 1, 64, device="cuda")
+    strides = (ctypes.c_longlong * 21)(*(list(q.stride()[:3]) * 7))
+    # Hq, Hkv, Sq, Skv, hd, strides, causal, window, softcap, q_offset, scale,
+    # dtype (bf16), stream
+    tail = [1, 1, 64, 64, 96, strides, 1, 0, 0.0, 0, 96 ** -0.5, 1, 0]
+    fwd = fa._lib().flash_attention_fwd(q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                                        out.data_ptr(), lse.data_ptr(), 1, *tail)
+    bwd = fa._bwd_lib()
+    ptrs = [q.data_ptr()] * 4 + [lse.data_ptr()] * 2 + [out.data_ptr()] * 3
+    errs = {"fwd": fwd, "bwd_dq": bwd.flash_attention_bwd_dq(*ptrs, 1, *tail),
+            "bwd_dkv": bwd.flash_attention_bwd_dkv(*ptrs, 1, *tail)}
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_check", "case": "flash C entries at hd 96", "errors": errs,
+          "expected": CUDA_ERROR_INVALID_VALUE})
+    if set(errs.values()) != {CUDA_ERROR_INVALID_VALUE} or not out.isnan().all():
+        raise AssertionError(f"flash entries at hd 96: {errs}, output written: "
+                             f"{not out.isnan().all()}")
 
 
 # ---------------------------------------------------------------------------
@@ -437,20 +601,21 @@ def phase_kernels_train(timer: Timer) -> dict:
     from repro_torch.kernels.ref import cross_entropy_ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    # flash backward at the forward's timed shape (B = 1) and the train
-    # step's microbatch (B = 4): causal S = 2048, yi-6b heads
+    # flash backward at the forward's timed shapes: causal S = 2048, yi-6b
+    # heads at B = 1 and at the train step's microbatch (B = 4), and
+    # gpt-1.4b's heads (24 of 88) at B = 4
     timed = []
-    for B in (1, 4):
+    for B, Hq, Hkv, hd in ((1, 32, 4, 128), (4, 32, 4, 128), (4, GPT_HEADS, GPT_HEADS, GPT_HD)):
         for dtype in (torch.bfloat16, torch.float32):
             errs, tensors = flash_bwd_case(
-                f"flash bwd {dtype} ({B}, 2048, 32q/4kv, 128) causal", gen, B, 2048, 2048,
-                32, 4, 128, dtype, causal=True)
+                f"flash bwd {dtype} ({B}, 2048, {Hq}q/{Hkv}kv, {hd}) causal", gen, B, 2048,
+                2048, Hq, Hkv, hd, dtype, causal=True)
             if dtype == torch.bfloat16:
                 timed.append(flash_bwd_times(timer, errs, *tensors))
             del tensors
             torch.cuda.empty_cache()
-    rows = {"flash_attention_bwd_dq": {**timed[0][0], "cases": [timed[1][0]]},
-            "flash_attention_bwd_dkv": {**timed[0][1], "cases": [timed[1][1]]}}
+    rows = {"flash_attention_bwd_dq": {**timed[0][0], "cases": [t[0] for t in timed[1:]]},
+            "flash_attention_bwd_dkv": {**timed[0][1], "cases": [t[1] for t in timed[1:]]}}
     for name, B, Sq, Skv, Hq_, Hkv, hd_, kw in FLASH_FLAVOURS:
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             flash_bwd_case(f"flash bwd {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, "
@@ -458,24 +623,28 @@ def phase_kernels_train(timer: Timer) -> dict:
                            dtype, **kw)
 
     # CE at the train step's shape: a microbatch of 4 x 2047 tokens of yi-6b
-    N, d, V = 4 * 2047, 4096, 64000
-    for dtype in (torch.bfloat16, torch.float32):
-        err, (h, w, labels) = ce_case(f"ce {dtype} ({N}, {d})x({d}, {V})", gen, N, d, V,
-                                      dtype)
-        if dtype == torch.bfloat16:
-            b, by = bound_ms(2 * (h.numel() + w.numel()) + 8 * N + 8 * N,
-                             2 * N * d * V, dtype)
-            rows["cross_entropy"] = {
-                "shape": f"h ({N}, {d}), w ({d}, {V}) bf16", "max_abs_err": err,
-                "ms": timer(lambda: ce.cross_entropy_cuda(h, w, labels)),
-                "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
-                "plain_call": "cross_entropy_ref (materialized fp32 logits)",
-                "library_ms": timer(lambda: F.cross_entropy(
-                    (h @ w).float(), labels, reduction="none")),
-                "library_call": "F.cross_entropy on (h @ w).float()",
-                "bound_ms": b, "bound_by": by}
-        del h, w, labels
-    torch.cuda.empty_cache()
+    # (the headline row), then of gpt-1.4b
+    ce_rows = []
+    N = 4 * 2047
+    for d, V in ((4096, 64000), (GPT_D, 51200)):
+        for dtype in (torch.bfloat16, torch.float32):
+            err, (h, w, labels) = ce_case(f"ce {dtype} ({N}, {d})x({d}, {V})", gen, N, d,
+                                          V, dtype)
+            if dtype == torch.bfloat16:
+                b, by = bound_ms(2 * (h.numel() + w.numel()) + 8 * N + 8 * N,
+                                 2 * N * d * V, dtype)
+                ce_rows.append({
+                    "shape": f"h ({N}, {d}), w ({d}, {V}) bf16", "max_abs_err": err,
+                    "ms": timer(lambda: ce.cross_entropy_cuda(h, w, labels)),
+                    "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
+                    "plain_call": "cross_entropy_ref (materialized fp32 logits)",
+                    "library_ms": timer(lambda: F.cross_entropy(
+                        (h @ w).float(), labels, reduction="none")),
+                    "library_call": "F.cross_entropy on (h @ w).float()",
+                    "bound_ms": b, "bound_by": by})
+            del h, w, labels
+        torch.cuda.empty_cache()
+    rows["cross_entropy"] = {**ce_rows[0], "cases": ce_rows[1:]}
     V2 = 1000   # not a multiple of the 128-column tile; last chunk partial
     labels = torch.tensor([996, 999, 0, 640] * 250, device="cuda")[:1000]
     for dtype in (torch.bfloat16, torch.float32):
@@ -488,14 +657,21 @@ def phase_kernels_train(timer: Timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve yi-6b at full width
+# phase 3: serve yi-6b and gpt-1.4b at full width
 # ---------------------------------------------------------------------------
 
-# yi-6b bf16 last-token logits, kernels on vs off: max |d| over the logit range
+# bf16 last-token logits, kernels on vs off: max |d| over the logit range
 LOGITS_REL_TOL = 0.05
+LOGITS_TOL_WHY = {
+    "yi-6b": "bf16 through 32 layers; the kernels keep the gate products in fp32 "
+             "and round P in attention; about 2% of the logit range on an H100",
+    "gpt-1.4b": "bf16 through 24 layers; the kernels keep the GELU product and the "
+                "LayerNorm statistics in fp32 before one rounding and round P in "
+                "attention; the plain path rounds x@w1 to bf16 before its GELU",
+}
 
 
-def phase_serve(card: str) -> dict:
+def phase_serve(card: str, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.compute import ComputePolicy
     from repro_torch.kernels import ops
@@ -504,7 +680,7 @@ def phase_serve(card: str) -> dict:
     from repro_torch.runtime.serve_loop import greedy_generate
 
     # a reduced model in fp32: kernels=True against kernels=False, tightly
-    red = Model(get_config("yi-6b").reduced(), torch.float32,
+    red = Model(get_config(arch).reduced(**REDUCED[arch]), torch.float32,
                 compute=ComputePolicy(kernels=True), device="cuda")
     red.init(torch.Generator(device="cuda").manual_seed(1))
     toks = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 40))).cuda()
@@ -513,14 +689,15 @@ def phase_serve(card: str) -> dict:
     red.compute = ComputePolicy(kernels=False)
     lp, _ = red.prefill({"tokens": toks}, 64)
     gp = greedy_generate(red, toks, 8, 64)
-    check_close("yi-6b reduced fp32 prefill logits, kernels on vs off", lk, lp,
+    check_close(f"{arch} reduced fp32 prefill logits, kernels on vs off", lk, lp,
                 rtol=1e-4, atol=1e-4,
                 why="fp32 through 2 layers; the kernels only change summation order")
     if not torch.equal(gk, gp):
         raise AssertionError(f"reduced fp32 greedy tokens differ: {gk} vs {gp}")
     del red
 
-    cfg = get_config("yi-6b")
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -537,7 +714,7 @@ def phase_serve(card: str) -> dict:
     out = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: ops.launch_counts()[k] for k in SERVE_KERNELS}
+    launches = {k: ops.launch_counts()[k] for k in ARCH_KERNELS[arch][0]}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched on the serve path: {launches}")
     if sorted(out) != list(range(8)) or any(len(t) != 32 for t in out.values()):
@@ -568,14 +745,12 @@ def phase_serve(card: str) -> dict:
            "launches": launches,
            "logits_vs_plain_max_abs_err": max_err(lk, lp),
            "logits_vs_plain_rel_err": rel, "logits_rel_tol": LOGITS_REL_TOL,
-           "logits_tol_why": "bf16 through 32 layers; the kernels keep the gate "
-                             "products in fp32 and round P in attention; about "
-                             "2% of the logit range on an H100",
+           "logits_tol_why": LOGITS_TOL_WHY[arch],
            "greedy_agree_vs_plain": agree, "greedy_first_divergence": first_diverge,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(res)
     if not torch.isfinite(lk).all() or rel > LOGITS_REL_TOL:
-        raise AssertionError(f"yi-6b logits kernels on vs off: rel err {rel}")
+        raise AssertionError(f"{arch} logits kernels on vs off: rel err {rel}")
     phase_profile(model, prompts, card)
     return launches
 
@@ -587,15 +762,17 @@ def phase_serve(card: str) -> dict:
 # device-time groups of the profile, by kernel name (first match wins)
 PROFILE_GROUPS = (
     ("rmsnorm kernel", ("rmsnorm_kernel",)),
+    ("layernorm kernel", ("layernorm_kernel",)),
     ("swiglu kernel", ("swiglu_",)),
+    ("gelu_mlp kernel", ("gelu_mlp_",)),
     ("flash fwd kernel", ("flash_fwd_",)),
     ("flash bwd kernels", ("flash_bwd_",)),
     ("ce kernels", ("ce_partial_", "ce_merge_")),
     ("fp32 GEMMs", ("f32f32_f32f32", "sgemm")),
     ("other GEMMs", ("gemm", "nvjet", "cutlass")),
 )
-PORTED = {"rmsnorm kernel", "swiglu kernel", "flash fwd kernel", "flash bwd kernels",
-          "ce kernels"}
+PORTED = {"rmsnorm kernel", "layernorm kernel", "swiglu kernel", "gelu_mlp kernel",
+          "flash fwd kernel", "flash bwd kernels", "ce kernels"}
 
 
 def _profile(fn) -> dict:
@@ -652,7 +829,7 @@ def phase_profile(model, prompts, card: str) -> None:
         for _ in range(ticks):
             engine.step()
     dec = _profile(decode)
-    emit({"phase": "profile", "arch": "yi-6b", "dtype": "bf16", "kernels": True,
+    emit({"phase": "profile", "arch": model.cfg.name, "dtype": "bf16", "kernels": True,
           "prefill_256_tokens": prefill, "decode_ticks": ticks, "n_slots": 4,
           "decode": dec, "decode_ms_per_tick": dec["wall_s"] / ticks * 1e3,
           "card": card})
@@ -666,18 +843,27 @@ def phase_profile(model, prompts, card: str) -> None:
 # order, and AdamW's normalisation carries that into the weights; over 5
 # steps the CPU tests see ~5e-7.
 TRAIN_FP32_RTOL = 1e-4
-# bf16 yi-6b (8 layers), step 0 kernels on vs off, relative; set from the
-# readings of tools/step0_limits.py (NVIDIA H100 80GB HBM3, 700 W; 3 weight
-# seeds, each with its own batch).  Sound runs differ by at most 1.27e-5 in
-# loss and 6.65e-4 in grad_norm (seed 0, the one run here, is the largest);
-# the limits are about 1.5x those.  One 64-row tile of a kernel's output zeroed
-# moves grad_norm by 8.9e-3 (swiglu forward) and 1.4e-3 (dK/dV), which fail
-# here; in the flash forward or dQ it moves it by 7.1e-4 and 6.7e-4, inside
-# the sound spread, and the loss by less than the spread for every fault:
-# phase 2 holds those kernels at the step's shapes.
-TRAIN_BF16_LOSS_RTOL = 2e-5
-TRAIN_BF16_GNORM_RTOL = 1e-3
-TRAIN = dict(layers=8, global_batch=8, gas=2, seq_len=2048, steps=5)
+# bf16, step 0 kernels on vs off, relative limits on loss and grad_norm per
+# arch, set from the readings of tools/step0_limits.py (3 weight seeds, each
+# with its own batch; one 64-row tile of a kernel's output zeroed).
+# yi-6b (8 layers; NVIDIA H100 80GB HBM3, 700 W): sound runs differ by at
+# most 1.27e-5 in loss and 6.65e-4 in grad_norm (seed 0, the one run here,
+# is the largest); the limits are about 1.5x those.  A zeroed tile moves
+# grad_norm by 8.9e-3 (swiglu forward) and 1.4e-3 (dK/dV), which fail here;
+# in the flash forward or dQ by 7.1e-4 and 6.7e-4, inside the sound spread,
+# and the loss by less than the spread for every fault: phase 2 holds those
+# kernels at the step's shapes.
+# gpt-1.4b (all 24 layers; the same card): sound runs differ by at most
+# 1.31e-5 in loss (seed 2; seed 0 9.0e-6) and 6.71e-4 in grad_norm (seed 0);
+# the limits, 1.5x those, come out as yi-6b's.  A zeroed tile moves the loss
+# by 3.1e-4 (layernorm forward), 4.0e-5 (gelu_mlp forward) and 3.7e-5 (flash
+# forward), and grad_norm by 4.3e-3 and 3.4e-3 (layernorm, gelu_mlp), which
+# fail here; in dQ and dK/dV it moves neither out of the sound spread
+# (grad_norm 6.7e-4 and 3.9e-4): phase 2 holds those at the step's shapes.
+STEP0_RTOL = {"yi-6b": {"loss": 2e-5, "grad_norm": 1e-3},
+              "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3}}
+TRAIN = dict(global_batch=8, gas=2, seq_len=2048, steps=5)
+TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24}          # gpt-1.4b: all of them
 TRAIN_LR = 1e-4
 
 
@@ -711,7 +897,28 @@ def _run_steps(model, plan, batches, seed: int) -> list[dict]:
     return out
 
 
-def phase_train(card: str) -> dict:
+def train_config(arch: str):
+    """The arch at full width with the train phase's depth."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch])
+
+
+def expected_train_launches(cfg, steps: int) -> dict[str, int]:
+    """Launches of each kernel in ``steps`` steps of TRAIN under remat full:
+    per layer and microbatch each forward kernel runs twice (the forward and
+    its recompute) and each backward kernel once; the final norm and the CE
+    run once per microbatch."""
+    norm = "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
+    mlp = "swiglu" if cfg.act == "swiglu" else "gelu_mlp"
+    norms_per_layer = 2 + (2 if cfg.qk_norm else 0)
+    per_mb = {norm: 2 * norms_per_layer * cfg.n_layers + 1, mlp: 2 * cfg.n_layers,
+              "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd_dq": cfg.n_layers,
+              "flash_attention_bwd_dkv": cfg.n_layers, "cross_entropy": 1}
+    return {k: n * TRAIN["gas"] * steps for k, n in per_mb.items()}
+
+
+def phase_train(card: str, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import costmodel
     from repro_torch.kernels import ops
@@ -720,8 +927,8 @@ def phase_train(card: str) -> dict:
     from repro_torch.runtime.train_loop import (ParallelPlan, build_train_step,
                                                 init_train_state)
 
-    # reduced yi-6b in fp32 with hd 128: kernels on vs off, tightly
-    red_cfg = get_config("yi-6b").reduced(head_dim=128)
+    # the reduced model in fp32 at the arch's head dim: kernels on vs off, tightly
+    red_cfg = get_config(arch).reduced(**REDUCED[arch])
     red = Model(red_cfg, torch.float32, device="cuda")
     rb = _batches(red_cfg.vocab_size, 256, 4, 5)
     runs = {k: _run_steps(red, ParallelPlan(gas=2, precision="fp32", kernels=k), rb, 1)
@@ -730,36 +937,33 @@ def phase_train(card: str) -> dict:
         for key in ("loss", "grad_norm"):
             rel = abs(a[key] - b[key]) / abs(b[key])
             if not np.isfinite(a[key]) or rel > TRAIN_FP32_RTOL:
-                raise AssertionError(f"reduced fp32 train step {i} {key}: kernels "
+                raise AssertionError(f"{arch} reduced fp32 train step {i} {key}: kernels "
                                      f"{a[key]} vs plain {b[key]} (rel {rel:.2e})")
-    emit({"phase": "train_reduced_fp32", "arch": red_cfg.name, "head_dim": 128,
+    emit({"phase": "train_reduced_fp32", "arch": red_cfg.name,
+          "head_dim": red_cfg.resolved_head_dim, "d_model": red_cfg.d_model,
           "steps": 5, "gas": 2, "seq_len": 256, "global_batch": 4,
           "kernels_on": runs[True], "kernels_off": runs[False],
           "rtol": TRAIN_FP32_RTOL})
     del red
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN["layers"])
-    gb, gas, S = TRAIN["global_batch"], TRAIN["gas"], TRAIN["seq_len"]
+    cfg = train_config(arch)
+    gb, gas, S, steps = TRAIN["global_batch"], TRAIN["gas"], TRAIN["seq_len"], TRAIN["steps"]
     model = Model(cfg, torch.float32, device="cuda")
-    batches = _batches(cfg.vocab_size, S, gb, TRAIN["steps"])
+    batches = _batches(cfg.vocab_size, S, gb, steps)
     plan = ParallelPlan(gas=gas, precision="bf16", remat="full", kernels=True)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     on = _run_steps(model, plan, batches, 0)
-    launches = ops.launch_counts()
+    launches = {k: ops.launch_counts()[k] for k in ARCH_KERNELS[arch][1]}
     peak = torch.cuda.max_memory_allocated() / 1e9
     flops = costmodel.train_step_flops(cfg, gb, S).total
     for r in on:
         r["tokens_per_s"] = gb * S / r["step_s"]
         r["mfu"] = costmodel.mfu(flops, r["step_s"], costmodel.H100.peak_flops)
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was not launched in the train step: {launches}")
-    per_layer_mb = cfg.n_layers * gas * TRAIN["steps"]
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        if launches[name] != per_layer_mb:
-            raise AssertionError(f"{name}: {launches[name]} launches, expected one per "
-                                 f"layer per microbatch ({per_layer_mb})")
+    expected = expected_train_launches(cfg, steps)
+    if launches != expected:
+        raise AssertionError(f"{arch} train step launches {launches}, expected {expected}")
     if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in on):
         raise AssertionError(f"non-finite train metrics: {on}")
     opt = AdamWConfig(lr=TRAIN_LR)
@@ -770,8 +974,7 @@ def phase_train(card: str) -> dict:
     torch.cuda.empty_cache()
     off = _run_steps(model, ParallelPlan(gas=gas, precision="bf16", remat="full",
                                          kernels=False), batches, 0)
-    rel_loss = abs(on[0]["loss"] - off[0]["loss"]) / off[0]["loss"]
-    rel_gn = abs(on[0]["grad_norm"] - off[0]["grad_norm"]) / off[0]["grad_norm"]
+    rel0 = {key: abs(on[0][key] - off[0][key]) / off[0][key] for key in ("loss", "grad_norm")}
     med = float(np.median([r["step_s"] for r in on[1:]]))
     res = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
            "params": model.n_params(), "precision": "bf16 compute, fp32 master",
@@ -780,16 +983,16 @@ def phase_train(card: str) -> dict:
            "median_tokens_per_s": gb * S / med,
            "median_mfu": costmodel.mfu(flops, med, costmodel.H100.peak_flops),
            "flops_per_step": flops, "peak_mem_gb": peak, "launches": launches,
-           "kernels_off_steps": off, "step0_loss_rel_diff": rel_loss,
-           "step0_grad_norm_rel_diff": rel_gn,
-           "loss_rtol": TRAIN_BF16_LOSS_RTOL, "grad_norm_rtol": TRAIN_BF16_GNORM_RTOL,
+           "kernels_off_steps": off, "step0_loss_rel_diff": rel0["loss"],
+           "step0_grad_norm_rel_diff": rel0["grad_norm"],
+           "loss_rtol": STEP0_RTOL[arch]["loss"],
+           "grad_norm_rtol": STEP0_RTOL[arch]["grad_norm"],
            "profile_one_step": prof, "card": card}
     emit(res)
-    if rel_loss > TRAIN_BF16_LOSS_RTOL or rel_gn > TRAIN_BF16_GNORM_RTOL:
-        raise AssertionError(f"yi-6b step 0 kernels on vs off: loss rel {rel_loss:.2e}, "
-                             f"grad_norm rel {rel_gn:.2e}")
+    if any(rel0[key] > STEP0_RTOL[arch][key] for key in rel0):
+        raise AssertionError(f"{arch} step 0 kernels on vs off: {rel0}, limits "
+                             f"{STEP0_RTOL[arch]}")
     return launches
-
 
 
 def main() -> int:
@@ -813,18 +1016,30 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name, r in report.items()}})
 
+    t_start = time.perf_counter()
     timer = Timer()
     rows = phase_kernels(timer)
     rows.update(phase_kernels_train(timer))
     del timer
     torch.cuda.empty_cache()
-    serve_launches = phase_serve(card)
-    torch.cuda.empty_cache()
-    train_launches = phase_train(card)
+    # each path's counts are zeroed just before it runs and read just after
+    paths = {}
+    for arch in ARCH_KERNELS:
+        paths[f"{arch} serve"] = phase_serve(card, arch)
+        torch.cuda.empty_cache()
+    for arch in ARCH_KERNELS:
+        paths[f"{arch} train"] = phase_train(card, arch)
+        torch.cuda.empty_cache()
+    emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start})
+    by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
+               for name in KERNELS}
+    # ``launches``: the kernel's count in this slice's main path, the gpt-1.4b
+    # train step, or for the yi-6b kernels in the yi-6b train step
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
-         "replaces": replaces, "launches": train_launches[name],
-         "launches_serve": serve_launches.get(name, 0), **rows[name], "card": card}
+         "replaces": replaces,
+         "launches": by_path[name].get("gpt-1.4b train", by_path[name].get("yi-6b train")),
+         "launches_by_path": by_path[name], **rows[name], "card": card}
         for name, (src, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

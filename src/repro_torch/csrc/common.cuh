@@ -25,6 +25,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
     return __float2bfloat16(x);
 }
 
+// A head dim rounded up to the contraction step of mma.sync (16) and to the
+// 32 lanes of a warp (the flash kernels): 88 -> 96 for both, 64 and 128 as
+// they are.
+__host__ __device__ constexpr int pad16(int hd) { return (hd + 15) / 16 * 16; }
+__host__ __device__ constexpr int pad32(int hd) { return (hd + 31) / 32 * 32; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

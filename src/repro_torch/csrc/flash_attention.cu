@@ -24,6 +24,14 @@
 //   fp32: FFMA only (no TF32) so the check against the plain fp32 version
 //   stays tight: a warp per 4 query rows, one key per lane for the scores,
 //   head dims split across lanes for the P V update.
+//   Head dims 64, 88 (gpt-1.4b: 2112 over 24 heads) and 128.  The
+//   contraction over hd (S = Q K^T) steps k by 16 in mma.sync, so hd 88 runs
+//   as 96: the Q and K tiles get columns 88..95 written as zeros in shared
+//   memory (never read from memory; uninitialised shared memory may hold NaN
+//   bit patterns, and 0 * NaN = NaN).  Products whose n dimension is hd
+//   (O = P V) tile by 8, which 88 allows, and only the 88 real columns are
+//   stored.  The fp32 kernel pads the same way to a multiple of 32 lanes.
+//   The scale stays 1/sqrt(hd) of the real head dim.
 //   Simple first version: no cp.async/TMA double buffering, no wgmma.
 #include "common.cuh"
 
@@ -83,23 +91,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [s0, s0 + 64) of one head into shared memory (pitch LD),
-// zero-filling rows past S.  16-byte vectors; strides are multiples of 8.
-template <int HD, int LD>
+// Copy rows [s0, s0 + 64) of one head into shared memory (pitch LD), HDP
+// columns of which the first HD are read, zero-filling rows past S and
+// columns past HD.  16-byte vectors; strides are multiples of 8.
+template <int HD, int HDP, int LD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long ss,
                                           int s0, int S) {
-    constexpr int VPR = HD / 8;   // vectors per row
+    constexpr int VPR = HDP / 8;  // vectors per row
     for (int i = threadIdx.x; i < 64 * VPR; i += blockDim.x) {
         const int r = i / VPR, c = (i % VPR) * 8;
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (s0 + r < S) val = *reinterpret_cast<const uint4*>(base + (s0 + r) * ss + c);
+        if (s0 + r < S && c < HD)
+            val = *reinterpret_cast<const uint4*>(base + (s0 + r) * ss + c);
         *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
     }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const Params p) {
-    constexpr int LD = HD + 8;            // pitch: conflict-free fragment loads
+    constexpr int HDP = pad16(HD);        // the contraction's width
+    constexpr int LD = HDP + 8;           // pitch: conflict-free fragment loads
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
     bf16* Ks = Qs + BM * LD;
@@ -116,11 +127,11 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const Params p) {
     const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
     const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-    load_tile<HD, LD>(Qs, qb, p.q_ss, q0, p.Sq);
+    load_tile<HD, HDP, LD>(Qs, qb, p.q_ss, q0, p.Sq);
     __syncthreads();
-    uint32_t qf[HD / 16][4];
+    uint32_t qf[HDP / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
         const int c = kk * 16 + 2 * t;
         qf[kk][0] = *reinterpret_cast<const uint32_t*>(Qs + r0 * LD + c);
         qf[kk][1] = *reinterpret_cast<const uint32_t*>(Qs + (r0 + 8) * LD + c);
@@ -138,8 +149,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const Params p) {
     key_range(p, q0, min(q0 + BM, p.Sq), lo, hi);
     for (int k0 = (lo / BN) * BN; k0 < hi; k0 += BN) {
         __syncthreads();                  // everyone is done with the last tile
-        load_tile<HD, LD>(Ks, kb, p.k_ss, k0, p.Skv);
-        load_tile<HD, LD>(Vs, vb, p.v_ss, k0, p.Skv);
+        load_tile<HD, HDP, LD>(Ks, kb, p.k_ss, k0, p.Skv);
+        load_tile<HD, HDP, LD>(Vs, vb, p.v_ss, k0, p.Skv);
         __syncthreads();
 
         float s[BN / 8][4];
@@ -148,7 +159,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16_kernel(const Params p) {
             s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
             const bf16* krow = Ks + (nt * 8 + g) * LD + 2 * t;
 #pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
+            for (int kk = 0; kk < HDP / 16; ++kk) {
                 const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
                 const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
                 mma_bf16(s[nt], qf[kk], b0, b1);
@@ -237,10 +248,11 @@ constexpr int FBM = 16, FBN = 32, ROWS_PER_WARP = 4;
 
 template <int HD>
 __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
-    constexpr int DPL = HD / 32;          // head dims per lane
-    __shared__ float Qs[FBM][HD];
-    __shared__ float Ks[FBN][HD + 1];     // +1: lane j reads row j conflict-free
-    __shared__ float Vs[FBN][HD];
+    constexpr int HDP = pad32(HD);        // columns past HD are zeros
+    constexpr int DPL = HDP / 32;         // head dims per lane
+    __shared__ float Qs[FBM][HDP];
+    __shared__ float Ks[FBN][HDP + 1];    // +1: lane j reads row j conflict-free
+    __shared__ float Vs[FBN][HDP];
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FBM;
     const int hk = h / (p.Hq / p.Hkv);
@@ -250,9 +262,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
     const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
     const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-    for (int i = threadIdx.x; i < FBM * HD; i += blockDim.x) {
-        const int r = i / HD, c = i % HD;
-        Qs[r][c] = q0 + r < p.Sq ? qb[(q0 + r) * p.q_ss + c] : 0.f;
+    for (int i = threadIdx.x; i < FBM * HDP; i += blockDim.x) {
+        const int r = i / HDP, c = i % HDP;
+        Qs[r][c] = q0 + r < p.Sq && c < HD ? qb[(q0 + r) * p.q_ss + c] : 0.f;
     }
 
     float acc[ROWS_PER_WARP][DPL] = {};
@@ -267,9 +279,9 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
     key_range(p, q0, min(q0 + FBM, p.Sq), lo, hi);
     for (int k0 = (lo / FBN) * FBN; k0 < hi; k0 += FBN) {
         __syncthreads();
-        for (int i = threadIdx.x; i < FBN * HD; i += blockDim.x) {
-            const int r = i / HD, c = i % HD;
-            const bool ok = k0 + r < p.Skv;
+        for (int i = threadIdx.x; i < FBN * HDP; i += blockDim.x) {
+            const int r = i / HDP, c = i % HDP;
+            const bool ok = k0 + r < p.Skv && c < HD;
             Ks[r][c] = ok ? kb[(k0 + r) * p.k_ss + c] : 0.f;
             Vs[r][c] = ok ? vb[(k0 + r) * p.v_ss + c] : 0.f;
         }
@@ -303,7 +315,8 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
         if (row >= p.Sq) continue;
         const float safe_l = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) ob[row * p.o_ss + lane + 32 * i] = acc[r][i] / safe_l;
+        for (int i = 0; i < DPL; ++i)
+            if (lane + 32 * i < HD) ob[row * p.o_ss + lane + 32 * i] = acc[r][i] / safe_l;
         if (lane == 0) p.lse[((size_t)b * p.Hq + h) * p.Sq + row] = m[r] + logf(safe_l);
     }
 }
@@ -311,7 +324,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
 template <int HD>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t s) {
     if (dtype == DTYPE_BF16) {
-        const size_t smem = 3 * BM * (HD + 8) * sizeof(bf16);
+        const size_t smem = 3 * BM * (pad16(HD) + 8) * sizeof(bf16);
         cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)smem);
@@ -329,15 +342,16 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t s) {
 
 // q: (B, Sq, Hq, hd), k/v: (B, Skv, Hkv, hd), o like q, all with unit stride
 // on hd; strides[12] = element strides (batch, seq, head) of q, k, v, o.
-// lse: (B, Hq, Sq) fp32 contiguous.  hd in {64, 128}; bf16 strides and
-// base pointers must be multiples of 8 elements (16-byte vectors).
+// lse: (B, Hq, Sq) fp32 contiguous.  hd in {64, 88, 128} (any other gives
+// cudaErrorInvalidValue); bf16 strides and base pointers must be multiples
+// of 8 elements (16-byte vectors).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int B, int Hq, int Hkv,
                                    int Sq, int Skv, int hd, const long long* strides,
                                    int causal, int window, float softcap,
                                    int q_offset, float scale, int dtype, void* stream) {
-    if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32) || (hd != 64 && hd != 128)
-        || Hkv <= 0 || Hq % Hkv != 0 || B < 0 || Sq < 0 || Skv < 0)
+    if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32) || Hkv <= 0 || Hq % Hkv != 0 || B < 0
+        || Sq < 0 || Skv < 0)
         return cudaErrorInvalidValue;
     if (B == 0 || Sq == 0 || Hq == 0) return cudaSuccess;
     Params p;
@@ -350,5 +364,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     p.causal = causal; p.window = window; p.q_offset = q_offset;
     p.softcap = softcap; p.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return hd == 64 ? launch<64>(p, dtype, s) : launch<128>(p, dtype, s);
+    switch (hd) {
+        case 64: return launch<64>(p, dtype, s);
+        case 88: return launch<88>(p, dtype, s);
+        case 128: return launch<128>(p, dtype, s);
+        default: return cudaErrorInvalidValue;   // not built for this head dim
+    }
 }

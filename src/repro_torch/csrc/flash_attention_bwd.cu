@@ -33,6 +33,12 @@
 //   live in dynamic shared memory (70 KB for dK/dV at hd = 128).
 //   fp32: FFMA only (no TF32) so the check against the plain fp32 version
 //   stays tight, one key per lane for the scores as in the forward.
+//   Head dims 64, 88 and 128, as the forward: the contractions over hd
+//   (S = Q K^T, dP = dO V^T and their transposes) run hd 88 as 96 over
+//   tiles whose columns 88..95 are zeros written to shared memory; the
+//   products whose n dimension is hd (dQ, dK, dV) tile by 8 and store only
+//   the 88 real columns.  The fp32 dQ kernel pads to a multiple of 32 lanes;
+//   the fp32 dK/dV kernel splits hd over 4 threads, which 88 allows.
 //   Simple first version: no cp.async/TMA double buffering, no wgmma.
 #include "common.cuh"
 
@@ -117,15 +123,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Copy rows [s0, s0 + 64) of one head into shared memory (pitch LD),
-// zero-filling rows past S.  16-byte vectors; strides are multiples of 8.
+// pad16(HD) columns of which the first HD are read, zero-filling rows past S
+// and columns past HD.  16-byte vectors; strides are multiples of 8.
 template <int HD, int LD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* base, long long ss,
                                           int s0, int S) {
-    constexpr int VPR = HD / 8;
+    constexpr int VPR = pad16(HD) / 8;
     for (int i = threadIdx.x; i < 64 * VPR; i += blockDim.x) {
         const int r = i / VPR, c = (i % VPR) * 8;
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (s0 + r < S) val = *reinterpret_cast<const uint4*>(base + (s0 + r) * ss + c);
+        if (s0 + r < S && c < HD)
+            val = *reinterpret_cast<const uint4*>(base + (s0 + r) * ss + c);
         *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
     }
 }
@@ -140,14 +148,15 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* t, int r0, 
 }
 
 // C[16 x 64] = A[16 rows of tile a from r0] . B^T for the 64 rows of tile b
-// (both row-major over HD): the score-like products S, dP, S^T and dP^T.
+// (both row-major over HD, zero-padded to pad16(HD)): the score-like
+// products S, dP, S^T and dP^T.
 template <int HD, int LD>
 __device__ __forceinline__ void rows_dot_rows(float (&c)[BN / 8][4], const bf16* a,
                                               int r0, const bf16* b, int t, int g) {
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < pad16(HD) / 16; ++kk) {
         uint32_t af[4];
         load_a<LD>(af, a, r0, kk * 16 + 2 * t);
 #pragma unroll
@@ -187,7 +196,7 @@ __device__ __forceinline__ void acc_times_tile(float (&acc)[HD / 8][4],
 
 template <int HD>
 __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const Params p) {
-    constexpr int LD = HD + 8;
+    constexpr int LD = pad16(HD) + 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
     bf16* dOs = Qs + BM * LD;
@@ -256,7 +265,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16_kernel(const Params p) 
 
 template <int HD>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(const Params p) {
-    constexpr int LD = HD + 8;
+    constexpr int LD = pad16(HD) + 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
     bf16* Vs = Ks + BN * LD;
@@ -342,12 +351,14 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16_kernel(const Params p)
 
 constexpr int FBM = 16, FBN = 32, ROWS_PER_WARP = 4;
 
-// Rows [s0, s0 + n) of one head into smem with pitch ld, zero past S.
+// Rows [s0, s0 + n) of one head into smem with pitch ld: ``width`` columns
+// of which the first hd are read, zero past S and past hd.
 __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* base,
-                                              long long ss, int s0, int n, int S, int hd) {
-    for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
-        const int r = i / hd, c = i % hd;
-        dst[r * ld + c] = s0 + r < S ? base[(s0 + r) * ss + c] : 0.f;
+                                              long long ss, int s0, int n, int S, int hd,
+                                              int width) {
+    for (int i = threadIdx.x; i < n * width; i += blockDim.x) {
+        const int r = i / width, c = i % width;
+        dst[r * ld + c] = s0 + r < S && c < hd ? base[(s0 + r) * ss + c] : 0.f;
     }
 }
 
@@ -355,12 +366,13 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* b
 // key of the 32-key tile for the scores and HD/32 head dims for dQ.
 template <int HD>
 __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
-    constexpr int DPL = HD / 32;
+    constexpr int HDP = pad32(HD);         // K's columns past HD are zeros
+    constexpr int DPL = HDP / 32;
     extern __shared__ float fsm[];
     float* Qs = fsm;                       // [FBM][HD]
     float* dOs = Qs + FBM * HD;            // [FBM][HD]
-    float* Ks = dOs + FBM * HD;            // [FBN][HD + 1]
-    float* Vs = Ks + FBN * (HD + 1);       // [FBN][HD + 1]
+    float* Ks = dOs + FBM * HD;            // [FBN][HDP + 1]
+    float* Vs = Ks + FBN * (HDP + 1);      // [FBN][HDP + 1]
 
     const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FBM;
     const int hk = h / (p.Hq / p.Hkv);
@@ -368,9 +380,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
     const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
     const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
     load_rows_f32(Qs, HD, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
-                  p.q_ss, q0, FBM, p.Sq, HD);
+                  p.q_ss, q0, FBM, p.Sq, HD, HD);
     load_rows_f32(dOs, HD, static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                  p.do_ss, q0, FBM, p.Sq, HD);
+                  p.do_ss, q0, FBM, p.Sq, HD, HD);
 
     float acc[ROWS_PER_WARP][DPL] = {};
     float lse[ROWS_PER_WARP], dlt[ROWS_PER_WARP];
@@ -385,8 +397,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
     key_range(p, q0, min(q0 + FBM, p.Sq), lo, hi);
     for (int k0 = (lo / FBN) * FBN; k0 < hi; k0 += FBN) {
         __syncthreads();
-        load_rows_f32(Ks, HD + 1, kb, p.k_ss, k0, FBN, p.Skv, HD);
-        load_rows_f32(Vs, HD + 1, vb, p.v_ss, k0, FBN, p.Skv, HD);
+        load_rows_f32(Ks, HDP + 1, kb, p.k_ss, k0, FBN, p.Skv, HD, HDP);
+        load_rows_f32(Vs, HDP + 1, vb, p.v_ss, k0, FBN, p.Skv, HD, HDP);
         __syncthreads();
 #pragma unroll
         for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -394,8 +406,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
             float s = 0.f, dp = 0.f;
 #pragma unroll 8
             for (int c = 0; c < HD; ++c) {
-                s = fmaf(Qs[lr * HD + c], Ks[lane * (HD + 1) + c], s);
-                dp = fmaf(dOs[lr * HD + c], Vs[lane * (HD + 1) + c], dp);
+                s = fmaf(Qs[lr * HD + c], Ks[lane * (HDP + 1) + c], s);
+                dp = fmaf(dOs[lr * HD + c], Vs[lane * (HDP + 1) + c], dp);
             }
             float pe, jac;
             prob(p, s, lse[r], q0 + lr, k0 + lane, pe, jac);
@@ -404,7 +416,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
                 const float dj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
                 for (int i = 0; i < DPL; ++i)
-                    acc[r][i] = fmaf(dj, Ks[j * (HD + 1) + lane + 32 * i], acc[r][i]);
+                    acc[r][i] = fmaf(dj, Ks[j * (HDP + 1) + lane + 32 * i], acc[r][i]);
             }
         }
     }
@@ -414,7 +426,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
         const int row = q0 + warp * ROWS_PER_WARP + r;
         if (row >= p.Sq) continue;
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) dqb[row * p.dq_ss + lane + 32 * i] = acc[r][i] * p.scale;
+        for (int i = 0; i < DPL; ++i)
+            if (lane + 32 * i < HD) dqb[row * p.dq_ss + lane + 32 * i] = acc[r][i] * p.scale;
     }
 }
 
@@ -424,6 +437,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(const Params p) {
 // key (tid % 32) and head dims tid / 32 + 4 i accumulates dK and dV.
 template <int HD>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_f32_kernel(const Params p) {
+    static_assert(HD % 4 == 0, "hd split over 4 threads");
     constexpr int DPT = HD / 4;
     extern __shared__ float fsm[];
     float* Ks = fsm;                       // [FBN][HD + 1]
@@ -437,9 +451,9 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32_kernel(const Params p) 
     const int G = p.Hq / p.Hkv;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     load_rows_f32(Ks, HD + 1, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                  p.k_ss, k0, FBN, p.Skv, HD);
+                  p.k_ss, k0, FBN, p.Skv, HD, HD);
     load_rows_f32(Vs, HD + 1, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh,
-                  p.v_ss, k0, FBN, p.Skv, HD);
+                  p.v_ss, k0, FBN, p.Skv, HD, HD);
     const int key = threadIdx.x & 31, d0 = threadIdx.x >> 5;
     float dk[DPT] = {}, dv[DPT] = {};
 
@@ -452,8 +466,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32_kernel(const Params p) 
         const float* dlt_b = p.delta + ((size_t)b * p.Hq + hq) * p.Sq;
         for (int q0 = (lo / FBM) * FBM; q0 < hi; q0 += FBM) {
             __syncthreads();
-            load_rows_f32(Qs, HD, qb, p.q_ss, q0, FBM, p.Sq, HD);
-            load_rows_f32(dOs, HD, dob, p.do_ss, q0, FBM, p.Sq, HD);
+            load_rows_f32(Qs, HD, qb, p.q_ss, q0, FBM, p.Sq, HD, HD);
+            load_rows_f32(dOs, HD, dob, p.do_ss, q0, FBM, p.Sq, HD, HD);
             __syncthreads();
 #pragma unroll
             for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -507,9 +521,9 @@ template <int HD>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t s) {
     if (dtype == DTYPE_BF16)
         return launch_kernel(flash_bwd_dq_bf16_kernel<HD>, dim3((p.Sq + BM - 1) / BM, p.Hq, p.B),
-                             4 * 64 * (HD + 8) * sizeof(bf16), p, s);
+                             4 * 64 * (pad16(HD) + 8) * sizeof(bf16), p, s);
     return launch_kernel(flash_bwd_dq_f32_kernel<HD>, dim3((p.Sq + FBM - 1) / FBM, p.Hq, p.B),
-                         (2 * FBM * HD + 2 * FBN * (HD + 1)) * sizeof(float), p, s);
+                         (2 * FBM * HD + 2 * FBN * (pad32(HD) + 1)) * sizeof(float), p, s);
 }
 
 template <int HD>
@@ -517,7 +531,8 @@ cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t s) {
     if (dtype == DTYPE_BF16)
         return launch_kernel(flash_bwd_dkv_bf16_kernel<HD>,
                              dim3((p.Skv + BN - 1) / BN, p.Hkv, p.B),
-                             4 * 64 * (HD + 8) * sizeof(bf16) + 2 * BM * sizeof(float), p, s);
+                             4 * 64 * (pad16(HD) + 8) * sizeof(bf16) + 2 * BM * sizeof(float),
+                             p, s);
     return launch_kernel(flash_bwd_dkv_f32_kernel<HD>,
                          dim3((p.Skv + FBN - 1) / FBN, p.Hkv, p.B),
                          (2 * FBN * (HD + 1) + 2 * FBM * HD + 2 * FBM * FBN) * sizeof(float),
@@ -528,8 +543,8 @@ int make_params(Params& p, const void* q, const void* k, const void* v, const vo
                 const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
                 int Hq, int Hkv, int Sq, int Skv, int hd, const long long* st, int causal,
                 int window, float softcap, int q_offset, float scale, int dtype) {
-    if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32) || (hd != 64 && hd != 128)
-        || Hkv <= 0 || Hq % Hkv != 0 || B < 0 || Sq < 0 || Skv < 0)
+    if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32) || Hkv <= 0 || Hq % Hkv != 0 || B < 0
+        || Sq < 0 || Skv < 0)
         return cudaErrorInvalidValue;
     p.q = q; p.k = k; p.v = v; p.dout = dout;
     p.lse = static_cast<const float*>(lse); p.delta = static_cast<const float*>(delta);
@@ -550,8 +565,9 @@ int make_params(Params& p, const void* q, const void* k, const void* v, const vo
 // Both entries take the same arguments.  q/dout/dq: (B, Sq, Hq, hd);
 // k/v/dk/dv: (B, Skv, Hkv, hd), unit stride on hd; strides[21] = element
 // strides (batch, seq, head) of q, k, v, dout, dq, dk, dv.  lse, delta:
-// (B, Hq, Sq) fp32 contiguous.  hd in {64, 128}; bf16 strides and base
-// pointers must be multiples of 8 elements (16-byte vectors).
+// (B, Hq, Sq) fp32 contiguous.  hd in {64, 88, 128} (any other gives
+// cudaErrorInvalidValue); bf16 strides and base pointers must be multiples
+// of 8 elements (16-byte vectors).
 #define BWD_ARGS                                                                      \
     const void *q, const void *k, const void *v, const void *dout, const void *lse,   \
         const void *delta, void *dq, void *dk, void *dv, int B, int Hq, int Hkv,      \
@@ -567,7 +583,12 @@ extern "C" int flash_attention_bwd_dq(BWD_ARGS) {
     if (err != cudaSuccess) return err;
     if (B == 0 || Sq == 0 || Hq == 0) return cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return hd == 64 ? launch_dq<64>(p, dtype, s) : launch_dq<128>(p, dtype, s);
+    switch (hd) {
+        case 64: return launch_dq<64>(p, dtype, s);
+        case 88: return launch_dq<88>(p, dtype, s);
+        case 128: return launch_dq<128>(p, dtype, s);
+        default: return cudaErrorInvalidValue;   // not built for this head dim
+    }
 }
 
 extern "C" int flash_attention_bwd_dkv(BWD_ARGS) {
@@ -576,5 +597,10 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS) {
     if (err != cudaSuccess) return err;
     if (B == 0 || Skv == 0 || Hkv == 0) return cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return hd == 64 ? launch_dkv<64>(p, dtype, s) : launch_dkv<128>(p, dtype, s);
+    switch (hd) {
+        case 64: return launch_dkv<64>(p, dtype, s);
+        case 88: return launch_dkv<88>(p, dtype, s);
+        case 128: return launch_dkv<128>(p, dtype, s);
+        default: return cudaErrorInvalidValue;   // not built for this head dim
+    }
 }

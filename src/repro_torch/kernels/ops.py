@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gelu_mlp as gm
+from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import swiglu as sg
 
@@ -21,6 +23,8 @@ KERNEL_COUNTERS = {
     "flash_attention_bwd_dkv": (fa, "launches_bwd_dkv"),
     "rmsnorm": (rn, "launches"),
     "swiglu": (sg, "launches"),
+    "layernorm": (ln, "launches"),
+    "gelu_mlp": (gm, "launches"),
     "cross_entropy": (ce, "launches"),
 }
 
@@ -49,10 +53,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return rn.rmsnorm(x, w, eps)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    return ln.layernorm(x, w, b, eps)
+
+
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """Fused silu(x@w1) * (x@w3); x: (..., d)."""
     shape = x.shape
     out = sg.swiglu(x.reshape(-1, shape[-1]), w1, w3)
+    return out.reshape(*shape[:-1], w1.shape[1])
+
+
+def gelu_mlp_in(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """Fused gelu(x@w1) (tanh approximation); x: (..., d)."""
+    shape = x.shape
+    out = gm.gelu_mlp_in(x.reshape(-1, shape[-1]), w1)
     return out.reshape(*shape[:-1], w1.shape[1])
 
 

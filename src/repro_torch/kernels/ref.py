@@ -168,6 +168,68 @@ def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
+def layernorm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """fp32 mean, then the mean of squared deviations, rsqrt, scale and
+    shift, cast to x's dtype (``repro/kernels/ref.py:layernorm_ref``)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)
+
+
+def layernorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-5):
+    """(dx, dw, db) of LayerNorm in fp32 from the saved x and w
+    (``repro/kernels/layernorm.py:_bwd``); dw and db sum over the rows in
+    fp32 and come back in w's dtype."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(-1, d)
+    g32 = g.float().reshape(-1, d)
+    w32 = w.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * inv
+    gw = g32 * w32
+    dx = inv * (gw - gw.mean(dim=-1, keepdim=True)
+                - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    dw = (g32 * xhat).sum(0)
+    db = g32.sum(0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), db.to(w.dtype)
+
+
+# the tanh approximation of GELU, with the reference's constants
+# (``repro/kernels/gelu_mlp.py``)
+SQRT_2_OVER_PI = 0.7978845608028654
+GELU_C = 0.044715
+
+
+def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
+    u = SQRT_2_OVER_PI * (a + GELU_C * a * a * a)
+    return 0.5 * a * (1.0 + torch.tanh(u))
+
+
+def gelu_mlp_in_ref(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The MLP's input half gelu_tanh(x @ w1), the product and the GELU in
+    fp32, cast to x's dtype (``repro/kernels/ref.py:gelu_mlp_in_ref``)."""
+    return gelu_tanh(x.float() @ w1.float()).to(x.dtype)
+
+
+def gelu_mlp_in_bwd_ref(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor):
+    """(dx, dw1) of gelu_tanh(x @ w1) by an fp32 recompute of the product
+    (``repro/kernels/gelu_mlp.py:_gelu_mlp_bwd``: the pre-activation is
+    never saved); x (N, d)."""
+    x32, w1_32, g32 = x.float(), w1.float(), g.float()
+    a = x32 @ w1_32
+    t = torch.tanh(SQRT_2_OVER_PI * (a + GELU_C * a * a * a))
+    # d gelu(a)/da = 0.5 (1 + t) + 0.5 a (1 - t^2) du/da
+    du = SQRT_2_OVER_PI * (1.0 + 3.0 * GELU_C * a * a)
+    da = g32 * (0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du)
+    return (da @ w1_32.T).to(x.dtype), (x32.T @ da).to(w1.dtype)
+
+
 def swiglu_ref(x: torch.Tensor, w1: torch.Tensor,
                w3: torch.Tensor) -> torch.Tensor:
     """Fused gate: silu(x@w1) * (x@w3), the products in x's dtype."""

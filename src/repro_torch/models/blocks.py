@@ -2,10 +2,10 @@
 self-attention (GQA, RoPE, optional qk-norm and softcap) for training and
 prefill, for per-slot cached decode and for decode over a paged KV pool, the
 MLP block, and ``segment_body``, the layer body of the training stack.
-Under ``policy.kernels`` every RMSNorm and SwiGLU gate runs in its CUDA
-kernel, in training, prefill and decode, and full-sequence attention runs in
-the flash kernels (forward and backward); decode attention over the cache
-stays plain PyTorch.
+Under ``policy.kernels`` every RMSNorm or LayerNorm and every SwiGLU gate or
+GELU input half runs in its CUDA kernel, in training, prefill and decode,
+and full-sequence attention runs in the flash kernels (forward and
+backward); decode attention over the cache stays plain PyTorch.
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.compute import ComputePolicy, checkpointed, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import rmsnorm_ref, swiglu_ref
+from repro_torch.kernels.ref import layernorm_ref, rmsnorm_ref, swiglu_ref
 
 # queries per block of the plain attention: bounds the (chunk x Skv) scores
 Q_CHUNK = 1024
@@ -22,15 +22,7 @@ Q_CHUNK = 1024
 # ---------------------------------------------------------------------------
 
 rms_norm = rmsnorm_ref
-
-
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    normed = (x32 - mean) * torch.rsqrt(var + eps)
-    return (normed * weight.float() + bias.float()).to(x.dtype)
+layer_norm = layernorm_ref
 
 
 def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float,
@@ -40,8 +32,7 @@ def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float,
             return kernel_ops.rmsnorm(x, params["scale"], eps)
         return rms_norm(x, params["scale"], eps)
     if use_kernel:
-        raise NotImplementedError(
-            "the LayerNorm kernel is not ported yet (ROADMAP.md, Queue 2)")
+        return kernel_ops.layernorm(x, params["scale"], params["bias"], eps)
     return layer_norm(x, params["scale"], params["bias"], eps)
 
 
@@ -171,8 +162,9 @@ def mlp(x: torch.Tensor, params: dict, act: str, use_kernel: bool = False) -> to
             return kernel_ops.swiglu(x, params["w1"], params["w3"]) @ params["w2"]
         return swiglu(x, params["w1"], params["w3"], params["w2"])
     if use_kernel:
-        raise NotImplementedError(
-            "the GELU-MLP kernel is not ported yet (ROADMAP.md, Queue 2)")
+        # the w2 product stays a plain matmul, as it is jnp outside the
+        # kernel in the reference
+        return kernel_ops.gelu_mlp_in(x, params["w1"]) @ params["w2"]
     return gelu_mlp(x, params["w1"], params["w2"])
 
 

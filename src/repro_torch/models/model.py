@@ -84,7 +84,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def check_supported(cfg: ModelConfig, policy: ComputePolicy) -> None:
+def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
     if cfg.family != "dense":
@@ -95,10 +95,6 @@ def check_supported(cfg: ModelConfig, policy: ComputePolicy) -> None:
         raise NotImplementedError(f"the int8 KV cache {where}")
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"pos={cfg.pos!r} {where}")
-    if policy.kernels and (cfg.norm != "rmsnorm" or cfg.act != "swiglu"):
-        raise NotImplementedError(
-            f"kernels=True for norm={cfg.norm!r}, act={cfg.act!r}: the LayerNorm "
-            "and GELU-MLP kernels are not ported yet (see ROADMAP.md, Queue 2)")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -141,7 +137,7 @@ class Model(nn.Module):
         self.dtype = dtype                # storage
         self.compute_dtype = dtype        # with_policy gives another
         self.compute = resolve_policy(compute)
-        check_supported(cfg, self.compute)
+        check_supported(cfg)
         self.device = resolve_device(device)
         for path, spec in flatten_specs(self.param_specs()):
             *parents, leaf = path.split(".")
@@ -173,7 +169,6 @@ class Model(nn.Module):
         """A view of this model's weights (the same Parameters) under another
         compute policy and compute dtype, as the reference's train step
         builds its own ``Model`` from the plan; this model is left as it is."""
-        check_supported(self.cfg, compute)
         view = copy.copy(self)
         view.compute = compute
         view.compute_dtype = compute_dtype

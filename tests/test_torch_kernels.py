@@ -2,7 +2,8 @@
 versions) against the JAX package's Pallas kernels in interpret mode, on the
 same numpy inputs, forward and (through each ``torch.autograd.Function``)
 backward against ``jax.vjp``; and the plain versions that the card's
-kernels are held against, against float64 oracles.  fp32 throughout."""
+kernels are held against, against float64 oracles.  fp32 throughout.  The
+flash cases include head dim 88, gpt-1.4b's (d 2112 over 24 heads)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -57,11 +58,15 @@ FLASH_CASES = [  # (B, Sq, Skv, Hq, Hkv, hd, kwargs)
     (1, 64, 64, 2, 1, 64, dict(causal=True, softcap=5.0)),          # softcap
     (2, 32, 128, 4, 2, 32, dict(causal=True, q_offset=96)),         # q_offset, Sq < Skv
     (1, 32, 96, 2, 1, 32, dict(causal=True, sliding_window=16, q_offset=64, softcap=8.0)),
+    (2, 64, 64, 2, 2, 88, dict(causal=True)),                       # gpt-1.4b's hd
+    (1, 40, 56, 2, 2, 88, dict(causal=False)),                      # hd 88, ragged
+    (1, 32, 96, 2, 2, 88, dict(causal=True, q_offset=64)),          # hd 88, q_offset
 ]
+FLASH_IDS = ["g1", "g2", "noncausal", "window", "softcap", "q_offset", "window_offset_cap",
+             "hd88", "hd88_noncausal_ragged", "hd88_q_offset"]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[
-    "g1", "g2", "noncausal", "window", "softcap", "q_offset", "window_offset_cap"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
 def test_flash_attention_matches_jax(case):
     B, Sq, Skv, Hq, Hkv, hd, kw = case
     q = _rand(5, B, Sq, Hq, hd)
@@ -88,8 +93,7 @@ def _vjp_both(fn_j, fn_t, arrays, cot, **kw):
     return grads_j, [g.numpy() for g in grads_t], out_t
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=[
-    "g1", "g2", "noncausal", "window", "softcap", "q_offset", "window_offset_cap"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
 def test_flash_attention_grads_match_jax(case):
     B, Sq, Skv, Hq, Hkv, hd, kw = case
     arrays = [_rand(5, B, Sq, Hq, hd), _rand(6, B, Skv, Hkv, hd), _rand(7, B, Skv, Hkv, hd)]
@@ -121,6 +125,35 @@ def test_swiglu_grads_match_jax(shape):
     # fp32 recompute in both; d-long sums in another order
     for a, b in zip(gt, gj):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (2, 7, 176)])
+def test_layernorm_and_grads_match_jax(shape):
+    x = _rand(13, *shape) + 0.3               # off-zero mean, as in the reference's test
+    arrays = [x, 1 + _rand(14, shape[-1], scale=0.1), _rand(15, shape[-1], scale=0.1)]
+    gj, gt, out = _vjp_both(jops.layernorm, tops.layernorm, arrays, _rand(16, *shape))
+    assert type(out.grad_fn).__name__ == "LayerNormBackward"
+    # tests/test_kernels_layernorm.py's tolerances: 1e-5 forward, 1e-4/1e-5 grads
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jops.layernorm(*map(jnp.asarray, arrays))),
+                               rtol=1e-5, atol=1e-5)
+    for a, b in zip(gt, gj):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 128), (2, 6, 176, 96)])
+def test_gelu_mlp_in_and_grads_match_jax(shape):
+    *lead, d, F = shape
+    arrays = [_rand(17, *lead, d), _rand(18, d, F, scale=d ** -0.5)]
+    gj, gt, out = _vjp_both(jops.gelu_mlp_in, tops.gelu_mlp_in, arrays, _rand(19, *lead, F))
+    assert out.shape == (*lead, F)
+    assert type(out.grad_fn).__name__ == "ViewBackward0"   # reshape of the Function
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(jops.gelu_mlp_in(*map(jnp.asarray, arrays))),
+                               rtol=1e-5, atol=1e-5)
+    # tests/test_kernels_layernorm.py's gelu grad tolerance; fp32 recompute in both
+    for a, b in zip(gt, gj):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
 
 
 CE_CASES = [  # (N, d, V, valid_vocab)
@@ -166,11 +199,13 @@ BWD_CASES = [  # chip_smoke.py's small flavours, at smaller sizes
     (1, 32, 32, 4, 4, 64, dict(causal=True)),
     (1, 34, 34, 8, 1, 64, dict(causal=True)),
     (1, 24, 40, 4, 2, 64, dict(causal=True, sliding_window=12, q_offset=16, softcap=20.0)),
+    (1, 20, 36, 2, 2, 88, dict(causal=False)),
 ]
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=[
-    "window", "softcap", "q_offset", "noncausal_ragged", "g1", "g8", "window_offset_cap"])
+    "window", "softcap", "q_offset", "noncausal_ragged", "g1", "g8", "window_offset_cap",
+    "hd88_noncausal_ragged"])
 def test_flash_attention_bwd_ref_matches_autograd(case):
     B, Sq, Skv, Hq, Hkv, hd, kw = case
     q, k, v = (torch.from_numpy(a).double().requires_grad_() for a in (

@@ -3,8 +3,9 @@
 prefill logits and cache (with and without ``lens``), decode with a scalar
 and a per-slot ``pos``, and decode over a paged KV pool.  yi-6b reduced with
 kernels off and on (on the CPU the port's kernels take their plain versions,
-the JAX package's run in interpret mode), and gpt-1.4b reduced with kernels
-off for its LayerNorm, GELU and MHA layers.  fp32 throughout."""
+the JAX package's run in interpret mode), and gpt-1.4b reduced for its
+LayerNorm, GELU and MHA layers: kernels off, and kernels on at gpt-1.4b's
+head dim 88.  fp32 throughout."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,11 +29,16 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def build(arch, kernels):
-    jm = JaxModel(jax_get_config(arch).reduced(), jnp.float32,
+# gpt-1.4b reduced at its own head dim (d 2112 over 24 heads): plain
+# .reduced() has head dim 64 and would not reach the hd-88 kernels
+GPT_HD88 = dict(d_model=176, n_heads=2, head_dim=88)
+
+
+def build(arch, kernels, **overrides):
+    jm = JaxModel(jax_get_config(arch).reduced(**overrides), jnp.float32,
                   compute=JaxPolicy(kernels=kernels))
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = Model(get_config(arch).reduced(), torch.float32,
+    tm = Model(get_config(arch).reduced(**overrides), torch.float32,
                compute=ComputePolicy(kernels=kernels), device="cpu")
     tm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp), tm))
     return jm, jp, tm
@@ -122,9 +128,7 @@ def test_paged_decode_matches_jax(yi):
         _close(pj["layers"][name], pt["layers"][name])
 
 
-def test_gpt_plain_matches_jax():
-    """gpt-1.4b reduced: LayerNorm, tanh-GELU MLP, MHA, kernels off."""
-    jm, jp, tm = build("gpt-1.4b", False)
+def _gpt_prefill_decode(jm, jp, tm):
     assert tm.cfg.norm == "layernorm" and tm.cfg.act == "gelu"
     toks = _tokens(3, 2, 10, tm.cfg.vocab_size)
     (lj, cj), (lt, ct) = _prefill_both(jm, jp, tm, toks, 16)
@@ -134,3 +138,16 @@ def test_gpt_plain_matches_jax():
         lj, cj = jm.decode_step(jp, cj, {"token": jnp.asarray(tok)})
         lt, ct = tm.decode_step(ct, {"token": torch.from_numpy(tok)})
         _close(lj, lt)
+
+
+def test_gpt_plain_matches_jax():
+    """gpt-1.4b reduced: LayerNorm, tanh-GELU MLP, MHA, kernels off."""
+    _gpt_prefill_decode(*build("gpt-1.4b", False))
+
+
+def test_gpt_hd88_kernels_match_jax():
+    """gpt-1.4b reduced at head dim 88 with kernels on: the LayerNorm and
+    GELU-MLP entries in prefill and decode, flash attention in prefill."""
+    jm, jp, tm = build("gpt-1.4b", True, **GPT_HD88)
+    assert tm.cfg.resolved_head_dim == 88 and tm.cfg.n_kv_heads == tm.cfg.n_heads
+    _gpt_prefill_decode(jm, jp, tm)

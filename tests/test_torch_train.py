@@ -5,7 +5,8 @@ batches (the port's ``data/synthetic.py``, which the reference's iterator
 reproduces; see tests/test_torch_train_parts.py).  yi-6b reduced with
 kernels on and off (on the CPU the port's kernels take their plain versions
 and its autograd Functions' plain backwards), remat full and none, gas 1
-and 2; gpt-1.4b reduced with kernels off.  Losses and grad norms agree
+and 2; gpt-1.4b reduced with kernels off, and with kernels on at its head
+dim 88 (remat full, gas 2).  Losses and grad norms agree
 within 1e-4 relative, the tolerance tests/test_torch_model.py uses across
 XLA and torch; the largest drift measured over the 6 steps is 5.9e-7."""
 import numpy as np
@@ -36,16 +37,17 @@ STEPS, SEQ, BATCH = 6, 32, 4
 RTOL = 1e-4
 
 
-def trajectories(arch, *, kernels, remat, gas):
-    """(reference, port) lists of (loss, grad_norm) over STEPS steps."""
+def trajectories(arch, *, kernels, remat, gas, **overrides):
+    """(reference, port) lists of (loss, grad_norm) over STEPS steps of the
+    arch's ``.reduced(**overrides)`` config."""
     plan = dict(gas=gas, precision="fp32", remat=remat, kernels=kernels)
-    jm = JaxModel(jax_get_config(arch).reduced(), jnp.float32)
+    jm = JaxModel(jax_get_config(arch).reduced(**overrides), jnp.float32)
     jplan = JaxPlan(**plan)
     jopt = JaxAdamW(lr=jax_cosine(1e-3, 2, STEPS))
     jstate = jax_init(jm, jax.random.PRNGKey(0), jopt, jplan)
     jstep = jax.jit(jax_build(jm, jopt, jplan))
 
-    tm = Model(get_config(arch).reduced(), torch.float32, device="cpu")
+    tm = Model(get_config(arch).reduced(**overrides), torch.float32, device="cpu")
     tm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jstate["params"]), tm))
     topt = AdamWConfig(lr=cosine_schedule(1e-3, 2, STEPS))
     tplan = ParallelPlan(**plan)
@@ -81,3 +83,14 @@ def test_yi_train_step_matches_jax(kernels, remat, gas):
 def test_gpt_train_step_matches_jax(remat, gas):
     ref, port = trajectories("gpt-1.4b", kernels=False, remat=remat, gas=gas)
     np.testing.assert_allclose(port, ref, rtol=RTOL, atol=0)
+
+
+def test_gpt_hd88_kernels_train_step_matches_jax():
+    """gpt-1.4b reduced at head dim 88 (d 176 over 2 heads) with kernels on:
+    the LayerNorm and GELU-MLP Functions and the hd-88 flash path, forward
+    and backward, against the reference's kernels=True step."""
+    ref, port = trajectories("gpt-1.4b", kernels=True, remat="full", gas=2,
+                             d_model=176, n_heads=2, head_dim=88)
+    assert np.isfinite(port).all()
+    np.testing.assert_allclose(port, ref, rtol=RTOL, atol=0)
+    assert port[-1, 0] < port[0, 0]

@@ -1,25 +1,28 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
-  python3 tools/step0_limits.py        (one CUDA card, from the repo root)
+  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b]
+                                       (one CUDA card, from the repo root)
 
-The train phase holds step 0 of yi-6b (full width, 8 layers, bf16 compute
-over fp32 masters, remat full, gas 2 microbatches of 4 x 2048 tokens) with
-kernels=True against kernels=False, in loss and grad_norm.  This script
-measures what that comparison can tell apart:
+The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
+gpt-1.4b at all 24; bf16 compute over fp32 masters, remat full, gas 2
+microbatches of 4 x 2048 tokens) with kernels=True against kernels=False, in
+loss and grad_norm.  This script measures what that comparison can tell
+apart:
 
   * sound: the relative kernels-on vs kernels-off difference at step 0 for
     several weight seeds, each with its own batch;
   * planted: the same difference on seed 0 when one kernel is wrong in a
     single 64-row tile at the step's grid (its output there zeroed after the
-    real kernel ran): the swiglu forward, the flash forward, the dQ kernel,
-    and the dK/dV kernel.
+    real kernel ran): the MLP input half (swiglu or gelu_mlp), for gpt-1.4b
+    the layernorm forward, the flash forward, the dQ kernel, and the dK/dV
+    kernel.
 
 Each reading is one JSON line; the last line gives the largest sound and the
 smallest planted difference per metric.
 """
 from __future__ import annotations
 
-import dataclasses
+import argparse
 import sys
 from pathlib import Path
 
@@ -46,17 +49,20 @@ def planted(fn, outputs: tuple[int, ...], index: tuple):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(cs.TRAIN_LAYERS), default="yi-6b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("step0_limits: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, flash_attention as fa, swiglu as sg
+    from repro_torch.kernels import (_build, flash_attention as fa, gelu_mlp as gm,
+                                     layernorm as ln, swiglu as sg)
     from repro_torch.models.model import Model
     from repro_torch.runtime.train_loop import ParallelPlan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=cs.TRAIN["layers"])
+    cfg = cs.train_config(args.arch)
     gb, gas, S = cs.TRAIN["global_batch"], cs.TRAIN["gas"], cs.TRAIN["seq_len"]
     model = Model(cfg, torch.float32, device="cuda")
     batches = cs._batches(cfg.vocab_size, S, gb, len(SEEDS))
@@ -77,17 +83,22 @@ def main() -> int:
         off0 = off0 or off
         r = rel(step0(seed, True), off)
         sound.append(r)
-        cs.emit({"reading": "sound", "seed": seed, **r})
+        cs.emit({"reading": "sound", "arch": args.arch, "seed": seed, **r})
 
-    faults = {
-        "swiglu forward, rows 1024:1088": (sg, "swiglu_cuda", (0,), (TILE,)),
+    if cfg.act == "swiglu":
+        faults = {"swiglu forward, rows 1024:1088": (sg, "swiglu_cuda", (0,), (TILE,))}
+    else:
+        faults = {"gelu_mlp forward, rows 1024:1088": (gm, "gelu_mlp_cuda", (0,), (TILE,)),
+                  "layernorm forward, rows 1024:1088 of sequence 0":
+                      (ln, "layernorm_cuda", (0,), (0, TILE))}
+    faults.update({
         "flash forward, query rows 1024:1088 of head 0":
             (fa, "flash_attention_fwd_cuda", (0,), (0, TILE, 0)),
         "flash dQ, query rows 1024:1088 of head 0":
             (fa, "flash_attention_bwd_cuda", (0,), (0, TILE, 0)),
         "flash dK/dV, key rows 1024:1088 of kv head 0":
             (fa, "flash_attention_bwd_cuda", (1, 2), (0, TILE, 0)),
-    }
+    })
     planted_rel = []
     for name, (mod, attr, outputs, index) in faults.items():
         real = getattr(mod, attr)
@@ -97,14 +108,15 @@ def main() -> int:
         finally:
             setattr(mod, attr, real)
         planted_rel.append(r)
-        cs.emit({"reading": "planted", "fault": name, **r})
+        cs.emit({"reading": "planted", "arch": args.arch, "fault": name, **r})
 
     card = cs.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    cs.emit({"summary": {key: {"sound_max": max(r[key] for r in sound),
-                               "planted_min": min(r[key] for r in planted_rel)}
-                         for key in ("loss", "grad_norm")}, "card": card})
+    summary = {key: {"sound_max": max(r[key] for r in sound),
+                     "planted_min": min(r[key] for r in planted_rel)}
+               for key in ("loss", "grad_norm")}
+    cs.emit({"arch": args.arch, "summary": summary, "card": card})
     return 0
 
 
