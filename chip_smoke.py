@@ -14,12 +14,20 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      CE: ragged N, valid_vocab < V, labels in the last partial block), the
      flash C entries' refusal of a head dim they were not built for, then
      the kernel / plain / library / bound times;
-  3. serve, for yi-6b and then gpt-1.4b: the model at full width in bf16
-     with kernels=True through ``ServeEngine`` (8 requests, 4 slots, paged
-     pool); the serving kernels' launch counters must rise; the logits are
-     held against a kernels=False run on the card, and a reduced fp32 model
-     against kernels=False tightly; then a ``torch.profiler`` pass over
-     prefill and decode;
+     The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
+     widths, 128 experts, at their serve prefill and decode slot counts
+     with masks from top-k routing of random gates, bf16 and reduced fp32,
+     with masked rows exactly 0;
+  3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers) and
+     arctic-480b (1 of 35 layers): the model at full width in bf16 with
+     kernels=True through ``ServeEngine`` (8 requests, 4 slots, paged pool);
+     the serving kernels' launch counters must rise (the grouped MLP's to
+     (prefills + ticks) x MoE layers exactly); the logits are held against
+     a kernels=False run on the card (for the moe family beside the share of
+     request 0's routing that both runs agree on), and a reduced fp32 model
+     against kernels=False tightly; the grouped kernel is held against its
+     plain version on the (x, mask) a real prefill gives it; then a
+     ``torch.profiler`` pass over prefill and decode;
   4. train, for yi-6b (full width, 8 layers) and then gpt-1.4b (full width,
      all 24 layers): a reduced fp32 model (at the arch's head dim) with
      kernels on vs off over 5 steps, tightly; then the arch in bf16 compute
@@ -35,6 +43,7 @@ The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -66,19 +75,33 @@ KERNELS = {
     "cross_entropy": ("cross_entropy.cu", "src/repro/kernels/cross_entropy.py:33"),
     "layernorm": ("layernorm.cu", "src/repro/kernels/layernorm.py:22"),
     "gelu_mlp": ("gelu_mlp.cu", "src/repro/kernels/gelu_mlp.py:33"),
+    # both bodies: _swiglu_kernel (:27) and _gelu_kernel (:39)
+    "grouped_mlp": ("grouped_mlp.cu", "src/repro/kernels/grouped_mlp.py:27"),
 }
-# the kernels each arch's paths run: (serving, the train step)
-ARCH_KERNELS = {
-    "yi-6b": (("rmsnorm", "swiglu", "flash_attention"),
-              ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
-               "flash_attention_bwd_dkv", "cross_entropy")),
-    "gpt-1.4b": (("layernorm", "gelu_mlp", "flash_attention"),
-                 ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
-                  "flash_attention_bwd_dkv", "cross_entropy")),
+LLAMA4, ARCTIC = "llama4-maverick-400b-a17b", "arctic-480b"
+# the kernels each arch's serving path runs
+SERVE_KERNELS = {
+    "yi-6b": ("rmsnorm", "swiglu", "flash_attention"),
+    "gpt-1.4b": ("layernorm", "gelu_mlp", "flash_attention"),
+    LLAMA4: ("rmsnorm", "swiglu", "flash_attention", "grouped_mlp"),
+    ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "grouped_mlp"),
+}
+# the kernels each arch's train step runs (the moe family serves only)
+TRAIN_KERNELS = {
+    "yi-6b": ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "cross_entropy"),
+    "gpt-1.4b": ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "cross_entropy"),
 }
 # the reduced fp32 model each arch is first held against kernels=False with,
 # at the arch's own head dim (plain .reduced() has hd 64)
-REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2, head_dim=88)}
+REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2, head_dim=88),
+           LLAMA4: dict(head_dim=128), ARCTIC: dict(head_dim=128)}
+# serving depth of the moe family at full width in bf16 on one 80 GB card:
+# llama4 one stack unit (a dense layer, then a MoE layer: 18.55e9
+# parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the init draws
+# a stacked expert leaf whole in fp32 beside them
+SERVE_LAYERS = {LLAMA4: 2, ARCTIC: 1}
 
 
 def emit(obj: dict) -> None:
@@ -119,6 +142,19 @@ def max_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
+def limit_share(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float,
+                terms: tuple = ()) -> tuple[torch.Tensor, torch.Tensor, str]:
+    """|out - ref| and its share of the elementwise limit atol + rtol*|ref| +
+    the sum of tol*scale over ``terms``, and the rule as text."""
+    diff = (out.float() - ref.float()).abs()
+    limit = atol + rtol * ref.float().abs()
+    rule = f"|d| <= {atol:g} + {rtol:g}*|ref|"
+    for scale, tol, scale_name in terms:
+        limit = limit + tol * scale.float()
+        rule += f" + {tol:g}*({scale_name})"
+    return diff, diff / limit, rule
+
+
 def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, *, rtol: float,
                 atol: float, why: str, terms: tuple = ()) -> float:
     """|out - ref| <= atol + rtol*|ref| + the sum of tol*scale over ``terms``
@@ -128,14 +164,8 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, *, rtol: float,
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: shape {tuple(out.shape)} vs "
                              f"{tuple(ref.shape)} or non-finite output")
-    diff = (out.float() - ref.float()).abs()
-    limit = atol + rtol * ref.float().abs()
-    rule = f"|d| <= {atol:g} + {rtol:g}*|ref|"
-    for scale, tol, scale_name in terms:
-        limit = limit + tol * scale.float()
-        rule += f" + {tol:g}*({scale_name})"
+    diff, share, rule = limit_share(out, ref, rtol, atol, terms)
     err = float(diff.max())
-    share = diff / limit
     worst = float(share.max())
     at = [int(i) for i in np.unravel_index(int(share.argmax()), share.shape)]
     emit({"phase": "kernel_check", "case": name, "max_abs_err": err,
@@ -215,32 +245,39 @@ FLASH_FLAVOURS = [  # small cases of both flash checks: (name, B, Sq, Skv, Hq, H
 
 
 def phase_kernels(timer: Timer) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa, rmsnorm as rn, swiglu as sg
     from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, swiglu_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
 
-    # rmsnorm: the prefill norm of 2048 tokens of yi-6b, and the train
-    # step's 4 x 2048 rows
+    # the moe family's widths: d, the dense MLP's F (llama4's dense layer and
+    # shared expert, arctic's residual MLP) and the attention heads
+    moe = [get_config(arch) for arch in (LLAMA4, ARCTIC)]
+
+    # rmsnorm: the prefill norm of 2048 tokens of yi-6b, the train step's
+    # 4 x 2048 rows, and a 256-token prefill of llama4 and arctic
     rms_rows = []
-    for rows_n, dtype in ((2048, torch.bfloat16), (2048, torch.float32),
-                          (8192, torch.bfloat16), (8192, torch.float32)):
+    for rows_n, d, dtype in ((2048, 4096, torch.bfloat16), (2048, 4096, torch.float32),
+                             (8192, 4096, torch.bfloat16), (8192, 4096, torch.float32),
+                             *((256, c.d_model, dt) for c in moe
+                               for dt in (torch.bfloat16, torch.float32))):
         rtol, atol = TOL["rmsnorm"][dtype]
-        x = randn(gen, rows_n, 4096, dtype=dtype)
-        w = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).to(dtype)
-        err = check_close(f"rmsnorm {dtype} ({rows_n}, 4096)", rn.rmsnorm_cuda(x, w, 1e-5),
+        x = randn(gen, rows_n, d, dtype=dtype)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+        err = check_close(f"rmsnorm {dtype} ({rows_n}, {d})", rn.rmsnorm_cuda(x, w, 1e-5),
                           rmsnorm_ref(x, w, 1e-5), rtol=rtol, atol=atol,
                           why=TOL["rmsnorm"]["why"])
         if dtype == torch.bfloat16:
             nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
             b, by = bound_ms(nbytes, 4 * x.numel(), torch.float32)
             rms_rows.append({
-                "shape": f"x ({rows_n}, 4096) bf16", "max_abs_err": err,
+                "shape": f"x ({rows_n}, {d}) bf16", "max_abs_err": err,
                 "rtol": rtol, "atol": atol,
                 "ms": timer(lambda: rn.rmsnorm_cuda(x, w, 1e-5)),
                 "plain_ms": timer(lambda: rmsnorm_ref(x, w, 1e-5)),
-                "library_ms": (timer(lambda: F.rms_norm(x, (4096,), w, 1e-5))
+                "library_ms": (timer(lambda: F.rms_norm(x, (d,), w, 1e-5))
                                if hasattr(F, "rms_norm") else None),
                 "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by})
     rows["rmsnorm"] = {**rms_rows[0], "cases": rms_rows[1:]}
@@ -254,21 +291,22 @@ def phase_kernels(timer: Timer) -> dict:
                            atol=atol, why=TOL["swiglu"]["why"])
 
     # swiglu: prefill (512 tokens), decode (4 slots) and the train step's
-    # microbatch (4 x 2048 tokens) of yi-6b's MLP gate
+    # microbatch (4 x 2048 tokens) of yi-6b's MLP gate; a 256-token prefill
+    # and decode of llama4's (5120 x 8192) and arctic's (7168 x 4864) dense MLP
     swiglu_cases = []
-    for N in (512, 4, 8192):
+    for N, d, F_ in ((512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
+                     *((N, c.d_model, c.dense_d_ff or c.d_ff) for c in moe for N in (256, 4))):
         for dtype in (torch.bfloat16, torch.float32):
             rtol, atol = TOL["swiglu"][dtype]
-            x = randn(gen, N, 4096, dtype=dtype)
-            w1 = randn(gen, 4096, 11008, dtype=dtype, scale=4096 ** -0.5)
-            w3 = randn(gen, 4096, 11008, dtype=dtype, scale=4096 ** -0.5)
-            err = check_swiglu(f"swiglu {dtype} ({N}, 4096)x(4096, 11008)",
-                               x, w1, w3)
+            x = randn(gen, N, d, dtype=dtype)
+            w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            w3 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            err = check_swiglu(f"swiglu {dtype} ({N}, {d})x({d}, {F_})", x, w1, w3)
             if dtype == torch.bfloat16:
-                nbytes = (x.numel() + w1.numel() + w3.numel() + N * 11008) * 2
-                b, by = bound_ms(nbytes, 4 * N * 4096 * 11008, dtype)
+                nbytes = (x.numel() + w1.numel() + w3.numel() + N * F_) * 2
+                b, by = bound_ms(nbytes, 4 * N * d * F_, dtype)
                 swiglu_cases.append({
-                    "shape": f"x ({N}, 4096), w1/w3 (4096, 11008) bf16",
+                    "shape": f"x ({N}, {d}), w1/w3 ({d}, {F_}) bf16",
                     "max_abs_err": err, "rtol": rtol, "atol": atol,
                     "ms": timer(lambda: sg.swiglu_cuda(x, w1, w3)),
                     "plain_ms": timer(lambda: swiglu_ref(x, w1, w3)),
@@ -323,14 +361,18 @@ def phase_kernels(timer: Timer) -> dict:
                 "bound_ms": b, "bound_by": by}
 
     # flash attention: causal prefill of 2048 tokens (B = 1) and the train
-    # step's microbatch (B = 4), yi-6b heads (32 of 128, GQA 8), then the
-    # train step's microbatch with gpt-1.4b heads (24 of 88, MHA)
+    # step's microbatch (B = 4), yi-6b heads (32 of 128, GQA 8), the train
+    # step's microbatch with gpt-1.4b heads (24 of 88, MHA), and a 256-token
+    # prefill with llama4's (40q/8kv, GQA 5) and arctic's (56q/8kv, GQA 7) heads
     flash_rows = []
-    for B, Hq, Hkv, hd in ((1, 32, 4, 128), (4, 32, 4, 128), (4, GPT_HEADS, GPT_HEADS, GPT_HD)):
+    for B, S, Hq, Hkv, hd in ((1, 2048, 32, 4, 128), (4, 2048, 32, 4, 128),
+                              (4, 2048, GPT_HEADS, GPT_HEADS, GPT_HD),
+                              *((1, 256, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+                                for c in moe)):
         for dtype in (torch.bfloat16, torch.float32):
             err, (q, k, v) = flash_case(
-                f"flash {dtype} ({B}, 2048, {Hq}q/{Hkv}kv, {hd}) causal",
-                B, 2048, 2048, Hq, Hkv, hd, dtype, causal=True)
+                f"flash {dtype} ({B}, {S}, {Hq}q/{Hkv}kv, {hd}) causal",
+                B, S, S, Hq, Hkv, hd, dtype, causal=True)
             if dtype == torch.bfloat16:
                 flash_rows.append(flash_row(err, q, k, v))
             del q, k, v
@@ -657,7 +699,208 @@ def phase_kernels_train(timer: Timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve yi-6b and gpt-1.4b at full width
+# phase 2c: the moe slice's grouped expert MLP
+# ---------------------------------------------------------------------------
+
+# grouped MLP: kernel and plain version differ by (a) the kernel's rounding of
+# h to TF32 for the bf16 down product (to nearest, at most 2^-11 of each
+# value), (b) the order of their fp32 sums over d (the gate, carried to the
+# output through the activation's slope, |silu'| <= 1.1, |gelu'| <= 1.13,
+# and w2) and over F (the down product), and (c) in bf16 one ULP between the
+# output roundings.  (a) and (b) add many small independent roundings over F
+# (and d), so at an output they spread like the root of the sum of squares
+# (RSS) of the terms rounded, not like the sum of their bounds (which grows
+# with d and F far faster than the error does): (a) has an rms of at most
+# 2^-11/sqrt(3) of RSS_f(h*w2), (b) of 2^-24*sqrt(2n) of the RSS of the n
+# terms summed on each side.  The check allows GROUPED_SIGMAS of those rms;
+# over the ~10^6 outputs of a case a sound kernel's largest reading is near
+# 5.5 of them.  Three planted faults must fail the same limit at the full
+# widths: h rounded to bf16 in place of TF32 (2^-8), and the first 32-wide
+# k-tile of the gate's or of the down product's sum left out.
+GROUPED_SIGMAS = 8.0
+GROUPED_TF32_RMS = 2.0 ** -11 / 3 ** 0.5
+GROUPED_SUM_RMS = 2.0 ** -24 * 2 ** 0.5          # times sqrt(n)
+GROUPED_WHY = ("bf16: h rounded to TF32 for the down product; fp32 sums in another "
+               "order over d and F; each as 8 rms of its spread (the RSS of its "
+               "rounded terms); bf16: one ULP between the output roundings")
+GROUPED_FAULTS = ("h rounded to bf16", "gate k-tile 0 skipped", "down k-tile 0 skipped")
+
+
+def routed_mask(gen, G: int, g: int, E: int, top_k: int, C: int) -> torch.Tensor:
+    """The (E, G*C) slot mask that the model's own router gives G groups of g
+    tokens under softmax-of-Gaussian gates, in ``_expert_mlps``' layout."""
+    from repro_torch.models.moe import _route
+
+    gates = torch.softmax(torch.randn(G, g, E, generator=gen, device="cuda"), -1)
+    slot_valid = _route(gates, top_k, C)[2]
+    return slot_valid.reshape(G, E, C).transpose(0, 1).reshape(E, G * C).float()
+
+
+def grouped_terms(x, w1, w3, w2, mask, act: str,
+                  planted: bool = False) -> tuple[tuple, dict]:
+    """The error terms of the grouped check over (E, N, d) fp32 scales,
+    zero for experts with no valid slot: RSS_f(h*w2) and RSS_f(slope*w2),
+    with slope = 1.1*|b|*RSS_d(x*w1) + |silu(a)|*RSS_d(x*w3) (swiglu) or
+    1.13*RSS_d(x*w1) (gelu); computed a few experts at a time.  With
+    ``planted``, also the plain version's output under each of
+    GROUPED_FAULTS."""
+    from repro_torch.kernels.ref import gelu_tanh
+
+    E, N, d = x.shape
+    F_ = w1.shape[-1]
+    hs = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    gs = torch.zeros_like(hs)
+    faults = {k: torch.zeros_like(x) for k in GROUPED_FAULTS} if planted else {}
+    for e in mask.ne(0).any(1).nonzero()[:, 0].split(4):
+        m = mask[e].float()[..., None]
+        x32 = x[e].float() * m
+        w1e = w1[e].float()
+        a = torch.bmm(x32, w1e)
+        ra = torch.bmm(x32.square(), w1e.square()).sqrt_()
+        a_skip = a - torch.bmm(x32[..., :32], w1e[:, :32]) if planted else None
+        del w1e
+        if act == "swiglu":
+            w3e = w3[e].float()
+            b = torch.bmm(x32, w3e)
+            rb = torch.bmm(x32.square(), w3e.square()).sqrt_()
+            h = F.silu(a) * b
+            slope = 1.1 * b.abs() * ra + F.silu(a).abs() * rb
+            if planted:
+                h_skip = F.silu(a_skip) * (b - torch.bmm(x32[..., :32], w3e[:, :32]))
+            del w3e
+        else:
+            h = gelu_tanh(a)
+            slope = 1.13 * ra
+            h_skip = gelu_tanh(a_skip) if planted else None
+        w2e = w2[e].float()
+        w2sq = w2e.square()
+        hs[e] = torch.bmm(h.square(), w2sq).sqrt_() * m
+        gs[e] = torch.bmm(slope.square(), w2sq).sqrt_() * m
+        if planted:
+            for name, (hh, ww) in zip(GROUPED_FAULTS, (
+                    (h.bfloat16().float(), w2e), (h_skip, w2e), (h[..., 32:], w2e[:, 32:]))):
+                faults[name][e] = (torch.bmm(hh, ww) * m).to(x.dtype)
+    bf16 = x.dtype == torch.bfloat16
+    h_rms = (GROUPED_TF32_RMS if bf16 else 0.0) + GROUPED_SUM_RMS * F_ ** 0.5
+    return ((hs, GROUPED_SIGMAS * h_rms, "RSS_f(h*w2)"),
+            (gs, GROUPED_SIGMAS * GROUPED_SUM_RMS * d ** 0.5, "RSS_f(slope*w2)")), faults
+
+
+def check_grouped(name: str, x, w1, w3, w2, mask, act: str, planted: bool = False) -> float:
+    """The grouped kernel against ``grouped_mlp_ref`` on the same inputs, with
+    the masked rows exactly 0; with ``planted``, each planted fault of the
+    plain version must fail the same limit."""
+    from repro_torch.kernels import grouped_mlp as gp
+    from repro_torch.kernels.ref import grouped_mlp_ref
+
+    out = gp.grouped_mlp_cuda(x, w1, w3, w2, mask, act)
+    torch.cuda.synchronize()
+    dead = out[mask == 0]
+    emit({"phase": "kernel_check", "case": name + " masked rows",
+          "masked_rows": int((mask == 0).sum()), "nonzero": int(dead.ne(0).sum())})
+    if dead.ne(0).any():
+        raise AssertionError(f"{name}: masked rows are not exactly 0")
+    terms, faults = grouped_terms(x, w1, w3, w2, mask, act, planted)
+    ref = grouped_mlp_ref(x, w1, w3, w2, mask, act)
+    rtol = 1.1 * BF16_ULP if x.dtype == torch.bfloat16 else 1e-6
+    err = check_close(name, out, ref, rtol=rtol, atol=1e-6, why=GROUPED_WHY, terms=terms)
+    for fault, bad in faults.items():
+        worst = float(limit_share(bad, ref, rtol, 1e-6, terms)[1].max())
+        emit({"phase": "planted_fault", "case": name, "fault": fault,
+              "worst_share_of_limit": worst})
+        if worst <= 1:
+            raise AssertionError(f"{name}: the limit does not catch a planted fault "
+                                 f"({fault}: {worst:.2f} of it)")
+    return err
+
+
+def grouped_bmm(x, w1, w3, w2, mask, act: str) -> torch.Tensor:
+    """The same function as one cuBLAS composition over all experts (the
+    yardstick; the port never calls it)."""
+    a = torch.bmm(x, w1)
+    h = F.silu(a) * torch.bmm(x, w3) if act == "swiglu" else F.gelu(a, approximate="tanh")
+    return torch.bmm(h, w2) * mask[..., None].to(x.dtype)
+
+
+def grouped_row(timer: Timer, err: float, x, w1, w3, w2, mask, act: str) -> dict:
+    """The timed row of a bf16 case: the bound counts the weights of the
+    experts with a valid slot, x and the output, or the FLOPs of the valid
+    slots."""
+    from repro_torch.kernels import grouped_mlp as gp
+    from repro_torch.kernels.ref import grouped_mlp_ref
+
+    E, N, d = x.shape
+    F_ = w1.shape[-1]
+    n_w = 3 if act == "swiglu" else 2
+    live = int(mask.ne(0).any(1).sum())
+    valid = int(mask.ne(0).sum())
+    b, by = bound_ms(live * n_w * d * F_ * 2 + 2 * x.numel() * 2 + mask.numel() * 4,
+                     2 * valid * n_w * d * F_, x.dtype)
+    return {"shape": f"x ({E}, {N}, {d}), F {F_}, {act}, bf16", "experts_with_a_slot": live,
+            "valid_slots": valid, "max_abs_err": err, "sigmas": GROUPED_SIGMAS,
+            "ms": timer(lambda: gp.grouped_mlp_cuda(x, w1, w3, w2, mask, act)),
+            "plain_ms": timer(lambda: grouped_mlp_ref(x, w1, w3, w2, mask, act)),
+            "library_ms": timer(lambda: grouped_bmm(x, w1, w3, w2, mask, act)),
+            "library_call": "torch.bmm composition over all experts (bmm, silu, mul, "
+                            "bmm, mask)",
+            "bound_ms": b, "bound_by": by}
+
+
+def phase_kernels_moe(timer: Timer) -> dict:
+    """The grouped kernel at the serve path's shapes: G = 1 group of a
+    256-token prefill bucket (N = C = 3 for llama4's top-1, 5 for arctic's
+    top-2) and decode's G = 4 slots of one token (N = 4, at most 4*k valid),
+    masks from the model's router on random gates; arctic's widths again
+    with the gelu body; each of these also holds GROUPED_FAULTS, planted in
+    the plain version, to fail the same limit.  Then reduced fp32 and bf16
+    cases with ragged N and F, an expert with no valid slot and a live expert
+    with a whole masked 64-row tile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timed = []
+    for arch, acts in ((LLAMA4, ("swiglu",)), (ARCTIC, ("swiglu", "gelu"))):
+        cfg = get_config(arch)
+        E, d, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        w1, w3, w2 = (torch.randn(*shape, generator=gen, device="cuda",
+                                  dtype=torch.bfloat16).mul_(shape[1] ** -0.5)
+                      for shape in ((E, d, F_), (E, d, F_), (E, F_, d)))
+        for act in acts:
+            for what, G, g in (("prefill 256", 1, 256), ("decode", 4, 1)):
+                if act == "gelu" and what == "decode":
+                    continue
+                C = moe_capacity(g, cfg)
+                mask = routed_mask(gen, G, g, E, cfg.top_k, C)
+                x = torch.randn(E, G * C, d, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+                w3a = w3 if act == "swiglu" else None
+                name = f"grouped {arch} {what} {act} bf16 (E {E}, N {G * C}, d {d}, F {F_})"
+                err = check_grouped(name, x, w1, w3a, w2, mask, act, planted=True)
+                timed.append({"case": f"{arch} {what}",
+                              **grouped_row(timer, err, x, w1, w3a, w2, mask, act)})
+        del w1, w3, w2
+        torch.cuda.empty_cache()
+
+    # reduced widths: ragged N (37 rows, 130 = 2 tiles + 2) and F (520, 96),
+    # expert 1 with no valid slot, expert 0 with rows 64..127 masked whole
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for act in ("swiglu", "gelu"):
+            for E, N, d, F_ in ((8, 37, 256, 520), (4, 130, 128, 96)):
+                x = randn(gen, E, N, d, dtype=dtype)
+                w1 = randn(gen, E, d, F_, dtype=dtype, scale=d ** -0.5)
+                w3 = randn(gen, E, d, F_, dtype=dtype, scale=d ** -0.5) if act == "swiglu" else None
+                w2 = randn(gen, E, F_, d, dtype=dtype, scale=F_ ** -0.5)
+                mask = (torch.rand(E, N, generator=gen, device="cuda") > 0.4).float()
+                mask[1] = 0
+                mask[0, 64:128] = 0
+                check_grouped(f"grouped {act} {tag} ragged (E {E}, N {N}, d {d}, F {F_})",
+                              x, w1, w3, w2, mask, act)
+    return {"grouped_mlp": {**timed[0], "cases": timed[1:]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve yi-6b, gpt-1.4b, llama4-maverick and arctic at full width
 # ---------------------------------------------------------------------------
 
 # bf16 last-token logits, kernels on vs off: max |d| over the logit range
@@ -668,7 +911,49 @@ LOGITS_TOL_WHY = {
     "gpt-1.4b": "bf16 through 24 layers; the kernels keep the GELU product and the "
                 "LayerNorm statistics in fp32 before one rounding and round P in "
                 "attention; the plain path rounds x@w1 to bf16 before its GELU",
+    LLAMA4: "bf16 through 2 layers; the grouped kernel keeps both expert products in "
+            "fp32 where the plain einsums round to bf16; a token whose top-1 expert "
+            "flips between the runs (an ULP of the norm moves the router logits) "
+            "changes its MoE output whole",
+    ARCTIC: "bf16 through 1 layer; as llama4, with a top-2 choice per token",
 }
+
+
+def serve_config(arch: str):
+    """The arch at full width with its serving depth (all layers for the dense
+    family)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=SERVE_LAYERS.get(arch, cfg.n_layers))
+
+
+@contextlib.contextmanager
+def capture_moe():
+    """Record, for each ``moe_block`` call, the experts its router chose and
+    whether each assignment kept a slot (each (G, g, k)), and the (x, mask)
+    it handed ``ops.grouped_mlp``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    route, grouped = moe._route, ops.grouped_mlp
+    seen: dict[str, list] = {"experts": [], "keep": [], "grouped": []}
+
+    def route_rec(gates, top_k, capacity):
+        out = route(gates, top_k, capacity)
+        seen["experts"].append(torch.stack([a[0] for a in out[0]], -1))
+        seen["keep"].append(torch.stack([a[2] for a in out[0]], -1))
+        return out
+
+    def grouped_rec(x, w1, w3, w2, mask, act="swiglu"):
+        seen["grouped"].append((x, mask))
+        return grouped(x, w1, w3, w2, mask, act)
+
+    moe._route, ops.grouped_mlp = route_rec, grouped_rec
+    try:
+        yield seen
+    finally:
+        moe._route, ops.grouped_mlp = route, grouped
 
 
 def phase_serve(card: str, arch: str) -> dict:
@@ -696,7 +981,8 @@ def phase_serve(card: str, arch: str) -> dict:
         raise AssertionError(f"reduced fp32 greedy tokens differ: {gk} vs {gp}")
     del red
 
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
+    moe_layers = cfg.n_layers // cfg.moe_every if cfg.family == "moe" else 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
@@ -714,26 +1000,55 @@ def phase_serve(card: str, arch: str) -> dict:
     out = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: ops.launch_counts()[k] for k in ARCH_KERNELS[arch][0]}
+    launches = {k: ops.launch_counts()[k] for k in SERVE_KERNELS[arch]}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched on the serve path: {launches}")
+    grouped_expected = (engine.n_prefills + engine.n_ticks) * moe_layers
+    if moe_layers and launches["grouped_mlp"] != grouped_expected:
+        raise AssertionError(f"grouped_mlp launched {launches['grouped_mlp']} times, "
+                             f"expected (prefills + ticks) x MoE layers = {grouped_expected}")
     if sorted(out) != list(range(8)) or any(len(t) != 32 for t in out.values()):
         raise AssertionError("engine did not return 32 tokens for each of 8 requests")
 
     # request 0 against kernels=False on the card: last-token prefill logits
-    # and the greedy stream
+    # and the greedy stream; for the moe family the router's choices of both
+    # runs and the grouped kernel's own inputs
     p0 = torch.from_numpy(prompts[0].astype(np.int64))[None].cuda()
-    lk, _ = model.prefill({"tokens": p0}, 512)
+    with capture_moe() as on:
+        lk, _ = model.prefill({"tokens": p0}, 512)
     model.compute = ComputePolicy(kernels=False)
-    lp, _ = model.prefill({"tokens": p0}, 512)
+    with capture_moe() as off:
+        lp, _ = model.prefill({"tokens": p0}, 512)
     gp = greedy_generate(model, p0, 32, 512)[0].cpu().numpy()
     model.compute = ComputePolicy(kernels=True)
+    moe_res = {}
+    if moe_layers:
+        route_agree = [float((a == b).float().mean())
+                       for a, b in zip(on["experts"], off["experts"])]
+        # the last token's logits see its own routing in the last MoE layer
+        last_same = [bool(torch.equal(a[:, -1], b[:, -1]) and torch.equal(ka[:, -1], kb[:, -1]))
+                     for a, b, ka, kb in zip(on["experts"], off["experts"], on["keep"],
+                                             off["keep"])]
+        x0, m0 = on["grouped"][-1]                    # the last MoE layer's
+        lp_moe = model.params()["layers"]["moe"]
+        w3 = lp_moe["w3"][-1] if cfg.act == "swiglu" else None
+        err = check_grouped(f"grouped {arch} on request 0's prefill (E {x0.shape[0]}, "
+                            f"N {x0.shape[1]}, d {x0.shape[2]})", x0, lp_moe["w1"][-1], w3,
+                            lp_moe["w2"][-1], m0, cfg.act)
+        moe_res = {"moe_layers": moe_layers, "experts": cfg.n_experts, "top_k": cfg.top_k,
+                   "grouped_expected": grouped_expected,
+                   "routing_agree_request0_by_moe_layer": route_agree,
+                   "last_token_routing_same_by_moe_layer": last_same,
+                   "grouped_request0_N": int(x0.shape[1]),
+                   "grouped_request0_valid_slots": int(m0.ne(0).sum()),
+                   "grouped_request0_max_abs_err": err}
     rel = max_err(lk, lp) / float(lp.abs().max())
     agree = float(np.mean(gp == out[0]))
     first_diverge = int(np.argmax(gp != out[0])) if agree < 1 else 32
     recs = engine.records
     ttft = [r["t_first_token"] - r["t_arrival"] for r in recs]
-    res = {"phase": "serve", "arch": cfg.name, "params": model.n_params(),
+    res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+           "params": model.n_params(),
            "dtype": "bf16", "kernels": True, "n_slots": 4, "cache_len": 512,
            "block_size": 16, "requests": len(recs),
            "prompt_tokens": int(sum(len(p) for p in prompts)),
@@ -747,7 +1062,7 @@ def phase_serve(card: str, arch: str) -> dict:
            "logits_vs_plain_rel_err": rel, "logits_rel_tol": LOGITS_REL_TOL,
            "logits_tol_why": LOGITS_TOL_WHY[arch],
            "greedy_agree_vs_plain": agree, "greedy_first_divergence": first_diverge,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+           **moe_res, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(res)
     if not torch.isfinite(lk).all() or rel > LOGITS_REL_TOL:
         raise AssertionError(f"{arch} logits kernels on vs off: rel err {rel}")
@@ -761,6 +1076,7 @@ def phase_serve(card: str, arch: str) -> dict:
 
 # device-time groups of the profile, by kernel name (first match wins)
 PROFILE_GROUPS = (
+    ("grouped_mlp kernels", ("grouped_",)),
     ("rmsnorm kernel", ("rmsnorm_kernel",)),
     ("layernorm kernel", ("layernorm_kernel",)),
     ("swiglu kernel", ("swiglu_",)),
@@ -772,7 +1088,7 @@ PROFILE_GROUPS = (
     ("other GEMMs", ("gemm", "nvjet", "cutlass")),
 )
 PORTED = {"rmsnorm kernel", "layernorm kernel", "swiglu kernel", "gelu_mlp kernel",
-          "flash fwd kernel", "flash bwd kernels", "ce kernels"}
+          "flash fwd kernel", "flash bwd kernels", "ce kernels", "grouped_mlp kernels"}
 
 
 def _profile(fn) -> dict:
@@ -955,7 +1271,7 @@ def phase_train(card: str, arch: str) -> dict:
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     on = _run_steps(model, plan, batches, 0)
-    launches = {k: ops.launch_counts()[k] for k in ARCH_KERNELS[arch][1]}
+    launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[arch]}
     peak = torch.cuda.max_memory_allocated() / 1e9
     flops = costmodel.train_step_flops(cfg, gb, S).total
     for r in on:
@@ -1020,25 +1336,28 @@ def main() -> int:
     timer = Timer()
     rows = phase_kernels(timer)
     rows.update(phase_kernels_train(timer))
+    rows.update(phase_kernels_moe(timer))
     del timer
     torch.cuda.empty_cache()
     # each path's counts are zeroed just before it runs and read just after
     paths = {}
-    for arch in ARCH_KERNELS:
+    for arch in SERVE_KERNELS:
         paths[f"{arch} serve"] = phase_serve(card, arch)
         torch.cuda.empty_cache()
-    for arch in ARCH_KERNELS:
+    for arch in TRAIN_KERNELS:
         paths[f"{arch} train"] = phase_train(card, arch)
         torch.cuda.empty_cache()
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start})
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
                for name in KERNELS}
-    # ``launches``: the kernel's count in this slice's main path, the gpt-1.4b
-    # train step, or for the yi-6b kernels in the yi-6b train step
+    # ``launches``: the kernel's count in the gpt-1.4b train step, for the
+    # yi-6b kernels in the yi-6b train step, and for the serve-only grouped
+    # MLP in the llama4-maverick serve run
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
          "replaces": replaces,
-         "launches": by_path[name].get("gpt-1.4b train", by_path[name].get("yi-6b train")),
+         "launches": by_path[name].get("gpt-1.4b train", by_path[name].get(
+             "yi-6b train", by_path[name].get(f"{LLAMA4} serve"))),
          "launches_by_path": by_path[name], **rows[name], "card": card}
         for name, (src, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,10 +11,11 @@
     token chunks stay checkpointed whatever ``remat`` says: their recompute
     is what keeps the scores and the (N, V) logits from being saved.
     Serving runs under ``torch.no_grad`` and checkpoints nothing.
-  * ``kernels`` — route RMSNorm, the SwiGLU gate, self-attention (forward
-    and backward) and the cross-entropy through the hand-written CUDA
-    kernels in ``repro_torch.kernels`` (their plain PyTorch versions on CPU
-    tensors) instead of the plain layers.
+  * ``kernels`` — route the norms, the MLP input half (SwiGLU gate or
+    GELU), self-attention (forward and backward), the cross-entropy and the
+    grouped expert MLPs through the hand-written CUDA kernels in
+    ``repro_torch.kernels`` (their plain PyTorch versions on CPU tensors)
+    instead of the plain layers.
 """
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gelu_mlp as gm
+from repro_torch.kernels import grouped_mlp as gp
 from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import swiglu as sg
@@ -26,6 +27,7 @@ KERNEL_COUNTERS = {
     "layernorm": (ln, "launches"),
     "gelu_mlp": (gm, "launches"),
     "cross_entropy": (ce, "launches"),
+    "grouped_mlp": (gp, "launches"),
 }
 
 
@@ -84,6 +86,20 @@ def cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                   valid_vocab: int | None = None) -> torch.Tensor:
     """Mean blocked CE over the tokens."""
     return cross_entropy_tokens(h, w, labels, valid_vocab).mean()
+
+
+def grouped_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
+                w2: torch.Tensor, mask: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """Grouped expert MLP over the expert-major slot layout: x (E, N, d),
+    w1/w3 (E, d, F), w2 (E, F, d), mask (E, N) -> (E, N, d).  Masked
+    (padded-capacity) slots give zero output and zero weight gradients.
+    ``act`` in {"swiglu", "gelu"}; differentiable."""
+    if act == "swiglu":
+        if w3 is None:
+            raise ValueError("act='swiglu' needs w3")
+    elif act != "gelu":
+        raise ValueError(f"unsupported grouped-MLP act {act!r}")
+    return gp.grouped_mlp(x, w1, w3 if act == "swiglu" else None, w2, mask, act)
 
 
 def launch_counts() -> dict[str, int]:

@@ -211,6 +211,13 @@ def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * a * (1.0 + torch.tanh(u))
 
 
+def gelu_tanh_grad(a: torch.Tensor) -> torch.Tensor:
+    """d gelu_tanh(a)/da = 0.5 (1 + t) + 0.5 a (1 - t^2) du/da."""
+    t = torch.tanh(SQRT_2_OVER_PI * (a + GELU_C * a * a * a))
+    du = SQRT_2_OVER_PI * (1.0 + 3.0 * GELU_C * a * a)
+    return 0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du
+
+
 def gelu_mlp_in_ref(x: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
     """The MLP's input half gelu_tanh(x @ w1), the product and the GELU in
     fp32, cast to x's dtype (``repro/kernels/ref.py:gelu_mlp_in_ref``)."""
@@ -222,11 +229,7 @@ def gelu_mlp_in_bwd_ref(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor):
     (``repro/kernels/gelu_mlp.py:_gelu_mlp_bwd``: the pre-activation is
     never saved); x (N, d)."""
     x32, w1_32, g32 = x.float(), w1.float(), g.float()
-    a = x32 @ w1_32
-    t = torch.tanh(SQRT_2_OVER_PI * (a + GELU_C * a * a * a))
-    # d gelu(a)/da = 0.5 (1 + t) + 0.5 a (1 - t^2) du/da
-    du = SQRT_2_OVER_PI * (1.0 + 3.0 * GELU_C * a * a)
-    da = g32 * (0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * du)
+    da = g32 * gelu_tanh_grad(x32 @ w1_32)
     return (da @ w1_32.T).to(x.dtype), (x32.T @ da).to(w1.dtype)
 
 
@@ -278,3 +281,66 @@ def cross_entropy_bwd_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
         dh[s:s + chunk] = (dl @ w32.T).to(h.dtype)
         dw += hb.T @ dl
     return dh, dw.to(w.dtype)
+
+
+def _expert_chunks(E: int, d: int, F: int):
+    """Expert ranges holding about 256 MB of one fp32 (d, F) weight each, so
+    the fp32 copies of a full-width expert stack never exist whole."""
+    step = max(1, (1 << 26) // (d * F))
+    return [slice(s, s + step) for s in range(0, E, step)]
+
+
+def grouped_mlp_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
+                    w2: torch.Tensor, mask: torch.Tensor,
+                    act: str = "swiglu") -> torch.Tensor:
+    """Grouped expert MLP (``repro/kernels/ref.py:grouped_mlp_ref``): x
+    (E, N, d), w1/w3 (E, d, F), w2 (E, F, d), mask (E, N) -> (E, N, d) in
+    x's dtype.  x is masked, both products and h are fp32, the output is
+    masked; masked slots come out exactly zero."""
+    E, N, d = x.shape
+    out = torch.empty_like(x)
+    for e in _expert_chunks(E, d, w1.shape[-1]):
+        m = mask[e].float()[..., None]
+        x32 = x[e].float() * m
+        a = torch.bmm(x32, w1[e].float())
+        if act == "swiglu":
+            h = F.silu(a) * torch.bmm(x32, w3[e].float())
+        else:
+            h = gelu_tanh(a)
+        out[e] = (torch.bmm(h, w2[e].float()) * m).to(x.dtype)
+    return out
+
+
+def grouped_mlp_bwd_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
+                        w2: torch.Tensor, mask: torch.Tensor, g: torch.Tensor,
+                        act: str = "swiglu"):
+    """(dx, dw1, dw3, dw2, dmask) of :func:`grouped_mlp_ref` for the
+    cotangent ``g`` by an fp32 recompute of h
+    (``repro/kernels/grouped_mlp.py:_grouped_bwd``): masked slots get a zero
+    dx and add nothing to the weight gradients, the mask gets a zero
+    cotangent, and dw3 is None for ``act="gelu"``."""
+    m = mask.float()[..., None]
+    x32 = x.float() * m
+    w1_32, w2_32 = w1.float(), w2.float()
+    g32 = g.float() * m
+    a = torch.bmm(x32, w1_32)
+    dh = torch.bmm(g32, w2_32.transpose(1, 2))
+    if act == "swiglu":
+        w3_32 = w3.float()
+        b = torch.bmm(x32, w3_32)
+        sig = torch.sigmoid(a)
+        h = a * sig * b
+        da = dh * b * (sig * (1.0 + a * (1.0 - sig)))
+        db = dh * a * sig
+    else:
+        h = gelu_tanh(a)
+        da = dh * gelu_tanh_grad(a)
+    dw2 = torch.bmm(h.transpose(1, 2), g32)
+    dx = torch.bmm(da, w1_32.transpose(1, 2))
+    dw1 = torch.bmm(x32.transpose(1, 2), da)
+    dw3 = None
+    if act == "swiglu":
+        dx = dx + torch.bmm(db, w3_32.transpose(1, 2))
+        dw3 = torch.bmm(x32.transpose(1, 2), db).to(w3.dtype)
+    return ((dx * m).to(x.dtype), dw1.to(w1.dtype), dw3, dw2.to(w2.dtype),
+            torch.zeros_like(mask))

@@ -4,6 +4,8 @@ TTFT percentiles and goodput.  Runs on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-1.4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --reduced \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
       --device cpu --dtype fp32 --requests 8
 """
@@ -86,8 +88,8 @@ def main() -> None:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="default: bf16 on the card, fp32 on the CPU")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction, default=True,
-                    help="the norms, the MLP input half and prefill attention "
-                         "in the CUDA kernels")
+                    help="the norms, the MLP input half, the grouped expert MLP "
+                         "and prefill attention in the CUDA kernels")
     args = ap.parse_args()
 
     device = resolve_device(args.device)

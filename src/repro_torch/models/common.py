@@ -13,6 +13,8 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from repro_torch.core.expertplan import round_experts, validate_experts
+
 
 @dataclasses.dataclass(frozen=True)
 class Spec:
@@ -95,34 +97,6 @@ def init_params(specs: Any, generator: torch.Generator | None,
         return {k: rebuild(v, f"{prefix}.{k}" if prefix else k)
                 for k, v in tree.items()}
     return rebuild(specs, "")
-
-
-# ---------------------------------------------------------------------------
-# Expert-count helpers that ModelConfig.reduced calls (the port's own copy of
-# repro/core/expertplan.py:round_experts / validate_experts)
-# ---------------------------------------------------------------------------
-
-class ExpertDivisibilityError(ValueError):
-    """n_experts does not tile the requested expert-parallel degree."""
-
-
-def round_experts(n_experts: int, ep: int) -> int:
-    """Nearest ep-divisible expert count (>= ep; ties round up)."""
-    if ep <= 1:
-        return n_experts
-    down = (n_experts // ep) * ep
-    up = down + ep
-    if down < ep:
-        return up
-    return up if (n_experts - down) >= (up - n_experts) else down
-
-
-def validate_experts(n_experts: int, ep: int, *, where: str = "plan") -> None:
-    if ep > 1 and n_experts % ep != 0:
-        raise ExpertDivisibilityError(
-            f"{where}: n_experts={n_experts} is not divisible by ep={ep}; "
-            f"use round_experts({n_experts}, {ep}) = "
-            f"{round_experts(n_experts, ep)}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Top-level Model, the dense subset of ``repro/models/model.py``, as an
-``nn.Module`` that holds its weights.
+"""Top-level Model, the dense and moe families of ``repro/models/model.py``,
+as an ``nn.Module`` that holds its weights.
 
   * ``param_specs()``  — declarative tree (shapes/axes/init); its dotted
     paths (``layers.attn.wq``, ``layers.mlp.w1``, …) are the state_dict keys,
     so weights carry over from the JAX pytree 1:1 (``repro_torch.interop``)
   * ``init(generator)`` — draw the weights from an explicit generator
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
-    blocked-kernel CE) and the full-sequence logits
+    blocked-kernel CE) and the full-sequence logits (dense family; training
+    the moe family is not ported yet)
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + KV cache
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from collections.abc import Callable, Iterator
 from typing import Any
 
 import numpy as np
@@ -39,7 +41,7 @@ from repro_torch.core.compute import (
     ComputePolicy, checkpointed, resolve as resolve_policy,
 )
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, moe
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
@@ -70,14 +72,36 @@ def stack_specs(tree: Any, n: int) -> Any:
         tree)
 
 
+def _layer_specs(cfg: ModelConfig) -> dict:
+    """One stacked unit: attention and MLP (dense), or attention and the MoE
+    FFN after a sub-stack of ``moe_every - 1`` dense layers (moe)."""
+    if cfg.family != "moe":
+        return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
+    unit = {"attn": blocks.attn_specs(cfg), "moe": moe.moe_specs(cfg)}
+    if cfg.moe_every > 1:
+        dense = {"attn": blocks.attn_specs(cfg),
+                 "mlp": blocks.mlp_specs(cfg, cfg.dense_d_ff or cfg.d_ff)}
+        unit["dense"] = stack_specs(dense, cfg.moe_every - 1)
+    return unit
+
+
+def _n_stack(cfg: ModelConfig) -> int:
+    """Number of stacked units (the leading "layers" dim)."""
+    if cfg.family == "moe" and cfg.moe_every > 1:
+        if cfg.n_layers % cfg.moe_every:
+            raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple "
+                             f"of moe_every={cfg.moe_every}")
+        return cfg.n_layers // cfg.moe_every
+    return cfg.n_layers
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    """The dense parameter tree of ``repro/models/model.py:Model.param_specs``."""
+    """The parameter tree of ``repro/models/model.py:Model.param_specs``."""
     d, V = cfg.d_model, cfg.padded_vocab
     specs: dict[str, Any] = {
         "embed": Spec((V, d), ("vocab", "embed"), scale=0.02),
         "final_norm": blocks.norm_spec(d, cfg.norm),
-        "layers": stack_specs({"attn": blocks.attn_specs(cfg),
-                               "mlp": blocks.mlp_specs(cfg)}, cfg.n_layers),
+        "layers": stack_specs(_layer_specs(cfg), _n_stack(cfg)),
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((d, V), ("embed", "vocab"), scale=0.02)
@@ -87,7 +111,7 @@ def param_specs(cfg: ModelConfig) -> dict:
 def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
     if cfg.sliding_window is not None:
         raise NotImplementedError(f"sliding-window ring caches {where}")
@@ -203,14 +227,42 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     @property
     def paged_cacheable(self) -> bool:
-        return self.cfg.family == "dense" and self.cfg.sliding_window is None
+        return self.cfg.family in ("dense", "moe") and self.cfg.sliding_window is None
 
     def _kv_specs(self, lead: tuple[int, ...], axes: tuple[str, ...]) -> dict:
+        """The KV leaves of every attention layer, stacked like the weights:
+        flat (n_layers, ...) or, for moe with ``moe_every > 1``, per unit
+        {"moe_kv": (n_stack, ...), "dense": (n_stack, moe_every - 1, ...)}."""
         cfg = self.cfg
-        shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.resolved_head_dim)
-        full_axes = ("layers", *axes, "cache_heads", "head_dim")
-        return {"k": Spec(shape, full_axes, init="zeros"),
-                "v": Spec(shape, full_axes, init="zeros")}
+        shape = (*lead, cfg.n_kv_heads, cfg.resolved_head_dim)
+        full_axes = (*axes, "cache_heads", "head_dim")
+        kv = {"k": Spec(shape, full_axes, init="zeros"),
+              "v": Spec(shape, full_axes, init="zeros")}
+        if cfg.family == "moe" and cfg.moe_every > 1:
+            unit = {"moe_kv": kv, "dense": stack_specs(kv, cfg.moe_every - 1)}
+            return stack_specs(unit, _n_stack(cfg))
+        return stack_specs(kv, cfg.n_layers)
+
+    def _attn_layers(self, params: dict, cache: dict
+                     ) -> Iterator[tuple[dict, dict, Callable]]:
+        """(attention weights, that layer's KV cache leaves (views), the FFN
+        that follows it) for each attention layer in order, from the stacked
+        ``params["layers"]`` and ``cache["layers"]`` trees."""
+        cfg, pol = self.cfg, self.compute
+        for i in range(_n_stack(cfg)):
+            lp, cl = _layer(params, i), _layer(cache, i)
+            if cfg.family != "moe":
+                yield lp["attn"], cl, lambda x, p=lp["mlp"]: blocks.mlp_block(
+                    p, x, cfg, policy=pol)
+                continue
+            if "dense" in lp:
+                for j in range(cfg.moe_every - 1):
+                    dlp = _layer(lp["dense"], j)
+                    yield dlp["attn"], _layer(cl["dense"], j), \
+                        lambda x, p=dlp["mlp"]: blocks.mlp_block(p, x, cfg, policy=pol)
+                cl = cl["moe_kv"]
+            yield lp["attn"], cl, lambda x, p=lp["moe"]: moe.moe_block(
+                p, x, cfg, policy=pol)[0]
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:
         return {"pos": Spec((), (), init="zeros", dtype=torch.int32),
@@ -241,6 +293,10 @@ class Model(nn.Module):
         pp=1 path of ``repro/core/stage_program.py:run_program``, a loop
         over the layers under the policy's remat wrapper."""
         cfg = self.cfg
+        if cfg.family == "moe":
+            raise NotImplementedError("training the moe family (loss with the aux "
+                                      "loss and moe_drop) is not ported yet (see "
+                                      "ROADMAP.md, Queue 1)")
         cdt = self.compute_dtype
         params = self.params()
         x = self._embed(params, batch)
@@ -306,13 +362,12 @@ class Model(nn.Module):
             cache = {"pos": total}
         kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
                          None, self.device, self.compute_dtype)
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            x, k, v = blocks.self_attn_block(lp["attn"], x, cfg, causal=True,
+        for ap, kvc, ffn in self._attn_layers(params["layers"], kv):
+            x, k, v = blocks.self_attn_block(ap, x, cfg, causal=True,
                                              return_kv=True, policy=self.compute)
-            x = blocks.mlp_block(lp["mlp"], x, cfg, policy=self.compute)
-            kv["k"][i] = _ring_place(k, cache_len, total)
-            kv["v"][i] = _ring_place(v, cache_len, total)
+            x = ffn(x)
+            kvc["k"].copy_(_ring_place(k, cache_len, total))
+            kvc["v"].copy_(_ring_place(v, cache_len, total))
         cache["layers"] = kv
         last = x[:, -1] if total is None else x[torch.arange(B, device=x.device),
                                                total.long() - 1]
@@ -339,16 +394,14 @@ class Model(nn.Module):
                 "slot-swap caches (active without a block table) are not "
                 "ported yet (see ROADMAP.md)")
         x = params["embed"][batch["token"].long()]
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
-            kvc = _layer(cache["layers"], i)
+        for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"]):
             if bt is not None:
-                x, _ = blocks.paged_attn_decode(lp["attn"], x, kvc, bt, pos, cfg,
+                x, _ = blocks.paged_attn_decode(ap, x, kvc, bt, pos, cfg,
                                                 active=active, policy=self.compute)
             else:
-                x, _ = blocks.self_attn_decode(lp["attn"], x, kvc, pos, cfg,
+                x, _ = blocks.self_attn_decode(ap, x, kvc, pos, cfg,
                                                policy=self.compute)
-            x = blocks.mlp_block(lp["mlp"], x, cfg, policy=self.compute)
+            x = ffn(x)
         step = 1 if active is None else active.to(pos.dtype)
         new_cache = {"pos": pos + step, "layers": cache["layers"]}
         return self._logits(params, x[:, 0]), new_cache

@@ -1,5 +1,6 @@
 """ServeEngine: continuous-batching request engine (port of
-``repro/runtime/serve_engine.py``, paged KV families, single device).
+``repro/runtime/serve_engine.py``, paged KV families (dense and moe),
+single device).
 
   * a fixed batch of ``n_slots`` decode slots ticks together through one
     ``Model.decode_step`` with a per-slot ``pos`` vector and an ``active``
@@ -60,6 +61,23 @@ class _Slot:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _place_blocks(specs: dict, pool: dict, small: dict, targets: torch.Tensor,
+                  block_size: int) -> None:
+    """Copy a one-request prefill cache into the pool's physical blocks
+    ``targets``, leaf by leaf over the (possibly nested) cache tree.  A
+    leaf's block dim sits where its spec says "cache_blocks" (the moe family
+    nests a second layer stack before it); the prefill leaf has its unit
+    batch there, and its cache positions split into blocks."""
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            _place_blocks(spec, pool[name], small[name], targets, block_size)
+            continue
+        i = spec.axes.index("cache_blocks")
+        sm = small[name].squeeze(i)
+        sm = sm.reshape(*sm.shape[:i], len(targets), block_size, *sm.shape[i + 1:])
+        pool[name][(slice(None),) * i + (targets,)] = sm.to(pool[name].dtype)
 
 
 class ServeEngine:
@@ -195,11 +213,8 @@ class ServeEngine:
         targets[:nb_real] = blocks[:nb_real]
         self.bt[slot_idx] = 0
         self.bt[slot_idx, :n_keep] = blocks
-        tgt = torch.from_numpy(targets).to(self.device)
-        for name, pool in self.cache["layers"].items():
-            sm = small["layers"][name][:, 0]                     # (L, clen, ...)
-            pool[:, tgt] = sm.reshape(sm.shape[0], nb_bucket, self.block_size,
-                                      *sm.shape[2:]).to(pool.dtype)
+        _place_blocks(self.cache_specs["layers"], self.cache["layers"], small["layers"],
+                      torch.from_numpy(targets).to(self.device), self.block_size)
         self.cache["pos"][slot_idx] = L
 
         slot = self.slots[slot_idx]
