@@ -17,20 +17,31 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
-     with masked rows exactly 0;
-  3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers) and
-     arctic-480b (1 of 35 layers): the model at full width in bf16 with
-     kernels=True through ``ServeEngine`` (8 requests, 4 slots, paged pool);
-     the serving kernels' launch counters must rise (the grouped MLP's to
-     (prefills + ticks) x MoE layers exactly); the logits are held against
-     a kernels=False run on the card (for the moe family beside the share of
-     request 0's routing that both runs agree on), and a reduced fp32 model
-     against kernels=False tightly; the grouped kernel is held against its
-     plain version on the (x, mask) a real prefill gives it; then a
+     with masked rows exactly 0.  The SSD scan at zamba2's widths (80 heads
+     of 64, state 64) at its serve prefills (256 tokens, chunk 128; 255,
+     chunk 1; 96, chunk 32) and the train microbatch (4 x 2048), y and the
+     final state; the mamba decode step at 4 slots; both with planted
+     faults that must fail their limits; the three flash kernels at hd 80
+     (32 heads, MHA) at the serve prefill and the train microbatch;
+  3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
+     arctic-480b (1 of 35 layers) and zamba2-2.7b (all 54 layers): the model
+     at full width in bf16 with kernels=True through ``ServeEngine`` (8
+     requests, 4 slots; a paged pool, for zamba2 the slot-swap cache with
+     exact-length prefill); the serving kernels' launch counters must rise
+     (the grouped MLP's to (prefills + ticks) x MoE layers exactly; zamba2's
+     SSD scan to prefills x 54, its decode step to ticks x 54 and flash to
+     prefills x 9); the logits are held against a kernels=False run on the
+     card (for the moe family beside the share of request 0's routing that
+     both runs agree on; for zamba2, whose bf16 noise swamps that, against
+     an fp32 copy of the model, which also runs kernels on vs off at full
+     depth), and a reduced fp32 model against kernels=False tightly; the grouped kernel is held against its plain version on the
+     (x, mask) a real prefill gives it; zamba2's tokens equal greedy
+     decoding at the engine's shapes for every request; then a
      ``torch.profiler`` pass over prefill and decode;
-  4. train, for yi-6b (full width, 8 layers) and then gpt-1.4b (full width,
-     all 24 layers): a reduced fp32 model (at the arch's head dim) with
-     kernels on vs off over 5 steps, tightly; then the arch in bf16 compute
+  4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
+     layers) and zamba2-2.7b (full width, all 54 layers): a reduced fp32
+     model (at the arch's head dim) with kernels on vs off over 5 steps,
+     tightly; then the arch in bf16 compute
      over fp32 master weights, remat full, kernels=True, 5 steps of global
      batch 8 (gas 2, 2048 tokens); every kernel of the arch's step must
      count its launches; the same steps with kernels=False from the same
@@ -77,14 +88,17 @@ KERNELS = {
     "gelu_mlp": ("gelu_mlp.cu", "src/repro/kernels/gelu_mlp.py:33"),
     # both bodies: _swiglu_kernel (:27) and _gelu_kernel (:39)
     "grouped_mlp": ("grouped_mlp.cu", "src/repro/kernels/grouped_mlp.py:27"),
+    "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:34"),
+    "mamba_decode_step": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:148"),
 }
-LLAMA4, ARCTIC = "llama4-maverick-400b-a17b", "arctic-480b"
+LLAMA4, ARCTIC, ZAMBA = "llama4-maverick-400b-a17b", "arctic-480b", "zamba2-2.7b"
 # the kernels each arch's serving path runs
 SERVE_KERNELS = {
     "yi-6b": ("rmsnorm", "swiglu", "flash_attention"),
     "gpt-1.4b": ("layernorm", "gelu_mlp", "flash_attention"),
     LLAMA4: ("rmsnorm", "swiglu", "flash_attention", "grouped_mlp"),
     ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "grouped_mlp"),
+    ZAMBA: ("rmsnorm", "swiglu", "flash_attention", "ssd_scan", "mamba_decode_step"),
 }
 # the kernels each arch's train step runs (the moe family serves only)
 TRAIN_KERNELS = {
@@ -92,11 +106,15 @@ TRAIN_KERNELS = {
               "flash_attention_bwd_dkv", "cross_entropy"),
     "gpt-1.4b": ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv", "cross_entropy"),
+    ZAMBA: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv", "cross_entropy", "ssd_scan"),
 }
 # the reduced fp32 model each arch is first held against kernels=False with,
 # at the arch's own head dim (plain .reduced() has hd 64)
 REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2, head_dim=88),
-           LLAMA4: dict(head_dim=128), ARCTIC: dict(head_dim=128)}
+           LLAMA4: dict(head_dim=128), ARCTIC: dict(head_dim=128),
+           # zamba2: hd 80 (d 160 over 2 heads) and the SSD kernels' P = N = 64
+           ZAMBA: dict(d_model=160, n_heads=2, head_dim=80, ssm_head_dim=64, ssm_state=64)}
 # serving depth of the moe family at full width in bf16 on one 80 GB card:
 # llama4 one stack unit (a dense layer, then a MoE layer: 18.55e9
 # parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the init draws
@@ -241,13 +259,68 @@ FLASH_FLAVOURS = [  # small cases of both flash checks: (name, B, Sq, Skv, Hq, H
     ("q_offset 192, Sq<Skv", 2, 64, 256, 4, 4, 88, dict(causal=True, q_offset=192)),
     ("G=2, window + q_offset", 1, 96, 160, 4, 2, 88,
      dict(causal=True, sliding_window=48, q_offset=64)),
+    ("non-causal, ragged", 1, 100, 200, 4, 4, 80, dict(causal=False)),
+    ("G=2, q_offset 64, Sq<Skv", 1, 96, 160, 4, 2, 80, dict(causal=True, q_offset=64)),
 ]
+
+
+def _flash_case(gen, name, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
+    """The flash forward kernel against ``flash_attention_ref`` on random
+    q, k, v (and, in fp32, the LSE); returns (max abs err, (q, k, v))."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q = randn(gen, B, Sq, Hq, hd, dtype=dtype)
+    k = randn(gen, B, Skv, Hkv, hd, dtype=dtype)
+    v = randn(gen, B, Skv, Hkv, hd, dtype=dtype)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref, ref_lse = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
+    rtol, atol = TOL["flash_attention"][dtype]
+    scale = None
+    if dtype == torch.bfloat16:                 # P@|V|, in fp32
+        scale = flash_attention_ref(qt.float(), kt.float(), vt.float().abs(),
+                                    **kw).transpose(1, 2)
+    err = check_close(name, out, ref.transpose(1, 2), rtol=rtol, atol=atol,
+                      why=TOL["flash_attention"]["why"],
+                      terms=() if scale is None else ((scale, FLASH_P_TOL, "P@|V|"),))
+    if dtype == torch.float32:
+        seen = torch.isfinite(ref_lse)
+        check_close(name + " lse", lse[seen], ref_lse[seen], rtol=1e-4, atol=1e-4,
+                    why="fp32 log-sum-exp, other summation order")
+    return err, (q, k, v)
+
+
+def _flash_row(timer: Timer, err, q, k, v) -> dict:
+    """The timed row of a causal bf16 forward at q's shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, S, Hq, hd = q.shape
+    pairs = B * Hq * S * (S + 1) // 2           # unmasked (q, k) pairs
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Hq * S * 4
+    b, by = bound_ms(nbytes, 4 * hd * pairs, q.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    except TypeError:                           # torch without enable_gqa
+        lib_ms = None
+    rtol, atol = TOL["flash_attention"][q.dtype]
+    return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
+            "max_abs_err": err, "rtol": rtol, "atol": atol,
+            "p_rounding_tol": FLASH_P_TOL,
+            "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True)),
+            "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True)),
+            "library_ms": lib_ms,
+            "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
+            "bound_ms": b, "bound_by": by}
 
 
 def phase_kernels(timer: Timer) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn, swiglu as sg
-    from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref, swiglu_ref
+    from repro_torch.kernels import rmsnorm as rn, swiglu as sg
+    from repro_torch.kernels.ref import rmsnorm_ref, swiglu_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
@@ -316,50 +389,6 @@ def phase_kernels(timer: Timer) -> dict:
             del x, w1, w3
     rows["swiglu"] = {**swiglu_cases[0], "cases": swiglu_cases[1:]}
 
-    # flash attention: causal prefill of 2048 tokens, yi-6b heads
-    def flash_case(name, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
-        q = randn(gen, B, Sq, Hq, hd, dtype=dtype)
-        k = randn(gen, B, Skv, Hkv, hd, dtype=dtype)
-        v = randn(gen, B, Skv, Hkv, hd, dtype=dtype)
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ref, ref_lse = flash_attention_ref(qt, kt, vt, return_lse=True, **kw)
-        rtol, atol = TOL["flash_attention"][dtype]
-        scale = None
-        if dtype == torch.bfloat16:                 # P@|V|, in fp32
-            scale = flash_attention_ref(qt.float(), kt.float(), vt.float().abs(),
-                                        **kw).transpose(1, 2)
-        err = check_close(name, out, ref.transpose(1, 2), rtol=rtol, atol=atol,
-                          why=TOL["flash_attention"]["why"],
-                          terms=() if scale is None else ((scale, FLASH_P_TOL, "P@|V|"),))
-        if dtype == torch.float32:
-            seen = torch.isfinite(ref_lse)
-            check_close(name + " lse", lse[seen], ref_lse[seen], rtol=1e-4, atol=1e-4,
-                        why="fp32 log-sum-exp, other summation order")
-        return err, (q, k, v)
-
-    def flash_row(err, q, k, v):
-        """The timed row of a causal bf16 forward at q's shape."""
-        B, S, Hq, hd = q.shape
-        pairs = B * Hq * S * (S + 1) // 2           # unmasked (q, k) pairs
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Hq * S * 4
-        b, by = bound_ms(nbytes, 4 * hd * pairs, q.dtype)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        try:
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-        except TypeError:                           # torch without enable_gqa
-            lib_ms = None
-        rtol, atol = TOL["flash_attention"][q.dtype]
-        return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
-                "max_abs_err": err, "rtol": rtol, "atol": atol,
-                "p_rounding_tol": FLASH_P_TOL,
-                "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True)),
-                "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True)),
-                "library_ms": lib_ms,
-                "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
-                "bound_ms": b, "bound_by": by}
-
     # flash attention: causal prefill of 2048 tokens (B = 1) and the train
     # step's microbatch (B = 4), yi-6b heads (32 of 128, GQA 8), the train
     # step's microbatch with gpt-1.4b heads (24 of 88, MHA), and a 256-token
@@ -370,11 +399,11 @@ def phase_kernels(timer: Timer) -> dict:
                               *((1, 256, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
                                 for c in moe)):
         for dtype in (torch.bfloat16, torch.float32):
-            err, (q, k, v) = flash_case(
-                f"flash {dtype} ({B}, {S}, {Hq}q/{Hkv}kv, {hd}) causal",
+            err, (q, k, v) = _flash_case(
+                gen, f"flash {dtype} ({B}, {S}, {Hq}q/{Hkv}kv, {hd}) causal",
                 B, S, S, Hq, Hkv, hd, dtype, causal=True)
             if dtype == torch.bfloat16:
-                flash_rows.append(flash_row(err, q, k, v))
+                flash_rows.append(_flash_row(timer, err, q, k, v))
             del q, k, v
         torch.cuda.empty_cache()
     rows["flash_attention"] = {**flash_rows[0], "cases": flash_rows[1:]}
@@ -382,8 +411,8 @@ def phase_kernels(timer: Timer) -> dict:
 
     for name, B, Sq, Skv, Hq, Hkv, hd, kw in FLASH_FLAVOURS:
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            flash_case(f"flash {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, {Hq}q/{Hkv}kv, {hd})",
-                       B, Sq, Skv, Hq, Hkv, hd, dtype, **kw)
+            _flash_case(gen, f"flash {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, {Hq}q/{Hkv}kv, "
+                             f"{hd})", B, Sq, Skv, Hq, Hkv, hd, dtype, **kw)
     # ragged rows for the other two kernels
     for dtype in (torch.bfloat16, torch.float32):
         x = randn(gen, 37, 256, dtype=dtype)
@@ -900,6 +929,325 @@ def phase_kernels_moe(timer: Timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the hybrid slice's SSD scan, mamba decode step and flash at hd 80
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24         # one fp32 rounding
+# SSD scan: the kernel and the plain version run the same fp32 chunk algebra
+# in another order, with their own exp and cumsum.  ssd_error_bound gives the
+# first-order bound of that difference, term by term (u = 2^-24 a rounding,
+# a sum of n terms off by n u of its absolute sum): the N-term C.B and C.S
+# sums, the Q-term sums over j, exp (2 ulp), the products, and the exponents:
+# an inclusive cumsum of Q terms of one sign is off by Q u |cum|, so
+# e^(cum_i - cum_j) is off by Q u (|cum_i| + |cum_j|) + u |gap| of itself;
+# the state's error carries from chunk to chunk.  Each implementation may be
+# off by the bound, so the check allows twice it, and in bf16 one ULP
+# between the output roundings.  Planted faults (the state not carried into
+# the second chunk; one token's x left out) must fail the same limit.
+SSD_WHY = ("fp32 chunk algebra in another order, with its own exp and cumsum: "
+           "twice the first-order bound of each (ssd_error_bound); bf16: one ULP "
+           "between the output roundings")
+SSD_FAULTS = ("state not carried into chunk 2", "x of token 200 left out")
+
+
+def _ssd_cases() -> list[tuple[int, int, int]]:
+    """(B, T, chunk) of the scan checks: the train microbatch, then each
+    zamba2 serve prompt at the chunk its exact-length prefill runs (one
+    kernel lane takes Q/32 rows of the cumsum: 4 at chunk 128, 2 at 64, 1
+    below), then one prompt length for each other chunk a prefill can give."""
+    from repro_torch.kernels.tiling import SSD_CHUNK, pick_chunk
+
+    cases = [(4, 2048, SSD_CHUNK)]
+    for T in list(SERVE_PROMPT_LENS[ZAMBA]) + [50, 100, 48]:
+        case = (1, T, pick_chunk(T, SSD_CHUNK))
+        if case not in cases:
+            cases.append(case)
+    return cases
+
+
+def ssd_error_bound(x, dt, Bm, Cm, A_log, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bound on |y - y'| (B, T, H, P), bound on |S - S'| (B, H, P, N)) between
+    two fp32 evaluations of the chunked scan in another summation order:
+    ``ssd_scan_ref``'s chunk loop over absolute values in float64, each term
+    weighted by its first-order relative error (see SSD_WHY), doubled."""
+    Bsz, T, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    u = U32
+    logA = -torch.exp(A_log.double())
+    ax, aB, aC, dtd = x.double().abs(), Bm.double().abs(), Cm.double().abs(), dt.double()
+    S_abs = torch.zeros(Bsz, H, P, N, dtype=torch.float64, device=x.device)
+    S_err = torch.zeros_like(S_abs)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[None, :, :, None]
+    ys = []
+    for s in range(0, T, Q):
+        c = slice(s, s + Q)
+        xc, Bc, Cc, dtc = ax[:, c], aB[:, c], aC[:, c], dtd[:, c]
+        cum = torch.cumsum(dtc * logA, 1)                         # (B, Q, H)
+        total, acum = cum[:, -1], cum.abs()
+        gap = cum[:, :, None] - cum[:, None]                      # (B, Q, Q, H)
+        W = (torch.einsum("bin,bjn->bij", Cc, Bc)[..., None]
+             * torch.exp(torch.where(tri, gap, -torch.inf)) * dtc[:, None])
+        eps_w = u * (N + Q + 8 + torch.where(tri, gap.abs(), 0.0)
+                     + Q * (acum[:, :, None] + acum[:, None]))
+        y_err = torch.einsum("bijh,bjhp->bihp", W * eps_w, xc)
+        eps_e = u * (N + 4 + (Q + 1) * acum)                      # e^cum_i and the C.S sum
+        y_err = y_err + torch.exp(cum)[..., None] * (
+            torch.einsum("bin,bhpn->bihp", Cc, S_abs) * eps_e[..., None]
+            + torch.einsum("bin,bhpn->bihp", Cc, S_err))
+        ys.append(y_err)
+        rem = total[:, None] - cum
+        dec = dtc * torch.exp(rem)
+        eps_dec = u * (Q + 8 + rem.abs() + Q * (total.abs()[:, None] + acum))
+        et = torch.exp(total)[:, :, None, None]
+        eps_t = (u * (4 + Q * total.abs()))[:, :, None, None]
+        S_err = (et * (S_err + S_abs * eps_t)
+                 + torch.einsum("bjh,bjn,bjhp->bhpn", dec * eps_dec, Bc, xc))
+        S_abs = et * S_abs + torch.einsum("bjh,bjn,bjhp->bhpn", dec, Bc, xc)
+    return 2 * torch.cat(ys, 1), 2 * S_err
+
+
+def ssd_inputs(gen, B: int, T: int, dtype, H: int = 80, P: int = 64, N: int = 64):
+    """x, B, C as the model hands them to the scan (silu of the conv output,
+    slices of one (B, T, ch) tensor), dt = softplus(dt_raw - 3) (mamba2's dt
+    range, slow and fast heads), A_log as the init's log(1..H)."""
+    xbc = F.silu(torch.randn(B, T, H * P + 2 * N, generator=gen, device="cuda")).to(dtype)
+    x = xbc[..., :H * P].reshape(B, T, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = F.softplus(torch.randn(B, T, H, generator=gen, device="cuda") - 3.0)
+    A_log = torch.log(torch.arange(1, H + 1, device="cuda", dtype=torch.float32)).to(dtype)
+    return x, dt, Bm, Cm, A_log
+
+
+def check_ssd(name: str, args: tuple, chunk: int, planted: bool = False) -> float:
+    """The SSD kernel against ``ssd_scan_ref`` on the same inputs, y and the
+    final state; with ``planted``, each of SSD_FAULTS of the plain version
+    must fail the same limit."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    y, S = ssd.ssd_scan_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    yr, Sr = ssd_scan_ref(*args, chunk=chunk)
+    ey, es = ssd_error_bound(*args, chunk)
+    rtol = 1.1 * BF16_ULP if y.dtype == torch.bfloat16 else 0.0
+    terms = ((ey, 1.0, "2 x first-order bound"),)
+    err = check_close(name + " y", y, yr, rtol=rtol, atol=1e-6, why=SSD_WHY, terms=terms)
+    err = max(err, check_close(name + " state", S, Sr, rtol=0.0, atol=1e-6, why=SSD_WHY,
+                               terms=((es, 1.0, "2 x first-order bound"),)))
+    if planted:
+        x, dt, Bm, Cm, A_log = args
+        T = x.shape[1]
+        tail = ssd_scan_ref(*(a[:, chunk:] for a in args[:4]), A_log, chunk=chunk)[0]
+        x_drop = x.clone()
+        x_drop[:, 200] = 0
+        bad = {SSD_FAULTS[0]: torch.cat([yr[:, :chunk], tail], 1),
+               SSD_FAULTS[1]: ssd_scan_ref(x_drop, dt, Bm, Cm, A_log, chunk=chunk)[0]}
+        assert T > 200 and T >= 2 * chunk
+        for fault, out in bad.items():
+            worst = float(limit_share(out, yr, rtol, 1e-6, terms)[1].max())
+            emit({"phase": "planted_fault", "case": name, "fault": fault,
+                  "worst_share_of_limit": worst})
+            if worst <= 1:
+                raise AssertionError(f"{name}: the limit does not catch a planted fault "
+                                     f"({fault}: {worst:.2f} of it)")
+    return err
+
+
+def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
+    """The timed row of a bf16 scan: the bound counts x, B, C and dt read
+    once, y and the state written once, and the fp32 FLOPs of the chunk
+    algebra on the unmasked (i, j) pairs."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    x, dt, Bm, Cm, A_log = args
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    el = x.element_size()
+    nbytes = 2 * x.numel() * el + 2 * B * T * N * el + dt.numel() * 4 + B * H * P * N * 4
+    pairs = chunk * (chunk + 1) // 2
+    flops = B * H * (T // chunk) * (2 * pairs * (N + P) + 4 * chunk * N * P)
+    b, by = bound_ms(nbytes, flops, torch.float32)
+    return {"shape": f"x ({B}, {T}, {H}, {P}) bf16, N {N}, chunk {chunk}",
+            "max_abs_err": err,
+            "ms": timer(lambda: ssd.ssd_scan_cuda(x, dt, Bm, Cm, A_log, chunk)),
+            "plain_ms": timer(lambda: ssd_scan_ref(x, dt, Bm, Cm, A_log, chunk=chunk)),
+            "plain_call": "ssd_scan_ref (the chunk loop in torch)",
+            "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 (the algebra's type)"}
+
+
+# mamba decode: the kernel reproduces the reference's dtype chain (the conv
+# product, the bias add and silu each rounded to the window's dtype); the
+# two may still round one of those differently where their fp32 sums of the
+# 4 taps (in another order) straddle a rounding boundary: a conv channel's
+# silu output may move by 1.1 * (ULP(|e|) + ULP(|e + b|)) + ULP(|s|) (bf16;
+# |silu'| <= 1.1), and by 1.1 * 8u * sum|w * cw| + 4u |s| in fp32.
+# decode_error_terms carries that through S' = a S + dt x B^T and
+# y = S' C + D x, with the fp32 roundings of both sides (dt, a, the N-term sum).
+DECODE_WHY = ("one rounding flip per conv channel in the window's dtype (bf16) or "
+              "the fp32 tap sums in another order, carried through the state update "
+              "and the read-out; fp32 roundings of dt, a and the N-term sum on both sides")
+
+
+def decode_error_terms(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                       H: int, P: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bound on |y - y'| (B, H, P), bound on |S' - S''| (B, H, P, N))."""
+    u = U32
+    N = state.shape[-1]
+    w32, cw32 = window.float(), conv_w.float()
+    e = torch.einsum("bkc,kc->bc", w32, cw32)
+    ae = torch.einsum("bkc,kc->bc", w32.abs(), cw32.abs())
+    pre = e + conv_b.float()
+    s = F.silu(pre)
+    if window.dtype == torch.bfloat16:
+        ds = 1.1 * (BF16_ULP * (e.abs() + pre.abs()) + 8 * u * ae) + BF16_ULP * s.abs()
+    else:
+        ds = 1.1 * 8 * u * ae + 4 * u * s.abs()
+    di = H * P
+    x, Bv, Cv = s[:, :di].reshape(-1, H, P).abs(), s[:, di:di + N].abs(), s[:, di + N:].abs()
+    dx, dB, dC = ds[:, :di].reshape(-1, H, P), ds[:, di:di + N], ds[:, di + N:]
+    z = dt_raw.float() + dt_bias.float()
+    dt = F.softplus(z)
+    rate = dt * torch.exp(A_log.float())
+    a = torch.exp(-rate)
+    da = a * (8 * u * rate + 4 * u)                   # dt and e^A_log: a few ulp each
+    aS = a[..., None, None] * state.abs()
+    xb = dt[..., None, None] * x[..., None] * Bv[:, None, None, :]
+    S_new = aS + xb
+    dS = (da[..., None, None] * state.abs() + 8 * u * xb + 6 * u * aS
+          + dt[..., None, None] * (dx[..., None] * Bv[:, None, None, :]
+                                   + x[..., None] * dB[:, None, None, :]))
+    dy = (torch.einsum("bn,bhpn->bhp", dC, S_new) + torch.einsum("bn,bhpn->bhp", Cv, dS)
+          + 2 * (N + 2) * u * torch.einsum("bn,bhpn->bhp", Cv, S_new)
+          + D.float().abs()[None, :, None] * (dx + 2 * u * x))
+    return dy, dS
+
+
+def check_decode(name: str, args: dict, H: int, P: int, planted: bool = False) -> float:
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import mamba_decode_ref
+
+    before = args["state"].clone()
+    y, S = ssd.mamba_decode_cuda(**args, n_heads=H, head_dim=P)
+    torch.cuda.synchronize()
+    if not torch.equal(args["state"], before):
+        raise AssertionError(f"{name}: the decode kernel wrote its input state")
+    yr, Sr = mamba_decode_ref(**args, n_heads=H, head_dim=P)
+    dy, dS = decode_error_terms(**args, H=H, P=P)
+    err = check_close(name + " y", y, yr, rtol=0.0, atol=1e-6, why=DECODE_WHY,
+                      terms=((dy, 1.0, "carried rounding bound"),))
+    err = max(err, check_close(name + " state", S, Sr, rtol=0.0, atol=1e-6, why=DECODE_WHY,
+                               terms=((dS, 1.0, "carried rounding bound"),)))
+    if planted:                                   # B and C read from each other's channels
+        N = S.shape[-1]
+        di = H * P
+        perm = torch.cat([torch.arange(di), torch.arange(di + N, di + 2 * N),
+                          torch.arange(di, di + N)]).cuda()
+        swapped = dict(args, window=args["window"][..., perm], conv_w=args["conv_w"][:, perm],
+                       conv_b=args["conv_b"][perm])
+        bad = mamba_decode_ref(**swapped, n_heads=H, head_dim=P)[0]
+        worst = float(limit_share(bad, yr, 0.0, 1e-6, ((dy, 1.0, ""),))[1].max())
+        emit({"phase": "planted_fault", "case": name, "fault": "B and C channels swapped",
+              "worst_share_of_limit": worst})
+        if worst <= 1:
+            raise AssertionError(f"{name}: the limit does not catch B and C swapped")
+    return err
+
+
+def decode_inputs(gen, B: int, dtype, H: int = 80, P: int = 64, N: int = 64, K: int = 4):
+    """The decode step's inputs as the model hands them over: the conv window
+    of in_proj outputs, the init's conv weights (std 0.5) and A_log, a state
+    of a prefilled prompt's magnitude."""
+    ch = H * P + 2 * N
+    return dict(
+        window=torch.randn(B, K, ch, generator=gen, device="cuda").to(dtype),
+        conv_w=(0.5 * torch.randn(K, ch, generator=gen, device="cuda")).to(dtype),
+        conv_b=(0.1 * torch.randn(ch, generator=gen, device="cuda")).to(dtype),
+        dt_raw=(torch.randn(B, H, generator=gen, device="cuda") - 3.0).to(dtype),
+        dt_bias=torch.zeros(H, device="cuda").to(dtype),
+        A_log=torch.log(torch.arange(1, H + 1, device="cuda", dtype=torch.float32)).to(dtype),
+        D=torch.ones(H, device="cuda").to(dtype),
+        state=torch.randn(B, H, P, N, generator=gen, device="cuda"))
+
+
+def decode_row(timer: Timer, err: float, args: dict, H: int, P: int) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import mamba_decode_ref
+
+    B, K, ch = args["window"].shape
+    el = args["window"].element_size()
+    st = args["state"]
+    nbytes = (B * K * ch + K * ch + ch) * el + 2 * st.numel() * 4 + B * H * P * 4
+    flops = B * (2 * K * (H * P + 128) + 6 * st[0].numel())
+    b, by = bound_ms(nbytes, flops, torch.float32)
+    return {"shape": f"window ({B}, {K}, {ch}) {str(args['window'].dtype)[6:]}, "
+                     f"state {tuple(st.shape)} fp32",
+            "max_abs_err": err,
+            "ms": timer(lambda: ssd.mamba_decode_cuda(**args, n_heads=H, head_dim=P)),
+            "plain_ms": timer(lambda: mamba_decode_ref(**args, n_heads=H, head_dim=P)),
+            "plain_call": "mamba_decode_ref", "library_ms": None,
+            "library_call": "none: no single PyTorch call computes it",
+            "bound_ms": b, "bound_by": by}
+
+
+@torch.no_grad()
+def phase_kernels_ssm(timer: Timer) -> dict:
+    """The SSD scan at zamba2's widths (H 80, P 64, N 64), bf16 and fp32, at
+    the train microbatch 4 x 2048 (chunk 128, the timed headline row), at
+    every (T, chunk) that the zamba2 serve run prefills (`_ssd_cases`; the
+    256-token prefill carries the planted faults) and at the chunks 2, 4
+    and 16 that no serve prompt gives; the decode step at 4 slots in bf16
+    and fp32 (with a planted fault).  Returns the SSD and decode rows."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ssd_rows = []
+    for B, T, chunk in _ssd_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(gen, B, T, dtype)
+            err = check_ssd(f"ssd_scan {dtype} (B {B}, T {T}, H 80, P 64, N 64) chunk {chunk}",
+                            args, chunk, planted=(T, dtype) == (256, torch.bfloat16))
+            if dtype == torch.bfloat16:
+                ssd_rows.append(ssd_row(timer, err, args, chunk))
+            del args
+        torch.cuda.empty_cache()
+    dec_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = decode_inputs(gen, 4, dtype)
+        err = check_decode(f"mamba_decode_step {dtype} (B 4, H 80, P 64, N 64)", args, 80, 64,
+                           planted=dtype == torch.bfloat16)
+        dec_rows.append(decode_row(timer, err, args, 80, 64))
+    rows = {"ssd_scan": {**ssd_rows[0], "cases": ssd_rows[1:]},
+            "mamba_decode_step": {**dec_rows[0], "cases": dec_rows[1:]}}
+    return rows
+
+
+def flash_hd80(timer: Timer) -> dict:
+    """The flash forward at hd 80 (zamba2's shared block: 32 heads, MHA) at
+    the serve prefill (1 x 256) and the train microbatch (4 x 2048), and its
+    two backward kernels at the train microbatch, bf16 and fp32: rows to
+    join the flash kernels' cases."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"flash_attention": [], "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for B, S in ((1, 256), (4, 2048)):
+        for dtype in (torch.bfloat16, torch.float32):
+            err, (q, k, v) = _flash_case(gen, f"flash {dtype} ({B}, {S}, 32q/32kv, 80) causal",
+                                         B, S, S, 32, 32, 80, dtype, causal=True)
+            if dtype == torch.bfloat16:
+                out["flash_attention"].append(_flash_row(timer, err, q, k, v))
+            del q, k, v
+    for dtype in (torch.bfloat16, torch.float32):
+        errs, tensors = flash_bwd_case(f"flash bwd {dtype} (4, 2048, 32q/32kv, 80) causal",
+                                       gen, 4, 2048, 2048, 32, 32, 80, dtype, causal=True)
+        if dtype == torch.bfloat16:
+            dq, dkv = flash_bwd_times(timer, errs, *tensors)
+            out["flash_attention_bwd_dq"].append(dq)
+            out["flash_attention_bwd_dkv"].append(dkv)
+        del tensors
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: serve yi-6b, gpt-1.4b, llama4-maverick and arctic at full width
 # ---------------------------------------------------------------------------
 
@@ -916,7 +1264,104 @@ LOGITS_TOL_WHY = {
             "flips between the runs (an ULP of the norm moves the router logits) "
             "changes its MoE output whole",
     ARCTIC: "bf16 through 1 layer; as llama4, with a top-2 choice per token",
+    ZAMBA: "not held: bf16 through 54 mamba layers and 9 applications of the shared "
+           "block at this random init grows any rounding over the depth until plain "
+           "bf16 itself lands far from an fp32 copy of the model (tools/depth_drift.py); "
+           "the bf16 readings are reported, and an fp32 copy of the model is held on vs "
+           "off over prefill and decode ticks at FP32_LOGITS_RTOL",
 }
+# zamba2 in fp32 at full depth, kernels on vs off: the fp32 kernels round
+# in another order (~1e-7 of a value), which the depth grows as it grows
+# bf16's roundings (tools/depth_drift.py); a sound prefill read 6.4e-5 of
+# the range (NVIDIA H100 80GB HBM3, 700 W), and a kernel that gets any term
+# wrong moves the logits by far more than 1e-3 of it.
+FP32_LOGITS_RTOL = 1e-3
+# the fp32 copy's decode ticks after request 0's prefill, at the engine's 4 slots
+FP32_DECODE_TICKS = 8
+
+
+# zamba2's serve prompts: odd lengths (chunk 1), small powers of two and a
+# 96-token prompt (chunk 32); the other archs draw 8 lengths in [64, 256]
+SERVE_PROMPT_LENS = {ZAMBA: (255, 64, 96, 200, 129, 32, 256, 77)}
+
+
+def slot_cache(cache: dict, n_slots: int) -> dict:
+    """A one-row slot-swap cache repeated into ``n_slots`` rows, with the
+    engine's per-slot ``pos`` vector."""
+    pos = torch.full((n_slots,), int(cache["pos"]), dtype=torch.int32, device="cuda")
+    return {"pos": pos, **{k: {name: t.repeat_interleave(n_slots, dim=1)
+                               for name, t in cache[k].items()}
+                           for k in ("layers", "shared")}}
+
+
+def hybrid_fp32_on_vs_off(model, p0: torch.Tensor, lk: torch.Tensor,
+                          lp: torch.Tensor) -> dict:
+    """The hybrid logits checks, on an fp32 copy of ``model`` at full depth:
+    request 0's prefill, then FP32_DECODE_TICKS decode ticks at 4 slots
+    (each slot fed its own tokens, slot 3 inactive on odd ticks), kernels on
+    vs off on the same tokens, each step's logits within FP32_LOGITS_RTOL of
+    the plain logits' range; an inactive slot's cache rows must come out of
+    a tick bit-identical.  Also reports, unchecked, how far the bf16
+    kernels-on logits ``lk`` and kernels-off ``lp`` lie from the fp32 copy.
+    The readings, with "failed" naming the checks that did not hold."""
+    from repro_torch.core.compute import ComputePolicy
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    m32 = Model(cfg, torch.float32, device="cuda")
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    n = FP32_DECODE_TICKS
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, cfg.vocab_size, (n, 4, 1))).cuda()
+    active = torch.ones(n, 4, dtype=torch.bool, device="cuda")
+    active[1::2, 3] = False
+    steps, frozen_same = {}, True
+    for kernels in (True, False):
+        m32.compute = ComputePolicy(kernels=kernels)
+        logits, cache = m32.prefill({"tokens": p0}, 512)
+        out = [logits]
+        cache = slot_cache(cache, 4)
+        for t in range(n):
+            frozen = {(k, name): leaf[:, 3].clone() for k in ("layers", "shared")
+                      for name, leaf in cache[k].items()} if not active[t, 3] else {}
+            logits, cache = m32.decode_step(cache, {"token": toks[t], "active": active[t]})
+            frozen_same &= all(torch.equal(cache[k][name][:, 3], v)
+                               for (k, name), v in frozen.items())
+            out.append(logits)
+        steps[kernels] = out
+        del cache
+    del m32
+    torch.cuda.empty_cache()
+    rel = [max_err(a, b) / float(b.abs().max()) for a, b in zip(steps[True], steps[False])]
+    span = float(steps[False][0].abs().max())
+    res = {"fp32_logits_on_vs_off_rel_by_step": rel, "fp32_decode_ticks": n,
+           "fp32_logits_rtol": FP32_LOGITS_RTOL, "fp32_frozen_slot_bit_identical": frozen_same,
+           "bf16_on_vs_fp32_rel_unchecked": max_err(lk, steps[False][0]) / span,
+           "bf16_off_vs_fp32_rel_unchecked": max_err(lp, steps[False][0]) / span}
+    res["failed"] = [name for name, bad in (
+        ("fp32 on vs off", not all(torch.isfinite(t).all() for t in steps[True])
+         or max(rel) > FP32_LOGITS_RTOL),
+        ("frozen slot", not frozen_same)) if bad]
+    return res
+
+
+def greedy_at_slots(model, prompt: np.ndarray, n: int, cache_len: int,
+                    n_slots: int) -> np.ndarray:
+    """Greedy tokens of one request through ``Model.prefill`` (one row at the
+    prompt's length, as the engine admits it) and ``Model.decode_step`` over
+    ``n_slots`` rows that all hold the request, with the engine's per-slot
+    ``pos`` and ``active``: the shapes of the engine's tick, so the row of
+    each product is computed as in the engine (a product's kernel, and with
+    it its summation order, may depend on its row count)."""
+    p = torch.from_numpy(prompt.astype(np.int64))[None].cuda()
+    logits, cache = model.prefill({"tokens": p}, cache_len)
+    cache = slot_cache(cache, n_slots)
+    active = torch.ones(n_slots, dtype=torch.bool, device="cuda")
+    toks = [int(torch.argmax(logits[0]))]
+    for _ in range(n - 1):
+        tok = torch.full((n_slots, 1), toks[-1], dtype=torch.int64, device="cuda")
+        logits, cache = model.decode_step(cache, {"token": tok, "active": active})
+        toks.append(int(torch.argmax(logits[0])))
+    return np.asarray(toks, np.int32)
 
 
 def serve_config(arch: str):
@@ -991,8 +1436,8 @@ def phase_serve(card: str, arch: str) -> dict:
     t_init = time.perf_counter() - t0
 
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.randint(64, 257, 8)]
+    lens = SERVE_PROMPT_LENS.get(arch, rng.randint(64, 257, 8))
+    prompts = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
     reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
     engine = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
     ops.reset_launch_counts()
@@ -1009,6 +1454,27 @@ def phase_serve(card: str, arch: str) -> dict:
                              f"expected (prefills + ticks) x MoE layers = {grouped_expected}")
     if sorted(out) != list(range(8)) or any(len(t) != 32 for t in out.values()):
         raise AssertionError("engine did not return 32 tokens for each of 8 requests")
+    hybrid_res = {}
+    if cfg.family == "hybrid":
+        # exact launch counts: the scan once per mamba layer and prefill, the
+        # decode step once per mamba layer and tick, flash once per shared
+        # application and prefill (every prompt has more than one token)
+        n_super = cfg.n_layers // cfg.hybrid_attn_every
+        expected = {"ssd_scan": engine.n_prefills * cfg.n_layers,
+                    "mamba_decode_step": engine.n_ticks * cfg.n_layers,
+                    "flash_attention": engine.n_prefills * n_super}
+        got = {k: launches[k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"{arch} serve launches {got}, expected {expected}")
+        # exact-length prefill makes every request's stream comparable with
+        # greedy decoding at the engine's shapes, token for token
+        same = [bool(np.array_equal(greedy_at_slots(model, p, 32, 512, 4), out[i]))
+                for i, p in enumerate(prompts)]
+        hybrid_res = {"expected_launches": expected, "prompt_lens": [len(p) for p in prompts],
+                      "engine_equals_greedy_by_request": same}
+        if not all(same):
+            raise AssertionError(f"{arch}: engine tokens differ from greedy for requests "
+                                 f"{[i for i, ok in enumerate(same) if not ok]}")
 
     # request 0 against kernels=False on the card: last-token prefill logits
     # and the greedy stream; for the moe family the router's choices of both
@@ -1043,6 +1509,8 @@ def phase_serve(card: str, arch: str) -> dict:
                    "grouped_request0_valid_slots": int(m0.ne(0).sum()),
                    "grouped_request0_max_abs_err": err}
     rel = max_err(lk, lp) / float(lp.abs().max())
+    if cfg.family == "hybrid":
+        hybrid_res.update(hybrid_fp32_on_vs_off(model, p0, lk, lp))
     agree = float(np.mean(gp == out[0]))
     first_diverge = int(np.argmax(gp != out[0])) if agree < 1 else 32
     recs = engine.records
@@ -1059,13 +1527,16 @@ def phase_serve(card: str, arch: str) -> dict:
            "decode_tok_s": engine.n_decode_tokens / engine.decode_s,
            "launches": launches,
            "logits_vs_plain_max_abs_err": max_err(lk, lp),
-           "logits_vs_plain_rel_err": rel, "logits_rel_tol": LOGITS_REL_TOL,
+           "logits_vs_plain_rel_err": rel, "logits_rel_tol": LOGITS_REL_TOL if cfg.family != "hybrid" else None,
            "logits_tol_why": LOGITS_TOL_WHY[arch],
            "greedy_agree_vs_plain": agree, "greedy_first_divergence": first_diverge,
-           **moe_res, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
+           **moe_res, **hybrid_res,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(res)
-    if not torch.isfinite(lk).all() or rel > LOGITS_REL_TOL:
+    if not torch.isfinite(lk).all() or (rel > LOGITS_REL_TOL and cfg.family != "hybrid"):
         raise AssertionError(f"{arch} logits kernels on vs off: rel err {rel}")
+    if hybrid_res.get("failed"):
+        raise AssertionError(f"{arch} fp32 copy, kernels on vs off: {hybrid_res['failed']}")
     phase_profile(model, prompts, card)
     return launches
 
@@ -1077,6 +1548,8 @@ def phase_serve(card: str, arch: str) -> dict:
 # device-time groups of the profile, by kernel name (first match wins)
 PROFILE_GROUPS = (
     ("grouped_mlp kernels", ("grouped_",)),
+    ("ssd_scan kernel", ("ssd_scan_kernel",)),
+    ("mamba_decode kernel", ("mamba_decode_kernel",)),
     ("rmsnorm kernel", ("rmsnorm_kernel",)),
     ("layernorm kernel", ("layernorm_kernel",)),
     ("swiglu kernel", ("swiglu_",)),
@@ -1088,7 +1561,8 @@ PROFILE_GROUPS = (
     ("other GEMMs", ("gemm", "nvjet", "cutlass")),
 )
 PORTED = {"rmsnorm kernel", "layernorm kernel", "swiglu kernel", "gelu_mlp kernel",
-          "flash fwd kernel", "flash bwd kernels", "ce kernels", "grouped_mlp kernels"}
+          "flash fwd kernel", "flash bwd kernels", "ce kernels", "grouped_mlp kernels",
+          "ssd_scan kernel", "mamba_decode kernel"}
 
 
 def _profile(fn) -> dict:
@@ -1176,11 +1650,24 @@ TRAIN_FP32_RTOL = 1e-4
 # forward), and grad_norm by 4.3e-3 and 3.4e-3 (layernorm, gelu_mlp), which
 # fail here; in dQ and dK/dV it moves neither out of the sound spread
 # (grad_norm 6.7e-4 and 3.9e-4): phase 2 holds those at the step's shapes.
+# zamba2 (all 54 layers; the same card): bf16 at this random init drifts
+# far from fp32 over the depth (tools/depth_drift.py), so sound runs differ
+# by up to 1.85e-4 in loss and 7.10e-2 in grad_norm (seed 1; seeds 0 and 2:
+# 2.9e-5 and 9.9e-5, 1.9e-2 and 4.0e-2); the limits are about 1.5x those.  A zeroed
+# tile of the SSD scan's output moves grad_norm by 2.7e6 (the gated norm of
+# a zeroed row), which fails; every other planted fault stays inside the
+# sound spread (loss at most 6.6e-5, grad_norm at most 2.2e-2): phase 2
+# holds those kernels at the step's shapes, and phase 3 the whole model in
+# fp32 at full depth.
 STEP0_RTOL = {"yi-6b": {"loss": 2e-5, "grad_norm": 1e-3},
-              "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3}}
+              "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3},
+              ZAMBA: {"loss": 3e-4, "grad_norm": 0.11}}
 TRAIN = dict(global_batch=8, gas=2, seq_len=2048, steps=5)
-TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24}          # gpt-1.4b: all of them
+TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 54}   # gpt-1.4b, zamba2: all
 TRAIN_LR = 1e-4
+# kernels=False steps per arch (step 0 is the one compared; zamba2's plain
+# steps take 17-40 s, so it runs only that one)
+TRAIN_OFF_STEPS = {ZAMBA: 1}
 
 
 def _batches(vocab: int, seq_len: int, global_batch: int, n: int) -> list:
@@ -1224,13 +1711,20 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
     """Launches of each kernel in ``steps`` steps of TRAIN under remat full:
     per layer and microbatch each forward kernel runs twice (the forward and
     its recompute) and each backward kernel once; the final norm and the CE
-    run once per microbatch."""
+    run once per microbatch.  For hybrid the attention layers are the shared
+    block's applications, each mamba layer runs one norm and one SSD scan
+    (whose backward is plain torch), and its gated norm is plain."""
     norm = "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
     mlp = "swiglu" if cfg.act == "swiglu" else "gelu_mlp"
     norms_per_layer = 2 + (2 if cfg.qk_norm else 0)
-    per_mb = {norm: 2 * norms_per_layer * cfg.n_layers + 1, mlp: 2 * cfg.n_layers,
-              "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd_dq": cfg.n_layers,
-              "flash_attention_bwd_dkv": cfg.n_layers, "cross_entropy": 1}
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every if hybrid else cfg.n_layers
+    n_mamba = cfg.n_layers if hybrid else 0
+    per_mb = {norm: 2 * (norms_per_layer * n_attn + n_mamba) + 1, mlp: 2 * n_attn,
+              "flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
+              "flash_attention_bwd_dkv": n_attn, "cross_entropy": 1}
+    if hybrid:
+        per_mb["ssd_scan"] = 2 * n_mamba
     return {k: n * TRAIN["gas"] * steps for k, n in per_mb.items()}
 
 
@@ -1289,7 +1783,8 @@ def phase_train(card: str, arch: str) -> dict:
     del pstate
     torch.cuda.empty_cache()
     off = _run_steps(model, ParallelPlan(gas=gas, precision="bf16", remat="full",
-                                         kernels=False), batches, 0)
+                                         kernels=False),
+                     batches[:TRAIN_OFF_STEPS.get(arch, steps)], 0)
     rel0 = {key: abs(on[0][key] - off[0][key]) / off[0][key] for key in ("loss", "grad_norm")}
     med = float(np.median([r["step_s"] for r in on[1:]]))
     res = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1337,6 +1832,9 @@ def main() -> int:
     rows = phase_kernels(timer)
     rows.update(phase_kernels_train(timer))
     rows.update(phase_kernels_moe(timer))
+    rows.update(phase_kernels_ssm(timer))
+    for name, extra in flash_hd80(timer).items():
+        rows[name]["cases"] += extra
     del timer
     torch.cuda.empty_cache()
     # each path's counts are zeroed just before it runs and read just after
@@ -1350,14 +1848,16 @@ def main() -> int:
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start})
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}
                for name in KERNELS}
-    # ``launches``: the kernel's count in the gpt-1.4b train step, for the
-    # yi-6b kernels in the yi-6b train step, and for the serve-only grouped
-    # MLP in the llama4-maverick serve run
+    # ``launches``: the kernel's count in the first of these paths that runs
+    # it: the gpt-1.4b train step, the yi-6b train step, the zamba2 train
+    # step, the llama4-maverick serve run (the grouped MLP), the zamba2 serve
+    # run (the decode step)
+    order = ("gpt-1.4b train", "yi-6b train", f"{ZAMBA} train", f"{LLAMA4} serve",
+             f"{ZAMBA} serve")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
          "replaces": replaces,
-         "launches": by_path[name].get("gpt-1.4b train", by_path[name].get(
-             "yi-6b train", by_path[name].get(f"{LLAMA4} serve"))),
+         "launches": next(by_path[name][p] for p in order if p in by_path[name]),
          "launches_by_path": by_path[name], **rows[name], "card": card}
         for name, (src, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

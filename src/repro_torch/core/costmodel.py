@@ -1,5 +1,5 @@
 """Analytic FLOPs of a train step and the H100 machine, for MFU (the dense
-part of ``repro/core/costmodel.py:train_step_flops``; the reference's
+and hybrid parts of ``repro/core/costmodel.py:train_step_flops``; the reference's
 ``Machine`` table has only Frontier and TPU v5e, so the port defines its
 card here)."""
 from __future__ import annotations
@@ -8,8 +8,9 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.models.model import param_specs
 from repro_torch.models.common import flatten_specs
+from repro_torch.models.model import param_specs
+from repro_torch.models.ssm import d_inner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +29,7 @@ class StepFlops:
     """Analytic model FLOPs of one optimizer step."""
     matmul: float       # every >= 2D parameter leaf
     attn: float         # softmax-attention quadratic
-    scan: float         # recurrent token mixing (0 for the dense family)
+    scan: float         # recurrent token mixing (the mamba scan; 0 for dense)
     tokens: int         # gbs * seq
 
     @property
@@ -38,26 +39,36 @@ class StepFlops:
 
 def train_step_flops(cfg, global_batch: int, seq_len: int,
                      *, backward: bool = True) -> StepFlops:
-    """Model FLOPs of one train step of a dense model: 6 per matmul
-    parameter per token (2 without the backward; the untied embedding is a
-    lookup and not billed) plus the attention quadratic 4 Tq Tkv h hd per
-    layer and sequence, tripled with the backward.  MFU, not HFU: remat's
-    recompute is not counted."""
-    if cfg.family != "dense":
+    """Model FLOPs of one train step of a dense or hybrid model: 6 per
+    matmul parameter per token (2 without the backward; the untied
+    embedding is a lookup and not billed; the hybrid family's weight-tied
+    shared block is billed once per application) plus the attention
+    quadratic 4 Tq Tkv h hd per self-attention layer and sequence (hybrid:
+    one per application of the shared block) and, for hybrid, the scan's
+    6 d_inner ssm_state per token and mamba layer, both tripled with the
+    backward.  MFU, not HFU: remat's recompute is not counted."""
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"train_step_flops for family {cfg.family!r} is not ported yet "
             "(see ROADMAP.md, Queue 1)")
     per_param = 6.0 if backward else 2.0
     mult = per_param / 2.0
     B, s = global_batch, seq_len
+    hybrid = cfg.family == "hybrid"
+    n_shared_apps = (cfg.n_layers // cfg.hybrid_attn_every
+                     if hybrid and cfg.hybrid_attn_every else 1)
     n = 0.0
     for path, spec in flatten_specs(param_specs(cfg)):
         if len(spec.shape) < 2 or (path == "embed" and not cfg.tie_embeddings):
             continue
-        n += float(np.prod(spec.shape))
+        n += float(np.prod(spec.shape)) * (n_shared_apps if path.startswith("shared.") else 1)
     t_kv = min(s, cfg.sliding_window) if cfg.sliding_window else s
-    attn = mult * 4.0 * B * cfg.n_heads * cfg.resolved_head_dim * cfg.n_layers * s * t_kv
-    return StepFlops(matmul=per_param * n * B * s, attn=attn, scan=0.0, tokens=B * s)
+    n_self = (n_shared_apps if cfg.hybrid_attn_every else 0) if hybrid else cfg.n_layers
+    attn = mult * 4.0 * B * cfg.n_heads * cfg.resolved_head_dim * n_self * s * t_kv
+    scan = 0.0
+    if hybrid:
+        scan = mult * B * s * cfg.n_layers * 6.0 * d_inner(cfg) * max(cfg.ssm_state, 1)
+    return StepFlops(matmul=per_param * n * B * s, attn=attn, scan=scan, tokens=B * s)
 
 
 def mfu(flops_per_step: float, step_time_s: float, peak_flops: float) -> float:

@@ -26,8 +26,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // A head dim rounded up to the contraction step of mma.sync (16) and to the
-// 32 lanes of a warp (the flash kernels): 88 -> 96 for both, 64 and 128 as
-// they are.
+// 32 lanes of a warp (the flash kernels): 88 -> 96 for both, 80 -> 80 and
+// 96, 64 and 128 as they are.
 __host__ __device__ constexpr int pad16(int hd) { return (hd + 15) / 16 * 16; }
 __host__ __device__ constexpr int pad32(int hd) { return (hd + 31) / 32 * 32; }
 

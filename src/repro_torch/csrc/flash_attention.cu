@@ -24,7 +24,9 @@
 //   fp32: FFMA only (no TF32) so the check against the plain fp32 version
 //   stays tight: a warp per 4 query rows, one key per lane for the scores,
 //   head dims split across lanes for the P V update.
-//   Head dims 64, 88 (gpt-1.4b: 2112 over 24 heads) and 128.  The
+//   Head dims 64, 80 (zamba2's shared block: 2560 over 32 heads), 88
+//   (gpt-1.4b: 2112 over 24 heads) and 128.  80 is a multiple of 16 and
+//   runs as it is; the fp32 kernel pads it to 96 lanes.  The
 //   contraction over hd (S = Q K^T) steps k by 16 in mma.sync, so hd 88 runs
 //   as 96: the Q and K tiles get columns 88..95 written as zeros in shared
 //   memory (never read from memory; uninitialised shared memory may hold NaN
@@ -342,7 +344,7 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t s) {
 
 // q: (B, Sq, Hq, hd), k/v: (B, Skv, Hkv, hd), o like q, all with unit stride
 // on hd; strides[12] = element strides (batch, seq, head) of q, k, v, o.
-// lse: (B, Hq, Sq) fp32 contiguous.  hd in {64, 88, 128} (any other gives
+// lse: (B, Hq, Sq) fp32 contiguous.  hd in {64, 80, 88, 128} (any other gives
 // cudaErrorInvalidValue); bf16 strides and base pointers must be multiples
 // of 8 elements (16-byte vectors).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -366,6 +368,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
         case 64: return launch<64>(p, dtype, s);
+        case 80: return launch<80>(p, dtype, s);
         case 88: return launch<88>(p, dtype, s);
         case 128: return launch<128>(p, dtype, s);
         default: return cudaErrorInvalidValue;   // not built for this head dim

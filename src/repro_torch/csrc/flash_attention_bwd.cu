@@ -33,12 +33,13 @@
 //   live in dynamic shared memory (70 KB for dK/dV at hd = 128).
 //   fp32: FFMA only (no TF32) so the check against the plain fp32 version
 //   stays tight, one key per lane for the scores as in the forward.
-//   Head dims 64, 88 and 128, as the forward: the contractions over hd
+//   Head dims 64, 80, 88 and 128, as the forward (80 is a multiple of 16
+//   and needs no padding in bf16): the contractions over hd
 //   (S = Q K^T, dP = dO V^T and their transposes) run hd 88 as 96 over
 //   tiles whose columns 88..95 are zeros written to shared memory; the
 //   products whose n dimension is hd (dQ, dK, dV) tile by 8 and store only
 //   the 88 real columns.  The fp32 dQ kernel pads to a multiple of 32 lanes;
-//   the fp32 dK/dV kernel splits hd over 4 threads, which 88 allows.
+//   the fp32 dK/dV kernel splits hd over 4 threads, which 80 and 88 allow.
 //   Simple first version: no cp.async/TMA double buffering, no wgmma.
 #include "common.cuh"
 
@@ -565,7 +566,7 @@ int make_params(Params& p, const void* q, const void* k, const void* v, const vo
 // Both entries take the same arguments.  q/dout/dq: (B, Sq, Hq, hd);
 // k/v/dk/dv: (B, Skv, Hkv, hd), unit stride on hd; strides[21] = element
 // strides (batch, seq, head) of q, k, v, dout, dq, dk, dv.  lse, delta:
-// (B, Hq, Sq) fp32 contiguous.  hd in {64, 88, 128} (any other gives
+// (B, Hq, Sq) fp32 contiguous.  hd in {64, 80, 88, 128} (any other gives
 // cudaErrorInvalidValue); bf16 strides and base pointers must be multiples
 // of 8 elements (16-byte vectors).
 #define BWD_ARGS                                                                      \
@@ -585,6 +586,7 @@ extern "C" int flash_attention_bwd_dq(BWD_ARGS) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
         case 64: return launch_dq<64>(p, dtype, s);
+        case 80: return launch_dq<80>(p, dtype, s);
         case 88: return launch_dq<88>(p, dtype, s);
         case 128: return launch_dq<128>(p, dtype, s);
         default: return cudaErrorInvalidValue;   // not built for this head dim
@@ -599,6 +601,7 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (hd) {
         case 64: return launch_dkv<64>(p, dtype, s);
+        case 80: return launch_dkv<80>(p, dtype, s);
         case 88: return launch_dkv<88>(p, dtype, s);
         case 128: return launch_dkv<128>(p, dtype, s);
         default: return cudaErrorInvalidValue;   // not built for this head dim

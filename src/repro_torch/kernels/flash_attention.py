@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
-HEAD_DIMS = (64, 88, 128)   # the head dims csrc/flash_attention*.cu are built for
+HEAD_DIMS = (64, 80, 88, 128)   # the head dims csrc/flash_attention*.cu are built for
 launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0

@@ -15,6 +15,7 @@ from repro_torch.kernels import gelu_mlp as gm
 from repro_torch.kernels import grouped_mlp as gp
 from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import swiglu as sg
 
 # kernel name -> (module, name of its launch counter)
@@ -28,6 +29,8 @@ KERNEL_COUNTERS = {
     "gelu_mlp": (gm, "launches"),
     "cross_entropy": (ce, "launches"),
     "grouped_mlp": (gp, "launches"),
+    "ssd_scan": (ssd, "launches"),
+    "mamba_decode_step": (ssd, "launches_decode"),
 }
 
 
@@ -100,6 +103,26 @@ def grouped_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
     elif act != "gelu":
         raise ValueError(f"unsupported grouped-MLP act {act!r}")
     return gp.grouped_mlp(x, w1, w3 if act == "swiglu" else None, w2, mask, act)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             A_log: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused mamba2 chunked SSD scan: x (B, T, H, P), dt (B, T, H), Bm/Cm
+    (B, T, N), A_log (H,) -> (y (B, T, H, P) in x's dtype, final state
+    (B, H, P, N) fp32).  ``chunk`` must be a power of two <= 128 dividing T
+    (``tiling.pick_chunk``); differentiable."""
+    return ssd.ssd_scan(x, dt, Bm, Cm, A_log, chunk=chunk)
+
+
+def mamba_decode_step(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                      dt_raw: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                      D: torch.Tensor, state: torch.Tensor, *, n_heads: int,
+                      head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused single-token mamba decode chain (conv window -> gate -> state
+    update -> read-out): window (B, K, ch), state (B, H, P, N) fp32 ->
+    (y (B, H, P) fp32, new state in a fresh tensor).  Serving only."""
+    return ssd.mamba_decode_step(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D,
+                                 state, n_heads=n_heads, head_dim=head_dim)
 
 
 def launch_counts() -> dict[str, int]:

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.compute import checkpointed
+
 
 def _attention_mask(Sq: int, Skv: int, device, *, causal: bool,
                     sliding_window: int | None, q_offset: int):
@@ -344,3 +346,79 @@ def grouped_mlp_bwd_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | No
         dw3 = torch.bmm(x32.transpose(1, 2), db).to(w3.dtype)
     return ((dx * m).to(x.dtype), dw1.to(w1.dtype), dw3, dw2.to(w2.dtype),
             torch.zeros_like(mask))
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 A_log: torch.Tensor, *, chunk: int, wrap=checkpointed):
+    """Chunked mamba2 SSD scan (``repro/kernels/ref.py:ssd_scan_ref``, the
+    plain path of ``models/ssm.py:_ssd_chunked``): fp32 algebra, zero
+    initial state, the chunk body under ``wrap`` (a checkpoint, as the
+    reference's ``jax.checkpoint``; identity to save everything).  Also the
+    backward recompute of the SSD kernel's Function.
+
+    x: (B, T, H, P); dt: (B, T, H); Bm/Cm: (B, T, N); A_log: (H,).
+    Returns (y (B, T, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} does not divide T={T}")
+    logA = -torch.exp(A_log.float())                       # (H,)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))
+
+    def body(state, xc, dtc, Bc, Cc):
+        xc32, dtc32 = xc.float(), dtc.float()
+        Bc32, Cc32 = Bc.float(), Cc.float()
+        la = dtc32 * logA                                  # (B, Q, H)
+        cum = torch.cumsum(la, dim=1)                      # inclusive
+        total = cum[:, -1]                                 # (B, H)
+        # intra-chunk: W[b,i,j,h] = (C_i . B_j) exp(cum_i - cum_j) dt_j (j <= i);
+        # the mask sits inside the exponent: exp of a future gap overflows
+        Gsc = torch.einsum("bin,bjn->bij", Cc32, Bc32)
+        gap = cum[:, :, None, :] - cum[:, None, :, :]
+        L = torch.exp(torch.where(tri[None, :, :, None], gap, -torch.inf))
+        W = Gsc[..., None] * L * dtc32[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", W, xc32)
+        # inter-chunk: the carried state's contribution
+        y = y + torch.einsum("bin,bhpn->bihp", Cc32, state) * torch.exp(cum)[..., None]
+        decay_rem = torch.exp(total[:, None, :] - cum)     # (B, Q, H)
+        new_state = torch.exp(total)[:, :, None, None] * state + torch.einsum(
+            "bjh,bjn,bjhp->bhpn", dtc32 * decay_rem, Bc32, xc32)
+        return new_state, y
+
+    body = wrap(body)
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for s in range(0, T, chunk):
+        c = slice(s, s + chunk)
+        state, y = body(state, x[:, c], dt[:, c], Bm[:, c], Cm[:, c])
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def mamba_decode_ref(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                     dt_raw: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                     D: torch.Tensor, state: torch.Tensor, *, n_heads: int,
+                     head_dim: int):
+    """Single-token mamba decode chain (``repro/kernels/ref.py:
+    mamba_decode_ref``): the window's conv in the window's dtype (one
+    rounding of the product, one of the bias add), silu in that dtype, then
+    softplus(dt) and the state algebra in fp32.
+
+    window: (B, K, ch) with ch = H*P + 2N; conv_w: (K, ch); conv_b: (ch,);
+    dt_raw: (B, H); dt_bias/A_log/D: (H,); state: (B, H, P, N) fp32.
+    Returns (y (B, H, P) fp32, new state (B, H, P, N) fp32)."""
+    B = window.shape[0]
+    H, P = n_heads, head_dim
+    di = H * P
+    N = state.shape[-1]
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w) + conv_b
+    conv_out = F.silu(conv_out)
+    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    dt = F.softplus(dt_raw.float() + dt_bias.float())              # (B, H)
+    xh = xin.reshape(B, H, P).float()
+    a = torch.exp(dt * -torch.exp(A_log.float()))                  # (B, H)
+    state = a[:, :, None, None] * state + torch.einsum(
+        "bh,bn,bhp->bhpn", dt, Bm.float(), xh)
+    y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
+    y = y + D.float()[None, :, None] * xh
+    return y, state

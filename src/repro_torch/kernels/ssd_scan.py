@@ -1,0 +1,166 @@
+"""Mamba-2 chunked SSD scan and the fused single-token mamba decode step: the
+CUDA kernels of ``csrc/ssd_scan.cu`` (ported from
+``repro/kernels/ssd_scan.py:_scan_kernel`` and ``_decode_kernel``), their
+plain versions, and the ``torch.autograd.Function`` of the scan.
+
+The scan's Function saves only its inputs.  Its forward is the kernel for a
+CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
+recomputes the plain chunk loop (``kernels/ref.py:ssd_scan_ref``) under
+autograd from the saved inputs on both, as the reference's ``custom_vjp``
+runs ``jax.vjp`` over its jnp oracle.  The decode step serves only and has
+no backward.  ``launches`` and ``launches_decode`` count the two kernels'
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mamba_decode_ref, ssd_scan_ref
+
+HEAD_DIM, STATE = 64, 64    # the (P, N) that csrc/ssd_scan.cu is built for
+MAX_CHUNK = 128
+launches = 0
+launches_decode = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    lib.ssd_scan_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                                    ctypes.c_void_p])
+    lib.ssd_scan_fwd.restype = ctypes.c_int
+    lib.mamba_decode_fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.mamba_decode_fwd.restype = ctypes.c_int
+    return lib
+
+
+def check_chunk(T: int, chunk: int) -> None:
+    if chunk < 1 or chunk > MAX_CHUNK or chunk & (chunk - 1) or T < 1 or T % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be a power of two <= "
+                         f"{MAX_CHUNK} that divides T={T}")
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                  A_log: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, H, P) bf16 or fp32 on the card (any strides with unit stride
+    on P), dt: (B, T, H), Bm/Cm: (B, T, N) in x's dtype (unit stride on N),
+    A_log: (H,) -> (y (B, T, H, P) in x's dtype, state (B, H, P, N) fp32)."""
+    global launches
+    code = _build.dtype_code(x)
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if (not x.is_cuda or any(t.device != x.device for t in (dt, Bm, Cm, A_log))
+            or dt.shape != (B, T, H) or Bm.shape != (B, T, N) or Cm.shape != (B, T, N)
+            or {Bm.dtype, Cm.dtype} != {x.dtype} or A_log.shape != (H,)):
+        raise ValueError(f"ssd_scan: x {x.dtype} {tuple(x.shape)} on {x.device}, dt "
+                         f"{tuple(dt.shape)}, B {Bm.dtype} {tuple(Bm.shape)}, C "
+                         f"{Cm.dtype} {tuple(Cm.shape)}, A_log {tuple(A_log.shape)}")
+    if (P, N) != (HEAD_DIM, STATE):
+        raise ValueError(f"ssd_scan: built for (P, N) = {(HEAD_DIM, STATE)}, got {(P, N)}")
+    check_chunk(T, chunk)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (Bm, Cm))
+    dt, A_log = dt.float(), A_log.float().contiguous()   # no-ops for the model's fp32 dt
+    y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
+                                       *Cm.stride()[:2])
+    lib = _lib()
+    err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                           A_log.data_ptr(), y.data_ptr(), state.data_ptr(), B, T, H, P, N,
+                           chunk, strides, code, _build.stream_of(x))
+    _build.check(lib, err, "ssd_scan_fwd")
+    launches += 1
+    return y, state
+
+
+class SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, Bm, Cm, A_log, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, Bm, Cm, A_log)
+        if x.device.type == "cpu":
+            return ssd_scan_ref(x, dt, Bm, Cm, A_log, chunk=chunk)
+        return ssd_scan_cuda(x, dt, Bm, Cm, A_log, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        inputs = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ssd_scan_ref(*inputs, chunk=ctx.chunk)
+            grads = torch.autograd.grad((y, state), inputs, (gy, gs), allow_unused=True)
+        return (*grads, None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+             A_log: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, H, P) in x's dtype, final state (B, H, P, N) fp32) of the
+    chunked scan; differentiable in every input."""
+    check_chunk(x.shape[1], chunk)
+    return SSDScan.apply(x, dt, Bm, Cm, A_log, chunk)
+
+
+def mamba_decode_cuda(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
+                      n_heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """window: (B, K, ch) bf16 or fp32 on the card, conv_w (K, ch) and conv_b
+    (ch,) in its dtype; dt_raw (B, H), dt_bias/A_log/D (H,) bf16 or fp32
+    (read in fp32 in the kernel, as the reference casts them); state
+    (B, H, P, N) fp32 -> (y (B, H, P) fp32, new state in a fresh
+    (B, H, P, N) fp32)."""
+    global launches_decode
+    code = _build.dtype_code(window)
+    B, K, ch = window.shape
+    H, P = n_heads, head_dim
+    N = state.shape[-1] if state.ndim == 4 else -1
+    if (not window.is_cuda
+            or any(t.device != window.device
+                   for t in (conv_w, conv_b, dt_raw, dt_bias, A_log, D, state))
+            or {conv_w.dtype, conv_b.dtype} != {window.dtype}
+            or conv_w.shape != (K, ch) or conv_b.shape != (ch,) or dt_raw.shape != (B, H)
+            or any(t.shape != (H,) for t in (dt_bias, A_log, D))
+            or state.shape != (B, H, P, N) or state.dtype != torch.float32
+            or ch != H * P + 2 * N):
+        raise ValueError(
+            f"mamba_decode_step: window {window.dtype} {tuple(window.shape)} on "
+            f"{window.device}, conv_w {tuple(conv_w.shape)}, conv_b {tuple(conv_b.shape)}, "
+            f"dt_raw {tuple(dt_raw.shape)}, state {state.dtype} {tuple(state.shape)}, "
+            f"H {H}, P {P}")
+    if (P, N) != (HEAD_DIM, STATE):
+        raise ValueError(f"mamba_decode_step: built for (P, N) = {(HEAD_DIM, STATE)}, "
+                         f"got {(P, N)}")
+    window, conv_w, conv_b = (t.contiguous() for t in (window, conv_w, conv_b))
+    small = (dt_raw, dt_bias, A_log, D)
+    if len({t.dtype for t in small}) > 1:
+        small = tuple(t.float() for t in small)
+    dt_raw, dt_bias, A_log, D = (t.contiguous() for t in small)
+    state = _build.aligned(state)
+    y = torch.empty((B, H, P), dtype=torch.float32, device=window.device)
+    new_state = torch.empty_like(state)
+    lib = _lib()
+    err = lib.mamba_decode_fwd(window.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
+                               dt_raw.data_ptr(), dt_bias.data_ptr(), A_log.data_ptr(),
+                               D.data_ptr(), state.data_ptr(), y.data_ptr(),
+                               new_state.data_ptr(), B, K, ch, H, P, N, code,
+                               _build.dtype_code(dt_raw), _build.stream_of(window))
+    _build.check(lib, err, "mamba_decode_fwd")
+    launches_decode += 1
+    return y, new_state
+
+
+def mamba_decode_step(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
+                      n_heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused decode step: (y (B, H, P) fp32, new state (B, H, P, N) fp32,
+    a fresh tensor: ``state`` is left as it was).  Serving only: no
+    gradient."""
+    if window.device.type == "cpu":
+        return mamba_decode_ref(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                                n_heads=n_heads, head_dim=head_dim)
+    return mamba_decode_cuda(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                             n_heads=n_heads, head_dim=head_dim)

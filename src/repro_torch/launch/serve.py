@@ -4,6 +4,7 @@ TTFT percentiles and goodput.  Runs on the card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-1.4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --cache-len 512
   PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --reduced \
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
@@ -88,8 +89,9 @@ def main() -> None:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="default: bf16 on the card, fp32 on the CPU")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction, default=True,
-                    help="the norms, the MLP input half, the grouped expert MLP "
-                         "and prefill attention in the CUDA kernels")
+                    help="the norms, the MLP input half, the grouped expert MLP, "
+                         "prefill attention, the SSD scan and the mamba decode "
+                         "step in the CUDA kernels")
     args = ap.parse_args()
 
     device = resolve_device(args.device)
@@ -109,8 +111,9 @@ def main() -> None:
         top_p=args.top_p, seed=args.seed)
 
     mode = "static" if args.static else "continuous"
-    print(f"{cfg.name} [{cfg.family}] {mode} batching, {args.n_slots} slots, "
-          f"paged pool: {engine.n_blocks}x{engine.block_size} blocks, "
+    cache = (f"paged pool: {engine.n_blocks}x{engine.block_size} blocks" if engine.paged
+             else f"slot-swap cache: {args.n_slots}x{args.cache_len} positions")
+    print(f"{cfg.name} [{cfg.family}] {mode} batching, {args.n_slots} slots, {cache}, "
           f"{device} {str(dtype).removeprefix('torch.')}, kernels={args.kernels}")
     t0 = time.monotonic()
     engine.run(reqs)

@@ -7,6 +7,8 @@ Runs on the card unless ``--device cpu``.
       --steps 5 --global-batch 8 --gas 2 --seq-len 2048 --precision bf16 --kernels
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-1.4b \
       --steps 5 --global-batch 8 --gas 2 --seq-len 2048 --precision bf16 --kernels
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+      --steps 5 --global-batch 8 --gas 2 --seq-len 2048 --precision bf16 --kernels
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch yi-6b \
       --reduced --steps 5 --global-batch 4 --seq-len 32 --precision fp32
 """
@@ -45,7 +47,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          "everything; selective is not ported yet")
     ap.add_argument("--kernels", action="store_true",
                     help="the norms (RMSNorm or LayerNorm), the MLP input half "
-                         "(SwiGLU or GELU), attention and CE in the CUDA kernels")
+                         "(SwiGLU or GELU), attention, the SSD scan and CE in the "
+                         "CUDA kernels")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")

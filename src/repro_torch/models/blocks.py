@@ -83,10 +83,12 @@ def self_attn_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def self_attn_decode(params: dict, x: torch.Tensor, cache: dict,
                      pos: torch.Tensor, cfg: ModelConfig,
-                     policy: ComputePolicy | None = None):
+                     policy: ComputePolicy | None = None,
+                     active: torch.Tensor | None = None):
     """One-token cached attention; ``cache`` = {"k", "v"} of (B, C, Hkv, hd)
     (C may be a ring) is written in place.  ``pos`` is a scalar (lockstep
-    batch) or a (B,) vector (a position per slot)."""
+    batch) or a (B,) vector (a position per slot); the rows of slots that
+    ``active`` (B,) marks inactive are left as they were."""
     pol = resolve_policy(policy)
     if "k_scale" in cache:
         raise NotImplementedError("kv_quant caches are not ported yet (ROADMAP.md)")
@@ -100,7 +102,7 @@ def self_attn_decode(params: dict, x: torch.Tensor, cache: dict,
         k = layers.apply_rope(k, p, cfg.rope_theta)
     clen = cache["k"].shape[1]
     slot = torch.remainder(pos, clen)
-    ck, cv = layers.cache_update(cache["k"], cache["v"], k, v, slot)
+    ck, cv = layers.cache_update(cache["k"], cache["v"], k, v, slot, active)
     # absolute position held by each ring slot (negative = not yet written)
     slots = torch.arange(clen, device=x.device)
     if batched:

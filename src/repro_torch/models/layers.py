@@ -173,12 +173,17 @@ def mlp(x: torch.Tensor, params: dict, act: str, use_kernel: bool = False) -> to
 # ---------------------------------------------------------------------------
 
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                 v: torch.Tensor, pos: torch.Tensor,
+                 active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Write (B, 1, Hkv, hd) new KV at position ``pos`` of (B, S, Hkv, hd),
     in place.  ``pos`` is a scalar (whole-batch decode) or a (B,) vector
-    (every slot writes its own position)."""
+    (every slot writes its own position); an ``active`` (B,) mask keeps the
+    entries of inactive slots as they were."""
     b = torch.arange(cache_k.shape[0], device=cache_k.device)
     p = pos.long().expand(cache_k.shape[0])
-    cache_k[b, p] = k[:, 0].to(cache_k.dtype)
-    cache_v[b, p] = v[:, 0].to(cache_v.dtype)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        new = new[:, 0].to(cache.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None], new, cache[b, p])
+        cache[b, p] = new
     return cache_k, cache_v

@@ -1,16 +1,18 @@
-"""Top-level Model, the dense and moe families of ``repro/models/model.py``,
-as an ``nn.Module`` that holds its weights.
+"""Top-level Model, the dense, moe and hybrid (zamba2) families of
+``repro/models/model.py``, as an ``nn.Module`` that holds its weights.
 
   * ``param_specs()``  — declarative tree (shapes/axes/init); its dotted
     paths (``layers.attn.wq``, ``layers.mlp.w1``, …) are the state_dict keys,
     so weights carry over from the JAX pytree 1:1 (``repro_torch.interop``)
   * ``init(generator)`` — draw the weights from an explicit generator
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
-    blocked-kernel CE) and the full-sequence logits (dense family; training
-    the moe family is not ported yet)
-  * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + KV cache
+    blocked-kernel CE) and the full-sequence logits (dense and hybrid
+    families; training the moe family is not ported yet)
+  * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + cache
+    (KV; for hybrid also each mamba layer's conv window and SSD state)
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
-    ``active`` and a paged ``block_table``
+    ``active`` and a paged ``block_table``, or ``active`` alone for a
+    slot-swap cache (the hybrid family's fixed-size state)
   * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``
 
 Weights keep the JAX layout (``x @ W`` with W (d_in, d_out), per-layer
@@ -41,7 +43,7 @@ from repro_torch.core.compute import (
     ComputePolicy, checkpointed, resolve as resolve_policy,
 )
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import blocks, layers, moe
+from repro_torch.models import blocks, layers, moe, ssm
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
@@ -73,8 +75,11 @@ def stack_specs(tree: Any, n: int) -> Any:
 
 
 def _layer_specs(cfg: ModelConfig) -> dict:
-    """One stacked unit: attention and MLP (dense), or attention and the MoE
-    FFN after a sub-stack of ``moe_every - 1`` dense layers (moe)."""
+    """One stacked unit: attention and MLP (dense), attention and the MoE
+    FFN after a sub-stack of ``moe_every - 1`` dense layers (moe), or one
+    mamba2 layer (hybrid; the shared attention block is its own subtree)."""
+    if cfg.family == "hybrid":
+        return ssm.mamba_specs(cfg)
     if cfg.family != "moe":
         return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
     unit = {"attn": blocks.attn_specs(cfg), "moe": moe.moe_specs(cfg)}
@@ -95,6 +100,16 @@ def _n_stack(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
+def _n_super(cfg: ModelConfig) -> int:
+    """Number of hybrid "super" units: ``hybrid_attn_every`` mamba layers
+    and one application of the shared block each."""
+    per = cfg.hybrid_attn_every or cfg.n_layers
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple "
+                         f"of hybrid_attn_every={per}")
+    return cfg.n_layers // per
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree of ``repro/models/model.py:Model.param_specs``."""
     d, V = cfg.d_model, cfg.padded_vocab
@@ -105,13 +120,17 @@ def param_specs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((d, V), ("embed", "vocab"), scale=0.02)
+    if cfg.family == "hybrid":
+        # one weight-tied attention + MLP block, applied after every
+        # hybrid_attn_every mamba layers
+        specs["shared"] = {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
     return specs
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
     if cfg.sliding_window is not None:
         raise NotImplementedError(f"sliding-window ring caches {where}")
@@ -231,8 +250,9 @@ class Model(nn.Module):
 
     def _kv_specs(self, lead: tuple[int, ...], axes: tuple[str, ...]) -> dict:
         """The KV leaves of every attention layer, stacked like the weights:
-        flat (n_layers, ...) or, for moe with ``moe_every > 1``, per unit
-        {"moe_kv": (n_stack, ...), "dense": (n_stack, moe_every - 1, ...)}."""
+        flat (n_layers, ...); for moe with ``moe_every > 1`` per unit
+        {"moe_kv": (n_stack, ...), "dense": (n_stack, moe_every - 1, ...)};
+        for hybrid one per application of the shared block (n_super, ...)."""
         cfg = self.cfg
         shape = (*lead, cfg.n_kv_heads, cfg.resolved_head_dim)
         full_axes = (*axes, "cache_heads", "head_dim")
@@ -241,7 +261,7 @@ class Model(nn.Module):
         if cfg.family == "moe" and cfg.moe_every > 1:
             unit = {"moe_kv": kv, "dense": stack_specs(kv, cfg.moe_every - 1)}
             return stack_specs(unit, _n_stack(cfg))
-        return stack_specs(kv, cfg.n_layers)
+        return stack_specs(kv, _n_super(cfg) if cfg.family == "hybrid" else cfg.n_layers)
 
     def _attn_layers(self, params: dict, cache: dict
                      ) -> Iterator[tuple[dict, dict, Callable]]:
@@ -265,9 +285,16 @@ class Model(nn.Module):
                 p, x, cfg, policy=pol)[0]
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:
-        return {"pos": Spec((), (), init="zeros", dtype=torch.int32),
-                "layers": self._kv_specs((batch, cache_len),
-                                         ("cache_batch", "cache_seq"))}
+        """{"pos", "layers"}: the KV of every attention layer; for hybrid
+        "layers" holds each mamba layer's {"conv", "state"} and "shared" one
+        KV stack per application of the shared block."""
+        cfg = self.cfg
+        kv = self._kv_specs((batch, cache_len), ("cache_batch", "cache_seq"))
+        specs = {"pos": Spec((), (), init="zeros", dtype=torch.int32), "layers": kv}
+        if cfg.family == "hybrid":
+            specs["layers"] = stack_specs(ssm.mamba_cache_specs(cfg, batch), cfg.n_layers)
+            specs["shared"] = kv
+        return specs
 
     def paged_cache_specs(self, n_slots: int, n_blocks: int, block_size: int) -> dict:
         """The KV pool of the serve engine: ``n_blocks`` physical blocks of
@@ -300,14 +327,24 @@ class Model(nn.Module):
         cdt = self.compute_dtype
         params = self.params()
         x = self._embed(params, batch)
-        body = blocks.segment_body(cfg, self.compute)
+        lps = _unstack(params["layers"], cfg.n_layers)
+        if cfg.family == "hybrid":
+            # the shared block's Parameters are closed over by every unit:
+            # autograd sums their gradients over the applications
+            per = cfg.n_layers // _n_super(cfg)
+            unit = ssm.hybrid_segment_body(cfg, self.compute, params["shared"],
+                                           lambda t: _cast_floating(t, cdt))
+            for s in range(0, cfg.n_layers, per):
+                x = unit(lps[s:s + per], x)
+        else:
+            body = blocks.segment_body(cfg, self.compute)
 
-        def layer(x, lp):     # lp in the storage dtype: cast inside the remat
-            return body(_cast_floating(lp, cdt), x)
+            def layer(x, lp):     # lp in the storage dtype: cast inside the remat
+                return body(_cast_floating(lp, cdt), x)
 
-        layer = self.compute.checkpoint(layer)
-        for lp in _unstack(params["layers"], cfg.n_layers):
-            x = layer(x, lp)
+            layer = self.compute.checkpoint(layer)
+            for lp in lps:
+                x = layer(x, lp)
         return layers.apply_norm(x, _cast_floating(params["final_norm"], cdt),
                                  cfg.norm, cfg.rms_eps,
                                  use_kernel=self.compute.kernels)
@@ -360,18 +397,57 @@ class Model(nn.Module):
         else:
             total = lens.to(device=self.device, dtype=torch.int32)
             cache = {"pos": total}
-        kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
-                         None, self.device, self.compute_dtype)
-        for ap, kvc, ffn in self._attn_layers(params["layers"], kv):
-            x, k, v = blocks.self_attn_block(ap, x, cfg, causal=True,
-                                             return_kv=True, policy=self.compute)
-            x = ffn(x)
-            kvc["k"].copy_(_ring_place(k, cache_len, total))
-            kvc["v"].copy_(_ring_place(v, cache_len, total))
-        cache["layers"] = kv
+        if cfg.family == "hybrid":
+            if lens is not None and bool((lens != S).any()):
+                raise ValueError("the hybrid family prefills each prompt at its exact "
+                                 "length: a padded row would leave its padding in the "
+                                 "conv window and the SSD state")
+            x, state = self._prefill_hybrid(params, x, cache_len, total)
+            cache.update(state)
+        else:
+            kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
+                             None, self.device, self.compute_dtype)
+            for ap, kvc, ffn in self._attn_layers(params["layers"], kv):
+                x, k, v = blocks.self_attn_block(ap, x, cfg, causal=True,
+                                                 return_kv=True, policy=self.compute)
+                x = ffn(x)
+                kvc["k"].copy_(_ring_place(k, cache_len, total))
+                kvc["v"].copy_(_ring_place(v, cache_len, total))
+            cache["layers"] = kv
         last = x[:, -1] if total is None else x[torch.arange(B, device=x.device),
                                                total.long() - 1]
         return self._logits(params, last), cache
+
+    def _prefill_hybrid(self, params: dict, x: torch.Tensor, cache_len: int,
+                        total: torch.Tensor | None,
+                        layer_hook: Callable[[int, torch.Tensor], None] | None = None
+                        ) -> tuple[torch.Tensor, dict]:
+        """The zamba2 super units over the prompt (``super_body`` of the
+        reference's prefill): each mamba layer leaves its conv window and
+        SSD state, each application of the shared block its KV.
+        ``layer_hook(i, x)``, if given, sees the hidden state after mamba
+        layer i and the shared block that may follow it.  Returns
+        (x, {"layers", "shared"})."""
+        cfg, pol = self.cfg, self.compute
+        specs = self.cache_specs(x.shape[0], cache_len)
+        cache = init_params({"layers": specs["layers"], "shared": specs["shared"]},
+                            None, self.device, self.compute_dtype)
+        per = cfg.n_layers // _n_super(cfg)
+        shared = params["shared"]
+        for i in range(cfg.n_layers):
+            x, mc = ssm.mamba_prefill(_layer(params["layers"], i), x, cfg, policy=pol)
+            for name, t in _layer(cache["layers"], i).items():
+                t.copy_(mc[name])
+            if (i + 1) % per == 0:
+                x, k, v = blocks.self_attn_block(shared["attn"], x, cfg, causal=True,
+                                                 return_kv=True, policy=pol)
+                x = blocks.mlp_block(shared["mlp"], x, cfg, policy=pol)
+                kvc = _layer(cache["shared"], i // per)
+                kvc["k"].copy_(_ring_place(k, cache_len, total))
+                kvc["v"].copy_(_ring_place(v, cache_len, total))
+            if layer_hook is not None:
+                layer_hook(i, x)
+        return x, cache
 
     # ------------------------------------------------------------------
     # Decode
@@ -379,32 +455,62 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """One serving step: batch = {"token": (B, 1)}, optionally "active"
-        (B,) bool (inactive slots do not advance ``pos``; their paged writes
-        go to block 0) and "block_table" (B, max_blocks) for the paged pool
-        of :meth:`paged_cache_specs`.  ``cache["pos"]`` is a scalar or a (B,)
-        vector.  The KV leaves are updated in place; returns (logits (B, V)
-        fp32, cache with the advanced ``pos``)."""
+        (B,) bool (inactive slots do not advance ``pos``) and "block_table"
+        (B, max_blocks) for the paged pool of :meth:`paged_cache_specs`,
+        where inactive slots' writes go to block 0.  ``active`` without a
+        block table is the slot-swap cache of :meth:`cache_specs` (the
+        reference's ``_freeze_inactive``): an inactive slot's KV rows, conv
+        windows and SSD states are left exactly as they were.
+        ``cache["pos"]`` is a scalar or a (B,) vector.  The cache leaves are
+        updated in place; returns (logits (B, V) fp32, cache with the
+        advanced ``pos``)."""
         cfg = self.cfg
         params = self._cparams()
         pos = cache["pos"]
         active = batch.get("active")
         bt = batch.get("block_table")
-        if active is not None and bt is None:
-            raise NotImplementedError(
-                "slot-swap caches (active without a block table) are not "
-                "ported yet (see ROADMAP.md)")
         x = params["embed"][batch["token"].long()]
+        step = 1 if active is None else active.to(pos.dtype)
+        if cfg.family == "hybrid":
+            if bt is not None:
+                raise ValueError("the hybrid family's cache is fixed-size: it is "
+                                 "slot-swapped, never paged")
+            x = self._decode_hybrid(params, cache, x, pos, active)
+            return self._logits(params, x[:, 0]), {**cache, "pos": pos + step}
         for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"]):
             if bt is not None:
                 x, _ = blocks.paged_attn_decode(ap, x, kvc, bt, pos, cfg,
                                                 active=active, policy=self.compute)
             else:
                 x, _ = blocks.self_attn_decode(ap, x, kvc, pos, cfg,
-                                               policy=self.compute)
+                                               policy=self.compute, active=active)
             x = ffn(x)
-        step = 1 if active is None else active.to(pos.dtype)
         new_cache = {"pos": pos + step, "layers": cache["layers"]}
         return self._logits(params, x[:, 0]), new_cache
+
+    def _decode_hybrid(self, params: dict, cache: dict, x: torch.Tensor,
+                       pos: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:
+        """The zamba2 super units over one token (``super_body`` of the
+        reference's decode).  The mamba layers' new conv windows and states
+        are fresh tensors, copied into the cache under ``active``."""
+        cfg, pol = self.cfg, self.compute
+        per = cfg.n_layers // _n_super(cfg)
+        shared = params["shared"]
+        for i in range(cfg.n_layers):
+            mc = _layer(cache["layers"], i)
+            x, new = ssm.mamba_decode(_layer(params["layers"], i), x, mc, cfg, policy=pol)
+            for name, t in mc.items():
+                if active is None:
+                    t.copy_(new[name])
+                else:
+                    keep = active.reshape(-1, *([1] * (t.ndim - 1)))
+                    t.copy_(torch.where(keep, new[name].to(t.dtype), t))
+            if (i + 1) % per == 0:
+                x, _ = blocks.self_attn_decode(shared["attn"], x,
+                                               _layer(cache["shared"], i // per), pos,
+                                               cfg, policy=pol, active=active)
+                x = blocks.mlp_block(shared["mlp"], x, cfg, policy=pol)
+        return x
 
 
 def _ring_place(x: torch.Tensor, clen: int,

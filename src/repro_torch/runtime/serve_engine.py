@@ -1,25 +1,31 @@
 """ServeEngine: continuous-batching request engine (port of
-``repro/runtime/serve_engine.py``, paged KV families (dense and moe),
-single device).
+``repro/runtime/serve_engine.py``, single device).
 
   * a fixed batch of ``n_slots`` decode slots ticks together through one
     ``Model.decode_step`` with a per-slot ``pos`` vector and an ``active``
     mask; a finished request's slot is refilled on the next tick
     (``continuous=False``: only once every slot has drained);
-  * the KV cache is one pool of ``block_size``-position blocks
-    (``Model.paged_cache_specs``) addressed per slot through a block table;
-    block 0 is the garbage target of inactive slots.  When the pool runs
-    out, the youngest request is evicted and requeued with its generated
-    prefix as prompt, which replays it exactly;
+  * full-attention KV families (dense, moe) keep one pool of
+    ``block_size``-position blocks (``Model.paged_cache_specs``) addressed
+    per slot through a block table; block 0 is the garbage target of
+    inactive slots.  When the pool runs out, the youngest request is
+    evicted and requeued with its generated prefix as prompt, which replays
+    it exactly;
+  * fixed-size caches (the hybrid family's conv windows and SSD states
+    beside its shared-block KV) are one row per slot (``Model.cache_specs``
+    with a per-slot ``pos``); admission splices the one-request prefill
+    cache into the slot's row of every leaf;
   * prompts prefill in length buckets (``Model.prefill(lens=)``) and their
-    blocks are copied into the pool;
+    blocks are copied into the pool; recurrent families (rwkv, hybrid)
+    prefill at the prompt's exact length instead, because their state
+    summarizes every position it sees, padding included;
   * sampling per request (``runtime/sampling.py``) with stop tokens,
     ``max_new_tokens`` and the capacity cap.
 
 Each finished request appends a dict to ``records`` (arrival, admission,
 first-token and done times on the engine clock, token counts, finish
-reason, evictions).  Slot-swap caches (SWA rings, recurrent state), meshes
-and telemetry sinks are not ported yet (ROADMAP.md).
+reason, evictions).  Meshes and telemetry sinks are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.models.common import init_params
+from repro_torch.models.common import Spec, init_params
 from repro_torch.models.model import Model
 from repro_torch.runtime import serve_loop
 from repro_torch.runtime.sampling import sample_tokens
@@ -80,29 +86,48 @@ def _place_blocks(specs: dict, pool: dict, small: dict, targets: torch.Tensor,
         pool[name][(slice(None),) * i + (targets,)] = sm.to(pool[name].dtype)
 
 
+def _place_row(specs: dict, cache: dict, small: dict, slot: int) -> None:
+    """Copy a one-request prefill cache into row ``slot`` of a slot-swap
+    cache, leaf by leaf: a leaf's slot dim sits where its spec says
+    "cache_batch" (after the layer stack dim)."""
+    for name, spec in specs.items():
+        if isinstance(spec, dict):
+            _place_row(spec, cache[name], small[name], slot)
+            continue
+        i = spec.axes.index("cache_batch")
+        cache[name][(slice(None),) * i + (slot,)] = small[name].squeeze(i).to(
+            cache[name].dtype)
+
+
 class ServeEngine:
     """See module docstring."""
 
     def __init__(self, model: Model, *, n_slots: int = 4, cache_len: int = 64,
                  block_size: int = 8, n_blocks: int | None = None,
                  continuous: bool = True):
-        if not model.paged_cacheable:
-            raise NotImplementedError(
-                f"{model.cfg.name}: slot-swap caches are not ported yet "
-                "(see ROADMAP.md); the engine serves paged KV families")
         self.model, self.cfg = model, model.cfg
         self.device = model.device
         self.n_slots, self.cache_len = n_slots, cache_len
         self.continuous = continuous
         self.block_size = block_size
-        self.max_blocks = cache_len // block_size + 1
-        # default pool: worst case for every slot, +1 garbage block
-        self.n_blocks = n_blocks or (1 + n_slots * self.max_blocks)
-        self.cache_specs = model.paged_cache_specs(n_slots, self.n_blocks, block_size)
+        self.paged = model.paged_cacheable
+        # recurrent state summarizes every fed position, so padded prefill
+        # would pollute it: these families prefill at the exact length
+        self.exact_prefill = model.cfg.family in ("rwkv", "hybrid")
+        if self.paged:
+            self.max_blocks = cache_len // block_size + 1
+            # default pool: worst case for every slot, +1 garbage block
+            self.n_blocks = n_blocks or (1 + n_slots * self.max_blocks)
+            self.cache_specs = model.paged_cache_specs(n_slots, self.n_blocks, block_size)
+            self.free_blocks = list(range(self.n_blocks - 1, 0, -1))
+            self.bt = np.zeros((n_slots, self.max_blocks), np.int32)
+        else:
+            # one cache row per slot; engine contract: pos is a per-slot vector
+            self.cache_specs = model.cache_specs(n_slots, cache_len)
+            self.cache_specs["pos"] = Spec((n_slots,), ("cache_batch",), init="zeros",
+                                           dtype=torch.int32)
         self.cache = init_params(self.cache_specs, None, self.device,
                                  model.compute_dtype)
-        self.free_blocks = list(range(self.n_blocks - 1, 0, -1))
-        self.bt = np.zeros((n_slots, self.max_blocks), np.int32)
         # prefill lengths: powers of two from max(4, block_size), then cache_len
         b, buckets = max(4, block_size), []
         while b < cache_len:
@@ -133,6 +158,8 @@ class ServeEngine:
     @property
     def capacity(self) -> int:
         """Max total positions (prompt + generated) per request."""
+        if not self.paged:
+            return self.cache_len
         return min(self.cache_len, self.max_blocks * self.block_size - 1)
 
     def _now(self) -> float:
@@ -140,8 +167,9 @@ class ServeEngine:
 
     def _get_prefill(self, bucket: int) -> Callable:
         if bucket not in self._prefills:
-            self._prefills[bucket] = serve_loop.build_prefill(
-                self.model, _round_up(bucket, self.block_size), with_lens=True)
+            clen = _round_up(bucket, self.block_size) if self.paged else self.cache_len
+            self._prefills[bucket] = serve_loop.build_prefill(self.model, clen,
+                                                              with_lens=True)
         return self._prefills[bucket]
 
     def _bucket(self, length: int) -> int:
@@ -175,7 +203,7 @@ class ServeEngine:
         while free and self.queue:
             req = self.queue[0]
             total = len(req.prompt) + len(self.results[req.rid]["generated"])
-            if len(self.free_blocks) < total // self.block_size + 1:
+            if self.paged and len(self.free_blocks) < total // self.block_size + 1:
                 # wait for in-flight requests to release blocks (evicting
                 # here would thrash: the victim becomes the queue head)
                 if not any(s.req is not None for s in self.slots):
@@ -196,7 +224,7 @@ class ServeEngine:
         if gen:
             prompt = np.concatenate([prompt, np.asarray(gen, np.int32)])
         L = len(prompt)
-        bucket = self._bucket(L)
+        bucket = L if self.exact_prefill else self._bucket(L)
         t0 = time.perf_counter()
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :L] = prompt
@@ -205,20 +233,24 @@ class ServeEngine:
             torch.tensor([L], dtype=torch.int32, device=self.device))
         self.n_prefills += 1
 
-        n_keep = L // self.block_size + 1
-        blocks = [self.free_blocks.pop() for _ in range(n_keep)]
-        nb_bucket = _round_up(bucket, self.block_size) // self.block_size
-        nb_real = min(n_keep, nb_bucket)
-        targets = np.zeros(nb_bucket, np.int64)      # pad blocks -> garbage
-        targets[:nb_real] = blocks[:nb_real]
-        self.bt[slot_idx] = 0
-        self.bt[slot_idx, :n_keep] = blocks
-        _place_blocks(self.cache_specs["layers"], self.cache["layers"], small["layers"],
-                      torch.from_numpy(targets).to(self.device), self.block_size)
+        slot = self.slots[slot_idx]
+        if self.paged:
+            n_keep = L // self.block_size + 1
+            blocks = [self.free_blocks.pop() for _ in range(n_keep)]
+            nb_bucket = _round_up(bucket, self.block_size) // self.block_size
+            nb_real = min(n_keep, nb_bucket)
+            targets = np.zeros(nb_bucket, np.int64)      # pad blocks -> garbage
+            targets[:nb_real] = blocks[:nb_real]
+            self.bt[slot_idx] = 0
+            self.bt[slot_idx, :n_keep] = blocks
+            _place_blocks(self.cache_specs["layers"], self.cache["layers"], small["layers"],
+                          torch.from_numpy(targets).to(self.device), self.block_size)
+            slot.blocks = blocks
+        else:
+            _place_row({k: v for k, v in self.cache_specs.items() if k != "pos"},
+                       self.cache, small, slot_idx)
         self.cache["pos"][slot_idx] = L
 
-        slot = self.slots[slot_idx]
-        slot.blocks = blocks
         slot.req = req
         slot.pos = L
         slot.admit_seq = self._admit_seq
@@ -270,9 +302,10 @@ class ServeEngine:
 
     def _release(self, slot_idx: int) -> None:
         slot = self.slots[slot_idx]
-        self.free_blocks.extend(reversed(slot.blocks))
-        self.bt[slot_idx] = 0
-        slot.blocks = []
+        if self.paged:
+            self.free_blocks.extend(reversed(slot.blocks))
+            self.bt[slot_idx] = 0
+            slot.blocks = []
         slot.req = None
         slot.pos = 0
         slot.next_token = 0
@@ -317,14 +350,16 @@ class ServeEngine:
         self._admit_ready()
         if not any(s.req is not None for s in self.slots):
             return []
-        self._grow_blocks()
+        if self.paged:
+            self._grow_blocks()
         active = [i for i, s in enumerate(self.slots) if s.req is not None]
         mask = np.zeros(self.n_slots, bool)
         mask[active] = True
         tokens = np.array([[s.next_token] for s in self.slots], np.int64)
         batch = {"token": torch.from_numpy(tokens).to(self.device),
-                 "active": torch.from_numpy(mask).to(self.device),
-                 "block_table": torch.from_numpy(self.bt).to(self.device)}
+                 "active": torch.from_numpy(mask).to(self.device)}
+        if self.paged:
+            batch["block_table"] = torch.from_numpy(self.bt).to(self.device)
         t0 = time.perf_counter()
         logits, self.cache = self._decode(self.cache, batch)
         sampled = sample_tokens(logits, self.temps, self.top_ps, self.seeds, self.steps)

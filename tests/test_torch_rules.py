@@ -19,7 +19,7 @@ from repro_torch.core.compute import ComputePolicy
 from repro_torch.interop import from_jax_params
 from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
                                  gelu_mlp as gm, grouped_mlp as gp, layernorm as ln, ops,
-                                 rmsnorm as rn, swiglu as sg)
+                                 rmsnorm as rn, ssd_scan as ssd, swiglu as sg)
 from repro_torch.models.model import Model
 
 # tiny shapes: intra-op threads only add overhead here, and they
@@ -45,7 +45,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_imports_no_jax_and_no_reference():
     files = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-             + [REPO / "chip_smoke.py", REPO / "tools" / "step0_limits.py"])
+             + [REPO / "chip_smoke.py", REPO / "tools" / "step0_limits.py",
+                REPO / "tools" / "depth_drift.py"])
     assert len(files) > 20
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in files}
@@ -81,19 +82,21 @@ def test_launcher_runs_on_cpu_only_when_asked():
 def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     gpt = get_config("gpt-1.4b").reduced(d_model=176, n_heads=2, head_dim=88)
-    for cfg in (_tiny(), gpt, get_config("arctic-480b").reduced(act="gelu")):
+    for cfg in (_tiny(), gpt, get_config("arctic-480b").reduced(act="gelu"),
+                get_config("zamba2-2.7b").reduced()):
         m = Model(cfg, torch.float32, compute=ComputePolicy(kernels=True),
                   device="cpu").init(torch.Generator().manual_seed(0))
         toks = torch.randint(0, 512, (2, 9), generator=torch.Generator().manual_seed(1))
         logits, cache = m.prefill({"tokens": toks}, 16)
         m.decode_step(cache, {"token": torch.argmax(logits, -1)[:, None]})
-        if cfg.family == "dense":            # the moe family serves only
+        if cfg.family != "moe":              # the moe family serves only
             m.requires_grad_(True)
             m.loss({"tokens": toks})[0].backward()
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "rmsnorm", "swiglu",
-                           "layernorm", "gelu_mlp", "cross_entropy", "grouped_mlp"}
+                           "layernorm", "gelu_mlp", "cross_entropy", "grouped_mlp",
+                           "ssd_scan", "mamba_decode_step"}
     assert set(counts.values()) == {0}
 
 
@@ -110,8 +113,14 @@ def test_cpu_path_launches_no_kernel():
     lambda x: gp.grouped_mlp_cuda(x.reshape(1, 4, 64), torch.ones(1, 64, 8),
                                   torch.ones(1, 64, 8), torch.ones(1, 8, 64),
                                   torch.ones(1, 4)),
+    lambda x: ssd.ssd_scan_cuda(x.reshape(1, 4, 1, 64), torch.ones(1, 4, 1), x, x,
+                                torch.zeros(1), 4),
+    lambda x: ssd.mamba_decode_cuda(torch.ones(1, 4, 192), torch.ones(4, 192),
+                                    torch.zeros(192), torch.zeros(1, 1), torch.zeros(1),
+                                    torch.zeros(1), torch.ones(1), torch.zeros(1, 1, 64, 64),
+                                    n_heads=1, head_dim=64),
 ], ids=["rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd", "cross_entropy",
-        "layernorm", "gelu_mlp", "grouped_mlp"])
+        "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan", "mamba_decode_step"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
         call(torch.ones(4, 64))
@@ -146,8 +155,8 @@ def test_from_jax_params_is_strict(fault):
 @pytest.mark.parametrize("arch,kernels", [
     ("rwkv6-1.6b", False),                  # rwkv family
     ("h2o-danube-1.8b", False),             # sliding-window ring cache
-    ("zamba2-2.7b", False),                 # hybrid family
-], ids=["rwkv", "swa", "hybrid"])
+    ("seamless-m4t-medium", False),         # encdec family
+], ids=["rwkv", "swa", "encdec"])
 def test_out_of_scope_raises(arch, kernels):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), torch.float32,
@@ -165,7 +174,8 @@ def cuda_device():
 def test_cuda_functions_carry_gradients(cuda_device):
     """On the card every kernel entry returns an output whose grad_fn is its
     Function, and the backward reaches the flash dQ and dK/dV kernels, at
-    head dims 64 and 88; the grouped expert MLP's backward is plain torch."""
+    head dims 64, 80 and 88; the grouped expert MLP's and the SSD scan's
+    backwards are plain torch."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def leaf(*shape):
@@ -173,7 +183,9 @@ def test_cuda_functions_carry_gradients(cuda_device):
 
     x, w, b, w1 = leaf(64, 128), leaf(128), leaf(128), leaf(128, 64)
     q, kv = leaf(1, 64, 4, 64), leaf(1, 64, 2, 64)
-    q88 = leaf(1, 64, 2, 88)
+    q88, q80 = leaf(1, 64, 2, 88), leaf(1, 64, 2, 80)
+    xs, dts = leaf(1, 64, 2, 64), leaf(1, 64, 2)
+    bs, cs, alog = leaf(1, 64, 64), leaf(1, 64, 64), leaf(2)
     labels = torch.randint(0, 64, (64,), device=cuda_device, generator=gen)
     xe, we1, we2 = leaf(2, 16, 128), leaf(2, 128, 64), leaf(2, 64, 128)
     mask = (torch.arange(32, device=cuda_device) % 3 > 0).float().reshape(2, 16)
@@ -181,17 +193,19 @@ def test_cuda_functions_carry_gradients(cuda_device):
     outs = [ops.rmsnorm(x, w), sg.swiglu(x, w1, w1),     # ops.swiglu adds a reshape
             ops.layernorm(x, w, b), gm.gelu_mlp_in(x, w1),
             ops.flash_attention(q, kv, kv), ops.flash_attention(q88, q88, q88),
+            ops.flash_attention(q80, q80, q80),
             ops.cross_entropy_tokens(x, w1, labels),
-            ops.grouped_mlp(xe, we1, we1, we2, mask)]
+            ops.grouped_mlp(xe, we1, we1, we2, mask),
+            ops.ssd_scan(xs, dts.abs(), bs, cs, alog, chunk=16)[0]]
     names = ["RMSNormBackward", "SwiGLUBackward", "LayerNormBackward", "GeluMLPBackward",
-             "FlashAttentionBackward", "FlashAttentionBackward",
-             "CrossEntropyTokensBackward", "GroupedMLPBackward"]
+             "FlashAttentionBackward", "FlashAttentionBackward", "FlashAttentionBackward",
+             "CrossEntropyTokensBackward", "GroupedMLPBackward", "SSDScanBackward"]
     for out, name in zip(outs, names):
         assert type(out.grad_fn).__name__ == name
     sum(o.float().square().sum() for o in outs).backward()
     torch.cuda.synchronize()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
-               for t in (x, w, b, w1, q, kv, q88, xe, we1, we2))
+               for t in (x, w, b, w1, q, kv, q88, q80, xe, we1, we2, xs, dts, bs, cs, alog))
     counts = ops.launch_counts()
-    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 2
-    assert min(counts.values()) >= 1
+    assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 3
+    assert min(v for k, v in counts.items() if k != "mamba_decode_step") >= 1

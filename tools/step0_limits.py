@@ -1,21 +1,21 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
-  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b]
+  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b]
                                        (one CUDA card, from the repo root)
 
 The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
-gpt-1.4b at all 24; bf16 compute over fp32 masters, remat full, gas 2
-microbatches of 4 x 2048 tokens) with kernels=True against kernels=False, in
-loss and grad_norm.  This script measures what that comparison can tell
-apart:
+gpt-1.4b at all 24, zamba2-2.7b at all 54; bf16 compute over fp32 masters,
+remat full, gas 2 microbatches of 4 x 2048 tokens) with kernels=True against
+kernels=False, in loss and grad_norm.  This script measures what that
+comparison can tell apart:
 
   * sound: the relative kernels-on vs kernels-off difference at step 0 for
     several weight seeds, each with its own batch;
   * planted: the same difference on seed 0 when one kernel is wrong in a
     single 64-row tile at the step's grid (its output there zeroed after the
     real kernel ran): the MLP input half (swiglu or gelu_mlp), for gpt-1.4b
-    the layernorm forward, the flash forward, the dQ kernel, and the dK/dV
-    kernel.
+    the layernorm forward, for zamba2-2.7b the SSD scan forward, the flash
+    forward, the dQ kernel, and the dK/dV kernel.
 
 Each reading is one JSON line; the last line gives the largest sound and the
 smallest planted difference per metric.
@@ -56,7 +56,7 @@ def main() -> int:
         print("step0_limits: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import (_build, flash_attention as fa, gelu_mlp as gm,
-                                     layernorm as ln, swiglu as sg)
+                                     layernorm as ln, ssd_scan as ssd, swiglu as sg)
     from repro_torch.models.model import Model
     from repro_torch.runtime.train_loop import ParallelPlan
 
@@ -91,6 +91,9 @@ def main() -> int:
         faults = {"gelu_mlp forward, rows 1024:1088": (gm, "gelu_mlp_cuda", (0,), (TILE,)),
                   "layernorm forward, rows 1024:1088 of sequence 0":
                       (ln, "layernorm_cuda", (0,), (0, TILE))}
+    if cfg.family == "hybrid":
+        faults["ssd_scan forward, tokens 1024:1088 of sequence 0"] = (
+            ssd, "ssd_scan_cuda", (0,), (0, TILE))
     faults.update({
         "flash forward, query rows 1024:1088 of head 0":
             (fa, "flash_attention_fwd_cuda", (0,), (0, TILE, 0)),
