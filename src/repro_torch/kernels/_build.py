@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd",
-           "cross_entropy", "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan")
+           "cross_entropy", "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan",
+           "wkv_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

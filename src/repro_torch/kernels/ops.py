@@ -17,6 +17,7 @@ from repro_torch.kernels import layernorm as ln
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import swiglu as sg
+from repro_torch.kernels import wkv_scan as wkv
 
 # kernel name -> (module, name of its launch counter)
 KERNEL_COUNTERS = {
@@ -31,6 +32,8 @@ KERNEL_COUNTERS = {
     "grouped_mlp": (gp, "launches"),
     "ssd_scan": (ssd, "launches"),
     "mamba_decode_step": (ssd, "launches_decode"),
+    "wkv_scan": (wkv, "launches"),
+    "wkv_decode_step": (wkv, "launches_decode"),
 }
 
 
@@ -123,6 +126,25 @@ def mamba_decode_step(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.
     (y (B, H, P) fp32, new state in a fresh tensor).  Serving only."""
     return ssd.mamba_decode_step(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D,
                                  state, n_heads=n_heads, head_dim=head_dim)
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor, *,
+             chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused rwkv chunked wkv scan: r/k/w (B, T, H, K), v (B, T, H, V),
+    u (H, K), state (B, H, K, V) -> (y (B, T, H, V) fp32, final state).  All
+    operands are computed in fp32 (as the reference recurrence); ``chunk``
+    must be a power of two <= 32 dividing T (``tiling.pick_chunk``);
+    differentiable."""
+    return wkv.wkv_scan(r, k, v, w, u, state, chunk=chunk)
+
+
+def wkv_decode_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused single-token rwkv time-mix core step: r/k/w (B, H, K) fp32,
+    v (B, H, V) fp32, u (H, K), state (B, H, K, V) fp32 -> (out (B, H, V)
+    fp32, new state in a fresh tensor).  Serving only."""
+    return wkv.wkv_decode_step(r, k, v, w, u, state)
 
 
 def launch_counts() -> dict[str, int]:

@@ -422,3 +422,67 @@ def mamba_decode_ref(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.T
     y = torch.einsum("bn,bhpn->bhp", Cm.float(), state)
     y = y + D.float()[None, :, None] * xh
     return y, state
+
+
+def wkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, state: torch.Tensor, *, chunk: int, wrap=checkpointed):
+    """Chunked rwkv6 wkv scan (``repro/kernels/ref.py:wkv_scan_ref``, the
+    plain path of ``models/rwkv.py:_wkv_chunked``): log-space per-channel
+    decays, the strictly causal intra-chunk scores with the decay gap inside
+    the exponent, the bonus current-token ``u`` term and the carried state,
+    the chunk body under ``wrap`` (a checkpoint, as the reference's
+    ``jax.checkpoint``).  Also the backward recompute of the wkv kernel's
+    Function.
+
+    r/k/w: (B, T, H, K); v: (B, T, H, V); u: (H, K); state: (B, H, K, V).
+    Returns (y (B, T, H, V) fp32, final state (B, H, K, V) fp32)."""
+    B, T, H, K = r.shape
+    if chunk < 1 or T % chunk:
+        raise ValueError(f"wkv_scan: chunk {chunk} does not divide T={T}")
+    lw = torch.log(w)                                      # (B, T, H, K), < 0
+    # i < t: strictly causal
+    tri_lt = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=r.device),
+                        diagonal=-1)
+
+    def body(S, rc, kc, vc, lwc):                          # (B, C, H, *)
+        cum = torch.cumsum(lwc, dim=1)                     # inclusive, sequential in t
+        cum_prev = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=1)
+        # inter-chunk: y_t += (r_t * exp(cum_{t-1})) @ S
+        rd = rc * torch.exp(cum_prev)
+        y = torch.einsum("bthk,bhkv->bthv", rd, S)
+        # intra-chunk: score_{t,i} = sum_k r_tk k_ik exp(cum_{t-1,k} - cum_{i,k});
+        # the mask sits inside the exponent: a future gap is positive
+        gap = cum_prev[:, :, None] - cum[:, None, :, :, :]   # (B, t, i, H, K)
+        gap = torch.where(tri_lt[None, :, :, None, None], gap, -torch.inf)
+        score = torch.einsum("bthk,bihk,btihk->btih", rc, kc, torch.exp(gap))
+        y = y + torch.einsum("btih,bihv->bthv", score, vc)
+        # bonus (current token) term
+        y = y + torch.einsum("bthk,bthv->bthv", rc * (u[None, None] * kc), vc)
+        # S' = diag(exp(total)) S + sum_i exp(total - cum_i) k_i v_i
+        total = cum[:, -1]                                 # (B, H, K)
+        rem = torch.exp(total[:, None] - cum)              # (B, C, H, K)
+        S_new = torch.exp(total)[..., None] * S + torch.einsum(
+            "bihk,bihv->bhkv", kc * rem, vc)
+        return S_new, y
+
+    body = wrap(body)
+    ys = []
+    for s in range(0, T, chunk):
+        c = slice(s, s + chunk)
+        state, y = body(state, r[:, c], k[:, c], v[:, c], lw[:, c])
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def wkv_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, state: torch.Tensor):
+    """Single-step rwkv time-mix core (``repro/kernels/ref.py:wkv_decode_ref``,
+    ``models/rwkv.py:_time_mix_core``).
+
+    r/k/w: (B, H, K); v: (B, H, V); u: (H, K); state: (B, H, K, V) fp32.
+    Returns (out (B, H, V) fp32, new state (B, H, K, V) fp32, a fresh
+    tensor)."""
+    kv = k[..., :, None] * v[..., None, :]                 # (B, H, K, V)
+    out = torch.einsum("bhk,bhkv->bhv", r, state + u[None][..., :, None] * kv)
+    new_state = w[..., :, None] * state + kv
+    return out, new_state

@@ -1,0 +1,143 @@
+"""RWKV-6 chunked wkv scan and the fused single-token wkv decode step: the CUDA
+kernels of ``csrc/wkv_scan.cu`` (ported from
+``repro/kernels/wkv_scan.py:_scan_kernel`` and ``_decode_kernel``), their
+plain versions, and the ``torch.autograd.Function`` of the scan.
+
+The scan's Function saves only its inputs.  Its forward is the kernel for a
+CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
+recomputes the plain chunk loop (``kernels/ref.py:wkv_scan_ref``) under
+autograd from the saved inputs on both, as the reference's ``custom_vjp``
+runs ``jax.vjp`` over its jnp oracle.  The decode step serves only and has
+no backward.  ``launches`` and ``launches_decode`` count the two kernels'
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import wkv_decode_ref, wkv_scan_ref
+
+HEAD_DIM = 64               # the K = V that csrc/wkv_scan.cu is built for
+MAX_CHUNK = 32
+launches = 0
+launches_decode = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("wkv_scan")
+    lib.wkv_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.wkv_scan_fwd.restype = ctypes.c_int
+    lib.wkv_decode_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.wkv_decode_fwd.restype = ctypes.c_int
+    return lib
+
+
+def check_chunk(T: int, chunk: int) -> None:
+    if chunk < 1 or chunk > MAX_CHUNK or chunk & (chunk - 1) or T < 1 or T % chunk:
+        raise ValueError(f"wkv_scan: chunk {chunk} must be a power of two <= "
+                         f"{MAX_CHUNK} that divides T={T}")
+
+
+def _fp32(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """Contiguous fp32 (no copy for the model's fp32 contiguous operands)."""
+    return [t.float().contiguous() for t in ts]
+
+
+def wkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, state: torch.Tensor,
+                  chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """r/k/w: (B, T, H, K), v: (B, T, H, V), u: (H, K), state: (B, H, K, V)
+    on the card, read in fp32 -> (y (B, T, H, V) fp32, final state
+    (B, H, K, V) fp32)."""
+    global launches
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if (not r.is_cuda or any(t.device != r.device for t in (k, v, w, u, state))
+            or k.shape != r.shape or w.shape != r.shape or v.shape != (B, T, H, V)
+            or u.shape != (H, K) or state.shape != (B, H, K, V)):
+        raise ValueError(f"wkv_scan: r {tuple(r.shape)} on {r.device}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}, u {tuple(u.shape)}, "
+                         f"state {tuple(state.shape)}")
+    if (K, V) != (HEAD_DIM, HEAD_DIM):
+        raise ValueError(f"wkv_scan: built for K = V = {HEAD_DIM}, got {(K, V)}")
+    check_chunk(T, chunk)
+    r, k, v, w, u, state = _fp32(r, k, v, w, u, state)
+    y = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
+    out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    lib = _lib()
+    err = lib.wkv_scan_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                           u.data_ptr(), state.data_ptr(), y.data_ptr(), out.data_ptr(),
+                           B, T, H, K, V, chunk, _build.stream_of(r))
+    _build.check(lib, err, "wkv_scan_fwd")
+    launches += 1
+    return y, out
+
+
+class WKVScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, w, u, state)
+        if r.device.type == "cpu":
+            return wkv_scan_ref(r, k, v, w, u, state, chunk=chunk)
+        return wkv_scan_cuda(r, k, v, w, u, state, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = wkv_scan_ref(*inputs, chunk=ctx.chunk)
+            grads = torch.autograd.grad((y, state), inputs, (gy, gs), allow_unused=True)
+        return (*grads, None)
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             u: torch.Tensor, state: torch.Tensor, *,
+             chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, T, H, V) fp32, final state (B, H, K, V) fp32) of the chunked
+    scan; differentiable in every input."""
+    check_chunk(r.shape[1], chunk)
+    return WKVScan.apply(r, k, v, w, u, state, chunk)
+
+
+def wkv_decode_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """r/k/w: (B, H, K), v: (B, H, V), u: (H, K), state (B, H, K, V) on the
+    card, read in fp32 -> (out (B, H, V) fp32, new state in a fresh
+    (B, H, K, V) fp32)."""
+    global launches_decode
+    B, H, K = r.shape
+    V = v.shape[-1]
+    if (not r.is_cuda or any(t.device != r.device for t in (k, v, w, u, state))
+            or k.shape != r.shape or w.shape != r.shape or v.shape != (B, H, V)
+            or u.shape != (H, K) or state.shape != (B, H, K, V)):
+        raise ValueError(f"wkv_decode_step: r {tuple(r.shape)} on {r.device}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}, u "
+                         f"{tuple(u.shape)}, state {tuple(state.shape)}")
+    if (K, V) != (HEAD_DIM, HEAD_DIM):
+        raise ValueError(f"wkv_decode_step: built for K = V = {HEAD_DIM}, got {(K, V)}")
+    r, k, v, w, u, state = _fp32(r, k, v, w, u, state)
+    y = torch.empty((B, H, V), dtype=torch.float32, device=r.device)
+    new_state = torch.empty_like(state)
+    lib = _lib()
+    err = lib.wkv_decode_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                             u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                             new_state.data_ptr(), B, H, K, V, _build.stream_of(r))
+    _build.check(lib, err, "wkv_decode_fwd")
+    launches_decode += 1
+    return y, new_state
+
+
+def wkv_decode_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused decode step: (out (B, H, V) fp32, new state (B, H, K, V)
+    fp32, a fresh tensor: ``state`` is left as it was).  Serving only: no
+    gradient."""
+    if r.device.type == "cpu":
+        return wkv_decode_ref(r, k, v, w, u, state)
+    return wkv_decode_cuda(r, k, v, w, u, state)

@@ -1,4 +1,4 @@
-"""Top-level Model, the dense, moe and hybrid (zamba2) families of
+"""Top-level Model, the dense, moe, hybrid (zamba2) and rwkv families of
 ``repro/models/model.py``, as an ``nn.Module`` that holds its weights.
 
   * ``param_specs()``  — declarative tree (shapes/axes/init); its dotted
@@ -6,13 +6,14 @@
     so weights carry over from the JAX pytree 1:1 (``repro_torch.interop``)
   * ``init(generator)`` — draw the weights from an explicit generator
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
-    blocked-kernel CE) and the full-sequence logits (dense and hybrid
-    families; training the moe family is not ported yet)
+    blocked-kernel CE) and the full-sequence logits (dense, hybrid and
+    rwkv families; training the moe family is not ported yet)
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + cache
-    (KV; for hybrid also each mamba layer's conv window and SSD state)
+    (KV; for hybrid also each mamba layer's conv window and SSD state; for
+    rwkv each layer's last tokens and wkv state, no KV)
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``, or ``active`` alone for a
-    slot-swap cache (the hybrid family's fixed-size state)
+    slot-swap cache (the hybrid and rwkv families' fixed-size state)
   * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``
 
 Weights keep the JAX layout (``x @ W`` with W (d_in, d_out), per-layer
@@ -43,7 +44,7 @@ from repro_torch.core.compute import (
     ComputePolicy, checkpointed, resolve as resolve_policy,
 )
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import blocks, layers, moe, ssm
+from repro_torch.models import blocks, layers, moe, rwkv, ssm
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
@@ -77,9 +78,12 @@ def stack_specs(tree: Any, n: int) -> Any:
 def _layer_specs(cfg: ModelConfig) -> dict:
     """One stacked unit: attention and MLP (dense), attention and the MoE
     FFN after a sub-stack of ``moe_every - 1`` dense layers (moe), or one
-    mamba2 layer (hybrid; the shared attention block is its own subtree)."""
+    mamba2 layer (hybrid; the shared attention block is its own subtree),
+    or one time-mix + channel-mix block (rwkv)."""
     if cfg.family == "hybrid":
         return ssm.mamba_specs(cfg)
+    if cfg.family == "rwkv":
+        return rwkv.rwkv_specs(cfg)
     if cfg.family != "moe":
         return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
     unit = {"attn": blocks.attn_specs(cfg), "moe": moe.moe_specs(cfg)}
@@ -130,7 +134,7 @@ def param_specs(cfg: ModelConfig) -> dict:
 def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
     if cfg.sliding_window is not None:
         raise NotImplementedError(f"sliding-window ring caches {where}")
@@ -287,10 +291,16 @@ class Model(nn.Module):
     def cache_specs(self, batch: int, cache_len: int) -> dict:
         """{"pos", "layers"}: the KV of every attention layer; for hybrid
         "layers" holds each mamba layer's {"conv", "state"} and "shared" one
-        KV stack per application of the shared block."""
+        KV stack per application of the shared block; for rwkv "layers"
+        holds each layer's {"x_tm", "x_cm", "state"} (no KV: ``cache_len``
+        is not used)."""
         cfg = self.cfg
+        pos = Spec((), (), init="zeros", dtype=torch.int32)
+        if cfg.family == "rwkv":
+            return {"pos": pos,
+                    "layers": stack_specs(rwkv.rwkv_cache_specs(cfg, batch), cfg.n_layers)}
         kv = self._kv_specs((batch, cache_len), ("cache_batch", "cache_seq"))
-        specs = {"pos": Spec((), (), init="zeros", dtype=torch.int32), "layers": kv}
+        specs = {"pos": pos, "layers": kv}
         if cfg.family == "hybrid":
             specs["layers"] = stack_specs(ssm.mamba_cache_specs(cfg, batch), cfg.n_layers)
             specs["shared"] = kv
@@ -337,7 +347,8 @@ class Model(nn.Module):
             for s in range(0, cfg.n_layers, per):
                 x = unit(lps[s:s + per], x)
         else:
-            body = blocks.segment_body(cfg, self.compute)
+            family = rwkv if cfg.family == "rwkv" else blocks
+            body = family.segment_body(cfg, self.compute)
 
             def layer(x, lp):     # lp in the storage dtype: cast inside the remat
                 return body(_cast_floating(lp, cdt), x)
@@ -397,13 +408,16 @@ class Model(nn.Module):
         else:
             total = lens.to(device=self.device, dtype=torch.int32)
             cache = {"pos": total}
-        if cfg.family == "hybrid":
+        if cfg.family in ("hybrid", "rwkv"):
             if lens is not None and bool((lens != S).any()):
-                raise ValueError("the hybrid family prefills each prompt at its exact "
-                                 "length: a padded row would leave its padding in the "
-                                 "conv window and the SSD state")
+                raise ValueError(f"the {cfg.family} family prefills each prompt at its "
+                                 "exact length: a padded row would leave its padding in "
+                                 "the recurrent state")
+        if cfg.family == "hybrid":
             x, state = self._prefill_hybrid(params, x, cache_len, total)
             cache.update(state)
+        elif cfg.family == "rwkv":
+            x, cache["layers"] = self._prefill_rwkv(params, x)
         else:
             kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
                              None, self.device, self.compute_dtype)
@@ -449,6 +463,21 @@ class Model(nn.Module):
                 layer_hook(i, x)
         return x, cache
 
+    def _prefill_rwkv(self, params: dict, x: torch.Tensor,
+                      layer_hook: Callable[[int, torch.Tensor], None] | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+        """The rwkv blocks over the prompt: each leaves its last normed
+        tokens and its wkv state.  ``layer_hook(i, x)``, if given, sees the
+        hidden state after block i.  Returns (x, the stacked cache leaves)."""
+        cfg = self.cfg
+        per_layer = []
+        for i in range(cfg.n_layers):
+            x, c = rwkv.rwkv_prefill(_layer(params["layers"], i), x, cfg, policy=self.compute)
+            per_layer.append(c)
+            if layer_hook is not None:
+                layer_hook(i, x)
+        return x, {name: torch.stack([c[name] for c in per_layer]) for name in per_layer[0]}
+
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
@@ -460,7 +489,8 @@ class Model(nn.Module):
         where inactive slots' writes go to block 0.  ``active`` without a
         block table is the slot-swap cache of :meth:`cache_specs` (the
         reference's ``_freeze_inactive``): an inactive slot's KV rows, conv
-        windows and SSD states are left exactly as they were.
+        windows, SSD and wkv states and last tokens are left exactly as
+        they were.
         ``cache["pos"]`` is a scalar or a (B,) vector.  The cache leaves are
         updated in place; returns (logits (B, V) fp32, cache with the
         advanced ``pos``)."""
@@ -471,11 +501,18 @@ class Model(nn.Module):
         bt = batch.get("block_table")
         x = params["embed"][batch["token"].long()]
         step = 1 if active is None else active.to(pos.dtype)
-        if cfg.family == "hybrid":
+        if cfg.family in ("hybrid", "rwkv"):
             if bt is not None:
-                raise ValueError("the hybrid family's cache is fixed-size: it is "
+                raise ValueError(f"the {cfg.family} family's cache is fixed-size: it is "
                                  "slot-swapped, never paged")
-            x = self._decode_hybrid(params, cache, x, pos, active)
+            if cfg.family == "hybrid":
+                x = self._decode_hybrid(params, cache, x, pos, active)
+            else:
+                for i in range(cfg.n_layers):
+                    cl = _layer(cache["layers"], i)
+                    x, new = rwkv.rwkv_decode(_layer(params["layers"], i), x, cl, cfg,
+                                              policy=self.compute)
+                    _masked_copy(cl, new, active)
             return self._logits(params, x[:, 0]), {**cache, "pos": pos + step}
         for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"]):
             if bt is not None:
@@ -499,18 +536,24 @@ class Model(nn.Module):
         for i in range(cfg.n_layers):
             mc = _layer(cache["layers"], i)
             x, new = ssm.mamba_decode(_layer(params["layers"], i), x, mc, cfg, policy=pol)
-            for name, t in mc.items():
-                if active is None:
-                    t.copy_(new[name])
-                else:
-                    keep = active.reshape(-1, *([1] * (t.ndim - 1)))
-                    t.copy_(torch.where(keep, new[name].to(t.dtype), t))
+            _masked_copy(mc, new, active)
             if (i + 1) % per == 0:
                 x, _ = blocks.self_attn_decode(shared["attn"], x,
                                                _layer(cache["shared"], i // per), pos,
                                                cfg, policy=pol, active=active)
                 x = blocks.mlp_block(shared["mlp"], x, cfg, policy=pol)
         return x
+
+
+def _masked_copy(cache: dict, new: dict, active: torch.Tensor | None) -> None:
+    """Copy each fresh leaf of ``new`` into its cache leaf (views), in the
+    rows of the active slots only: an inactive row is left bit for bit."""
+    for name, t in cache.items():
+        if active is None:
+            t.copy_(new[name])
+        else:
+            keep = active.reshape(-1, *([1] * (t.ndim - 1)))
+            t.copy_(torch.where(keep, new[name].to(t.dtype), t))
 
 
 def _ring_place(x: torch.Tensor, clen: int,

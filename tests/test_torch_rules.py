@@ -19,7 +19,8 @@ from repro_torch.core.compute import ComputePolicy
 from repro_torch.interop import from_jax_params
 from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
                                  gelu_mlp as gm, grouped_mlp as gp, layernorm as ln, ops,
-                                 rmsnorm as rn, ssd_scan as ssd, swiglu as sg)
+                                 rmsnorm as rn, ssd_scan as ssd, swiglu as sg,
+                                 wkv_scan as wkv)
 from repro_torch.models.model import Model
 
 # tiny shapes: intra-op threads only add overhead here, and they
@@ -83,7 +84,7 @@ def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     gpt = get_config("gpt-1.4b").reduced(d_model=176, n_heads=2, head_dim=88)
     for cfg in (_tiny(), gpt, get_config("arctic-480b").reduced(act="gelu"),
-                get_config("zamba2-2.7b").reduced()):
+                get_config("zamba2-2.7b").reduced(), get_config("rwkv6-1.6b").reduced()):
         m = Model(cfg, torch.float32, compute=ComputePolicy(kernels=True),
                   device="cpu").init(torch.Generator().manual_seed(0))
         toks = torch.randint(0, 512, (2, 9), generator=torch.Generator().manual_seed(1))
@@ -96,7 +97,7 @@ def test_cpu_path_launches_no_kernel():
     assert set(counts) == {"flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "rmsnorm", "swiglu",
                            "layernorm", "gelu_mlp", "cross_entropy", "grouped_mlp",
-                           "ssd_scan", "mamba_decode_step"}
+                           "ssd_scan", "mamba_decode_step", "wkv_scan", "wkv_decode_step"}
     assert set(counts.values()) == {0}
 
 
@@ -119,8 +120,13 @@ def test_cpu_path_launches_no_kernel():
                                     torch.zeros(192), torch.zeros(1, 1), torch.zeros(1),
                                     torch.zeros(1), torch.ones(1), torch.zeros(1, 1, 64, 64),
                                     n_heads=1, head_dim=64),
+    lambda x: wkv.wkv_scan_cuda(*(x.reshape(1, 4, 1, 64),) * 4, torch.zeros(1, 64),
+                                torch.zeros(1, 1, 64, 64), 4),
+    lambda x: wkv.wkv_decode_cuda(*(x[:1].reshape(1, 1, 64),) * 4, torch.zeros(1, 64),
+                                  torch.zeros(1, 1, 64, 64)),
 ], ids=["rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd", "cross_entropy",
-        "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan", "mamba_decode_step"])
+        "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan", "mamba_decode_step", "wkv_scan",
+        "wkv_decode_step"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
         call(torch.ones(4, 64))
@@ -153,10 +159,9 @@ def test_from_jax_params_is_strict(fault):
 
 
 @pytest.mark.parametrize("arch,kernels", [
-    ("rwkv6-1.6b", False),                  # rwkv family
     ("h2o-danube-1.8b", False),             # sliding-window ring cache
     ("seamless-m4t-medium", False),         # encdec family
-], ids=["rwkv", "swa", "encdec"])
+], ids=["swa", "encdec"])
 def test_out_of_scope_raises(arch, kernels):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), torch.float32,
@@ -174,8 +179,8 @@ def cuda_device():
 def test_cuda_functions_carry_gradients(cuda_device):
     """On the card every kernel entry returns an output whose grad_fn is its
     Function, and the backward reaches the flash dQ and dK/dV kernels, at
-    head dims 64, 80 and 88; the grouped expert MLP's and the SSD scan's
-    backwards are plain torch."""
+    head dims 64, 80 and 88; the grouped expert MLP's and the SSD and wkv
+    scans' backwards are plain torch."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def leaf(*shape):
@@ -189,6 +194,8 @@ def test_cuda_functions_carry_gradients(cuda_device):
     labels = torch.randint(0, 64, (64,), device=cuda_device, generator=gen)
     xe, we1, we2 = leaf(2, 16, 128), leaf(2, 128, 64), leaf(2, 64, 128)
     mask = (torch.arange(32, device=cuda_device) % 3 > 0).float().reshape(2, 16)
+    rr, kk, vv, wl = (leaf(1, 32, 2, 64) for _ in range(4))
+    uu, s0 = leaf(2, 64), leaf(1, 2, 64, 64)
     ops.reset_launch_counts()
     outs = [ops.rmsnorm(x, w), sg.swiglu(x, w1, w1),     # ops.swiglu adds a reshape
             ops.layernorm(x, w, b), gm.gelu_mlp_in(x, w1),
@@ -196,16 +203,20 @@ def test_cuda_functions_carry_gradients(cuda_device):
             ops.flash_attention(q80, q80, q80),
             ops.cross_entropy_tokens(x, w1, labels),
             ops.grouped_mlp(xe, we1, we1, we2, mask),
-            ops.ssd_scan(xs, dts.abs(), bs, cs, alog, chunk=16)[0]]
+            ops.ssd_scan(xs, dts.abs(), bs, cs, alog, chunk=16)[0],
+            ops.wkv_scan(rr, kk, vv, torch.sigmoid(wl), uu, s0, chunk=16)[0]]
     names = ["RMSNormBackward", "SwiGLUBackward", "LayerNormBackward", "GeluMLPBackward",
              "FlashAttentionBackward", "FlashAttentionBackward", "FlashAttentionBackward",
-             "CrossEntropyTokensBackward", "GroupedMLPBackward", "SSDScanBackward"]
+             "CrossEntropyTokensBackward", "GroupedMLPBackward", "SSDScanBackward",
+             "WKVScanBackward"]
     for out, name in zip(outs, names):
         assert type(out.grad_fn).__name__ == name
     sum(o.float().square().sum() for o in outs).backward()
     torch.cuda.synchronize()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
-               for t in (x, w, b, w1, q, kv, q88, q80, xe, we1, we2, xs, dts, bs, cs, alog))
+               for t in (x, w, b, w1, q, kv, q88, q80, xe, we1, we2, xs, dts, bs, cs, alog,
+                         rr, kk, vv, wl, uu, s0))
     counts = ops.launch_counts()
     assert counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 3
-    assert min(v for k, v in counts.items() if k != "mamba_decode_step") >= 1
+    assert min(v for k, v in counts.items()
+               if k not in ("mamba_decode_step", "wkv_decode_step")) >= 1

@@ -1,21 +1,23 @@
-"""How far bf16 drifts from fp32 through the depth of a hybrid model.
+"""How far bf16 drifts from fp32 through the depth of a recurrent model.
 
-  python3 tools/depth_drift.py [--arch zamba2-2.7b]   (one CUDA card, repo root)
+  python3 tools/depth_drift.py [--arch zamba2-2.7b|rwkv6-1.6b]
+                                                    (one CUDA card, repo root)
 
 Builds the arch at full width and depth in bf16 from ``chip_smoke.py``'s
 serve seed and an fp32 copy of the same weights, prefills two of
-``chip_smoke.py``'s zamba2 prompts (255 and 32 tokens) layer by layer, and
-prints per layer (every third) the relative distance ||a - b|| / ||b|| of
-the hidden states of:
+``chip_smoke.py``'s prompts for the arch (zamba2: 255 and 32 tokens; rwkv6:
+255 and 256, chunks 1 and 32) layer by layer, and prints per layer (every
+third) the relative distance ||a - b|| / ||b|| of the hidden states of:
 
   * bf16 kernels on vs bf16 kernels off,
   * bf16 kernels on and bf16 kernels off vs the fp32 copy (kernels off),
-  * bf16 kernels off with only the SSD scan in its kernel vs kernels off
-    (an ULP-level change in one kernel, grown by the depth),
+  * bf16 kernels off with only the scan (SSD or wkv) in its kernel vs
+    kernels off (an ULP-level change in one kernel, grown by the depth),
 
 and the same distances of the last-token logits as a share of the fp32
 copy's logit range.  These readings are why ``chip_smoke.py`` holds
-zamba2's bf16 logits to the fp32 copy instead of to kernels off.
+zamba2's bf16 logits to the fp32 copy instead of to kernels off, and decide
+whether rwkv6's are held to kernels off.
 """
 from __future__ import annotations
 
@@ -37,14 +39,14 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=[cs.ZAMBA], default=cs.ZAMBA)
+    ap.add_argument("--arch", choices=[cs.ZAMBA, cs.RWKV], default=cs.ZAMBA)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("depth_drift: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.core.compute import ComputePolicy
     from repro_torch.kernels import _build, ops
-    from repro_torch.models import ssm
+    from repro_torch.models import rwkv, ssm
     from repro_torch.models.model import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,15 +58,23 @@ def main() -> int:
     m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
     on, off = ComputePolicy(kernels=True), ComputePolicy(kernels=False)
 
+    hybrid = model.cfg.family == "hybrid"
+
     @contextlib.contextmanager
-    def ssd_kernel_only():
-        """The plain path with only the SSD scan in its kernel."""
-        plain = ssm._ssd_chunked
-        ssm._ssd_chunked = lambda *a, chunk, policy=None: ops.ssd_scan(*a, chunk=chunk)
+    def scan_kernel_only():
+        """The plain path with only the scan (SSD or wkv) in its kernel."""
+        if hybrid:
+            mod, name = ssm, "_ssd_chunked"
+            kernel = lambda *a, chunk, policy=None: ops.ssd_scan(*a, chunk=chunk)  # noqa: E731
+        else:
+            mod, name = rwkv, "_wkv_chunked"
+            kernel = lambda *a, policy=None: ops.wkv_scan(*a[:6], chunk=a[6])  # noqa: E731
+        plain = getattr(mod, name)
+        setattr(mod, name, kernel)
         try:
             yield
         finally:
-            ssm._ssd_chunked = plain
+            setattr(mod, name, plain)
 
     @torch.no_grad()
     def run(m, pol, toks):
@@ -73,8 +83,14 @@ def main() -> int:
         m.compute = pol
         params = m._cparams()
         hidden = []
-        x, _ = m._prefill_hybrid(params, params["embed"][toks], toks.shape[1], None,
-                                 layer_hook=lambda i, h: hidden.append(h.float()))
+        x = params["embed"][toks]
+
+        def hook(i, h):
+            hidden.append(h.float())
+        if hybrid:
+            x, _ = m._prefill_hybrid(params, x, toks.shape[1], None, layer_hook=hook)
+        else:
+            x, _ = m._prefill_rwkv(params, x, layer_hook=hook)
         return hidden, m._logits(params, x[:, -1])
 
     def rel(a, b):
@@ -83,12 +99,12 @@ def main() -> int:
     rng = np.random.RandomState(0)
     lens = cs.SERVE_PROMPT_LENS[args.arch]
     prompts = [rng.randint(0, cfg.vocab_size, int(n)) for n in lens]
-    for i in (0, 5):
+    for i in ((0, 5) if hybrid else (0, 6)):
         toks = torch.from_numpy(prompts[i].astype(np.int64))[None].cuda()
-        with ssd_kernel_only():
-            ssd_only = run(model, off, toks)
+        with scan_kernel_only():
+            scan_only = run(model, off, toks)
         r = {"on": run(model, on, toks), "off": run(model, off, toks),
-             "off+ssd kernel": ssd_only,
+             "off+scan kernel": scan_only,
              "fp32": run(m32, off, toks)}
         span = float(r["fp32"][1].abs().max())
 
@@ -99,11 +115,12 @@ def main() -> int:
                  "hidden_on_vs_off": rel(r["on"][0], r["off"][0]),
                  "hidden_on_vs_fp32": rel(r["on"][0], r["fp32"][0]),
                  "hidden_off_vs_fp32": rel(r["off"][0], r["fp32"][0]),
-                 "hidden_ssd_kernel_vs_off": rel(r["off+ssd kernel"][0], r["off"][0]),
+                 "hidden_scan_kernel_vs_off": rel(r["off+scan kernel"][0], r["off"][0]),
                  "logits_on_vs_off": logits("on", "off"),
                  "logits_on_vs_fp32": logits("on", "fp32"),
                  "logits_off_vs_fp32": logits("off", "fp32"),
-                 "logits_ssd_kernel_vs_off": logits("off+ssd kernel", "off")})
+                 "logits_scan_kernel_vs_off": logits("off+scan kernel", "off"),
+                 "logits_fp32_range": span})
         del r
         torch.cuda.empty_cache()
     card = subprocess.run(

@@ -1,10 +1,11 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
-  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b]
+  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b]
                                        (one CUDA card, from the repo root)
 
 The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
-gpt-1.4b at all 24, zamba2-2.7b at all 54; bf16 compute over fp32 masters,
+gpt-1.4b at all 24, zamba2-2.7b at 18 of 54, rwkv6-1.6b at all 24; bf16
+compute over fp32 masters,
 remat full, gas 2 microbatches of 4 x 2048 tokens) with kernels=True against
 kernels=False, in loss and grad_norm.  This script measures what that
 comparison can tell apart:
@@ -15,7 +16,8 @@ comparison can tell apart:
     single 64-row tile at the step's grid (its output there zeroed after the
     real kernel ran): the MLP input half (swiglu or gelu_mlp), for gpt-1.4b
     the layernorm forward, for zamba2-2.7b the SSD scan forward, the flash
-    forward, the dQ kernel, and the dK/dV kernel.
+    forward, the dQ kernel, and the dK/dV kernel; for rwkv6-1.6b (no
+    attention, no MLP kernel) the wkv scan forward and the rmsnorm forward.
 
 Each reading is one JSON line; the last line gives the largest sound and the
 smallest planted difference per metric.
@@ -23,6 +25,7 @@ smallest planted difference per metric.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 from pathlib import Path
 
@@ -56,7 +59,8 @@ def main() -> int:
         print("step0_limits: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import (_build, flash_attention as fa, gelu_mlp as gm,
-                                     layernorm as ln, ssd_scan as ssd, swiglu as sg)
+                                     layernorm as ln, rmsnorm as rn, ssd_scan as ssd,
+                                     swiglu as sg, wkv_scan as wkv)
     from repro_torch.models.model import Model
     from repro_torch.runtime.train_loop import ParallelPlan
 
@@ -85,7 +89,12 @@ def main() -> int:
         sound.append(r)
         cs.emit({"reading": "sound", "arch": args.arch, "seed": seed, **r})
 
-    if cfg.act == "swiglu":
+    if cfg.family == "rwkv":
+        faults = {"wkv_scan forward, tokens 1024:1088 of sequence 0":
+                      (wkv, "wkv_scan_cuda", (0,), (0, TILE)),
+                  "rmsnorm forward, rows 1024:1088 of sequence 0":
+                      (rn, "rmsnorm_cuda", (0,), (0, TILE))}
+    elif cfg.act == "swiglu":
         faults = {"swiglu forward, rows 1024:1088": (sg, "swiglu_cuda", (0,), (TILE,))}
     else:
         faults = {"gelu_mlp forward, rows 1024:1088": (gm, "gelu_mlp_cuda", (0,), (TILE,)),
@@ -94,7 +103,7 @@ def main() -> int:
     if cfg.family == "hybrid":
         faults["ssd_scan forward, tokens 1024:1088 of sequence 0"] = (
             ssd, "ssd_scan_cuda", (0,), (0, TILE))
-    faults.update({
+    faults.update({} if cfg.family == "rwkv" else {
         "flash forward, query rows 1024:1088 of head 0":
             (fa, "flash_attention_fwd_cuda", (0,), (0, TILE, 0)),
         "flash dQ, query rows 1024:1088 of head 0":
@@ -116,8 +125,13 @@ def main() -> int:
     card = cs.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    # a planted fault that makes a metric non-finite fails the train phase's
+    # finite check whatever the limit: the smallest finite reading bounds it
     summary = {key: {"sound_max": max(r[key] for r in sound),
-                     "planted_min": min(r[key] for r in planted_rel)}
+                     "planted_min": min((r[key] for r in planted_rel
+                                         if math.isfinite(r[key])), default=None),
+                     "planted_non_finite": sum(not math.isfinite(r[key])
+                                               for r in planted_rel)}
                for key in ("loss", "grad_norm")}
     cs.emit({"arch": args.arch, "summary": summary, "card": card})
     return 0
