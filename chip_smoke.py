@@ -12,8 +12,15 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      flavour cases (flash forward and backward: window, softcap, q_offset,
      non-causal ragged, G = 1, G = 8 at hd 64, ragged and q_offset at hd 88;
      CE: ragged N, valid_vocab < V, labels in the last partial block), the
-     flash C entries' refusal of a head dim they were not built for, then
-     the kernel / plain / library / bound times;
+     flash C entries' refusal of a head dim they were not built for;
+     the edges of the redesigned bf16 tiling (flash at every head dim:
+     partial query and key tiles, the diagonal, a window edge, rows with no
+     key; swiglu across its N < 64 regime switch with F and d past the
+     last tile), swiglu's decode launches bit-identical, and the Python
+     mirrors of both C entries' tile choices; then the kernel / plain /
+     library / bound times, and for flash and swiglu the time of the
+     version before the redesign (tools/previous_kernels/, built beside
+     the port's) on the same inputs, in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
@@ -61,7 +68,9 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      ``tools/step0_limits.py`` measured; a ``torch.profiler`` pass over one
      step;
   5. the ``kernels`` line: per kernel its launches on each path, its error,
-     and the kernel / plain / library / bound times.
+     and the kernel / plain / library / bound times; for the redesigned
+     flash forward and swiglu also ``parent_ms`` and ``ptxas`` (registers
+     and spills of each bf16 kernel).
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -143,8 +152,100 @@ REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2,
 SERVE_LAYERS = {LLAMA4: 2, ARCTIC: 1}
 
 
+# the kernels redesigned for Hopper, and their C entries: the versions
+# before the redesign (tools/previous_kernels/) are built beside the port's
+# and timed on the same inputs, in turns with the new ones (``parent_ms``)
+PREVIOUS = {"flash_attention": "flash_attention_fwd", "swiglu": "swiglu_fwd"}
+# their redesigned bf16 kernels, whose registers and spills the kernels
+# line reports (``ptxas -v``)
+REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel", "swiglu": "swiglu_bf16_kernel"}
+_PREVIOUS_LIBS: dict = {}
+
+
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def start_previous_build() -> dict:
+    """One ``nvcc`` per previous version, started at once (they include the
+    port's ``csrc/common.cuh``)."""
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "previous"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in PREVIOUS:
+        out, src = out_dir / f"{name}.so", ROOT / "tools" / "previous_kernels" / f"{name}.cu"
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out), str(src)]
+        started[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
+    return started
+
+
+def finish_previous_build(started: dict) -> None:
+    import ctypes
+
+    for name, (path, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the previous {name}.cu:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _PREVIOUS_LIBS[name] = lib
+
+
+def with_previous(name: str, fn):
+    """``fn()`` with the kernel module's library swapped for the previous
+    version's (same C entry and signature), so the wrapper launches it."""
+    from repro_torch.kernels import flash_attention as fa, swiglu as sg
+
+    module = {"flash_attention": fa, "swiglu": sg}[name]
+    own, prev = module._lib, _PREVIOUS_LIBS[name]
+    entry = PREVIOUS[name]
+    getattr(prev, entry).argtypes = getattr(own(), entry).argtypes
+    getattr(prev, entry).restype = getattr(own(), entry).restype
+    module._lib = lambda: prev
+    try:
+        return fn()
+    finally:
+        module._lib = own
+
+
+def timed_with_parent(timer, name: str, fn) -> tuple[float, float]:
+    """(ms, parent_ms): the kernel and its previous version on the same
+    inputs, in turns (new, previous, previous, new), each the mean of its
+    two medians."""
+    a = timer(fn)
+    b = with_previous(name, lambda: timer(fn))
+    c = with_previous(name, lambda: timer(fn))
+    d = timer(fn)
+    return (a + d) / 2, (b + c) / 2
+
+
+def ptxas_summary(log: str, kernel: str) -> dict:
+    """Registers and spills that ``ptxas -v`` reported for each entry
+    function whose mangled name holds ``kernel``."""
+    import re
+
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1) if kernel in m.group(1) else None
+            continue
+        if current is None:
+            continue
+        args = re.findall(r"Li(\d+)E", current[current.index(kernel):].split("Ev")[0] + "E")
+        key = f"{kernel}<{', '.join(args)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -285,6 +386,75 @@ FLASH_FLAVOURS = [  # small cases of both flash checks: (name, B, Sq, Skv, Hq, H
 ]
 
 
+# the edges of the bf16 forward's tiling (128-row query tiles of two
+# warpgroups, 128-key tiles, the mask only on tiles that need it), each at
+# every head dim: (name, B, Sq, Skv, Hq, Hkv, kw)
+FLASH_EDGES = [
+    ("partial query and key tiles, diagonal", 1, 200, 200, 4, 2, dict(causal=True)),
+    ("window edge + q_offset", 1, 200, 330, 4, 2,
+     dict(causal=True, sliding_window=100, q_offset=130)),
+    ("rows with no key", 1, 200, 200, 2, 1, dict(causal=True, q_offset=-40)),
+    ("non-causal, partial key tile", 1, 130, 77, 2, 2, dict(causal=False)),
+]
+# swiglu across the bf16 regime switch (N < 64 streams 64 x 64 tiles) with F
+# past the last 64-, 128- and 192-column tile and d past the last 64-deep
+# stage (both multiples of 8), and the 192-column tile with that d
+SWIGLU_EDGES = [(N, 264, 520) for N in (1, 3, 17, 63, 64, 200)] + [(256, 264, 11008)]
+
+
+def card_sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def check_swiglu_edges(gen, check_swiglu) -> None:
+    """SWIGLU_EDGES in bf16 and fp32; and the decode regime repeats
+    bit-for-bit (one block's fixed-order sum per output, no atomics)."""
+    from repro_torch.kernels import swiglu as sg
+
+    for N, d, F_ in SWIGLU_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(gen, N, d, dtype=dtype)
+            w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            w3 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            check_swiglu(f"swiglu {dtype} edge ({N}, {d})x({d}, {F_}), tile "
+                         f"{sg.swiglu_tile(N, F_, card_sms())}", x, w1, w3)
+    x = randn(gen, 4, 4096, dtype=torch.bfloat16)
+    w1, w3 = (randn(gen, 4096, 11008, dtype=torch.bfloat16, scale=4096 ** -0.5)
+              for _ in range(2))
+    same = torch.equal(sg.swiglu_cuda(x, w1, w3), sg.swiglu_cuda(x, w1, w3))
+    emit({"phase": "kernel_check", "case": "swiglu bf16 (4, 4096)x(4096, 11008) twice",
+          "bit_identical": same})
+    if not same:
+        raise AssertionError("swiglu decode: two launches on the same inputs differ")
+
+
+def check_tile_mirrors() -> None:
+    """The Python mirrors of the two C entries' choices (the swiglu tile,
+    the flash forward's chunk of (b, h) pairs) agree with the libraries at
+    every config's serve and train shapes on this card."""
+    from repro_torch.configs import all_configs
+    from repro_torch.kernels import flash_attention as fa, swiglu as sg
+
+    n, sms = 0, card_sms()
+    for cfg in all_configs().values():
+        if cfg.act == "swiglu":
+            for F_ in {f for f in (cfg.d_ff, cfg.dense_d_ff) if f}:
+                for N in (1, 4, 63, 64, 129, 200, 256, 512, 8192):
+                    got, want = sg.swiglu_tile_cuda(N, F_, sms), sg.swiglu_tile(N, F_, sms)
+                    if got != want:
+                        raise AssertionError(f"swiglu tile ({N}, {F_}): C {got}, mirror {want}")
+                    n += 1
+        if cfg.resolved_head_dim in fa.HEAD_DIMS and cfg.n_kv_heads:
+            for B, S in ((1, 5), (1, 256), (1, 2048), (4, 2048)):
+                args = (B, cfg.n_heads, cfg.n_kv_heads, S, cfg.resolved_head_dim)
+                if fa.chunk_pairs_cuda(*args) != fa.chunk_pairs(*args):
+                    raise AssertionError(f"flash chunk {args}: C {fa.chunk_pairs_cuda(*args)}, "
+                                         f"mirror {fa.chunk_pairs(*args)}")
+                n += 1
+    emit({"phase": "kernel_check", "case": "tile mirrors agree with the C entries",
+          "shapes": n, "sms": sms})
+
+
 def _flash_case(gen, name, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
     """The flash forward kernel against ``flash_attention_ref`` on random
     q, k, v (and, in fp32, the LSE); returns (max abs err, (q, k, v))."""
@@ -328,10 +498,11 @@ def _flash_row(timer: Timer, err, q, k, v) -> dict:
     except TypeError:                           # torch without enable_gqa
         lib_ms = None
     rtol, atol = TOL["flash_attention"][q.dtype]
+    ms, parent_ms = timed_with_parent(
+        timer, "flash_attention", lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True))
     return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
             "max_abs_err": err, "rtol": rtol, "atol": atol,
-            "p_rounding_tol": FLASH_P_TOL,
-            "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True)),
+            "p_rounding_tol": FLASH_P_TOL, "ms": ms, "parent_ms": parent_ms,
             "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True)),
             "library_ms": lib_ms,
             "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
@@ -340,7 +511,7 @@ def _flash_row(timer: Timer, err, q, k, v) -> dict:
 
 def phase_kernels(timer: Timer) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import rmsnorm as rn, swiglu as sg
+    from repro_torch.kernels import flash_attention as fa, rmsnorm as rn, swiglu as sg
     from repro_torch.kernels.ref import rmsnorm_ref, swiglu_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -385,10 +556,13 @@ def phase_kernels(timer: Timer) -> dict:
                            atol=atol, why=TOL["swiglu"]["why"])
 
     # swiglu: prefill (512 tokens), decode (4 slots) and the train step's
-    # microbatch (4 x 2048 tokens) of yi-6b's MLP gate; a 256-token prefill
-    # and decode of llama4's (5120 x 8192) and arctic's (7168 x 4864) dense MLP
+    # microbatch (4 x 2048 tokens) of yi-6b's MLP gate, and its 256-token
+    # serve prefill (the largest prompt of the serve phase: it sets TTFT); a
+    # 256-token prefill and decode of llama4's (5120 x 8192) and arctic's
+    # (7168 x 4864) dense MLP
     swiglu_cases = []
     for N, d, F_ in ((512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
+                     (256, 4096, 11008),
                      *((N, c.d_model, c.dense_d_ff or c.d_ff) for c in moe for N in (256, 4))):
         for dtype in (torch.bfloat16, torch.float32):
             rtol, atol = TOL["swiglu"][dtype]
@@ -399,10 +573,12 @@ def phase_kernels(timer: Timer) -> dict:
             if dtype == torch.bfloat16:
                 nbytes = (x.numel() + w1.numel() + w3.numel() + N * F_) * 2
                 b, by = bound_ms(nbytes, 4 * N * d * F_, dtype)
+                ms, parent_ms = timed_with_parent(timer, "swiglu",
+                                                  lambda: sg.swiglu_cuda(x, w1, w3))
                 swiglu_cases.append({
                     "shape": f"x ({N}, {d}), w1/w3 ({d}, {F_}) bf16",
                     "max_abs_err": err, "rtol": rtol, "atol": atol,
-                    "ms": timer(lambda: sg.swiglu_cuda(x, w1, w3)),
+                    "tile": sg.swiglu_tile(N, F_, card_sms()), "ms": ms, "parent_ms": parent_ms,
                     "plain_ms": timer(lambda: swiglu_ref(x, w1, w3)),
                     "library_ms": timer(lambda: F.silu(x @ w1) * (x @ w3)),
                     "library_call": "F.silu(x@w1)*(x@w3), a cuBLAS composition",
@@ -412,11 +588,12 @@ def phase_kernels(timer: Timer) -> dict:
 
     # flash attention: causal prefill of 2048 tokens (B = 1) and the train
     # step's microbatch (B = 4), yi-6b heads (32 of 128, GQA 8), the train
-    # step's microbatch with gpt-1.4b heads (24 of 88, MHA), and a 256-token
-    # prefill with llama4's (40q/8kv, GQA 5) and arctic's (56q/8kv, GQA 7) heads
+    # step's microbatch with gpt-1.4b heads (24 of 88, MHA), yi-6b's
+    # 256-token serve prefill, and a 256-token prefill with llama4's (40q/8kv,
+    # GQA 5) and arctic's (56q/8kv, GQA 7) heads
     flash_rows = []
     for B, S, Hq, Hkv, hd in ((1, 2048, 32, 4, 128), (4, 2048, 32, 4, 128),
-                              (4, 2048, GPT_HEADS, GPT_HEADS, GPT_HD),
+                              (4, 2048, GPT_HEADS, GPT_HEADS, GPT_HD), (1, 256, 32, 4, 128),
                               *((1, 256, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
                                 for c in moe)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -434,6 +611,13 @@ def phase_kernels(timer: Timer) -> dict:
         for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             _flash_case(gen, f"flash {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, {Hq}q/{Hkv}kv, "
                              f"{hd})", B, Sq, Skv, Hq, Hkv, hd, dtype, **kw)
+    for name, B, Sq, Skv, Hq, Hkv, kw in FLASH_EDGES:
+        for hd in fa.HEAD_DIMS:
+            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                _flash_case(gen, f"flash {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, {Hq}q/{Hkv}kv, "
+                                 f"{hd})", B, Sq, Skv, Hq, Hkv, hd, dtype, **kw)
+    check_swiglu_edges(gen, check_swiglu)
+    check_tile_mirrors()
     # ragged rows for the other two kernels
     for dtype in (torch.bfloat16, torch.float32):
         x = randn(gen, 37, 256, dtype=dtype)
@@ -2207,7 +2391,9 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
+    previous = start_previous_build()
     report = _build.build_all()
+    finish_previous_build(previous)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -2256,7 +2442,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
          "replaces": replaces,
          "launches": next(by_path[name][p] for p in order if p in by_path[name]),
-         "launches_by_path": by_path[name], **rows[name], "card": card}
+         "launches_by_path": by_path[name], **rows[name], "card": card,
+         **({"ptxas": ptxas_summary(report[src[:-3]]["log"]
+                                    or _build.lib_path(src[:-3]).with_suffix(".log").read_text(),
+                                    REDESIGNED[name])} if name in REDESIGNED else {})}
         for name, (src, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

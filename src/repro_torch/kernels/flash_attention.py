@@ -25,6 +25,67 @@ launches = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
 
+# The bf16 forward's work, as csrc/flash_attention.cu lays it out: an item
+# is BLOCK_M query rows of one (b, h), whose two warpgroups of 64 rows walk
+# key tiles of BLOCK_N; a persistent grid of one block per SM takes the
+# items in ``work_order``, each block the next one as it comes free.
+BLOCK_M = 128
+BLOCK_N = 128
+L2_CHUNK_BYTES = 16 << 20
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chunk_pairs(B: int, Hq: int, Hkv: int, Skv: int, hd: int) -> int:
+    """(b, h) pairs per chunk of the work order (``chunk_pairs``): whole
+    GQA groups whose K and V (bf16, hd padded to 16) fit L2_CHUNK_BYTES,
+    spread evenly over the chunks."""
+    G, pairs = Hq // Hkv, B * Hq
+    group_bytes = 2 * Skv * _cdiv(hd, 16) * 16 * 2
+    most = max(1, L2_CHUNK_BYTES // max(group_bytes, 1)) * G
+    if most >= pairs:
+        return pairs
+    per = _cdiv(pairs, _cdiv(pairs, most))
+    return _cdiv(per, G) * G
+
+
+def work_order(B: int, Sq: int, Hq: int, chunk: int, causal: bool) -> list[tuple[int, int, int]]:
+    """(q0, h, b) of each item in order (``work_of``): the (b, h) pairs,
+    b-major, in chunks of ``chunk``; within a chunk query tile by query
+    tile, the last (longest) first when causal, then pair by pair."""
+    nq, pairs = _cdiv(Sq, BLOCK_M), B * Hq
+    order = []
+    for first in range(0, pairs, chunk):
+        size = min(chunk, pairs - first)
+        for qi in range(nq):
+            qt = nq - 1 - qi if causal else qi
+            order += [(qt * BLOCK_M, pair % Hq, pair // Hq)
+                      for pair in range(first, first + size)]
+    return order
+
+
+def key_tiles(q0: int, Sq: int, Skv: int, *, causal: bool, window: int | None,
+              q_offset: int) -> list[int]:
+    """The first key of each tile an item walks (``key_range``), in the
+    order it walks them: from the last tile back to the first."""
+    hi = min(Skv, min(q0 + BLOCK_M, Sq) + q_offset) if causal else Skv
+    lo = max(0, q0 + q_offset - window + 1) if window else 0
+    start = lo // BLOCK_N * BLOCK_N
+    n = _cdiv(hi - start, BLOCK_N) if hi > start else 0
+    return [start + (n - 1 - i) * BLOCK_N for i in range(n)]
+
+
+def edge_tile(k0: int, r_lo: int, Sq: int, Skv: int, *, causal: bool,
+              window: int | None, q_offset: int) -> bool:
+    """Whether the warpgroup of query rows [r_lo, r_lo + 64) masks key tile
+    k0 (``softmax``: a tile that crosses the Skv edge, the causal diagonal
+    or the window's start); other tiles skip the mask."""
+    r_hi = max(min(r_lo + 64, Sq), r_lo + 1)
+    return (k0 + BLOCK_N > Skv or (causal and k0 + BLOCK_N - 1 > r_lo + q_offset)
+            or bool(window) and k0 <= r_hi - 1 + q_offset - window)
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -34,7 +95,15 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
            ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_fwd_chunk.argtypes = [ctypes.c_int] * 5
+    lib.flash_fwd_chunk.restype = ctypes.c_int
     return lib
+
+
+def chunk_pairs_cuda(B: int, Hq: int, Hkv: int, Skv: int, hd: int) -> int:
+    """The chunk the C entry chooses, read from the library (to hold
+    :func:`chunk_pairs` to it on the card)."""
+    return _lib().flash_fwd_chunk(B, Hq, Hkv, Skv, hd)
 
 
 @functools.cache

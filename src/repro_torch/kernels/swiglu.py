@@ -21,13 +21,63 @@ from repro_torch.kernels.ref import swiglu_bwd_ref, swiglu_ref
 
 launches = 0
 
+# The bf16 kernel's tiles, as csrc/swiglu.cu chooses them: N < STREAM_ROWS
+# streams the weights through 64 x 64 tiles; larger N takes 128-row tiles
+# of 128 or 192 columns of each product, ordered in groups of GROUP_M row
+# tiles that sweep the same columns.
+STREAM_ROWS = 64
+GROUP_M = 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def swiglu_tile(N: int, F: int, n_sm: int) -> tuple[int, int]:
+    """(rows, columns) of the bf16 kernel's tile for an (N, d) x (d, F)
+    call on a card with ``n_sm`` SMs (csrc/swiglu.cu: ``swiglu_fwd``,
+    ``gemm_cols``): the column width whose waves of tiles over the SMs,
+    times the width, are fewer (128 on a tie)."""
+    if N < STREAM_ROWS:
+        return 64, 64
+    tiles_m = _cdiv(N, 128)
+
+    def cost(cols: int) -> int:
+        return _cdiv(tiles_m * _cdiv(F, cols), n_sm) * cols
+
+    return 128, (192 if cost(192) < cost(128) else 128)
+
+
+def tile_order(N: int, F: int, tile_m: int, tile_n: int) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each block in launch order
+    (csrc/swiglu.cu: ``tile_of``): groups of GROUP_M row tiles, the row
+    tile fastest within a group, so that blocks in flight together share
+    their w1 and w3 columns in the L2."""
+    tiles_m, tiles_n = _cdiv(N, tile_m), _cdiv(F, tile_n)
+    order = []
+    for pid in range(tiles_m * tiles_n):
+        first = pid // (GROUP_M * tiles_n) * GROUP_M
+        rows = min(tiles_m - first, GROUP_M)
+        r = pid % (GROUP_M * tiles_n)
+        order.append((first + r % rows, r // rows))
+    return order
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("swiglu")
     lib.swiglu_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.swiglu_fwd.restype = ctypes.c_int
+    lib.swiglu_tile.argtypes = [ctypes.c_int] * 3
+    lib.swiglu_tile.restype = ctypes.c_int
     return lib
+
+
+def swiglu_tile_cuda(N: int, F: int, n_sm: int) -> tuple[int, int]:
+    """The tile the C entry chooses, read from the library (to hold
+    :func:`swiglu_tile` to it on the card)."""
+    code = _lib().swiglu_tile(N, F, n_sm)
+    return code >> 16, code & 0xFFFF
 
 
 def swiglu_cuda(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
