@@ -11,16 +11,20 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      gpt-1.4b's widths, the flash kernels at hd 128 and 88), plus small
      flavour cases (flash forward and backward: window, softcap, q_offset,
      non-causal ragged, G = 1, G = 8 at hd 64, ragged and q_offset at hd 88;
-     CE: ragged N, valid_vocab < V, labels in the last partial block), the
+     CE: ragged N, valid_vocab < V, labels in the last partial tile), the
      flash C entries' refusal of a head dim they were not built for;
      the edges of the redesigned bf16 tiling (flash at every head dim:
      partial query and key tiles, the diagonal, a window edge, rows with no
-     key; swiglu across its N < 64 regime switch with F and d past the
-     last tile), swiglu's decode launches bit-identical, and the Python
-     mirrors of both C entries' tile choices; then the kernel / plain /
-     library / bound times, and for flash and swiglu the time of the
-     version before the redesign (tools/previous_kernels/, built beside
-     the port's) on the same inputs, in turns;
+     key; swiglu and gelu_mlp across their N < 64 regime switch with F and
+     d past the last tile, gelu_mlp at each of its tile widths; CE at 4 x
+     2047 tokens and d 520 with valid_vocab inside a tile and on a tile's
+     start, whole tiles past it, labels at valid_vocab - 1 and in the last
+     valid tile, and two planted faults of its partials that must fail the
+     CE limits), swiglu's and gelu_mlp's decode launches bit-identical, and
+     the Python mirrors of the C entries' tile choices; then the kernel /
+     plain / library / bound times, and for flash, swiglu, gelu_mlp and CE
+     the time of the version before the redesign (tools/previous_kernels/,
+     built beside the port's) on the same inputs, in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
@@ -69,8 +73,8 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step;
   5. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
-     flash forward and swiglu also ``parent_ms`` and ``ptxas`` (registers
-     and spills of each bf16 kernel).
+     flash forward, swiglu, gelu_mlp and CE also ``parent_ms`` and
+     ``ptxas`` (registers and spills of each bf16 kernel).
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -155,10 +159,12 @@ SERVE_LAYERS = {LLAMA4: 2, ARCTIC: 1}
 # the kernels redesigned for Hopper, and their C entries: the versions
 # before the redesign (tools/previous_kernels/) are built beside the port's
 # and timed on the same inputs, in turns with the new ones (``parent_ms``)
-PREVIOUS = {"flash_attention": "flash_attention_fwd", "swiglu": "swiglu_fwd"}
+PREVIOUS = {"flash_attention": "flash_attention_fwd", "swiglu": "swiglu_fwd",
+            "gelu_mlp": "gelu_mlp_fwd", "cross_entropy": "cross_entropy_fwd"}
 # their redesigned bf16 kernels, whose registers and spills the kernels
 # line reports (``ptxas -v``)
-REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel", "swiglu": "swiglu_bf16_kernel"}
+REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel", "swiglu": "swiglu_bf16_kernel",
+              "gelu_mlp": "gelu_mlp_bf16_kernel", "cross_entropy": "ce_partial_bf16_kernel"}
 _PREVIOUS_LIBS: dict = {}
 
 
@@ -198,9 +204,10 @@ def finish_previous_build(started: dict) -> None:
 def with_previous(name: str, fn):
     """``fn()`` with the kernel module's library swapped for the previous
     version's (same C entry and signature), so the wrapper launches it."""
-    from repro_torch.kernels import flash_attention as fa, swiglu as sg
+    from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
+                                     gelu_mlp as gm, swiglu as sg)
 
-    module = {"flash_attention": fa, "swiglu": sg}[name]
+    module = {"flash_attention": fa, "swiglu": sg, "gelu_mlp": gm, "cross_entropy": ce}[name]
     own, prev = module._lib, _PREVIOUS_LIBS[name]
     entry = PREVIOUS[name]
     getattr(prev, entry).argtypes = getattr(own(), entry).argtypes
@@ -429,14 +436,31 @@ def check_swiglu_edges(gen, check_swiglu) -> None:
 
 
 def check_tile_mirrors() -> None:
-    """The Python mirrors of the two C entries' choices (the swiglu tile,
-    the flash forward's chunk of (b, h) pairs) agree with the libraries at
-    every config's serve and train shapes on this card."""
+    """The Python mirrors of the C entries' choices (the swiglu and gelu_mlp
+    tiles, the CE tile and its partials a row, the flash forward's chunk of
+    (b, h) pairs) agree with the libraries at every config's serve and train
+    shapes on this card."""
     from repro_torch.configs import all_configs
-    from repro_torch.kernels import flash_attention as fa, swiglu as sg
+    from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
+                                     gelu_mlp as gm, swiglu as sg)
 
     n, sms = 0, card_sms()
     for cfg in all_configs().values():
+        if cfg.act == "gelu":
+            for N in (1, 4, 63, 64, 129, 200, 256, 512, 8192):
+                got, want = gm.gelu_mlp_tile_cuda(N, cfg.d_ff, sms), gm.gelu_mlp_tile(
+                    N, cfg.d_ff, sms)
+                if got != want:
+                    raise AssertionError(f"gelu_mlp tile ({N}, {cfg.d_ff}): C {got}, "
+                                         f"mirror {want}")
+                n += 1
+        V = cfg.padded_vocab
+        for dtype in (torch.bfloat16, torch.float32):
+            got = ce.tiling_cuda(V, dtype)
+            want = ((ce.TILE_M, ce.TILE_N), ce.n_partials(V, dtype))
+            if got != want:
+                raise AssertionError(f"CE tiling ({V}, {dtype}): C {got}, mirror {want}")
+            n += 1
         if cfg.act == "swiglu":
             for F_ in {f for f in (cfg.d_ff, cfg.dense_d_ff) if f}:
                 for N in (1, 4, 63, 64, 129, 200, 256, 512, 8192):
@@ -692,11 +716,14 @@ def gpt_kernels(timer: Timer, gen) -> dict:
                 rtol, atol = TOL["gelu_mlp"][dtype]
                 nbytes = (x.numel() + w1.numel() + N * GPT_F) * 2
                 bnd, by = bound_ms(nbytes, 2 * N * GPT_D * GPT_F, dtype)
+                ms, parent_ms = timed_with_parent(timer, "gelu_mlp",
+                                                  lambda: gm.gelu_mlp_cuda(x, w1))
                 gelu_rows.append({
                     "shape": f"x ({N}, {GPT_D}), w1 ({GPT_D}, {GPT_F}) bf16",
                     "max_abs_err": err, "rtol": rtol, "atol": atol,
                     "scale_tol": GELU_SCALE_TOL,
-                    "ms": timer(lambda: gm.gelu_mlp_cuda(x, w1)),
+                    "tile": gm.gelu_mlp_tile(N, GPT_F, card_sms()), "ms": ms,
+                    "parent_ms": parent_ms,
                     "plain_ms": timer(lambda: gelu_mlp_in_ref(x, w1)),
                     "library_ms": timer(lambda: F.gelu(x @ w1, approximate="tanh")),
                     "library_call": "F.gelu(x @ w1, approximate='tanh'), cuBLAS + "
@@ -710,9 +737,47 @@ def gpt_kernels(timer: Timer, gen) -> dict:
         check_layernorm(f"layernorm {dtype} (37, 256)", x + 2.0,
                         (1 + 0.1 * torch.randn(256, generator=gen, device="cuda")).to(dtype),
                         randn(gen, 256, dtype=dtype, scale=0.1))
+    check_gelu_edges(gen)
     torch.cuda.empty_cache()
     return {"layernorm": {**ln_rows[0], "cases": ln_rows[1:]},
             "gelu_mlp": {**gelu_rows[0], "cases": gelu_rows[1:]}}
+
+
+# gelu_mlp across the bf16 regime switch (N < 64 streams 64 x 64 tiles) with
+# F past the last 64-, 128-, 192- and 256-column tile and d past the last
+# 64-deep stage (both multiples of 8); the 192- and 256-column tiles with
+# that d (on 132 SMs: 200 x 8456 takes 192, 1024 x 3080 takes 256); gpt's
+# 256-token prefill
+GELU_EDGES = ([(N, 264, 520) for N in (1, 3, 17, 63, 64, 200)]
+              + [(200, 264, 8456), (1024, 264, 3080), (256, GPT_D, GPT_F)])
+
+
+def check_gelu_edges(gen) -> None:
+    """GELU_EDGES in bf16 and fp32, every bf16 tile width among them; and
+    the decode regime repeats bit-for-bit (one block's fixed-order sum per
+    output, no atomics)."""
+    from repro_torch.kernels import gelu_mlp as gm
+
+    widths = set()
+    for N, d, F_ in GELU_EDGES:
+        tile = gm.gelu_mlp_tile(N, F_, card_sms())
+        widths.add(tile[1])
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(gen, N, d, dtype=dtype)
+            w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            check_gelu_mlp(f"gelu_mlp {dtype} edge ({N}, {d})x({d}, {F_}), tile {tile}",
+                           x, w1)
+    if widths != {64, 128, 192, 256}:
+        raise AssertionError(f"gelu_mlp edges reach the tile widths {sorted(widths)} on "
+                             f"{card_sms()} SMs, not all four")
+    x = randn(gen, 4, GPT_D, dtype=torch.bfloat16)
+    w1 = randn(gen, GPT_D, GPT_F, dtype=torch.bfloat16, scale=GPT_D ** -0.5)
+    first = gm.gelu_mlp_cuda(x, w1)
+    same = all(torch.equal(first, gm.gelu_mlp_cuda(x, w1)) for _ in range(3))
+    emit({"phase": "kernel_check", "case": f"gelu_mlp bf16 (4, {GPT_D})x({GPT_D}, {GPT_F}) "
+                                           f"four times", "bit_identical": same})
+    if not same:
+        raise AssertionError("gelu_mlp decode: launches on the same inputs differ")
 
 
 CUDA_ERROR_INVALID_VALUE = 1
@@ -774,9 +839,18 @@ FLASH_BWD_WHY = ("bf16: P and dS rounded to bf16 inside the kernel, bounded by "
 # CE: the kernel and the plain version both form fp32 sums of the same exact
 # products (bf16 x bf16 is exact in fp32), in another order over d: 2e-5 of
 # |h|@|w| (the label's column for the label logit, the row's largest for the
-# lse), far below the ~3% of the mass that one missed 2048-column block takes.
+# lse).  One missed 256-column tile takes 1/250 of a yi-6b row's mass (~4e-3
+# of its lse, a few times that limit there) and a fifth at CE_EDGES' vocab,
+# so both the yi-6b train shape and CE_EDGES plant it; a label logit from
+# the wrong tile is off by O(1).
 CE_SCALE_TOL = 2e-5
 CE_WHY = "fp32 sums of exact products in another order over d"
+# the bf16 CE tiling's edges at the train step's N = 4 x 2047 (not a multiple
+# of the 128-row tile) and a d past the last 64-deep stage: (N, d, V,
+# valid_vocab) with valid_vocab inside tile 4 (1024..1279) and on its start,
+# so that the last tile (1280..1287, past V's last full tile), or the last
+# two, hold no valid column (sumexp 0)
+CE_EDGES = [(4 * 2047, 520, 1288, 1100), (4 * 2047, 520, 1288, 1024)]
 
 
 def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
@@ -811,8 +885,14 @@ def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
     return errs, (q, k, v, o, lse, do)
 
 
-def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None):
-    """The CE kernel against ``cross_entropy_ref`` on the same h, w, labels."""
+CE_FAULTS = ("column tile 0 left out of the sum", "label logit from the next tile")
+
+
+def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=False):
+    """The CE kernel against ``cross_entropy_ref`` on the same h, w, labels;
+    with ``planted``, each of CE_FAULTS, built from the plain partials
+    (``cross_entropy.partials_ref``, ``merge_ref``) with one fault, must
+    fail the same limits."""
     from repro_torch.kernels import cross_entropy as ce
     from repro_torch.kernels.ref import cross_entropy_ref
 
@@ -826,10 +906,26 @@ def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None):
     if valid_vocab is not None:
         absw[:, valid_vocab:] = 0
     lab_scale = torch.gather(absw, 1, labels.long()[:, None])[:, 0]
-    e1 = check_close(f"{name} lse", lse, rlse, rtol=0, atol=1e-6, why=CE_WHY,
-                     terms=((absw.amax(1), CE_SCALE_TOL, "max |h|@|w|"),))
+    lse_terms = ((absw.amax(1), CE_SCALE_TOL, "max |h|@|w|"),)
+    ll_terms = ((lab_scale, CE_SCALE_TOL, "|h|@|w| at label"),)
+    e1 = check_close(f"{name} lse", lse, rlse, rtol=0, atol=1e-6, why=CE_WHY, terms=lse_terms)
     e2 = check_close(f"{name} label_logit", ll, rll, rtol=0, atol=1e-6, why=CE_WHY,
-                     terms=((lab_scale, CE_SCALE_TOL, "|h|@|w| at label"),))
+                     terms=ll_terms)
+    if planted:
+        m, s, _ = ce.partials_ref(h.float(), w.float(), labels, valid_vocab, ce.TILE_N)
+        vv = valid_vocab or V
+        lab = labels.long()
+        moved = torch.where(lab + ce.TILE_N < vv, lab + ce.TILE_N, lab - ce.TILE_N)
+        faults = {CE_FAULTS[0]: (ce.merge_ref(m[1:], s[1:]), rlse, lse_terms),
+                  CE_FAULTS[1]: (torch.gather(h.float() @ w.float(), 1, moved[:, None])[:, 0],
+                                 rll, ll_terms)}
+        for fault, (bad, ref, terms) in faults.items():
+            worst = float(limit_share(bad, ref, 0, 1e-6, terms)[1].max())
+            emit({"phase": "planted_fault", "case": name, "fault": fault,
+                  "worst_share_of_limit": worst})
+            if worst <= 1:
+                raise AssertionError(f"{name}: the CE limit does not catch a planted fault "
+                                     f"({fault}: {worst:.2f} of it)")
     return max(e1, e2), (h, w, labels)
 
 
@@ -873,9 +969,6 @@ def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do) -> tuple[dict
 
 
 def phase_kernels_train(timer: Timer) -> dict:
-    from repro_torch.kernels import cross_entropy as ce
-    from repro_torch.kernels.ref import cross_entropy_ref
-
     gen = torch.Generator(device="cuda").manual_seed(2)
     # flash backward at the forward's timed shapes: causal S = 2048, yi-6b
     # heads at B = 1 and at the train step's microbatch (B = 4), and
@@ -897,21 +990,33 @@ def phase_kernels_train(timer: Timer) -> dict:
             flash_bwd_case(f"flash bwd {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, "
                            f"{Hq_}q/{Hkv}kv, {hd_})", gen, B, Sq, Skv, Hq_, Hkv, hd_,
                            dtype, **kw)
+    rows["cross_entropy"] = ce_kernels(timer, gen)
+    return rows
 
-    # CE at the train step's shape: a microbatch of 4 x 2047 tokens of yi-6b
-    # (the headline row), then of gpt-1.4b
+
+def ce_kernels(timer: Timer, gen) -> dict:
+    """CE at the train step's shape, a microbatch of 4 x 2047 tokens of
+    yi-6b (the headline row, with planted faults), then of gpt-1.4b, timed;
+    then ragged shapes and CE_EDGES, with planted faults."""
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels.ref import cross_entropy_ref
+
     ce_rows = []
     N = 4 * 2047
     for d, V in ((4096, 64000), (GPT_D, 51200)):
         for dtype in (torch.bfloat16, torch.float32):
-            err, (h, w, labels) = ce_case(f"ce {dtype} ({N}, {d})x({d}, {V})", gen, N, d,
-                                          V, dtype)
+            err, (h, w, labels) = ce_case(
+                f"ce {dtype} ({N}, {d})x({d}, {V})", gen, N, d, V, dtype,
+                planted=dtype == torch.bfloat16 and d == 4096)
             if dtype == torch.bfloat16:
                 b, by = bound_ms(2 * (h.numel() + w.numel()) + 8 * N + 8 * N,
                                  2 * N * d * V, dtype)
+                ms, parent_ms = timed_with_parent(
+                    timer, "cross_entropy", lambda: ce.cross_entropy_cuda(h, w, labels))
                 ce_rows.append({
                     "shape": f"h ({N}, {d}), w ({d}, {V}) bf16", "max_abs_err": err,
-                    "ms": timer(lambda: ce.cross_entropy_cuda(h, w, labels)),
+                    "tile": [ce.TILE_M, ce.TILE_N],
+                    "partials": ce.n_partials(V, dtype), "ms": ms, "parent_ms": parent_ms,
                     "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
                     "plain_call": "cross_entropy_ref (materialized fp32 logits)",
                     "library_ms": timer(lambda: F.cross_entropy(
@@ -920,15 +1025,22 @@ def phase_kernels_train(timer: Timer) -> dict:
                     "bound_ms": b, "bound_by": by})
             del h, w, labels
         torch.cuda.empty_cache()
-    rows["cross_entropy"] = {**ce_rows[0], "cases": ce_rows[1:]}
-    V2 = 1000   # not a multiple of the 128-column tile; last chunk partial
+    V2 = 1000   # not a multiple of the 256-column tile; last tile partial
     labels = torch.tensor([996, 999, 0, 640] * 250, device="cuda")[:1000]
     for dtype in (torch.bfloat16, torch.float32):
-        ce_case(f"ce {dtype} ragged (1000, 256)x(256, {V2}), valid 997, last-block labels",
+        ce_case(f"ce {dtype} ragged (1000, 256)x(256, {V2}), valid 997, last-tile labels",
                 gen, 1000, 256, V2, dtype, valid_vocab=997, labels=labels)
-        ce_case(f"ce {dtype} ragged (37, 512)x(512, 2056), 2 chunks", gen, 37, 512, 2056,
-                dtype)
-    return rows
+        ce_case(f"ce {dtype} ragged (37, 512)x(512, 2056), past one 2048-column chunk", gen,
+                37, 512, 2056, dtype)
+    for N, d, V, vv in CE_EDGES:
+        # the label at valid_vocab - 1, in the last valid tile, in tile 0 and inside
+        first = (vv - 1) // 256 * 256
+        labels = torch.tensor([vv - 1, first, 0, 777], device="cuda").repeat(-(-N // 4))[:N]
+        for dtype in (torch.bfloat16, torch.float32):
+            ce_case(f"ce {dtype} edge ({N}, {d})x({d}, {V}), valid {vv}", gen, N, d, V, dtype,
+                    valid_vocab=vv, labels=labels, planted=dtype == torch.bfloat16)
+    return {**ce_rows[0], "cases": ce_rows[1:]}
+
 
 
 

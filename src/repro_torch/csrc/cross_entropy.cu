@@ -9,36 +9,48 @@
 // Bound on the H100: operations.  At N = 8188 tokens, d = 4096, V = 64000
 //   the product is 2 N d V = 4.3 TFLOP against 0.6 GB of h and W.
 // Design: the TPU kernel loops over all vocab blocks inside one token block
-//   (a sequential grid axis), which here would give 128 blocks of 64 rows,
-//   each streaming all 524 MB of W.  Instead the grid is (token block of 64
-//   rows, vocab chunk of 2048 columns): 128 x 32 blocks fill the 132 SMs,
-//   and blocks of one chunk run together and share W's tiles through L2.
-//   Each block keeps a running (max, sumexp) per row in registers over the
-//   16 tiles of 128 columns of its chunk and writes one partial pair per
-//   (row, chunk); a second, small kernel merges the 32 partials of a row
-//   into its lse.  The label logit is written by the one thread whose
-//   column is the label.  Rows past N (N = B (S - 1) is rarely a multiple
-//   of 64) are zero-filled and never written; columns past V or at or past
-//   valid_vocab are excluded.
-//   bf16: 4 warps of 16 rows each, h @ W as mma.sync.m16n8k16 (bf16 in,
-//   fp32 accumulate) over 32-deep tiles of h and W in shared memory.
-//   fp32: FFMA only (no TF32), a lane per column of 32-column tiles.
-//   Simple first version: no cp.async/TMA double buffering, no wgmma.
+//   (a sequential grid axis); here blocks run in parallel, so each block
+//   computes one tile of logits and reduces it to a (max, sumexp) partial
+//   per row, and a second, small kernel merges a row's partials into its
+//   lse, skipping those with sumexp 0 (no valid column).  The label logit is
+//   written by the one thread whose column is the label (-1e30 if the label
+//   is masked).  Rows past N (N = B (S - 1) is rarely a multiple of the
+//   tile) and columns past V arrive as zeros and are never written or
+//   summed; columns at or past valid_vocab are excluded.
+//   bf16: the persistent, warp-specialised TMA + wgmma GEMM tile of
+//   csrc/tma_gemm.cuh (h the K-major operand, W the MN-major one, read in
+//   its (d, V) row-major layout) of 128 token rows x 256 vocab columns, in
+//   two consumer warpgroups, over 64-deep stages of d in a 4-stage ring of
+//   48 KB; the epilogue, in registers, masks (only the tiles that reach
+//   valid_vocab), finds the label with one test a row, takes each row's
+//   max over the tile (a thread's 64 columns, then the quad of lanes that
+//   holds the row) and its sumexp against that max (ex2.approx with a
+//   log2(e) prescale), and writes one (max, sumexp) pair per (row, column
+//   tile): ceil(V / 256) partials a row.  Tiles are ordered for the L2:
+//   GROUP_M row tiles sweep the vocab together, so at yi-6b's shapes W (524
+//   MB, 10x the L2) is read from device memory about N / (128 * GROUP_M) =
+//   4 times, and each group's 16 MB of h stays in the L2 while it does.  d
+//   and V must be multiples of 8 (TMA's 16-byte strides).
+//   fp32: FFMA only (no TF32), a lane per column of 32-column tiles, blocks
+//   of 32 rows by a chunk of 2048 columns, a running (max, sumexp) per row
+//   over the chunk: one partial per (row, chunk).
 #include "common.cuh"
+#include "tma_gemm.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int VOCAB_CHUNK = 2048;   // must match kernels/cross_entropy.py
+constexpr int VOCAB_CHUNK = 2048;   // the fp32 kernel's columns a block;
+                                    // must match kernels/cross_entropy.py
 
 struct Params {
     const void* h;            // (N, d)
     const void* w;            // (d, V)
     const long long* labels;  // (N,)
     float* label_logit;       // (N,), preset to -1e30
-    float* partial;           // (n_chunks, N, 2): running (max, sumexp)
+    float* partial;           // (partials, N, 2): (max, sumexp) per row
     int N, d, V, valid;
 };
 
@@ -52,119 +64,94 @@ __device__ __forceinline__ float rescale(float& m, float& s, float mt) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: csrc/tma_gemm.cuh's tile, the row reduction in the epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64, BV = 128, BK = 32;
-constexpr int LDH = BK + 8, LDW = BV + 8;
+using CeCfg = tma_gemm::Cfg<128, 256, 1, 4, 1>;   // 48 KB a stage
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Row r's (max, sumexp) over this thread's columns col0 + 8j + e of the
+// tile, then over the quad of lanes that holds the row; MASKED excludes
+// columns at or past `valid` (the tile's last columns may be).
+template <bool MASKED, int ACC>
+__device__ __forceinline__ float2 row_partial(const float (&a)[ACC], int r, int col0, int valid) {
+    float m = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+            if (!MASKED || col0 + 8 * j + e < valid) m = fmaxf(m, a[4 * j + 2 * r + e]);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float off = -m * LOG2E;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+            if (!MASKED || col0 + 8 * j + e < valid)
+                s += hopper::ex2(fmaf(a[4 * j + 2 * r + e], LOG2E, off));
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    return make_float2(m, s);
 }
 
-__global__ void __launch_bounds__(128) ce_partial_bf16_kernel(const Params p) {
-    __shared__ __align__(16) bf16 Hs[BM * LDH];
-    __shared__ __align__(16) bf16 Ws[BK * LDW];
-    const unsigned short* Wraw = reinterpret_cast<const unsigned short*>(Ws);
+// The epilogue: each row's label logit, if the label falls in this tile,
+// and its (max, sumexp) partial for the tile.
+struct PartialEpilogue {
+    const long long* labels;
+    float* label_logit;
+    float* partial;
+    int N, valid;
 
-    const int n0 = blockIdx.x * BM, chunk = blockIdx.y;
-    const int c0 = chunk * VOCAB_CHUNK, c1 = min(c0 + VOCAB_CHUNK, p.V);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16 + g;         // this thread's rows: r0 and r0 + 8
-    const bf16* hb = static_cast<const bf16*>(p.h);
-    const bf16* wb = static_cast<const bf16*>(p.w);
-
-    int row[2];
-    long long label[2];
-    float m[2] = {NEG_INF, NEG_INF}, s[2] = {0.f, 0.f};   // s: this thread's part
+    template <int NB, int ACC>
+    __device__ __forceinline__ void operator()(float (&acc)[NB][ACC], int m0, int n0, int t,
+                                               unsigned char*) const {
+        constexpr int TILE_N = 2 * ACC;
+        const int lane = t % 32, q = lane % 4;
+        const int col0 = n0 + 2 * q;                  // this thread's first column
+        const int row0 = m0 + (t / 32) * 16 + lane / 4;
+        int label[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        row[r] = n0 + r0 + 8 * r;
-        label[r] = row[r] < p.N ? p.labels[row[r]] : -1;
-    }
-
-    for (int v0 = c0; v0 < c1; v0 += BV) {
-        float acc[BV / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < BV / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-        for (int k0 = 0; k0 < p.d; k0 += BK) {
-            __syncthreads();
-            for (int i = threadIdx.x; i < BM * (BK / 8); i += blockDim.x) {
-                const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-                uint4 val = make_uint4(0, 0, 0, 0);
-                if (n0 + r < p.N)
-                    val = *reinterpret_cast<const uint4*>(hb + (size_t)(n0 + r) * p.d + k0 + c);
-                *reinterpret_cast<uint4*>(Hs + r * LDH + c) = val;
-            }
-            for (int i = threadIdx.x; i < BK * (BV / 8); i += blockDim.x) {
-                const int r = i / (BV / 8), c = (i % (BV / 8)) * 8;
-                uint4 val = make_uint4(0, 0, 0, 0);
-                if (v0 + c < p.V)
-                    val = *reinterpret_cast<const uint4*>(wb + (size_t)(k0 + r) * p.V + v0 + c);
-                *reinterpret_cast<uint4*>(Ws + r * LDW + c) = val;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                const int c = kk * 16 + 2 * t;
-                const uint32_t a[4] = {
-                    *reinterpret_cast<const uint32_t*>(Hs + r0 * LDH + c),
-                    *reinterpret_cast<const uint32_t*>(Hs + (r0 + 8) * LDH + c),
-                    *reinterpret_cast<const uint32_t*>(Hs + r0 * LDH + c + 8),
-                    *reinterpret_cast<const uint32_t*>(Hs + (r0 + 8) * LDH + c + 8),
-                };
-                const unsigned short* wr = Wraw + (kk * 16 + 2 * t) * LDW + g;
-#pragma unroll
-                for (int nt = 0; nt < BV / 8; ++nt) {
-                    const unsigned short* vp = wr + nt * 8;
-                    const uint32_t b0 = (uint32_t)vp[0] | ((uint32_t)vp[LDW] << 16);
-                    const uint32_t b1 = (uint32_t)vp[8 * LDW] | ((uint32_t)vp[9 * LDW] << 16);
-                    mma_bf16(acc[nt], a, b0, b1);
-                }
-            }
-        }
-        // mask, pick the labels, fold the tile into the running (m, s)
-        float mt[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-        for (int nt = 0; nt < BV / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = e >> 1, col = v0 + nt * 8 + 2 * t + (e & 1);
-                const bool ok = col < p.valid;
-                if (col == label[r]) p.label_logit[row[r]] = ok ? acc[nt][e] : NEG_INF;
-                acc[nt][e] = ok ? acc[nt][e] : NEG_INF;
-                mt[r] = fmaxf(mt[r], acc[nt][e]);
-            }
+        for (int r = 0; r < 2; ++r)
+            label[r] = row0 + 8 * r < N ? static_cast<int>(labels[row0 + 8 * r]) : -1;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-            mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-            mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-            rescale(m[r], s[r], mt[r]);
-        }
+            const int row = row0 + 8 * r;
+            // the label is column col0 + 8j + e of this thread for e = d % 8 < 2
+            const int d = label[r] - col0;
+            if (static_cast<unsigned>(d) < TILE_N && (d & 6) == 0) {
 #pragma unroll
-        for (int nt = 0; nt < BV / 8; ++nt)
+                for (int j = 0; j < ACC / 4; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float x = acc[nt][e];
-                s[e >> 1] += x == NEG_INF ? 0.f : expf(x - m[e >> 1]);
+                    for (int e = 0; e < 2; ++e)
+                        if (8 * j + e == d)
+                            label_logit[row] = label[r] < valid ? acc[0][4 * j + 2 * r + e]
+                                                                : NEG_INF;
             }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
-        s[r] += __shfl_xor_sync(0xffffffffu, s[r], 2);
-        if (t == 0 && row[r] < p.N) {
-            float* out = p.partial + ((size_t)chunk * p.N + row[r]) * 2;
-            out[0] = m[r];
-            out[1] = s[r];
+            const float2 ms = n0 + TILE_N <= valid
+                                  ? row_partial<false>(acc[0], r, col0, valid)
+                                  : row_partial<true>(acc[0], r, col0, valid);
+            if (q == 0 && row < N)
+                *reinterpret_cast<float2*>(partial + ((size_t)(n0 / TILE_N) * N + row) * 2) = ms;
         }
     }
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+ce_partial_bf16_kernel(const __grid_constant__ CUtensorMap hmap,
+                       const __grid_constant__ CUtensorMap wmap, const Params p) {
+    tma_gemm::run<C>(&hmap, {&wmap}, p.N, p.d, p.V,
+                     PartialEpilogue{p.labels, p.label_logit, p.partial, p.N, p.valid});
+}
+
+cudaError_t launch_bf16(const Params& p, cudaStream_t s) {
+    CUtensorMap hm, wm;
+    cudaError_t e = tma_gemm::make_map(&hm, p.h, p.N, p.d, CeCfg::TILE_M);
+    if (e == cudaSuccess) e = tma_gemm::make_map(&wm, p.w, p.d, p.V, tma_gemm::BK);
+    if (e != cudaSuccess) return e;
+    return tma_gemm::launch<CeCfg>(ce_partial_bf16_kernel<CeCfg>, p.N, p.V, s, hm, wm, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -250,16 +237,27 @@ __global__ void ce_merge_kernel(const float* partial, float* lse, int N, int n_c
 
 }  // namespace
 
+// (max, sumexp) partials a row: one per 256-column tile (bf16) or
+// 2048-column chunk (fp32), for the caller's scratch and the host-side
+// mirror's check (kernels/cross_entropy.py: n_partials).
+extern "C" int cross_entropy_partials(int V, int dtype) {
+    return tma_gemm::cdiv(V, dtype == DTYPE_BF16 ? CeCfg::TILE_N : VOCAB_CHUNK);
+}
+
+// The bf16 tile (rows << 16 | columns), one size at every shape, for the
+// mirror's check (kernels/cross_entropy.py: TILE_M, TILE_N).
+extern "C" int cross_entropy_tile() { return CeCfg::TILE_M << 16 | CeCfg::TILE_N; }
+
 // h: (N, d), w: (d, V) row-major contiguous in one dtype, labels: (N,)
 // int64; lse, label_logit: (N,) fp32, label_logit preset to -1e30 by the
-// caller; partial: scratch of (ceil(V / 2048), N, 2) fp32.  bf16 needs
-// d % 32 == 0, V % 8 == 0 and 16-byte aligned h and w.
+// caller; partial: scratch of (cross_entropy_partials(V, dtype), N, 2)
+// fp32.  bf16 needs d % 8 == 0, V % 8 == 0 and 16-byte aligned h and w.
 extern "C" int cross_entropy_fwd(const void* h, const void* w, const void* labels,
                                  void* lse, void* label_logit, void* partial, int N,
                                  int d, int V, int valid_vocab, int dtype, void* stream) {
     if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32) || N < 0 || d <= 0 || V <= 0
         || valid_vocab <= 0 || valid_vocab > V
-        || (dtype == DTYPE_BF16 && (d % BK != 0 || V % 8 != 0)))
+        || (dtype == DTYPE_BF16 && (d % 8 != 0 || V % 8 != 0)))
         return cudaErrorInvalidValue;
     if (N == 0) return cudaSuccess;
     Params p;
@@ -268,14 +266,16 @@ extern "C" int cross_entropy_fwd(const void* h, const void* w, const void* label
     p.partial = static_cast<float*>(partial);
     p.N = N; p.d = d; p.V = V; p.valid = valid_vocab;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int n_chunks = (V + VOCAB_CHUNK - 1) / VOCAB_CHUNK;
-    if (dtype == DTYPE_BF16)
-        ce_partial_bf16_kernel<<<dim3((N + BM - 1) / BM, n_chunks), 128, 0, s>>>(p);
-    else
-        ce_partial_f32_kernel<<<dim3((N + FBM - 1) / FBM, n_chunks), 128, 0, s>>>(p);
-    cudaError_t e = cudaGetLastError();
+    const int n_partials = cross_entropy_partials(V, dtype);
+    cudaError_t e;
+    if (dtype == DTYPE_BF16) {
+        e = launch_bf16(p, s);
+    } else {
+        ce_partial_f32_kernel<<<dim3((N + FBM - 1) / FBM, n_partials), 128, 0, s>>>(p);
+        e = cudaGetLastError();
+    }
     if (e != cudaSuccess) return e;
     ce_merge_kernel<<<(N + 255) / 256, 256, 0, s>>>(p.partial, static_cast<float*>(lse), N,
-                                                    n_chunks);
+                                                    n_partials);
     return cudaGetLastError();
 }

@@ -8,108 +8,138 @@
 //   d = 2112, F = 8448) and at prefill the 2*N*d*F operations bound it
 //   (compute); at decode (N = 4 slots) the d x F weight, 36 MB in bf16,
 //   bounds it (memory).
-// Design: csrc/swiglu.cu's tiled GEMM without the gate branch.  A block
-//   computes a 64 x 64 tile of x @ w1 from 32-deep slices of x and w1 in
-//   shared memory and applies GELU to the fp32 accumulators in registers,
-//   so the pre-activation never reaches device memory and the (N, F) result
-//   is stored once.  bf16 runs on the tensor cores through nvcuda::wmma
-//   (m16n16k16, fp32 accumulate); fp32 runs on FFMA (no TF32) so that it
-//   matches the plain fp32 product closely.  Ragged N (prefill, the N = 4
-//   of decode), F and d edges are zero-filled on load and masked on store.
-//   This is the simple first version: no cp.async/TMA pipelining and no
-//   wgmma, and a 64-row tile wastes most of the tensor-core work at decode.
+// Design: the pre-activation never reaches device memory: GELU is applied
+//   to the fp32 accumulators in registers and the (N, F) result is stored
+//   once.
+//   bf16: the persistent, warp-specialised TMA + wgmma GEMM tile of
+//   csrc/tma_gemm.cuh with one product (swiglu.cu's has two): a producer
+//   warp keeps a ring of shared-memory stages full by TMA (x: TILE_M rows x
+//   64 of d; w1: 64 of d x TILE_N columns, read in its (d, F) row-major
+//   layout as the MN-major operand) and runs ahead into a block's next tile
+//   while consumer warpgroups of 64 rows finish the last.  The epilogue
+//   stages bf16 in shared memory (128-byte swizzled boxes, conflict-free)
+//   for TMA stores: at the train microbatch it is a quarter of the kernel's
+//   time with direct 4-byte stores of each thread's pairs, since the K loop
+//   is only 33 stages at d = 2112.  Two regimes, chosen by N in the C entry:
+//   - N >= 64 (prefill, train): 128-row tiles (two consumer warpgroups) of
+//     128, 192 or 256 columns, whichever takes the fewest waves of tiles
+//     over the SMs times its width, the wider on a tie (fewer tiles, less
+//     shared-memory traffic per operation): the train microbatch takes 256
+//     (2112 tiles, 16 waves of 132 SMs), a 256-token prefill 128 (132
+//     tiles, one wave; 66 of 256 would idle half the SMs).  Rings of 6, 4
+//     or 4 stages of 32, 40 or 48 KB beside 32 KB of staging; registers
+//     move from the producer to the consumers (setmaxnreg), 128
+//     accumulators a thread at 256 columns.  Tiles are ordered for the L2:
+//     GROUP_M row tiles sweep the same F columns together, so w1 comes from
+//     device memory about N / (128 * GROUP_M) times instead of once per row
+//     tile.
+//   - N < 64 (decode): weight streaming.  A 64-row tile (rows past N arrive
+//     as zeros) by 64 F columns, one consumer warpgroup, 12 stages of 8 KB
+//     of w1, one block an SM: at F = 8448 the 132 blocks keep 96 KB of w1
+//     in flight on each SM, and w1, read once, is the first the L2 evicts
+//     (before lines that are dirty or that other kernels reuse).  d is not
+//     split, so each output is one block's fp32 sum in a fixed order
+//     (repeatable, no atomics).
+//   GELU in fp32 with tanhf (accurate; tanh.approx.f32's ~2^-11 absolute
+//   error would not fit the bf16 limit where 1 + tanh u cancels, a < 0).
+//   Ragged N, d and F edges arrive as zeros (TMA's out-of-bounds fill) and
+//   the TMA stores clip them.  d and F must be multiples of 8 (TMA's
+//   16-byte strides).
+//   fp32: FFMA (no TF32) so that it matches the plain fp32 product closely;
+//   64 x 64 tiles, synchronous loads.
 #include "common.cuh"
-#include <mma.h>
+#include "tma_gemm.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int XS_LD = BK + 8;   // bf16 elements; row pitch 80 B
-constexpr int WS_LD = BN + 8;   // bf16 elements; row pitch 144 B
-constexpr int CS_LD = BN + 4;   // fp32 elements
+constexpr int BM = 64, BN = 64;   // the fp32 kernel's tile
 
 __device__ __forceinline__ float gelu_tanh(float a) {
     const float u = 0.7978845608028654f * (a + 0.044715f * a * a * a);
     return 0.5f * a * (1.f + tanhf(u));
 }
 
-__global__ void __launch_bounds__(128)
-gelu_mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                     bf16* __restrict__ out, int N, int d, int F) {
-    __shared__ __align__(32) bf16 xs[BM * XS_LD];
-    __shared__ __align__(32) bf16 ws[BK * WS_LD];
-    __shared__ __align__(32) float cs[BM * CS_LD];
+// ---------------------------------------------------------------------------
+// bf16: csrc/tma_gemm.cuh's tile, GELU in the epilogue
+// ---------------------------------------------------------------------------
 
-    const int n0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;   // 2 x 2 warps
+constexpr int STREAM_ROWS = 64;   // N below this streams the weight
 
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+using tma_gemm::Cfg;
+// (rows, columns, products, stages, blocks an SM, staging a warpgroup)
+using Cols128 = Cfg<128, 128, 1, 6, 1, 16384>;   // 32 KB a stage
+using Cols192 = Cfg<128, 192, 1, 4, 1, 16384>;   // 40 KB a stage
+using Cols256 = Cfg<128, 256, 1, 4, 1, 16384>;   // 48 KB a stage
+using StreamCfg = Cfg<64, 64, 1, 12, 1, 8192, true>;  // 16 KB a stage, w1 streamed
 
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int k0 = 0; k0 < d; k0 += BK) {
-        for (int i = tid; i < BM * BK / 8; i += blockDim.x) {
-            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-            uint4 v = zero;
-            if (n0 + r < N && k0 + c < d)
-                v = *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * d + k0 + c);
-            *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = v;
+// Columns of the N >= 64 tile: the fewest waves of tiles over the SMs
+// times the width, the wider on a tie.
+int gemm_cols(int N, int F, int sms) { return tma_gemm::gemm_cols(N, F, sms, {256, 192, 128}); }
+
+// The epilogue: GELU on the fp32 accumulators, bf16 into the warpgroup's
+// staging memory (128-byte swizzled 64 x 64 boxes, two at a time), then TMA
+// stores, which clip rows past N and columns past F.
+struct GeluStore {
+    const CUtensorMap* omap;
+
+    template <int NB, int ACC>
+    __device__ __forceinline__ void operator()(float (&acc)[NB][ACC], int m0, int n0, int t,
+                                               unsigned char* stage) const {
+        constexpr int BOXES = 2 * ACC / 64, AT_ONCE = BOXES < 2 ? BOXES : 2;
+        const int lane = t % 32, bar = threadIdx.x / 128;   // named barrier 1 + consumer
+        const int row0 = (t / 32) * 16 + lane / 4;           // in the warpgroup's 64 rows
+#pragma unroll
+        for (int b0 = 0; b0 < BOXES; b0 += AT_ONCE) {
+            if (t == 0) hopper::bulk_wait_read();   // the last store has read the staging
+            hopper::named_sync(bar, 128);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int row = row0 + 8 * r;
+#pragma unroll
+                for (int jj = 0; jj < 8 * AT_ONCE; ++jj) {   // n8 blocks of these boxes
+                    const int j = 8 * b0 + jj, i = 4 * j + 2 * r;
+                    if (j >= ACC / 4) break;
+                    unsigned char* dst = stage + (jj / 8) * 8192 + row * 128
+                                         + (((jj % 8) ^ (row % 8)) * 16) + 4 * (lane % 4);
+                    *reinterpret_cast<__nv_bfloat162*>(dst) =
+                        __floats2bfloat162_rn(gelu_tanh(acc[0][i]), gelu_tanh(acc[0][i + 1]));
+                }
+            }
+            hopper::fence_async_smem();
+            hopper::named_sync(bar, 128);
+            if (t == 0) {
+                for (int b = b0; b < b0 + AT_ONCE && b < BOXES; ++b)
+                    hopper::tma_store_2d(omap, stage + (b - b0) * 8192, n0 + 64 * b, m0);
+                hopper::bulk_commit();
+            }
         }
-        for (int i = tid; i < BK * BN / 8; i += blockDim.x) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            uint4 v = zero;
-            if (k0 + r < d && f0 + c < F)
-                v = *reinterpret_cast<const uint4*>(w1 + (size_t)(k0 + r) * F + f0 + c);
-            *reinterpret_cast<uint4*>(ws + r * WS_LD + c) = v;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], xs + (wm + i * 16) * XS_LD + kk, XS_LD);
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb[j], ws + kk * WS_LD + wn + j * 16, WS_LD);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
     }
+};
 
-    // epilogue in registers, then through shared memory for 16-byte stores
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int t = 0; t < acc[i][j].num_elements; ++t)
-                acc[i][j].x[t] = gelu_tanh(acc[i][j].x[t]);
-            wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[i][j],
-                                    CS_LD, wmma::mem_row_major);
-        }
-    __syncthreads();
-    for (int i = tid; i < BM * BN / 8; i += blockDim.x) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        if (n0 + r >= N || f0 + c >= F) continue;
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = __float2bfloat16(cs[r * CS_LD + c + t]);
-        *reinterpret_cast<uint4*>(out + (size_t)(n0 + r) * F + f0 + c) =
-            *reinterpret_cast<const uint4*>(v);
-    }
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+gelu_mlp_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap omap, int N, int d, int F) {
+    tma_gemm::run<C>(&xmap, {&wmap}, N, d, F, GeluStore{&omap});
 }
+
+template <class C>
+cudaError_t launch_bf16(const void* x, const void* w1, void* out, int N, int d, int F,
+                        cudaStream_t s) {
+    CUtensorMap xm, wm, om;
+    cudaError_t e = tma_gemm::make_map(&xm, x, N, d, C::TILE_M);
+    if (e == cudaSuccess) e = tma_gemm::make_map(&wm, w1, d, F, tma_gemm::BK);
+    if (e == cudaSuccess) e = tma_gemm::make_map(&om, out, N, F, 64);
+    if (e != cudaSuccess) return e;
+    return tma_gemm::launch<C>(gelu_mlp_bf16_kernel<C>, N, F, s, xm, wm, om, N, d, F);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FFMA
+// ---------------------------------------------------------------------------
 
 constexpr int FBK = 16;
 
@@ -162,20 +192,26 @@ gelu_mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 }  // namespace
 
-// x: (N, d), w1: (d, F), out: (N, F), all contiguous row-major.  For bf16,
-// d and F must be multiples of 8 (16-byte vector loads and stores).
+// x: (N, d), w1: (d, F), out: (N, F), all contiguous row-major, with
+// 16-byte aligned bases.  For bf16, d and F must be multiples of 8 (TMA's
+// 16-byte strides); N < 64 takes the weight-streaming tile.
 extern "C" int gelu_mlp_fwd(const void* x, const void* w1, void* out, int N, int d,
                             int F, int dtype, void* stream) {
     if (N < 0 || d <= 0 || F <= 0) return cudaErrorInvalidValue;
     if (N == 0) return cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((F + BN - 1) / BN, (N + BM - 1) / BM);
     if (dtype == DTYPE_BF16) {
         if (d % 8 != 0 || F % 8 != 0) return cudaErrorInvalidValue;
-        gelu_mlp_bf16_kernel<<<grid, 128, 0, s>>>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-            static_cast<bf16*>(out), N, d, F);
+        if (N < STREAM_ROWS) return launch_bf16<StreamCfg>(x, w1, out, N, d, F, s);
+        const int sms = hopper::sm_count();
+        if (sms <= 0) return cudaErrorInvalidDevice;
+        switch (gemm_cols(N, F, sms)) {
+            case 256: return launch_bf16<Cols256>(x, w1, out, N, d, F, s);
+            case 192: return launch_bf16<Cols192>(x, w1, out, N, d, F, s);
+            default: return launch_bf16<Cols128>(x, w1, out, N, d, F, s);
+        }
     } else if (dtype == DTYPE_F32) {
+        const dim3 grid((F + BN - 1) / BN, (N + BM - 1) / BM);
         gelu_mlp_f32_kernel<<<grid, 256, 0, s>>>(
             static_cast<const float*>(x), static_cast<const float*>(w1),
             static_cast<float*>(out), N, d, F);
@@ -183,4 +219,12 @@ extern "C" int gelu_mlp_fwd(const void* x, const void* w1, void* out, int N, int
         return cudaErrorInvalidValue;
     }
     return cudaGetLastError();
+}
+
+// The bf16 tile (rows << 16 | columns) gelu_mlp_fwd takes for (N, F) on a
+// card with `sms` SMs, for the host-side mirror's check
+// (kernels/gelu_mlp.py: gelu_mlp_tile).
+extern "C" int gelu_mlp_tile(int N, int F, int sms) {
+    if (N < STREAM_ROWS) return StreamCfg::TILE_M << 16 | StreamCfg::TILE_N;
+    return 128 << 16 | gemm_cols(N, F, sms);
 }

@@ -10,14 +10,13 @@
 //   tile of BOTH products over the same F columns from one shared-memory
 //   copy of the x tile, applies silu(a) * b to the fp32 accumulators in
 //   registers and stores the bf16 result directly, once.
-//   bf16: warp-specialised.  A producer warp issues TMA copies (2-D tensor
-//   maps, 128-byte swizzle) of the x tile (TILE_M rows x 64 of d) and of the
-//   w1 and w3 tiles (64 of d x TILE_N columns, read in the weights' (d, F)
-//   row-major layout) into a ring of shared-memory stages, each signalled
-//   by an mbarrier; consumer warpgroups of 64 rows run wgmma on the stage
-//   that has arrived (x K-major, the weights MN-major, i.e. transposed B)
-//   with one group in flight, and release the stage behind it.  Two regimes,
-//   chosen by N in the C entry:
+//   bf16: the persistent, warp-specialised TMA + wgmma GEMM tile of
+//   csrc/tma_gemm.cuh with two products: a producer warp keeps a ring of
+//   shared-memory stages full by TMA (the x tile, TILE_M rows x 64 of d, and
+//   the w1 and w3 tiles, 64 of d x TILE_N columns, read in the weights' (d,
+//   F) row-major layout as the MN-major operand) and runs ahead into a
+//   block's next tile while consumer warpgroups of 64 rows finish the last.
+//   Two regimes, chosen by N in the C entry:
 //   - N >= 64 (prefill, train): 128-row tiles of 128 columns of both
 //     products (two consumer warpgroups, 128 accumulators a thread) in a
 //     4-stage ring of 48 KB, or of 192 columns (192 accumulators) in a
@@ -39,7 +38,7 @@
 //   fp32: FFMA (no TF32) so that it matches the plain fp32 product closely;
 //   64 x 64 tiles, synchronous loads.
 #include "common.cuh"
-#include "hopper.cuh"
+#include "tma_gemm.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -50,50 +49,48 @@ constexpr int BM = 64, BN = 64;   // the fp32 kernel's tile
 __device__ __forceinline__ float silu(float a) { return a / (1.f + expf(-a)); }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA ring, wgmma, warp-specialised
+// bf16: csrc/tma_gemm.cuh's tile, silu(a) * g in the epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int BK = 64;            // d per stage: one 128-byte box row
-constexpr int GROUP_M = 16;       // row tiles that sweep the same F columns
 constexpr int STREAM_ROWS = 64;   // N below this streams the weights
 
-template <int BM_, int BNF_, int STAGES_, int MIN_BLOCKS_>
-struct Cfg {
-    static constexpr int TILE_M = BM_, TILE_N = BNF_, STAGES = STAGES_;
-    static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
-    static constexpr int CONSUMERS = TILE_M / 64;          // warpgroups of 64 rows
-    static constexpr int THREADS = 128 * (CONSUMERS + 1);
-    static constexpr int X_BYTES = TILE_M * BK * 2;
-    static constexpr int W_BOX = BK * 64 * 2;               // 64 of d x 64 columns
-    static constexpr int W_BYTES = TILE_N / 64 * W_BOX;
-    static constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
-    static constexpr int SMEM = hopper::SMEM_ALIGN + STAGES * STAGE_BYTES + 16 * STAGES;
+using tma_gemm::Cfg;
+// (rows, columns, products, stages, blocks an SM)
+using GemmCfg = Cfg<128, 128, 2, 4, 1>;     // 48 KB a stage
+using WideCfg = Cfg<128, 192, 2, 3, 1>;     // 64 KB a stage
+using StreamCfg = Cfg<64, 64, 2, 4, 2>;     // 24 KB a stage
+
+// Columns of the N >= 64 tile: the fewest waves of tiles over the SMs
+// times the width, 128 on a tie.
+int gemm_cols(int N, int F, int sms) { return tma_gemm::gemm_cols(N, F, sms, {128, 192}); }
+
+// The epilogue: silu(a) * g on the fp32 accumulators of the two products,
+// stored as bf16 pairs, rows past N and columns past F masked.
+struct SiluMulStore {
+    bf16* out;
+    int N, F;
+
+    template <int NB, int ACC>
+    __device__ __forceinline__ void operator()(float (&acc)[NB][ACC], int m0, int n0, int t,
+                                               unsigned char*) const {
+        const int lane = t % 32;
+        const int row0 = m0 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * r;
+            if (row >= N) continue;
+            bf16* orow = out + (size_t)row * F;
+#pragma unroll
+            for (int j = 0; j < ACC / 4; ++j) {
+                const int col = n0 + 8 * j + 2 * (lane % 4);
+                if (col >= F) continue;                  // F is even: col + 1 < F
+                const int i = 4 * j + 2 * r;
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+                    silu(acc[0][i]) * acc[1][i], silu(acc[0][i + 1]) * acc[1][i + 1]);
+            }
+        }
+    }
 };
-using GemmCfg = Cfg<128, 128, 4, 1>;     // 48 KB a stage
-using WideCfg = Cfg<128, 192, 3, 1>;     // 64 KB a stage
-using StreamCfg = Cfg<64, 64, 4, 2>;     // 24 KB a stage
-
-// Columns of the N >= 64 tile, 128 or 192: whichever takes fewer waves of
-// tiles over the SMs times its width (the narrower on a tie), so that a
-// prefill of a few row tiles does not leave most of a last wave idle.
-int gemm_cols(int N, int F, int sms) {
-    const long long tm = (N + 127) / 128;
-    const auto cost = [&](long long bn) {
-        return (tm * ((F + bn - 1) / bn) + sms - 1) / sms * bn;
-    };
-    return cost(192) < cost(128) ? 192 : 128;
-}
-
-// Block -> (row tile, column tile): groups of GROUP_M row tiles, row tile
-// fastest within a group, so blocks in flight together share F columns.
-__device__ __forceinline__ void tile_of(int pid, int tiles_m, int tiles_n, int& tm, int& tn) {
-    const int per_group = GROUP_M * tiles_n;
-    const int first = pid / per_group * GROUP_M;
-    const int gm = min(tiles_m - first, GROUP_M);
-    const int r = pid % per_group;
-    tm = first + r % gm;
-    tn = r / gm;
-}
 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
@@ -101,118 +98,19 @@ swiglu_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap w1map,
                    const __grid_constant__ CUtensorMap w3map, bf16* __restrict__ out,
                    int N, int d, int F) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    unsigned char* ring = hopper::align_smem(smem_raw);
-    uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);
-    uint64_t* empty = full + C::STAGES;
-
-    int tm, tn;
-    tile_of(blockIdx.x, (N + C::TILE_M - 1) / C::TILE_M, (F + C::TILE_N - 1) / C::TILE_N,
-            tm, tn);
-    const int m0 = tm * C::TILE_M, n0 = tn * C::TILE_N, ktiles = (d + BK - 1) / BK;
-    const int wg = threadIdx.x / 128;
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < C::STAGES; ++s) {
-            hopper::mbar_init(&full[s], 1);
-            hopper::mbar_init(&empty[s], 4 * C::CONSUMERS);   // each consumer warp arrives
-        }
-        hopper::fence_barrier_init();
-    }
-    __syncthreads();
-
-    if (wg == 0) {
-        // producer: one thread keeps the ring full
-        if constexpr (C::CONSUMERS > 1) hopper::reg_dealloc<40>();
-        if (threadIdx.x == 0) {
-            hopper::prefetch_map(&xmap);
-            hopper::prefetch_map(&w1map);
-            hopper::prefetch_map(&w3map);
-            for (int kt = 0; kt < ktiles; ++kt) {
-                const int s = kt % C::STAGES;
-                if (kt >= C::STAGES) hopper::mbar_wait(&empty[s], ((kt / C::STAGES) & 1) ^ 1);
-                unsigned char* st = ring + s * C::STAGE_BYTES;
-                hopper::mbar_expect_tx(&full[s], C::STAGE_BYTES);
-                hopper::tma_load_2d(st, &xmap, &full[s], kt * BK, m0);
-                for (int c = 0; c < C::TILE_N / 64; ++c) {
-                    hopper::tma_load_2d(st + C::X_BYTES + c * C::W_BOX, &w1map, &full[s],
-                                        n0 + 64 * c, kt * BK);
-                    hopper::tma_load_2d(st + C::X_BYTES + C::W_BYTES + c * C::W_BOX, &w3map,
-                                        &full[s], n0 + 64 * c, kt * BK);
-                }
-            }
-        }
-    } else {
-        if constexpr (C::CONSUMERS > 1) hopper::reg_alloc<232>();
-        const int cw = wg - 1, t = threadIdx.x % 128, lane = t % 32;
-        float a[C::TILE_N / 2], g[C::TILE_N / 2];
-#pragma unroll
-        for (int i = 0; i < C::TILE_N / 2; ++i) a[i] = g[i] = 0.f;
-
-        for (int kt = 0; kt < ktiles; ++kt) {
-            const int s = kt % C::STAGES;
-            hopper::mbar_wait(&full[s], (kt / C::STAGES) & 1);
-            const unsigned char* st = ring + s * C::STAGE_BYTES;
-            const uint64_t dx = hopper::desc(st + cw * 64 * 128, 16, 1024);
-            const uint64_t d1 = hopper::desc(st + C::X_BYTES, C::W_BOX, 1024);
-            const uint64_t d3 = hopper::desc(st + C::X_BYTES + C::W_BYTES, C::W_BOX, 1024);
-            hopper::fence_regs(a);
-            hopper::fence_regs(g);
-            hopper::wgmma_fence();
-#pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                // k16 steps: 32 bytes along x's rows, 16 rows (2048 bytes) down w
-                hopper::wgmma_ss<1>(a, dx + hopper::desc_offset(kk * 32),
-                                    d1 + hopper::desc_offset(kk * 2048), 1);
-                hopper::wgmma_ss<1>(g, dx + hopper::desc_offset(kk * 32),
-                                    d3 + hopper::desc_offset(kk * 2048), 1);
-            }
-            hopper::wgmma_commit();
-            hopper::fence_regs(a);
-            hopper::fence_regs(g);
-            hopper::wgmma_wait<1>();          // the stage before this one is read
-            if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % C::STAGES]);
-        }
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(a);
-        hopper::fence_regs(g);
-
-        const int row0 = m0 + cw * 64 + (t / 32) * 16 + lane / 4;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int row = row0 + 8 * r;
-            if (row >= N) continue;
-            bf16* orow = out + (size_t)row * F;
-#pragma unroll
-            for (int j = 0; j < C::TILE_N / 8; ++j) {
-                const int col = n0 + 8 * j + 2 * (lane % 4);
-                if (col >= F) continue;                  // F is even: col + 1 < F
-                const int i = 4 * j + 2 * r;
-                __nv_bfloat162 v = __floats2bfloat162_rn(silu(a[i]) * g[i],
-                                                         silu(a[i + 1]) * g[i + 1]);
-                *reinterpret_cast<__nv_bfloat162*>(orow + col) = v;
-            }
-        }
-    }
+    tma_gemm::run<C>(&xmap, {&w1map, &w3map}, N, d, F, SiluMulStore{out, N, F});
 }
 
 template <class C>
 cudaError_t launch_bf16(const void* x, const void* w1, const void* w3, void* out,
                         int N, int d, int F, cudaStream_t s) {
     CUtensorMap xm, w1m, w3m;
-    const uint64_t xdims[2] = {(uint64_t)d, (uint64_t)N}, xstr[1] = {(uint64_t)d * 2};
-    const uint64_t wdims[2] = {(uint64_t)F, (uint64_t)d}, wstr[1] = {(uint64_t)F * 2};
-    const uint32_t xbox[2] = {BK, C::TILE_M}, wbox[2] = {64, BK};
-    cudaError_t e = hopper::make_map(&xm, x, 2, xdims, xstr, xbox);
-    if (e == cudaSuccess) e = hopper::make_map(&w1m, w1, 2, wdims, wstr, wbox);
-    if (e == cudaSuccess) e = hopper::make_map(&w3m, w3, 2, wdims, wstr, wbox);
-    if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(swiglu_bf16_kernel<C>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    cudaError_t e = tma_gemm::make_map(&xm, x, N, d, C::TILE_M);
+    if (e == cudaSuccess) e = tma_gemm::make_map(&w1m, w1, d, F, tma_gemm::BK);
+    if (e == cudaSuccess) e = tma_gemm::make_map(&w3m, w3, d, F, tma_gemm::BK);
     if (e != cudaSuccess) return e;
-    const int blocks = (N + C::TILE_M - 1) / C::TILE_M * ((F + C::TILE_N - 1) / C::TILE_N);
-    swiglu_bf16_kernel<C><<<blocks, C::THREADS, C::SMEM, s>>>(
-        xm, w1m, w3m, static_cast<bf16*>(out), N, d, F);
-    return cudaGetLastError();
+    return tma_gemm::launch<C>(swiglu_bf16_kernel<C>, N, F, s, xm, w1m, w3m,
+                               static_cast<bf16*>(out), N, d, F);
 }
 
 // ---------------------------------------------------------------------------

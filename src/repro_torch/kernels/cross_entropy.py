@@ -8,6 +8,12 @@ tensor (or raises) and ``kernels/ref.py:cross_entropy_ref`` for a CPU
 tensor; it saves (h, w, labels, lse), and its backward is plain torch on
 both (``kernels/ref.py:cross_entropy_bwd_ref``), chunked over tokens as the
 reference's ``_ce_tokens_bwd``.  ``launches`` counts the kernel's launches.
+
+The kernel reduces each tile of logits to one (max, sumexp) pair per row
+and a second pass merges a row's pairs into its lse; :func:`partials_ref`
+and :func:`merge_ref` are that algebra in plain torch, and ``TILE_M``,
+``TILE_N`` and :func:`n_partials` mirror the C entry's tiling, for the
+tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +26,59 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import cross_entropy_bwd_ref, cross_entropy_ref
 
 launches = 0
-VOCAB_CHUNK = 2048   # vocab columns per block; must match csrc/cross_entropy.cu
+NEG_INF = -1e30
+# The bf16 kernel's tile (csrc/cross_entropy.cu: 128 token rows x 256 vocab
+# columns, taken in kernels/tiling.py's tile_order) and the vocab columns
+# behind each (max, sumexp) partial of a row: a tile's in bf16, a block's
+# 2048-column chunk in fp32.
+TILE_M, TILE_N = 128, 256
+VOCAB_CHUNK = {torch.bfloat16: TILE_N, torch.float32: 2048}
+
+
+def n_partials(V: int, dtype: torch.dtype) -> int:
+    """(max, sumexp) partials a row (csrc/cross_entropy.cu:
+    ``cross_entropy_partials``)."""
+    return -(-V // VOCAB_CHUNK[dtype])
+
+
+def partials_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 valid_vocab: int | None = None, chunk: int = TILE_N):
+    """The kernel's first pass in plain torch, in h's dtype: per ``chunk``
+    columns of h @ w, each row's max over the columns below ``valid_vocab``
+    (-1e30 if none) and its sumexp against that max (0 if none), as
+    (m, s) of shape (partials, N); and each row's label logit, taken from
+    the chunk that holds the label (-1e30 if the label is masked)."""
+    logits = h @ w
+    N, V = logits.shape
+    vv = V if valid_vocab is None else valid_vocab
+    valid = torch.arange(V, device=h.device) < vv
+    ms, ss = [], []
+    for c0 in range(0, V, chunk):
+        x = logits[:, c0:c0 + chunk]
+        ok = valid[c0:c0 + chunk]
+        m = torch.where(ok, x, torch.full_like(x, -torch.inf)).amax(1)
+        m = torch.where(torch.isfinite(m), m, torch.full_like(m, NEG_INF))
+        ss.append(torch.where(ok, torch.exp(x - m[:, None]), torch.zeros_like(x)).sum(1))
+        ms.append(m)
+    lab = labels.long()
+    ll = torch.gather(logits, 1, lab[:, None])[:, 0]
+    ll = torch.where(lab < vv, ll, torch.full_like(ll, NEG_INF))
+    return torch.stack(ms), torch.stack(ss), ll
+
+
+def merge_ref(m: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The kernel's second pass (csrc/cross_entropy.cu: ``ce_merge_kernel``):
+    each row's partials folded in order as a running (max, sumexp),
+    skipping those with sumexp 0; lse = max + log(sumexp), -1e30 if none."""
+    run_m = torch.full_like(m[0], NEG_INF)
+    run_s = torch.zeros_like(s[0])
+    for mc, sc in zip(m, s):
+        use = sc > 0
+        new_m = torch.where(use, torch.maximum(run_m, mc), run_m)
+        run_s = torch.where(use, run_s * torch.exp(run_m - new_m) + sc * torch.exp(mc - new_m),
+                            run_s)
+        run_m = new_m
+    return torch.where(run_s > 0, run_m + torch.log(run_s), torch.full_like(run_m, NEG_INF))
 
 
 @functools.cache
@@ -29,7 +87,20 @@ def _lib() -> ctypes.CDLL:
     lib.cross_entropy_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                       + [ctypes.c_void_p])
     lib.cross_entropy_fwd.restype = ctypes.c_int
+    lib.cross_entropy_partials.argtypes = [ctypes.c_int] * 2
+    lib.cross_entropy_partials.restype = ctypes.c_int
+    lib.cross_entropy_tile.argtypes = []
+    lib.cross_entropy_tile.restype = ctypes.c_int
     return lib
+
+
+def tiling_cuda(V: int, dtype: torch.dtype) -> tuple[tuple[int, int], int]:
+    """The bf16 tile and the partials a row that the C entry reports (to
+    hold ``TILE_M``, ``TILE_N`` and :func:`n_partials` to it on the card)."""
+    lib = _lib()
+    code = lib.cross_entropy_tile()
+    parts = lib.cross_entropy_partials(V, 1 if dtype == torch.bfloat16 else 0)
+    return (code >> 16, code & 0xFFFF), parts
 
 
 def cross_entropy_cuda(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -47,15 +118,15 @@ def cross_entropy_cuda(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"cross_entropy: h {h.dtype} {tuple(h.shape)}, w {w.dtype} "
                          f"{tuple(w.shape)}, labels {labels.dtype} "
                          f"{tuple(labels.shape)}, valid_vocab {valid_vocab}")
-    if h.dtype == torch.bfloat16 and (d % 32 or V % 8):
-        raise ValueError(f"cross_entropy: bf16 needs d % 32 == 0 and V % 8 == 0, "
+    if h.dtype == torch.bfloat16 and (d % 8 or V % 8):
+        raise ValueError(f"cross_entropy: bf16 needs d % 8 == 0 and V % 8 == 0, "
                          f"got d={d}, V={V}")
     h, w = _build.aligned(h), _build.aligned(w)
     labels = labels.to(torch.int64).contiguous()
     lse = torch.empty(N, dtype=torch.float32, device=h.device)
-    label_logit = torch.full((N,), -1e30, dtype=torch.float32, device=h.device)
-    n_chunks = -(-V // VOCAB_CHUNK)
-    partial = torch.empty((n_chunks, N, 2), dtype=torch.float32, device=h.device)
+    label_logit = torch.full((N,), NEG_INF, dtype=torch.float32, device=h.device)
+    partial = torch.empty((n_partials(V, h.dtype), N, 2), dtype=torch.float32,
+                          device=h.device)
     lib = _lib()
     err = lib.cross_entropy_fwd(h.data_ptr(), w.data_ptr(), labels.data_ptr(),
                                 lse.data_ptr(), label_logit.data_ptr(),

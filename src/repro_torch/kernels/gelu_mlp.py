@@ -19,8 +19,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gelu_mlp_in_bwd_ref, gelu_mlp_in_ref
+from repro_torch.kernels.tiling import gemm_tile
 
 launches = 0
+
+# The bf16 tile widths of csrc/gelu_mlp.cu at N >= 64, the widest first
+# (kernels/tiling.py)
+WIDTHS = (256, 192, 128)
+
+
+def gelu_mlp_tile(N: int, F: int, n_sm: int) -> tuple[int, int]:
+    """(rows, columns) of the bf16 kernel's tile for an (N, d) x (d, F)
+    call on a card with ``n_sm`` SMs (csrc/gelu_mlp.cu: ``gelu_mlp_fwd``)."""
+    return gemm_tile(N, F, n_sm, WIDTHS)
 
 
 @functools.cache
@@ -28,7 +39,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("gelu_mlp")
     lib.gelu_mlp_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.gelu_mlp_fwd.restype = ctypes.c_int
+    lib.gelu_mlp_tile.argtypes = [ctypes.c_int] * 3
+    lib.gelu_mlp_tile.restype = ctypes.c_int
     return lib
+
+
+def gelu_mlp_tile_cuda(N: int, F: int, n_sm: int) -> tuple[int, int]:
+    """The tile the C entry chooses, read from the library (to hold
+    :func:`gelu_mlp_tile` to it on the card)."""
+    code = _lib().gelu_mlp_tile(N, F, n_sm)
+    return code >> 16, code & 0xFFFF
 
 
 def gelu_mlp_cuda(x2d: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:

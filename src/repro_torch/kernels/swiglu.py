@@ -18,49 +18,18 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import swiglu_bwd_ref, swiglu_ref
+from repro_torch.kernels.tiling import gemm_tile
 
 launches = 0
 
-# The bf16 kernel's tiles, as csrc/swiglu.cu chooses them: N < STREAM_ROWS
-# streams the weights through 64 x 64 tiles; larger N takes 128-row tiles
-# of 128 or 192 columns of each product, ordered in groups of GROUP_M row
-# tiles that sweep the same columns.
-STREAM_ROWS = 64
-GROUP_M = 16
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+# The bf16 tile widths of csrc/swiglu.cu at N >= 64, 128 first (kernels/tiling.py)
+WIDTHS = (128, 192)
 
 
 def swiglu_tile(N: int, F: int, n_sm: int) -> tuple[int, int]:
     """(rows, columns) of the bf16 kernel's tile for an (N, d) x (d, F)
-    call on a card with ``n_sm`` SMs (csrc/swiglu.cu: ``swiglu_fwd``,
-    ``gemm_cols``): the column width whose waves of tiles over the SMs,
-    times the width, are fewer (128 on a tie)."""
-    if N < STREAM_ROWS:
-        return 64, 64
-    tiles_m = _cdiv(N, 128)
-
-    def cost(cols: int) -> int:
-        return _cdiv(tiles_m * _cdiv(F, cols), n_sm) * cols
-
-    return 128, (192 if cost(192) < cost(128) else 128)
-
-
-def tile_order(N: int, F: int, tile_m: int, tile_n: int) -> list[tuple[int, int]]:
-    """(row tile, column tile) of each block in launch order
-    (csrc/swiglu.cu: ``tile_of``): groups of GROUP_M row tiles, the row
-    tile fastest within a group, so that blocks in flight together share
-    their w1 and w3 columns in the L2."""
-    tiles_m, tiles_n = _cdiv(N, tile_m), _cdiv(F, tile_n)
-    order = []
-    for pid in range(tiles_m * tiles_n):
-        first = pid // (GROUP_M * tiles_n) * GROUP_M
-        rows = min(tiles_m - first, GROUP_M)
-        r = pid % (GROUP_M * tiles_n)
-        order.append((first + r % rows, r // rows))
-    return order
+    call on a card with ``n_sm`` SMs (csrc/swiglu.cu: ``swiglu_fwd``)."""
+    return gemm_tile(N, F, n_sm, WIDTHS)
 
 
 @functools.cache

@@ -1,5 +1,6 @@
 """Block and chunk fitting for the kernels (a copy of
-``repro/kernels/tiling.py``).
+``repro/kernels/tiling.py``), and the tiling of the bf16 Hopper GEMM
+(``csrc/tma_gemm.cuh``) that swiglu, gelu_mlp and cross-entropy share.
 
 ``fit_block`` picks the largest block size <= ``block`` that divides ``n``.
 ``pick_chunk`` is the chunk rule of the chunked recurrent scans (mamba2 SSD,
@@ -7,6 +8,13 @@ rwkv wkv): the largest power-of-two chunk <= ``target`` dividing T, used by
 both the plain chunk loop of ``models/ssm.py`` and the SSD kernel, so that
 ``kernels=True`` and the plain path agree on the chunk structure (and with
 it on the fp32 summation order of the inter-chunk carry).
+
+``gemm_tile`` and ``tile_order`` mirror ``csrc/tma_gemm.cuh``'s
+``gemm_cols`` and ``tile_of``: N < STREAM_ROWS streams the weights through
+64 x 64 tiles, larger N takes 128-row tiles whose width keeps the last wave
+of the SMs full, and the persistent grid takes tiles in groups of GROUP_M
+row tiles that sweep the same columns, so the blocks in flight together
+share the weight's columns in the L2.
 """
 from __future__ import annotations
 
@@ -14,6 +22,8 @@ from __future__ import annotations
 # products; wkv's per-channel (Q, Q, K) decay-gap tensor bounds Q lower
 SSD_CHUNK = 128
 WKV_CHUNK = 32
+STREAM_ROWS = 64
+GROUP_M = 16
 
 
 def fit_block(block: int, n: int) -> int:
@@ -32,3 +42,41 @@ def pick_chunk(T: int, target: int) -> int:
             c = q
         q *= 2
     return c
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_tile(N: int, F: int, n_sm: int, widths: tuple[int, ...]) -> tuple[int, int]:
+    """(rows, columns) of the bf16 GEMM tile for an (N, d) x (d, F) call
+    on a card with ``n_sm`` SMs: 64 x 64 below STREAM_ROWS, else 128 rows
+    and of ``widths`` the width whose waves of tiles over the SMs, times the
+    width, are fewest (the earlier in ``widths`` on a tie)."""
+    if N < STREAM_ROWS:
+        return 64, 64
+    tiles_m = cdiv(N, 128)
+
+    def cost(cols: int) -> int:
+        return cdiv(tiles_m * cdiv(F, cols), n_sm) * cols
+
+    best = widths[0]
+    for cols in widths[1:]:
+        if cost(cols) < cost(best):
+            best = cols
+    return 128, best
+
+
+def tile_order(M: int, N: int, tile_m: int, tile_n: int) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each tile of an (M, N) output in the order
+    the persistent grid takes them (block b of a grid of G takes tiles b,
+    b + G, ...): groups of GROUP_M row tiles, the row tile fastest within a
+    group."""
+    tiles_m, tiles_n = cdiv(M, tile_m), cdiv(N, tile_n)
+    order = []
+    for tile in range(tiles_m * tiles_n):
+        first = tile // (GROUP_M * tiles_n) * GROUP_M
+        rows = min(tiles_m - first, GROUP_M)
+        r = tile % (GROUP_M * tiles_n)
+        order.append((first + r % rows, r // rows))
+    return order

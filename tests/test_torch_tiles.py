@@ -1,17 +1,25 @@
-"""The host-side choices of the bf16 flash forward and swiglu kernels, as
-their Python mirrors state them (``kernels/flash_attention.py``,
-``kernels/swiglu.py``; ``chip_smoke.py`` holds each mirror to its C entry
-on the card): for every config's serve and train shapes, each output tile
-or work item is covered exactly once, in the order the kernels take them,
-and the tiles the flash kernel walks without its mask see only visible
-(query, key) pairs."""
+"""The host-side choices of the bf16 flash forward, swiglu, gelu_mlp and
+cross-entropy kernels, as their Python mirrors state them
+(``kernels/flash_attention.py``, ``kernels/swiglu.py``,
+``kernels/gelu_mlp.py``, ``kernels/cross_entropy.py``, and the GEMM tile
+order they share in ``kernels/tiling.py``; ``chip_smoke.py``
+holds each mirror to its C entry on the card): for every config's serve
+and train shapes, each output tile or work item is covered exactly once,
+in the order the kernels take them, and the tiles the flash kernel walks
+without its mask see only visible (query, key) pairs.  The cross-entropy
+kernel's per-tile (max, sumexp) partials and their merge, in float64, equal
+the plain version's lse and label logit."""
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import all_configs
+from repro_torch.kernels import cross_entropy as ce
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gelu_mlp as gm
 from repro_torch.kernels import swiglu as sg
-from repro_torch.kernels.ref import _attention_mask
+from repro_torch.kernels import tiling
+from repro_torch.kernels.ref import _attention_mask, cross_entropy_ref
 
 H100_SMS = 132
 # serve prefills of 1..256 tokens (the engine's prompts) and decode at 4
@@ -23,6 +31,9 @@ SWIGLU_CONFIGS = sorted(n for n, c in all_configs().items()
                         if c.act == "swiglu" and c.family in ("dense", "moe", "hybrid", "vlm"))
 FLASH_CONFIGS = sorted(n for n, c in all_configs().items()
                        if c.family != "rwkv" and c.resolved_head_dim in fa.HEAD_DIMS)
+GELU_CONFIGS = sorted(n for n, c in all_configs().items() if c.act == "gelu")
+# the configs whose padded vocab the bf16 CE kernel takes (a multiple of 8)
+CE_CONFIGS = sorted(n for n, c in all_configs().items() if c.padded_vocab % 8 == 0)
 
 
 def _mlp_widths(cfg) -> set[tuple[int, int]]:
@@ -48,7 +59,7 @@ def test_swiglu_tiles_cover_each_output_once(arch):
     for _, F in _mlp_widths(all_configs()[arch]):
         for N in (*SERVE_N, *TRAIN_N):
             tm, tn = sg.swiglu_tile(N, F, H100_SMS)
-            order = sg.tile_order(N, F, tm, tn)
+            order = tiling.tile_order(N, F, tm, tn)
             tiles = {(i, j) for i in range(-(-N // tm)) for j in range(-(-F // tn))}
             assert len(order) == len(tiles) and set(order) == tiles, (N, F)
 
@@ -60,11 +71,11 @@ def test_swiglu_blocks_in_flight_share_columns(arch):
     read from device memory about N / (128 * GROUP_M) times."""
     cfg = all_configs()[arch]
     tm, tn = sg.swiglu_tile(8192, cfg.d_ff, H100_SMS)
-    order = sg.tile_order(8192, cfg.d_ff, tm, tn)
+    order = tiling.tile_order(8192, cfg.d_ff, tm, tn)
     for start in range(0, len(order) - H100_SMS, H100_SMS):
         wave = order[start:start + H100_SMS]
-        assert len({j for _, j in wave}) <= -(-H100_SMS // sg.GROUP_M) + 1
-        assert len({i for i, _ in wave}) <= 2 * sg.GROUP_M
+        assert len({j for _, j in wave}) <= -(-H100_SMS // tiling.GROUP_M) + 1
+        assert len({i for i, _ in wave}) <= 2 * tiling.GROUP_M
 
 
 def _flash_shapes(cfg):
@@ -135,3 +146,87 @@ def test_flash_key_tiles_and_unmasked_tiles(Sq, Skv, causal, window, q_offset):
                 if not fa.edge_tile(k0, r_lo, Sq, Skv, causal=causal, window=window,
                                     q_offset=q_offset):
                     assert k0 + fa.BLOCK_N <= Skv and wg[:, k0:k0 + fa.BLOCK_N].all(), (r_lo, k0)
+
+
+@pytest.mark.parametrize("N,tile", [
+    (1, (64, 64)), (4, (64, 64)), (63, (64, 64)), (64, (128, 128)), (256, (128, 128)),
+    (8192, (128, 256)),
+], ids=lambda v: str(v))
+def test_gelu_mlp_tile_regimes(N, tile):
+    """At gpt-1.4b's F = 8448: decode (N < 64) streams 64 x 64 tiles; a
+    256-token prefill takes 128 columns (132 tiles, one wave; 256 would
+    leave half the SMs idle); the train microbatch 256 (16 waves, as many
+    as 32 of 128, with fewer blocks)."""
+    assert gm.gelu_mlp_tile(N, 8448, H100_SMS) == tile
+
+
+@pytest.mark.parametrize("arch", GELU_CONFIGS)
+def test_gelu_mlp_tiles_cover_each_output_once(arch):
+    cfg = all_configs()[arch]
+    for N in (*SERVE_N, *TRAIN_N):
+        tm, tn = gm.gelu_mlp_tile(N, cfg.d_ff, H100_SMS)
+        order = tiling.tile_order(N, cfg.d_ff, tm, tn)
+        tiles = {(i, j) for i in range(-(-N // tm)) for j in range(-(-cfg.d_ff // tn))}
+        assert len(order) == len(tiles) and set(order) == tiles, N
+
+
+@pytest.mark.parametrize("arch", CE_CONFIGS)
+def test_ce_tiles_cover_each_output_once(arch):
+    """Every (row tile, column tile) of the train microbatch's and the
+    serve shapes' logits once, and one partial a row for each column tile."""
+    V = all_configs()[arch].padded_vocab
+    for N in (*SERVE_N, *TRAIN_N, 4 * 2047):
+        tm, tn = ce.TILE_M, ce.TILE_N
+        order = tiling.tile_order(N, V, tm, tn)
+        tiles = {(i, j) for i in range(-(-N // tm)) for j in range(-(-V // tn))}
+        assert len(order) == len(tiles) and set(order) == tiles, N
+        assert ce.n_partials(V, torch.bfloat16) == -(-V // tn)
+
+
+@pytest.mark.parametrize("kernel", ["gelu_mlp", "cross_entropy"])
+def test_gemm_blocks_in_flight_share_columns(kernel):
+    """At the train microbatch the 132 blocks in flight together cover
+    GROUP_M row tiles and ~132 / GROUP_M column tiles, so the weight is
+    read from device memory about N / (128 * GROUP_M) times."""
+    if kernel == "gelu_mlp":
+        N, cols = 8192, all_configs()["gpt-1.4b"].d_ff
+        tile = gm.gelu_mlp_tile(N, cols, H100_SMS)
+    else:
+        N, cols = 4 * 2047, all_configs()["yi-6b"].padded_vocab
+        tile = ce.TILE_M, ce.TILE_N
+    order = tiling.tile_order(N, cols, *tile)
+    for start in range(0, len(order) - H100_SMS, H100_SMS):
+        wave = order[start:start + H100_SMS]
+        assert len({j for _, j in wave}) <= -(-H100_SMS // tiling.GROUP_M) + 1
+        assert len({i for i, _ in wave}) <= 2 * tiling.GROUP_M
+
+
+CE_PARTIAL_CASES = [  # (N, d, V, valid_vocab, labels)
+    (37, 24, 1288, 1100, (1099, 1024, 0, 777)),   # valid_vocab inside tile 4; tile 5 past it
+    (37, 24, 1288, 1024, (1023, 768, 0, 777)),    # valid_vocab on tile 4's start
+    (21, 16, 1000, None, (999, 768, 256, 5)),     # the last tile partial, labels in it
+    (9, 8, 512, 256, (255, 0, 128, 1)),           # a whole tile past valid_vocab
+    (5, 8, 200, 199, (198, 0, 57, 100)),          # one partial tile
+]
+
+
+@pytest.mark.parametrize("N,d,V,vv,labels", CE_PARTIAL_CASES, ids=lambda v: str(v))
+def test_ce_partials_merge_to_the_plain_lse(N, d, V, vv, labels):
+    """The kernel's algebra in float64: (max, sumexp) per 256-column tile
+    over the valid columns, sumexp 0 for a tile with none, merged in order
+    skipping those, and the label logit from the tile that holds it, equal
+    ``cross_entropy_ref``'s lse and label logit on the same fp32 inputs."""
+    rng = np.random.default_rng(N * 1000 + V)
+    h = torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d, V)) * d ** -0.5).astype(np.float32))
+    lab = torch.tensor(labels).repeat(-(-N // len(labels)))[:N]
+    m, s, ll = ce.partials_ref(h.double(), w.double(), lab, vv)
+    assert m.shape == s.shape == (ce.n_partials(V, torch.bfloat16), N)
+    if vv is not None:
+        past = torch.arange(m.shape[0]) * ce.TILE_N >= vv
+        assert (s[past] == 0).all() and (m[past] == ce.NEG_INF).all()
+        assert (s[~past] > 0).all()
+    lse = ce.merge_ref(m, s)
+    rlse, rll = cross_entropy_ref(h, w, lab, vv)
+    torch.testing.assert_close(lse.float(), rlse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ll.float(), rll, rtol=0, atol=1e-5)

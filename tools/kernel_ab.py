@@ -1,0 +1,164 @@
+"""A/B of one bf16 GEMM kernel on the card: the port's build of
+``src/repro_torch/csrc/<kernel>.cu`` against another version of that source
+(the same C entry and signature), in one process and in turns (port,
+other, other, port), so that both meet the same card, clocks and host.
+
+  python3 tools/kernel_ab.py swiglu OTHER.cu
+  python3 tools/kernel_ab.py gelu_mlp OTHER.cu --serve gpt-1.4b
+                                       (one CUDA card, from the repo root)
+
+OTHER.cu is built with the port's ``nvcc`` flags and
+``-I src/repro_torch/csrc`` (it may include the port's headers).  For each
+shape of the kernel's timed rows in ``chip_smoke.py`` it prints both
+versions' times (``chip_smoke.Timer``: the median of CUDA-event times with
+the L2 flushed before each launch; each version the mean of its two
+turns), their ratio, and whether their outputs are bit-identical.  With
+``--serve ARCH`` it also serves ARCH at full width and depth in bf16
+(``ServeEngine``, 4 slots) and reads the kernel's device time per decode
+tick from ``torch.profiler`` (``chip_smoke._profile``) in the same turns:
+the kernel in place, between the model's other kernels, with no flush.
+Each reading is one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+# (N, d, F) of chip_smoke.py's timed rows, and the C entry the wrapper calls
+SHAPES = {"swiglu": [(512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
+                     (256, 4096, 11008), (256, 5120, 8192), (4, 5120, 8192),
+                     (256, 7168, 4864), (4, 7168, 4864)],
+          "gelu_mlp": [(8192, cs.GPT_D, cs.GPT_F), (256, cs.GPT_D, cs.GPT_F),
+                       (4, cs.GPT_D, cs.GPT_F)]}
+ENTRY = {"swiglu": "swiglu_fwd", "gelu_mlp": "gelu_mlp_fwd"}
+
+
+def build_other(kernel: str, src: Path) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / "ab" / f"{kernel}-other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def in_turns(module, other: ctypes.CDLL, entry: str, measure) -> tuple[float, float]:
+    """(port, other): ``measure()`` with the module's library, then the
+    other's twice, then the module's; each the mean of its two turns."""
+    own = module._lib
+    getattr(other, entry).argtypes = getattr(own(), entry).argtypes
+    getattr(other, entry).restype = getattr(own(), entry).restype
+
+    def with_other():
+        module._lib = lambda: other
+        try:
+            return measure()
+        finally:
+            module._lib = own
+
+    a = measure()
+    b, c = with_other(), with_other()
+    d = measure()
+    return (a + d) / 2, (b + c) / 2
+
+
+def kernel_turns(kernel: str, module, other: ctypes.CDLL) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = cs.Timer()
+    for N, d, F in SHAPES[kernel]:
+        x = cs.randn(gen, N, d, dtype=torch.bfloat16)
+        ws = [cs.randn(gen, d, F, dtype=torch.bfloat16, scale=d ** -0.5)
+              for _ in range(2 if kernel == "swiglu" else 1)]
+        call = getattr(module, f"{kernel}_cuda")
+        port_out = call(x, *ws)
+        port_ms, other_ms = in_turns(module, other, ENTRY[kernel],
+                                     lambda: timer(lambda: call(x, *ws)))
+        own = module._lib
+        module._lib = lambda: other
+        try:
+            same = torch.equal(port_out, call(x, *ws))
+        finally:
+            module._lib = own
+        cs.emit({"kernel": kernel, "shape": [N, d, F], "port_ms": port_ms,
+                 "other_ms": other_ms, "port_over_other": port_ms / other_ms,
+                 "bit_identical": same})
+
+
+def serve_turns(kernel: str, module, other: ctypes.CDLL, arch: str, ticks: int = 8) -> None:
+    from repro_torch.core.compute import ComputePolicy
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+
+    group = next(g for g, keys in cs.PROFILE_GROUPS if any(k.startswith(kernel) for k in keys))
+    cfg = cs.serve_config(arch)
+    model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(0)
+    engine = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
+    for i in range(4):
+        engine.submit(Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, 64).astype(np.int32),
+                              max_new_tokens=6 * ticks))
+    engine.step()                                      # 4 prefills + 1 tick
+    readings = []
+
+    def per_tick() -> float:
+        prof = cs._profile(lambda: [engine.step() for _ in range(ticks)])
+        readings.append(prof)
+        return prof["device_ms_by_group"][group] / ticks
+
+    per_tick()                                         # warm both versions up
+    port_ms, other_ms = in_turns(module, other, ENTRY[kernel], per_tick)
+    cs.emit({"kernel": kernel, "serve": arch, "ticks_per_turn": ticks,
+             "port_device_ms_per_tick": port_ms, "other_device_ms_per_tick": other_ms,
+             "port_over_other": port_ms / other_ms,
+             "decode_device_ms_per_tick": [r["device_busy_s"] * 1e3 / ticks
+                                           for r in readings[1:]]})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("kernel", choices=sorted(SHAPES))
+    ap.add_argument("other", type=Path)
+    ap.add_argument("--serve", help="also A/B the kernel's device time per decode tick "
+                                    "when serving this arch")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    _build.build_all((args.kernel,))
+    module = importlib.import_module(f"repro_torch.kernels.{args.kernel}")
+    other = build_other(args.kernel, args.other)
+    kernel_turns(args.kernel, module, other)
+    if args.serve:
+        serve_turns(args.kernel, module, other, args.serve)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
