@@ -21,10 +21,16 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      start, whole tiles past it, labels at valid_vocab - 1 and in the last
      valid tile, and two planted faults of its partials that must fail the
      CE limits), swiglu's and gelu_mlp's decode launches bit-identical, and
-     the Python mirrors of the C entries' tile choices; then the kernel /
-     plain / library / bound times, and for flash, swiglu, gelu_mlp and CE
-     the time of the version before the redesign (tools/previous_kernels/,
-     built beside the port's) on the same inputs, in turns;
+     the Python mirrors of the C entries' tile choices (for the flash
+     backward its items, their orders and which tiles take the mask); the
+     flash backward also through FLASH_EDGES at every head dim, with two
+     planted faults at the yi-6b train shape (one 128-key tile left out of
+     dQ, one query head of each GQA group left out of dK/dV) that must fail
+     its limits, and its two launches on the same inputs bit-identical; then
+     the kernel / plain / library / bound times, and for the flash forward
+     and backward, swiglu, gelu_mlp and CE the time of the version before
+     the redesign (tools/previous_kernels/, built beside the port's) on the
+     same inputs, in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
@@ -73,8 +79,8 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step;
   5. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
-     flash forward, swiglu, gelu_mlp and CE also ``parent_ms`` and
-     ``ptxas`` (registers and spills of each bf16 kernel).
+     flash forward and backward, swiglu, gelu_mlp and CE also ``parent_ms``
+     and ``ptxas`` (registers and spills of each bf16 kernel).
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -156,15 +162,22 @@ REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2,
 SERVE_LAYERS = {LLAMA4: 2, ARCTIC: 1}
 
 
-# the kernels redesigned for Hopper, and their C entries: the versions
-# before the redesign (tools/previous_kernels/) are built beside the port's
-# and timed on the same inputs, in turns with the new ones (``parent_ms``)
-PREVIOUS = {"flash_attention": "flash_attention_fwd", "swiglu": "swiglu_fwd",
-            "gelu_mlp": "gelu_mlp_fwd", "cross_entropy": "cross_entropy_fwd"}
+# the sources redesigned for Hopper, the wrapper module's library loader and
+# their C entries: the versions before the redesign (tools/previous_kernels/)
+# are built beside the port's and timed on the same inputs, in turns with the
+# new ones (``parent_ms``)
+PREVIOUS = {"flash_attention": ("_lib", ("flash_attention_fwd",)),
+            "flash_attention_bwd": ("_bwd_lib", ("flash_attention_bwd_dq",
+                                                 "flash_attention_bwd_dkv")),
+            "swiglu": ("_lib", ("swiglu_fwd",)), "gelu_mlp": ("_lib", ("gelu_mlp_fwd",)),
+            "cross_entropy": ("_lib", ("cross_entropy_fwd",))}
 # their redesigned bf16 kernels, whose registers and spills the kernels
 # line reports (``ptxas -v``)
-REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel", "swiglu": "swiglu_bf16_kernel",
-              "gelu_mlp": "gelu_mlp_bf16_kernel", "cross_entropy": "ce_partial_bf16_kernel"}
+REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel",
+              "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernel",
+              "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
+              "swiglu": "swiglu_bf16_kernel", "gelu_mlp": "gelu_mlp_bf16_kernel",
+              "cross_entropy": "ce_partial_bf16_kernel"}
 _PREVIOUS_LIBS: dict = {}
 
 
@@ -203,20 +216,22 @@ def finish_previous_build(started: dict) -> None:
 
 def with_previous(name: str, fn):
     """``fn()`` with the kernel module's library swapped for the previous
-    version's (same C entry and signature), so the wrapper launches it."""
+    version's (same C entries and signatures), so the wrapper launches it."""
     from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
                                      gelu_mlp as gm, swiglu as sg)
 
-    module = {"flash_attention": fa, "swiglu": sg, "gelu_mlp": gm, "cross_entropy": ce}[name]
-    own, prev = module._lib, _PREVIOUS_LIBS[name]
-    entry = PREVIOUS[name]
-    getattr(prev, entry).argtypes = getattr(own(), entry).argtypes
-    getattr(prev, entry).restype = getattr(own(), entry).restype
-    module._lib = lambda: prev
+    module = {"flash_attention": fa, "flash_attention_bwd": fa, "swiglu": sg,
+              "gelu_mlp": gm, "cross_entropy": ce}[name]
+    loader, entries = PREVIOUS[name]
+    own, prev = getattr(module, loader), _PREVIOUS_LIBS[name]
+    for entry in entries:
+        getattr(prev, entry).argtypes = getattr(own(), entry).argtypes
+        getattr(prev, entry).restype = getattr(own(), entry).restype
+    setattr(module, loader, lambda: prev)
     try:
         return fn()
     finally:
-        module._lib = own
+        setattr(module, loader, own)
 
 
 def timed_with_parent(timer, name: str, fn) -> tuple[float, float]:
@@ -435,11 +450,81 @@ def check_swiglu_edges(gen, check_swiglu) -> None:
         raise AssertionError("swiglu decode: two launches on the same inputs differ")
 
 
+def bwd_mirror_records(kernel: str, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int,
+                       **mask) -> tuple[list, list]:
+    """The bf16 flash backward's items as (C records, mirror records), each
+    item as its ids and the tiles it walks in order: dQ (q0, h, b, key
+    tiles), dK/dV (k0, hk, b, query tiles)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sms = card_sms()
+    got = fa.bwd_items_cuda(kernel, B, Hq, Hkv, Sq, Skv, hd, sms, **mask)
+    if kernel == "dq":
+        c = [(q0, h, b, [ks + (n - 1 - i) * fa.DQ_BLOCK_N for i in range(n)])
+             for q0, h, b, ks, n in got]
+        order = fa.work_order(B, Sq, Hq, fa.chunk_pairs(B, Hq, Hkv, Skv, hd), mask["causal"])
+        mirror = [(q0, h, b, fa.key_tiles(q0, Sq, Skv, block_n=fa.DQ_BLOCK_N, **mask))
+                  for q0, h, b in order]
+    else:
+        c = [(k0, hk, b, [qs + i * fa.DKV_BLOCK_M for i in range(n)])
+             for k0, hk, b, qs, n in got]
+        mirror = [(k0, hk, b, fa.query_tiles(k0, Sq, Skv, **mask))
+                  for k0, hk, b in fa.dkv_work_order(
+                      B, Hkv, Skv, fa.dkv_chunk(B, Hq, Hkv, Sq, Skv, hd, sms))]
+    return c, mirror
+
+
+def bwd_mirror_masks() -> list[tuple[int, int, dict]]:
+    """(Sq, Skv, mask) the bf16 flash backward's mirrors are held at on the
+    card: the train step's and each FLASH_FLAVOURS and FLASH_EDGES case's."""
+    cases = [(2048, 2048, dict(causal=True))]
+    cases += [(Sq, Skv, kw) for _, _, Sq, Skv, _, _, _, kw in FLASH_FLAVOURS]
+    cases += [(Sq, Skv, kw) for _, _, Sq, Skv, _, _, kw in FLASH_EDGES]
+    return [(Sq, Skv, dict(causal=kw.get("causal", True), window=kw.get("sliding_window"),
+                           q_offset=kw.get("q_offset", 0))) for Sq, Skv, kw in cases]
+
+
+def check_bwd_mirrors() -> int:
+    """The bf16 flash backward's items and masked tiles: the C entries
+    (``flash_bwd_item``, ``flash_bwd_edge``) against the Python mirrors, at
+    every config's train microbatch and at ``bwd_mirror_masks``.  Returns
+    the number of shapes held."""
+    from repro_torch.configs import all_configs
+    from repro_torch.kernels import flash_attention as fa
+
+    n = 0
+    shapes = {(4, 2048, 2048, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+               (("causal", True), ("window", None), ("q_offset", 0)))
+              for cfg in all_configs().values()
+              if cfg.resolved_head_dim in fa.HEAD_DIMS and cfg.n_kv_heads}
+    shapes |= {(2, Sq, Skv, 8, 2, 128, tuple(m.items())) for Sq, Skv, m in bwd_mirror_masks()}
+    for B, Sq, Skv, Hq, Hkv, hd, mask in sorted(shapes, key=str):
+        for kernel in ("dq", "dkv"):
+            got, want = bwd_mirror_records(kernel, B, Hq, Hkv, Sq, Skv, hd, **dict(mask))
+            if got != want:
+                bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+                raise AssertionError(f"flash bwd {kernel} items ({B}, {Sq}, {Skv}, {Hq}q/"
+                                     f"{Hkv}kv, {hd}, {dict(mask)}): {len(got)} vs "
+                                     f"{len(want)} items, first difference at {bad}")
+            n += 1
+    for Sq, Skv, mask in bwd_mirror_masks():
+        for a in range(0, max(Sq, Skv), fa.WG_ROWS):
+            for b in range(0, max(Sq, Skv), fa.WG_ROWS):
+                for kernel, want in (
+                        ("dq", fa.edge_tile(b, a, Sq, Skv, block_n=fa.DQ_BLOCK_N, **mask)),
+                        ("dkv", fa.dkv_edge_tile(b, a, Sq, Skv, **mask))):
+                    if fa.bwd_edge_cuda(kernel, a, b, Sq, Skv, **mask) != want:
+                        raise AssertionError(f"flash bwd {kernel} edge ({a}, {b}) at "
+                                             f"({Sq}, {Skv}, {mask}): mirror {want}")
+        n += 1
+    return n
+
+
 def check_tile_mirrors() -> None:
     """The Python mirrors of the C entries' choices (the swiglu and gelu_mlp
     tiles, the CE tile and its partials a row, the flash forward's chunk of
-    (b, h) pairs) agree with the libraries at every config's serve and train
-    shapes on this card."""
+    (b, h) pairs, the flash backward's items and masked tiles) agree with
+    the libraries at every config's serve and train shapes on this card."""
     from repro_torch.configs import all_configs
     from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
                                      gelu_mlp as gm, swiglu as sg)
@@ -475,6 +560,7 @@ def check_tile_mirrors() -> None:
                     raise AssertionError(f"flash chunk {args}: C {fa.chunk_pairs_cuda(*args)}, "
                                          f"mirror {fa.chunk_pairs(*args)}")
                 n += 1
+    n += check_bwd_mirrors()
     emit({"phase": "kernel_check", "case": "tile mirrors agree with the C entries",
           "shapes": n, "sms": sms})
 
@@ -853,9 +939,40 @@ CE_WHY = "fp32 sums of exact products in another order over d"
 CE_EDGES = [(4 * 2047, 520, 1288, 1100), (4 * 2047, 520, 1288, 1024)]
 
 
-def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
+FLASH_BWD_FAULTS = ("dq: keys 0..127 (one 128-key tile) left out of the sum",
+                    "dk/dv: query head 0 of each GQA group left out of the sum")
+
+
+def flash_bwd_faults(name, q, k, v, o, lse, do, ref, terms, rtol, **kw) -> None:
+    """Each of FLASH_BWD_FAULTS, built from the plain version's pieces, must
+    fail the same limits: dQ less the part the first 128 keys give (the plain
+    backward over those keys alone, with the full rows' LSE and delta), and
+    dK and dV of the plain backward with query head 0 of each group given
+    dO = 0 (so its dP, delta, dS and P^T dO are 0)."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref
+
+    qt, kt, vt, ot, dot = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    tile0 = flash_attention_bwd_ref(qt, kt[:, :, :128], vt[:, :, :128], ot, lse, dot, **kw)[0]
+    G = q.shape[2] // k.shape[2]
+    dropped = dot.clone()
+    dropped[:, ::G] = 0
+    _, dk_bad, dv_bad = flash_attention_bwd_ref(qt, kt, vt, ot, lse, dropped, **kw)
+    faults = {FLASH_BWD_FAULTS[0]: [(ref[0] - tile0, ref[0], terms[0])],
+              FLASH_BWD_FAULTS[1]: [(dk_bad, ref[1], terms[1]), (dv_bad, ref[2], terms[2])]}
+    for fault, outs in faults.items():
+        worst = max(float(limit_share(bad, r, rtol, 1e-6, gterms)[1].max())
+                    for bad, r, gterms in outs)
+        emit({"phase": "planted_fault", "case": name, "fault": fault,
+              "worst_share_of_limit": worst})
+        if worst <= 1:
+            raise AssertionError(f"{name}: the flash bwd limit does not catch a planted "
+                                 f"fault ({fault}: {worst:.2f} of it)")
+
+
+def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, planted=False, **kw):
     """Forward kernel, then the two backward kernels against
-    ``flash_attention_bwd_ref`` on the same q, k, v, o, lse and dO."""
+    ``flash_attention_bwd_ref`` on the same q, k, v, o, lse and dO; with
+    ``planted``, also FLASH_BWD_FAULTS against the same limits."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
 
@@ -882,6 +999,8 @@ def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
                                 atol=1e-6, why=FLASH_BWD_WHY,
                                 terms=tuple((sc.transpose(1, 2), tol, sn)
                                             for sc, tol, sn in gterms)))
+    if planted:
+        flash_bwd_faults(name, q, k, v, o, lse, do, ref, terms, rtol, **kw)
     return errs, (q, k, v, o, lse, do)
 
 
@@ -958,14 +1077,32 @@ def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do) -> tuple[dict
     # delta and writes dQ
     b, by = bound_ms(el * (3 * q.numel() + 2 * k.numel()) + 8 * B * Hq * S,
                      3 * 2 * hd * pairs, q.dtype)
-    dq = {**common, "max_abs_err": errs[0], "ms": timer(lambda: fa.launch_bwd_dq(args)),
+    ms, parent_ms = timed_with_parent(timer, "flash_attention_bwd",
+                                      lambda: fa.launch_bwd_dq(args))
+    dq = {**common, "max_abs_err": errs[0], "ms": ms, "parent_ms": parent_ms,
           "bound_ms": b, "bound_by": by}
     # dK/dV: S^T, dP^T, dS^T@Q and P^T@dO; writes dK and dV
     b, by = bound_ms(el * (2 * q.numel() + 4 * k.numel()) + 8 * B * Hq * S,
                      4 * 2 * hd * pairs, q.dtype)
-    dkv = {**common, "max_abs_err": max(errs[1:]),
-           "ms": timer(lambda: fa.launch_bwd_dkv(args)), "bound_ms": b, "bound_by": by}
+    ms, parent_ms = timed_with_parent(timer, "flash_attention_bwd",
+                                      lambda: fa.launch_bwd_dkv(args))
+    dkv = {**common, "max_abs_err": max(errs[1:]), "ms": ms, "parent_ms": parent_ms,
+           "bound_ms": b, "bound_by": by}
     return dq, dkv
+
+
+def check_bwd_repeats(q, k, v, o, lse, do) -> None:
+    """Both bf16 backward kernels, launched twice on the same inputs, give
+    the same bits: every sum runs in one block in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    second = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    same = {g: torch.equal(a, b) for g, a, b in zip(("dq", "dk", "dv"), first, second)}
+    emit({"phase": "kernel_check", "case": f"flash bwd bf16 {tuple(q.shape)} "
+                                           f"{k.shape[2]}kv twice", "bit_identical": same})
+    if not all(same.values()):
+        raise AssertionError(f"flash bwd: two launches on the same inputs differ: {same}")
 
 
 def phase_kernels_train(timer: Timer) -> dict:
@@ -973,12 +1110,17 @@ def phase_kernels_train(timer: Timer) -> dict:
     # flash backward at the forward's timed shapes: causal S = 2048, yi-6b
     # heads at B = 1 and at the train step's microbatch (B = 4), and
     # gpt-1.4b's heads (24 of 88) at B = 4
+    # (the yi-6b train shape, bf16, also with FLASH_BWD_FAULTS planted and
+    # launched twice for bit-identical repeats)
     timed = []
     for B, Hq, Hkv, hd in ((1, 32, 4, 128), (4, 32, 4, 128), (4, GPT_HEADS, GPT_HEADS, GPT_HD)):
         for dtype in (torch.bfloat16, torch.float32):
+            train = dtype == torch.bfloat16 and (B, Hkv) == (4, 4)
             errs, tensors = flash_bwd_case(
                 f"flash bwd {dtype} ({B}, 2048, {Hq}q/{Hkv}kv, {hd}) causal", gen, B, 2048,
-                2048, Hq, Hkv, hd, dtype, causal=True)
+                2048, Hq, Hkv, hd, dtype, planted=train, causal=True)
+            if train:
+                check_bwd_repeats(*tensors)
             if dtype == torch.bfloat16:
                 timed.append(flash_bwd_times(timer, errs, *tensors))
             del tensors
@@ -990,8 +1132,23 @@ def phase_kernels_train(timer: Timer) -> dict:
             flash_bwd_case(f"flash bwd {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, "
                            f"{Hq_}q/{Hkv}kv, {hd_})", gen, B, Sq, Skv, Hq_, Hkv, hd_,
                            dtype, **kw)
+    flash_bwd_edges(gen)
     rows["cross_entropy"] = ce_kernels(timer, gen)
     return rows
+
+
+def flash_bwd_edges(gen) -> None:
+    """FLASH_EDGES through both backward kernels at every head dim, bf16 and
+    fp32: the edges of the bf16 tiling (partial query and key tiles, the
+    diagonal, a window edge with q_offset, rows that see no key)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for name, B, Sq, Skv, Hq, Hkv, kw in FLASH_EDGES:
+        for hd in fa.HEAD_DIMS:
+            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                flash_bwd_case(f"flash bwd {tag} {name} (B{B}, Sq{Sq}, Skv{Skv}, "
+                               f"{Hq}q/{Hkv}kv, {hd})", gen, B, Sq, Skv, Hq, Hkv, hd, dtype,
+                               **kw)
 
 
 def ce_kernels(timer: Timer, gen) -> dict:

@@ -49,18 +49,12 @@
 //   stays tight: a warp per 4 query rows, one key per lane for the scores,
 //   head dims split across lanes for the P V update.  It pads hd to a
 //   multiple of 32 lanes.  The scale stays 1/sqrt(hd) of the real head dim.
-#include <climits>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "flash_common.cuh"
 
 using bf16 = __nv_bfloat16;
+using namespace flash;
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
     const void* q;
@@ -74,15 +68,6 @@ struct Params {
     float softcap, scale;           // softcap <= 0: no cap
     int chunk;                      // bf16: (b, h) pairs per chunk of the work order
 };
-
-// Key range [lo, hi) that the query rows [q0, q1) of a tile can see.
-__device__ __forceinline__ void key_range(const Params& p, int q0, int q1,
-                                          int& lo, int& hi) {
-    lo = 0;
-    hi = p.Skv;
-    if (p.causal) hi = min(hi, q1 - 1 + p.q_offset + 1);
-    if (p.window > 0) lo = max(0, q0 + p.q_offset - p.window + 1);
-}
 
 __device__ __forceinline__ float score(const Params& p, float s, int qpos, int kpos) {
     s *= p.scale;
@@ -100,12 +85,7 @@ __device__ __forceinline__ float score(const Params& p, float s, int qpos, int k
 constexpr int BM = 128;         // query rows of a work item: two consumer warpgroups of 64
 constexpr int BN = 128;         // keys of a tile
 constexpr int STAGES = 2;       // K/V ring depth
-constexpr int BOX = 64;         // columns of a TMA box: 128 bytes, the swizzle's span
 constexpr int THREADS = 384;    // producer warpgroup + two consumers
-// the (b, h) pairs of a chunk of the work order should keep their K and V
-// (bf16) within this many bytes, a third of the H100's 50 MB L2; K and V
-// are loaded with an evict-last hint, Q with evict-first
-constexpr long long L2_CHUNK_BYTES = 16ll << 20;
 
 template <int HD>
 struct Fwd {
@@ -131,29 +111,19 @@ __device__ __forceinline__ float exp2_ftz(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // A work item: 128 query rows of one (b, h) and the key tiles they see.
 struct Work {
     int q0, h, b, kstart, ntiles;
 };
 
-// Items in order: the (b, h) pairs (b-major) in chunks of p.chunk, whose K
-// and V stay in the L2 while the chunk runs; within a chunk, query tile by
-// query tile (causal: the last, longest tile first), pair by pair.
+// Items in the order of q_item (flash_common.cuh), in chunks of p.chunk
+// (b, h) pairs.
 __device__ __forceinline__ Work work_of(const Params& p, int item) {
     Work w;
-    const int nq = (p.Sq + BM - 1) / BM, pairs = p.B * p.Hq;
-    const int first = item / (p.chunk * nq) * p.chunk;
-    const int size = min(p.chunk, pairs - first);
-    const int r = item - first * nq;
-    const int qi = r / size, pair = first + r % size;
-    w.q0 = (p.causal ? nq - 1 - qi : qi) * BM;
-    w.b = pair / p.Hq;
-    w.h = pair % p.Hq;
+    const QItem qi = q_item(item, p.B, p.Hq, p.Sq, p.chunk, p.causal, BM);
+    w.q0 = qi.q0;
+    w.h = qi.h;
+    w.b = qi.b;
     int lo, hi;
     key_range(p, w.q0, min(w.q0 + BM, p.Sq), lo, hi);
     w.kstart = lo / BN * BN;
@@ -275,7 +245,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
             if (item < 0) break;
             const Work w = work_of(p, item);
             const int r_lo = w.q0 + cw * 64;               // this warpgroup's rows
-            const int r_hi = max(min(r_lo + 64, p.Sq), r_lo + 1);
             const int row0 = r_lo + rw;
 
             // S = Q K^T of tile `it` into sc (committed, not waited for)
@@ -321,20 +290,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
                     for (int i = 0; i < BN / 2; ++i) sc[i] = p.softcap * tanhf(sc[i] * cap_in);
                 }
-                const bool edge = k0 + BN > p.Skv
-                                  || (p.causal && k0 + BN - 1 > r_lo + p.q_offset)
-                                  || (p.window > 0 && k0 <= r_hi - 1 + p.q_offset - p.window);
-                if (edge) {
+                if (rows_edge(p, r_lo, k0, BN)) {
                     // row r sees keys [klo, khi]; offsets from this thread's
                     // first column k0 + 2 * (lane % 4)
                     int klo[2], khi[2];
 #pragma unroll
-                    for (int r = 0; r < 2; ++r) {
-                        const int qpos = row0 + 8 * r + p.q_offset;
-                        const int kbase = k0 + 2 * (lane % 4);
-                        khi[r] = (p.causal ? min(qpos, p.Skv - 1) : p.Skv - 1) - kbase;
-                        klo[r] = (p.window > 0 ? qpos - p.window + 1 : INT_MIN / 2) - kbase;
-                    }
+                    for (int r = 0; r < 2; ++r)
+                        row_keys(p, row0 + 8 * r + p.q_offset, k0 + 2 * (lane % 4), klo[r],
+                                 khi[r]);
 #pragma unroll
                     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -431,24 +394,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                 l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
                 l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
             }
-            if (t == 0) hopper::bulk_wait_read();    // the last item's store has read it
-            hopper::named_sync(1 + cw, 128);
+            float inv[2];
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-                const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-                const int row = rw + 8 * r;
-#pragma unroll
-                for (int j = 0; j < HD / 8; ++j) {
-                    const int chunk = j % 8;                   // 16-byte chunk of a 128-byte row
-                    unsigned char* dst = Ow + (j / 8) * C::O_BOX + row * 128
-                                         + ((chunk ^ (row % 8)) * 16) + 4 * (lane % 4);
-                    *reinterpret_cast<uint32_t*>(dst) =
-                        pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-                }
+                inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];
                 if (lane % 4 == 0 && row0 + 8 * r < p.Sq)
                     p.lse[((size_t)w.b * p.Hq + w.h) * p.Sq + row0 + 8 * r] =
                         l[r] == 0.f ? NEG_INF : m[r] * c * LN2 + logf(l[r]);
             }
+            if (t == 0) hopper::bulk_wait_read();    // the last item's store has read it
+            hopper::named_sync(1 + cw, 128);
+            stage_rows<HD>(Ow, o, inv, lane, rw);
             hopper::fence_async_smem();
             hopper::named_sync(1 + cw, 128);
             if (t == 0) {
@@ -540,30 +496,6 @@ __global__ void __launch_bounds__(128) flash_fwd_f32_kernel(const Params p) {
             if (lane + 32 * i < HD) ob[row * p.o_ss + lane + 32 * i] = acc[r][i] / safe_l;
         if (lane == 0) p.lse[((size_t)b * p.Hq + h) * p.Sq + row] = m[r] + logf(safe_l);
     }
-}
-
-// A tensor map over one of q, k, v, o in (B, S, H, hd) with element strides
-// (batch, seq, head): dims (hd, H, S, B), boxes of 64 columns x `rows`.
-cudaError_t head_map(CUtensorMap* map, const void* base, int hd, int H, int S, int B,
-                     long long sb, long long ss, long long sh, int rows) {
-    const uint64_t dims[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)(S > 0 ? S : 1), (uint64_t)B};
-    const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
-    const uint32_t box[4] = {(uint32_t)BOX, 1, (uint32_t)rows, 1};
-    return hopper::make_map(map, base, 4, dims, strides, box);
-}
-
-// (b, h) pairs per chunk of the bf16 work order: as many whole GQA groups as
-// keep their K and V within L2_CHUNK_BYTES, spread evenly over the chunks.
-int chunk_pairs(int B, int Hq, int Hkv, int Skv, int hd) {
-    const int G = Hq / Hkv, pairs = B * Hq;
-    const long long group_bytes = 2ll * Skv * pad16(hd) * 2;   // K and V of one KV head
-    long long groups = L2_CHUNK_BYTES / (group_bytes > 0 ? group_bytes : 1);
-    if (groups < 1) groups = 1;
-    const long long most = groups * G;
-    if (most >= pairs) return pairs;
-    const int chunks = (int)((pairs + most - 1) / most);
-    const int per = (pairs + chunks - 1) / chunks;
-    return (per + G - 1) / G * G;
 }
 
 template <int HD>

@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the redesigned kernels of repro_torch
-// (flash_attention.cu, and through tma_gemm.cuh swiglu.cu, gelu_mlp.cu and
-// cross_entropy.cu; the flash backward and grouped_mlp are next in line):
+// (flash_attention.cu and flash_attention_bwd.cu, through flash_common.cuh;
+// through tma_gemm.cuh swiglu.cu, gelu_mlp.cu and cross_entropy.cu):
 // TMA tensor maps built on the host, mbarriers, bulk tensor copies, wgmma
-// shared-memory descriptors, fences, register reallocation and the wgmma
-// instructions the kernels issue.
+// shared-memory descriptors, fences, register reallocation, ldmatrix and
+// the wgmma instructions the kernels issue.
 //
 // Every tile here is bf16 in 128-byte swizzled rows: a TMA box of 64
 // columns (128 bytes) by R rows lands as R rows of 128 bytes, XOR-swizzled
@@ -176,6 +176,16 @@ __device__ __forceinline__ float ex2(float x) {
     float y;
     asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
     return y;
+}
+// Four 8x8 b16 matrices from shared memory into registers (ldmatrix.x4):
+// lane l gives the address of row l % 8 of matrix l / 8, and r[i] holds
+// matrix i in mma.sync's fragment layout (row lane/4, columns 2*(lane%4)
+// and the next).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p))
+                 : "memory");
 }
 // Shared-memory writes by threads become visible to TMA (the async proxy).
 __device__ __forceinline__ void fence_async_smem() {

@@ -1,4 +1,4 @@
-"""FlashAttention-2 on the model's (B, S, H, hd) layout: the CUDA forward
+"""FlashAttention on the model's (B, S, H, hd) layout: the CUDA forward
 kernel of ``csrc/flash_attention.cu`` (ported from
 ``repro/kernels/flash_attention.py:_fwd_kernel``), the dQ and dK/dV kernels
 of ``csrc/flash_attention_bwd.cu`` (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``),
@@ -8,6 +8,17 @@ The Function saves (q, k, v, o, lse) from the forward.  For CUDA tensors its
 forward and backward launch the kernels or raise; for CPU tensors they take
 the plain versions (``kernels/ref.py``).  ``launches``, ``launches_bwd_dq``
 and ``launches_bwd_dkv`` count the three kernels' launches.
+
+The bf16 kernels are persistent Hopper kernels (TMA into a shared-memory
+ring, ``wgmma``, a producer warp and two consumer warpgroups) sharing the
+tiling of ``csrc/flash_common.cuh``.  Their host-side choices are mirrored
+here: the forward's and the dQ kernel's items and their order
+(``chunk_pairs``, ``work_order``), the key tiles an item walks
+(``key_tiles``), the dK/dV kernel's items (``dkv_chunk``,
+``dkv_work_order``) and the query tiles they walk (``query_tiles``), and
+which tiles take the mask (``edge_tile``, ``dkv_edge_tile``);
+``chip_smoke.py`` holds them to the C entries (``flash_fwd_chunk``,
+``flash_bwd_item``, ``flash_bwd_edge``).
 """
 from __future__ import annotations
 
@@ -32,6 +43,14 @@ launches_bwd_dkv = 0
 BLOCK_M = 128
 BLOCK_N = 128
 L2_CHUNK_BYTES = 16 << 20
+# The bf16 backward's (csrc/flash_attention_bwd.cu): the dQ kernel takes the
+# forward's items and order and walks key tiles of DQ_BLOCK_N; a dK/dV item
+# is DKV_BLOCK_N keys of one (b, KV head), whose two warpgroups of 64 keys
+# walk the DKV_BLOCK_M-row query tiles of each of the G query heads.
+DQ_BLOCK_N = 64
+DKV_BLOCK_N = 128
+DKV_BLOCK_M = 64
+WG_ROWS = 64
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -51,40 +70,86 @@ def chunk_pairs(B: int, Hq: int, Hkv: int, Skv: int, hd: int) -> int:
     return _cdiv(per, G) * G
 
 
-def work_order(B: int, Sq: int, Hq: int, chunk: int, causal: bool) -> list[tuple[int, int, int]]:
-    """(q0, h, b) of each item in order (``work_of``): the (b, h) pairs,
-    b-major, in chunks of ``chunk``; within a chunk query tile by query
-    tile, the last (longest) first when causal, then pair by pair."""
-    nq, pairs = _cdiv(Sq, BLOCK_M), B * Hq
+def work_order(B: int, Sq: int, Hq: int, chunk: int, causal: bool,
+               block: int = BLOCK_M) -> list[tuple[int, int, int]]:
+    """(q0, h, b) of each item of ``block`` rows in order (``q_item``): the
+    (b, h) pairs, b-major, in chunks of ``chunk``; within a chunk query tile
+    by query tile, the last (longest) first when causal, then pair by
+    pair."""
+    nq, pairs = _cdiv(Sq, block), B * Hq
     order = []
     for first in range(0, pairs, chunk):
         size = min(chunk, pairs - first)
         for qi in range(nq):
             qt = nq - 1 - qi if causal else qi
-            order += [(qt * BLOCK_M, pair % Hq, pair // Hq)
+            order += [(qt * block, pair % Hq, pair // Hq)
                       for pair in range(first, first + size)]
     return order
 
 
 def key_tiles(q0: int, Sq: int, Skv: int, *, causal: bool, window: int | None,
-              q_offset: int) -> list[int]:
-    """The first key of each tile an item walks (``key_range``), in the
-    order it walks them: from the last tile back to the first."""
+              q_offset: int, block_n: int = BLOCK_N) -> list[int]:
+    """The first key of each tile of ``block_n`` keys that an item of
+    BLOCK_M query rows walks (``key_range``; the dQ kernel's with
+    DQ_BLOCK_N), in the order it walks them: from the last tile back to the
+    first."""
     hi = min(Skv, min(q0 + BLOCK_M, Sq) + q_offset) if causal else Skv
     lo = max(0, q0 + q_offset - window + 1) if window else 0
-    start = lo // BLOCK_N * BLOCK_N
-    n = _cdiv(hi - start, BLOCK_N) if hi > start else 0
-    return [start + (n - 1 - i) * BLOCK_N for i in range(n)]
+    start = lo // block_n * block_n
+    n = _cdiv(hi - start, block_n) if hi > start else 0
+    return [start + (n - 1 - i) * block_n for i in range(n)]
 
 
 def edge_tile(k0: int, r_lo: int, Sq: int, Skv: int, *, causal: bool,
-              window: int | None, q_offset: int) -> bool:
-    """Whether the warpgroup of query rows [r_lo, r_lo + 64) masks key tile
-    k0 (``softmax``: a tile that crosses the Skv edge, the causal diagonal
-    or the window's start); other tiles skip the mask."""
-    r_hi = max(min(r_lo + 64, Sq), r_lo + 1)
-    return (k0 + BLOCK_N > Skv or (causal and k0 + BLOCK_N - 1 > r_lo + q_offset)
+              window: int | None, q_offset: int, block_n: int = BLOCK_N) -> bool:
+    """Whether the warpgroup of query rows [r_lo, r_lo + 64) masks the key
+    tile [k0, k0 + block_n) (``rows_edge``: a tile that crosses the Skv
+    edge, the causal diagonal or the window's start); other tiles skip the
+    mask."""
+    r_hi = max(min(r_lo + WG_ROWS, Sq), r_lo + 1)
+    return (k0 + block_n > Skv or (causal and k0 + block_n - 1 > r_lo + q_offset)
             or bool(window) and k0 <= r_hi - 1 + q_offset - window)
+
+
+def dkv_chunk(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int, sms: int) -> int:
+    """(b, KV head) pairs per chunk of the dK/dV order (``dkv_chunk``): as
+    many as keep their G heads' Q and dO (bf16, hd padded to 16) within
+    L2_CHUNK_BYTES, but at least two waves of items on ``sms`` blocks,
+    spread evenly over the chunks."""
+    pairs = B * Hkv
+    per = max(1, L2_CHUNK_BYTES // max(2 * (Hq // Hkv) * Sq * _cdiv(hd, 16) * 16 * 2, 1))
+    per = max(per, _cdiv(2 * sms, _cdiv(Skv, DKV_BLOCK_N)))
+    return pairs if per >= pairs else _cdiv(pairs, _cdiv(pairs, per))
+
+
+def dkv_work_order(B: int, Hkv: int, Skv: int, chunk: int) -> list[tuple[int, int, int]]:
+    """(k0, hk, b) of each dK/dV item in order (``dkv_work_of``): the
+    (b, hk) pairs, b-major, in chunks of ``chunk``; within a chunk key tile
+    by key tile from the first (under a causal mask the longest), pair by
+    pair."""
+    return work_order(B, Skv, Hkv, chunk, causal=False, block=DKV_BLOCK_N)
+
+
+def query_tiles(k0: int, Sq: int, Skv: int, *, causal: bool, window: int | None,
+                q_offset: int) -> list[int]:
+    """The first row of each DKV_BLOCK_M-row query tile that the dK/dV item
+    of keys [k0, k0 + DKV_BLOCK_N) walks for each query head
+    (``query_range``), in order."""
+    k1 = min(k0 + DKV_BLOCK_N, Skv)
+    lo = max(0, k0 - q_offset) if causal else 0
+    hi = min(Sq, max(0, k1 - 1 + window - q_offset)) if window else Sq
+    start = lo // DKV_BLOCK_M * DKV_BLOCK_M
+    return list(range(start, hi, DKV_BLOCK_M)) if hi > start else []
+
+
+def dkv_edge_tile(q0: int, kw: int, Sq: int, Skv: int, *, causal: bool,
+                  window: int | None, q_offset: int) -> bool:
+    """Whether the warpgroup of keys [kw, kw + 64) masks the query tile
+    [q0, q0 + 64) (``keys_edge``: a tile that crosses the Sq or Skv edge,
+    the causal diagonal or the window's end); other tiles skip the mask."""
+    return (q0 + WG_ROWS > Sq or kw + WG_ROWS > Skv
+            or (causal and kw + WG_ROWS - 1 > q0 + q_offset)
+            or bool(window) and q0 + WG_ROWS - 1 + q_offset - kw >= window)
 
 
 @functools.cache
@@ -116,7 +181,37 @@ def _bwd_lib() -> ctypes.CDLL:
             + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.flash_bwd_item.argtypes = [ctypes.c_int] * 12 + [ctypes.POINTER(ctypes.c_int)]
+    lib.flash_bwd_item.restype = ctypes.c_int
+    lib.flash_bwd_edge.argtypes = [ctypes.c_int] * 8
+    lib.flash_bwd_edge.restype = ctypes.c_int
     return lib
+
+
+def bwd_items_cuda(kernel: str, B: int, Hq: int, Hkv: int, Sq: int, Skv: int, hd: int,
+                   sms: int, *, causal: bool, window: int | None,
+                   q_offset: int) -> list[tuple]:
+    """The records of every item of the bf16 ``"dq"`` or ``"dkv"`` kernel on
+    ``sms`` SMs in the order the library takes them, (q0, h, b, kstart,
+    ntiles) or (k0, hk, b, qstart, nq) (to hold the mirrors to it on the
+    card)."""
+    fn, code = _bwd_lib().flash_bwd_item, {"dq": 0, "dkv": 1}[kernel]
+    args = (B, Hq, Hkv, Sq, Skv, hd, int(causal), window or 0, q_offset, sms)
+    out = (ctypes.c_int * 5)()
+    records = []
+    for item in range(fn(code, -1, *args, out)):
+        fn(code, item, *args, out)
+        records.append(tuple(out))
+    return records
+
+
+def bwd_edge_cuda(kernel: str, a: int, b: int, Sq: int, Skv: int, *, causal: bool,
+                  window: int | None, q_offset: int) -> bool:
+    """Whether the library's ``"dq"`` kernel masks the key tile from ``b`` for
+    the query rows from ``a``, or its ``"dkv"`` kernel the query tile from
+    ``b`` for the keys from ``a``."""
+    return bool(_bwd_lib().flash_bwd_edge({"dq": 0, "dkv": 1}[kernel], a, b, Sq, Skv,
+                                          int(causal), window or 0, q_offset))
 
 
 def _head_contiguous(t: torch.Tensor) -> torch.Tensor:

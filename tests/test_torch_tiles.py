@@ -1,12 +1,13 @@
-"""The host-side choices of the bf16 flash forward, swiglu, gelu_mlp and
-cross-entropy kernels, as their Python mirrors state them
-(``kernels/flash_attention.py``, ``kernels/swiglu.py``,
+"""The host-side choices of the bf16 flash forward and backward (dQ,
+dK/dV), swiglu, gelu_mlp and cross-entropy kernels, as their Python mirrors
+state them (``kernels/flash_attention.py``, ``kernels/swiglu.py``,
 ``kernels/gelu_mlp.py``, ``kernels/cross_entropy.py``, and the GEMM tile
 order they share in ``kernels/tiling.py``; ``chip_smoke.py``
 holds each mirror to its C entry on the card): for every config's serve
 and train shapes, each output tile or work item is covered exactly once,
-in the order the kernels take them, and the tiles the flash kernel walks
-without its mask see only visible (query, key) pairs.  The cross-entropy
+in the order the kernels take them, every (query, key) pair the mask lets
+through lies in a tile the flash kernels walk, and the tiles they walk
+without the mask see only visible pairs.  The cross-entropy
 kernel's per-tile (max, sumexp) partials and their merge, in float64, equal
 the plain version's lse and label logit."""
 import numpy as np
@@ -146,6 +147,82 @@ def test_flash_key_tiles_and_unmasked_tiles(Sq, Skv, causal, window, q_offset):
                 if not fa.edge_tile(k0, r_lo, Sq, Skv, causal=causal, window=window,
                                     q_offset=q_offset):
                     assert k0 + fa.BLOCK_N <= Skv and wg[:, k0:k0 + fa.BLOCK_N].all(), (r_lo, k0)
+
+
+@pytest.mark.parametrize("arch", FLASH_CONFIGS)
+def test_flash_bwd_work_orders_cover_each_item_once(arch):
+    """At the train microbatch (4 x 2048 tokens, causal): the dQ kernel's
+    items (the forward's order) and the dK/dV kernel's (k0, KV head, b)
+    items each once; the dK/dV items in chunks of (b, KV head) pairs whose
+    Q and dO fit the L2 budget unless two waves of items need more, the
+    longest first within each chunk (G heads times the query tiles that
+    see their keys), so a chunk's longest starts first."""
+    cfg = all_configs()[arch]
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S = 4, 2048
+    order = fa.work_order(B, S, Hq, fa.chunk_pairs(B, Hq, Hkv, S, hd), causal=True)
+    items = {(q0, h, b) for q0 in range(0, S, fa.BLOCK_M) for h in range(Hq) for b in range(B)}
+    assert len(order) == len(items) and set(order) == items
+    chunk = fa.dkv_chunk(B, Hq, Hkv, S, S, hd, H100_SMS)
+    pairs, nk, G = B * Hkv, S // fa.DKV_BLOCK_N, Hq // Hkv
+    pair_bytes = 2 * G * S * (-(-hd // 16) * 16) * 2
+    assert (chunk == pairs or chunk * pair_bytes <= fa.L2_CHUNK_BYTES
+            or (chunk - 1) * nk < 2 * H100_SMS)
+    assert chunk == pairs or chunk * nk >= H100_SMS        # two waves, spread evenly
+    order = fa.dkv_work_order(B, Hkv, S, chunk)
+    items = {(k0, hk, b) for k0 in range(0, S, fa.DKV_BLOCK_N) for hk in range(Hkv)
+             for b in range(B)}
+    assert len(order) == len(items) and set(order) == items
+    for first in range(0, len(order), chunk * nk):
+        lengths = [G * len(fa.query_tiles(k0, S, S, causal=True, window=None, q_offset=0))
+                   for k0, _, _ in order[first:first + chunk * nk]]
+        assert lengths == sorted(lengths, reverse=True) and lengths[0] == G * S // 64
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window,q_offset", FLASH_MASK_CASES,
+                         ids=lambda v: str(v))
+def test_flash_bwd_tiles_and_unmasked_tiles(Sq, Skv, causal, window, q_offset):
+    """Both backward kernels: every (query, key) pair the reference mask
+    lets through lies in a tile the dQ item of its query rows walks and in
+    one the dK/dV item of its key walks; every tile a warpgroup walks
+    without the mask holds only pairs it lets through; the dK/dV items come
+    longest first where the order promises it (causal, and no window or
+    q_offset <= 0, as in a train step: with a window and a positive
+    q_offset the first key tiles are seen by fewer rows)."""
+    mask = _attention_mask(Sq, Skv, "cpu", causal=causal, sliding_window=window,
+                           q_offset=q_offset)
+    mask = torch.ones(Sq, Skv, dtype=torch.bool) if mask is None else mask
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    for q0 in range(0, Sq, fa.BLOCK_M):             # dQ: key tiles of 64
+        starts = fa.key_tiles(q0, Sq, Skv, block_n=fa.DQ_BLOCK_N, **kw)
+        walked = torch.zeros(Skv, dtype=torch.bool)
+        for k0 in starts:
+            walked[k0:k0 + fa.DQ_BLOCK_N] = True
+        assert not (mask[q0:q0 + fa.BLOCK_M] & ~walked).any(), q0
+        assert len(set(starts)) == len(starts)
+        for r_lo in range(q0, min(q0 + fa.BLOCK_M, Sq), fa.WG_ROWS):
+            wg = mask[r_lo:r_lo + fa.WG_ROWS]
+            for k0 in starts:
+                if not fa.edge_tile(k0, r_lo, Sq, Skv, block_n=fa.DQ_BLOCK_N, **kw):
+                    assert (k0 + fa.DQ_BLOCK_N <= Skv
+                            and wg[:, k0:k0 + fa.DQ_BLOCK_N].all()), (r_lo, k0)
+    lengths = []
+    for k0 in range(0, Skv, fa.DKV_BLOCK_N):        # dK/dV: query tiles of 64
+        starts = fa.query_tiles(k0, Sq, Skv, **kw)
+        walked = torch.zeros(Sq, dtype=torch.bool)
+        for q0 in starts:
+            walked[q0:q0 + fa.DKV_BLOCK_M] = True
+        assert not (mask[:, k0:k0 + fa.DKV_BLOCK_N] & ~walked[:, None]).any(), k0
+        assert len(set(starts)) == len(starts)
+        for kw0 in range(k0, min(k0 + fa.DKV_BLOCK_N, Skv), fa.WG_ROWS):
+            for q0 in starts:
+                if not fa.dkv_edge_tile(q0, kw0, Sq, Skv, **kw):
+                    assert (q0 + fa.DKV_BLOCK_M <= Sq and kw0 + fa.WG_ROWS <= Skv
+                            and mask[q0:q0 + fa.DKV_BLOCK_M, kw0:kw0 + fa.WG_ROWS].all()), (
+                        kw0, q0)
+        lengths.append(len(starts))
+    if causal and (not window or q_offset <= 0):
+        assert lengths == sorted(lengths, reverse=True)
 
 
 @pytest.mark.parametrize("N,tile", [

@@ -1,10 +1,11 @@
-"""A/B of one bf16 GEMM kernel on the card: the port's build of
+"""A/B of one bf16 kernel source on the card: the port's build of
 ``src/repro_torch/csrc/<kernel>.cu`` against another version of that source
-(the same C entry and signature), in one process and in turns (port,
+(the same C entries and signatures), in one process and in turns (port,
 other, other, port), so that both meet the same card, clocks and host.
 
   python3 tools/kernel_ab.py swiglu OTHER.cu
   python3 tools/kernel_ab.py gelu_mlp OTHER.cu --serve gpt-1.4b
+  python3 tools/kernel_ab.py flash_attention_bwd OTHER.cu
                                        (one CUDA card, from the repo root)
 
 OTHER.cu is built with the port's ``nvcc`` flags and
@@ -12,7 +13,8 @@ OTHER.cu is built with the port's ``nvcc`` flags and
 shape of the kernel's timed rows in ``chip_smoke.py`` it prints both
 versions' times (``chip_smoke.Timer``: the median of CUDA-event times with
 the L2 flushed before each launch; each version the mean of its two
-turns), their ratio, and whether their outputs are bit-identical.  With
+turns), their ratio, and whether their outputs are bit-identical; for the
+flash backward each of its two kernels (dQ, dK/dV) apart.  With
 ``--serve ARCH`` it also serves ARCH at full width and depth in bf16
 (``ServeEngine``, 4 slots) and reads the kernel's device time per decode
 tick from ``torch.profiler`` (``chip_smoke._profile``) in the same turns:
@@ -36,13 +38,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-# (N, d, F) of chip_smoke.py's timed rows, and the C entry the wrapper calls
+# chip_smoke.py's timed rows: (N, d, F) of the GEMMs; (B, Hq, Hkv, hd) of
+# the flash backward (causal, 2048 tokens: yi-6b at B = 1 and 4, gpt-1.4b,
+# zamba2)
 SHAPES = {"swiglu": [(512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
                      (256, 4096, 11008), (256, 5120, 8192), (4, 5120, 8192),
                      (256, 7168, 4864), (4, 7168, 4864)],
           "gelu_mlp": [(8192, cs.GPT_D, cs.GPT_F), (256, cs.GPT_D, cs.GPT_F),
-                       (4, cs.GPT_D, cs.GPT_F)]}
-ENTRY = {"swiglu": "swiglu_fwd", "gelu_mlp": "gelu_mlp_fwd"}
+                       (4, cs.GPT_D, cs.GPT_F)],
+          "flash_attention_bwd": [(1, 32, 4, 128), (4, 32, 4, 128),
+                                  (4, cs.GPT_HEADS, cs.GPT_HEADS, cs.GPT_HD), (4, 32, 32, 80)]}
+# the wrapper module, its library loader and the C entries it calls
+WRAPPER = {"swiglu": ("swiglu", "_lib", ("swiglu_fwd",)),
+           "gelu_mlp": ("gelu_mlp", "_lib", ("gelu_mlp_fwd",)),
+           "flash_attention_bwd": ("flash_attention", "_bwd_lib",
+                                   ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))}
 
 
 def build_other(kernel: str, src: Path) -> ctypes.CDLL:
@@ -60,27 +70,59 @@ def build_other(kernel: str, src: Path) -> ctypes.CDLL:
     return lib
 
 
-def in_turns(module, other: ctypes.CDLL, entry: str, measure) -> tuple[float, float]:
+def with_other(kernel: str, module, other: ctypes.CDLL, fn):
+    """``fn()`` with the module's library swapped for ``other``."""
+    _, loader, entries = WRAPPER[kernel]
+    own = getattr(module, loader)
+    for entry in entries:
+        getattr(other, entry).argtypes = getattr(own(), entry).argtypes
+        getattr(other, entry).restype = getattr(own(), entry).restype
+    setattr(module, loader, lambda: other)
+    try:
+        return fn()
+    finally:
+        setattr(module, loader, own)
+
+
+def in_turns(kernel: str, module, other: ctypes.CDLL, measure) -> tuple[float, float]:
     """(port, other): ``measure()`` with the module's library, then the
     other's twice, then the module's; each the mean of its two turns."""
-    own = module._lib
-    getattr(other, entry).argtypes = getattr(own(), entry).argtypes
-    getattr(other, entry).restype = getattr(own(), entry).restype
-
-    def with_other():
-        module._lib = lambda: other
-        try:
-            return measure()
-        finally:
-            module._lib = own
-
     a = measure()
-    b, c = with_other(), with_other()
+    b, c = (with_other(kernel, module, other, measure) for _ in range(2))
     d = measure()
     return (a + d) / 2, (b + c) / 2
 
 
+def flash_bwd_turns(module, other: ctypes.CDLL) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = cs.Timer()
+    for B, Hq, Hkv, hd in SHAPES["flash_attention_bwd"]:
+        q, do = (cs.randn(gen, B, 2048, Hq, hd, dtype=torch.bfloat16) for _ in range(2))
+        k, v = (cs.randn(gen, B, 2048, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+        o, lse = module.flash_attention_fwd_cuda(q, k, v, causal=True)
+        args, grads = module.bwd_args(q, k, v, o, lse, do, causal=True)
+
+        def both():
+            module.launch_bwd_dq(args)
+            module.launch_bwd_dkv(args)
+            return [g.clone() for g in grads]
+
+        same = all(torch.equal(a, b) for a, b in
+                   zip(both(), with_other("flash_attention_bwd", module, other, both)))
+        for name, launch in (("dq", module.launch_bwd_dq), ("dkv", module.launch_bwd_dkv)):
+            port_ms, other_ms = in_turns("flash_attention_bwd", module, other,
+                                         lambda: timer(lambda: launch(args)))
+            cs.emit({"kernel": f"flash_attention_bwd_{name}", "shape": [B, 2048, Hq, Hkv, hd],
+                     "port_ms": port_ms, "other_ms": other_ms,
+                     "port_over_other": port_ms / other_ms, "bit_identical": same})
+        del q, k, v, do, o, lse, args, grads
+        torch.cuda.empty_cache()
+
+
 def kernel_turns(kernel: str, module, other: ctypes.CDLL) -> None:
+    if kernel == "flash_attention_bwd":
+        flash_bwd_turns(module, other)
+        return
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer()
     for N, d, F in SHAPES[kernel]:
@@ -89,14 +131,9 @@ def kernel_turns(kernel: str, module, other: ctypes.CDLL) -> None:
               for _ in range(2 if kernel == "swiglu" else 1)]
         call = getattr(module, f"{kernel}_cuda")
         port_out = call(x, *ws)
-        port_ms, other_ms = in_turns(module, other, ENTRY[kernel],
+        port_ms, other_ms = in_turns(kernel, module, other,
                                      lambda: timer(lambda: call(x, *ws)))
-        own = module._lib
-        module._lib = lambda: other
-        try:
-            same = torch.equal(port_out, call(x, *ws))
-        finally:
-            module._lib = own
+        same = torch.equal(port_out, with_other(kernel, module, other, lambda: call(x, *ws)))
         cs.emit({"kernel": kernel, "shape": [N, d, F], "port_ms": port_ms,
                  "other_ms": other_ms, "port_over_other": port_ms / other_ms,
                  "bit_identical": same})
@@ -125,7 +162,7 @@ def serve_turns(kernel: str, module, other: ctypes.CDLL, arch: str, ticks: int =
         return prof["device_ms_by_group"][group] / ticks
 
     per_tick()                                         # warm both versions up
-    port_ms, other_ms = in_turns(module, other, ENTRY[kernel], per_tick)
+    port_ms, other_ms = in_turns(kernel, module, other, per_tick)
     cs.emit({"kernel": kernel, "serve": arch, "ticks_per_turn": ticks,
              "port_device_ms_per_tick": port_ms, "other_device_ms_per_tick": other_ms,
              "port_over_other": port_ms / other_ms,
@@ -140,6 +177,8 @@ def main() -> int:
     ap.add_argument("--serve", help="also A/B the kernel's device time per decode tick "
                                     "when serving this arch")
     args = ap.parse_args()
+    if args.serve and args.kernel == "flash_attention_bwd":
+        ap.error("--serve: serving runs no backward")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -151,8 +190,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    _build.build_all((args.kernel,))
-    module = importlib.import_module(f"repro_torch.kernels.{args.kernel}")
+    _build.build_all((args.kernel,) if args.kernel != "flash_attention_bwd"
+                     else ("flash_attention", args.kernel))
+    module = importlib.import_module(f"repro_torch.kernels.{WRAPPER[args.kernel][0]}")
     other = build_other(args.kernel, args.other)
     kernel_turns(args.kernel, module, other)
     if args.serve:
