@@ -28,14 +28,16 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      dQ, one query head of each GQA group left out of dK/dV) that must fail
      its limits, and its two launches on the same inputs bit-identical; then
      the kernel / plain / library / bound times, and for the flash forward
-     and backward, swiglu, gelu_mlp and CE the time of the version before
-     the redesign (tools/previous_kernels/, built beside the port's) on the
-     same inputs, in turns;
+     and backward, swiglu, gelu_mlp, CE and the grouped expert MLP the time
+     of the version before the redesign (tools/previous_kernels/, built
+     beside the port's) on the same inputs, in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
-     with masked rows exactly 0.  The SSD scan at zamba2's widths (80 heads
-     of 64, state 64) at its serve prefills (256 tokens, chunk 128; 255,
+     with masked rows exactly 0, a bf16 case with every slot masked, its
+     work list held to the Python mirror and its bf16 times beside the
+     version before its Hopper redesign.  The SSD scan at zamba2's widths
+     (80 heads of 64, state 64) at its serve prefills (256 tokens, chunk 128; 255,
      chunk 1; 96, chunk 32) and the train microbatch (4 x 2048), y and the
      final state; the mamba decode step at 4 slots; both with planted
      faults that must fail their limits; the three flash kernels at hd 80
@@ -79,8 +81,9 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step;
   5. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
-     flash forward and backward, swiglu, gelu_mlp and CE also ``parent_ms``
-     and ``ptxas`` (registers and spills of each bf16 kernel).
+     flash forward and backward, swiglu, gelu_mlp, CE and the grouped
+     expert MLP also ``parent_ms`` and ``ptxas`` (registers and spills of
+     each bf16 kernel).
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -170,14 +173,17 @@ PREVIOUS = {"flash_attention": ("_lib", ("flash_attention_fwd",)),
             "flash_attention_bwd": ("_bwd_lib", ("flash_attention_bwd_dq",
                                                  "flash_attention_bwd_dkv")),
             "swiglu": ("_lib", ("swiglu_fwd",)), "gelu_mlp": ("_lib", ("gelu_mlp_fwd",)),
-            "cross_entropy": ("_lib", ("cross_entropy_fwd",))}
+            "cross_entropy": ("_lib", ("cross_entropy_fwd",)),
+            "grouped_mlp": ("_lib", ("grouped_mlp_fwd",))}
 # their redesigned bf16 kernels, whose registers and spills the kernels
 # line reports (``ptxas -v``)
-REDESIGNED = {"flash_attention": "flash_fwd_bf16_kernel",
-              "flash_attention_bwd_dq": "flash_bwd_dq_bf16_kernel",
-              "flash_attention_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
-              "swiglu": "swiglu_bf16_kernel", "gelu_mlp": "gelu_mlp_bf16_kernel",
-              "cross_entropy": "ce_partial_bf16_kernel"}
+REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
+              "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
+              "flash_attention_bwd_dkv": ("flash_bwd_dkv_bf16_kernel",),
+              "swiglu": ("swiglu_bf16_kernel",), "gelu_mlp": ("gelu_mlp_bf16_kernel",),
+              "cross_entropy": ("ce_partial_bf16_kernel",),
+              "grouped_mlp": ("grouped_live_kernel", "grouped_gate_bf16_kernel",
+                              "grouped_down_bf16_kernel")}
 _PREVIOUS_LIBS: dict = {}
 
 
@@ -218,10 +224,10 @@ def with_previous(name: str, fn):
     """``fn()`` with the kernel module's library swapped for the previous
     version's (same C entries and signatures), so the wrapper launches it."""
     from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
-                                     gelu_mlp as gm, swiglu as sg)
+                                     gelu_mlp as gm, grouped_mlp as gp, swiglu as sg)
 
     module = {"flash_attention": fa, "flash_attention_bwd": fa, "swiglu": sg,
-              "gelu_mlp": gm, "cross_entropy": ce}[name]
+              "gelu_mlp": gm, "cross_entropy": ce, "grouped_mlp": gp}[name]
     loader, entries = PREVIOUS[name]
     own, prev = getattr(module, loader), _PREVIOUS_LIBS[name]
     for entry in entries:
@@ -1206,8 +1212,11 @@ def ce_kernels(timer: Timer, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 # grouped MLP: kernel and plain version differ by (a) the kernel's rounding of
-# h to TF32 for the bf16 down product (to nearest, at most 2^-11 of each
-# value), (b) the order of their fp32 sums over d (the gate, carried to the
+# h for the bf16 down product: h reaches it as two bf16 planes, hi = bf16(h)
+# and lo = bf16(h - hi), whose sum is h to within 2^-16 of it (the kernel
+# before the Hopper redesign rounded h to TF32, at most 2^-11; that TF32
+# term is kept unchanged as an upper bound of (a)), (b) the order of their
+# fp32 sums over d (the gate, carried to the
 # output through the activation's slope, |silu'| <= 1.1, |gelu'| <= 1.13,
 # and w2) and over F (the down product), and (c) in bf16 one ULP between the
 # output roundings.  (a) and (b) add many small independent roundings over F
@@ -1218,12 +1227,13 @@ def ce_kernels(timer: Timer, gen) -> dict:
 # terms summed on each side.  The check allows GROUPED_SIGMAS of those rms;
 # over the ~10^6 outputs of a case a sound kernel's largest reading is near
 # 5.5 of them.  Three planted faults must fail the same limit at the full
-# widths: h rounded to bf16 in place of TF32 (2^-8), and the first 32-wide
-# k-tile of the gate's or of the down product's sum left out.
+# widths: h rounded to bf16 (hi alone, 2^-8), and the first 32-wide k-tile of
+# the gate's or of the down product's sum left out.
 GROUPED_SIGMAS = 8.0
 GROUPED_TF32_RMS = 2.0 ** -11 / 3 ** 0.5
 GROUPED_SUM_RMS = 2.0 ** -24 * 2 ** 0.5          # times sqrt(n)
-GROUPED_WHY = ("bf16: h rounded to TF32 for the down product; fp32 sums in another "
+GROUPED_WHY = ("bf16: h into the down product as bf16 hi + lo (within 2^-16), bounded "
+               "by the TF32 rounding (2^-11) the term keeps; fp32 sums in another "
                "order over d and F; each as 8 rms of its spread (the RSS of its "
                "rounded terms); bf16: one ULP between the output roundings")
 GROUPED_FAULTS = ("h rounded to bf16", "gate k-tile 0 skipped", "down k-tile 0 skipped")
@@ -1326,9 +1336,10 @@ def grouped_bmm(x, w1, w3, w2, mask, act: str) -> torch.Tensor:
 
 
 def grouped_row(timer: Timer, err: float, x, w1, w3, w2, mask, act: str) -> dict:
-    """The timed row of a bf16 case: the bound counts the weights of the
-    experts with a valid slot, x and the output, or the FLOPs of the valid
-    slots."""
+    """The timed row of a bf16 case, with the version before the Hopper
+    redesign (``parent_ms``) on the same inputs in turns: the bound counts
+    the weights of the experts with a valid slot, x and the output, or the
+    FLOPs of the valid slots."""
     from repro_torch.kernels import grouped_mlp as gp
     from repro_torch.kernels.ref import grouped_mlp_ref
 
@@ -1339,9 +1350,11 @@ def grouped_row(timer: Timer, err: float, x, w1, w3, w2, mask, act: str) -> dict
     valid = int(mask.ne(0).sum())
     b, by = bound_ms(live * n_w * d * F_ * 2 + 2 * x.numel() * 2 + mask.numel() * 4,
                      2 * valid * n_w * d * F_, x.dtype)
+    ms, parent_ms = timed_with_parent(timer, "grouped_mlp",
+                                      lambda: gp.grouped_mlp_cuda(x, w1, w3, w2, mask, act))
     return {"shape": f"x ({E}, {N}, {d}), F {F_}, {act}, bf16", "experts_with_a_slot": live,
             "valid_slots": valid, "max_abs_err": err, "sigmas": GROUPED_SIGMAS,
-            "ms": timer(lambda: gp.grouped_mlp_cuda(x, w1, w3, w2, mask, act)),
+            "ms": ms, "parent_ms": parent_ms, "share_of_bound": b / ms,
             "plain_ms": timer(lambda: grouped_mlp_ref(x, w1, w3, w2, mask, act)),
             "library_ms": timer(lambda: grouped_bmm(x, w1, w3, w2, mask, act)),
             "library_call": "torch.bmm composition over all experts (bmm, silu, mul, "
@@ -1357,12 +1370,17 @@ def phase_kernels_moe(timer: Timer) -> dict:
     with the gelu body; each of these also holds GROUPED_FAULTS, planted in
     the plain version, to fail the same limit.  Then reduced fp32 and bf16
     cases with ragged N and F, an expert with no valid slot and a live expert
-    with a whole masked 64-row tile."""
+    with a whole masked 64-row tile, and a bf16 case with every slot masked.
+    At each bf16 mask the C entry's work list is held to its Python mirror
+    (``tiling.grouped_order``), and at decode two launches must be
+    bit-identical."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_mlp as gp
     from repro_torch.models.moe import moe_capacity
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     timed = []
+    orders = 0
     for arch, acts in ((LLAMA4, ("swiglu",)), (ARCTIC, ("swiglu", "gelu"))):
         cfg = get_config(arch)
         E, d, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -1380,6 +1398,11 @@ def phase_kernels_moe(timer: Timer) -> dict:
                 w3a = w3 if act == "swiglu" else None
                 name = f"grouped {arch} {what} {act} bf16 (E {E}, N {G * C}, d {d}, F {F_})"
                 err = check_grouped(name, x, w1, w3a, w2, mask, act, planted=True)
+                orders += check_grouped_order(mask, d, F_)
+                if what == "decode":
+                    first = gp.grouped_mlp_cuda(x, w1, w3a, w2, mask, act)
+                    if not torch.equal(first, gp.grouped_mlp_cuda(x, w1, w3a, w2, mask, act)):
+                        raise AssertionError(f"{name}: two launches differ")
                 timed.append({"case": f"{arch} {what}",
                               **grouped_row(timer, err, x, w1, w3a, w2, mask, act)})
         del w1, w3, w2
@@ -1399,7 +1422,34 @@ def phase_kernels_moe(timer: Timer) -> dict:
                 mask[0, 64:128] = 0
                 check_grouped(f"grouped {act} {tag} ragged (E {E}, N {N}, d {d}, F {F_})",
                               x, w1, w3, w2, mask, act)
+                if dtype == torch.bfloat16:
+                    orders += check_grouped_order(mask, d, F_)
+    # every slot masked: no live expert, no item, the output all zeros
+    x = randn(gen, 4, 37, 256, dtype=torch.bfloat16)
+    w1, w3 = (randn(gen, 4, 256, 520, dtype=torch.bfloat16, scale=256 ** -0.5) for _ in range(2))
+    w2 = randn(gen, 4, 520, 256, dtype=torch.bfloat16, scale=520 ** -0.5)
+    mask = torch.zeros(4, 37, device="cuda")
+    check_grouped("grouped swiglu bf16 every slot masked (E 4, N 37, d 256, F 520)",
+                  x, w1, w3, w2, mask, "swiglu")
+    orders += check_grouped_order(mask, 256, 520)
+    emit({"phase": "kernel_check", "case": "grouped work list agrees with its mirror",
+          "masks_and_widths": orders})
     return {"grouped_mlp": {**timed[0], "cases": timed[1:]}}
+
+
+def check_grouped_order(mask: torch.Tensor, d: int, F_: int) -> int:
+    """The bf16 grouped kernels' work items from the (E, N) mask on the card
+    (``grouped_mlp_items``: the prologue's live row tiles, then GroupedTiles'
+    order) equal ``tiling.grouped_order`` for the gate (F columns) and the
+    down product (d)."""
+    from repro_torch.kernels import grouped_mlp as gp, tiling
+
+    for cols in (F_, d):
+        got, want = gp.grouped_items_cuda(mask, cols), tiling.grouped_order(mask.cpu(), cols)
+        if got != want:
+            raise AssertionError(f"grouped work list {tuple(mask.shape)}, {cols} columns: C "
+                                 f"{got[:6]}... ({len(got)}), mirror {want[:6]}... ({len(want)})")
+    return 2
 
 
 # ---------------------------------------------------------------------------
@@ -2712,9 +2762,10 @@ def main() -> int:
          "replaces": replaces,
          "launches": next(by_path[name][p] for p in order if p in by_path[name]),
          "launches_by_path": by_path[name], **rows[name], "card": card,
-         **({"ptxas": ptxas_summary(report[src[:-3]]["log"]
-                                    or _build.lib_path(src[:-3]).with_suffix(".log").read_text(),
-                                    REDESIGNED[name])} if name in REDESIGNED else {})}
+         **({"ptxas": {k: v for kernel in REDESIGNED[name] for k, v in ptxas_summary(
+             report[src[:-3]]["log"]
+             or _build.lib_path(src[:-3]).with_suffix(".log").read_text(), kernel).items()}}
+            if name in REDESIGNED else {})}
         for name, (src, replaces) in KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

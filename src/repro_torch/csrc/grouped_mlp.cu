@@ -2,52 +2,65 @@
 //   out_e = mask_e * (act(mask_e * x_e) @ w2_e),
 //   act(x) = silu(x @ w1_e) * (x @ w3_e)   (swiglu)  or  gelu_tanh(x @ w1_e)   (gelu),
 // over the expert-major slot layout x (E, N, d), w1/w3 (E, d, F), w2 (E, F, d),
-// mask (E, N) in {0, 1}: masked slots go in as zero rows and come out as zeros.
+// mask (E, N) in {0, 1}: masked slots come out as zeros.
 //
 // Replaces: repro/kernels/grouped_mlp.py:_swiglu_kernel and _gelu_kernel (via
 //   _fwd_pallas): both bodies, fp32 math inside, the silu gate or the tanh
 //   GELU with the reference's constants (0.7978845608028654 = sqrt(2/pi),
 //   0.044715, as csrc/gelu_mlp.cu), cast to x's dtype.
 // Bound on the H100: serving routes a few tokens to each of 128 experts, so
-//   N is 1-5 slots at prefill and 4 at decode and the experts' weights bound
-//   it (bytes); only the experts that hold a valid slot need to be read,
-//   which at decode is 4 (top-1) or 8 (top-2) of 128.
-// Design: two kernels from one entry.  The TPU body keeps an expert's whole
-//   (d, F) weights and the (rows, F) activation h in VMEM; on the H100 h of a
-//   64-row tile at F 8192 is 2 MB in fp32, far beyond shared memory, so h
-//   goes through an fp32 (E, N, F) scratch in device memory:
-//   - the gate kernel, grid (F tiles, N tiles, E): csrc/swiglu.cu's and
-//     csrc/gelu_mlp.cu's 64 x 64 wmma tile (bf16 in, fp32 accumulate) at an
-//     expert's offset, the x rows scaled by their mask on load, the
-//     activation on the fp32 accumulators, h stored in fp32;
-//   - the down kernel, grid (d tiles, N tiles, E): h @ w2 on wmma in TF32
-//     (m16n16k8, fp32 accumulate), times the mask, stored in x's dtype.  h
-//     stays fp32 as in the TPU body and is rounded only to TF32 (2^-11 of
-//     each value) where bf16 would round it to 2^-8; the bf16 weights are
-//     exact in TF32.  TF32 runs at half bf16's rate, which costs nothing
-//     here: the weight bytes bound the kernel at the path's N.
-//   A block whose 64 slots are all masked returns at once (the down kernel
-//   writes its zeros first), so an expert with no valid slot is never read:
-//   that keeps decode near the bytes of the 4 or 8 experts it needs.
-//   fp32 runs both products on FFMA (no TF32) in one 64 x 64 tile template.
-//   This is the simple first version: no cp.async/TMA pipelining, no wgmma,
-//   no persistent grouped schedule, and a 64-row tile does 13-64x the
-//   tensor-core work that N <= 5 valid rows need.
+//   N is 1-5 slots at prefill and 4 at decode and the weights of the experts
+//   that hold a valid slot bound it (bytes): 111 of 128 experts, 27.9 GB, at
+//   llama4-maverick's 256-token prefill; 4 (top-1) or 8 (top-2) at decode.
+//   A 64-row wgmma tile over them does about 1.8 TFLOP, ~1.8 ms of tensor
+//   time against 8.3 ms of bytes.
+// Design (bf16): three launches from one entry, no host sync.
+//   - A prologue kernel lists, on the device, the (expert, 64-row tile)
+//     pairs that hold a valid slot ("live" row tiles, ascending, after
+//     their count) and writes the output rows of every other row tile as
+//     zeros, so that a dead expert's weights are never read.
+//   - The gate and the down product are the persistent, warp-specialised
+//     TMA + wgmma tile of csrc/tma_gemm.cuh in its weight-streaming shape
+//     (64 rows, one consumer warpgroup, weights loaded evict-first) over
+//     GroupedTiles: work items (live row tile, 128-column tile), read from
+//     the list by every block, so the grid is as many blocks as fit
+//     whatever the count.  128 columns are two adjacent 64-column boxes, so
+//     each weight row is read 256 contiguous bytes at a time: with one box
+//     (128 bytes) the same kernel took 1.41x as long at llama4's prefill,
+//     65% of the byte bound against 91% (NVIDIA H100 80GB HBM3, 700 W;
+//     tools/kernel_ab.py grouped_mlp against the 64-column variant).
+//     Operands are 3-D tensor maps (E, rows, cols), one per operand and
+//     call, so TMA's zero fill of rows past N, of columns past F or d and
+//     of K past d or F stops at each expert's edge (a 2-D map over the
+//     stacked experts would read the next expert's rows where d or F is not
+//     a multiple of 64).
+//   - The gate: x @ w1 (and x @ w3) into fp32 accumulators, the activation
+//     in the epilogue; masked rows give h = 0 (for m in {0, 1} the same as
+//     scaling x's rows).  h is stored as two bf16 planes, hi = bf16(h) and
+//     lo = bf16(h - hi), in the (E, N, F) fp32 scratch byte for byte: hi +
+//     lo is h to within 2^-16 of it (bf16 alone 2^-8, TF32 2^-11).
+//   - The down product: wgmma with both planes as A operands against each
+//     stage of w2 into one fp32 accumulator (tma_gemm's NA = 2), so w2 is
+//     read once, in bf16 (no TF32, no fp32 copy in shared memory); the
+//     epilogue multiplies by the mask and stores bf16.
+//   Each output is one block's fp32 sum in a fixed order (no atomics, no
+//   split of K), so repeated launches are bit-identical.  Outputs are
+//   written by direct bf16-pair stores: at N <= 5 a 64-row box would stage
+//   59 empty rows for each real one, and h and the output are 0.1% of the
+//   bytes.  d and F must be multiples of 8 (TMA's 16-byte strides).
+//   fp32: both products on FFMA (no TF32) in one 64 x 64 tile template with
+//   synchronous loads, h in fp32 in the scratch; a 64-slot tile with no
+//   valid slot returns at once (the down kernel writes its zeros).
 #include "common.cuh"
-#include <mma.h>
+#include "tma_gemm.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
 enum { ACT_SWIGLU = 0, ACT_GELU = 1, DOWN = 2 };
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int XS_LD = BK + 8;   // bf16 elements; row pitch 80 B
-constexpr int WS_LD = BN + 8;   // bf16 elements; row pitch 144 B
-constexpr int HS_LD = BK + 4;   // fp32 elements; row pitch 144 B
-constexpr int CS_LD = BN + 4;   // fp32 elements; row pitch 272 B
+constexpr int BM = 64, BN = 64;   // the fp32 tile; BM is also the bf16 row tile
 
 __device__ __forceinline__ float silu(float a) { return a / (1.f + expf(-a)); }
 
@@ -55,6 +68,223 @@ __device__ __forceinline__ float gelu_tanh(float a) {
     const float u = 0.7978845608028654f * (a + 0.044715f * a * a * a);
     return 0.5f * a * (1.f + tanhf(u));
 }
+
+// ---------------------------------------------------------------------------
+// bf16: the live row tiles, then csrc/tma_gemm.cuh's tile over them
+// ---------------------------------------------------------------------------
+
+constexpr int LIVE_THREADS = 256;
+
+// Block t of E * ceil(N / 64) is row tile t % T of expert t / T: with no
+// valid slot, its output rows are written as zeros (`out` may be null: the
+// mirror's entry lists without writing).  Block 0 also writes the list:
+// live[0] the count, live[1..] the live row tiles (expert * T + row tile)
+// in ascending order.
+__global__ void __launch_bounds__(LIVE_THREADS)
+grouped_live_kernel(const float* __restrict__ mask, int* __restrict__ live,
+                    bf16* __restrict__ out, int E, int N, int d) {
+    const int T = tma_gemm::cdiv(N, BM), tid = threadIdx.x;
+    if (out != nullptr) {
+        const int e = blockIdx.x / T, r0 = blockIdx.x % T * BM, r1 = min(N, r0 + BM);
+        int any = 0;
+        for (int r = r0 + tid; r < r1; r += LIVE_THREADS) any |= mask[(size_t)e * N + r] != 0.f;
+        if (!__syncthreads_or(any)) {
+            uint4* o = reinterpret_cast<uint4*>(out + ((size_t)e * N + r0) * d);
+            const size_t n = (size_t)(r1 - r0) * d / 8;
+            for (size_t i = tid; i < n; i += LIVE_THREADS) o[i] = make_uint4(0, 0, 0, 0);
+        }
+    }
+    if (blockIdx.x != 0) return;
+    __shared__ int warp_live[LIVE_THREADS / 32];
+    __shared__ int count;
+    const int warp = tid / 32, lane = tid % 32;
+    if (tid == 0) count = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < E * T; i0 += LIVE_THREADS) {
+        const int i = i0 + tid;
+        bool on = false;
+        if (i < E * T) {
+            const float* m = mask + (size_t)(i / T) * N;
+            for (int r = i % T * BM, r1 = min(N, r + BM); r < r1 && !on; ++r) on = m[r] != 0.f;
+        }
+        const unsigned ballot = __ballot_sync(0xffffffffu, on);
+        if (lane == 0) warp_live[warp] = __popc(ballot);
+        __syncthreads();
+        int before = count;
+        for (int w = 0; w < warp; ++w) before += warp_live[w];
+        if (on) live[1 + before + __popc(ballot & ((1u << lane) - 1))] = i;
+        __syncthreads();
+        if (tid == 0)
+            for (int w = 0; w < LIVE_THREADS / 32; ++w) count += warp_live[w];
+        __syncthreads();
+    }
+    if (tid == 0) live[0] = count;
+}
+
+constexpr int COLS = 128;   // the bf16 column tile: two 64-column boxes
+
+// The tile list of the gate (cols = F) or the down product (cols = d).
+__device__ __forceinline__ tma_gemm::GroupedTiles grouped_tiles(const int* live, int N,
+                                                                int cols) {
+    return {live + 1, live[0], tma_gemm::cdiv(N, BM), tma_gemm::cdiv(cols, COLS)};
+}
+
+using tma_gemm::Cfg;
+// (rows, columns, products, stages, blocks an SM, staging, weights streamed,
+// A planes): one warpgroup of 64 rows by 128 columns, one block an SM with
+// about 200 KB of stages: 160 KB of weights in flight on each SM for the
+// gate (5 stages of 32 KB of w1 and w3), 128 KB for gelu's (8 of 16 KB of
+// w1), 96 KB of w2 beside h's two planes for the down product (6 stages).
+template <int NB>
+using GateCfg = Cfg<BM, COLS, NB, NB == 2 ? 5 : 8, 1, 0, true>;   // 40 or 24 KB a stage
+using DownCfg = Cfg<BM, COLS, 1, 6, 1, 0, true, 2>;                // 32 KB a stage
+
+// The gate's epilogue: h = act(a [, b]) in fp32 (0 on a masked row), stored
+// as bf16 hi and lo planes, rows past N and columns past F skipped.
+template <int ACT>
+struct GateStore {
+    const float* mask;
+    bf16 *hi, *lo;
+    int N, F;
+
+    template <int NB, int ACC>
+    __device__ __forceinline__ void operator()(float (&acc)[NB][ACC], int m0, int n0, int t,
+                                               unsigned char*, int e) const {
+        const int lane = t % 32;
+        const int row0 = m0 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * r;
+            if (row >= N) continue;
+            const bool valid = mask[(size_t)e * N + row] != 0.f;
+            const size_t base = ((size_t)e * N + row) * F;
+#pragma unroll
+            for (int j = 0; j < ACC / 4; ++j) {
+                const int col = n0 + 8 * j + 2 * (lane % 4);
+                if (col >= F) continue;                  // F is even: col + 1 < F
+                const int i = 4 * j + 2 * r;
+                float h0 = 0.f, h1 = 0.f;
+                if (valid) {
+                    h0 = ACT == ACT_SWIGLU ? silu(acc[0][i]) * acc[NB - 1][i] : gelu_tanh(acc[0][i]);
+                    h1 = ACT == ACT_SWIGLU ? silu(acc[0][i + 1]) * acc[NB - 1][i + 1]
+                                           : gelu_tanh(acc[0][i + 1]);
+                }
+                const __nv_bfloat162 h2 = __floats2bfloat162_rn(h0, h1);
+                const float2 back = __bfloat1622float2(h2);
+                *reinterpret_cast<__nv_bfloat162*>(hi + base + col) = h2;
+                *reinterpret_cast<__nv_bfloat162*>(lo + base + col) =
+                    __floats2bfloat162_rn(h0 - back.x, h1 - back.y);
+            }
+        }
+    }
+};
+
+// The down product's epilogue: mask * acc in bf16 (exactly 0 on a masked
+// row), rows past N and columns past d skipped.
+struct DownStore {
+    const float* mask;
+    bf16* out;
+    int N, d;
+
+    template <int NB, int ACC>
+    __device__ __forceinline__ void operator()(float (&acc)[NB][ACC], int m0, int n0, int t,
+                                               unsigned char*, int e) const {
+        const int lane = t % 32;
+        const int row0 = m0 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = row0 + 8 * r;
+            if (row >= N) continue;
+            const float m = mask[(size_t)e * N + row];
+            bf16* orow = out + ((size_t)e * N + row) * d;
+#pragma unroll
+            for (int j = 0; j < ACC / 4; ++j) {
+                const int col = n0 + 8 * j + 2 * (lane % 4);
+                if (col >= d) continue;
+                const int i = 4 * j + 2 * r;
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                    m != 0.f ? __floats2bfloat162_rn(acc[0][i] * m, acc[0][i + 1] * m)
+                             : __floats2bfloat162_rn(0.f, 0.f);
+            }
+        }
+    }
+};
+
+template <class C, int ACT>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+grouped_gate_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap w1map,
+                         const __grid_constant__ CUtensorMap w3map,
+                         const float* __restrict__ mask, const int* __restrict__ live,
+                         bf16* __restrict__ hi, bf16* __restrict__ lo, int N, int d, int F) {
+    const GateStore<ACT> epi{mask, hi, lo, N, F};
+    if constexpr (ACT == ACT_SWIGLU)
+        tma_gemm::run_tiles<C>(grouped_tiles(live, N, F), {&xmap}, {&w1map, &w3map}, d, epi);
+    else
+        tma_gemm::run_tiles<C>(grouped_tiles(live, N, F), {&xmap}, {&w1map}, d, epi);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+grouped_down_bf16_kernel(const __grid_constant__ CUtensorMap himap,
+                         const __grid_constant__ CUtensorMap lomap,
+                         const __grid_constant__ CUtensorMap w2map,
+                         const float* __restrict__ mask, const int* __restrict__ live,
+                         bf16* __restrict__ out, int N, int d, int F) {
+    tma_gemm::run_tiles<C>(grouped_tiles(live, N, d), {&himap, &lomap}, {&w2map}, F,
+                           DownStore{mask, out, N, d});
+}
+
+// Writes, for each tile index below max_tiles, the (expert, row tile,
+// column tile) that GroupedTiles gives it, or -1s past the list's end.
+__global__ void grouped_items_kernel(const int* __restrict__ live, int* __restrict__ items,
+                                     int N, int cols, int max_tiles) {
+    const tma_gemm::GroupedTiles tl = grouped_tiles(live, N, cols);
+    for (int tile = blockIdx.x * blockDim.x + threadIdx.x; tile < max_tiles;
+         tile += gridDim.x * blockDim.x) {
+        int e = -1, tm = -1, tn = -1;
+        if (tile < tl.count()) tl.at(tile, e, tm, tn);
+        items[3 * tile] = e;
+        items[3 * tile + 1] = tm;
+        items[3 * tile + 2] = tn;
+    }
+}
+
+template <int ACT>
+cudaError_t launch_bf16(const void* x, const void* w1, const void* w3, const void* w2,
+                        const float* mask, float* h, void* out, int E, int N, int d, int F,
+                        cudaStream_t s) {
+    using G = GateCfg<ACT == ACT_SWIGLU ? 2 : 1>;
+    const int T = tma_gemm::cdiv(N, BM);
+    bf16* hi = reinterpret_cast<bf16*>(h);
+    bf16* lo = hi + (size_t)E * N * F;
+    int* live = reinterpret_cast<int*>(h + (size_t)E * N * F);
+    grouped_live_kernel<<<E * T, LIVE_THREADS, 0, s>>>(mask, live, static_cast<bf16*>(out),
+                                                        E, N, d);
+    cudaError_t err = cudaGetLastError();
+    CUtensorMap xm, w1m, w3m, him, lom, w2m;
+    if (err == cudaSuccess) err = tma_gemm::make_map_3d(&xm, x, E, N, d, BM);
+    if (err == cudaSuccess) err = tma_gemm::make_map_3d(&w1m, w1, E, d, F, tma_gemm::BK);
+    if (err == cudaSuccess && ACT == ACT_SWIGLU)
+        err = tma_gemm::make_map_3d(&w3m, w3, E, d, F, tma_gemm::BK);
+    if (err == cudaSuccess) err = tma_gemm::make_map_3d(&him, hi, E, N, F, BM);
+    if (err == cudaSuccess) err = tma_gemm::make_map_3d(&lom, lo, E, N, F, BM);
+    if (err == cudaSuccess) err = tma_gemm::make_map_3d(&w2m, w2, E, F, d, tma_gemm::BK);
+    if (err != cudaSuccess) return err;
+    if (ACT != ACT_SWIGLU) w3m = w1m;   // not read
+    err = tma_gemm::launch_persistent<G>(grouped_gate_bf16_kernel<G, ACT>,
+                                         (long long)E * T * tma_gemm::cdiv(F, COLS), s, xm, w1m,
+                                         w3m, mask, live, hi, lo, N, d, F);
+    if (err != cudaSuccess) return err;
+    return tma_gemm::launch_persistent<DownCfg>(grouped_down_bf16_kernel<DownCfg>,
+                                                (long long)E * T * tma_gemm::cdiv(d, COLS), s,
+                                                him, lom, w2m, mask, live,
+                                                static_cast<bf16*>(out), N, d, F);
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FFMA
+// ---------------------------------------------------------------------------
 
 // Loads the mask of slots n0 .. n0+BM-1 (0 past N) into ms; true, in every
 // thread, when any of them is valid.  Also the barrier that publishes ms.
@@ -67,205 +297,6 @@ __device__ __forceinline__ bool load_tile_mask(const float* __restrict__ mask_e,
         live |= m != 0.f;
     }
     return __syncthreads_or(live);
-}
-
-// The gate: h[e, n0:n0+64, f0:f0+64] = act(mask * x_e @ w1_e [, w3_e]) in fp32.
-template <int ACT>
-__global__ void __launch_bounds__(128)
-grouped_gate_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                         const bf16* __restrict__ w3, const float* __restrict__ mask,
-                         float* __restrict__ h, int N, int d, int F) {
-    constexpr int NW = ACT == ACT_SWIGLU ? 2 : 1;
-    __shared__ float ms[BM];
-    __shared__ __align__(32) bf16 xs[BM * XS_LD];
-    __shared__ __align__(32) bf16 ws[NW][BK * WS_LD];
-    __shared__ __align__(32) float cs[BM * CS_LD];
-
-    const int e = blockIdx.z, n0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
-    if (!load_tile_mask(mask + (size_t)e * N, n0, N, ms)) return;
-    x += (size_t)e * N * d;
-    w1 += (size_t)e * d * F;
-    if (ACT == ACT_SWIGLU) w3 += (size_t)e * d * F;
-    h += (size_t)e * N * F;
-
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;   // 2 x 2 warps
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2][2];
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[w][i][j], 0.f);
-
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int k0 = 0; k0 < d; k0 += BK) {
-        for (int i = tid; i < BM * BK / 8; i += blockDim.x) {
-            const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-            uint4 v = zero;
-            const float m = ms[r];
-            if (m != 0.f && k0 + c < d) {
-                v = *reinterpret_cast<const uint4*>(x + (size_t)(n0 + r) * d + k0 + c);
-                if (m != 1.f) {
-                    bf16* b = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-                    for (int t = 0; t < 8; ++t) b[t] = __float2bfloat16(__bfloat162float(b[t]) * m);
-                }
-            }
-            *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = v;
-        }
-        for (int i = tid; i < BK * BN / 8; i += blockDim.x) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            const bool ok = k0 + r < d && f0 + c < F;
-            const size_t off = (size_t)(k0 + r) * F + f0 + c;
-            *reinterpret_cast<uint4*>(ws[0] + r * WS_LD + c) =
-                ok ? *reinterpret_cast<const uint4*>(w1 + off) : zero;
-            if (ACT == ACT_SWIGLU)
-                *reinterpret_cast<uint4*>(ws[NW - 1] + r * WS_LD + c) =
-                    ok ? *reinterpret_cast<const uint4*>(w3 + off) : zero;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], xs + (wm + i * 16) * XS_LD + kk, XS_LD);
-#pragma unroll
-            for (int w = 0; w < NW; ++w) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::load_matrix_sync(fb[j], ws[w] + kk * WS_LD + wn + j * 16, WS_LD);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-#pragma unroll
-                    for (int j = 0; j < 2; ++j)
-                        wmma::mma_sync(acc[w][i][j], fa[i], fb[j], acc[w][i][j]);
-            }
-        }
-        __syncthreads();
-    }
-
-    // the activation in registers: fragments of one type share their element map
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int t = 0; t < acc[0][i][j].num_elements; ++t) {
-                const float a = acc[0][i][j].x[t];
-                acc[0][i][j].x[t] = ACT == ACT_SWIGLU ? silu(a) * acc[NW - 1][i][j].x[t]
-                                                      : gelu_tanh(a);
-            }
-            wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[0][i][j],
-                                    CS_LD, wmma::mem_row_major);
-        }
-    __syncthreads();
-    for (int i = tid; i < BM * BN / 4; i += blockDim.x) {
-        const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
-        if (n0 + r >= N || f0 + c >= F) continue;
-        *reinterpret_cast<float4*>(h + (size_t)(n0 + r) * F + f0 + c) =
-            *reinterpret_cast<const float4*>(cs + r * CS_LD + c);
-    }
-}
-
-// The down product: out[e, n0:n0+64, c0:c0+64] = mask * (h_e @ w2_e), TF32
-// tensor cores with fp32 accumulation, stored in bf16.
-__global__ void __launch_bounds__(128)
-grouped_down_tf32_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
-                         const float* __restrict__ mask, bf16* __restrict__ out,
-                         int N, int F, int d) {
-    __shared__ float ms[BM];
-    __shared__ __align__(32) float hs[BM * HS_LD];
-    __shared__ __align__(32) float w2s[BK * CS_LD];
-    __shared__ __align__(32) float cs[BM * CS_LD];
-
-    const int e = blockIdx.z, n0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-    const int tid = threadIdx.x;
-    const bool live = load_tile_mask(mask + (size_t)e * N, n0, N, ms);
-    out += (size_t)e * N * d;
-    if (!live) {   // masked slots are zero by definition; h was not written
-        for (int i = tid; i < BM * BN / 8; i += blockDim.x) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            if (n0 + r < N && c0 + c < d)
-                *reinterpret_cast<uint4*>(out + (size_t)(n0 + r) * d + c0 + c) =
-                    make_uint4(0, 0, 0, 0);
-        }
-        return;
-    }
-    h += (size_t)e * N * F;
-    w2 += (size_t)e * F * d;
-
-    const int warp = tid >> 5;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;   // 2 x 2 warps
-    wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k0 = 0; k0 < F; k0 += BK) {
-        for (int i = tid; i < BM * BK / 4; i += blockDim.x) {
-            const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-            *reinterpret_cast<float4*>(hs + r * HS_LD + c) =
-                n0 + r < N && k0 + c < F
-                    ? *reinterpret_cast<const float4*>(h + (size_t)(n0 + r) * F + k0 + c)
-                    : zero4;
-        }
-        for (int i = tid; i < BK * BN / 8; i += blockDim.x) {
-            const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-            __align__(16) bf16 v[8];
-            *reinterpret_cast<uint4*>(v) =
-                k0 + r < F && c0 + c < d
-                    ? *reinterpret_cast<const uint4*>(w2 + (size_t)(k0 + r) * d + c0 + c)
-                    : make_uint4(0, 0, 0, 0);
-            float* dst = w2s + r * CS_LD + c;
-#pragma unroll
-            for (int t = 0; t < 8; ++t) dst[t] = __bfloat162float(v[t]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 8) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> fa[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> fb[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                wmma::load_matrix_sync(fa[i], hs + (wm + i * 16) * HS_LD + kk, HS_LD);
-#pragma unroll
-                for (int t = 0; t < fa[i].num_elements; ++t)   // round to nearest
-                    fa[i].x[t] = wmma::__float_to_tf32(fa[i].x[t]);
-            }
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                // bf16 values are exact in TF32: no rounding needed
-                wmma::load_matrix_sync(fb[j], w2s + kk * CS_LD + wn + j * 16, CS_LD);
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-            wmma::store_matrix_sync(cs + (wm + i * 16) * CS_LD + wn + j * 16, acc[i][j],
-                                    CS_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < BM * BN / 8; i += blockDim.x) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        if (n0 + r >= N || c0 + c >= d) continue;
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[t] = __float2bfloat16(cs[r * CS_LD + c + t] * ms[r]);
-        *reinterpret_cast<uint4*>(out + (size_t)(n0 + r) * d + c0 + c) =
-            *reinterpret_cast<const uint4*>(v);
-    }
 }
 
 constexpr int FBK = 16;
@@ -351,11 +382,13 @@ grouped_ffma_kernel(const float* __restrict__ a, const float* __restrict__ b1,
 }  // namespace
 
 // x: (E, N, d), w1/w3: (E, d, F) (w3 unused and may be null for gelu), w2:
-// (E, F, d), out: (E, N, d), all contiguous row-major in one dtype; mask:
-// (E, N) fp32 in {0, 1}; h: an fp32 (E, N, F) scratch.  act: 0 = swiglu,
-// 1 = gelu.  For bf16, d and F must be multiples of 8 (16-byte vector loads
-// and stores).  Anything else is refused with cudaErrorInvalidValue before
-// a launch.
+// (E, F, d), out: (E, N, d), all contiguous row-major in one dtype with
+// 16-byte aligned bases; mask: (E, N) fp32 in {0, 1}; h: a scratch of
+// E * N * F + E * ceil(N / 64) + 1 floats (fp32: h in its first E * N * F;
+// bf16: h's hi and lo planes there, then the live row tiles).  act: 0 =
+// swiglu, 1 = gelu.  For bf16, d and F must be multiples of 8 (TMA's 16-byte
+// strides).  Anything else is refused with cudaErrorInvalidValue before a
+// launch.
 extern "C" int grouped_mlp_fwd(const void* x, const void* w1, const void* w3,
                                const void* w2, const float* mask, float* h, void* out,
                                int E, int N, int d, int F, int act, int dtype,
@@ -369,22 +402,12 @@ extern "C" int grouped_mlp_fwd(const void* x, const void* w1, const void* w3,
     const int nt = (N + BM - 1) / BM;
     const dim3 gate_grid((F + BN - 1) / BN, nt, E), down_grid((d + BN - 1) / BN, nt, E);
     switch (dtype) {
-        case DTYPE_BF16: {
-            if (d % 8 != 0 || F % 8 != 0) return cudaErrorInvalidValue;
-            const bf16 *xb = static_cast<const bf16*>(x), *w1b = static_cast<const bf16*>(w1),
-                       *w3b = static_cast<const bf16*>(w3);
-            if (act == ACT_SWIGLU)
-                grouped_gate_bf16_kernel<ACT_SWIGLU><<<gate_grid, 128, 0, s>>>(
-                    xb, w1b, w3b, mask, h, N, d, F);
-            else
-                grouped_gate_bf16_kernel<ACT_GELU><<<gate_grid, 128, 0, s>>>(
-                    xb, w1b, w3b, mask, h, N, d, F);
-            const cudaError_t err = cudaGetLastError();
-            if (err != cudaSuccess) return err;
-            grouped_down_tf32_kernel<<<down_grid, 128, 0, s>>>(
-                h, static_cast<const bf16*>(w2), mask, static_cast<bf16*>(out), N, F, d);
-            break;
-        }
+        case DTYPE_BF16:
+            if (d % 8 != 0 || F % 8 != 0 || (long long)E * nt > 0x7fffffff)
+                return cudaErrorInvalidValue;
+            return act == ACT_SWIGLU
+                ? launch_bf16<ACT_SWIGLU>(x, w1, w3, w2, mask, h, out, E, N, d, F, s)
+                : launch_bf16<ACT_GELU>(x, w1, w3, w2, mask, h, out, E, N, d, F, s);
         case DTYPE_F32: {
             const float *xf = static_cast<const float*>(x), *w1f = static_cast<const float*>(w1),
                         *w3f = static_cast<const float*>(w3);
@@ -404,5 +427,23 @@ extern "C" int grouped_mlp_fwd(const void* x, const void* w1, const void* w3,
         default:
             return cudaErrorInvalidValue;   // not built for this dtype
     }
+    return cudaGetLastError();
+}
+
+// The bf16 work order, for the host-side mirror's check
+// (kernels/tiling.py: grouped_order): lists the live row tiles of the (E, N)
+// device mask into `live` (E * ceil(N / 64) + 1 ints) as grouped_mlp_fwd
+// does, then writes (expert, row tile, column tile) of each of the first
+// E * ceil(N / 64) * ceil(cols / 128) tile indices to `items` (-1s past the
+// list's end), cols being F for the gate or d for the down product.
+extern "C" int grouped_mlp_items(const float* mask, int* live, int* items, int E, int N,
+                                 int cols, void* stream) {
+    if (E <= 0 || N <= 0 || cols <= 0) return cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int T = tma_gemm::cdiv(N, BM), tiles = E * T * tma_gemm::cdiv(cols, COLS);
+    grouped_live_kernel<<<1, LIVE_THREADS, 0, s>>>(mask, live, nullptr, E, N, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    grouped_items_kernel<<<tma_gemm::cdiv(tiles, 256), 256, 0, s>>>(live, items, N, cols, tiles);
     return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the redesigned kernels of repro_torch
 // (flash_attention.cu and flash_attention_bwd.cu, through flash_common.cuh;
-// through tma_gemm.cuh swiglu.cu, gelu_mlp.cu and cross_entropy.cu):
+// through tma_gemm.cuh swiglu.cu, gelu_mlp.cu, cross_entropy.cu and
+// grouped_mlp.cu):
 // TMA tensor maps built on the host, mbarriers, bulk tensor copies, wgmma
 // shared-memory descriptors, fences, register reallocation, ldmatrix and
 // the wgmma instructions the kernels issue.
@@ -210,6 +211,29 @@ __device__ __forceinline__ void tma_load_2d_hint(void* dst, const CUtensorMap* m
         ".L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
         :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
            "r"(c0), "r"(c1), "l"(policy)
+        : "memory");
+}
+
+// A box of a 3-D map (the grouped expert MLP's (E, rows, cols) operands:
+// c2 is the expert, so the out-of-bounds fill stops at each expert's edge).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+           "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const CUtensorMap* map,
+                                                 uint64_t* bar, int c0, int c1, int c2,
+                                                 uint64_t policy) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+           "r"(c0), "r"(c1), "r"(c2), "l"(policy)
         : "memory");
 }
 

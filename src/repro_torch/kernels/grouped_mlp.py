@@ -9,8 +9,12 @@ The Function's forward is the kernel for a CUDA tensor (or raises) and the
 plain version for a CPU tensor.  It saves only (x, weights, mask); its
 backward recomputes h in fp32 in plain torch
 (``kernels/ref.py:grouped_mlp_bwd_ref``), as the reference's jnp backward
-does.  ``launches`` counts the kernel's launches (one per call: the gate
-and the down kernel of one entry).
+does.  ``launches`` counts the kernel's launches (one per call: the live
+row-tile list, the gate and the down kernel of one entry).
+
+``grouped_items_cuda`` returns the bf16 kernels' work order as the C entry
+computes it on the card, for ``chip_smoke.py`` to hold against its mirror
+``kernels/tiling.py:grouped_order``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_mlp_bwd_ref, grouped_mlp_ref
+from repro_torch.kernels.tiling import GROUPED_COLS, GROUPED_ROWS, cdiv
 
 ACTS = {"swiglu": 0, "gelu": 1}   # the act codes of csrc/grouped_mlp.cu
 launches = 0
@@ -31,7 +36,16 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("grouped_mlp")
     lib.grouped_mlp_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.grouped_mlp_fwd.restype = ctypes.c_int
+    lib.grouped_mlp_items.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.grouped_mlp_items.restype = ctypes.c_int
     return lib
+
+
+def scratch_floats(E: int, N: int, F: int) -> int:
+    """The C entry's scratch: h (E, N, F) in fp32 (bf16: its hi and lo
+    planes in the same bytes), then the count and list of the live row
+    tiles."""
+    return E * N * F + E * cdiv(N, GROUPED_ROWS) + 1
 
 
 def grouped_mlp_cuda(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
@@ -60,7 +74,7 @@ def grouped_mlp_cuda(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
     x, w1, w2 = (_build.aligned(t) for t in (x, w1, w2))
     w3 = None if w3 is None else _build.aligned(w3)
     mask = mask.to(torch.float32).contiguous()
-    h = torch.empty((E, N, F), dtype=torch.float32, device=x.device)   # scratch
+    h = torch.empty(scratch_floats(E, N, F), dtype=torch.float32, device=x.device)
     out = torch.empty((E, N, d), dtype=x.dtype, device=x.device)
     lib = _lib()
     err = lib.grouped_mlp_fwd(x.data_ptr(), w1.data_ptr(), None if w3 is None else w3.data_ptr(),
@@ -70,6 +84,25 @@ def grouped_mlp_cuda(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor | None,
     _build.check(lib, err, "grouped_mlp_fwd")
     launches += 1
     return out
+
+
+def grouped_items_cuda(mask: torch.Tensor, cols: int) -> list[tuple[int, int, int]]:
+    """(expert, row tile, column tile) of each work item of the bf16 gate
+    (cols = F) or down product (cols = d), in the order the persistent grid
+    takes them, as the C entry lists them from the (E, N) mask on the card."""
+    if not mask.is_cuda or mask.dim() != 2:
+        raise ValueError(f"grouped_items_cuda: an (E, N) mask on the card, got "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    E, N = mask.shape
+    row_tiles, col_tiles = E * cdiv(N, GROUPED_ROWS), cdiv(cols, GROUPED_COLS)
+    mask = mask.to(torch.float32).contiguous()
+    live = torch.empty(row_tiles + 1, dtype=torch.int32, device=mask.device)
+    items = torch.empty((row_tiles * col_tiles, 3), dtype=torch.int32, device=mask.device)
+    lib = _lib()
+    err = lib.grouped_mlp_items(mask.data_ptr(), live.data_ptr(), items.data_ptr(), E, N,
+                                cols, _build.stream_of(mask))
+    _build.check(lib, err, "grouped_mlp_items")
+    return [tuple(t) for t in items[:int(live[0]) * col_tiles].tolist()]
 
 
 class GroupedMLP(torch.autograd.Function):

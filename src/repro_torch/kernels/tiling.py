@@ -15,6 +15,13 @@ it on the fp32 summation order of the inter-chunk carry).
 of the SMs full, and the persistent grid takes tiles in groups of GROUP_M
 row tiles that sweep the same columns, so the blocks in flight together
 share the weight's columns in the L2.
+
+``live_row_tiles`` and ``grouped_order`` mirror the bf16 grouped expert
+MLP's work list (``csrc/grouped_mlp.cu``: ``grouped_live_kernel`` and
+``tma_gemm.cuh``'s ``GroupedTiles``): the (expert, 64-row tile) pairs that
+hold a valid slot, ascending, each by every 128-column tile, in
+``tile_order``'s grouped order over (listed row tile, column tile); a row
+tile with no valid slot gets no item.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ SSD_CHUNK = 128
 WKV_CHUNK = 32
 STREAM_ROWS = 64
 GROUP_M = 16
+GROUPED_ROWS, GROUPED_COLS = 64, 128   # the grouped kernels' tile
 
 
 def fit_block(block: int, n: int) -> int:
@@ -80,3 +88,23 @@ def tile_order(M: int, N: int, tile_m: int, tile_n: int) -> list[tuple[int, int]
         r = tile % (GROUP_M * tiles_n)
         order.append((first + r % rows, r // rows))
     return order
+
+
+def live_row_tiles(mask) -> list[int]:
+    """expert * ceil(N / 64) + row tile of each 64-row tile of the (E, N)
+    slot mask that holds a valid (nonzero) slot, ascending."""
+    E, N = mask.shape
+    T = cdiv(N, GROUPED_ROWS)
+    valid = [[bool(v) for v in row] for row in (mask != 0).tolist()]
+    return [e * T + t for e in range(E) for t in range(T)
+            if any(valid[e][t * GROUPED_ROWS:(t + 1) * GROUPED_ROWS])]
+
+
+def grouped_order(mask, cols: int) -> list[tuple[int, int, int]]:
+    """(expert, row tile, column tile) of each work item of the grouped
+    gate (cols = F) or down product (cols = d) in the order the persistent
+    grid takes them."""
+    live = live_row_tiles(mask)
+    T = cdiv(mask.shape[1], GROUPED_ROWS)
+    return [(live[l] // T, live[l] % T, tn) for l, tn in
+            tile_order(len(live) * GROUPED_ROWS, cols, GROUPED_ROWS, GROUPED_COLS)]

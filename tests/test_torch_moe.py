@@ -7,7 +7,9 @@ capacity factor; ``Model.prefill`` / decode logits and greedy tokens of
 llama4-maverick (top-1, shared expert, a dense layer before each MoE layer)
 and arctic (top-2, dense residual) reduced, and arctic with ``act="gelu"``;
 and the port's ServeEngine against its greedy loop with dropless routing.
-fp32 throughout."""
+fp32 throughout, but for an emulation of the bf16 kernel's arithmetic
+(h as bf16 hi + lo planes into an fp32 down product) against the plain
+version."""
 import functools
 
 import numpy as np
@@ -100,6 +102,55 @@ def test_grouped_mlp_grads_match_jax(act):
                                    err_msg=n)
     assert np.all(leaves["x"].grad.numpy()[mask == 0.0] == 0.0)
     assert np.all(mask_t.grad.numpy() == 0.0)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, to nearest, ties away from
+    zero (``cvt.rna.tf32.f32``, the rounding of the bf16 down product
+    before the Hopper redesign)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _grouped_bf16_emulation(x, w1, w3, w2, mask, act, h_as):
+    """The bf16 kernel's arithmetic on bf16-valued fp32 tensors: both gate
+    products exact in fp32 sums, the activation in fp32, h zero on masked
+    rows, then h as ``h_as`` gives it into the down product in fp32 sums,
+    times the mask (output rounding left out)."""
+    keep = (mask != 0).float()[..., None]
+    a = torch.bmm(x, w1)
+    h = (torch.nn.functional.silu(a) * torch.bmm(x, w3) if act == "swiglu"
+         else torch.nn.functional.gelu(a, approximate="tanh")) * keep
+    return sum(torch.bmm(p, w2) for p in h_as(h)) * mask[..., None]
+
+
+def _hi_lo(h):
+    hi = h.bfloat16().float()
+    return hi, (h - hi).bfloat16().float()
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_grouped_hi_lo_split_beats_tf32(act):
+    """At reduced widths (F 512): h as bf16 hi + lo agrees with
+    ``grouped_mlp_ref`` far more closely than h rounded to TF32 does (the
+    chip check's h term, kept as an upper bound), and hi alone (h rounded
+    to bf16, the chip check's first planted fault) does not; masked rows
+    come out exactly 0."""
+    from repro_torch.kernels.ref import grouped_mlp_ref
+
+    E, N, d, F = 4, 37, 128, 512
+    x, w1, w3, w2, mask = (None if a is None else torch.from_numpy(a)
+                           for a in _grouped_inputs(act, 30, E, N, d, F))
+    x = x.bfloat16().float()
+    w1, w2 = (w.mul(w.shape[1] ** -0.5 / 0.1).bfloat16().float() for w in (w1, w2))
+    w3 = None if w3 is None else w3.mul(d ** -0.5 / 0.1).bfloat16().float()
+    ref = grouped_mlp_ref(x, w1, w3, w2, mask, act)
+    errs = {name: float((_grouped_bf16_emulation(x, w1, w3, w2, mask, act, h_as) - ref)
+                        .abs().max())
+            for name, h_as in (("hi+lo", _hi_lo), ("tf32", lambda h: (_tf32(h),)),
+                               ("hi", lambda h: _hi_lo(h)[:1]))}
+    assert errs["hi+lo"] * 16 < errs["tf32"] < errs["hi"], errs
+    out = _grouped_bf16_emulation(x, w1, w3, w2, mask, act, _hi_lo)
+    assert torch.all(out[mask == 0] == 0)
 
 
 def test_grouped_mlp_refuses_bad_act():

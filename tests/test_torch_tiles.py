@@ -9,7 +9,10 @@ in the order the kernels take them, every (query, key) pair the mask lets
 through lies in a tile the flash kernels walk, and the tiles they walk
 without the mask see only visible pairs.  The cross-entropy
 kernel's per-tile (max, sumexp) partials and their merge, in float64, equal
-the plain version's lse and label logit."""
+the plain version's lse and label logit.  The grouped expert MLP's work
+list (``tiling.grouped_order``) covers each column tile of every live
+expert's row tiles once and gives a dead one none, at llama4's and arctic's
+routed serve masks and the ragged shapes ``chip_smoke.py`` checks."""
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ from repro_torch.kernels import gelu_mlp as gm
 from repro_torch.kernels import swiglu as sg
 from repro_torch.kernels import tiling
 from repro_torch.kernels.ref import _attention_mask, cross_entropy_ref
+from repro_torch.models.moe import _route, moe_capacity
 
 H100_SMS = 132
 # serve prefills of 1..256 tokens (the engine's prompts) and decode at 4
@@ -307,3 +311,77 @@ def test_ce_partials_merge_to_the_plain_lse(N, d, V, vv, labels):
     rlse, rll = cross_entropy_ref(h, w, lab, vv)
     torch.testing.assert_close(lse.float(), rlse, rtol=0, atol=1e-5)
     torch.testing.assert_close(ll.float(), rll, rtol=0, atol=1e-5)
+
+
+def _routed_mask(arch: str, G: int, g: int, seed: int) -> torch.Tensor:
+    """The (E, G*C) slot mask the model's router gives G groups of g tokens
+    under softmax-of-Gaussian gates, in the grouped kernel's layout (as
+    ``chip_smoke.routed_mask``)."""
+    cfg = all_configs()[arch]
+    E, C = cfg.n_experts, moe_capacity(g, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    gates = torch.softmax(torch.randn(G, g, E, generator=gen), -1)
+    valid = _route(gates, cfg.top_k, C)[2]
+    return valid.reshape(G, E, C).transpose(0, 1).reshape(E, G * C).float()
+
+
+def _ragged_mask(E: int, N: int, seed: int) -> torch.Tensor:
+    """``chip_smoke.py``'s ragged cases: expert 1 with no valid slot, expert
+    0 with rows 64..127 (a whole row tile when N > 64) masked."""
+    mask = (torch.rand(E, N, generator=torch.Generator().manual_seed(seed)) > 0.4).float()
+    mask[1] = 0
+    mask[0, 64:128] = 0
+    return mask
+
+
+LLAMA4_ID, ARCTIC_ID = "llama4-maverick-400b-a17b", "arctic-480b"
+GROUPED_CASES = {  # name -> (mask, [(d, F) ...])
+    "llama4 prefill 256": (lambda: _routed_mask(LLAMA4_ID, 1, 256, 0), [(5120, 8192)]),
+    "llama4 decode": (lambda: _routed_mask(LLAMA4_ID, 4, 1, 1), [(5120, 8192)]),
+    "arctic prefill 256": (lambda: _routed_mask(ARCTIC_ID, 1, 256, 2), [(7168, 4864)]),
+    "arctic decode": (lambda: _routed_mask(ARCTIC_ID, 4, 1, 3), [(7168, 4864)]),
+    # N 80: two row tiles an expert
+    "arctic prefill 4096": (lambda: _routed_mask(ARCTIC_ID, 1, 4096, 4), [(7168, 4864)]),
+    "ragged 8x37": (lambda: _ragged_mask(8, 37, 5), [(256, 520)]),
+    "ragged 4x130": (lambda: _ragged_mask(4, 130, 6), [(128, 96)]),
+    "all masked": (lambda: torch.zeros(4, 37), [(256, 520)]),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+def test_grouped_order_covers_each_live_tile_once(case):
+    """Every column tile of every (expert, 64-row tile) with a valid slot
+    exactly once, in both products (columns F for the gate, d for the down
+    product); no item for a row tile, or an expert, with no valid slot."""
+    make, widths = GROUPED_CASES[case]
+    mask = make()
+    E, N = mask.shape
+    T = -(-N // tiling.GROUPED_ROWS)
+    valid = mask.ne(0)
+    live = {(e, t) for e in range(E) for t in range(T)
+            if valid[e, t * tiling.GROUPED_ROWS:(t + 1) * tiling.GROUPED_ROWS].any()}
+    assert tiling.live_row_tiles(mask) == sorted(e * T + t for e, t in live)
+    for d, F in widths:
+        for cols in (F, d):
+            order = tiling.grouped_order(mask, cols)
+            want = {(e, t, j) for e, t in live for j in range(-(-cols // tiling.GROUPED_COLS))}
+            assert len(order) == len(want) and set(order) == want, cols
+            assert {e for e, _, _ in order} == set(valid.any(1).nonzero()[:, 0].tolist())
+    if case == "all masked":
+        assert order == []
+
+
+@pytest.mark.parametrize("case", ["llama4 prefill 256", "llama4 decode", "arctic decode"])
+def test_grouped_blocks_in_flight_share_columns(case):
+    """The 132 blocks in flight together take at most two groups of GROUP_M
+    listed row tiles (the tile order of the dense GEMMs over the list), and
+    of each expert a run of adjacent column tiles, so a wave reads adjacent
+    128-byte boxes of each expert's weight rows."""
+    make, ((d, F),) = GROUPED_CASES[case]
+    order = tiling.grouped_order(make(), F)
+    for start in range(0, len(order) - H100_SMS, H100_SMS):
+        wave = order[start:start + H100_SMS]
+        assert len({e for e, _, _ in wave}) <= 2 * tiling.GROUP_M
+        for e in {e for e, _, _ in wave}:
+            cols = sorted(j for ee, _, j in wave if ee == e)
+            assert cols == list(range(cols[0], cols[-1] + 1)), (start, e)

@@ -6,6 +6,7 @@ other, other, port), so that both meet the same card, clocks and host.
   python3 tools/kernel_ab.py swiglu OTHER.cu
   python3 tools/kernel_ab.py gelu_mlp OTHER.cu --serve gpt-1.4b
   python3 tools/kernel_ab.py flash_attention_bwd OTHER.cu
+  python3 tools/kernel_ab.py grouped_mlp OTHER.cu --serve llama4-maverick-400b-a17b
                                        (one CUDA card, from the repo root)
 
 OTHER.cu is built with the port's ``nvcc`` flags and
@@ -14,7 +15,9 @@ shape of the kernel's timed rows in ``chip_smoke.py`` it prints both
 versions' times (``chip_smoke.Timer``: the median of CUDA-event times with
 the L2 flushed before each launch; each version the mean of its two
 turns), their ratio, and whether their outputs are bit-identical; for the
-flash backward each of its two kernels (dQ, dK/dV) apart.  With
+flash backward each of its two kernels (dQ, dK/dV) apart; for the grouped
+expert MLP at all 128 experts of llama4-maverick and arctic, with masks from
+the model's router on random gates (``chip_smoke.routed_mask``).  With
 ``--serve ARCH`` it also serves ARCH at full width and depth in bf16
 (``ServeEngine``, 4 slots) and reads the kernel's device time per decode
 tick from ``torch.profiler`` (``chip_smoke._profile``) in the same turns:
@@ -47,12 +50,17 @@ SHAPES = {"swiglu": [(512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
           "gelu_mlp": [(8192, cs.GPT_D, cs.GPT_F), (256, cs.GPT_D, cs.GPT_F),
                        (4, cs.GPT_D, cs.GPT_F)],
           "flash_attention_bwd": [(1, 32, 4, 128), (4, 32, 4, 128),
-                                  (4, cs.GPT_HEADS, cs.GPT_HEADS, cs.GPT_HD), (4, 32, 32, 80)]}
+                                  (4, cs.GPT_HEADS, cs.GPT_HEADS, cs.GPT_HD), (4, 32, 32, 80)],
+          # (arch, act, G groups of g tokens): a 256-token prefill, decode at 4 slots
+          "grouped_mlp": [(cs.LLAMA4, "swiglu", 1, 256), (cs.LLAMA4, "swiglu", 4, 1),
+                          (cs.ARCTIC, "swiglu", 1, 256), (cs.ARCTIC, "swiglu", 4, 1),
+                          (cs.ARCTIC, "gelu", 1, 256)]}
 # the wrapper module, its library loader and the C entries it calls
 WRAPPER = {"swiglu": ("swiglu", "_lib", ("swiglu_fwd",)),
            "gelu_mlp": ("gelu_mlp", "_lib", ("gelu_mlp_fwd",)),
            "flash_attention_bwd": ("flash_attention", "_bwd_lib",
-                                   ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"))}
+                                   ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
+           "grouped_mlp": ("grouped_mlp", "_lib", ("grouped_mlp_fwd",))}
 
 
 def build_other(kernel: str, src: Path) -> ctypes.CDLL:
@@ -119,9 +127,46 @@ def flash_bwd_turns(module, other: ctypes.CDLL) -> None:
         torch.cuda.empty_cache()
 
 
+def grouped_turns(module, other: ctypes.CDLL) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_capacity
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = cs.Timer()
+    weights = {}
+    for arch, act, G, g in SHAPES["grouped_mlp"]:
+        cfg = get_config(arch)
+        E, d, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+        if arch not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[arch] = [torch.randn(*shape, generator=gen, device="cuda",
+                                         dtype=torch.bfloat16).mul_(shape[1] ** -0.5)
+                             for shape in ((E, d, F), (E, d, F), (E, F, d))]
+        w1, w3, w2 = weights[arch]
+        w3 = w3 if act == "swiglu" else None
+        C = moe_capacity(g, cfg)
+        mask = cs.routed_mask(gen, G, g, E, cfg.top_k, C)
+        x = cs.randn(gen, E, G * C, d, dtype=torch.bfloat16)
+
+        def call():
+            return module.grouped_mlp_cuda(x, w1, w3, w2, mask, act)
+
+        port_out = call()
+        port_ms, other_ms = in_turns("grouped_mlp", module, other, lambda: timer(call))
+        same = torch.equal(port_out, with_other("grouped_mlp", module, other, call))
+        cs.emit({"kernel": "grouped_mlp", "arch": arch, "act": act,
+                 "shape": [E, G * C, d, F], "experts_with_a_slot": int(mask.ne(0).any(1).sum()),
+                 "port_ms": port_ms, "other_ms": other_ms,
+                 "port_over_other": port_ms / other_ms, "bit_identical": same})
+
+
 def kernel_turns(kernel: str, module, other: ctypes.CDLL) -> None:
     if kernel == "flash_attention_bwd":
         flash_bwd_turns(module, other)
+        return
+    if kernel == "grouped_mlp":
+        grouped_turns(module, other)
         return
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer()
@@ -144,7 +189,8 @@ def serve_turns(kernel: str, module, other: ctypes.CDLL, arch: str, ticks: int =
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_engine import Request, ServeEngine
 
-    group = next(g for g, keys in cs.PROFILE_GROUPS if any(k.startswith(kernel) for k in keys))
+    group = next(g for g, keys in cs.PROFILE_GROUPS
+                 if any(k.startswith(kernel) or kernel.startswith(k) for k in keys))
     cfg = cs.serve_config(arch)
     model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(0))
