@@ -28,9 +28,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      dQ, one query head of each GQA group left out of dK/dV) that must fail
      its limits, and its two launches on the same inputs bit-identical; then
      the kernel / plain / library / bound times, and for the flash forward
-     and backward, swiglu, gelu_mlp, CE and the grouped expert MLP the time
-     of the version before the redesign (tools/previous_kernels/, built
-     beside the port's) on the same inputs, in turns;
+     and backward, swiglu, gelu_mlp, CE, the grouped expert MLP and the SSD
+     and wkv scans the time of the version before the redesign
+     (tools/previous_kernels/, built beside the port's) on the same inputs,
+     in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
      with masks from top-k routing of random gates, bf16 and reduced fp32,
@@ -39,16 +40,21 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      version before its Hopper redesign.  The SSD scan at zamba2's widths
      (80 heads of 64, state 64) at its serve prefills (256 tokens, chunk 128; 255,
      chunk 1; 96, chunk 32) and the train microbatch (4 x 2048), y and the
-     final state; the mamba decode step at 4 slots; both with planted
-     faults that must fail their limits; the three flash kernels at hd 80
+     final state, the chunk-parallel work division held to its Python
+     mirrors (check_scan_mirrors), a second launch bit-identical; the mamba
+     decode step at 4 slots; both with planted faults that must fail their
+     limits (the scan's also the carry one chunk late at every case of 4
+     chunks or more); the three flash kernels at hd 80
      (32 heads, MHA) at the serve prefill and the train microbatch.  The
      wkv scan at rwkv6's widths (32 heads, K = V = 64, fp32) at the train
      microbatch (4 x 2048, chunk 32), at each serve prefill that takes it
      (256 and 64 tokens, chunk 32; 200, chunk 8; 255, chunk 1; ...) and at
      chunks 2, 4 and 16, y and the final state, with decays spread from
      ~0.999 to ~1e-3, a nonzero bonus and carried state; the wkv decode
-     step at 4 slots; three planted faults of the scan and one of the
-     decode step must fail their limits;
+     step at 4 slots; three planted faults of the scan (and the carry one
+     chunk late at every case of 4 chunks or more) and one of the decode
+     step must fail their limits; the scan's work division held to its
+     mirrors, a second launch bit-identical;
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
      arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers) and
      rwkv6-1.6b (all 24 layers): the model
@@ -67,7 +73,9 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      kernels=False tightly; the grouped kernel is held against its plain
      version on the (x, mask) a real prefill gives it; zamba2's and rwkv6's
      tokens equal greedy decoding at the engine's shapes for every
-     request; then a ``torch.profiler`` pass over prefill and decode;
+     request; then a ``torch.profiler`` pass over prefill and decode (for
+     zamba2 and rwkv6 also a 255-token prefill, which scans at chunk 1, and
+     the scan's share of its device time);
   4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
      layers), zamba2-2.7b (full width, 18 of 54 layers) and rwkv6-1.6b
      (full width, all 24 layers): a reduced fp32
@@ -81,9 +89,9 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step;
   5. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
-     flash forward and backward, swiglu, gelu_mlp, CE and the grouped
-     expert MLP also ``parent_ms`` and ``ptxas`` (registers and spills of
-     each bf16 kernel).
+     flash forward and backward, swiglu, gelu_mlp, CE, the grouped expert
+     MLP and the two scans also ``parent_ms`` and ``ptxas`` (registers and
+     spills of each redesigned kernel).
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -174,7 +182,8 @@ PREVIOUS = {"flash_attention": ("_lib", ("flash_attention_fwd",)),
                                                  "flash_attention_bwd_dkv")),
             "swiglu": ("_lib", ("swiglu_fwd",)), "gelu_mlp": ("_lib", ("gelu_mlp_fwd",)),
             "cross_entropy": ("_lib", ("cross_entropy_fwd",)),
-            "grouped_mlp": ("_lib", ("grouped_mlp_fwd",))}
+            "grouped_mlp": ("_lib", ("grouped_mlp_fwd",)),
+            "ssd_scan": ("_lib", ("ssd_scan_fwd",)), "wkv_scan": ("_lib", ("wkv_scan_fwd",))}
 # their redesigned bf16 kernels, whose registers and spills the kernels
 # line reports (``ptxas -v``)
 REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
@@ -183,7 +192,12 @@ REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
               "swiglu": ("swiglu_bf16_kernel",), "gelu_mlp": ("gelu_mlp_bf16_kernel",),
               "cross_entropy": ("ce_partial_bf16_kernel",),
               "grouped_mlp": ("grouped_live_kernel", "grouped_gate_bf16_kernel",
-                              "grouped_down_bf16_kernel")}
+                              "grouped_down_bf16_kernel"),
+              "ssd_scan": ("ssd_scan_state_kernel", "ssd_scan_pass_kernel",
+                           "ssd_scan_out_kernel", "ssd_scan_out_tc_kernel",
+                           "ssd_scan_small_kernel"),
+              "wkv_scan": ("wkv_scan_state_kernel", "wkv_scan_pass_kernel",
+                           "wkv_scan_out_kernel", "wkv_scan_small_kernel")}
 _PREVIOUS_LIBS: dict = {}
 
 
@@ -224,10 +238,12 @@ def with_previous(name: str, fn):
     """``fn()`` with the kernel module's library swapped for the previous
     version's (same C entries and signatures), so the wrapper launches it."""
     from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
-                                     gelu_mlp as gm, grouped_mlp as gp, swiglu as sg)
+                                     gelu_mlp as gm, grouped_mlp as gp, ssd_scan as ssd,
+                                     swiglu as sg, wkv_scan as wkv)
 
     module = {"flash_attention": fa, "flash_attention_bwd": fa, "swiglu": sg,
-              "gelu_mlp": gm, "cross_entropy": ce, "grouped_mlp": gp}[name]
+              "gelu_mlp": gm, "cross_entropy": ce, "grouped_mlp": gp, "ssd_scan": ssd,
+              "wkv_scan": wkv}[name]
     loader, entries = PREVIOUS[name]
     own, prev = getattr(module, loader), _PREVIOUS_LIBS[name]
     for entry in entries:
@@ -264,7 +280,9 @@ def ptxas_summary(log: str, kernel: str) -> dict:
             continue
         if current is None:
             continue
-        args = re.findall(r"Li(\d+)E", current[current.index(kernel):].split("Ev")[0] + "E")
+        tail = current[current.index(kernel) + len(kernel):].split("Ev")[0] + "E"
+        args = [{"13__nv_bfloat16": "bf16", "f": "f32"}.get(a, a.strip("LiE")) for a in
+                re.findall(r"13__nv_bfloat16|(?<=[IE6])f|Li\d+E", tail)]
         key = f"{kernel}<{', '.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -1472,6 +1490,10 @@ SSD_WHY = ("fp32 chunk algebra in another order, with its own exp and cumsum: "
            "twice the first-order bound of each (ssd_error_bound); bf16: one ULP "
            "between the output roundings")
 SSD_FAULTS = ("state not carried into chunk 2", "x of token 200 left out")
+# the carry one chunk late: chunk 2's read-out from S_2 (the state after it)
+# in place of S_1; planted at every bf16 case of 4 chunks or more
+SSD_LATE = "chunk 2 read out from S_2, not S_1"
+SCAN_LATE_CHUNK = 2
 
 
 def _ssd_cases() -> list[tuple[int, int, int]]:
@@ -1530,6 +1552,49 @@ def ssd_error_bound(x, dt, Bm, Cm, A_log, chunk: int) -> tuple[torch.Tensor, tor
     return 2 * torch.cat(ys, 1), 2 * S_err
 
 
+def check_scan_mirrors(name: str, cases: list) -> int:
+    """The chunked scan's work division as its C entries report it
+    (``scan_items_cuda``, ``tri_tiles_cuda`` or ``score_pairs_cuda``,
+    ``split_cuda``, ``scratch_cuda`` of ``kernels/<name>.py``) equals the
+    mirrors of ``kernels/tiling.py``: the blocks and the scratch of each
+    (B, T, H, chunk) case, the tile (SSD, in fp32 and bf16) or score-pair
+    (wkv) list of every chunk the chunk kernels take, and the token walk's
+    split."""
+    import importlib
+
+    from repro_torch.kernels import tiling
+
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    if name == "ssd_scan":
+        scratch, got_list, want_list = (tiling.ssd_scratch_floats, module.tri_tiles_cuda,
+                                        tiling.ssd_tri_tiles)
+    else:
+        scratch, got_list, want_list = (tiling.wkv_scratch_floats, module.score_pairs_cuda,
+                                        tiling.wkv_score_pairs)
+    checks = []
+    for B, T, H, chunk in cases:
+        checks.append((f"blocks of ({B}, {T}, {H}) at chunk {chunk}",
+                       module.scan_items_cuda(B, T, H, chunk), tiling.scan_items(B, H, T, chunk)))
+        checks.append((f"scratch of ({B}, {T}, {H}) at chunk {chunk}",
+                       module.scratch_cuda(B, T, H, chunk), scratch(B, T, H, chunk)))
+    chunk = 2 * tiling.SCAN_SMALL_CHUNK
+    while chunk <= module.MAX_CHUNK:
+        checks.append((f"tile list at chunk {chunk}", got_list(chunk), want_list(chunk)))
+        if name == "ssd_scan":
+            checks.append((f"bf16 tile list at chunk {chunk}",
+                           got_list(chunk, torch.bfloat16), tiling.ssd_mma_tiles(chunk)))
+        chunk *= 2
+    checks.append(("token walk split", module.split_cuda(), tiling.scan_split()))
+    for what, got, want in checks:
+        if isinstance(got, list):
+            got, want = [tuple(g) for g in got], [tuple(w) for w in want]
+        if got != want:
+            raise AssertionError(f"{name} {what}: the C entry gives {str(got)[:120]}, the "
+                                 f"mirror {str(want)[:120]}")
+    emit({"phase": "mirror_check", "kernel": name, "checks": len(checks)})
+    return len(checks)
+
+
 def ssd_inputs(gen, B: int, T: int, dtype, H: int = 80, P: int = 64, N: int = 64):
     """x, B, C as the model hands them to the scan (silu of the conv output,
     slices of one (B, T, ch) tensor), dt = softplus(dt_raw - 3) (mamba2's dt
@@ -1551,6 +1616,7 @@ def check_ssd(name: str, args: tuple, chunk: int, planted: bool = False) -> floa
 
     y, S = ssd.ssd_scan_cuda(*args, chunk)
     torch.cuda.synchronize()
+    check_repeat(name, (y, S), ssd.ssd_scan_cuda(*args, chunk))
     yr, Sr = ssd_scan_ref(*args, chunk=chunk)
     ey, es = ssd_error_bound(*args, chunk)
     rtol = 1.1 * BF16_ULP if y.dtype == torch.bfloat16 else 0.0
@@ -1558,15 +1624,19 @@ def check_ssd(name: str, args: tuple, chunk: int, planted: bool = False) -> floa
     err = check_close(name + " y", y, yr, rtol=rtol, atol=1e-6, why=SSD_WHY, terms=terms)
     err = max(err, check_close(name + " state", S, Sr, rtol=0.0, atol=1e-6, why=SSD_WHY,
                                terms=((es, 1.0, "2 x first-order bound"),)))
+    x, dt, Bm, Cm, A_log = args
+    T = x.shape[1]
+    bad = {}
+    if y.dtype == torch.bfloat16 and T >= 4 * chunk:
+        bad[SSD_LATE] = ssd_late_carry(args, yr, chunk)
     if planted:
-        x, dt, Bm, Cm, A_log = args
-        T = x.shape[1]
         tail = ssd_scan_ref(*(a[:, chunk:] for a in args[:4]), A_log, chunk=chunk)[0]
         x_drop = x.clone()
         x_drop[:, 200] = 0
-        bad = {SSD_FAULTS[0]: torch.cat([yr[:, :chunk], tail], 1),
-               SSD_FAULTS[1]: ssd_scan_ref(x_drop, dt, Bm, Cm, A_log, chunk=chunk)[0]}
+        bad.update({SSD_FAULTS[0]: torch.cat([yr[:, :chunk], tail], 1),
+                    SSD_FAULTS[1]: ssd_scan_ref(x_drop, dt, Bm, Cm, A_log, chunk=chunk)[0]})
         assert T > 200 and T >= 2 * chunk
+    if bad:
         for fault, out in bad.items():
             worst = float(limit_share(out, yr, rtol, 1e-6, terms)[1].max())
             emit({"phase": "planted_fault", "case": name, "fault": fault,
@@ -1577,11 +1647,51 @@ def check_ssd(name: str, args: tuple, chunk: int, planted: bool = False) -> floa
     return err
 
 
+def ssd_late_carry(args: tuple, yr: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``yr`` with chunk SCAN_LATE_CHUNK's read-out taken from the state
+    after that chunk in place of the one before it: e^{cum} C (S_c - S_{c-1})
+    added to its rows, the states from the plain scan of its first chunks."""
+    from repro_torch.kernels.ref import ssd_scan_ref
+
+    x, dt, Bm, Cm, A_log = args
+    c = SCAN_LATE_CHUNK
+    s_before, s_after = (ssd_scan_ref(*(a[:, :n * chunk] for a in args[:4]), A_log,
+                                      chunk=chunk)[1] for n in (c, c + 1))
+    rows = slice(c * chunk, (c + 1) * chunk)
+    cum = torch.cumsum(dt[:, rows].float() * -torch.exp(A_log.float()), 1)
+    shift = torch.exp(cum)[..., None] * torch.einsum("bin,bhpn->bihp", Cm[:, rows].float(),
+                                                    s_after - s_before)
+    bad = yr.float().clone()
+    bad[:, rows] += shift
+    return bad.to(yr.dtype)
+
+
+def scan_kernel_ms(call, n: int = 10) -> dict:
+    """Device ms a call of each kernel a scan launches (``torch.profiler``
+    over n calls, L2 warm)."""
+    prof = _profile(lambda: [call() for _ in range(n)])
+    if "top_kernels" not in prof:
+        return {"not measured": prof["device_busy_s"]}
+    return {k["name"]: k["device_ms"] / n for k in prof["top_kernels"]}
+
+
+def check_repeat(name: str, first: tuple, again: tuple) -> None:
+    """A second launch on the same inputs must give the same bits."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name}: a repeated launch gave other bits")
+
+
 def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
     """The timed row of a bf16 scan: the bound counts x, B, C and dt read
     once, y and the state written once, and the fp32 FLOPs of the chunk
-    algebra on the unmasked (i, j) pairs."""
-    from repro_torch.kernels import ssd_scan as ssd
+    algebra on the unmasked (i, j) pairs; ``design_bound_ms`` restates it for
+    this design: for chunks over 8 the bytes add x read again and each
+    chunk's state written and read twice, and every product runs on the
+    tensor cores (D_c, C S and W x three times over: their fp32 operand as
+    three bf16 planes); the token walk moves nothing more (its blocks share
+    B and C in the L2) and runs all on FFMA."""
+    from repro_torch.kernels import ssd_scan as ssd, tiling
     from repro_torch.kernels.ref import ssd_scan_ref
 
     x, dt, Bm, Cm, A_log = args
@@ -1592,13 +1702,29 @@ def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
     pairs = chunk * (chunk + 1) // 2
     flops = B * H * (T // chunk) * (2 * pairs * (N + P) + 4 * chunk * N * P)
     b, by = bound_ms(nbytes, flops, torch.float32)
+    extra = 0
+    db, dby = bound_ms(nbytes, flops, torch.float32)
+    if chunk > tiling.SCAN_SMALL_CHUNK:
+        n_chunks = B * H * (T // chunk)
+        extra = x.numel() * el + 4 * 4 * n_chunks * N * P + 8 * n_chunks
+        tc = n_chunks * (2 * pairs * N + 3 * 2 * pairs * P + 2 * 3 * 2 * chunk * N * P)
+        t_mem = (nbytes + extra) / HBM_BYTES_PER_S * 1e3
+        t_ops = tc / PEAK_FLOPS[torch.bfloat16] * 1e3
+        db, dby = max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+    def call():
+        return ssd.ssd_scan_cuda(x, dt, Bm, Cm, A_log, chunk)
+
+    ms, parent_ms = timed_with_parent(timer, "ssd_scan", call)
     return {"shape": f"x ({B}, {T}, {H}, {P}) bf16, N {N}, chunk {chunk}",
-            "max_abs_err": err,
-            "ms": timer(lambda: ssd.ssd_scan_cuda(x, dt, Bm, Cm, A_log, chunk)),
+            "max_abs_err": err, "ms": ms, "parent_ms": parent_ms,
+            "ms_by_kernel": scan_kernel_ms(call),
             "plain_ms": timer(lambda: ssd_scan_ref(x, dt, Bm, Cm, A_log, chunk=chunk)),
             "plain_call": "ssd_scan_ref (the chunk loop in torch)",
             "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 (the algebra's type)"}
+            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 (the algebra's type)",
+            "design_bytes": nbytes + extra, "design_bound_ms": db, "design_bound_by": dby,
+            "share_of_bound": b / ms, "share_of_design_bound": db / ms}
 
 
 # mamba decode: the kernel reproduces the reference's dtype chain (the conv
@@ -1724,6 +1850,7 @@ def phase_kernels_ssm(timer: Timer) -> dict:
     and 16 that no serve prompt gives; the decode step at 4 slots in bf16
     and fp32 (with a planted fault).  Returns the SSD and decode rows."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    check_scan_mirrors("ssd_scan", [(B, T, 80, chunk) for B, T, chunk in _ssd_cases()])
     ssd_rows = []
     for B, T, chunk in _ssd_cases():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1801,6 +1928,8 @@ WKV_WHY = ("fp32 chunk algebra in another order, with its own exp, log and cumsu
            "absolute error in every exponent first")
 WKV_FAULTS = ("diagonal in the intra-chunk mask (i <= t)", "bonus term dropped",
               "carry-in not decayed by exp(cum_prev)")
+# the carry one chunk late, planted at every case of 4 chunks or more
+WKV_LATE = "chunk 2 read out from S_2, not S_1"
 # the decode step's state update rounds as the plain version does (product,
 # then sum): |S' - S''| <= 2u |w S| + u |k v| per implementation; out sums K
 # terms r (S + u k v) in another order, each with its own few roundings: in
@@ -1966,6 +2095,7 @@ def check_wkv(name: str, args: tuple, chunk: int, planted: bool = False) -> dict
 
     y, S = wkv.wkv_scan_cuda(*args, chunk)
     torch.cuda.synchronize()
+    check_repeat(name, (y, S), wkv.wkv_scan_cuda(*args, chunk))
     yr, Sr = wkv_scan_ref(*args, chunk=chunk)
     bounds = wkv_error_bound(*args, chunk)
     ty, ts = wkv_limit_terms(bounds, WKV_LIMIT)
@@ -1979,26 +2109,58 @@ def check_wkv(name: str, args: tuple, chunk: int, planted: bool = False) -> dict
                            float(limit_share(S, Sr, 0.0, 1e-6, fs)[1].max()))
     emit({"phase": "kernel_check", "case": name, "sound_share_by_limit_form": shares,
           "limit_form": WKV_LIMIT})
-    if planted:
-        for fault in WKV_FAULTS:
-            bad = _wkv_plain_variant(*args, chunk, fault)[0]
-            worst = {form: float(limit_share(bad, yr, 0.0, 1e-6,
-                                             wkv_limit_terms(bounds, form)[0])[1].max())
-                     for form in ("worst", "rms")}
-            emit({"phase": "planted_fault", "case": name, "fault": fault,
-                  "worst_share_of_limit": worst[WKV_LIMIT], "share_by_limit_form": worst})
-            if worst[WKV_LIMIT] <= 1:
-                raise AssertionError(f"{name}: the limit does not catch a planted fault "
-                                     f"({fault}: {worst[WKV_LIMIT]:.2f} of it)")
+    faults = list(WKV_FAULTS) if planted else []
+    if args[0].shape[1] >= 4 * chunk:
+        faults.append(WKV_LATE)
+    for fault in faults:
+        bad = (wkv_late_carry(args, yr, chunk) if fault == WKV_LATE
+               else _wkv_plain_variant(*args, chunk, fault)[0])
+        worst = {form: float(limit_share(bad, yr, 0.0, 1e-6,
+                                         wkv_limit_terms(bounds, form)[0])[1].max())
+                 for form in ("worst", "rms")}
+        emit({"phase": "planted_fault", "case": name, "fault": fault,
+              "worst_share_of_limit": worst[WKV_LIMIT], "share_by_limit_form": worst})
+        if worst[WKV_LIMIT] <= 1:
+            raise AssertionError(f"{name}: the limit does not catch a planted fault "
+                                 f"({fault}: {worst[WKV_LIMIT]:.2f} of it)")
     return {"max_abs_err": err, "sound_share_by_limit_form": shares}
+
+
+def wkv_late_carry(args: tuple, yr: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``yr`` with chunk SCAN_LATE_CHUNK's read-out taken from the state
+    after that chunk in place of the one before it: (r e^{cum_{t-1}})
+    (S_c - S_{c-1}) added to its rows, the states from the plain scan of its
+    first chunks."""
+    from repro_torch.kernels.ref import wkv_scan_ref
+
+    r, k, v, w, u, state = args
+    c = SCAN_LATE_CHUNK
+    s_before, s_after = (wkv_scan_ref(*(a[:, :n * chunk] for a in (r, k, v, w)), u, state,
+                                      chunk=chunk)[1] for n in (c, c + 1))
+    rows = slice(c * chunk, (c + 1) * chunk)
+    cum = torch.cumsum(torch.log(w[:, rows]), 1)
+    cum_prev = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    bad = yr.clone()
+    bad[:, rows] += torch.einsum("bthk,bhkv->bthv", r[:, rows] * torch.exp(cum_prev),
+                                 s_after - s_before)
+    return bad
+
+
+# the special-function units of an H100 SXM: 16 results a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) at the 1.98 GHz boost clock of the data sheet
+SFU_PER_S = 132 * 16 * 1.98e9
 
 
 def wkv_row(timer: Timer, res: dict, args: tuple, chunk: int) -> dict:
     """The timed row of a scan: the bound counts r, k, v, w, u and the state
     read once, y and the state written once, and the fp32 FLOPs of the
-    chunk algebra on the unmasked (t, i) pairs (the exps are counted
-    beside it)."""
-    from repro_torch.kernels import wkv_scan as wkv
+    chunk algebra on the unmasked (t, i) pairs; the floors beside it are the
+    bytes, the FFMA work and the exponentials and logarithms on the
+    special-function units; ``design_bound_ms`` adds what this design moves
+    besides through device memory (for chunks over 8, k, w and v read again
+    and each chunk's state written and read twice)."""
+    from repro_torch.kernels import tiling, wkv_scan as wkv
     from repro_torch.kernels.ref import wkv_scan_ref
 
     r, k, v, w, u, state = args
@@ -2009,14 +2171,30 @@ def wkv_row(timer: Timer, res: dict, args: tuple, chunk: int) -> dict:
     per_chunk = pairs * K * 4 + pairs * V * 2 + chunk * K * V * 2 + chunk * (3 * K + 2 * V) \
         + K * V * (2 * chunk + 2)
     n_chunks = B * H * (T // chunk)
-    b, by = bound_ms(nbytes, n_chunks * per_chunk, torch.float32)
+    flops = n_chunks * per_chunk
+    b, by = bound_ms(nbytes, flops, torch.float32)
+    extra = 0
+    if chunk > tiling.SCAN_SMALL_CHUNK:
+        extra = 4 * (2 * r.numel() + v.numel()) + 4 * 4 * n_chunks * K * (V + 1)
+    db, dby = bound_ms(nbytes + extra, flops, torch.float32)
+    sfu = n_chunks * (pairs + 2 * chunk + 1) * K + r.numel()
+
+    def call():
+        return wkv.wkv_scan_cuda(*args, chunk)
+
+    ms, parent_ms = timed_with_parent(timer, "wkv_scan", call)
     return {"shape": f"r/k/v/w ({B}, {T}, {H}, {K}) fp32, chunk {chunk}", **res,
             "exps": n_chunks * (pairs + 2 * chunk + 1) * K,
-            "ms": timer(lambda: wkv.wkv_scan_cuda(*args, chunk)),
+            "ms": ms, "parent_ms": parent_ms, "ms_by_kernel": scan_kernel_ms(call),
             "plain_ms": timer(lambda: wkv_scan_ref(*args, chunk=chunk)),
             "plain_call": "wkv_scan_ref (the chunk loop in torch)",
             "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 FFMA"}
+            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 FFMA",
+            "floors_ms": {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "ffma": flops / PEAK_FLOPS[torch.float32] * 1e3,
+                          "sfu (exp and log)": sfu / SFU_PER_S * 1e3},
+            "design_bytes": nbytes + extra, "design_bound_ms": db, "design_bound_by": dby,
+            "share_of_bound": b / ms, "share_of_design_bound": db / ms}
 
 
 def check_wkv_decode(name: str, args: tuple, planted: bool = False) -> float:
@@ -2065,6 +2243,7 @@ def phase_kernels_wkv(timer: Timer) -> dict:
     from repro_torch.kernels.ref import wkv_decode_ref
 
     gen = torch.Generator(device="cuda").manual_seed(6)
+    check_scan_mirrors("wkv_scan", [(B, T, 32, chunk) for B, T, chunk in _wkv_cases()])
     rows = []
     for B, T, chunk in _wkv_cases():
         args = wkv_inputs(gen, B, T)
@@ -2414,9 +2593,9 @@ def phase_serve(card: str, arch: str) -> dict:
 # device-time groups of the profile, by kernel name (first match wins)
 PROFILE_GROUPS = (
     ("grouped_mlp kernels", ("grouped_",)),
-    ("ssd_scan kernel", ("ssd_scan_kernel",)),
+    ("ssd_scan kernel", ("ssd_scan_",)),
     ("mamba_decode kernel", ("mamba_decode_kernel",)),
-    ("wkv_scan kernel", ("wkv_scan_kernel",)),
+    ("wkv_scan kernel", ("wkv_scan_",)),
     ("wkv_decode kernel", ("wkv_decode_kernel",)),
     ("rmsnorm kernel", ("rmsnorm_kernel",)),
     ("layernorm kernel", ("layernorm_kernel",)),
@@ -2480,6 +2659,15 @@ def phase_profile(model, prompts, card: str) -> None:
     p = torch.from_numpy(prompts[0][:64].astype(np.int64))[None].cuda()
     p = torch.cat([p] * 4, dim=1)                      # one 256-token prompt
     prefill = _profile(lambda: model.prefill({"tokens": p}, 256))
+    odd = {}
+    if model.cfg.family in RECURRENT:                  # an odd prompt scans at chunk 1
+        odd = _profile(lambda: model.prefill({"tokens": p[:, :255]}, 256))
+        scan = "ssd_scan kernel" if model.cfg.family == "hybrid" else "wkv_scan kernel"
+        if isinstance(odd["device_busy_s"], float):
+            scan_ms = odd["device_ms_by_group"].get(scan, 0.0)
+            odd["scan_device_ms"] = scan_ms
+            odd["scan_share_of_busy"] = scan_ms / 1e3 / odd["device_busy_s"]
+        odd = {"prefill_255_tokens": odd}
     engine = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
     for i in range(4):
         engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=16))
@@ -2491,7 +2679,7 @@ def phase_profile(model, prompts, card: str) -> None:
             engine.step()
     dec = _profile(decode)
     emit({"phase": "profile", "arch": model.cfg.name, "dtype": "bf16", "kernels": True,
-          "prefill_256_tokens": prefill, "decode_ticks": ticks, "n_slots": 4,
+          "prefill_256_tokens": prefill, **odd, "decode_ticks": ticks, "n_slots": 4,
           "decode": dec, "decode_ms_per_tick": dec["wall_s"] / ticks * 1e3,
           "card": card})
 

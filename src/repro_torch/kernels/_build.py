@@ -125,6 +125,18 @@ def aligned(t, nbytes: int = 16):
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
+def int_triples(entry, *args) -> list[tuple[int, ...]]:
+    """The (a, b, c) triples a plan entry of a kernel source writes: called
+    with no room, it returns their count (negative: arguments refused); then
+    again with room for all of them."""
+    n = entry(*args, None, 0)
+    if n < 0:
+        raise ValueError(f"{entry.__name__}{args}: refused")
+    buf = (ctypes.c_int * (3 * n))()
+    entry(*args, buf, n)
+    return [tuple(buf[3 * i:3 * i + 3]) for i in range(n)]
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

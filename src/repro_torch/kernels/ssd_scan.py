@@ -3,6 +3,14 @@ CUDA kernels of ``csrc/ssd_scan.cu`` (ported from
 ``repro/kernels/ssd_scan.py:_scan_kernel`` and ``_decode_kernel``), their
 plain versions, and the ``torch.autograd.Function`` of the scan.
 
+The scan's kernel is chunk-parallel (the design is in the source's note):
+a chunk-local pass, the carry in chunk order into a scratch of chunk states,
+and the read-out; chunks of 8 or fewer take a token walk.
+``ssd_scan_staged`` is the same three passes in plain torch, which the CPU
+tests hold against the reference; ``kernels/tiling.py`` mirrors the work
+division, which ``chip_smoke.py`` holds to the C entries (``scan_items_cuda``,
+``tri_tiles_cuda``, ``split_cuda``, ``scratch_cuda``).
+
 The scan's Function saves only its inputs.  Its forward is the kernel for a
 CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
 recomputes the plain chunk loop (``kernels/ref.py:ssd_scan_ref``) under
@@ -18,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.ref import mamba_decode_ref, ssd_scan_ref
 
 HEAD_DIM, STATE = 64, 64    # the (P, N) that csrc/ssd_scan.cu is built for
@@ -30,10 +38,16 @@ launches_decode = 0
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    lib.ssd_scan_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                                     ctypes.c_void_p])
     lib.ssd_scan_fwd.restype = ctypes.c_int
+    out = ctypes.POINTER(ctypes.c_int)
+    lib.ssd_scan_items.argtypes = [ctypes.c_int] * 4 + [out, ctypes.c_int]
+    lib.ssd_scan_tiles.argtypes = [ctypes.c_int, ctypes.c_int, out, ctypes.c_int]
+    lib.ssd_scan_split.argtypes = [out]
+    lib.ssd_scan_scratch.argtypes = [ctypes.c_int] * 4
+    lib.ssd_scan_scratch.restype = ctypes.c_longlong
     lib.mamba_decode_fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.mamba_decode_fwd.restype = ctypes.c_int
     return lib
@@ -63,21 +77,87 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch
     if (P, N) != (HEAD_DIM, STATE):
         raise ValueError(f"ssd_scan: built for (P, N) = {(HEAD_DIM, STATE)}, got {(P, N)}")
     check_chunk(T, chunk)
-    if x.stride(-1) != 1:
-        x = x.contiguous()
-    Bm, Cm = (t if t.stride(-1) == 1 else t.contiguous() for t in (Bm, Cm))
+    # four elements a vector load: unit stride on the last dim, the others
+    # multiples of 4, 16-byte aligned data (the model's slices of its conv
+    # output are; anything else is copied)
+    x, Bm, Cm = (t if t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+                 and t.data_ptr() % 16 == 0 else _build.aligned(t) for t in (x, Bm, Cm))
     dt, A_log = dt.float(), A_log.float().contiguous()   # no-ops for the model's fp32 dt
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    n_scratch = tiling.ssd_scratch_floats(B, T, H, chunk, P, N)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) if n_scratch else None
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                                        *Cm.stride()[:2])
     lib = _lib()
     err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                           A_log.data_ptr(), y.data_ptr(), state.data_ptr(), B, T, H, P, N,
+                           A_log.data_ptr(), y.data_ptr(), state.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), B, T, H, P, N,
                            chunk, strides, code, _build.stream_of(x))
     _build.check(lib, err, "ssd_scan_fwd")
     launches += 1
     return y, state
+
+
+def scan_items_cuda(B: int, T: int, H: int, chunk: int) -> list[tuple[int, ...]]:
+    """The blocks the C entry launches for (B, T, H) at ``chunk`` (as
+    ``tiling.scan_items``)."""
+    return _build.int_triples(_lib().ssd_scan_items, B, T, H, chunk)
+
+
+def tri_tiles_cuda(chunk: int, dtype: torch.dtype = torch.float32) -> list[tuple[int, ...]]:
+    """The read-out kernel's C B^T tiles in the order it takes them: in fp32
+    (thread, ti, tj) of its 4 x 4 tiles (as ``tiling.ssd_tri_tiles``), in
+    bf16 (warp, strip, jt) of its 16 x 8 mma tiles (``tiling.ssd_mma_tiles``)."""
+    code = _build.dtype_code(torch.empty(0, dtype=dtype))
+    return _build.int_triples(_lib().ssd_scan_tiles, chunk, code)
+
+
+def split_cuda() -> tuple[int, ...]:
+    """The token walk's (largest chunk, window, rows a block, threads a
+    row) (as ``tiling.scan_split``)."""
+    buf = (ctypes.c_int * 4)()
+    _lib().ssd_scan_split(buf)
+    return tuple(buf)
+
+
+def scratch_cuda(B: int, T: int, H: int, chunk: int) -> int:
+    """The scratch floats the C entry reads (as ``tiling.ssd_scratch_floats``)."""
+    return _lib().ssd_scan_scratch(B, T, H, chunk)
+
+
+def ssd_scan_staged(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    A_log: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's three passes in plain torch, fp32, for the CPU tests
+    (nothing on the main path calls it): (1) per chunk c, D_c = sum_j x_j
+    dt_j e^{total - cum_j} B_j^T and e^{total_c}; (2) the carry S_c =
+    e^{total_c} S_{c-1} + D_c in chunk order, keeping each S_{c-1}; (3) y =
+    e^{cum} (C S_{c-1}) + W x.  Returns what ``ssd_scan_ref`` returns."""
+    Bsz, T, H, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    check_chunk(T, Q)
+    nc = T // Q
+    xs = x.float().reshape(Bsz, nc, Q, H, P)
+    dts = dt.float().reshape(Bsz, nc, Q, H)
+    Bs, Cs = (t.float().reshape(Bsz, nc, Q, N) for t in (Bm, Cm))
+    cum = torch.cumsum(dts * -torch.exp(A_log.float()), dim=2)      # (B, nc, Q, H)
+    total = cum[:, :, -1]
+    wdec = dts * torch.exp(total[:, :, None] - cum)
+    D = torch.einsum("bcjn,bcjhp->bchnp", Bs, xs * wdec[..., None])  # (B, nc, H, N, P)
+    et = torch.exp(total)
+    S = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(S)
+        S = et[:, c, :, None, None] * S + D[:, c]
+    S_prev = torch.stack(prev, 1)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))[..., None]
+    gap = cum[:, :, :, None] - cum[:, :, None]                       # (B, nc, i, j, H)
+    W = (torch.einsum("bcin,bcjn->bcij", Cs, Bs)[..., None]
+         * torch.exp(torch.where(tri, gap, -torch.inf)) * dts[:, :, None])
+    y = (torch.exp(cum)[..., None] * torch.einsum("bcin,bchnp->bcihp", Cs, S_prev)
+         + torch.einsum("bcijh,bcjhp->bcihp", W, xs))
+    return y.reshape(Bsz, T, H, P).to(x.dtype), S.transpose(-1, -2)
 
 
 class SSDScan(torch.autograd.Function):

@@ -16,6 +16,15 @@ of the SMs full, and the persistent grid takes tiles in groups of GROUP_M
 row tiles that sweep the same columns, so the blocks in flight together
 share the weight's columns in the L2.
 
+``scan_items``, ``ssd_tri_tiles``, ``ssd_mma_tiles``, ``wkv_score_pairs``,
+``scan_split`` and
+``*_scratch_floats`` mirror the work division of the chunk-parallel SSD and
+wkv scans (``csrc/ssd_scan.cu``, ``csrc/wkv_scan.cu``): chunks above
+SCAN_SMALL_CHUNK go through three kernels (chunk-local, state passing,
+read-out) over (b, h, chunk) items with the head fastest; smaller chunks take
+the token walk, whose blocks split the state's rows (SSD) or columns (wkv)
+SCAN_SPLIT at a time, SCAN_PARTS threads to a row or column.
+
 ``live_row_tiles`` and ``grouped_order`` mirror the bf16 grouped expert
 MLP's work list (``csrc/grouped_mlp.cu``: ``grouped_live_kernel`` and
 ``tma_gemm.cuh``'s ``GroupedTiles``): the (expert, 64-row tile) pairs that
@@ -29,6 +38,13 @@ from __future__ import annotations
 # products; wkv's per-channel (Q, Q, K) decay-gap tensor bounds Q lower
 SSD_CHUNK = 128
 WKV_CHUNK = 32
+# the chunk-parallel scans: chunks up to SCAN_SMALL_CHUNK take the token
+# walk, which stages SCAN_WINDOW tokens at a time in blocks of SCAN_SPLIT
+# state rows (SSD) or columns (wkv), SCAN_PARTS threads to each
+SCAN_SMALL_CHUNK = 8
+SCAN_WINDOW = 32
+SCAN_SPLIT = 16
+SCAN_PARTS = 8
 STREAM_ROWS = 64
 GROUP_M = 16
 GROUPED_ROWS, GROUPED_COLS = 64, 128   # the grouped kernels' tile
@@ -108,3 +124,80 @@ def grouped_order(mask, cols: int) -> list[tuple[int, int, int]]:
     T = cdiv(mask.shape[1], GROUPED_ROWS)
     return [(live[l] // T, live[l] % T, tn) for l, tn in
             tile_order(len(live) * GROUPED_ROWS, cols, GROUPED_ROWS, GROUPED_COLS)]
+
+
+def scan_items(B: int, H: int, T: int, Q: int, width: int = 64) -> list[tuple[int, int, int]]:
+    """The blocks of a chunked scan of (B, T, H, width) at chunk Q, in block
+    order: (b, h, chunk) of the chunk-local and read-out kernels, the head
+    fastest, for Q > SCAN_SMALL_CHUNK; else (b, h, first state row or
+    column) of the token walk's blocks."""
+    if Q <= SCAN_SMALL_CHUNK:
+        return [(b, h, s) for b in range(B) for h in range(H)
+                for s in range(0, width, SCAN_SPLIT)]
+    return [(b, h, c) for b in range(B) for c in range(T // Q) for h in range(H)]
+
+
+def _tri_patches(Q: int) -> list[tuple[int, int]]:
+    """The 4 x 8 patches of 4 x 4 tiles of a Q x Q product that hold a tile
+    on or below the diagonal, row-major."""
+    return [(si, sj) for si in range(Q // 16) for sj in range((4 * si + 3) // 8 + 1)]
+
+
+def ssd_tri_tiles(Q: int) -> list[tuple[int, int, int]]:
+    """(thread, ti, tj) of the SSD read-out kernel's C B^T tiles (4 x 4, tj
+    <= ti) in the order its 2Q threads take them: warp w of Q/16 takes
+    patches w, w + Q/16, ...; lane l the tile (4 si + l // 8, 8 sj + l % 8)
+    of its patch where that is on or below the diagonal."""
+    patches, nw = _tri_patches(Q), Q // 16
+    out = []
+    for rd in range(cdiv(len(patches), nw)):
+        for t in range(2 * Q):
+            k = rd * nw + t // 32
+            if k >= len(patches):
+                continue
+            si, sj = patches[k]
+            ti, tj = 4 * si + t % 32 // 8, 8 * sj + t % 8
+            if tj <= ti:
+                out.append((t, ti, tj))
+    return out
+
+
+def ssd_mma_tiles(Q: int) -> list[tuple[int, int, int]]:
+    """(warp, strip, jt) of the bf16 SSD read-out kernel's C B^T tiles (16
+    rows x 8 columns on the tensor cores, jt <= 2 strip + 1), listed strip
+    by strip; warp w of Q/16 takes tiles w, w + Q/16, ..."""
+    tiles = [(s, jt) for s in range(Q // 16) for jt in range(2 * s + 2)]
+    return [(k % (Q // 16), s, jt) for k, (s, jt) in enumerate(tiles)]
+
+
+def wkv_score_pairs(Q: int, threads: int = 256) -> list[tuple[int, int, int]]:
+    """(thread, t, i) of the wkv read-out kernel's scores (i < t) in the
+    order its threads take them: warp w's round rd takes rows pr and
+    Q-1-pr (pr = rd * warps + w), lanes below pr row pr, the next Q-1-pr
+    lanes row Q-1-pr."""
+    nw = threads // 32
+    out = []
+    for rd in range(cdiv(Q // 2, nw)):
+        for th in range(threads):
+            pr, lane = rd * nw + th // 32, th % 32
+            if pr >= Q // 2 or lane >= Q - 1:
+                continue
+            out.append((th, pr, lane) if lane < pr else (th, Q - 1 - pr, lane - pr))
+    return out
+
+
+def scan_split() -> tuple[int, int, int, int]:
+    """The token walk's largest chunk, window, state rows (columns) a block
+    and threads a row (column)."""
+    return SCAN_SMALL_CHUNK, SCAN_WINDOW, SCAN_SPLIT, SCAN_PARTS
+
+
+def ssd_scratch_floats(B: int, T: int, H: int, Q: int, P: int = 64, N: int = 64) -> int:
+    """fp32 scratch of the SSD scan: each chunk's state and e^{total}."""
+    return 0 if Q <= SCAN_SMALL_CHUNK else B * H * (T // Q) * (N * P + 1)
+
+
+def wkv_scratch_floats(B: int, T: int, H: int, Q: int, K: int = 64, V: int = 64) -> int:
+    """fp32 scratch of the wkv scan: each chunk's state and e^{total}
+    per channel."""
+    return 0 if Q <= SCAN_SMALL_CHUNK else B * H * (T // Q) * (K * V + K)

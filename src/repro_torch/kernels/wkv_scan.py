@@ -3,6 +3,14 @@ kernels of ``csrc/wkv_scan.cu`` (ported from
 ``repro/kernels/wkv_scan.py:_scan_kernel`` and ``_decode_kernel``), their
 plain versions, and the ``torch.autograd.Function`` of the scan.
 
+The scan's kernel is chunk-parallel (the design is in the source's note):
+a chunk-local pass, the carry in chunk order into a scratch of chunk states,
+and the read-out; chunks of 8 or fewer take a token walk.
+``wkv_scan_staged`` is the same three passes in plain torch, which the CPU
+tests hold against the reference; ``kernels/tiling.py`` mirrors the work
+division, which ``chip_smoke.py`` holds to the C entries (``scan_items_cuda``,
+``score_pairs_cuda``, ``split_cuda``, ``scratch_cuda``).
+
 The scan's Function saves only its inputs.  Its forward is the kernel for a
 CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
 recomputes the plain chunk loop (``kernels/ref.py:wkv_scan_ref``) under
@@ -18,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.ref import wkv_decode_ref, wkv_scan_ref
 
 HEAD_DIM = 64               # the K = V that csrc/wkv_scan.cu is built for
@@ -30,8 +38,14 @@ launches_decode = 0
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv_scan")
-    lib.wkv_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.wkv_scan_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.wkv_scan_fwd.restype = ctypes.c_int
+    out = ctypes.POINTER(ctypes.c_int)
+    lib.wkv_scan_items.argtypes = [ctypes.c_int] * 4 + [out, ctypes.c_int]
+    lib.wkv_scan_pairs.argtypes = [ctypes.c_int, out, ctypes.c_int]
+    lib.wkv_scan_split.argtypes = [out]
+    lib.wkv_scan_scratch.argtypes = [ctypes.c_int] * 4
+    lib.wkv_scan_scratch.restype = ctypes.c_longlong
     lib.wkv_decode_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.wkv_decode_fwd.restype = ctypes.c_int
     return lib
@@ -44,8 +58,9 @@ def check_chunk(T: int, chunk: int) -> None:
 
 
 def _fp32(*ts: torch.Tensor) -> list[torch.Tensor]:
-    """Contiguous fp32 (no copy for the model's fp32 contiguous operands)."""
-    return [t.float().contiguous() for t in ts]
+    """Contiguous, 16-byte aligned fp32 (no copy for the model's fp32
+    contiguous operands)."""
+    return [_build.aligned(t.float()) for t in ts]
 
 
 def wkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -69,13 +84,76 @@ def wkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     r, k, v, w, u, state = _fp32(r, k, v, w, u, state)
     y = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
     out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    n_scratch = tiling.wkv_scratch_floats(B, T, H, chunk, K, V)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device) if n_scratch else None
     lib = _lib()
     err = lib.wkv_scan_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                            u.data_ptr(), state.data_ptr(), y.data_ptr(), out.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(),
                            B, T, H, K, V, chunk, _build.stream_of(r))
     _build.check(lib, err, "wkv_scan_fwd")
     launches += 1
     return y, out
+
+
+def scan_items_cuda(B: int, T: int, H: int, chunk: int) -> list[tuple[int, ...]]:
+    """The blocks the C entry launches for (B, T, H) at ``chunk`` (as
+    ``tiling.scan_items``)."""
+    return _build.int_triples(_lib().wkv_scan_items, B, T, H, chunk)
+
+
+def score_pairs_cuda(chunk: int) -> list[tuple[int, ...]]:
+    """(thread, t, i) of the read-out kernel's scores (as
+    ``tiling.wkv_score_pairs``)."""
+    return _build.int_triples(_lib().wkv_scan_pairs, chunk)
+
+
+def split_cuda() -> tuple[int, ...]:
+    """The token walk's (largest chunk, window, columns a block, threads a
+    column) (as ``tiling.scan_split``)."""
+    buf = (ctypes.c_int * 4)()
+    _lib().wkv_scan_split(buf)
+    return tuple(buf)
+
+
+def scratch_cuda(B: int, T: int, H: int, chunk: int) -> int:
+    """The scratch floats the C entry reads (as ``tiling.wkv_scratch_floats``)."""
+    return _lib().wkv_scan_scratch(B, T, H, chunk)
+
+
+def wkv_scan_staged(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor, *,
+                    chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's three passes in plain torch, fp32, for the CPU tests
+    (nothing on the main path calls it): (1) per chunk c, D_c = sum_i (k_i
+    e^{total - cum_i})^T v_i and e^{total_c}; (2) the carry S_c =
+    e^{total_c} S_{c-1} + D_c in chunk order from ``state``, keeping each
+    S_{c-1}; (3) y = (r e^{cum_{t-1}}) S_{c-1} + the scores' and the bonus'
+    terms.  Returns what ``wkv_scan_ref`` returns."""
+    B, T, H, K = r.shape
+    V, Q = v.shape[-1], chunk
+    check_chunk(T, Q)
+    nc = T // Q
+    rs, ks, lw = (t.float().reshape(B, nc, Q, H, K) for t in (r, k, torch.log(w.float())))
+    vs = v.float().reshape(B, nc, Q, H, V)
+    cum = torch.cumsum(lw, dim=2)                                    # (B, nc, Q, H, K)
+    cum_prev = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], 2)
+    total = cum[:, :, -1]
+    D = torch.einsum("bcihk,bcihv->bchkv", ks * torch.exp(total[:, :, None] - cum), vs)
+    et = torch.exp(total)
+    S = state.float()
+    prev = []
+    for c in range(nc):
+        prev.append(S)
+        S = et[:, c, ..., None] * S + D[:, c]
+    S_prev = torch.stack(prev, 1)                                    # (B, nc, H, K, V)
+    y = torch.einsum("bcthk,bchkv->bcthv", rs * torch.exp(cum_prev), S_prev)
+    lt = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=r.device), -1)[..., None, None]
+    gap = torch.where(lt, cum_prev[:, :, :, None] - cum[:, :, None], -torch.inf)
+    score = torch.einsum("bcthk,bcihk,bctihk->bctih", rs, ks, torch.exp(gap))
+    y = (y + torch.einsum("bctih,bcihv->bcthv", score, vs)
+         + torch.einsum("bcthk,bcthv->bcthv", rs * (u.float() * ks), vs))
+    return y.reshape(B, T, H, V), S
 
 
 class WKVScan(torch.autograd.Function):

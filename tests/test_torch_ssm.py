@@ -7,7 +7,8 @@ tests/test_kernels_scan.py); the decode step against ``ref.mamba_decode_ref``
 at 1e-6; the ``tiling`` copy against the original; ``mamba_block``,
 ``mamba_prefill`` and ``mamba_decode`` against their JAX twins at 1e-5
 (fp32, kernels on and off); and the hybrid ``train_step_flops`` against the
-reference's cost model."""
+reference's cost model.  The kernel's staged form (``ssd_scan_staged``)
+against the same references at chunks 1 to 128."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -63,6 +64,21 @@ def test_ssd_scan_matches_jax(chunk):
                   argnums=tuple(range(5)))(*js)
     for t, g in zip(ts, gk):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("chunk,T", [(1, 32), (4, 32), (8, 32), (32, 64), (128, 128)])
+def test_ssd_scan_staged_matches_jax(chunk, T):
+    """``ssd_scan_staged``, the kernel's three passes (the chunk-local states,
+    the carry in chunk order, the read-out) in plain torch, against the JAX
+    package's ``ops.ssd_scan`` (Pallas, interpret mode) and
+    ``ref.ssd_scan_ref`` at 2e-5."""
+    arrays = _ssd_inputs(100 + chunk, T=T)
+    y, S = ssd.ssd_scan_staged(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    js = [jnp.asarray(a) for a in arrays]
+    for ref_y, ref_S in (jax_ops.ssd_scan(*js, chunk=chunk),
+                         jax_ref.ssd_scan_ref(*js, chunk=chunk)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(S.numpy(), np.asarray(ref_S), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("T,chunk", [(32, 3), (32, 64), (24, 16), (256, 256)])

@@ -12,7 +12,12 @@ kernel's per-tile (max, sumexp) partials and their merge, in float64, equal
 the plain version's lse and label logit.  The grouped expert MLP's work
 list (``tiling.grouped_order``) covers each column tile of every live
 expert's row tiles once and gives a dead one none, at llama4's and arctic's
-routed serve masks and the ragged shapes ``chip_smoke.py`` checks."""
+routed serve masks and the ragged shapes ``chip_smoke.py`` checks.  The
+chunk-parallel SSD and wkv scans' work division (``tiling.scan_items``,
+``ssd_tri_tiles``, ``ssd_mma_tiles``, ``wkv_score_pairs``, ``scan_split``)
+takes every chunk, lower-triangular tile, score pair and state entry once,
+and ``chip_smoke.check_scan_mirrors`` fails when any C plan entry differs
+from its mirror."""
 import numpy as np
 import pytest
 import torch
@@ -385,3 +390,131 @@ def test_grouped_blocks_in_flight_share_columns(case):
         for e in {e for e, _, _ in wave}:
             cols = sorted(j for ee, _, j in wave if ee == e)
             assert cols == list(range(cols[0], cols[-1] + 1)), (start, e)
+
+
+# the chunked scans: (B, T, H, chunk) of chip_smoke.py's SSD and wkv cases,
+# at zamba2's 80 SSM heads and rwkv6's 32, and every chunk each kernel takes
+SCAN_CASES = [(4, 2048, 80, 128), (1, 255, 80, 1), (1, 200, 80, 8), (1, 96, 80, 32),
+              (1, 64, 80, 64), (1, 48, 80, 16), (2, 100, 3, 4), (4, 2048, 32, 32),
+              (1, 50, 32, 2)]
+
+
+@pytest.mark.parametrize("B,T,H,chunk", SCAN_CASES, ids=lambda v: str(v))
+def test_scan_items_cover_each_chunk_once(B, T, H, chunk):
+    """The chunk kernels' blocks take every (b, h, chunk) once, the head
+    fastest; the token walk's blocks take every (b, h) once per 16-row
+    (column) part, and the parts cover the 64 state rows once."""
+    items = tiling.scan_items(B, H, T, chunk)
+    if chunk > tiling.SCAN_SMALL_CHUNK:
+        assert sorted(items) == [(b, h, c) for b in range(B) for h in range(H)
+                                 for c in range(T // chunk)]
+        assert [h for _, h, _ in items[:H]] == list(range(H))
+        assert tiling.ssd_scratch_floats(B, T, H, chunk) == B * H * (T // chunk) * (64 * 64 + 1)
+    else:
+        assert sorted(items) == [(b, h, s) for b in range(B) for h in range(H)
+                                 for s in range(0, 64, tiling.SCAN_SPLIT)]
+        assert tiling.ssd_scratch_floats(B, T, H, chunk) == 0
+        assert tiling.wkv_scratch_floats(B, T, H, chunk) == 0
+    assert len(items) == len(set(items))
+
+
+@pytest.mark.parametrize("Q", [16, 32, 64, 128])
+def test_ssd_tiles_cover_the_lower_triangle_once(Q):
+    """C B^T's tiles cover every (i, j <= i) of a Q-chunk once: the fp32
+    4 x 4 tiles (each of the 2Q threads at most once a round, no round
+    longer than the list needs) and the bf16 16 x 8 mma tiles (spread over
+    the Q/16 warps within one tile of each other)."""
+    tiles = tiling.ssd_tri_tiles(Q)
+    assert sorted((ti, tj) for _, ti, tj in tiles) == [
+        (ti, tj) for ti in range(Q // 4) for tj in range(ti + 1)]
+    assert all(0 <= t < 2 * Q for t, _, _ in tiles)
+    per_thread = np.bincount([t for t, _, _ in tiles], minlength=2 * Q)
+    assert per_thread.max() <= -(-len(tiling._tri_patches(Q)) // (Q // 16))
+    covered = set()
+    for w, s, jt in tiling.ssd_mma_tiles(Q):
+        assert 0 <= w < Q // 16 and 8 * jt <= 16 * s + 15
+        cells = {(i, j) for i in range(16 * s, 16 * s + 16)
+                 for j in range(8 * jt, 8 * jt + 8) if j <= i}
+        assert not covered & cells
+        covered |= cells
+    assert covered == {(i, j) for i in range(Q) for j in range(i + 1)}
+    per_warp = np.bincount([w for w, _, _ in tiling.ssd_mma_tiles(Q)])
+    assert per_warp.max() - per_warp.min() <= 1
+
+
+@pytest.mark.parametrize("Q", [16, 32])
+def test_wkv_score_pairs_cover_each_pair_once(Q):
+    """The wkv read-out kernel forms every score (t, i < t) of a Q-chunk
+    once, each thread at most one a round, and no pair with i >= t (the
+    masked half, whose gap would be positive)."""
+    pairs = tiling.wkv_score_pairs(Q)
+    assert sorted((t, i) for _, t, i in pairs) == [(t, i) for t in range(Q) for i in range(t)]
+    rounds = -(-(Q // 2) // 8)
+    assert np.bincount([th for th, _, _ in pairs]).max() <= rounds
+    # a warp's lanes take two rows, whose pairs fill Q - 1 lanes
+    for th in range(0, 256, 32):
+        rows = {t for w, t, _ in pairs if th <= w < th + 32}
+        assert len(rows) <= 2 * rounds
+
+
+def test_token_walk_split_covers_the_state():
+    """The token walk's blocks split the 64 state rows (SSD) or columns
+    (wkv) SCAN_SPLIT at a time, SCAN_PARTS threads to each, so a block's
+    threads hold its rows' 64 entries once (8 each), and a window holds
+    whole chunks of every size the walk takes."""
+    small, window, split, parts = tiling.scan_split()
+    assert 64 % split == 0 and 64 % parts == 0 and 64 // parts == 8
+    held = sorted((r, parts_i * (64 // parts) + e) for r in range(split)
+                  for parts_i in range(parts) for e in range(64 // parts))
+    assert held == [(r, c) for r in range(split) for c in range(64)]
+    assert all(window % q == 0 for q in (1, 2, 4, small))
+
+
+def _scan_stubs(name: str, broken: str | None):
+    """Stand-ins for a scan module's C plan entries that answer as the
+    mirrors do, or with one of them broken."""
+    ssd_kernel = name == "ssd_scan"
+
+    def items(B, T, H, chunk):
+        got = tiling.scan_items(B, H, T, chunk)
+        return got[1:] + got[:1] if broken == "items" else got
+
+    def tiles(chunk, dtype=torch.float32):
+        got = (tiling.ssd_mma_tiles(chunk) if dtype == torch.bfloat16
+               else tiling.ssd_tri_tiles(chunk)) if ssd_kernel else tiling.wkv_score_pairs(chunk)
+        return got[:-1] if broken == "tiles" else got
+
+    def split():
+        got = tiling.scan_split()
+        return (got[0], got[1] // 2, *got[2:]) if broken == "split" else got
+
+    def scratch(B, T, H, chunk):
+        fn = tiling.ssd_scratch_floats if ssd_kernel else tiling.wkv_scratch_floats
+        return fn(B, T, H, chunk) + (1 if broken == "scratch" and chunk > 8 else 0)
+
+    return {"scan_items_cuda": items, "tri_tiles_cuda" if ssd_kernel else "score_pairs_cuda":
+            tiles, "split_cuda": split, "scratch_cuda": scratch}
+
+
+@pytest.mark.parametrize("broken", [None, "items", "tiles", "split", "scratch"])
+@pytest.mark.parametrize("name", ["ssd_scan", "wkv_scan"])
+def test_chip_smoke_holds_the_scan_mirrors_to_the_c_entries(name, broken, monkeypatch):
+    """``chip_smoke.check_scan_mirrors`` compares every C plan entry of the
+    scan with its mirror at the script's cases: it passes when they agree
+    and fails when any one of them differs."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    for attr, stub in _scan_stubs(name, broken).items():
+        monkeypatch.setattr(module, attr, stub)
+    cases = ([(B, T, 80, c) for B, T, c in chip_smoke._ssd_cases()] if name == "ssd_scan"
+             else [(B, T, 32, c) for B, T, c in chip_smoke._wkv_cases()])
+    if broken is None:
+        assert chip_smoke.check_scan_mirrors(name, cases) > len(cases)
+    else:
+        with pytest.raises(AssertionError, match=name):
+            chip_smoke.check_scan_mirrors(name, cases)

@@ -6,7 +6,9 @@ of sum(y^2) + sum(S^2) at 3e-3 (the tolerances of
 tests/test_kernels_scan.py), at head widths 8 and 64 and chunks 1, 4, 16
 and 32; the scan against the reference's sequential ``_time_mix_core``
 oracle at 1e-4; the decode step against ``ops.wkv_decode_step`` and
-``ref.wkv_decode_ref`` at 1e-6; the chunk and head-width refusals."""
+``ref.wkv_decode_ref`` at 1e-6; the chunk and head-width refusals; the
+kernel's staged form (``wkv_scan_staged``) against the same references at
+chunks 1 to 32."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -112,6 +114,22 @@ def test_wkv_decode_step_matches_jax(width):
     # the port's _time_mix_core is the same step
     out2, S2 = rwkv._time_mix_core(*ts)
     assert torch.equal(out2, out) and torch.equal(S2, S)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 8, 32])
+def test_wkv_scan_staged_matches_jax(chunk):
+    """``wkv_scan_staged``, the kernel's three passes (the chunk-local
+    states, the carry in chunk order from the carried state, the read-out)
+    in plain torch, against the JAX package's ``ops.wkv_scan`` (Pallas,
+    interpret mode) and ``ref.wkv_scan_ref`` at 2e-5, at the kernels' head
+    width 64."""
+    arrays = _wkv_inputs(200 + chunk, H=2, K=64, V=64)
+    y, S = wkv.wkv_scan_staged(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    js = [jnp.asarray(a) for a in arrays]
+    for ref_y, ref_S in (jax_ops.wkv_scan(*js, chunk=chunk),
+                         jax_ref.wkv_scan_ref(*js, chunk=chunk)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(S.numpy(), np.asarray(ref_S), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("T,chunk", [(32, 3), (64, 64), (24, 16), (32, 0)])

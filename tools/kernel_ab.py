@@ -7,6 +7,8 @@ other, other, port), so that both meet the same card, clocks and host.
   python3 tools/kernel_ab.py gelu_mlp OTHER.cu --serve gpt-1.4b
   python3 tools/kernel_ab.py flash_attention_bwd OTHER.cu
   python3 tools/kernel_ab.py grouped_mlp OTHER.cu --serve llama4-maverick-400b-a17b
+  python3 tools/kernel_ab.py ssd_scan OTHER.cu [--fp32-train]
+  python3 tools/kernel_ab.py wkv_scan OTHER.cu [--fp32-train]
                                        (one CUDA card, from the repo root)
 
 OTHER.cu is built with the port's ``nvcc`` flags and
@@ -17,7 +19,13 @@ the L2 flushed before each launch; each version the mean of its two
 turns), their ratio, and whether their outputs are bit-identical; for the
 flash backward each of its two kernels (dQ, dK/dV) apart; for the grouped
 expert MLP at all 128 experts of llama4-maverick and arctic, with masks from
-the model's router on random gates (``chip_smoke.routed_mask``).  With
+the model's router on random gates (``chip_smoke.routed_mask``); for the
+SSD scan (bf16) and the wkv scan at every case of ``chip_smoke._ssd_cases``
+and ``_wkv_cases``, y and the final state, and each version's device time
+by kernel (``torch.profiler``) at the first case.  With ``--fp32-train`` it
+also runs the check that opens ``chip_smoke.phase_train`` (the arch's
+reduced fp32 model, 5 steps with kernels on against kernels off) under each
+version and prints every step's relative loss and grad_norm difference.  With
 ``--serve ARCH`` it also serves ARCH at full width and depth in bf16
 (``ServeEngine``, 4 slots) and reads the kernel's device time per decode
 tick from ``torch.profiler`` (``chip_smoke._profile``) in the same turns:
@@ -54,13 +62,17 @@ SHAPES = {"swiglu": [(512, 4096, 11008), (4, 4096, 11008), (8192, 4096, 11008),
           # (arch, act, G groups of g tokens): a 256-token prefill, decode at 4 slots
           "grouped_mlp": [(cs.LLAMA4, "swiglu", 1, 256), (cs.LLAMA4, "swiglu", 4, 1),
                           (cs.ARCTIC, "swiglu", 1, 256), (cs.ARCTIC, "swiglu", 4, 1),
-                          (cs.ARCTIC, "gelu", 1, 256)]}
+                          (cs.ARCTIC, "gelu", 1, 256)],
+          # (B, T, chunk): chip_smoke.py's timed scan rows
+          "ssd_scan": cs._ssd_cases(), "wkv_scan": cs._wkv_cases()}
 # the wrapper module, its library loader and the C entries it calls
 WRAPPER = {"swiglu": ("swiglu", "_lib", ("swiglu_fwd",)),
            "gelu_mlp": ("gelu_mlp", "_lib", ("gelu_mlp_fwd",)),
            "flash_attention_bwd": ("flash_attention", "_bwd_lib",
                                    ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
-           "grouped_mlp": ("grouped_mlp", "_lib", ("grouped_mlp_fwd",))}
+           "grouped_mlp": ("grouped_mlp", "_lib", ("grouped_mlp_fwd",)),
+           "ssd_scan": ("ssd_scan", "_lib", ("ssd_scan_fwd",)),
+           "wkv_scan": ("wkv_scan", "_lib", ("wkv_scan_fwd",))}
 
 
 def build_other(kernel: str, src: Path) -> ctypes.CDLL:
@@ -161,12 +173,67 @@ def grouped_turns(module, other: ctypes.CDLL) -> None:
                  "port_over_other": port_ms / other_ms, "bit_identical": same})
 
 
+def scan_turns(kernel: str, module, other: ctypes.CDLL) -> None:
+    """The SSD scan (bf16, zamba2's 80 heads) or the wkv scan (rwkv6's 32)
+    at chip_smoke.py's cases."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    timer = cs.Timer()
+    with torch.no_grad():
+        for B, T, chunk in SHAPES[kernel]:
+            args = (cs.ssd_inputs(gen, B, T, torch.bfloat16) if kernel == "ssd_scan"
+                    else cs.wkv_inputs(gen, B, T))
+            call = getattr(module, f"{kernel}_cuda")
+            port_out = call(*args, chunk)
+            port_ms, other_ms = in_turns(kernel, module, other,
+                                         lambda: timer(lambda: call(*args, chunk)))
+            other_out = with_other(kernel, module, other, lambda: call(*args, chunk))
+            same = all(torch.equal(a, b) for a, b in zip(port_out, other_out))
+            row = {"kernel": kernel, "shape": [B, T, chunk], "port_ms": port_ms,
+                   "other_ms": other_ms, "port_over_other": port_ms / other_ms,
+                   "bit_identical": same}
+            if (B, T, chunk) == SHAPES[kernel][0]:
+                def by_kernel():
+                    prof = cs._profile(lambda: [call(*args, chunk) for _ in range(10)])
+                    return {k["name"]: k["device_ms"] / 10 for k in prof["top_kernels"]}
+                row["port_ms_by_kernel"] = by_kernel()
+                row["other_ms_by_kernel"] = with_other(kernel, module, other, by_kernel)
+            cs.emit(row)
+
+
+def fp32_train_turns(kernel: str, module, other: ctypes.CDLL) -> None:
+    """The reduced fp32 train check of ``chip_smoke.phase_train`` (kernels
+    on vs off over 5 steps) with the port's source, then the other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    arch = {"ssd_scan": cs.ZAMBA, "wkv_scan": cs.RWKV}[kernel]
+    cfg = get_config(arch).reduced(**cs.REDUCED[arch])
+    model = Model(cfg, torch.float32, device="cuda")
+    batches = cs._batches(cfg.vocab_size, 256, 4, 5)
+
+    def run(kernels: bool):
+        return cs._run_steps(model, ParallelPlan(gas=2, precision="fp32", kernels=kernels),
+                             batches, 1)
+
+    off = run(False)
+    for version, on in (("port", run(True)),
+                        ("other", with_other(kernel, module, other, lambda: run(True)))):
+        cs.emit({"kernel": kernel, "fp32_train": cfg.name, "version": version,
+                 "rtol": cs.TRAIN_FP32_RTOL,
+                 "rel_by_step": [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+                                 for a, b in zip(on, off)]})
+
+
 def kernel_turns(kernel: str, module, other: ctypes.CDLL) -> None:
     if kernel == "flash_attention_bwd":
         flash_bwd_turns(module, other)
         return
     if kernel == "grouped_mlp":
         grouped_turns(module, other)
+        return
+    if kernel in ("ssd_scan", "wkv_scan"):
+        scan_turns(kernel, module, other)
         return
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer()
@@ -222,9 +289,16 @@ def main() -> int:
     ap.add_argument("other", type=Path)
     ap.add_argument("--serve", help="also A/B the kernel's device time per decode tick "
                                     "when serving this arch")
+    ap.add_argument("--fp32-train", action="store_true",
+                    help="a scan: also the reduced fp32 train step's kernels-on-vs-off drift "
+                         "under each version")
     args = ap.parse_args()
     if args.serve and args.kernel == "flash_attention_bwd":
         ap.error("--serve: serving runs no backward")
+    if args.serve and args.kernel in ("ssd_scan", "wkv_scan"):
+        ap.error("--serve: a decode tick runs no scan")
+    if args.fp32_train and args.kernel not in ("ssd_scan", "wkv_scan"):
+        ap.error("--fp32-train: the scans only")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -241,6 +315,9 @@ def main() -> int:
     module = importlib.import_module(f"repro_torch.kernels.{WRAPPER[args.kernel][0]}")
     other = build_other(args.kernel, args.other)
     kernel_turns(args.kernel, module, other)
+    if args.fp32_train:
+        torch.backends.cudnn.allow_tf32 = False
+        fp32_train_turns(args.kernel, module, other)
     if args.serve:
         serve_turns(args.kernel, module, other, args.serve)
     return 0
