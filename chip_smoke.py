@@ -183,7 +183,8 @@ PREVIOUS = {"flash_attention": ("_lib", ("flash_attention_fwd",)),
             "swiglu": ("_lib", ("swiglu_fwd",)), "gelu_mlp": ("_lib", ("gelu_mlp_fwd",)),
             "cross_entropy": ("_lib", ("cross_entropy_fwd",)),
             "grouped_mlp": ("_lib", ("grouped_mlp_fwd",)),
-            "ssd_scan": ("_lib", ("ssd_scan_fwd",)), "wkv_scan": ("_lib", ("wkv_scan_fwd",))}
+            "ssd_scan": ("_lib", ("ssd_scan_fwd", "ssd_scan_scratch")),
+            "wkv_scan": ("_lib", ("wkv_scan_fwd", "wkv_scan_scratch"))}
 # their redesigned bf16 kernels, whose registers and spills the kernels
 # line reports (``ptxas -v``)
 REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
@@ -1554,29 +1555,23 @@ def ssd_error_bound(x, dt, Bm, Cm, A_log, chunk: int) -> tuple[torch.Tensor, tor
 
 def check_scan_mirrors(name: str, cases: list) -> int:
     """The chunked scan's work division as its C entries report it
-    (``scan_items_cuda``, ``tri_tiles_cuda`` or ``score_pairs_cuda``,
-    ``split_cuda``, ``scratch_cuda`` of ``kernels/<name>.py``) equals the
-    mirrors of ``kernels/tiling.py``: the blocks and the scratch of each
-    (B, T, H, chunk) case, the tile (SSD, in fp32 and bf16) or score-pair
-    (wkv) list of every chunk the chunk kernels take, and the token walk's
-    split."""
+    (``scan_items_cuda``, ``tri_tiles_cuda`` or ``score_pairs_cuda`` of
+    ``kernels/<name>.py``) equals the mirrors of ``kernels/tiling.py``: the
+    blocks of each (B, T, H, chunk) case (the token walk's split of the
+    state among them) and the tile (SSD, in fp32 and bf16) or score-pair
+    (wkv) list of every chunk the chunk kernels take."""
     import importlib
 
     from repro_torch.kernels import tiling
 
     module = importlib.import_module(f"repro_torch.kernels.{name}")
     if name == "ssd_scan":
-        scratch, got_list, want_list = (tiling.ssd_scratch_floats, module.tri_tiles_cuda,
-                                        tiling.ssd_tri_tiles)
+        got_list, want_list = module.tri_tiles_cuda, tiling.ssd_tri_tiles
     else:
-        scratch, got_list, want_list = (tiling.wkv_scratch_floats, module.score_pairs_cuda,
-                                        tiling.wkv_score_pairs)
-    checks = []
-    for B, T, H, chunk in cases:
-        checks.append((f"blocks of ({B}, {T}, {H}) at chunk {chunk}",
-                       module.scan_items_cuda(B, T, H, chunk), tiling.scan_items(B, H, T, chunk)))
-        checks.append((f"scratch of ({B}, {T}, {H}) at chunk {chunk}",
-                       module.scratch_cuda(B, T, H, chunk), scratch(B, T, H, chunk)))
+        got_list, want_list = module.score_pairs_cuda, tiling.wkv_score_pairs
+    checks = [(f"blocks of ({B}, {T}, {H}) at chunk {chunk}",
+               module.scan_items_cuda(B, T, H, chunk), tiling.scan_items(B, H, T, chunk))
+              for B, T, H, chunk in cases]
     chunk = 2 * tiling.SCAN_SMALL_CHUNK
     while chunk <= module.MAX_CHUNK:
         checks.append((f"tile list at chunk {chunk}", got_list(chunk), want_list(chunk)))
@@ -1584,7 +1579,6 @@ def check_scan_mirrors(name: str, cases: list) -> int:
             checks.append((f"bf16 tile list at chunk {chunk}",
                            got_list(chunk, torch.bfloat16), tiling.ssd_mma_tiles(chunk)))
         chunk *= 2
-    checks.append(("token walk split", module.split_cuda(), tiling.scan_split()))
     for what, got, want in checks:
         if isinstance(got, list):
             got, want = [tuple(g) for g in got], [tuple(w) for w in want]
@@ -1682,15 +1676,34 @@ def check_repeat(name: str, first: tuple, again: tuple) -> None:
         raise AssertionError(f"{name}: a repeated launch gave other bits")
 
 
+def ssd_bound(B: int, T: int, H: int, P: int, N: int, chunk: int,
+              el: int) -> tuple[float, str, dict]:
+    """(ms, bound_by, floors) of the SSD scan's function at chunk Q: x, B, C
+    and dt read once, y and the state written once (x, B, C and y of ``el``
+    bytes), against its products at the fastest rate the card has for their
+    operands: C B^T (bf16 x bf16; B and C are shared by the heads) once per
+    (b, chunk) at the bf16 tensor rate; W x, D_c and C S_{c-1}, each with an
+    fp32 operand, per head at a third of it (the operand split exactly into
+    three bf16 planes, as the kernel's bf16 path runs them)."""
+    nc, pairs = T // chunk, chunk * (chunk + 1) // 2
+    nbytes = 2 * B * T * H * P * el + 2 * B * T * N * el + B * T * H * 4 + B * H * P * N * 4
+    cbt = B * nc * 2 * pairs * N
+    split = B * H * nc * (2 * pairs * P + 2 * 2 * chunk * N * P)
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (cbt + 3 * split) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations",
+            {"bytes": t_mem, "tensor": t_ops, "nbytes": nbytes, "cbt_flops": cbt,
+             "split_flops": split})
+
+
 def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
-    """The timed row of a bf16 scan: the bound counts x, B, C and dt read
-    once, y and the state written once, and the fp32 FLOPs of the chunk
-    algebra on the unmasked (i, j) pairs; ``design_bound_ms`` restates it for
-    this design: for chunks over 8 the bytes add x read again and each
-    chunk's state written and read twice, and every product runs on the
-    tensor cores (D_c, C S and W x three times over: their fp32 operand as
-    three bf16 planes); the token walk moves nothing more (its blocks share
-    B and C in the L2) and runs all on FFMA."""
+    """The timed row of a bf16 scan against ``ssd_bound``;
+    ``design_bound_ms`` is this design's own floor, not the card's: for
+    chunks over 8 the bytes add x read again and each chunk's state written
+    and read twice, and every product runs per head on the tensor cores (C
+    B^T too, and D_c, C S and W x three times over); the token walk moves
+    nothing more (its blocks share B and C in the L2) and runs all on
+    FFMA."""
     from repro_torch.kernels import ssd_scan as ssd, tiling
     from repro_torch.kernels.ref import ssd_scan_ref
 
@@ -1698,12 +1711,11 @@ def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     el = x.element_size()
-    nbytes = 2 * x.numel() * el + 2 * B * T * N * el + dt.numel() * 4 + B * H * P * N * 4
+    b, by, floors = ssd_bound(B, T, H, P, N, chunk, el)
+    nbytes, extra = floors["nbytes"], 0
     pairs = chunk * (chunk + 1) // 2
-    flops = B * H * (T // chunk) * (2 * pairs * (N + P) + 4 * chunk * N * P)
-    b, by = bound_ms(nbytes, flops, torch.float32)
-    extra = 0
-    db, dby = bound_ms(nbytes, flops, torch.float32)
+    ffma = B * H * (T // chunk) * (2 * pairs * (N + P) + 4 * chunk * N * P)
+    db, dby = bound_ms(nbytes, ffma, torch.float32)
     if chunk > tiling.SCAN_SMALL_CHUNK:
         n_chunks = B * H * (T // chunk)
         extra = x.numel() * el + 4 * 4 * n_chunks * N * P + 8 * n_chunks
@@ -1722,7 +1734,9 @@ def ssd_row(timer: Timer, err: float, args: tuple, chunk: int) -> dict:
             "plain_ms": timer(lambda: ssd_scan_ref(x, dt, Bm, Cm, A_log, chunk=chunk)),
             "plain_call": "ssd_scan_ref (the chunk loop in torch)",
             "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-            "bound_ms": b, "bound_by": by, "flops_rate": "fp32 (the algebra's type)",
+            "bound_ms": b, "bound_by": by,
+            "flops_rate": "C B^T at the bf16 tensor rate, fp32-operand products at a third",
+            "floors_ms": {"bytes": floors["bytes"], "tensor": floors["tensor"]},
             "design_bytes": nbytes + extra, "design_bound_ms": db, "design_bound_by": dby,
             "share_of_bound": b / ms, "share_of_design_bound": db / ms}
 

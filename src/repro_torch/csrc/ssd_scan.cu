@@ -58,15 +58,16 @@
 //   S = exp(total) S + D.
 // Every sum runs in a fixed order, with no atomics: repeated launches are
 //   bit-identical.
-// Bound on the H100: operations.  Per chunk the algebra is Q(Q+1)/2 (N + P)
-//   FMAs for C B^T and W x under the mask and 2 Q N P for C S and D_c: 4.2M
-//   FLOPs at Q = 128, 21.6 GFLOP for zamba2's train microbatch (4 x 2048, 80
-//   heads), 0.32 ms at 67 TFLOP/s of fp32 FFMA.  The bytes, with this
-//   design's second read of x and its chunk states (D_c written and read,
-//   S_{c-1} written and read: 4 x 84 MB), are ~0.61 GB, 0.18 ms at 3.35 TB/s.
-//   In bf16 every product runs on the tensor cores, D_c, C S and W x three
-//   times over (their fp32 operand in three planes): 54 GFLOP, 0.05 ms at
-//   989 TFLOP/s, so this design's bound there is its bytes, 0.18 ms.
+// Bound on the H100: bytes.  The function reads x, B, C and dt once and
+//   writes y and the state once: 178 MB for zamba2's train microbatch
+//   (4 x 2048, 80 heads, bf16), 0.053 ms at 3.35 TB/s.  Its products at the
+//   fastest exact rate: C B^T (bf16 x bf16, shared by the heads) once per
+//   (b, chunk) at 989 TFLOP/s, and W x, D_c and C S, each with an fp32
+//   operand, per head as three bf16 products: 48.5 GFLOP, 0.049 ms.  This
+//   design moves more: a second read of x and its chunk states (D_c written
+//   and read, S_{c-1} written and read: 4 x 84 MB), ~0.61 GB, 0.18 ms; its
+//   tensor-core work (C B^T per head too) 54 GFLOP, 0.05 ms.  In fp32 on
+//   FFMA the algebra's 21.6 GFLOP take 0.32 ms at 67 TFLOP/s.
 //
 // mamba_decode_fwd: window (B, K, ch), conv_w (K, ch), conv_b (ch,) in one
 //   dtype; dt_raw (B, H), dt_bias, A_log, D (H,) in one dtype (read in fp32)
@@ -1136,8 +1137,9 @@ bool scan_shape_ok(int B, int T, int H, int P, int N, int Q) {
 
 }  // namespace
 
-// Floats of chunk-state scratch ssd_scan_fwd needs: B H (T/Q) (N P + 1) for
-// Q > 8, none for the token walk.
+// Floats of chunk-state scratch ssd_scan_fwd needs (the wrapper allocates
+// this many): B H (T/Q) (N P + 1) for Q > 8, none for the token
+// walk.
 extern "C" long long ssd_scan_scratch(int B, int T, int H, int Q) {
     if (Q <= SMALL_Q) return 0;
     return (long long)B * H * (T / Q) * (HN * HP + 1);
@@ -1180,8 +1182,7 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* bm, const
 // written).  ssd_scan_tiles: C B^T's tiles in the order the read-out takes
 // them: in fp32 (ssd_scan_out_kernel) (thread, ti, tj) of its 4 x 4 tiles
 // (round, then thread), in bf16 (ssd_scan_out_tc_kernel) (warp, strip, jt)
-// of its 16 x 8 mma tiles; returns their number.  ssd_scan_split: the token walk's largest chunk,
-// window, state rows a block, threads a row.
+// of its 16 x 8 mma tiles; returns their number.
 extern "C" int ssd_scan_items(int B, int T, int H, int Q, int* out, int cap) {
     if (!scan_shape_ok(B, T, H, HP, HN, Q)) return -1;
     if (Q <= SMALL_Q) {
@@ -1222,11 +1223,6 @@ extern "C" int ssd_scan_tiles(int Q, int dtype, int* out, int cap) {
             ++n;
         }
     return n;
-}
-
-extern "C" int ssd_scan_split(int* out) {
-    out[0] = SMALL_Q; out[1] = WINDOW; out[2] = SMALL_ROWS; out[3] = SMALL_PARTS;
-    return 4;
 }
 
 // window: (B, K, ch) contiguous, conv_w: (K, ch) contiguous, conv_b: (ch,),

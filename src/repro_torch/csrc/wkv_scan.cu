@@ -598,8 +598,9 @@ bool scan_shape_ok(int B, int T, int H, int K, int V, int Q) {
 
 }  // namespace
 
-// Floats of chunk-state scratch wkv_scan_fwd needs: B H (T/Q) (K V + K) for
-// Q > 8, none for the token walk.
+// Floats of chunk-state scratch wkv_scan_fwd needs (the wrapper allocates
+// this many): B H (T/Q) (K V + K) for Q > 8, none for the token
+// walk.
 extern "C" long long wkv_scan_scratch(int B, int T, int H, int Q) {
     if (Q <= SMALL_Q) return 0;
     return (long long)B * H * (T / Q) * (KD * KD + KD);
@@ -641,8 +642,7 @@ extern "C" int wkv_scan_fwd(const void* r, const void* k, const void* v, const v
 // of the token walk; returns the number of blocks (cap triples at most are
 // written).  wkv_scan_pairs: (thread, t, i) of the scores wkv_scan_out_kernel
 // forms, in the order its threads take them (round, then thread); returns
-// their number.  wkv_scan_split: the token walk's largest chunk, window,
-// state columns a block, threads a column.
+// their number.
 extern "C" int wkv_scan_items(int B, int T, int H, int Q, int* out, int cap) {
     if (!scan_shape_ok(B, T, H, KD, KD, Q)) return -1;
     if (Q <= SMALL_Q) {
@@ -674,11 +674,6 @@ extern "C" int wkv_scan_pairs(int Q, int* out, int cap) {
             ++n;
         }
     return n;
-}
-
-extern "C" int wkv_scan_split(int* out) {
-    out[0] = SMALL_Q; out[1] = WINDOW; out[2] = SMALL_COLS; out[3] = SMALL_PARTS;
-    return 4;
 }
 
 // r, k, w: (B, H, K), v: (B, H, V), u: (H, K), state: (B, H, K, V); y:

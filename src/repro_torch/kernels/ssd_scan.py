@@ -9,7 +9,8 @@ and the read-out; chunks of 8 or fewer take a token walk.
 ``ssd_scan_staged`` is the same three passes in plain torch, which the CPU
 tests hold against the reference; ``kernels/tiling.py`` mirrors the work
 division, which ``chip_smoke.py`` holds to the C entries (``scan_items_cuda``,
-``tri_tiles_cuda``, ``split_cuda``, ``scratch_cuda``).
+``tri_tiles_cuda``); the wrapper sizes the scratch with the C entry
+``ssd_scan_scratch``.
 
 The scan's Function saves only its inputs.  Its forward is the kernel for a
 CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, tiling
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_decode_ref, ssd_scan_ref
 
 HEAD_DIM, STATE = 64, 64    # the (P, N) that csrc/ssd_scan.cu is built for
@@ -45,7 +46,6 @@ def _lib() -> ctypes.CDLL:
     out = ctypes.POINTER(ctypes.c_int)
     lib.ssd_scan_items.argtypes = [ctypes.c_int] * 4 + [out, ctypes.c_int]
     lib.ssd_scan_tiles.argtypes = [ctypes.c_int, ctypes.c_int, out, ctypes.c_int]
-    lib.ssd_scan_split.argtypes = [out]
     lib.ssd_scan_scratch.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_scratch.restype = ctypes.c_longlong
     lib.mamba_decode_fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -85,11 +85,11 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch
     dt, A_log = dt.float(), A_log.float().contiguous()   # no-ops for the model's fp32 dt
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    n_scratch = tiling.ssd_scratch_floats(B, T, H, chunk, P, N)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) if n_scratch else None
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                                        *Cm.stride()[:2])
     lib = _lib()
+    n_scratch = lib.ssd_scan_scratch(B, T, H, chunk)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) if n_scratch else None
     err = lib.ssd_scan_fwd(x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                            A_log.data_ptr(), y.data_ptr(), state.data_ptr(),
                            None if scratch is None else scratch.data_ptr(), B, T, H, P, N,
@@ -111,19 +111,6 @@ def tri_tiles_cuda(chunk: int, dtype: torch.dtype = torch.float32) -> list[tuple
     bf16 (warp, strip, jt) of its 16 x 8 mma tiles (``tiling.ssd_mma_tiles``)."""
     code = _build.dtype_code(torch.empty(0, dtype=dtype))
     return _build.int_triples(_lib().ssd_scan_tiles, chunk, code)
-
-
-def split_cuda() -> tuple[int, ...]:
-    """The token walk's (largest chunk, window, rows a block, threads a
-    row) (as ``tiling.scan_split``)."""
-    buf = (ctypes.c_int * 4)()
-    _lib().ssd_scan_split(buf)
-    return tuple(buf)
-
-
-def scratch_cuda(B: int, T: int, H: int, chunk: int) -> int:
-    """The scratch floats the C entry reads (as ``tiling.ssd_scratch_floats``)."""
-    return _lib().ssd_scan_scratch(B, T, H, chunk)
 
 
 def ssd_scan_staged(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

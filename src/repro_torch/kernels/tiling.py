@@ -16,14 +16,13 @@ of the SMs full, and the persistent grid takes tiles in groups of GROUP_M
 row tiles that sweep the same columns, so the blocks in flight together
 share the weight's columns in the L2.
 
-``scan_items``, ``ssd_tri_tiles``, ``ssd_mma_tiles``, ``wkv_score_pairs``,
-``scan_split`` and
-``*_scratch_floats`` mirror the work division of the chunk-parallel SSD and
+``scan_items``, ``ssd_tri_tiles``, ``ssd_mma_tiles`` and
+``wkv_score_pairs`` mirror the work division of the chunk-parallel SSD and
 wkv scans (``csrc/ssd_scan.cu``, ``csrc/wkv_scan.cu``): chunks above
 SCAN_SMALL_CHUNK go through three kernels (chunk-local, state passing,
 read-out) over (b, h, chunk) items with the head fastest; smaller chunks take
 the token walk, whose blocks split the state's rows (SSD) or columns (wkv)
-SCAN_SPLIT at a time, SCAN_PARTS threads to a row or column.
+SCAN_SPLIT at a time.
 
 ``live_row_tiles`` and ``grouped_order`` mirror the bf16 grouped expert
 MLP's work list (``csrc/grouped_mlp.cu``: ``grouped_live_kernel`` and
@@ -39,12 +38,9 @@ from __future__ import annotations
 SSD_CHUNK = 128
 WKV_CHUNK = 32
 # the chunk-parallel scans: chunks up to SCAN_SMALL_CHUNK take the token
-# walk, which stages SCAN_WINDOW tokens at a time in blocks of SCAN_SPLIT
-# state rows (SSD) or columns (wkv), SCAN_PARTS threads to each
+# walk, in blocks of SCAN_SPLIT state rows (SSD) or columns (wkv)
 SCAN_SMALL_CHUNK = 8
-SCAN_WINDOW = 32
 SCAN_SPLIT = 16
-SCAN_PARTS = 8
 STREAM_ROWS = 64
 GROUP_M = 16
 GROUPED_ROWS, GROUPED_COLS = 64, 128   # the grouped kernels' tile
@@ -184,20 +180,3 @@ def wkv_score_pairs(Q: int, threads: int = 256) -> list[tuple[int, int, int]]:
                 continue
             out.append((th, pr, lane) if lane < pr else (th, Q - 1 - pr, lane - pr))
     return out
-
-
-def scan_split() -> tuple[int, int, int, int]:
-    """The token walk's largest chunk, window, state rows (columns) a block
-    and threads a row (column)."""
-    return SCAN_SMALL_CHUNK, SCAN_WINDOW, SCAN_SPLIT, SCAN_PARTS
-
-
-def ssd_scratch_floats(B: int, T: int, H: int, Q: int, P: int = 64, N: int = 64) -> int:
-    """fp32 scratch of the SSD scan: each chunk's state and e^{total}."""
-    return 0 if Q <= SCAN_SMALL_CHUNK else B * H * (T // Q) * (N * P + 1)
-
-
-def wkv_scratch_floats(B: int, T: int, H: int, Q: int, K: int = 64, V: int = 64) -> int:
-    """fp32 scratch of the wkv scan: each chunk's state and e^{total}
-    per channel."""
-    return 0 if Q <= SCAN_SMALL_CHUNK else B * H * (T // Q) * (K * V + K)

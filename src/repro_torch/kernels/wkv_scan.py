@@ -9,7 +9,8 @@ and the read-out; chunks of 8 or fewer take a token walk.
 ``wkv_scan_staged`` is the same three passes in plain torch, which the CPU
 tests hold against the reference; ``kernels/tiling.py`` mirrors the work
 division, which ``chip_smoke.py`` holds to the C entries (``scan_items_cuda``,
-``score_pairs_cuda``, ``split_cuda``, ``scratch_cuda``).
+``score_pairs_cuda``); the wrapper sizes the scratch with the C entry
+``wkv_scan_scratch``.
 
 The scan's Function saves only its inputs.  Its forward is the kernel for a
 CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, tiling
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv_decode_ref, wkv_scan_ref
 
 HEAD_DIM = 64               # the K = V that csrc/wkv_scan.cu is built for
@@ -43,7 +44,6 @@ def _lib() -> ctypes.CDLL:
     out = ctypes.POINTER(ctypes.c_int)
     lib.wkv_scan_items.argtypes = [ctypes.c_int] * 4 + [out, ctypes.c_int]
     lib.wkv_scan_pairs.argtypes = [ctypes.c_int, out, ctypes.c_int]
-    lib.wkv_scan_split.argtypes = [out]
     lib.wkv_scan_scratch.argtypes = [ctypes.c_int] * 4
     lib.wkv_scan_scratch.restype = ctypes.c_longlong
     lib.wkv_decode_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -84,9 +84,9 @@ def wkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     r, k, v, w, u, state = _fp32(r, k, v, w, u, state)
     y = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
     out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
-    n_scratch = tiling.wkv_scratch_floats(B, T, H, chunk, K, V)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device) if n_scratch else None
     lib = _lib()
+    n_scratch = lib.wkv_scan_scratch(B, T, H, chunk)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device) if n_scratch else None
     err = lib.wkv_scan_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                            u.data_ptr(), state.data_ptr(), y.data_ptr(), out.data_ptr(),
                            None if scratch is None else scratch.data_ptr(),
@@ -106,19 +106,6 @@ def score_pairs_cuda(chunk: int) -> list[tuple[int, ...]]:
     """(thread, t, i) of the read-out kernel's scores (as
     ``tiling.wkv_score_pairs``)."""
     return _build.int_triples(_lib().wkv_scan_pairs, chunk)
-
-
-def split_cuda() -> tuple[int, ...]:
-    """The token walk's (largest chunk, window, columns a block, threads a
-    column) (as ``tiling.scan_split``)."""
-    buf = (ctypes.c_int * 4)()
-    _lib().wkv_scan_split(buf)
-    return tuple(buf)
-
-
-def scratch_cuda(B: int, T: int, H: int, chunk: int) -> int:
-    """The scratch floats the C entry reads (as ``tiling.wkv_scratch_floats``)."""
-    return _lib().wkv_scan_scratch(B, T, H, chunk)
 
 
 def wkv_scan_staged(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

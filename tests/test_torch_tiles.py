@@ -14,10 +14,10 @@ list (``tiling.grouped_order``) covers each column tile of every live
 expert's row tiles once and gives a dead one none, at llama4's and arctic's
 routed serve masks and the ragged shapes ``chip_smoke.py`` checks.  The
 chunk-parallel SSD and wkv scans' work division (``tiling.scan_items``,
-``ssd_tri_tiles``, ``ssd_mma_tiles``, ``wkv_score_pairs``, ``scan_split``)
-takes every chunk, lower-triangular tile, score pair and state entry once,
-and ``chip_smoke.check_scan_mirrors`` fails when any C plan entry differs
-from its mirror."""
+``ssd_tri_tiles``, ``ssd_mma_tiles``, ``wkv_score_pairs``) takes every
+chunk, lower-triangular tile, score pair and state row once, and
+``chip_smoke.check_scan_mirrors`` fails when any C plan entry differs from
+its mirror."""
 import numpy as np
 import pytest
 import torch
@@ -409,12 +409,9 @@ def test_scan_items_cover_each_chunk_once(B, T, H, chunk):
         assert sorted(items) == [(b, h, c) for b in range(B) for h in range(H)
                                  for c in range(T // chunk)]
         assert [h for _, h, _ in items[:H]] == list(range(H))
-        assert tiling.ssd_scratch_floats(B, T, H, chunk) == B * H * (T // chunk) * (64 * 64 + 1)
     else:
         assert sorted(items) == [(b, h, s) for b in range(B) for h in range(H)
                                  for s in range(0, 64, tiling.SCAN_SPLIT)]
-        assert tiling.ssd_scratch_floats(B, T, H, chunk) == 0
-        assert tiling.wkv_scratch_floats(B, T, H, chunk) == 0
     assert len(items) == len(set(items))
 
 
@@ -457,19 +454,6 @@ def test_wkv_score_pairs_cover_each_pair_once(Q):
         assert len(rows) <= 2 * rounds
 
 
-def test_token_walk_split_covers_the_state():
-    """The token walk's blocks split the 64 state rows (SSD) or columns
-    (wkv) SCAN_SPLIT at a time, SCAN_PARTS threads to each, so a block's
-    threads hold its rows' 64 entries once (8 each), and a window holds
-    whole chunks of every size the walk takes."""
-    small, window, split, parts = tiling.scan_split()
-    assert 64 % split == 0 and 64 % parts == 0 and 64 // parts == 8
-    held = sorted((r, parts_i * (64 // parts) + e) for r in range(split)
-                  for parts_i in range(parts) for e in range(64 // parts))
-    assert held == [(r, c) for r in range(split) for c in range(64)]
-    assert all(window % q == 0 for q in (1, 2, 4, small))
-
-
 def _scan_stubs(name: str, broken: str | None):
     """Stand-ins for a scan module's C plan entries that answer as the
     mirrors do, or with one of them broken."""
@@ -477,6 +461,9 @@ def _scan_stubs(name: str, broken: str | None):
 
     def items(B, T, H, chunk):
         got = tiling.scan_items(B, H, T, chunk)
+        if broken == "split" and chunk <= tiling.SCAN_SMALL_CHUNK:
+            # the token walk's blocks taking twice the state rows each
+            return [(b, h, s) for b, h, s in got if s % (2 * tiling.SCAN_SPLIT) == 0]
         return got[1:] + got[:1] if broken == "items" else got
 
     def tiles(chunk, dtype=torch.float32):
@@ -484,19 +471,11 @@ def _scan_stubs(name: str, broken: str | None):
                else tiling.ssd_tri_tiles(chunk)) if ssd_kernel else tiling.wkv_score_pairs(chunk)
         return got[:-1] if broken == "tiles" else got
 
-    def split():
-        got = tiling.scan_split()
-        return (got[0], got[1] // 2, *got[2:]) if broken == "split" else got
-
-    def scratch(B, T, H, chunk):
-        fn = tiling.ssd_scratch_floats if ssd_kernel else tiling.wkv_scratch_floats
-        return fn(B, T, H, chunk) + (1 if broken == "scratch" and chunk > 8 else 0)
-
     return {"scan_items_cuda": items, "tri_tiles_cuda" if ssd_kernel else "score_pairs_cuda":
-            tiles, "split_cuda": split, "scratch_cuda": scratch}
+            tiles}
 
 
-@pytest.mark.parametrize("broken", [None, "items", "tiles", "split", "scratch"])
+@pytest.mark.parametrize("broken", [None, "items", "tiles", "split"])
 @pytest.mark.parametrize("name", ["ssd_scan", "wkv_scan"])
 def test_chip_smoke_holds_the_scan_mirrors_to_the_c_entries(name, broken, monkeypatch):
     """``chip_smoke.check_scan_mirrors`` compares every C plan entry of the
@@ -518,3 +497,29 @@ def test_chip_smoke_holds_the_scan_mirrors_to_the_c_entries(name, broken, monkey
     else:
         with pytest.raises(AssertionError, match=name):
             chip_smoke.check_scan_mirrors(name, cases)
+
+
+@pytest.mark.parametrize("B,T,H,chunk", [(4, 2048, 80, 128), (1, 256, 80, 128), (1, 255, 80, 1)],
+                         ids=lambda v: str(v))
+def test_ssd_bound_counts_the_function_once(B, T, H, chunk):
+    """``chip_smoke.ssd_bound`` counts the scan's bytes once (x and y, B and
+    C, dt, the state), C B^T once per (b, chunk) whatever the heads, and
+    the three fp32-operand products (W x, D_c, C S) once per head; the
+    train shape is bound by its bytes."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    ms, by, floors = chip_smoke.ssd_bound(B, T, H, 64, 64, chunk, 2)
+    one_head = chip_smoke.ssd_bound(B, T, 1, 64, 64, chunk, 2)[2]
+    pairs = chunk * (chunk + 1) // 2
+    assert floors["cbt_flops"] == one_head["cbt_flops"] == B * (T // chunk) * 2 * pairs * 64
+    assert floors["split_flops"] == H * one_head["split_flops"]
+    assert floors["split_flops"] == B * H * (T // chunk) * (2 * pairs * 64 + 4 * chunk * 64 * 64)
+    assert floors["nbytes"] == 2 * (2 * B * T * H * 64 + 2 * B * T * 64) + 4 * B * T * H + \
+        4 * B * H * 64 * 64
+    assert ms == max(floors["bytes"], floors["tensor"])
+    if (B, T) == (4, 2048):
+        assert by == "bytes"

@@ -12,7 +12,8 @@ other, other, port), so that both meet the same card, clocks and host.
                                        (one CUDA card, from the repo root)
 
 OTHER.cu is built with the port's ``nvcc`` flags and
-``-I src/repro_torch/csrc`` (it may include the port's headers).  For each
+``-I src/repro_torch/csrc`` (it may include the port's headers); a scan's
+also has the ``<kernel>_scratch`` entry that sizes its scratch.  For each
 shape of the kernel's timed rows in ``chip_smoke.py`` it prints both
 versions' times (``chip_smoke.Timer``: the median of CUDA-event times with
 the L2 flushed before each launch; each version the mean of its two
@@ -71,8 +72,8 @@ WRAPPER = {"swiglu": ("swiglu", "_lib", ("swiglu_fwd",)),
            "flash_attention_bwd": ("flash_attention", "_bwd_lib",
                                    ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
            "grouped_mlp": ("grouped_mlp", "_lib", ("grouped_mlp_fwd",)),
-           "ssd_scan": ("ssd_scan", "_lib", ("ssd_scan_fwd",)),
-           "wkv_scan": ("wkv_scan", "_lib", ("wkv_scan_fwd",))}
+           "ssd_scan": ("ssd_scan", "_lib", ("ssd_scan_fwd", "ssd_scan_scratch")),
+           "wkv_scan": ("wkv_scan", "_lib", ("wkv_scan_fwd", "wkv_scan_scratch"))}
 
 
 def build_other(kernel: str, src: Path) -> ctypes.CDLL:

@@ -346,6 +346,10 @@ cudaError_t launch_scan(const ScanParams& p, cudaStream_t s) {
 
 }  // namespace
 
+// Floats of scratch ssd_scan_fwd needs: none (the wrapper sizes its scratch
+// with this entry; this version takes the argument and ignores it).
+extern "C" long long ssd_scan_scratch(int, int, int, int) { return 0; }
+
 // x: (B, T, H, P) with element strides (batch, time, head) and unit stride
 // on P; dt: (B, T, H) fp32, strides (batch, time, head); bm/cm: (B, T, N),
 // strides (batch, time) and unit on N; strides[10] in that order.  A_log:

@@ -259,6 +259,10 @@ __global__ void __launch_bounds__(KD) wkv_decode_kernel(const DecodeParams p) {
 
 }  // namespace
 
+// Floats of scratch wkv_scan_fwd needs: none (the wrapper sizes its scratch
+// with this entry; this version takes the argument and ignores it).
+extern "C" long long wkv_scan_scratch(int, int, int, int) { return 0; }
+
 // r, k, w: (B, T, H, K), v: (B, T, H, V), u: (H, K), state: (B, H, K, V);
 // y: (B, T, H, V), state_out: (B, H, K, V); all fp32, contiguous.  Built for
 // K = V = 64; Q a power of two <= 32 dividing T.  Anything else gives
