@@ -44,7 +44,14 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      mirrors (check_scan_mirrors), a second launch bit-identical; the mamba
      decode step at 4 slots; both with planted faults that must fail their
      limits (the scan's also the carry one chunk late at every case of 4
-     chunks or more); the three flash kernels at hd 80
+     chunks or more); both decode steps also in place (``check_in_place``:
+     slot 3 inactive, its rows bit-identical and the others within the
+     pure step's limits, two launches from one state bit-identical, the
+     planted fault "active ignored" caught, a strided, misaligned or bf16
+     state refused), timed as a kernel and as the layer pays the state
+     (the parent's launch plus the masked copy) against the version before
+     the redesign, in turns, by event, device (``torch.profiler``) and host
+     time; the three flash kernels at hd 80
      (32 heads, MHA) at the serve prefill and the train microbatch.  The
      wkv scan at rwkv6's widths (32 heads, K = V = 64, fp32) at the train
      microbatch (4 x 2048, chunk 32), at each serve prefill that takes it
@@ -73,9 +80,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      kernels=False tightly; the grouped kernel is held against its plain
      version on the (x, mask) a real prefill gives it; zamba2's and rwkv6's
      tokens equal greedy decoding at the engine's shapes for every
-     request; then a ``torch.profiler`` pass over prefill and decode (for
-     zamba2 and rwkv6 also a 255-token prefill, which scans at chunk 1, and
-     the scan's share of its device time);
+     request; then a ``torch.profiler`` pass over prefill and decode (the
+     device time, idle share and kernels of a decode tick; for zamba2 and
+     rwkv6 also a 255-token prefill, which scans at chunk 1, and the scan's
+     share of its device time);
   4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
      layers), zamba2-2.7b (full width, 18 of 54 layers) and rwkv6-1.6b
      (full width, all 24 layers): a reduced fp32
@@ -90,8 +98,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
   5. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
      flash forward and backward, swiglu, gelu_mlp, CE, the grouped expert
-     MLP and the two scans also ``parent_ms`` and ``ptxas`` (registers and
-     spills of each redesigned kernel).
+     MLP, the two scans and the two decode steps also ``parent_ms`` and
+     ``ptxas`` (registers and spills of each redesigned kernel); for the
+     decode steps also ``device_ms``, ``host_us``, their parent's and the
+     layer's readings.
 The last line is the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -185,7 +195,7 @@ PREVIOUS = {"flash_attention": ("_lib", ("flash_attention_fwd",)),
             "grouped_mlp": ("_lib", ("grouped_mlp_fwd",)),
             "ssd_scan": ("_lib", ("ssd_scan_fwd", "ssd_scan_scratch")),
             "wkv_scan": ("_lib", ("wkv_scan_fwd", "wkv_scan_scratch"))}
-# their redesigned bf16 kernels, whose registers and spills the kernels
+# the redesigned kernels (bf16, and the fp32 decode steps), whose registers and spills the kernels
 # line reports (``ptxas -v``)
 REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
               "flash_attention_bwd_dq": ("flash_bwd_dq_bf16_kernel",),
@@ -198,7 +208,9 @@ REDESIGNED = {"flash_attention": ("flash_fwd_bf16_kernel",),
                            "ssd_scan_out_kernel", "ssd_scan_out_tc_kernel",
                            "ssd_scan_small_kernel"),
               "wkv_scan": ("wkv_scan_state_kernel", "wkv_scan_pass_kernel",
-                           "wkv_scan_out_kernel", "wkv_scan_small_kernel")}
+                           "wkv_scan_out_kernel", "wkv_scan_small_kernel"),
+              "mamba_decode_step": ("mamba_decode_kernel",),
+              "wkv_decode_step": ("wkv_decode_kernel",)}
 _PREVIOUS_LIBS: dict = {}
 
 
@@ -268,6 +280,90 @@ def timed_with_parent(timer, name: str, fn) -> tuple[float, float]:
     return (a + d) / 2, (b + c) / 2
 
 
+def readings_in_turns(timer, fn, parent) -> tuple[dict, dict]:
+    """``Timer.readings`` of ``fn`` and of ``parent`` in turns (fn, parent,
+    parent, fn), each reading the mean of its two turns."""
+    a, b, c, d = (timer.readings(f) for f in (fn, parent, parent, fn))
+
+    def mean(x: dict, y: dict) -> dict:
+        return {k: (x[k] + y[k]) / 2 if isinstance(x[k], float) else x[k] for k in x}
+    return mean(a, d), mean(b, c)
+
+
+def _previous_entry(src: str, entry: str, argtypes: list):
+    import ctypes
+
+    fn = getattr(_PREVIOUS_LIBS[src], entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def parent_mamba_decode(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
+                        n_heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode step before its redesign: ``tools/previous_kernels/
+    ssd_scan.cu``'s kernel through its wrapper as it was (its checks, the
+    copies it made, a fresh state).  Its C entry has another signature than
+    the port's, so ``with_previous`` cannot swap it in."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fwd = _previous_entry("ssd_scan", "mamba_decode_fwd",
+                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    code = _build.dtype_code(window)
+    B, K, ch = window.shape
+    H, P = n_heads, head_dim
+    N = state.shape[-1] if state.ndim == 4 else -1
+    if (not window.is_cuda
+            or any(t.device != window.device
+                   for t in (conv_w, conv_b, dt_raw, dt_bias, A_log, D, state))
+            or {conv_w.dtype, conv_b.dtype} != {window.dtype}
+            or conv_w.shape != (K, ch) or conv_b.shape != (ch,) or dt_raw.shape != (B, H)
+            or any(t.shape != (H,) for t in (dt_bias, A_log, D))
+            or state.shape != (B, H, P, N) or state.dtype != torch.float32
+            or ch != H * P + 2 * N or (P, N) != (64, 64)):
+        raise ValueError("parent mamba_decode_step: inputs it does not take")
+    window, conv_w, conv_b = (t.contiguous() for t in (window, conv_w, conv_b))
+    small = (dt_raw, dt_bias, A_log, D)
+    if len({t.dtype for t in small}) > 1:
+        small = tuple(t.float() for t in small)
+    dt_raw, dt_bias, A_log, D = (t.contiguous() for t in small)
+    state = _build.aligned(state)
+    y = torch.empty((B, H, P), dtype=torch.float32, device=window.device)
+    new_state = torch.empty_like(state)
+    err = fwd(window.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(), dt_raw.data_ptr(),
+              dt_bias.data_ptr(), A_log.data_ptr(), D.data_ptr(), state.data_ptr(),
+              y.data_ptr(), new_state.data_ptr(), B, K, ch, H, P, N, code,
+              _build.dtype_code(dt_raw), _build.stream_of(window))
+    _build.check(_PREVIOUS_LIBS["ssd_scan"], err, "previous mamba_decode_fwd")
+    return y, new_state
+
+
+def parent_wkv_decode(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wkv decode step before its redesign (``tools/previous_kernels/
+    wkv_scan.cu``) through its wrapper as it was: a fresh state."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fwd = _previous_entry("wkv_scan", "wkv_decode_fwd",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    B, H, K = r.shape
+    V = v.shape[-1]
+    if (not r.is_cuda or any(t.device != r.device for t in (k, v, w, u, state))
+            or k.shape != r.shape or w.shape != r.shape or v.shape != (B, H, V)
+            or u.shape != (H, K) or state.shape != (B, H, K, V) or (K, V) != (64, 64)):
+        raise ValueError("parent wkv_decode_step: inputs it does not take")
+    r, k, v, w, u, state = [_build.aligned(t.float()) for t in (r, k, v, w, u, state)]
+    y = torch.empty((B, H, V), dtype=torch.float32, device=r.device)
+    new_state = torch.empty_like(state)
+    err = fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+              state.data_ptr(), y.data_ptr(), new_state.data_ptr(), B, H, K, V,
+              _build.stream_of(r))
+    _build.check(_PREVIOUS_LIBS["wkv_scan"], err, "previous wkv_decode_fwd")
+    return y, new_state
+
+
 def ptxas_summary(log: str, kernel: str) -> dict:
     """Registers and spills that ``ptxas -v`` reported for each entry
     function whose mangled name holds ``kernel``."""
@@ -323,6 +419,68 @@ class Timer:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+    def device(self, fn, n: int = 20) -> dict:
+        """The device time of ``fn``'s kernels alone (``torch.profiler``),
+        each of n calls after the L2 flush as ``__call__`` makes it, the
+        flush's own kernels left out: ms and kernels per call, and ms per
+        call by kernel name."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        # a session may miss a kernel or two at its edge (seen on the H100
+        # after many sessions in one process): the flush's names are taken
+        # from a few flushes, and fn's calls sit between flushes of their own
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                self.flush.zero_()
+            torch.cuda.synchronize()
+        flush_names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                self.flush.zero_()
+            for _ in range(n):
+                self.flush.zero_()
+                fn()
+            for _ in range(3):
+                self.flush.zero_()
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.name not in flush_names:
+                acc = by_name.setdefault(e.name[:60], [0.0, 0])
+                acc[0] += e.time_range.elapsed_us() / 1e3 / n
+                acc[1] += 1
+        if not by_name or not flush_names:
+            return {"device_ms": "not measured", "kernels_per_call": "not measured"}
+        return {"device_ms": sum(ms for ms, _ in by_name.values()),
+                "kernels_per_call": sum(c for _, c in by_name.values()) / n,
+                "device_ms_by_kernel": {k: ms for k, (ms, _) in by_name.items()}}
+
+    @staticmethod
+    def host_us(fn, n: int = 300) -> float:
+        """The host's time per call of ``fn`` in microseconds: n calls back to
+        back with no synchronize (the card keeps up with a kernel that is
+        shorter than its host cost), best of three rounds."""
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+        return best
+
+    def readings(self, fn) -> dict:
+        """``ms`` (events, as ``__call__``), ``device_ms`` and
+        ``kernels_per_call`` (``device``) and ``host_us`` of one call."""
+        dev = self.device(fn)
+        return {"ms": self(fn), "device_ms": dev["device_ms"],
+                "kernels_per_call": dev["kernels_per_call"], "host_us": self.host_us(fn)}
 
 
 def max_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -657,11 +815,16 @@ def phase_kernels(timer: Timer) -> dict:
     moe = [get_config(arch) for arch in (LLAMA4, ARCTIC)]
 
     # rmsnorm: the prefill norm of 2048 tokens of yi-6b, the train step's
-    # 4 x 2048 rows, and a 256-token prefill of llama4 and arctic
+    # 4 x 2048 rows, a 256-token prefill of llama4 and arctic, and a decode
+    # tick's 4 rows of yi-6b, zamba2 and rwkv6 (d 4096, 2560, 2048; also by
+    # device time, where the launch is most of the cost)
     rms_rows = []
+    decode_d = [get_config(arch).d_model for arch in ("yi-6b", ZAMBA, RWKV)]
     for rows_n, d, dtype in ((2048, 4096, torch.bfloat16), (2048, 4096, torch.float32),
                              (8192, 4096, torch.bfloat16), (8192, 4096, torch.float32),
                              *((256, c.d_model, dt) for c in moe
+                               for dt in (torch.bfloat16, torch.float32)),
+                             *((4, d, dt) for d in decode_d
                                for dt in (torch.bfloat16, torch.float32))):
         rtol, atol = TOL["rmsnorm"][dtype]
         x = randn(gen, rows_n, d, dtype=dtype)
@@ -680,6 +843,11 @@ def phase_kernels(timer: Timer) -> dict:
                 "library_ms": (timer(lambda: F.rms_norm(x, (d,), w, 1e-5))
                                if hasattr(F, "rms_norm") else None),
                 "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by})
+            if rows_n == 4:
+                rms_rows[-1].update(
+                    device_ms=timer.device(lambda: rn.rmsnorm_cuda(x, w, 1e-5))["device_ms"],
+                    library_device_ms=(timer.device(lambda: F.rms_norm(x, (d,), w, 1e-5))
+                                       ["device_ms"] if hasattr(F, "rms_norm") else None))
     rows["rmsnorm"] = {**rms_rows[0], "cases": rms_rows[1:]}
 
     def check_swiglu(name, x, w1, w3):
@@ -1789,8 +1957,11 @@ def decode_error_terms(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
 
 
 def check_decode(name: str, args: dict, H: int, P: int, planted: bool = False) -> float:
+    """The pure launch against ``mamba_decode_ref`` (the input state left as
+    it was; with ``planted``, B and C swapped must fail y's limit), then the
+    in-place launch (``check_in_place``)."""
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.kernels.ref import mamba_decode_ref
+    from repro_torch.kernels.ref import mamba_decode_ref, mamba_decode_ref_
 
     before = args["state"].clone()
     y, S = ssd.mamba_decode_cuda(**args, n_heads=H, head_dim=P)
@@ -1816,6 +1987,70 @@ def check_decode(name: str, args: dict, H: int, P: int, planted: bool = False) -
               "worst_share_of_limit": worst})
         if worst <= 1:
             raise AssertionError(f"{name}: the limit does not catch B and C swapped")
+    # in place, dt_raw a strided slice as the layer hands it over
+    layer_args = dict(args, dt_raw=strided_dt(args["dt_raw"]))
+    return max(err, check_in_place(
+        name, lambda s, a: ssd.mamba_decode_cuda_(**dict(layer_args, state=s), active=a,
+                                                  n_heads=H, head_dim=P),
+        lambda s, a: mamba_decode_ref_(**dict(args, state=s), active=a, n_heads=H, head_dim=P),
+        args["state"], lambda: ssd.launches_decode, dy=dy, dS=dS, atol=1e-6, why=DECODE_WHY))
+
+
+# the decode steps' in-place checks and timings: slot 3 inactive
+DECODE_ACTIVE = (True, True, True, False)
+
+
+def check_in_place(name: str, launch, plain, state: torch.Tensor, counter, *, dy, dS,
+                   atol: float, why: str) -> float:
+    """An in-place decode launch ``launch(S, active) -> y`` against its plain
+    in-place form ``plain(S, active)`` on copies of ``state`` with slot 3
+    inactive: y and the active slots' rows within the pure step's limits
+    (atol and the carried terms dy, dS), the inactive slot's rows bit-identical
+    to ``state``; two launches from copies of one state bit-identical; a
+    planted fault, every slot updated ("active ignored"), must fail the
+    inactive-row check; a strided, misaligned or bf16 state must make the
+    wrapper raise, with no launch counted (``counter()``)."""
+    active = torch.tensor(DECODE_ACTIVE, device="cuda")
+    keep = ~active
+    st, again, ref = state.clone(), state.clone(), state.clone()
+    y, y2, yr = launch(st, active), launch(again, active), plain(ref, active)
+    torch.cuda.synchronize()
+    err = check_close(f"{name} in place y", y, yr, rtol=0.0, atol=atol, why=why,
+                      terms=((dy, 1.0, "the pure check's y term"),))
+    err = max(err, check_close(f"{name} in place, active slots' state", st[active], ref[active],
+                               rtol=0.0, atol=atol, why=why,
+                               terms=((dS[active], 1.0, "the pure check's state term"),)))
+    frozen = torch.equal(st[keep], state[keep])
+    emit({"phase": "kernel_check", "case": f"{name} in place, inactive slot's state",
+          "bit_identical": frozen})
+    if not frozen:
+        raise AssertionError(f"{name}: the in-place launch wrote an inactive slot's rows")
+    if not (torch.equal(y, y2) and torch.equal(st, again)):
+        raise AssertionError(f"{name}: two in-place launches from one state gave other bits")
+    bad = state.clone()
+    plain(bad, None)                              # planted: every slot updated
+    caught = not torch.equal(bad[keep], state[keep])
+    emit({"phase": "planted_fault", "case": name, "fault": "active ignored",
+          "inactive_rows_bit_identical": not caught})
+    if not caught:
+        raise AssertionError(f"{name}: the inactive-row check does not catch 'active ignored'")
+    flat = torch.empty(state.numel() + 1, device="cuda")
+    views = {"strided": torch.empty(*state.shape[:-1], 2 * state.shape[-1],
+                                    device="cuda")[..., ::2],
+             "misaligned": flat[1:].view(state.shape),
+             "bf16": state.bfloat16()}
+    for what, view in views.items():
+        before = counter()
+        try:
+            launch(view, active)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: the in-place wrapper took a {what} state")
+        if counter() != before:
+            raise AssertionError(f"{name}: a launch was counted for a refused {what} state")
+    emit({"phase": "kernel_check", "case": f"{name} in place refuses",
+          "refused": sorted(views)})
     return err
 
 
@@ -1835,9 +2070,54 @@ def decode_inputs(gen, B: int, dtype, H: int = 80, P: int = 64, N: int = 64, K: 
         state=torch.randn(B, H, P, N, generator=gen, device="cuda"))
 
 
+def strided_dt(dt_raw: torch.Tensor, P: int = 64, N: int = 64) -> torch.Tensor:
+    """dt_raw as ``models/ssm.py:mamba_decode`` hands it over: the last H
+    columns of in_proj's (B, 2 H P + 2 N + H) output."""
+    B, H = dt_raw.shape
+    proj = torch.zeros(B, 2 * H * P + 2 * N + H, dtype=dt_raw.dtype, device="cuda")
+    proj[:, -H:] = dt_raw
+    return proj[:, -H:]
+
+
+def decode_readings(timer: Timer, launch_, parent, plain_, state: torch.Tensor,
+                    layer_launch_, layer_parent) -> dict:
+    """The decode step's readings, in turns with its parent: as a kernel,
+    the in-place launch ``launch_(S, active)`` (``ms``, ``device_ms``,
+    ``host_us``) against the parent's fresh-state launch (``parent_*``); as
+    the layer pays it, ``layer_launch_`` (mamba: dt_raw strided, as the
+    layer hands it over) against ``layer_parent`` and ``_masked_copy`` of the
+    state leaf into the cache (``layer`` and ``parent_layer``: device ms and
+    kernels a step); the plain in-place form ``plain_`` (``plain_ms``); and
+    one ``copy_`` of the state (``state_copy``: the byte bound's traffic,
+    the state read and written once, through one PyTorch launch, a
+    yardstick of what a launch this size takes on the card).  Every slot
+    active, as a full engine's tick."""
+    from repro_torch.models.model import _masked_copy
+
+    active = torch.ones(state.shape[0], dtype=torch.bool, device="cuda")
+    cache = {"state": state.clone()}
+    other = state.clone()
+    copy = timer.device(lambda: other.copy_(cache["state"]))
+    new, par = readings_in_turns(timer, lambda: launch_(cache["state"], active), parent)
+    layer, par_layer = readings_in_turns(
+        timer, lambda: layer_launch_(cache["state"], active),
+        lambda: _masked_copy(cache, {"state": layer_parent()[1]}, active))
+    s = state.clone()
+    y = launch_(s, None)                               # the new state, written over s
+    yp, sp = parent()
+    torch.cuda.synchronize()
+    return {**new, **{f"parent_{k}": v for k, v in par.items()},
+            "layer": layer, "parent_layer": par_layer,
+            "state_copy": {"ms": timer(lambda: other.copy_(cache["state"])),
+                           "device_ms": copy["device_ms"]},
+            "state_bit_identical_to_parent": bool(torch.equal(s, sp)),
+            "y_bit_identical_to_parent": bool(torch.equal(y, yp)),
+            "plain_ms": timer(lambda: plain_(state.clone(), active))}
+
+
 def decode_row(timer: Timer, err: float, args: dict, H: int, P: int) -> dict:
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.kernels.ref import mamba_decode_ref
+    from repro_torch.kernels.ref import mamba_decode_ref_
 
     B, K, ch = args["window"].shape
     el = args["window"].element_size()
@@ -1845,14 +2125,22 @@ def decode_row(timer: Timer, err: float, args: dict, H: int, P: int) -> dict:
     nbytes = (B * K * ch + K * ch + ch) * el + 2 * st.numel() * 4 + B * H * P * 4
     flops = B * (2 * K * (H * P + 128) + 6 * st[0].numel())
     b, by = bound_ms(nbytes, flops, torch.float32)
+    dims = dict(n_heads=H, head_dim=P)
+    layer_args = dict(args, dt_raw=strided_dt(args["dt_raw"]))
+    rd = decode_readings(
+        timer, lambda s, a: ssd.mamba_decode_cuda_(**dict(args, state=s), active=a, **dims),
+        lambda: parent_mamba_decode(**args, **dims),
+        lambda s, a: mamba_decode_ref_(**dict(args, state=s), active=a, **dims), st,
+        lambda s, a: ssd.mamba_decode_cuda_(**dict(layer_args, state=s), active=a, **dims),
+        lambda: parent_mamba_decode(**layer_args, **dims))
     return {"shape": f"window ({B}, {K}, {ch}) {str(args['window'].dtype)[6:]}, "
-                     f"state {tuple(st.shape)} fp32",
-            "max_abs_err": err,
-            "ms": timer(lambda: ssd.mamba_decode_cuda(**args, n_heads=H, head_dim=P)),
-            "plain_ms": timer(lambda: mamba_decode_ref(**args, n_heads=H, head_dim=P)),
-            "plain_call": "mamba_decode_ref", "library_ms": None,
-            "library_call": "none: no single PyTorch call computes it",
-            "bound_ms": b, "bound_by": by}
+                     f"state {tuple(st.shape)} fp32, in place, every slot active",
+            "max_abs_err": err, **rd,
+            "plain_call": "mamba_decode_ref_ (the pure step, then the masked copy)",
+            "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+            "bound_ms": b, "bound_by": by, "share_of_bound": b / rd["ms"],
+            "share_of_bound_device": (b / rd["device_ms"]
+                                      if isinstance(rd["device_ms"], float) else None)}
 
 
 @torch.no_grad()
@@ -1862,7 +2150,8 @@ def phase_kernels_ssm(timer: Timer) -> dict:
     every (T, chunk) that the zamba2 serve run prefills (`_ssd_cases`; the
     256-token prefill carries the planted faults) and at the chunks 2, 4
     and 16 that no serve prompt gives; the decode step at 4 slots in bf16
-    and fp32 (with a planted fault).  Returns the SSD and decode rows."""
+    and fp32 (with a planted fault), pure and in place.  Returns the SSD
+    and decode rows."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     check_scan_mirrors("ssd_scan", [(B, T, 80, chunk) for B, T, chunk in _ssd_cases()])
     ssd_rows = []
@@ -2214,9 +2503,10 @@ def wkv_row(timer: Timer, res: dict, args: tuple, chunk: int) -> dict:
 def check_wkv_decode(name: str, args: tuple, planted: bool = False) -> float:
     """The decode kernel against ``wkv_decode_ref``: out and the fresh state
     (the input state left as it was); with ``planted``, the state not
-    decayed by w must fail the state's limit."""
+    decayed by w must fail the state's limit; then the in-place launch
+    (``check_in_place``)."""
     from repro_torch.kernels import wkv_scan as wkv
-    from repro_torch.kernels.ref import wkv_decode_ref
+    from repro_torch.kernels.ref import wkv_decode_ref, wkv_decode_ref_
 
     r, k, v, w, u, state = args
     before = state.clone()
@@ -2242,7 +2532,10 @@ def check_wkv_decode(name: str, args: tuple, planted: bool = False) -> float:
               "worst_share_of_limit": worst})
         if worst <= 1:
             raise AssertionError(f"{name}: the limit does not catch the undecayed state")
-    return err
+    return max(err, check_in_place(
+        name, lambda s, a: wkv.wkv_decode_cuda_(r, k, v, w, u, s, a),
+        lambda s, a: wkv_decode_ref_(r, k, v, w, u, s, a), state,
+        lambda: wkv.launches_decode, dy=dy, dS=dS, atol=1e-7, why=WKV_DECODE_WHY))
 
 
 @torch.no_grad()
@@ -2251,10 +2544,10 @@ def phase_kernels_wkv(timer: Timer) -> dict:
     microbatch 4 x 2048 (chunk 32, the timed headline row), at every
     (T, chunk) that the rwkv6 serve run prefills with the scan (the
     256-token prefill carries the planted faults) and at chunks 2, 4 and
-    16; the decode step at 4 slots (with a planted fault).  Returns the scan
-    and decode rows."""
+    16; the decode step at 4 slots (with a planted fault), pure and in
+    place.  Returns the scan and decode rows."""
     from repro_torch.kernels import wkv_scan as wkv
-    from repro_torch.kernels.ref import wkv_decode_ref
+    from repro_torch.kernels.ref import wkv_decode_ref_
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     check_scan_mirrors("wkv_scan", [(B, T, 32, chunk) for B, T, chunk in _wkv_cases()])
@@ -2271,11 +2564,20 @@ def phase_kernels_wkv(timer: Timer) -> dict:
     err = check_wkv_decode("wkv_decode_step fp32 (B 4, H 32, K 64)", args, planted=True)
     b, by = bound_ms(4 * (2 * state.numel() + 5 * 4 * 32 * 64 + u.numel()),
                      4 * 32 * 64 * 64 * 6, torch.float32)
-    dec = {"shape": f"r/k/v/w (4, 32, 64), state {tuple(state.shape)} fp32",
-           "max_abs_err": err, "ms": timer(lambda: wkv.wkv_decode_cuda(*args)),
-           "plain_ms": timer(lambda: wkv_decode_ref(*args)), "plain_call": "wkv_decode_ref",
+    inputs = args[:5]
+    rd = decode_readings(timer, lambda s, a: wkv.wkv_decode_cuda_(*inputs, s, a),
+                         lambda: parent_wkv_decode(*args),
+                         lambda s, a: wkv_decode_ref_(*inputs, s, a), state,
+                         lambda s, a: wkv.wkv_decode_cuda_(*inputs, s, a),
+                         lambda: parent_wkv_decode(*args))
+    dec = {"shape": f"r/k/v/w (4, 32, 64), state {tuple(state.shape)} fp32, in place, "
+                    "every slot active",
+           "max_abs_err": err, **rd,
+           "plain_call": "wkv_decode_ref_ (the pure step, then the masked copy)",
            "library_ms": None, "library_call": "none: no single PyTorch call computes it",
-           "bound_ms": b, "bound_by": by}
+           "bound_ms": b, "bound_by": by, "share_of_bound": b / rd["ms"],
+           "share_of_bound_device": (b / rd["device_ms"]
+                                     if isinstance(rd["device_ms"], float) else None)}
     return {"wkv_scan": {**rows[0], "cases": rows[1:]}, "wkv_decode_step": dec}
 
 
@@ -2661,6 +2963,7 @@ def _profile(fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1 - busy / wall,
+            "device_kernels": sum(n for _, n in by_name.values()),
             "ported_kernels_share_of_busy": ported / 1e3 / busy,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": name[:70], "device_ms": ms, "calls": n}
@@ -2695,6 +2998,9 @@ def phase_profile(model, prompts, card: str) -> None:
     emit({"phase": "profile", "arch": model.cfg.name, "dtype": "bf16", "kernels": True,
           "prefill_256_tokens": prefill, **odd, "decode_ticks": ticks, "n_slots": 4,
           "decode": dec, "decode_ms_per_tick": dec["wall_s"] / ticks * 1e3,
+          "decode_device_ms_per_tick": (dec["device_busy_s"] * 1e3 / ticks
+                                        if "device_kernels" in dec else "not measured"),
+          "device_kernels_per_tick": dec.get("device_kernels", 0) / ticks or "not measured",
           "card": card})
 
 

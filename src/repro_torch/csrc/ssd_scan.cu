@@ -70,20 +70,36 @@
 //   FFMA the algebra's 21.6 GFLOP take 0.32 ms at 67 TFLOP/s.
 //
 // mamba_decode_fwd: window (B, K, ch), conv_w (K, ch), conv_b (ch,) in one
-//   dtype; dt_raw (B, H), dt_bias, A_log, D (H,) in one dtype (read in fp32)
-//   and state (B, H, P, N) fp32 -> y (B, H, P) fp32 and the new state
-//   (B, H, P, N) fp32 in a fresh buffer.  conv -> silu in the window's
-//   dtype (the product rounded, the bias add rounded, silu rounded: the
-//   reference's dtype chain), then
+//   dtype; dt_raw (B, H) (any row stride), dt_bias, A_log, D (H,) in one
+//   dtype (read in fp32); the state (B, H, P, N) fp32 and a per-slot active
+//   flag -> y (B, H, P) fp32 for every slot, and the new state of the
+//   active slots, written over the old one in place (state_out == state)
+//   or into a buffer apart; an inactive slot's rows are never written.
+//   conv -> silu in the window's dtype (the product rounded, the bias add
+//   rounded, silu rounded: the reference's dtype chain), then
 //   dt = softplus(dt_raw + dt_bias), S' = exp(-dt e^{A_log}) S + dt x B^T,
-//   y = S' C + D x in fp32.
+//   y = S' C + D x in fp32.  In place, the layer's one launch replaces the
+//   fresh state and the masked copy into the cache after it (the
+//   reference's _freeze_inactive), which moved the state five times more.
 // Bound on the H100: bytes.  The state is read and written once (2 P N fp32
-//   per head and slot); everything else is a few KB.
-// Design: one block of 256 threads per (b, h).  Threads 0..P+2N-1 each run
-//   the K-tap conv of one channel (the head's P x channels and the 2N B and
-//   C channels every head shares, which each block recomputes: cheap) into
-//   shared memory; then 4 threads per state row p stream 16 of its N
-//   values each through float4 loads and stores and reduce y_p by shuffles.
+//   per head and slot: 10.5 MB at zamba2's 4 slots, 0.0031 ms at 3.35
+//   TB/s); everything else is a few KB.  At that size the cost is latency,
+//   so no load waits on another: each thread issues its state loads first
+//   (16 bytes each, streaming), then its conv channel's K taps and bias
+//   (K a template parameter) and the head's dt, A_log and D, all in
+//   flight at once; one barrier; the update.
+// Design: one block of 256 threads per (b, h) (320 blocks at 4 slots, all
+//   resident: 5.2 MB of loads in flight).  Threads 0..P+2N-1 each run the
+//   K-tap conv of one channel (the head's P x channels and the 2N B and C
+//   channels every head shares, which each block recomputes: cheap) into
+//   shared memory.  Thread t holds float4 t + 256 q (q < 4) of the (b, h)
+//   slab: 16 threads a row, so each warp instruction reads and writes 512
+//   contiguous bytes (the parent's 4 threads a row, 16 values each, read at
+//   a 64-byte stride and used half of each sector a load touched; with its
+//   loads issued first that layout ran no faster than the parent on an
+//   H100); it updates its values,
+//   stores them (streaming) and reduces y_p over the row's 16 lanes by a
+//   butterfly in a fixed order: repeated launches are bit-identical.
 #include <type_traits>
 
 #include "common.cuh"
@@ -102,6 +118,7 @@ constexpr int SMALL_THREADS = SMALL_ROWS * SMALL_PARTS;
 constexpr int NCOL = HN / SMALL_PARTS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int DEPTH = 4;             // chunks whose states the carry loads at once
+constexpr int DECODE_K = 4;          // the decode step's conv taps (zamba2's conv_kernel)
 
 struct ScanParams {
     const void* x;
@@ -1024,31 +1041,67 @@ struct DecodeParams {
     const void* D;
     const float* state;
     float* y;
-    float* state_out;
-    int H, K, ch;
+    float* state_out;               // may be state: then the active slots' rows only
+    const unsigned char* active;    // B flags, or null: every slot active
+    long long dt_sb;                // dt_raw's row stride, in elements
+    int H, ch;
 };
 
-template <typename T, typename S, int P, int N>
+// The state is read once and written once a launch, and a serve tick finds
+// it cold (one layer's 5.24 MB, 54 layers between two reads): streaming
+// loads and stores (evict first).  Never the non-coherent path
+// (__ldg, ld.global.nc): the same launch may write what it reads.
+__device__ __forceinline__ float4 ld_state(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st_state(float* p, const float4 v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+}
+
+template <typename T, typename S, int P, int N, int K>
 __global__ void __launch_bounds__(THREADS) mamba_decode_kernel(const DecodeParams p) {
-    constexpr int TPR = THREADS / P;               // threads per state row
-    constexpr int NPT = N / TPR;                   // state values per thread
-    static_assert(THREADS % P == 0 && N % TPR == 0 && NPT % 4 == 0 && P + 2 * N <= THREADS,
-                  "one conv channel per thread, float4 state rows");
-    __shared__ float xs[P], bs[N], cs[N];
+    constexpr int TPR = N / 4;                     // threads per state row, a float4 each
+    constexpr int NV = P * N / 4 / THREADS;        // float4 a thread: rows r0 + q RSTEP
+    constexpr int RSTEP = THREADS / TPR;
+    static_assert(N % 4 == 0 && TPR <= 32 && 32 % TPR == 0 && (P * N / 4) % THREADS == 0
+                  && P + 2 * N <= THREADS, "one conv channel per thread, float4 state rows");
+    __shared__ __align__(16) float xs[P], bs[N], cs[N];
     const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
     const int tid = threadIdx.x;
+    const int r0 = tid / TPR, n0 = 4 * (tid % TPR);
+    // thread t holds float4 t + q THREADS of the (b, h) slab: each warp
+    // instruction reads and writes 512 contiguous bytes
+    const float* sb = p.state + ((size_t)b * p.H + h) * P * N + tid * 4;
 
+    // 1. the state: nothing in this launch precedes it, so its loads go first
+    float4 sv[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) sv[q] = ld_state(sb + (size_t)q * THREADS * 4);
+    const bool act = p.active == nullptr || p.active[b] != 0;
+    // 2. the head's scalars and one conv channel's K taps and bias, all in
+    //    flight together
+    const float z = to_f32(__ldg(static_cast<const S*>(p.dt_raw) + b * p.dt_sb + h))
+                    + to_f32(__ldg(static_cast<const S*>(p.dt_bias) + h));
+    const float a_log = to_f32(__ldg(static_cast<const S*>(p.A_log) + h));
+    const float d_skip = to_f32(__ldg(static_cast<const S*>(p.D) + h));
     if (tid < P + 2 * N) {
         const int di = p.H * P;
         const int c = tid < P ? h * P + tid : di + (tid - P);
-        const T* w = static_cast<const T*>(p.window) + (size_t)b * p.K * p.ch + c;
+        const T* w = static_cast<const T*>(p.window) + (size_t)b * K * p.ch + c;
         const T* cw = static_cast<const T*>(p.conv_w) + c;
+        T wk[K], ck[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            wk[k] = __ldg(w + (size_t)k * p.ch);
+            ck[k] = __ldg(cw + (size_t)k * p.ch);
+        }
+        const T bias = __ldg(static_cast<const T*>(p.conv_b) + c);
         float acc = 0.f;
-        for (int k = 0; k < p.K; ++k)
-            acc = fmaf(to_f32(w[(size_t)k * p.ch]), to_f32(cw[(size_t)k * p.ch]), acc);
+#pragma unroll
+        for (int k = 0; k < K; ++k) acc = fmaf(to_f32(wk[k]), to_f32(ck[k]), acc);
         // the window's dtype: the product rounded, the bias add rounded, silu rounded
         float u = to_f32(from_f32<T>(acc));
-        u = to_f32(from_f32<T>(u + to_f32(static_cast<const T*>(p.conv_b)[c])));
+        u = to_f32(from_f32<T>(u + to_f32(bias)));
         const float s = to_f32(from_f32<T>(u / (1.f + expf(-u))));
         if (tid < P) xs[tid] = s;
         else if (tid < P + N) bs[tid - P] = s;
@@ -1056,31 +1109,33 @@ __global__ void __launch_bounds__(THREADS) mamba_decode_kernel(const DecodeParam
     }
     __syncthreads();
 
-    const S* sp[4] = {static_cast<const S*>(p.dt_raw), static_cast<const S*>(p.dt_bias),
-                      static_cast<const S*>(p.A_log), static_cast<const S*>(p.D)};
-    const float z = to_f32(sp[0][b * p.H + h]) + to_f32(sp[1][h]);
+    // 3. the update and the read-out: every state value is read and written
+    //    by this thread alone; y_p's N-term sum in a fixed order (the
+    //    thread's 4 columns in order, then a butterfly over the TPR lanes
+    //    of the row)
     const float dt = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));   // softplus
-    const float a = expf(dt * -expf(to_f32(sp[2][h])));
-    const int row = tid / TPR, part = tid % TPR;
-    const size_t base = (((size_t)b * p.H + h) * P + row) * N + part * NPT;
-    const float xp = xs[row];
-    float ysum = 0.f;
+    const float a = expf(dt * -expf(a_log));
+    float bn[4], cn[4];
+    unpack(*reinterpret_cast<const float4*>(&bs[n0]), bn);
+    unpack(*reinterpret_cast<const float4*>(&cs[n0]), cn);
+    float* ob = p.state_out + ((size_t)b * p.H + h) * P * N + tid * 4;
+    float* yb = p.y + ((size_t)b * p.H + h) * P;
 #pragma unroll
-    for (int q = 0; q < NPT; q += 4) {
-        float sv[4];
-        unpack(*reinterpret_cast<const float4*>(p.state + base + q), sv);
-        float o[4];
+    for (int q = 0; q < NV; ++q) {
+        const float xp = xs[r0 + q * RSTEP];
+        float sq[4], o[4];
+        unpack(sv[q], sq);
+        float ysum = 0.f;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-            const int n = part * NPT + q + e;
-            o[e] = a * sv[e] + dt * bs[n] * xp;
-            ysum = fmaf(cs[n], o[e], ysum);
+            o[e] = a * sq[e] + dt * bn[e] * xp;
+            ysum = fmaf(cn[e], o[e], ysum);
         }
-        *reinterpret_cast<float4*>(p.state_out + base + q) = make_float4(o[0], o[1], o[2], o[3]);
-    }
+        if (act) st_state(ob + (size_t)q * THREADS * 4, make_float4(o[0], o[1], o[2], o[3]));
 #pragma unroll
-    for (int o = TPR / 2; o > 0; o >>= 1) ysum += __shfl_xor_sync(0xffffffffu, ysum, o);
-    if (part == 0) p.y[((size_t)b * p.H + h) * P + row] = ysum + to_f32(sp[3][h]) * xp;
+        for (int m = TPR / 2; m > 0; m >>= 1) ysum += __shfl_xor_sync(0xffffffffu, ysum, m);
+        if (tid % TPR == q) yb[r0 + q * RSTEP] = ysum + d_skip * xp;
+    }
 }
 
 template <typename K>
@@ -1226,26 +1281,31 @@ extern "C" int ssd_scan_tiles(int Q, int dtype, int* out, int cap) {
 }
 
 // window: (B, K, ch) contiguous, conv_w: (K, ch) contiguous, conv_b: (ch,),
-// all in dtype, ch = H*P + 2N; dt_raw: (B, H), dt_bias/A_log/D: (H,), all
-// contiguous in param_dtype; state: (B, H, P, N) fp32 contiguous; y:
-// (B, H, P) fp32; state_out like state (16-byte aligned, not aliasing it).
-// Built for P = N = 64.
+// all in dtype, ch = H*P + 2N; dt_raw: (B, H) with row stride dt_stride
+// and unit stride on H, dt_bias/A_log/D: (H,) contiguous, all in
+// param_dtype; state: (B, H, P, N) fp32 contiguous, 16-byte aligned; y:
+// (B, H, P) fp32; state_out like state, either a buffer apart from it or
+// state itself; active: B bytes (0: the slot is inactive) or null (every
+// slot active).  state_out gets the new state in the active slots' rows,
+// the others' are not written; y is every slot's.  Built for P = N = 64 and K = 4 (zamba2's
+// conv_kernel); anything else gives cudaErrorInvalidValue.
 template <typename T>
 void launch_decode(const DecodeParams& p, int B, int param_dtype, cudaStream_t s) {
     if (param_dtype == DTYPE_BF16)
-        mamba_decode_kernel<T, __nv_bfloat16, 64, 64><<<B * p.H, THREADS, 0, s>>>(p);
+        mamba_decode_kernel<T, __nv_bfloat16, 64, 64, DECODE_K><<<B * p.H, THREADS, 0, s>>>(p);
     else
-        mamba_decode_kernel<T, float, 64, 64><<<B * p.H, THREADS, 0, s>>>(p);
+        mamba_decode_kernel<T, float, 64, 64, DECODE_K><<<B * p.H, THREADS, 0, s>>>(p);
 }
 
 extern "C" int mamba_decode_fwd(const void* window, const void* conv_w, const void* conv_b,
                                 const void* dt_raw, const void* dt_bias, const void* A_log,
                                 const void* D, const void* state, void* y, void* state_out,
-                                int B, int K, int ch, int H, int P, int N, int dtype,
-                                int param_dtype, void* stream) {
+                                const void* active, int B, int K, int ch, int H, int P, int N,
+                                long long dt_stride, int dtype, int param_dtype,
+                                void* stream) {
     if ((dtype != DTYPE_BF16 && dtype != DTYPE_F32)
         || (param_dtype != DTYPE_BF16 && param_dtype != DTYPE_F32) || B < 0 || H < 0
-        || K < 1 || P != 64 || N != 64 || ch != H * P + 2 * N)
+        || K != DECODE_K || P != HP || N != HN || ch != H * P + 2 * N || dt_stride < 0)
         return cudaErrorInvalidValue;
     if (B == 0 || H == 0) return cudaSuccess;
     DecodeParams p;
@@ -1253,7 +1313,9 @@ extern "C" int mamba_decode_fwd(const void* window, const void* conv_w, const vo
     p.dt_raw = dt_raw; p.dt_bias = dt_bias; p.A_log = A_log; p.D = D;
     p.state = static_cast<const float*>(state); p.y = static_cast<float*>(y);
     p.state_out = static_cast<float*>(state_out);
-    p.H = H; p.K = K; p.ch = ch;
+    p.active = static_cast<const unsigned char*>(active);
+    p.dt_sb = dt_stride;
+    p.H = H; p.ch = ch;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == DTYPE_BF16) launch_decode<__nv_bfloat16>(p, B, param_dtype, s);
     else launch_decode<float>(p, B, param_dtype, s);

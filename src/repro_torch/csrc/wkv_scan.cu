@@ -57,16 +57,24 @@
 //   ~0.09 ms at 67 TFLOP/s, and the ~Q K / 2 exponentials a token ~0.06 ms
 //   on the special-function units.
 //
-// wkv_decode_fwd: r, k, w (B, H, K), v (B, H, V), u (H, K), S (B, H, K, V),
-//   all fp32 -> out = r (S + u * k v^T) (B, H, V) and S' = w * S + k v^T in a
-//   fresh (B, H, K, V) buffer.
+// wkv_decode_fwd: r, k, w (B, H, K), v (B, H, V), u (H, K), S (B, H, K, V)
+//   and a per-slot active flag, all fp32 -> out = r (S + u * k v^T) (B, H, V)
+//   for every slot, and S' = w * S + k v^T of the active slots, written over
+//   S in place (state_out == state) or into a buffer apart; an inactive
+//   slot's rows are never written.  In place, the layer's one launch
+//   replaces the fresh state and the masked copy into the cache after it
+//   (the reference's _freeze_inactive), which moved the state five times
+//   more.
 // Bound on the H100: bytes.  S is read once and S' written once (2 K V fp32
-//   per head and slot); r, k, v, w and u are a few KB.
-// Design: one block of V threads per (b, h), one thread per column v: it
-//   loads its column of S into registers (coalesced across the block, all 64
-//   loads in flight: a loop of dependent load-use steps ran at the memory
-//   latency, 64 times over), writes S' (the product and the sum each
-//   rounded, as the reference's two ops) and sums out_v over k.
+//   per head and slot: 4.2 MB at rwkv6's 4 slots, 0.0013 ms at 3.35 TB/s);
+//   r, k, v, w and u are a few KB.  At that size the cost is latency.
+// Design: one block of 256 threads per (b, h): thread (row group g, column
+//   group c) holds rows 4g..4g+3 x columns 4c..4c+3 of S as four float4
+//   (a warp reads two whole rows: coalesced), issued with its float4 of
+//   r, k, w and u and of v, and no barrier before the update; it writes its
+//   S' (the product and the sum each rounded, as the reference's two ops;
+//   streaming stores) and its 4-row partials of out, which the 16 row
+//   groups' partials sum through shared memory in a fixed order.
 #include "common.cuh"
 
 namespace {
@@ -533,36 +541,73 @@ struct DecodeParams {
     const float* u;
     const float* s;
     float* y;
-    float* s_out;
+    float* s_out;                   // may be s: then the active slots' rows only
+    const unsigned char* active;    // B flags, or null: every slot active
     int H;
 };
 
-__global__ void __launch_bounds__(KD) wkv_decode_kernel(const DecodeParams p) {
-    __shared__ float rs[KD], ks[KD], ws[KD], us[KD];
-    const size_t bh = blockIdx.x;
-    const int h = blockIdx.x % p.H;
-    const int vv = threadIdx.x;                // K == V: thread vv also stages channel vv
-    rs[vv] = p.r[bh * KD + vv];
-    ks[vv] = p.k[bh * KD + vv];
-    ws[vv] = p.w[bh * KD + vv];
-    us[vv] = p.u[(size_t)h * KD + vv];
-    const float vval = p.v[bh * KD + vv];
-    __syncthreads();
-    const float* S = p.s + bh * KD * KD;
-    float* So = p.s_out + bh * KD * KD;
-    float s[KD];                               // the column, all loads in flight at once
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) s[kk] = __ldg(S + kk * KD + vv);
-    float out = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-        const float kv = __fmul_rn(ks[kk], vval);
-        out = fmaf(rs[kk], s[kk] + us[kk] * kv, out);
-        So[kk * KD + vv] = __fadd_rn(__fmul_rn(ws[kk], s[kk]), kv);   // the plain two roundings
-    }
-    p.y[bh * KD + vv] = out;
+constexpr int DEC_COLS = KD / 4;                 // float4 column groups of a row: 16
+constexpr int DEC_GROUPS = THREADS / DEC_COLS;   // row groups: 16
+constexpr int DEC_ROWS = KD / DEC_GROUPS;        // rows a thread holds: 4
+static_assert(DEC_ROWS == 4, "r, k, w and u of a thread's rows as one float4 each");
+
+__device__ __forceinline__ void unpack(const float4 v, float (&a)[4]) {
+    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
 }
 
+// The state is read once and written once a launch, and a serve tick finds
+// it cold (24 layers between two reads): streaming loads and stores (evict
+// first).  Never the non-coherent path (__ldg, ld.global.nc): the same
+// launch may write what it reads.
+__device__ __forceinline__ float4 ld_state(const float* p) {
+    return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void st_state(float* p, const float4 v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+}
+
+__global__ void __launch_bounds__(THREADS) wkv_decode_kernel(const DecodeParams p) {
+    __shared__ __align__(16) float part[DEC_GROUPS][KD];   // out's partials by row group
+    const size_t bh = blockIdx.x;
+    const int h = blockIdx.x % p.H;
+    const int cg = threadIdx.x % DEC_COLS, rg = threadIdx.x / DEC_COLS;
+    const int k0 = rg * DEC_ROWS, v0 = 4 * cg;
+    const size_t base = (bh * KD + k0) * KD + v0;
+    // every load at once, no barrier before the update: the thread's 4 x 4
+    // block of the state, then r, k, w, u of its rows and v of its columns
+    float4 sv[DEC_ROWS];
+#pragma unroll
+    for (int i = 0; i < DEC_ROWS; ++i) sv[i] = ld_state(p.s + base + (size_t)i * KD);
+    const bool act = p.active == nullptr || p.active[bh / p.H] != 0;
+    float rr[4], kk[4], ww[4], uu[4], vv[4];
+    unpack(__ldg(reinterpret_cast<const float4*>(p.r + bh * KD + k0)), rr);
+    unpack(__ldg(reinterpret_cast<const float4*>(p.k + bh * KD + k0)), kk);
+    unpack(__ldg(reinterpret_cast<const float4*>(p.w + bh * KD + k0)), ww);
+    unpack(__ldg(reinterpret_cast<const float4*>(p.u + (size_t)h * KD + k0)), uu);
+    unpack(__ldg(reinterpret_cast<const float4*>(p.v + bh * KD + v0)), vv);
+    float out[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DEC_ROWS; ++i) {
+        float sr[4], so[4];
+        unpack(sv[i], sr);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const float kv = __fmul_rn(kk[i], vv[c]);
+            out[c] = fmaf(rr[i], sr[c] + uu[i] * kv, out[c]);
+            so[c] = __fadd_rn(__fmul_rn(ww[i], sr[c]), kv);   // the plain two roundings
+        }
+        if (act) st_state(p.s_out + base + (size_t)i * KD, make_float4(so[0], so[1], so[2], so[3]));
+    }
+    *reinterpret_cast<float4*>(&part[rg][v0]) = make_float4(out[0], out[1], out[2], out[3]);
+    __syncthreads();
+    // out_v: the 16 row groups' partials in order (fixed: repeats are bit-identical)
+    if (threadIdx.x < KD) {
+        float acc = part[0][threadIdx.x];
+#pragma unroll
+        for (int g = 1; g < DEC_GROUPS; ++g) acc += part[g][threadIdx.x];
+        p.y[bh * KD + threadIdx.x] = acc;
+    }
+}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -677,11 +722,14 @@ extern "C" int wkv_scan_pairs(int Q, int* out, int cap) {
 }
 
 // r, k, w: (B, H, K), v: (B, H, V), u: (H, K), state: (B, H, K, V); y:
-// (B, H, V), state_out like state, not aliasing it; all fp32, contiguous.
-// Built for K = V = 64.
+// (B, H, V); state_out like state, either a buffer apart from it or state
+// itself; all fp32, contiguous, 16-byte aligned; active: B bytes (0: the
+// slot is inactive) or null (every slot active).  state_out gets the new
+// state in the active slots' rows, the others' are not written; y is every
+// slot's.  Built for K = V = 64; anything else gives cudaErrorInvalidValue.
 extern "C" int wkv_decode_fwd(const void* r, const void* k, const void* v, const void* w,
                               const void* u, const void* state, void* y, void* state_out,
-                              int B, int H, int K, int V, void* stream) {
+                              const void* active, int B, int H, int K, int V, void* stream) {
     if (B < 0 || H < 0 || K != KD || V != KD) return cudaErrorInvalidValue;
     if (B == 0 || H == 0) return cudaSuccess;
     DecodeParams p;
@@ -689,7 +737,8 @@ extern "C" int wkv_decode_fwd(const void* r, const void* k, const void* v, const
     p.v = static_cast<const float*>(v); p.w = static_cast<const float*>(w);
     p.u = static_cast<const float*>(u); p.s = static_cast<const float*>(state);
     p.y = static_cast<float*>(y); p.s_out = static_cast<float*>(state_out);
+    p.active = static_cast<const unsigned char*>(active);
     p.H = H;
-    wkv_decode_kernel<<<B * H, KD, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    wkv_decode_kernel<<<B * H, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
     return cudaGetLastError();
 }

@@ -104,17 +104,25 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the current stream's raw handle with no Stream object made (what Triton's
+# launcher reads); CPU-only builds of torch lack it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def dtype_code(t) -> int:
     """The ``DTYPE_*`` code of ``csrc/common.cuh`` for a tensor's dtype;
     the kernels take bf16 and fp32 and nothing else."""
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got {t.dtype}")
-    return codes[t.dtype]
+    return code
 
 
 def stream_of(t) -> int:
     """PyTorch's current stream on the tensor's device, as a pointer."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -128,6 +128,20 @@ def mamba_decode_step(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.
                                  state, n_heads=n_heads, head_dim=head_dim)
 
 
+def mamba_decode_step_(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                       dt_raw: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                       D: torch.Tensor, state: torch.Tensor,
+                       active: torch.Tensor | None = None, *, n_heads: int,
+                       head_dim: int) -> torch.Tensor:
+    """:func:`mamba_decode_step` in place: y (B, H, P) fp32; the new state is
+    written over ``state`` in the rows of the slots that ``active`` ((B,)
+    bool, or None: all) marks, the others' rows left bit for bit.  On the
+    card ``state`` must be contiguous, 16-byte aligned fp32.  Serving
+    only."""
+    return ssd.mamba_decode_step_(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D,
+                                  state, active, n_heads=n_heads, head_dim=head_dim)
+
+
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
              u: torch.Tensor, state: torch.Tensor, *,
              chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +159,17 @@ def wkv_decode_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.
     v (B, H, V) fp32, u (H, K), state (B, H, K, V) fp32 -> (out (B, H, V)
     fp32, new state in a fresh tensor).  Serving only."""
     return wkv.wkv_decode_step(r, k, v, w, u, state)
+
+
+def wkv_decode_step_(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                     u: torch.Tensor, state: torch.Tensor,
+                     active: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`wkv_decode_step` in place: out (B, H, V) fp32; the new state is
+    written over ``state`` in the rows of the slots that ``active`` ((B,)
+    bool, or None: all) marks, the others' rows left bit for bit.  On the
+    card ``state`` must be contiguous, 16-byte aligned fp32.  Serving
+    only."""
+    return wkv.wkv_decode_step_(r, k, v, w, u, state, active)
 
 
 def launch_counts() -> dict[str, int]:

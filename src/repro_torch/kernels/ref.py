@@ -424,6 +424,32 @@ def mamba_decode_ref(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.T
     return y, state
 
 
+def masked_update_(state: torch.Tensor, new: torch.Tensor,
+                   active: torch.Tensor | None) -> None:
+    """``state`` takes ``new`` in the rows (dim 0) of the active slots, all
+    rows when ``active`` is None; an inactive row is left bit for bit (the
+    reference's ``_freeze_inactive``, in place)."""
+    if active is None:
+        state.copy_(new)
+    else:
+        keep = active.reshape(-1, *([1] * (state.ndim - 1)))
+        state.copy_(torch.where(keep, new, state))
+
+
+def mamba_decode_ref_(window: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                      dt_raw: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                      D: torch.Tensor, state: torch.Tensor,
+                      active: torch.Tensor | None = None, *, n_heads: int,
+                      head_dim: int) -> torch.Tensor:
+    """The in-place form of :func:`mamba_decode_ref`: returns y (B, H, P)
+    fp32 and writes the new state over ``state`` in the active slots' rows
+    (``active`` (B,) bool, or None: every slot)."""
+    y, new = mamba_decode_ref(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                              n_heads=n_heads, head_dim=head_dim)
+    masked_update_(state, new, active)
+    return y
+
+
 def wkv_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                  u: torch.Tensor, state: torch.Tensor, *, chunk: int, wrap=checkpointed):
     """Chunked rwkv6 wkv scan (``repro/kernels/ref.py:wkv_scan_ref``, the
@@ -486,3 +512,14 @@ def wkv_decode_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
     out = torch.einsum("bhk,bhkv->bhv", r, state + u[None][..., :, None] * kv)
     new_state = w[..., :, None] * state + kv
     return out, new_state
+
+
+def wkv_decode_ref_(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, state: torch.Tensor,
+                    active: torch.Tensor | None = None) -> torch.Tensor:
+    """The in-place form of :func:`wkv_decode_ref`: returns out (B, H, V)
+    fp32 and writes the new state over ``state`` in the active slots' rows
+    (``active`` (B,) bool, or None: every slot)."""
+    out, new = wkv_decode_ref(r, k, v, w, u, state)
+    masked_update_(state, new, active)
+    return out

@@ -17,8 +17,13 @@ CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
 recomputes the plain chunk loop (``kernels/ref.py:ssd_scan_ref``) under
 autograd from the saved inputs on both, as the reference's ``custom_vjp``
 runs ``jax.vjp`` over its jnp oracle.  The decode step serves only and has
-no backward.  ``launches`` and ``launches_decode`` count the two kernels'
-launches.
+no backward.  It has a pure entry (``mamba_decode_step``: a fresh state)
+and an in-place one (``mamba_decode_step_``: the new state written over the
+cache's, in the rows of the active slots only), on the card one kernel
+launch either way; the in-place wrapper raises on a state it cannot update
+where it lies (not contiguous, not 16-byte aligned, not fp32) rather than
+update a copy.  ``launches`` and ``launches_decode`` count the two
+kernels' launches.
 """
 from __future__ import annotations
 
@@ -28,9 +33,10 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mamba_decode_ref, ssd_scan_ref
+from repro_torch.kernels.ref import mamba_decode_ref, mamba_decode_ref_, ssd_scan_ref
 
 HEAD_DIM, STATE = 64, 64    # the (P, N) that csrc/ssd_scan.cu is built for
+CONV_K = 4                  # the decode step's conv taps it is built for
 MAX_CHUNK = 128
 launches = 0
 launches_decode = 0
@@ -48,7 +54,9 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_tiles.argtypes = [ctypes.c_int, ctypes.c_int, out, ctypes.c_int]
     lib.ssd_scan_scratch.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_scratch.restype = ctypes.c_longlong
-    lib.mamba_decode_fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.mamba_decode_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                                     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p])
     lib.mamba_decode_fwd.restype = ctypes.c_int
     return lib
 
@@ -174,51 +182,84 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tens
     return SSDScan.apply(x, dt, Bm, Cm, A_log, chunk)
 
 
-def mamba_decode_cuda(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
-                      n_heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """window: (B, K, ch) bf16 or fp32 on the card, conv_w (K, ch) and conv_b
-    (ch,) in its dtype; dt_raw (B, H), dt_bias/A_log/D (H,) bf16 or fp32
-    (read in fp32 in the kernel, as the reference casts them); state
-    (B, H, P, N) fp32 -> (y (B, H, P) fp32, new state in a fresh
-    (B, H, P, N) fp32)."""
+def _decode(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, out, active,
+            H: int, P: int) -> torch.Tensor:
+    """One launch of the decode kernel after the wrapper's checks: y (B, H, P)
+    fp32 for every slot; the new state into ``out``'s rows of the active
+    slots (``out`` is ``state`` itself in place, else a buffer apart)."""
     global launches_decode
-    code = _build.dtype_code(window)
     B, K, ch = window.shape
-    H, P = n_heads, head_dim
     N = state.shape[-1] if state.ndim == 4 else -1
+    dev = window.get_device()
     if (not window.is_cuda
-            or any(t.device != window.device
+            or any(t.get_device() != dev
                    for t in (conv_w, conv_b, dt_raw, dt_bias, A_log, D, state))
-            or {conv_w.dtype, conv_b.dtype} != {window.dtype}
-            or conv_w.shape != (K, ch) or conv_b.shape != (ch,) or dt_raw.shape != (B, H)
-            or any(t.shape != (H,) for t in (dt_bias, A_log, D))
-            or state.shape != (B, H, P, N) or state.dtype != torch.float32
-            or ch != H * P + 2 * N):
+            or conv_w.dtype != window.dtype or conv_b.dtype != window.dtype
+            or (conv_w.shape, conv_b.shape, dt_raw.shape, dt_bias.shape, A_log.shape,
+                D.shape, state.shape) != ((K, ch), (ch,), (B, H), (H,), (H,), (H,),
+                                          (B, H, P, N))
+            or state.dtype != torch.float32 or ch != H * P + 2 * N
+            or active is not None and (active.dtype != torch.bool or active.shape != (B,)
+                                       or active.get_device() != dev)):
         raise ValueError(
             f"mamba_decode_step: window {window.dtype} {tuple(window.shape)} on "
             f"{window.device}, conv_w {tuple(conv_w.shape)}, conv_b {tuple(conv_b.shape)}, "
             f"dt_raw {tuple(dt_raw.shape)}, state {state.dtype} {tuple(state.shape)}, "
+            f"active {None if active is None else (active.dtype, tuple(active.shape))}, "
             f"H {H}, P {P}")
-    if (P, N) != (HEAD_DIM, STATE):
-        raise ValueError(f"mamba_decode_step: built for (P, N) = {(HEAD_DIM, STATE)}, "
-                         f"got {(P, N)}")
-    window, conv_w, conv_b = (t.contiguous() for t in (window, conv_w, conv_b))
-    small = (dt_raw, dt_bias, A_log, D)
-    if len({t.dtype for t in small}) > 1:
-        small = tuple(t.float() for t in small)
-    dt_raw, dt_bias, A_log, D = (t.contiguous() for t in small)
-    state = _build.aligned(state)
+    if (P, N, K) != (HEAD_DIM, STATE, CONV_K):
+        raise ValueError(f"mamba_decode_step: built for (P, N, K) = "
+                         f"{(HEAD_DIM, STATE, CONV_K)}, got {(P, N, K)}")
+    code = _build.dtype_code(window)
+    if not (dt_raw.dtype == dt_bias.dtype == A_log.dtype == D.dtype):
+        dt_raw, dt_bias, A_log, D = (t.float() for t in (dt_raw, dt_bias, A_log, D))
+    if dt_raw.stride(-1) != 1:
+        dt_raw = dt_raw.contiguous()
+    # named, so that a copy lives until the kernel is enqueued
+    window, conv_w, conv_b, dt_bias, A_log, D = (
+        t.contiguous() for t in (window, conv_w, conv_b, dt_bias, A_log, D))
     y = torch.empty((B, H, P), dtype=torch.float32, device=window.device)
-    new_state = torch.empty_like(state)
     lib = _lib()
     err = lib.mamba_decode_fwd(window.data_ptr(), conv_w.data_ptr(), conv_b.data_ptr(),
                                dt_raw.data_ptr(), dt_bias.data_ptr(), A_log.data_ptr(),
-                               D.data_ptr(), state.data_ptr(), y.data_ptr(),
-                               new_state.data_ptr(), B, K, ch, H, P, N, code,
+                               D.data_ptr(), state.data_ptr(), y.data_ptr(), out.data_ptr(),
+                               None if active is None else active.data_ptr(),
+                               B, K, ch, H, P, N, dt_raw.stride(0), code,
                                _build.dtype_code(dt_raw), _build.stream_of(window))
     _build.check(lib, err, "mamba_decode_fwd")
     launches_decode += 1
+    return y
+
+
+def mamba_decode_cuda(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
+                      n_heads: int, head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """window: (B, K, ch) bf16 or fp32 on the card, conv_w (K, ch) and conv_b
+    (ch,) in its dtype; dt_raw (B, H) (unit stride on H, any row stride),
+    dt_bias/A_log/D (H,) bf16 or fp32 (read in fp32 in the kernel, as the
+    reference casts them); state (B, H, P, N) fp32 -> (y (B, H, P) fp32, new
+    state in a fresh (B, H, P, N) fp32)."""
+    state = _build.aligned(state) if state.dtype == torch.float32 else state
+    new_state = torch.empty_like(state)
+    y = _decode(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, new_state, None,
+                n_heads, head_dim)
     return y, new_state
+
+
+def mamba_decode_cuda_(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                       active=None, *, n_heads: int, head_dim: int) -> torch.Tensor:
+    """The in-place step on the card: the inputs of :func:`mamba_decode_cuda`
+    and ``active`` ((B,) bool, or None: every slot) -> y (B, H, P) fp32; the
+    new state is written over ``state`` in the active slots' rows, and an
+    inactive slot's rows are not written.  ``state`` must be the tensor to
+    update: contiguous, 16-byte aligned fp32, or this raises (a copy would
+    take the update and leave ``state`` as it was)."""
+    if (state.dtype != torch.float32 or not state.is_contiguous()
+            or state.data_ptr() % 16):
+        raise ValueError(f"mamba_decode_step_: the state must be contiguous, 16-byte "
+                         f"aligned fp32 to be updated in place, got {state.dtype} strides "
+                         f"{state.stride()} at {state.data_ptr() % 16} bytes past 16")
+    return _decode(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, state, active,
+                   n_heads, head_dim)
 
 
 def mamba_decode_step(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, *,
@@ -231,3 +272,16 @@ def mamba_decode_step(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state, 
                                 n_heads=n_heads, head_dim=head_dim)
     return mamba_decode_cuda(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
                              n_heads=n_heads, head_dim=head_dim)
+
+
+def mamba_decode_step_(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                       active=None, *, n_heads: int, head_dim: int) -> torch.Tensor:
+    """One fused decode step in place: y (B, H, P) fp32; the new state is
+    written over ``state`` in the rows of the active slots (every slot when
+    ``active`` is None) and an inactive slot's rows stay bit for bit.
+    Serving only: no gradient."""
+    if window.device.type == "cpu":
+        return mamba_decode_ref_(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                                 active, n_heads=n_heads, head_dim=head_dim)
+    return mamba_decode_cuda_(window, conv_w, conv_b, dt_raw, dt_bias, A_log, D, state,
+                              active, n_heads=n_heads, head_dim=head_dim)

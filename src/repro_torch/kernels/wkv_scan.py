@@ -17,8 +17,13 @@ CUDA tensor (or raises) and the plain version for a CPU tensor; its backward
 recomputes the plain chunk loop (``kernels/ref.py:wkv_scan_ref``) under
 autograd from the saved inputs on both, as the reference's ``custom_vjp``
 runs ``jax.vjp`` over its jnp oracle.  The decode step serves only and has
-no backward.  ``launches`` and ``launches_decode`` count the two kernels'
-launches.
+no backward.  It has a pure entry (``wkv_decode_step``: a fresh state)
+and an in-place one (``wkv_decode_step_``: the new state written over the
+cache's, in the rows of the active slots only), on the card one kernel
+launch either way; the in-place wrapper raises on a state it cannot update
+where it lies (not contiguous, not 16-byte aligned, not fp32) rather than
+update a copy.  ``launches`` and ``launches_decode`` count the two
+kernels' launches.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv_decode_ref, wkv_scan_ref
+from repro_torch.kernels.ref import wkv_decode_ref, wkv_decode_ref_, wkv_scan_ref
 
 HEAD_DIM = 64               # the K = V that csrc/wkv_scan.cu is built for
 MAX_CHUNK = 32
@@ -46,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     lib.wkv_scan_pairs.argtypes = [ctypes.c_int, out, ctypes.c_int]
     lib.wkv_scan_scratch.argtypes = [ctypes.c_int] * 4
     lib.wkv_scan_scratch.restype = ctypes.c_longlong
-    lib.wkv_decode_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.wkv_decode_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.wkv_decode_fwd.restype = ctypes.c_int
     return lib
 
@@ -60,7 +65,8 @@ def check_chunk(T: int, chunk: int) -> None:
 def _fp32(*ts: torch.Tensor) -> list[torch.Tensor]:
     """Contiguous, 16-byte aligned fp32 (no copy for the model's fp32
     contiguous operands)."""
-    return [_build.aligned(t.float()) for t in ts]
+    return [t if t.dtype == torch.float32 and t.is_contiguous() and not t.data_ptr() % 16
+            else _build.aligned(t.float()) for t in ts]
 
 
 def wkv_scan_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -170,32 +176,63 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return WKVScan.apply(r, k, v, w, u, state, chunk)
 
 
+def _decode(r, k, v, w, u, state, out, active) -> torch.Tensor:
+    """One launch of the decode kernel after the wrapper's checks: out
+    (B, H, V) fp32 for every slot; the new state into ``out``'s rows of the
+    active slots (``out`` is ``state`` itself in place, else a buffer
+    apart)."""
+    global launches_decode
+    B, H, K = r.shape
+    V = v.shape[-1]
+    dev = r.get_device()
+    if (not r.is_cuda or any(t.get_device() != dev for t in (k, v, w, u, state))
+            or (k.shape, w.shape, v.shape, u.shape, state.shape)
+            != (r.shape, r.shape, (B, H, V), (H, K), (B, H, K, V))
+            or active is not None and (active.dtype != torch.bool or active.shape != (B,)
+                                       or active.get_device() != dev)):
+        raise ValueError(f"wkv_decode_step: r {tuple(r.shape)} on {r.device}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}, u "
+                         f"{tuple(u.shape)}, state {tuple(state.shape)}, active "
+                         f"{None if active is None else (active.dtype, tuple(active.shape))}")
+    if (K, V) != (HEAD_DIM, HEAD_DIM):
+        raise ValueError(f"wkv_decode_step: built for K = V = {HEAD_DIM}, got {(K, V)}")
+    r, k, v, w, u = _fp32(r, k, v, w, u)
+    y = torch.empty((B, H, V), dtype=torch.float32, device=r.device)
+    lib = _lib()
+    err = lib.wkv_decode_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                             u.data_ptr(), state.data_ptr(), y.data_ptr(), out.data_ptr(),
+                             None if active is None else active.data_ptr(), B, H, K, V,
+                             _build.stream_of(r))
+    _build.check(lib, err, "wkv_decode_fwd")
+    launches_decode += 1
+    return y
+
+
 def wkv_decode_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                     u: torch.Tensor, state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """r/k/w: (B, H, K), v: (B, H, V), u: (H, K), state (B, H, K, V) on the
     card, read in fp32 -> (out (B, H, V) fp32, new state in a fresh
     (B, H, K, V) fp32)."""
-    global launches_decode
-    B, H, K = r.shape
-    V = v.shape[-1]
-    if (not r.is_cuda or any(t.device != r.device for t in (k, v, w, u, state))
-            or k.shape != r.shape or w.shape != r.shape or v.shape != (B, H, V)
-            or u.shape != (H, K) or state.shape != (B, H, K, V)):
-        raise ValueError(f"wkv_decode_step: r {tuple(r.shape)} on {r.device}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, w {tuple(w.shape)}, u "
-                         f"{tuple(u.shape)}, state {tuple(state.shape)}")
-    if (K, V) != (HEAD_DIM, HEAD_DIM):
-        raise ValueError(f"wkv_decode_step: built for K = V = {HEAD_DIM}, got {(K, V)}")
-    r, k, v, w, u, state = _fp32(r, k, v, w, u, state)
-    y = torch.empty((B, H, V), dtype=torch.float32, device=r.device)
+    state = _fp32(state)[0]
     new_state = torch.empty_like(state)
-    lib = _lib()
-    err = lib.wkv_decode_fwd(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                             u.data_ptr(), state.data_ptr(), y.data_ptr(),
-                             new_state.data_ptr(), B, H, K, V, _build.stream_of(r))
-    _build.check(lib, err, "wkv_decode_fwd")
-    launches_decode += 1
-    return y, new_state
+    return _decode(r, k, v, w, u, state, new_state, None), new_state
+
+
+def wkv_decode_cuda_(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                     u: torch.Tensor, state: torch.Tensor,
+                     active: torch.Tensor | None = None) -> torch.Tensor:
+    """The in-place step on the card: the inputs of :func:`wkv_decode_cuda`
+    and ``active`` ((B,) bool, or None: every slot) -> out (B, H, V) fp32;
+    the new state is written over ``state`` in the active slots' rows, and
+    an inactive slot's rows are not written.  ``state`` must be the tensor
+    to update: contiguous, 16-byte aligned fp32, or this raises (a copy
+    would take the update and leave ``state`` as it was)."""
+    if (state.dtype != torch.float32 or not state.is_contiguous()
+            or state.data_ptr() % 16):
+        raise ValueError(f"wkv_decode_step_: the state must be contiguous, 16-byte "
+                         f"aligned fp32 to be updated in place, got {state.dtype} strides "
+                         f"{state.stride()} at {state.data_ptr() % 16} bytes past 16")
+    return _decode(r, k, v, w, u, state, state, active)
 
 
 def wkv_decode_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -206,3 +243,15 @@ def wkv_decode_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.
     if r.device.type == "cpu":
         return wkv_decode_ref(r, k, v, w, u, state)
     return wkv_decode_cuda(r, k, v, w, u, state)
+
+
+def wkv_decode_step_(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                     u: torch.Tensor, state: torch.Tensor,
+                     active: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused decode step in place: out (B, H, V) fp32; the new state is
+    written over ``state`` in the rows of the active slots (every slot when
+    ``active`` is None) and an inactive slot's rows stay bit for bit.
+    Serving only: no gradient."""
+    if r.device.type == "cpu":
+        return wkv_decode_ref_(r, k, v, w, u, state, active)
+    return wkv_decode_cuda_(r, k, v, w, u, state, active)

@@ -44,6 +44,7 @@ from repro_torch.core.compute import (
     ComputePolicy, checkpointed, resolve as resolve_policy,
 )
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import masked_update_
 from repro_torch.models import blocks, layers, moe, rwkv, ssm
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
@@ -511,7 +512,7 @@ class Model(nn.Module):
                 for i in range(cfg.n_layers):
                     cl = _layer(cache["layers"], i)
                     x, new = rwkv.rwkv_decode(_layer(params["layers"], i), x, cl, cfg,
-                                              policy=self.compute)
+                                              policy=self.compute, active=active)
                     _masked_copy(cl, new, active)
             return self._logits(params, x[:, 0]), {**cache, "pos": pos + step}
         for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"]):
@@ -528,14 +529,16 @@ class Model(nn.Module):
     def _decode_hybrid(self, params: dict, cache: dict, x: torch.Tensor,
                        pos: torch.Tensor, active: torch.Tensor | None) -> torch.Tensor:
         """The zamba2 super units over one token (``super_body`` of the
-        reference's decode).  The mamba layers' new conv windows and states
-        are fresh tensors, copied into the cache under ``active``."""
+        reference's decode).  Each mamba layer updates its state in place in
+        the active slots' rows; its new conv window is a fresh tensor,
+        copied into the cache under ``active``."""
         cfg, pol = self.cfg, self.compute
         per = cfg.n_layers // _n_super(cfg)
         shared = params["shared"]
         for i in range(cfg.n_layers):
             mc = _layer(cache["layers"], i)
-            x, new = ssm.mamba_decode(_layer(params["layers"], i), x, mc, cfg, policy=pol)
+            x, new = ssm.mamba_decode(_layer(params["layers"], i), x, mc, cfg, policy=pol,
+                                      active=active)
             _masked_copy(mc, new, active)
             if (i + 1) % per == 0:
                 x, _ = blocks.self_attn_decode(shared["attn"], x,
@@ -547,13 +550,12 @@ class Model(nn.Module):
 
 def _masked_copy(cache: dict, new: dict, active: torch.Tensor | None) -> None:
     """Copy each fresh leaf of ``new`` into its cache leaf (views), in the
-    rows of the active slots only: an inactive row is left bit for bit."""
+    rows of the active slots only: an inactive row is left bit for bit.  A
+    leaf that is the cache's own tensor (a state its step updated in place,
+    under the same ``active``) is left alone."""
     for name, t in cache.items():
-        if active is None:
-            t.copy_(new[name])
-        else:
-            keep = active.reshape(-1, *([1] * (t.ndim - 1)))
-            t.copy_(torch.where(keep, new[name].to(t.dtype), t))
+        if new[name] is not t:
+            masked_update_(t, new[name].to(t.dtype), active)
 
 
 def _ring_place(x: torch.Tensor, clen: int,

@@ -5,11 +5,12 @@ Attention-free: the recurrent state is (H, K, V) per layer, O(1) in
 sequence length.  Training and prefill of 8 tokens or more run the chunked
 wkv (log-space per-channel decays, intra-chunk scores and an inter-chunk
 carry) at ``pick_chunk(T, WKV_CHUNK)``; under ``policy.kernels`` the whole
-scan is the wkv kernel (``kernels/wkv_scan.py``).  Shorter inputs, every
-decode tick among them, loop the O(1) single-step form, under
-``policy.kernels`` the fused decode-step kernel.  Time-mix's norm takes the
-rmsnorm kernel under ``policy.kernels``; channel-mix's norm and ``ln_x``
-stay plain, as they are in the reference.
+scan is the wkv kernel (``kernels/wkv_scan.py``).  Shorter inputs loop
+the O(1) single-step form, under ``policy.kernels`` the fused decode-step
+kernel; a decode tick takes that step in place on the cache's state, in
+the active slots' rows.  Time-mix's norm takes the rmsnorm kernel under
+``policy.kernels``; channel-mix's norm and ``ln_x`` stay plain, as they
+are in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import wkv_decode_ref, wkv_scan_ref
+from repro_torch.kernels.ref import wkv_decode_ref, wkv_decode_ref_, wkv_scan_ref
 from repro_torch.kernels.tiling import WKV_CHUNK, pick_chunk
 from repro_torch.models import layers
 from repro_torch.models.blocks import norm_spec
@@ -101,10 +102,15 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, state: torch.Tensor,
-             cfg: ModelConfig, policy: ComputePolicy | None = None):
+             cfg: ModelConfig, policy: ComputePolicy | None = None, *,
+             in_place: bool = False, active: torch.Tensor | None = None):
     """x: (B, T, d); x_prev: (B, d) the token before x[:, 0]; state:
     (B, H, K, V).  Returns (x + the time-mix output, the last normed token
-    (B, d), the new state (B, H, K, V) fp32, a fresh tensor)."""
+    (B, d), the new state (B, H, K, V) fp32, a fresh tensor).  With
+    ``in_place`` (serving's decode tick, T = 1) the step writes the new
+    state over ``state`` (fp32) in the rows of the slots that ``active``
+    ((B,) bool, or None: all) marks and returns ``state`` itself; autograd
+    and prefill take the pure form."""
     pol = resolve_policy(policy)
     B, T, d = x.shape
     H = n_rwkv_heads(cfg)
@@ -118,7 +124,13 @@ def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, state: torch.Tensor
     w = _heads(_decay(p, xw), H)                                       # (B, T, H, K) fp32
     u = _heads(p["u"].float(), H)                                      # (H, K)
 
-    if T >= 8:
+    if in_place:
+        if T != 1:
+            raise ValueError(f"time_mix: the in-place step takes one token, got T={T}")
+        step_ = kernel_ops.wkv_decode_step_ if pol.kernels else wkv_decode_ref_
+        y = step_(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, state, active)
+        y = y.reshape(B, 1, d).to(x.dtype)
+    elif T >= 8:
         y, state = _wkv_chunked(r, k, v, w, u, state.float(), pick_chunk(T, WKV_CHUNK),
                                 policy=pol)
         y = y.reshape(B, T, d).to(x.dtype)
@@ -179,12 +191,14 @@ def rwkv_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def rwkv_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-                policy: ComputePolicy | None = None):
+                policy: ComputePolicy | None = None, active: torch.Tensor | None = None):
     """x: (B, 1, d), cache {"x_tm", "x_cm", "state"} -> (out, the new cache
-    leaves as fresh tensors; ``cache`` is not written).  ``policy.kernels``
-    runs the time-mix core step as one fused kernel."""
+    leaves).  The state leaf is updated in place, in the rows of the slots
+    that ``active`` ((B,) bool, or None: all) marks, and returned as the
+    same tensor; the last tokens come back fresh (the caller merges them).
+    ``policy.kernels`` runs the time-mix core step as one fused kernel."""
     xo, tm_prev, state = time_mix(params["tm"], x, cache["x_tm"], cache["state"], cfg,
-                                  policy=policy)
+                                  policy=policy, in_place=True, active=active)
     xo, cm_prev = channel_mix(params["cm"], xo, cache["x_cm"], cfg)
     return xo, {"x_tm": tm_prev, "x_cm": cm_prev, "state": state}
 

@@ -5,9 +5,10 @@ Training and prefill run the chunked SSD algorithm (intra-chunk masked
 products and an inter-chunk recurrent carry); under ``policy.kernels`` the
 whole scan is the SSD kernel (``kernels/ssd_scan.py``) at the same chunk
 size.  Decode is the O(1) single-step recurrence over the carried
-(H, P, N) state; under ``policy.kernels`` its conv-window, gate, state
-update and read-out run as one fused kernel.  The gated
-``rms_norm(y * silu(z))`` stays plain, as it is in the reference.
+(H, P, N) state, which it updates in place in the active slots' rows;
+under ``policy.kernels`` its conv-window, gate, state update and read-out
+run as one fused kernel.  The gated ``rms_norm(y * silu(z))`` stays
+plain, as it is in the reference.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import mamba_decode_ref, ssd_scan_ref
+from repro_torch.kernels.ref import mamba_decode_ref_, ssd_scan_ref
 from repro_torch.kernels.tiling import SSD_CHUNK, pick_chunk
 from repro_torch.models import blocks, layers
 from repro_torch.models.blocks import norm_spec
@@ -165,23 +166,28 @@ def mamba_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mamba_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-                 policy: ComputePolicy | None = None):
+                 policy: ComputePolicy | None = None, active: torch.Tensor | None = None):
     """Single-token decode: x (B, 1, d), cache {"conv": (B, K-1, ch),
-    "state": (B, H, P, N)} -> (out, {"conv", "state"} new tensors; ``cache``
-    is not written).  ``policy.kernels`` runs the conv-window, gate, state
-    update and read-out chain as one fused kernel."""
+    "state": (B, H, P, N) fp32} -> (out, {"conv", "state"}).  The state leaf
+    is updated in place, in the rows of the slots that ``active`` ((B,)
+    bool, or None: all) marks, and returned as the same tensor; the conv
+    window comes back fresh (the caller merges it).  ``policy.kernels``
+    runs the conv-window, gate, state update and read-out chain as one
+    fused kernel."""
     pol = resolve_policy(policy)
     B, _, d = x.shape
     H, P = n_ssm_heads(cfg), cfg.ssm_head_dim
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps, use_kernel=pol.kernels)
     z, xbc, dt_raw = _split_proj((h @ params["in_proj"])[:, 0], cfg)   # (B, ...)
+    # the window stays a fresh concat: the H blocks of a slot all read its
+    # shared B and C channels, so a roll in place would race
     window = torch.cat([cache["conv"], xbc[:, None, :].to(cache["conv"].dtype)], dim=1)
-    step = kernel_ops.mamba_decode_step if pol.kernels else mamba_decode_ref
-    y, state = step(window, params["conv_w"], params["conv_b"], dt_raw, params["dt_bias"],
-                    params["A_log"], params["D"], cache["state"], n_heads=H, head_dim=P)
+    step = kernel_ops.mamba_decode_step_ if pol.kernels else mamba_decode_ref_
+    y = step(window, params["conv_w"], params["conv_b"], dt_raw, params["dt_bias"],
+             params["A_log"], params["D"], cache["state"], active, n_heads=H, head_dim=P)
     y = y.reshape(B, 1, 2 * d).to(x.dtype)
     y = layers.rms_norm(y * F.silu(z[:, None, :]), params["norm"], cfg.rms_eps)
-    return x + y @ params["out_proj"], {"conv": window[:, 1:], "state": state}
+    return x + y @ params["out_proj"], {"conv": window[:, 1:], "state": cache["state"]}
 
 
 def mamba_cache_specs(cfg: ModelConfig, batch: int, dtype=None) -> dict:

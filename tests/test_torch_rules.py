@@ -46,8 +46,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_imports_no_jax_and_no_reference():
     files = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-             + [REPO / "chip_smoke.py", REPO / "tools" / "step0_limits.py",
-                REPO / "tools" / "depth_drift.py"])
+             + [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py")))
     assert len(files) > 20
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in files}
@@ -124,9 +123,15 @@ def test_cpu_path_launches_no_kernel():
                                 torch.zeros(1, 1, 64, 64), 4),
     lambda x: wkv.wkv_decode_cuda(*(x[:1].reshape(1, 1, 64),) * 4, torch.zeros(1, 64),
                                   torch.zeros(1, 1, 64, 64)),
+    lambda x: ssd.mamba_decode_cuda_(torch.ones(1, 4, 192), torch.ones(4, 192),
+                                     torch.zeros(192), torch.zeros(1, 1), torch.zeros(1),
+                                     torch.zeros(1), torch.ones(1), torch.zeros(1, 1, 64, 64),
+                                     torch.ones(1, dtype=torch.bool), n_heads=1, head_dim=64),
+    lambda x: wkv.wkv_decode_cuda_(*(x[:1].reshape(1, 1, 64),) * 4, torch.zeros(1, 64),
+                                   torch.zeros(1, 1, 64, 64), torch.ones(1, dtype=torch.bool)),
 ], ids=["rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd", "cross_entropy",
         "layernorm", "gelu_mlp", "grouped_mlp", "ssd_scan", "mamba_decode_step", "wkv_scan",
-        "wkv_decode_step"])
+        "wkv_decode_step", "mamba_decode_step_", "wkv_decode_step_"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
         call(torch.ones(4, 64))

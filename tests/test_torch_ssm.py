@@ -4,7 +4,9 @@ autograd recompute) against ``repro.kernels.ops.ssd_scan`` (Pallas, in
 interpret mode) and ``ref.ssd_scan_ref``, forward at 2e-5 and the gradients
 of sum(y^2) + sum(S^2) at 3e-4 (the tolerances of
 tests/test_kernels_scan.py); the decode step against ``ref.mamba_decode_ref``
-at 1e-6; the ``tiling`` copy against the original; ``mamba_block``,
+at 1e-6, also at the kernel's widths (P = N = 64, K = 4) against the JAX
+``mamba_decode_step``; the in-place decode forms' slot masking bit for bit
+and ``_masked_copy``'s skip of an in-place leaf; the ``tiling`` copy against the original; ``mamba_block``,
 ``mamba_prefill`` and ``mamba_decode`` against their JAX twins at 1e-5
 (fp32, kernels on and off); and the hybrid ``train_step_flops`` against the
 reference's cost model.  The kernel's staged form (``ssd_scan_staged``)
@@ -25,8 +27,9 @@ from repro_torch.configs import get_config
 from repro_torch.core import costmodel
 from repro_torch.core.compute import ComputePolicy
 from repro_torch.kernels import ops, ssd_scan as ssd, tiling
-from repro_torch.kernels.ref import mamba_decode_ref
+from repro_torch.kernels.ref import mamba_decode_ref, mamba_decode_ref_
 from repro_torch.models import ssm
+from repro_torch.models.model import _masked_copy
 
 # tiny shapes: intra-op threads only add overhead here, and they
 # oversubscribe the cores shared by parallel test workers
@@ -115,6 +118,67 @@ def test_mamba_decode_step_matches_jax():
     yk, Sk = jax_ops.mamba_decode_step(**js, **dims)    # interpret mode
     np.testing.assert_allclose(y.numpy(), np.asarray(yk), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(S.numpy(), np.asarray(Sk), rtol=1e-6, atol=1e-6)
+
+
+def test_mamba_decode_step_at_kernel_widths_matches_jax():
+    """The kernel's own widths (P = N = 64, K = 4) at 4 slots and 3 heads:
+    ``ops.mamba_decode_step`` against the JAX package's ``mamba_decode_step``
+    (interpret mode) and ``ref.mamba_decode_ref`` at 1e-6, y's absolute part
+    scaled by sqrt(N / 8): y_p is an N-term fp32 sum of O(1) terms, whose
+    rounding in another summation order grows as sqrt(N) (the 1e-6 of
+    ``test_mamba_decode_step_matches_jax`` is at N = 8; here the two
+    packages differ by up to 1.7e-6 on y, and by less than 1e-6 on the
+    state, an elementwise update)."""
+    arrays, dims = _decode_inputs(7, B=4, K=4, H=3, P=64, N=64)
+    ts = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    y, S = ops.mamba_decode_step(**ts, **dims)
+    js = {k: jnp.asarray(a) for k, a in arrays.items()}
+    for ref_y, ref_S in (jax_ops.mamba_decode_step(**js, **dims),
+                         jax_ref.mamba_decode_ref(**js, **dims)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), rtol=1e-6,
+                                   atol=1e-6 * (64 / 8) ** 0.5)
+        np.testing.assert_allclose(S.numpy(), np.asarray(ref_S), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("entry", ["ops", "ref"])
+def test_mamba_decode_in_place_masks_slots(entry):
+    """The in-place form with slots 1 and 3 inactive: y equals the pure
+    form's, the active slots' rows its new state and the inactive slots'
+    rows the state before, bit for bit; the tensor is the one passed in.
+    With ``active`` None every row takes the new state."""
+    arrays, dims = _decode_inputs(8, B=4, K=4, H=3, P=64, N=64)
+    ts = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    step_ = ops.mamba_decode_step_ if entry == "ops" else mamba_decode_ref_
+    y_pure, S_pure = mamba_decode_ref(**ts, **dims)
+    active = torch.tensor([True, False, True, False])
+    state = ts["state"].clone()
+    ptr = state.data_ptr()
+    y = step_(**dict(ts, state=state), active=active, **dims)
+    assert state.data_ptr() == ptr
+    assert torch.equal(y, y_pure)
+    assert torch.equal(state[active], S_pure[active])
+    assert torch.equal(state[~active], ts["state"][~active])
+    state = ts["state"].clone()
+    assert torch.equal(step_(**dict(ts, state=state), active=None, **dims), y_pure)
+    assert torch.equal(state, S_pure)
+
+
+def test_masked_copy_leaves_in_place_leaf():
+    """``_masked_copy`` skips a leaf that is the cache's own tensor (a state
+    its step updated in place) and still freezes the inactive rows of the
+    others."""
+    rng = np.random.RandomState(9)
+    conv, state = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   for shape in ((4, 3, 8), (4, 2, 4, 4)))
+    cache = {"conv": conv.clone(), "state": state.clone()}
+    new_conv = torch.from_numpy(rng.randn(4, 3, 8).astype(np.float32))
+    active = torch.tensor([True, False, True, True])
+    cache["state"][active] += 1.0                 # what its step wrote in place
+    written = cache["state"].clone()
+    _masked_copy(cache, {"conv": new_conv, "state": cache["state"]}, active)
+    assert torch.equal(cache["state"], written)
+    assert torch.equal(cache["conv"][active], new_conv[active])
+    assert torch.equal(cache["conv"][~active], conv[~active])
 
 
 def test_mamba_decode_bf16_rounding_chain():

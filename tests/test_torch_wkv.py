@@ -6,7 +6,8 @@ of sum(y^2) + sum(S^2) at 3e-3 (the tolerances of
 tests/test_kernels_scan.py), at head widths 8 and 64 and chunks 1, 4, 16
 and 32; the scan against the reference's sequential ``_time_mix_core``
 oracle at 1e-4; the decode step against ``ops.wkv_decode_step`` and
-``ref.wkv_decode_ref`` at 1e-6; the chunk and head-width refusals; the
+``ref.wkv_decode_ref`` at 1e-6; the in-place decode forms' slot masking
+bit for bit; the chunk and head-width refusals; the
 kernel's staged form (``wkv_scan_staged``) against the same references at
 chunks 1 to 32."""
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from repro.kernels import ops as jax_ops, ref as jax_ref
 from repro.models import rwkv as jax_rwkv
 from repro_torch.kernels import ops, wkv_scan as wkv
+from repro_torch.kernels.ref import wkv_decode_ref, wkv_decode_ref_
 from repro_torch.models import rwkv
 
 # tiny shapes: intra-op threads only add overhead here, and they
@@ -114,6 +116,32 @@ def test_wkv_decode_step_matches_jax(width):
     # the port's _time_mix_core is the same step
     out2, S2 = rwkv._time_mix_core(*ts)
     assert torch.equal(out2, out) and torch.equal(S2, S)
+
+
+@pytest.mark.parametrize("entry", ["ops", "ref"])
+def test_wkv_decode_in_place_masks_slots(entry):
+    """The in-place form with slots 1 and 3 inactive, at the kernel's width
+    64 and 4 slots: out equals the pure form's, the active slots' rows its
+    new state and the inactive slots' rows the state before, bit for bit;
+    the tensor is the one passed in.  With ``active`` None every row takes
+    the new state."""
+    r, k, v, w, u, S0 = _wkv_inputs(12, B=4, H=2, K=64, V=64)
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+          (r[:, 3], k[:, 3], v[:, 3], w[:, 3], u)]
+    S0 = torch.from_numpy(S0)
+    step_ = ops.wkv_decode_step_ if entry == "ops" else wkv_decode_ref_
+    out_pure, S_pure = wkv_decode_ref(*ts, S0)
+    active = torch.tensor([True, False, True, False])
+    state = S0.clone()
+    ptr = state.data_ptr()
+    out = step_(*ts, state, active)
+    assert state.data_ptr() == ptr
+    assert torch.equal(out, out_pure)
+    assert torch.equal(state[active], S_pure[active])
+    assert torch.equal(state[~active], S0[~active])
+    state = S0.clone()
+    assert torch.equal(step_(*ts, state, None), out_pure)
+    assert torch.equal(state, S_pure)
 
 
 @pytest.mark.parametrize("chunk", [1, 4, 8, 32])
