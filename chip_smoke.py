@@ -61,7 +61,12 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step at 4 slots; three planted faults of the scan (and the carry one
      chunk late at every case of 4 chunks or more) and one of the decode
      step must fail their limits; the scan's work division held to its
-     mirrors, a second launch bit-identical;
+     mirrors, a second launch bit-identical; the dense train step's
+     kernels (flash forward and backward, swiglu, gelu_mlp, CE) at the
+     shard shapes of tensor parallelism, tp = 2 and 4, of yi-6b and
+     gpt-1.4b (``phase_kernels_tp``: heads, d_ff and vocab over tp; CE on
+     each vocab shard with labels outside it and a local valid vocab, the
+     shards merged as the vocab-parallel CE merges them);
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
      arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers) and
      rwkv6-1.6b (all 24 layers): the model
@@ -95,7 +100,16 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      weights and batches, step 0 held to the limits that
      ``tools/step0_limits.py`` measured; a ``torch.profiler`` pass over one
      step;
-  5. the ``kernels`` line: per kernel its launches on each path, its error,
+  5. parallel (``phase_parallel``): gpt-1.4b at full width and depth
+     through the sharded executor (``runtime/train_loop.py``) over a
+     one-rank nccl group, ZeRO 3, TRAIN's plan, 3 steps; step 0 held to
+     the single-device step on the same weights and batch at
+     PARALLEL_RTOL, its launches counted, step time and peak memory beside
+     the single-device step's; with 2 or more cards, min(count, 4) nccl
+     ranks (``_parallel_rank``) run the reduced yi-6b's fp32 plans against
+     the single-device port, yi-6b (TRAIN_LAYERS) at dp = ranks, ZeRO 3,
+     against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers;
+  6. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
      flash forward and backward, swiglu, gelu_mlp, CE, the grouped expert
      MLP, the two scans and the two decode steps also ``parent_ms`` and
@@ -775,7 +789,13 @@ def _flash_case(gen, name, B, Sq, Skv, Hq, Hkv, hd, dtype, **kw):
     return err, (q, k, v)
 
 
-def _flash_row(timer: Timer, err, q, k, v) -> dict:
+def _timed(timer: Timer, name: str, fn, parent: bool) -> tuple[float, float | None]:
+    """(ms, parent_ms): in turns with the version before the redesign when
+    ``parent``, else the kernel alone."""
+    return timed_with_parent(timer, name, fn) if parent else (timer(fn), None)
+
+
+def _flash_row(timer: Timer, err, q, k, v, parent: bool = True) -> dict:
     """The timed row of a causal bf16 forward at q's shape."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
@@ -791,8 +811,8 @@ def _flash_row(timer: Timer, err, q, k, v) -> dict:
     except TypeError:                           # torch without enable_gqa
         lib_ms = None
     rtol, atol = TOL["flash_attention"][q.dtype]
-    ms, parent_ms = timed_with_parent(
-        timer, "flash_attention", lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True))
+    ms, parent_ms = _timed(timer, "flash_attention",
+                           lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True), parent)
     return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
             "max_abs_err": err, "rtol": rtol, "atol": atol,
             "p_rounding_tol": FLASH_P_TOL, "ms": ms, "parent_ms": parent_ms,
@@ -1200,19 +1220,12 @@ def flash_bwd_case(name, gen, B, Sq, Skv, Hq, Hkv, hd, dtype, planted=False, **k
 CE_FAULTS = ("column tile 0 left out of the sum", "label logit from the next tile")
 
 
-def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=False):
-    """The CE kernel against ``cross_entropy_ref`` on the same h, w, labels;
-    with ``planted``, each of CE_FAULTS, built from the plain partials
-    (``cross_entropy.partials_ref``, ``merge_ref``) with one fault, must
-    fail the same limits."""
-    from repro_torch.kernels import cross_entropy as ce
+def ce_check(name, h, w, labels, valid_vocab, lse, ll, owned=None):
+    """(lse, label_logit) against ``cross_entropy_ref`` on h, w, labels under
+    the CE limits (the label logit only where ``owned``, if given); returns
+    the two errors, the references and the limit terms."""
     from repro_torch.kernels.ref import cross_entropy_ref
 
-    h = randn(gen, N, d, dtype=dtype)
-    w = randn(gen, d, V, dtype=dtype, scale=d ** -0.5)
-    if labels is None:
-        labels = torch.randint(0, valid_vocab or V, (N,), generator=gen, device="cuda")
-    lse, ll = ce.cross_entropy_cuda(h, w, labels, valid_vocab)
     rlse, rll = cross_entropy_ref(h, w, labels, valid_vocab)
     absw = h.float().abs() @ w.float().abs()
     if valid_vocab is not None:
@@ -1220,9 +1233,28 @@ def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=Fa
     lab_scale = torch.gather(absw, 1, labels.long()[:, None])[:, 0]
     lse_terms = ((absw.amax(1), CE_SCALE_TOL, "max |h|@|w|"),)
     ll_terms = ((lab_scale, CE_SCALE_TOL, "|h|@|w| at label"),)
+    del absw
+    keep = slice(None) if owned is None else owned
     e1 = check_close(f"{name} lse", lse, rlse, rtol=0, atol=1e-6, why=CE_WHY, terms=lse_terms)
-    e2 = check_close(f"{name} label_logit", ll, rll, rtol=0, atol=1e-6, why=CE_WHY,
-                     terms=ll_terms)
+    e2 = check_close(f"{name} label_logit", ll[keep], rll[keep], rtol=0, atol=1e-6,
+                     why=CE_WHY, terms=((ll_terms[0][0][keep],) + ll_terms[0][1:],))
+    return (e1, e2), (rlse, rll), (lse_terms, ll_terms)
+
+
+def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=False):
+    """The CE kernel against ``cross_entropy_ref`` on the same h, w, labels;
+    with ``planted``, each of CE_FAULTS, built from the plain partials
+    (``cross_entropy.partials_ref``, ``merge_ref``) with one fault, must
+    fail the same limits."""
+    from repro_torch.kernels import cross_entropy as ce
+
+    h = randn(gen, N, d, dtype=dtype)
+    w = randn(gen, d, V, dtype=dtype, scale=d ** -0.5)
+    if labels is None:
+        labels = torch.randint(0, valid_vocab or V, (N,), generator=gen, device="cuda")
+    lse, ll = ce.cross_entropy_cuda(h, w, labels, valid_vocab)
+    (e1, e2), (rlse, rll), (lse_terms, ll_terms) = ce_check(name, h, w, labels, valid_vocab,
+                                                            lse, ll)
     if planted:
         m, s, _ = ce.partials_ref(h.float(), w.float(), labels, valid_vocab, ce.TILE_N)
         vv = valid_vocab or V
@@ -1241,7 +1273,8 @@ def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=Fa
     return max(e1, e2), (h, w, labels)
 
 
-def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do) -> tuple[dict, dict]:
+def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do,
+                    parent: bool = True) -> tuple[dict, dict]:
     """The dQ and dK/dV rows of the kernels line at q's shape (causal)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
@@ -1270,15 +1303,14 @@ def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do) -> tuple[dict
     # delta and writes dQ
     b, by = bound_ms(el * (3 * q.numel() + 2 * k.numel()) + 8 * B * Hq * S,
                      3 * 2 * hd * pairs, q.dtype)
-    ms, parent_ms = timed_with_parent(timer, "flash_attention_bwd",
-                                      lambda: fa.launch_bwd_dq(args))
+    ms, parent_ms = _timed(timer, "flash_attention_bwd", lambda: fa.launch_bwd_dq(args), parent)
     dq = {**common, "max_abs_err": errs[0], "ms": ms, "parent_ms": parent_ms,
           "bound_ms": b, "bound_by": by}
     # dK/dV: S^T, dP^T, dS^T@Q and P^T@dO; writes dK and dV
     b, by = bound_ms(el * (2 * q.numel() + 4 * k.numel()) + 8 * B * Hq * S,
                      4 * 2 * hd * pairs, q.dtype)
-    ms, parent_ms = timed_with_parent(timer, "flash_attention_bwd",
-                                      lambda: fa.launch_bwd_dkv(args))
+    ms, parent_ms = _timed(timer, "flash_attention_bwd", lambda: fa.launch_bwd_dkv(args),
+                           parent)
     dkv = {**common, "max_abs_err": max(errs[1:]), "ms": ms, "parent_ms": parent_ms,
            "bound_ms": b, "bound_by": by}
     return dq, dkv
@@ -2201,6 +2233,143 @@ def flash_hd80(timer: Timer) -> dict:
     return out
 
 
+# the tensor-parallel plans' ways: each rank's kernels see heads / tp,
+# d_ff / tp and vocab / tp
+TP_WAYS = (2, 4)
+
+
+def phase_kernels_tp(timer: Timer) -> dict:
+    """The dense train step's kernels at the shard shapes of tensor
+    parallelism (tp = 2 and 4) of yi-6b (32q/4kv heads of 128, d_ff 11008,
+    vocab 64000) and gpt-1.4b (24 heads of 88, d_ff 8448, vocab 51200) on
+    the train microbatch (4 x 2048 tokens), bf16 and fp32, under the limits
+    of phase 2: the flash forward and backward at heads / tp, swiglu and
+    gelu_mlp at d_ff / tp, and CE on each vocab shard with labels outside
+    it (their stand-in 0 and the ownership mask of the vocab-parallel CE)
+    and, on the last shard, a local valid vocab short of the shard, through
+    the vocab-parallel CE's shard and merge steps (``ce_shards``), against
+    the whole vocab's plain CE.  bf16 rows timed, without parents:
+    rows to join each kernel's cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cross_entropy as ce, gelu_mlp as gm, swiglu as sg
+    from repro_torch.kernels.ref import cross_entropy_ref, gelu_mlp_in_ref, swiglu_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {k: [] for k in ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "cross_entropy", "swiglu", "gelu_mlp")}
+    bf16, N = torch.bfloat16, 8192
+    for tp in TP_WAYS:
+        for c in (get_config("yi-6b"), get_config("gpt-1.4b")):
+            Hq, Hkv, hd = c.n_heads // tp, c.n_kv_heads // tp, c.resolved_head_dim
+            for dtype in (bf16, torch.float32):
+                name = f"tp{tp} {c.name} {dtype} (4, 2048, {Hq}q/{Hkv}kv, {hd}) causal"
+                err, (q, k, v) = _flash_case(gen, f"flash {name}", 4, 2048, 2048, Hq, Hkv, hd,
+                                             dtype, causal=True)
+                if dtype == bf16:
+                    out["flash_attention"].append(
+                        {**_flash_row(timer, err, q, k, v, parent=False), "tp": tp})
+                del q, k, v
+                errs, tensors = flash_bwd_case(f"flash bwd {name}", gen, 4, 2048, 2048, Hq,
+                                               Hkv, hd, dtype, causal=True)
+                if dtype == bf16:
+                    dq, dkv = flash_bwd_times(timer, errs, *tensors, parent=False)
+                    out["flash_attention_bwd_dq"].append({**dq, "tp": tp})
+                    out["flash_attention_bwd_dkv"].append({**dkv, "tp": tp})
+                del tensors
+                torch.cuda.empty_cache()
+        for dtype in (bf16, torch.float32):
+            d, F_ = 4096, 11008 // tp                           # yi-6b's gate
+            x = randn(gen, N, d, dtype=dtype)
+            w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            w3 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+            rtol, atol = TOL["swiglu"][dtype]
+            err = check_close(f"swiglu tp{tp} {dtype} ({N}, {d})x({d}, {F_})",
+                              sg.swiglu_cuda(x, w1, w3),
+                              swiglu_ref(x.float(), w1.float(), w3.float()).to(dtype),
+                              rtol=rtol, atol=atol, why=TOL["swiglu"]["why"])
+            if dtype == bf16:
+                b, by = bound_ms((x.numel() + w1.numel() + w3.numel() + N * F_) * 2,
+                                 4 * N * d * F_, dtype)
+                out["swiglu"].append({
+                    "shape": f"x ({N}, {d}), w1/w3 ({d}, {F_}) bf16", "tp": tp,
+                    "max_abs_err": err, "rtol": rtol, "atol": atol,
+                    "tile": sg.swiglu_tile(N, F_, card_sms()),
+                    "ms": timer(lambda: sg.swiglu_cuda(x, w1, w3)),
+                    "plain_ms": timer(lambda: swiglu_ref(x, w1, w3)),
+                    "library_ms": timer(lambda: F.silu(x @ w1) * (x @ w3)),
+                    "library_call": "F.silu(x@w1)*(x@w3), a cuBLAS composition",
+                    "bound_ms": b, "bound_by": by})
+            del x, w1, w3
+            F_ = GPT_F // tp                                    # gpt-1.4b's GELU half
+            x = randn(gen, N, GPT_D, dtype=dtype)
+            w1 = randn(gen, GPT_D, F_, dtype=dtype, scale=GPT_D ** -0.5)
+            err = check_gelu_mlp(f"gelu_mlp tp{tp} {dtype} ({N}, {GPT_D})x({GPT_D}, {F_})",
+                                 x, w1)
+            if dtype == bf16:
+                rtol, atol = TOL["gelu_mlp"][dtype]
+                b, by = bound_ms((x.numel() + w1.numel() + N * F_) * 2,
+                                 2 * N * GPT_D * F_, dtype)
+                out["gelu_mlp"].append({
+                    "shape": f"x ({N}, {GPT_D}), w1 ({GPT_D}, {F_}) bf16", "tp": tp,
+                    "max_abs_err": err, "rtol": rtol, "atol": atol,
+                    "scale_tol": GELU_SCALE_TOL, "tile": gm.gelu_mlp_tile(N, F_, card_sms()),
+                    "ms": timer(lambda: gm.gelu_mlp_cuda(x, w1)),
+                    "plain_ms": timer(lambda: gelu_mlp_in_ref(x, w1)),
+                    "library_ms": timer(lambda: F.gelu(x @ w1, approximate="tanh")),
+                    "library_call": "F.gelu(x @ w1, approximate='tanh')",
+                    "bound_ms": b, "bound_by": by})
+            del x, w1
+            torch.cuda.empty_cache()
+        for d, V in ((4096, 64000), (GPT_D, 51200)):
+            for dtype in (bf16, torch.float32):
+                out["cross_entropy"] += ce_shards(timer, gen, tp, 4 * 2047, d, V, dtype)
+            torch.cuda.empty_cache()
+    return out
+
+
+def ce_shards(timer: Timer, gen, tp: int, N: int, d: int, V: int, dtype) -> list[dict]:
+    """CE over ``tp`` vocab shards of (d, V) through the vocab-parallel CE's
+    own shard and merge steps (``models/vocab_parallel.py``: ``shard_terms``
+    on each shard, the kernel at its shard shape, then ``merge_lse``; the
+    all-gather and all-reduce between them become a stack and a sum on one
+    card), the whole vocab valid but its last 3 columns (a padded vocab's
+    stand-in); returns the timed row of shard 0 in bf16."""
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels.ref import cross_entropy_ref
+    from repro_torch.models import vocab_parallel as vp
+
+    h = randn(gen, N, d, dtype=dtype)
+    w = randn(gen, d, V, dtype=dtype, scale=d ** -0.5)
+    valid, Vl = V - 3, V // tp
+    labels = torch.randint(0, valid, (N,), generator=gen, device="cuda")
+    lses, lls, rows = [], [], []
+    for r in range(tp):
+        ws = w[:, r * Vl:(r + 1) * Vl].contiguous()
+        lse, ll, local, owned, vv = vp.shard_terms(h, ws, labels, valid, r * Vl)
+        name = f"ce tp{tp} shard {r} {dtype} ({N}, {d})x({d}, {Vl}), valid {vv}"
+        (e1, e2), _, _ = ce_check(name, h, ws, local, vv, lse, ll, owned)
+        lses.append(lse)
+        lls.append(ll)
+        if dtype == torch.bfloat16 and r == 0:
+            b, by = bound_ms(2 * (h.numel() + ws.numel()) + 8 * N + 8 * N, 2 * N * d * Vl,
+                             dtype)
+            rows.append({
+                "shape": f"h ({N}, {d}), w ({d}, {Vl}) bf16, {int(owned.sum())} of {N} "
+                         "labels in the shard", "tp": tp, "max_abs_err": max(e1, e2),
+                "tile": [ce.TILE_M, ce.TILE_N], "partials": ce.n_partials(Vl, dtype),
+                "ms": timer(lambda: ce.cross_entropy_cuda(h, ws, local, vv)),
+                "plain_ms": timer(lambda: cross_entropy_ref(h, ws, local, vv)),
+                "plain_call": "cross_entropy_ref (materialized fp32 logits)",
+                "library_ms": timer(lambda: F.cross_entropy((h @ ws).float(), local,
+                                                            reduction="none")),
+                "library_call": "F.cross_entropy on (h @ w_shard).float()",
+                "bound_ms": b, "bound_by": by})
+        del ws
+    ce_check(f"ce tp{tp} {dtype} ({N}, {d})x({d}, {V}), {tp} shards merged", h, w, labels,
+             valid, vp.merge_lse(torch.stack(lses)), sum(lls))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2e: the rwkv slice's wkv scan and wkv decode step
 # ---------------------------------------------------------------------------
@@ -3070,16 +3239,17 @@ def _batches(vocab: int, seq_len: int, global_batch: int, n: int) -> list:
     return [next(it) for _ in range(n)]
 
 
-def _run_steps(model, plan, batches, seed: int) -> list[dict]:
+def _run_steps(model, plan, batches, seed: int, mesh=None) -> list[dict]:
     """Fresh train state from ``seed``, then one step per batch; per step its
-    metrics and synchronized wall time."""
+    metrics and synchronized wall time.  With ``mesh``, ``model`` is the
+    rank's sharded model (it draws every leaf whole from the same seed)."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train_loop import build_train_step, init_train_state
 
     opt = AdamWConfig(lr=TRAIN_LR)
     state = init_train_state(model, opt, plan,
-                             torch.Generator(device="cuda").manual_seed(seed))
-    step = build_train_step(model, opt, plan)
+                             torch.Generator(device=model.device).manual_seed(seed))
+    step = build_train_step(model, opt, plan, mesh)
     out = []
     for b in batches:
         torch.cuda.synchronize()
@@ -3202,7 +3372,172 @@ def phase_train(card: str, arch: str) -> dict:
     if any(rel0[key] > STEP0_RTOL[arch][key] for key in rel0):
         raise AssertionError(f"{arch} step 0 kernels on vs off: {rel0}, limits "
                              f"{STEP0_RTOL[arch]}")
+    TRAIN_STEP0[arch] = on[0]
     return launches
+
+
+# phase 4's kernels-on step 0 of each arch (loss, grad_norm), which the
+# multi-rank branch of phase 5 holds its yi-6b step 0 to
+TRAIN_STEP0: dict = {}
+# phase 5, one card: gpt-1.4b at full width and depth through the sharded
+# executor over a one-rank nccl group, ZeRO 3 (every leaf stored as its
+# block and gathered on use, over a data group of one), TRAIN's batch
+PARALLEL_ARCH, PARALLEL_STEPS, PARALLEL_ZERO = "gpt-1.4b", 3, 3
+# fp32 step 0 of the same arithmetic: the one-rank collectives copy, so
+# equality is expected; 1e-5 relative is the reference's bar between plans
+PARALLEL_RTOL = 1e-5
+# the multi-rank branch's reduced yi-6b: tests/test_parallel_plan.py's with
+# kernels off; with kernels on at head dim 64 (d 256), since the flash
+# kernels take head dims 64, 80, 88 and 128 only
+PARALLEL_REDUCED = {False: dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
+                                d_ff=256, vocab_size=256, head_dim=32),
+                    True: dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                               d_ff=256, vocab_size=256, head_dim=64)}
+
+
+def _process_group_file(tag: str) -> str:
+    path = ROOT / "build" / f"process_group_{tag}"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    return f"file://{path}"
+
+
+def _sharded_steps(cfg, plan, batches, seed: int) -> tuple[list[dict], float]:
+    """The sharded executor over the default group's plan mesh from
+    ``seed``: its per-step records and this rank's peak memory in GB."""
+    from repro_torch.launch.mesh import mesh_for_plan
+    from repro_torch.runtime.train_loop import build_model
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_for_plan(plan, device)
+    model = build_model(cfg, plan, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    out = _run_steps(model, plan, batches, seed, mesh)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    return out, peak
+
+
+def _rel(a: dict, b: dict) -> dict:
+    return {k: abs(a[k] - b[k]) / abs(b[k]) for k in ("loss", "grad_norm")}
+
+
+def phase_parallel(card: str) -> dict:
+    """PARALLEL_ARCH through the sharded executor on one card (the single-
+    device step 0 first, on the same weights and batch), then, where the
+    host has 2 or more cards, the multi-rank branch."""
+    import torch.distributed as dist
+
+    from repro_torch.core import costmodel
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = train_config(PARALLEL_ARCH)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    batches = _batches(cfg.vocab_size, S, gb, PARALLEL_STEPS)
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    model = Model(cfg, torch.float32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    single = _run_steps(model, ParallelPlan(**kw), batches[:1], 0)
+    single_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+
+    init_distributed(torch.device("cuda"), _process_group_file("one_rank"), 0, 1)
+    plan = ParallelPlan(zero=PARALLEL_ZERO, **kw)
+    ops.reset_launch_counts()
+    steps, peak = _sharded_steps(cfg, plan, batches, 0)
+    launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[PARALLEL_ARCH]}
+    dist.destroy_process_group()
+    flops = costmodel.train_step_flops(cfg, gb, S).total
+    rel0 = _rel(steps[0], single[0])
+    emit({"phase": "parallel", "arch": cfg.name, "layers": cfg.n_layers,
+          "plan": {"dp": 1, "tp": 1, "zero": PARALLEL_ZERO, **kw}, "backend": "nccl",
+          "ranks": 1, "global_batch": gb, "seq_len": S, "steps": steps,
+          "median_step_s": float(np.median([r["step_s"] for r in steps[1:]])),
+          "mfu_by_step": [costmodel.mfu(flops, r["step_s"], costmodel.H100.peak_flops)
+                          for r in steps],
+          "peak_mem_gb": peak, "single_device_step0": single[0],
+          "single_device_peak_mem_gb": single_peak, "step0_rel_diff": rel0,
+          "rtol": PARALLEL_RTOL, "launches": launches, "card": card})
+    if any(v > PARALLEL_RTOL for v in rel0.values()):
+        raise AssertionError(f"sharded step 0 vs single device: {rel0}")
+    expected = expected_train_launches(cfg, PARALLEL_STEPS)
+    if launches != expected:
+        raise AssertionError(f"sharded train launches {launches}, expected {expected}")
+    world = min(torch.cuda.device_count(), 4)
+    if world >= 2:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_parallel_rank, args=(world, _process_group_file("ranks"),
+                                       TRAIN_STEP0.get("yi-6b")), nprocs=world)
+    else:
+        emit({"phase": "parallel_ranks", "ran": False,
+              "why": f"{torch.cuda.device_count()} card: the multi-rank branch needs 2 or more"})
+    return launches
+
+
+def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | None) -> None:
+    """One nccl rank of the multi-rank branch: the reduced yi-6b's fp32 plans
+    (PARALLEL_REDUCED) against the single-device port at PARALLEL_RTOL (dp =
+    world at ZeRO 0-3, dp = world / 2 x tp = 2 at ZeRO 1 and 3, kernels off
+    and on); yi-6b at
+    TRAIN_LAYERS depth and full width at dp = world, ZeRO 3, step 0 within
+    STEP0_RTOL of phase 4's single-device step; at 4 ranks yi-6b at all 32
+    layers, ZeRO 3, 3 steps, with each rank's peak memory."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank that fails mid-collective leaves the others waiting: time out
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    plans = [dict(dp=world, zero=z) for z in (0, 1, 2, 3)]
+    plans += [dict(dp=world // 2, tp=2, zero=z) for z in (1, 3)] if world % 2 == 0 else []
+    for kernels, overrides in PARALLEL_REDUCED.items():
+        red = get_config("yi-6b").reduced(**overrides)
+        rb = _batches(red.vocab_size, 32, 8, 3)
+        kw = dict(gas=2, precision="fp32", kernels=kernels)
+        single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+        for p in plans:
+            steps, _ = _sharded_steps(red, ParallelPlan(**p, **kw), rb, 0)
+            rel = [_rel(a, b) for a, b in zip(steps, single)]
+            emit({"phase": "parallel_ranks_reduced", "rank": rank, "plan": {**p, **kw},
+                  "rel_diff": rel, "rtol": PARALLEL_RTOL})
+            if any(v > PARALLEL_RTOL for r in rel for v in r.values()):
+                raise AssertionError(f"rank {rank} plan {p} kernels={kernels}: {rel}")
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    cfg = train_config("yi-6b")
+    steps, peak = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw),
+                                 _batches(cfg.vocab_size, S, gb, 1), 0)
+    rel0 = None if yi_step0 is None else _rel(steps[0], yi_step0)
+    emit({"phase": "parallel_ranks", "rank": rank, "arch": cfg.name, "layers": cfg.n_layers,
+          "dp": world, "zero": 3, "step0": steps[0], "train_step0": yi_step0,
+          "rel_diff": rel0, "rtol": STEP0_RTOL["yi-6b"], "peak_mem_gb": peak})
+    if rel0 is None or any(rel0[k] > STEP0_RTOL["yi-6b"][k] for k in rel0):
+        raise AssertionError(f"rank {rank}: yi-6b dp={world} step 0 vs phase 4's: {rel0}")
+    if world == 4:
+        cfg = get_config("yi-6b")
+        steps, peak = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw),
+                                     _batches(cfg.vocab_size, S, gb, 3), 0)
+        emit({"phase": "parallel_ranks", "rank": rank, "arch": cfg.name,
+              "layers": cfg.n_layers, "dp": world, "zero": 3, "steps": steps,
+              "peak_mem_gb": peak})
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+            raise AssertionError(f"rank {rank}: non-finite yi-6b steps {steps}")
+    dist.destroy_process_group()
 
 
 def main() -> int:
@@ -3246,6 +3581,8 @@ def main() -> int:
     rows.update(timed("kernels wkv", lambda: phase_kernels_wkv(timer)))
     for name, extra in timed("flash hd80", lambda: flash_hd80(timer)).items():
         rows[name]["cases"] += extra
+    for name, extra in timed("kernels tp", lambda: phase_kernels_tp(timer)).items():
+        rows[name]["cases"] += extra
     del timer
     torch.cuda.empty_cache()
     # each path's counts are zeroed just before it runs and read just after
@@ -3254,6 +3591,7 @@ def main() -> int:
         paths[f"{arch} serve"] = timed(f"{arch} serve", lambda: phase_serve(card, arch))
     for arch in TRAIN_KERNELS:
         paths[f"{arch} train"] = timed(f"{arch} train", lambda: phase_train(card, arch))
+    paths[f"{PARALLEL_ARCH} parallel"] = timed("parallel", lambda: phase_parallel(card))
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}

@@ -1,0 +1,196 @@
+"""Logical-axis sharding rules (a jax-free copy of ``repro/core/sharding.py``).
+
+Every parameter leaf carries a tuple of *logical* axis names (e.g.
+``("embed", "mlp")``).  A :class:`ShardingRules` table maps logical names
+onto mesh axes; the paper's TP/DP/ZeRO choices are different rule tables
+over the same model definition.
+
+A spec is a tuple with one entry per dim: a mesh axis name, a tuple of
+names, or None (replicated).  Mesh axis sizes come from a plain
+``{axis: size}`` mapping.  Divisibility is lenient: a mesh axis that does not
+divide its dimension leaves that dimension replicated.
+
+:func:`shard_shape` and :func:`shard_slices` give one rank's block of a
+leaf under a spec (blocks in rank order along each sharded dim).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+
+MeshAxis = str | tuple[str, ...] | None
+Spec = tuple[MeshAxis, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Maps logical axis names to mesh axis names (or None = replicated)."""
+
+    rules: Mapping[str, MeshAxis]
+    name: str = "custom"
+
+    def mesh_axis(self, logical: str | None) -> MeshAxis:
+        if logical is None:
+            return None
+        return self.rules.get(logical)
+
+    def with_overrides(self, name: str | None = None, **overrides: MeshAxis) -> "ShardingRules":
+        merged = dict(self.rules)
+        merged.update(overrides)
+        return ShardingRules(rules=merged, name=name or self.name + "+")
+
+
+def _base_rules(
+    *, data_axis: MeshAxis, model_axis: MeshAxis, pipe_axis: MeshAxis = None,
+    extra: Mapping[str, MeshAxis] | None = None,
+    name: str = "custom",
+) -> ShardingRules:
+    rules: dict[str, MeshAxis] = {
+        "batch": data_axis,
+        "seq": None,
+        "embed": None,
+        "heads": model_axis,
+        "kv_heads": model_axis,
+        "head_dim": None,
+        "mlp": model_axis,
+        "vocab": model_axis,
+        "layers": pipe_axis,
+        "stage": pipe_axis or "pipe",
+        "experts": data_axis,
+        "expert_mlp": model_axis,
+        "ssm_heads": model_axis,
+        "ssm_state": None,
+        "conv": None,
+        "cache_batch": data_axis,
+        "cache_seq": model_axis,
+        "cache_heads": None,
+        "act_embed": None,
+        "act_heads": model_axis,
+        "act_mlp": model_axis,
+    }
+    if extra:
+        rules.update(extra)
+    return ShardingRules(rules=rules, name=name)
+
+
+def megatron_rules(data_axis: str = "data", model_axis: str = "model",
+                   pipe_axis: MeshAxis = None) -> ShardingRules:
+    """The paper's strategy: Megatron TP over `model`, DP (+ZeRO) over `data`."""
+    return _base_rules(data_axis=data_axis, model_axis=model_axis,
+                       pipe_axis=pipe_axis, name="megatron_tp")
+
+
+def fsdp_rules(data_axis: str = "data", model_axis: str = "model",
+               pipe_axis: MeshAxis = None) -> ShardingRules:
+    """Parameters sharded over data on the embed dim too (gathered on use)."""
+    return _base_rules(data_axis=data_axis, model_axis=model_axis,
+                       pipe_axis=pipe_axis, extra={"embed": data_axis}, name="fsdp")
+
+
+def dp_only_rules(data_axis: str = "data", model_axis: str | None = None,
+                  pipe_axis: MeshAxis = None) -> ShardingRules:
+    """Pure data parallelism (model replicated)."""
+    return _base_rules(data_axis=data_axis, model_axis=None,
+                       pipe_axis=pipe_axis, name="dp_only")
+
+
+def tp_only_rules(data_axis: str | None = None, model_axis: str = "model",
+                  pipe_axis: MeshAxis = None) -> ShardingRules:
+    return _base_rules(data_axis=None, model_axis=model_axis,
+                       pipe_axis=pipe_axis, name="tp_only")
+
+
+PRESETS = {
+    "megatron_tp": megatron_rules,
+    "fsdp": fsdp_rules,
+    "dp_only": dp_only_rules,
+    "tp_only": tp_only_rules,
+}
+
+
+def _axes(entry: MeshAxis) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def axis_size(sizes: Mapping[str, int], axis: MeshAxis) -> int:
+    """Size of a (possibly composite) mesh axis; 0 if ``sizes`` lacks it
+    (such a dim falls back to replication)."""
+    if axis is None:
+        return 1
+    if any(a not in sizes for a in _axes(axis)):
+        return 0
+    return int(np.prod([sizes[a] for a in _axes(axis)]))
+
+
+def partition_spec(shape: Sequence[int], axes: Sequence[str | None],
+                   sizes: Mapping[str, int], rules: ShardingRules,
+                   unit_axes: bool = False) -> Spec:
+    """The spec of one leaf; replicates dims that do not divide.  A mesh
+    axis of size 1 replicates too, unless ``unit_axes`` (the port's
+    executor keeps it, and runs its collectives over the one-rank group as
+    over any other)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} vs logical axes {axes}: rank mismatch")
+    spec: list[MeshAxis] = []
+    used: set[str] = set()
+    for dim, logical in zip(shape, axes):
+        mesh_axis = rules.mesh_axis(logical)
+        if mesh_axis is None:
+            spec.append(None)
+            continue
+        if any(a in used for a in _axes(mesh_axis)):
+            spec.append(None)  # a mesh axis may shard only one dim
+            continue
+        size = axis_size(sizes, mesh_axis)
+        if size < 1 or (size == 1 and not unit_axes) or dim % size != 0:
+            spec.append(None)
+            continue
+        used.update(_axes(mesh_axis))
+        spec.append(mesh_axis)
+    return tuple(spec)
+
+
+def zero_partition_spec(shape: Sequence[int], base_spec: Spec, sizes: Mapping[str, int],
+                        dp_axis: str, unit_axes: bool = False) -> Spec:
+    """Add the DP axis to the first divisible, unsharded dim of
+    ``base_spec``; ``unit_axes`` as in :func:`partition_spec`.  (The
+    reference's second, node axis comes with the CommPlan.)"""
+    spec = list(base_spec) + [None] * (len(shape) - len(base_spec))
+    used = {a for entry in spec for a in _axes(entry)}
+    ways = sizes.get(dp_axis, 1)
+    if dp_axis in used or ways < 1 or (ways == 1 and not unit_axes):
+        return tuple(spec)
+    for i, (dim, entry) in enumerate(zip(shape, spec)):
+        if entry is None and dim % ways == 0 and dim >= ways:
+            spec[i] = dp_axis
+            break
+    return tuple(spec)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int]) -> tuple[int, ...]:
+    """The block one rank holds of a leaf of ``shape`` under ``spec``."""
+    return tuple(d // axis_size(sizes, e) for d, e in zip(shape, spec))
+
+
+def shard_slices(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
+                 coord: Mapping[str, int]) -> tuple[slice, ...]:
+    """The index of the rank at mesh coordinate ``coord`` ({axis: index})
+    into the whole leaf: along a dim sharded over a composite axis the
+    first named axis is the slowest."""
+    out = []
+    for d, e in zip(shape, spec):
+        idx, n = 0, 1
+        for a in _axes(e):
+            idx = idx * sizes[a] + coord[a]
+            n *= sizes[a]
+        out.append(slice(idx * (d // n), (idx + 1) * (d // n)))
+    return tuple(out)
+
+
+def spec_axes(spec: Spec) -> set[str]:
+    """The mesh axes a spec shards over."""
+    return {a for entry in spec for a in _axes(entry)}

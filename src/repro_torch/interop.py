@@ -2,7 +2,9 @@
 
 The caller converts the JAX tree to numpy on its side (``np.asarray`` per
 leaf), so this module never sees a JAX type.  Keys are the pytree paths
-joined by dots, which are the port's state_dict keys.
+joined by dots, which are the port's state_dict keys.  For a sharded model
+:func:`shard_params` gives one rank its blocks of the tree and
+:func:`gather_params` puts every rank's blocks back together.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.core import sharding as shd
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -42,4 +46,37 @@ def from_jax_params(tree: Any, model: nn.Module) -> dict[str, torch.Tensor]:
             arr = arr.astype(np.float32)
         out[key] = torch.from_numpy(np.array(arr)).to(
             device=ref.device, dtype=ref.dtype)
+    return out
+
+
+def _specs(cfg, plan) -> tuple[dict, dict]:
+    from repro_torch.runtime.train_loop import plan_state_shardings
+
+    shapes, psh, _, _ = plan_state_shardings(cfg, plan)
+    return shapes, psh
+
+
+def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
+    """The blocks of the rank at mesh coordinate ``coord`` ({"data": i,
+    "model": j}) of a whole parameter tree (nested or flat), under the
+    plan's shardings of ``cfg``."""
+    shapes, psh = _specs(cfg, plan)
+    coord = {"pipe": 0, **coord}
+    return {k: np.asarray(a)[shd.shard_slices(shapes[k], psh[k], plan.mesh_sizes(), coord)]
+            for k, a in flatten_tree(tree).items()}
+
+
+def gather_params(blocks: dict[tuple[int, int], dict], cfg, plan) -> dict[str, np.ndarray]:
+    """The whole tree from every rank's blocks, ``{(data, model): {key:
+    block}}`` (the inverse of :func:`shard_params`)."""
+    shapes, psh = _specs(cfg, plan)
+    out = {}
+    for k, shape in shapes.items():
+        first = next(iter(blocks.values()))[k]
+        whole = np.empty(shape, dtype=np.asarray(first).dtype)
+        for (i, j), tree in blocks.items():
+            idx = shd.shard_slices(shape, psh[k], plan.mesh_sizes(),
+                                   {"pipe": 0, "data": i, "model": j})
+            whole[idx] = np.asarray(tree[k])
+        out[k] = whole
     return out

@@ -259,12 +259,16 @@ def swiglu_bwd_ref(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 def cross_entropy_bwd_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                           lse: torch.Tensor, g: torch.Tensor,
-                          valid_vocab: int | None = None, chunk: int | None = None):
+                          valid_vocab: int | None = None, chunk: int | None = None,
+                          owned: torch.Tensor | None = None):
     """(dh, dw) of the per-token losses lse - label_logit for the cotangent
     ``g`` (N,), by the reference's ``cross_entropy.py:_ce_tokens_bwd``:
     token chunks recompute fp32 logits and p = exp(logits - lse) from the
     saved lse, so the (N, V) logits never exist whole; dw sums in fp32.
-    ``chunk`` rows per chunk (default: about 64 MB of fp32 logits)."""
+    ``chunk`` rows per chunk (default: about 64 MB of fp32 logits).
+    ``owned`` (N,) bool, for a vocab shard: the rows whose label lies in
+    ``w``'s columns; the others take no label term (their ``labels`` must
+    still index a column)."""
     N, d = h.shape
     V = w.shape[1]
     chunk = chunk or max(1, (1 << 24) // V)
@@ -278,7 +282,8 @@ def cross_entropy_bwd_ref(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
             logits[:, valid_vocab:] = -1e30
         dl = torch.exp(logits - lse[s:s + chunk, None])
         rows = torch.arange(hb.shape[0], device=h.device)
-        dl[rows, labels[s:s + chunk].long()] -= 1.0
+        one = 1.0 if owned is None else owned[s:s + chunk].float()
+        dl[rows, labels[s:s + chunk].long()] -= one
         dl *= g[s:s + chunk, None].float()
         dh[s:s + chunk] = (dl @ w32.T).to(h.dtype)
         dw += hb.T @ dl

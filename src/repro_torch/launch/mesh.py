@@ -1,0 +1,71 @@
+"""The process group and the ("pipe", "data", "model") device mesh of a
+``ParallelPlan`` (the port of ``repro/launch/mesh.py:validate_plan_shape``
+and ``mesh_for_plan``).
+
+Ranks come from the launcher's environment (``torchrun`` /
+``python -m torch.distributed.run``: RANK, WORLD_SIZE, LOCAL_RANK and the
+master's address) unless the caller passes them with an ``init_method``.
+On the card the group is nccl and each rank sets ``cuda:LOCAL_RANK`` before
+the group is made; on the CPU it is gloo.  The mesh puts the model dim
+fastest, as the reference does: ranks 2i and 2i + 1 share a model group at
+tp = 2.  Pipelining is the next slice of the port, so the pipe dim has size
+1.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.runtime.collectives import AXES
+
+BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def init_distributed(device: torch.device, init_method: str | None = None,
+                     rank: int | None = None, world_size: int | None = None,
+                     timeout: datetime.timedelta | None = None) -> None:
+    """Make the default process group for ``device`` unless one exists."""
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if dist.is_initialized():
+        check_backend(device)
+        return
+    kw = {} if init_method is None else {"init_method": init_method, "rank": rank,
+                                         "world_size": world_size}
+    if timeout is not None:
+        kw["timeout"] = timeout
+    dist.init_process_group(BACKEND[device.type], **kw)
+
+
+def check_backend(device: torch.device) -> None:
+    """On the card the group is nccl: nothing falls back to gloo there."""
+    backend = dist.get_backend()
+    if backend != BACKEND[device.type]:
+        raise RuntimeError(f"a {device.type} run needs the {BACKEND[device.type]} "
+                           f"process group, this one is {backend}")
+
+
+def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None = None) -> None:
+    """Raise a clear error when (pp, dp, tp) cannot tile the ranks."""
+    for name, v in (("pp", pipe), ("dp", data), ("tp", model)):
+        if v < 1:
+            raise ValueError(f"--{name} must be >= 1, got {v}")
+    n = dist.get_world_size() if n_devices is None else n_devices
+    want = pipe * data * model
+    plan_txt = f"pp={pipe} x dp={data} x tp={model}"
+    if want != n:
+        raise ValueError(f"parallel plan {plan_txt} = {want} ranks, but the process "
+                         f"group has {n}; pick factors whose product is the world size "
+                         f"(e.g. --nproc-per-node {want})")
+
+
+def mesh_for_plan(plan, device: torch.device, n_devices: int | None = None) -> DeviceMesh:
+    """The (pp, dp, tp) mesh a ParallelPlan asks for, over the default group."""
+    validate_plan_shape(plan.pp, plan.dp, plan.tp, n_devices)
+    check_backend(device)
+    return init_device_mesh(device.type, (plan.pp, plan.dp, plan.tp),
+                            mesh_dim_names=AXES)

@@ -1,7 +1,25 @@
-"""Training launcher (the single-device flags of ``repro/launch/train.py``):
+"""Training launcher (the pp = 1 flags of ``repro/launch/train.py``):
 synthetic packed batches through ``build_train_step``, one line per logged
-step with loss, grad_norm, tokens/s and MFU against the H100's bf16 peak.
-Runs on the card unless ``--device cpu``.
+step with loss, grad_norm, tokens/s and MFU against the H100's bf16 peak
+(the global step's FLOPs over the wall time x the peak x the ranks).  Runs
+on the card unless ``--device cpu``.
+
+Under ``torchrun`` / ``python -m torch.distributed.run`` (one process per
+rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
+executor over a (pp = 1, dp, tp) mesh: ``--dp``, ``--tp``, ``--zero`` 0-3
+and ``--rules``; rank 0 prints.  dp x tp must be the number of ranks.
+Plans that still raise, naming ROADMAP.md: pp > 1, virtual stages, ep,
+node, qcomm, overlap, tp on the hybrid and rwkv families, ``--rules
+tp_only`` at dp > 1 (it keeps the batch off the data axis),
+``--remat selective``.  Every plan prints the same losses as one device:
+
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
+      --seq-len 2048 --precision bf16 --kernels
+
+One device, without a launcher:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --layers 8 \
       --steps 5 --global-batch 8 --gas 2 --seq-len 2048 --precision bf16 --kernels
@@ -16,9 +34,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ASSIGNED, PAPER, get_config
@@ -26,7 +46,8 @@ from repro_torch.core import costmodel
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, cosine_schedule
-from repro_torch.runtime.train_loop import (ParallelPlan, build_train_step,
+from repro_torch.launch.mesh import init_distributed, mesh_for_plan
+from repro_torch.runtime.train_loop import (ParallelPlan, build_model, build_train_step,
                                             init_train_state)
 
 
@@ -49,6 +70,12 @@ def main(argv: list[str] | None = None) -> list[dict]:
                     help="the norms (RMSNorm or LayerNorm), the MLP input half "
                          "(SwiGLU or GELU), attention, the SSD scan and CE in the "
                          "CUDA kernels")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (dense family)")
+    ap.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None,
+                    help="ZeRO stage (default 1)")
+    ap.add_argument("--rules", default="megatron_tp",
+                    choices=["megatron_tp", "fsdp", "dp_only", "tp_only"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -58,16 +85,29 @@ def main(argv: list[str] | None = None) -> list[dict]:
     cfg = get_config(args.arch)
     overrides = {"n_layers": args.layers} if args.layers else {}
     cfg = cfg.reduced(**overrides) if args.reduced else dataclasses.replace(cfg, **overrides)
-    plan = ParallelPlan(gas=args.gas, precision=args.precision, remat=args.remat,
+    plan = ParallelPlan(dp=args.dp, tp=args.tp, zero=args.zero, rules=args.rules,
+                        gas=args.gas, precision=args.precision, remat=args.remat,
                         kernels=args.kernels)
-    model = Model(cfg, torch.float32, device=device)
-    print(f"arch={cfg.name} params={model.n_params():,} device={device} "
-          f"gas={plan.gas} precision={plan.precision} remat={plan.remat} "
-          f"kernels={plan.kernels}", flush=True)
+    mesh, world, rank0 = None, 1, True
+    if "WORLD_SIZE" in os.environ:             # a torch.distributed launcher's rank
+        init_distributed(device)
+        mesh = mesh_for_plan(plan, device)
+        model = build_model(cfg, plan, mesh)
+        device, world, rank0 = model.device, dist.get_world_size(), dist.get_rank() == 0
+    elif plan.n_devices > 1:
+        raise SystemExit(f"dp x tp = {plan.n_devices} ranks: run under torchrun / "
+                         "python -m torch.distributed.run")
+    else:
+        model = Model(cfg, torch.float32, device=device)
+    say = print if rank0 else (lambda *a, **k: None)
+    say(f"arch={cfg.name} params={model.n_params():,} device={device} ranks={world} "
+        f"dp={plan.dp} tp={plan.tp} zero={plan.zero if mesh else '-'} "
+        f"gas={plan.gas} precision={plan.precision} remat={plan.remat} "
+        f"kernels={plan.kernels}", flush=True)
     opt = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps))
     state = init_train_state(model, opt, plan,
                              torch.Generator(device=device).manual_seed(args.seed))
-    step_fn = build_train_step(model, opt, plan)
+    step_fn = build_train_step(model, opt, plan, mesh)
     it = make_batch_iterator(SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed),
                              seq_len=args.seq_len, global_batch=args.global_batch)
     flops = costmodel.train_step_flops(cfg, args.global_batch, args.seq_len).total
@@ -84,13 +124,15 @@ def main(argv: list[str] | None = None) -> list[dict]:
                "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
                "tokens_per_s": tokens / wall}
         if device.type == "cuda":
-            rec["mfu"] = costmodel.mfu(flops, wall, costmodel.H100.peak_flops)
+            rec["mfu"] = costmodel.mfu(flops, wall, costmodel.H100.peak_flops * world)
         records.append(rec)
         if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
             mfu = f" mfu {100 * rec['mfu']:.2f}%" if "mfu" in rec else ""
-            print(f"step {rec['step']:5d} loss {rec['loss']:.4f} grad_norm "
-                  f"{rec['grad_norm']:.4f} {rec['tokens_per_s']:,.0f} tok/s{mfu}",
-                  flush=True)
+            say(f"step {rec['step']:5d} loss {rec['loss']:.4f} grad_norm "
+                f"{rec['grad_norm']:.4f} {rec['tokens_per_s']:,.0f} tok/s{mfu}",
+                flush=True)
+    if mesh is not None:
+        dist.destroy_process_group()
     return records
 
 

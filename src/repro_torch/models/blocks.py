@@ -6,6 +6,15 @@ Under ``policy.kernels`` every RMSNorm or LayerNorm and every SwiGLU gate or
 GELU input half runs in its CUDA kernel, in training, prefill and decode,
 and full-sequence attention runs in the flash kernels (forward and
 backward); decode attention over the cache stays plain PyTorch.
+
+``tp`` (a model-group process group, training only) runs a block on the
+rank's Megatron shards: column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3``
+(the rank's heads and d_ff columns; their input through
+``collectives.copy_to_model``), row-parallel ``wo`` and ``w2`` (their
+partial sums all-reduced by ``collectives.reduce_from_model``).  Norms,
+RoPE and qk-norm stay replicated; the qk-norm scales pass through
+``copy_to_model`` as well, since each rank's heads give part of their
+gradient.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ import torch
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, Spec
+from repro_torch.runtime.collectives import copy_to_model, reduce_from_model
 
 
 def norm_spec(d: int, kind: str, axis: str = "embed") -> dict:
@@ -40,31 +50,35 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
-                 cfg: ModelConfig, use_kernel: bool = False):
+                 cfg: ModelConfig, use_kernel: bool = False, tp=None):
+    """q, k, v over the heads the weights hold (all, or the rank's under tp)."""
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
     hd = cfg.resolved_head_dim
-    q = (xq @ params["wq"]).reshape(B, Sq, cfg.n_heads, hd)
-    k = (xkv @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
-    v = (xkv @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    q = (xq @ params["wq"]).reshape(B, Sq, -1, hd)
+    k = (xkv @ params["wk"]).reshape(B, Skv, -1, hd)
+    v = (xkv @ params["wv"]).reshape(B, Skv, -1, hd)
     if "q_norm" in params:
-        q = layers.apply_norm(q, {"scale": params["q_norm"]}, "rmsnorm",
-                              cfg.rms_eps, use_kernel)
-        k = layers.apply_norm(k, {"scale": params["k_norm"]}, "rmsnorm",
-                              cfg.rms_eps, use_kernel)
+        qs, ks = params["q_norm"], params["k_norm"]
+        if tp is not None:
+            qs, ks = copy_to_model(qs, tp), copy_to_model(ks, tp)
+        q = layers.apply_norm(q, {"scale": qs}, "rmsnorm", cfg.rms_eps, use_kernel)
+        k = layers.apply_norm(k, {"scale": ks}, "rmsnorm", cfg.rms_eps, use_kernel)
     return q, k, v
 
 
 def self_attn_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
                     return_kv: bool = False,
-                    policy: ComputePolicy | None = None):
+                    policy: ComputePolicy | None = None, tp=None):
     """Full-sequence (prefill) self attention with residual; with
     ``return_kv`` also the RoPE'd K and V that prefill places in the cache."""
     pol = resolve_policy(policy)
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
-    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
+    if tp is not None:
+        h = copy_to_model(h, tp)
+    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels, tp)
     if cfg.pos == "rope":
         pos = positions if positions is not None else torch.arange(
             x.shape[1], device=x.device)
@@ -75,7 +89,10 @@ def self_attn_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         sliding_window=cfg.sliding_window if causal else None,
         softcap=cfg.attn_logit_softcap, policy=pol)
     B, S = x.shape[:2]
-    out = x + out.reshape(B, S, -1) @ params["wo"]
+    out = out.reshape(B, S, -1) @ params["wo"]
+    if tp is not None:
+        out = reduce_from_model(out, tp)
+    out = x + out
     if return_kv:
         return out, k, v
     return out
@@ -173,18 +190,22 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              policy: ComputePolicy | None = None) -> torch.Tensor:
+              policy: ComputePolicy | None = None, tp=None) -> torch.Tensor:
     pol = resolve_policy(policy)
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
-    return x + layers.mlp(h, params, cfg.act, use_kernel=pol.kernels)
+    if tp is None:
+        return x + layers.mlp(h, params, cfg.act, use_kernel=pol.kernels)
+    out = layers.mlp(copy_to_model(h, tp), params, cfg.act, use_kernel=pol.kernels)
+    return x + reduce_from_model(out, tp)
 
 
-def segment_body(cfg: ModelConfig, policy: ComputePolicy | None):
+def segment_body(cfg: ModelConfig, policy: ComputePolicy | None, tp=None):
     """The layer body of the dense training stack
     (``repro/models/blocks.py:segment_body``): attention block then MLP
-    block, on one layer's slice of the stacked weights."""
+    block, on one layer's slice of the stacked weights (its Megatron shards
+    under ``tp``)."""
     def body(lp: dict, x: torch.Tensor) -> torch.Tensor:
-        x = self_attn_block(lp["attn"], x, cfg, causal=True, policy=policy)
-        return mlp_block(lp["mlp"], x, cfg, policy=policy)
+        x = self_attn_block(lp["attn"], x, cfg, causal=True, policy=policy, tp=tp)
+        return mlp_block(lp["mlp"], x, cfg, policy=policy, tp=tp)
     return body

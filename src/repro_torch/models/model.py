@@ -27,6 +27,24 @@ recomputed in the backward instead of saved and the weight gradients
 arrive in fp32.  Caches are dicts of tensors that decode updates
 in place (the JAX package returns new arrays; in place saves a copy of the
 KV cache per step).
+
+Sharded (``shardings`` and ``mesh``: a spec per leaf, from
+``runtime/train_loop.py:plan_state_shardings``), the model stores only the
+rank's block of each leaf.  ``init`` still draws every leaf whole, in the
+same order from the same generator, and keeps the block, so every plan
+starts from the single-device weights.  A leaf whose spec names the data
+axis is gathered on use (``collectives.LeafGather``): a stacked leaf layer
+by layer inside the layer's remat wrapper, so the backward's recompute
+gathers again and no whole stack is saved; the embedding in the storage
+dtype (its duplicate-token rows then sum in fp32, as unsharded), the rest
+in the compute dtype.  The zamba2 shared block is gathered at each
+application and its uses' gradients summed before one reduce-scatter.
+Under the model axis the dense blocks run Megatron tensor parallelism
+(``blocks.py``), the embedding lookup is vocab-parallel (rows outside the
+shard are zero, then all-reduced over the model group) and the lm_head
+column-parallel into the vocab-parallel CE
+(``models/vocab_parallel.py``).  Training only:
+prefill, decode and ``logits`` of a sharded model raise.
 """
 from __future__ import annotations
 
@@ -46,9 +64,14 @@ from repro_torch.core.compute import (
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import masked_update_
 from repro_torch.models import blocks, layers, moe, rwkv, ssm
+from repro_torch.models.vocab_parallel import vocab_parallel_tokens
+from repro_torch.core import sharding as shd
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
+)
+from repro_torch.runtime.collectives import (
+    LeafGather, MeshGroups, all_reduce_, copy_to_model, reduce_from_model,
 )
 
 
@@ -162,7 +185,55 @@ def _unstack(tree: dict, n: int) -> list[dict]:
 def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {k: _cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, LeafGather):
+        return tree(dtype)
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+# the leaves of the dense family that Megatron tensor parallelism shards,
+# and the dim (of the stacked leaf) that holds the model axis
+_MEGATRON_DIMS = {"attn.wq": 2, "attn.wk": 2, "attn.wv": 2, "attn.wo": 1,
+                  "mlp.w1": 2, "mlp.w3": 2, "mlp.w2": 1}
+
+
+def _model_dim(spec: shd.Spec) -> int | None:
+    dims = [i for i, e in enumerate(spec) if "model" in shd.spec_axes((e,))]
+    return dims[0] if dims else None
+
+
+def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec]) -> bool:
+    """What the port's sharded model can run; returns whether the dense
+    blocks are tensor-parallel.  The model axis may sit only on the
+    Megatron dims, on all of the block leaves or none, on whole heads, and
+    on the vocab dim of the embedding and lm_head; anything else raises,
+    naming the leaf."""
+    where = "(see ROADMAP.md, Queue 1)"
+    block = {}
+    for path, spec in specs.items():
+        dim = _model_dim(spec)
+        if dim is None:
+            continue
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{path}: tensor parallelism of the {cfg.family} family is not "
+                f"ported yet {where}")
+        key = path.removeprefix("layers.")
+        if path in ("embed", "lm_head"):
+            if dim != (0 if path == "embed" else 1):
+                raise NotImplementedError(f"{path}: the model axis on dim {dim} {where}")
+        elif _MEGATRON_DIMS.get(key) != dim:
+            raise NotImplementedError(f"{path}: the model axis on dim {dim} is not "
+                                      f"Megatron's split {where}")
+        else:
+            block[key] = dim
+    if not block:
+        return False
+    if set(block) != {k for k in _MEGATRON_DIMS if f"layers.{k}" in specs}:
+        missing = sorted(k for k in _MEGATRON_DIMS if k not in block
+                         and f"layers.{k}" in specs)
+        raise NotImplementedError(f"layers.{missing[0]}: replicated while the other "
+                                  f"block leaves are tensor-parallel {where}")
+    return True
 
 
 class _Tree(nn.Module):
@@ -179,7 +250,9 @@ def _as_dict(module: nn.Module) -> dict:
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.float32,
                  compute: ComputePolicy | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 shardings: dict[str, shd.Spec] | None = None,
+                 mesh: MeshGroups | None = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype                # storage
@@ -187,6 +260,19 @@ class Model(nn.Module):
         self.compute = resolve_policy(compute)
         check_supported(cfg)
         self.device = resolve_device(device)
+        if (shardings is None) != (mesh is None):
+            raise ValueError("a sharded model needs both its shardings and its mesh")
+        self.shardings, self.mesh = shardings, mesh
+        self._tp = None
+        if shardings is not None:
+            heads = (cfg.n_heads, cfg.n_kv_heads)
+            if check_shardings(cfg, shardings):
+                tp = mesh.sizes["model"]
+                if any(h % tp for h in heads):
+                    raise NotImplementedError(
+                        f"layers.attn.wk: {cfg.n_heads} query / {cfg.n_kv_heads} kv heads "
+                        f"do not split over tp={tp} (see ROADMAP.md, Queue 1)")
+                self._tp = mesh.groups["model"]
         for path, spec in flatten_specs(self.param_specs()):
             *parents, leaf = path.split(".")
             node: nn.Module = self
@@ -194,8 +280,10 @@ class Model(nn.Module):
                 if not hasattr(node, name):
                     node.add_module(name, _Tree())
                 node = getattr(node, name)
+            shape = spec.shape if shardings is None else shd.shard_shape(
+                spec.shape, shardings[path], mesh.sizes)
             node.register_parameter(leaf, nn.Parameter(
-                torch.empty(spec.shape, dtype=spec.dtype or dtype, device=self.device),
+                torch.empty(shape, dtype=spec.dtype or dtype, device=self.device),
                 requires_grad=False))
 
     # ------------------------------------------------------------------
@@ -207,11 +295,42 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None) -> "Model":
         """Draw every weight with the JAX package's init rules, leaf by leaf
-        in state_dict order, from ``generator`` (on the model's device)."""
+        in state_dict order, from ``generator`` (on the model's device); a
+        sharded model draws each leaf whole and keeps its block."""
         params = dict(self.named_parameters())
         for path, spec in flatten_specs(self.param_specs()):
-            params[path].copy_(init_leaf(spec, generator, self.device, self.dtype))
+            leaf = init_leaf(spec, generator, self.device, self.dtype)
+            params[path].copy_(leaf[self.block_of(path, spec.shape)])
         return self
+
+    def block_of(self, path: str, shape: tuple[int, ...]) -> tuple[slice, ...]:
+        """The index of this rank's block into the whole leaf ``path``."""
+        if self.shardings is None:
+            return tuple(slice(None) for _ in shape)
+        return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes,
+                                self.mesh.coord)
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.shardings is not None and any(shd.spec_axes(s)
+                                               for s in self.shardings.values()):
+            raise NotImplementedError(f"{what} of a sharded model (tp or ZeRO-3) is not "
+                                      "ported yet (see ROADMAP.md, Queue 1: serving on a mesh)")
+
+    def _uses(self, tree: dict, prefix: str = "", stacked: bool = False) -> dict:
+        """``tree`` (stored leaves, or one layer's views of the stacked
+        leaves when ``stacked``) with each data-sharded leaf wrapped in a
+        :class:`LeafGather` over the data group."""
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = self._uses(v, path, stacked)
+                continue
+            spec = () if self.shardings is None else self.shardings[path]
+            data = [i for i, e in enumerate(spec) if "data" in shd.spec_axes((e,))]
+            out[k] = v if not data else LeafGather(v, data[0] - stacked,
+                                                   self.mesh.groups["data"])
+        return out
 
     def with_policy(self, compute: ComputePolicy, compute_dtype: torch.dtype) -> "Model":
         """A view of this model's weights (the same Parameters) under another
@@ -324,7 +443,16 @@ class Model(nn.Module):
     # Training forward / loss
     # ------------------------------------------------------------------
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
-        return params["embed"][batch["tokens"].long()].to(self.compute_dtype)
+        tokens = batch["tokens"].long()
+        table = _cast_floating(self._uses({"embed": params["embed"]})["embed"], self.dtype)
+        if _model_dim(self.shardings["embed"] if self.shardings else ()) is None:
+            return table[tokens].to(self.compute_dtype)
+        # vocab-parallel: this rank's rows, zero elsewhere, summed over the group
+        rows = table.shape[0]
+        local = tokens - self.mesh.coord["model"] * rows
+        own = (local >= 0) & (local < rows)
+        x = table[torch.where(own, local, 0)] * own[..., None]
+        return reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
 
     def hidden_states(self, batch: dict) -> torch.Tensor:
         """Final-normed hidden states (B, S, d) in the compute dtype: the
@@ -338,18 +466,23 @@ class Model(nn.Module):
         cdt = self.compute_dtype
         params = self.params()
         x = self._embed(params, batch)
-        lps = _unstack(params["layers"], cfg.n_layers)
+        # one layer's leaves (views of the stacked ones), data-sharded ones
+        # wrapped to gather on use
+        lps = [self._uses(lp, "layers", stacked=True)
+               for lp in _unstack(params["layers"], cfg.n_layers)]
         if cfg.family == "hybrid":
             # the shared block's Parameters are closed over by every unit:
             # autograd sums their gradients over the applications
             per = cfg.n_layers // _n_super(cfg)
-            unit = ssm.hybrid_segment_body(cfg, self.compute, params["shared"],
+            unit = ssm.hybrid_segment_body(cfg, self.compute,
+                                           self._uses(params["shared"], "shared"),
                                            lambda t: _cast_floating(t, cdt))
             for s in range(0, cfg.n_layers, per):
                 x = unit(lps[s:s + per], x)
         else:
             family = rwkv if cfg.family == "rwkv" else blocks
-            body = family.segment_body(cfg, self.compute)
+            body = (blocks.segment_body(cfg, self.compute, tp=self._tp)
+                    if family is blocks else family.segment_body(cfg, self.compute))
 
             def layer(x, lp):     # lp in the storage dtype: cast inside the remat
                 return body(_cast_floating(lp, cdt), x)
@@ -357,11 +490,13 @@ class Model(nn.Module):
             layer = self.compute.checkpoint(layer)
             for lp in lps:
                 x = layer(x, lp)
-        return layers.apply_norm(x, _cast_floating(params["final_norm"], cdt),
+        final_norm = self._uses(params["final_norm"], "final_norm")
+        return layers.apply_norm(x, _cast_floating(final_norm, cdt),
                                  cfg.norm, cfg.rms_eps,
                                  use_kernel=self.compute.kernels)
 
     def logits(self, batch: dict) -> torch.Tensor:
+        self._refuse_sharded("logits")
         h = self.hidden_states(batch)
         W = self._unembed_matrix(self.params()).to(self.compute_dtype)
         return (h @ W).float()[..., :self.cfg.vocab_size]
@@ -377,14 +512,35 @@ class Model(nn.Module):
         mask = batch.get("loss_mask")
         mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
                 if mask is None else mask[:, 1:].float())
-        W = self._unembed_matrix(self.params()).to(self.compute_dtype)
-        ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
-                                    policy=self.compute)
+        if self.shardings is None:
+            W = self._unembed_matrix(self.params()).to(self.compute_dtype)
+            ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
+                                        policy=self.compute)
+            return ce, {"ce": ce}
+        # sharded: the loss sum over this rank's rows over the token count of
+        # every data rank's rows (the microbatch's mean once summed over them)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        W = _cast_floating(self._uses({name: self.params()[name]})[name], self.compute_dtype)
+        W = W.T if cfg.tie_embeddings else W
+        vocab_dim = _model_dim(self.shardings[name])
+        group = self.mesh.groups["model"]
+        count = all_reduce_(mask.sum(), self.mesh.groups["data"])
+        if vocab_dim is None:
+            ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
+                                        policy=self.compute, count=count)
+            return ce, {"ce": ce}
+        hf = copy_to_model(h.reshape(-1, h.shape[-1]), group)
+        losses = vocab_parallel_tokens(hf, W, labels.reshape(-1), cfg.vocab_size,
+                                       self.mesh.coord["model"] * W.shape[1], group,
+                                       plain=not self.compute.kernels)
+        ce = (losses * mask.reshape(-1)).sum() / count.clamp(min=1.0)
         return ce, {"ce": ce}
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """The training objective of one (micro)batch {"tokens": (B, S)}
-        (optionally "loss_mask"): mean next-token CE, and {"ce": ...}."""
+        (optionally "loss_mask"): mean next-token CE, and {"ce": ...}.  A
+        sharded model takes its data rank's rows and returns their part of
+        the mean over all the data ranks' tokens."""
         return self._loss_from_hidden(self.hidden_states(batch), batch)
 
     # ------------------------------------------------------------------
@@ -399,6 +555,7 @@ class Model(nn.Module):
         read at ``lens - 1``, the cache holds only real positions, and
         ``cache["pos"]`` becomes the per-slot vector ``lens``."""
         cfg = self.cfg
+        self._refuse_sharded("prefill")
         params = self._cparams()
         x = params["embed"][batch["tokens"].long()]
         B, S = x.shape[:2]
@@ -496,6 +653,7 @@ class Model(nn.Module):
         updated in place; returns (logits (B, V) fp32, cache with the
         advanced ``pos``)."""
         cfg = self.cfg
+        self._refuse_sharded("decode")
         params = self._cparams()
         pos = cache["pos"]
         active = batch.get("active")
@@ -585,7 +743,8 @@ def _ring_place(x: torch.Tensor, clen: int,
 def _chunked_cross_entropy(h: torch.Tensor, W: torch.Tensor, labels: torch.Tensor,
                            mask: torch.Tensor, target_chunk: int = 8192,
                            valid_vocab: int | None = None,
-                           policy: ComputePolicy | None = None) -> torch.Tensor:
+                           policy: ComputePolicy | None = None,
+                           count: torch.Tensor | None = None) -> torch.Tensor:
     """Mean CE of (B, S, d) hidden states against the (d, V) unembedding
     (``repro/models/model.py:_chunked_cross_entropy``).
 
@@ -593,14 +752,15 @@ def _chunked_cross_entropy(h: torch.Tensor, W: torch.Tensor, labels: torch.Tenso
     mask and the normalisation stay outside).  Otherwise token chunks of
     ``target_chunk`` rows (the last one ragged: torch needs no divisor of N)
     each run under a checkpoint whatever ``policy.remat`` says, so the
-    (N, V) logits are never saved for the backward."""
+    (N, V) logits are never saved for the backward.  ``count`` replaces
+    the mask's sum as the divisor (a data-parallel step's global count)."""
     pol = resolve_policy(policy)
     B, S, d = h.shape
     N = B * S
     hf = h.reshape(N, d)
     yf = labels.reshape(N)
     mf = mask.reshape(N)
-    count = mf.sum().clamp(min=1.0)
+    count = (mf.sum() if count is None else count).clamp(min=1.0)
     if pol.kernels:
         losses = kernel_ops.cross_entropy_tokens(hf, W, yf, valid_vocab)
         return (losses * mf).sum() / count

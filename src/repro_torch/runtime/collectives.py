@@ -1,0 +1,151 @@
+"""The collectives GSPMD inserts for the reference's sharded train step, as
+explicit ``torch.distributed`` calls on the mesh's process groups.
+
+  * Megatron's pair (:func:`copy_to_model`, :func:`reduce_from_model`): the
+    identity whose backward all-reduces over the model group, in front of a
+    column-parallel product, and the all-reduce whose backward is the
+    identity, after a row-parallel product (its output is a partial sum);
+  * ZeRO stage 3's gather-on-use (:class:`LeafGather`): a leaf's block
+    all-gathered along its data dim in the compute dtype at each use, and
+    the fp32 sum of the uses' gradients reduce-scattered into the block;
+  * :func:`all_gather_dim` / :func:`reduce_scatter_dim` along any dim (the
+    stage 1-2 update's all-gather and stage 2's per-microbatch
+    reduce-scatter), and :func:`all_reduce_` in place.
+
+A one-rank group runs the same calls.  :class:`MeshGroups` is the mesh as
+the executor reads it: axis sizes, this rank's coordinate, the groups.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+# the flat single-tensor collectives; newer torch names them *_single and
+# warns on the older names, which an older torch has alone
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+AXES = ("pipe", "data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """The ("pipe", "data", "model") mesh of one rank: ``sizes`` and
+    ``coord`` ({axis: int}) and ``groups`` ({axis: ProcessGroup});
+    ``world`` is the group of every rank of the mesh."""
+    sizes: dict
+    coord: dict
+    groups: dict
+    world: object
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "MeshGroups":
+        """From a ``torch.distributed.device_mesh.DeviceMesh`` with dims
+        named ``AXES``."""
+        names = tuple(mesh.mesh_dim_names)
+        if names != AXES:
+            raise ValueError(f"mesh dims {names}, expected {AXES}")
+        return cls(sizes={a: mesh.size(i) for i, a in enumerate(AXES)},
+                   coord={a: mesh.get_local_rank(a) for a in AXES},
+                   groups={a: mesh.get_group(a) for a in AXES},
+                   world=dist.group.WORLD)
+
+
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks ``x`` concatenated along ``dim`` in rank order."""
+    n = dist.get_world_size(group)
+    buf = x.new_empty((n, *x.shape))
+    _all_gather(buf.view(-1), x.contiguous().view(-1), group=group)
+    s = x.shape
+    return buf.movedim(0, dim).reshape(*s[:dim], n * s[dim], *s[dim + 1:])
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the ranks of ``x``, split along ``dim`` into one block
+    per rank: this rank's block."""
+    n = dist.get_world_size(group)
+    s = x.shape
+    block = (*s[:dim], s[dim] // n, *s[dim + 1:])
+    parts = x.reshape(*s[:dim], n, s[dim] // n, *s[dim + 1:]).movedim(dim, 0).contiguous()
+    out = x.new_empty(block)
+    _reduce_scatter(out.view(-1), parts.view(-1), group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; all-reduces the gradient over ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduces a partial sum over ``group``; identity backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+class _ScatterBack(torch.autograd.Function):
+    """block -> a zero-stride placeholder of the whole leaf's shape; the
+    gradient that accumulates on it (every use's) is reduce-scattered into
+    the block."""
+    @staticmethod
+    def forward(ctx, block, dim, group):
+        ctx.dim, ctx.group = dim, group
+        shape = list(block.shape)
+        shape[dim] *= dist.get_world_size(group)
+        return torch.zeros((), dtype=torch.float32, device=block.device).expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g.float(), ctx.dim, ctx.group), None, None
+
+
+class _GatherUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, handle, block, dim, group, dtype):
+        return all_gather_dim(block.to(dtype), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.float(), None, None, None, None
+
+
+class LeafGather:
+    """One leaf's block under stage 3 (or any data-sharded spec): each call
+    all-gathers it along ``dim`` over ``group`` in ``dtype``; the backward
+    casts each use's gradient to fp32, sums the uses and reduce-scatters the
+    sum into the block once.  Make one per (micro)batch pass; inside a
+    checkpointed function the recompute gathers again."""
+
+    def __init__(self, block: torch.Tensor, dim: int, group):
+        self.block, self.dim, self.group = block, dim, group
+        self.handle = _ScatterBack.apply(block, dim, group)
+
+    def __call__(self, dtype: torch.dtype) -> torch.Tensor:
+        return _GatherUse.apply(self.handle, self.block, self.dim, self.group, dtype)

@@ -1,20 +1,49 @@
-"""The single-device training step (the pp = dp = tp = 1 path of
-``repro/runtime/train_loop.py``).
+"""The training step: the pp = 1 path of ``repro/runtime/train_loop.py``,
+on one device or over a ``torch.distributed`` mesh.
 
-``ParallelPlan`` carries the reference's dp/tp/pp/zero/ep/node/qcomm
-fields; this slice runs the single-device point of the plan space: ``gas`` gradient-accumulation
-microbatches, ``precision`` (bf16 | fp16 | fp32 compute over fp32 master
-weights), and the compute policy (``remat``, ``kernels``).  Any other value
-of a parallel field raises, naming ROADMAP.md.
+``ParallelPlan`` carries the reference's plan fields.  What runs:
+
+  * one device (``build_train_step`` without a mesh): ``gas`` gradient-
+    accumulation microbatches, ``precision`` (bf16 | fp16 | fp32 compute
+    over fp32 master weights), the compute policy (``remat`` full | none,
+    ``kernels``);
+  * over a ("pipe", "data", "model") mesh of pp = 1 x dp x tp ranks
+    (``launch/mesh.py:mesh_for_plan``): the same, plus data parallelism
+    with ZeRO stage ``zero`` 0-3 (None is stage 1, as in the reference;
+    ``core/memplan.py`` says what each stage shards and how), Megatron
+    tensor parallelism of the dense family over the model group
+    (``models/blocks.py``; vocab-parallel embedding and CE), and the
+    sharding ``rules`` preset (``core/sharding.py:PRESETS``; ``tp_only``
+    at dp = 1).  The hybrid and rwkv families run dp and every stage, not
+    tp.
+
+What still raises, naming ROADMAP.md: ``pp`` > 1 and ``virtual_stages`` > 1
+(pipelining, the next slice), ``ep`` > 1, ``node`` > 1, ``qcomm`` and
+``overlap`` (the CommPlan), ``remat="selective"``, fp16 kernels, tp on the
+hybrid and rwkv families, and a batch rule other than the data axis at
+dp > 1 (``tp_only``).  The reference's ``rule_overrides`` are not ported.
 
 ``build_train_step`` returns ``train_step(state, batch) -> (state,
-metrics)``: each microbatch's scaled loss is backpropagated and the
-gradients sum in fp32 in the parameters' ``.grad``; then they are divided
-by ``gas`` and unscaled in place, checked for finiteness, their global
-norm taken, AdamW applied in place (skipped when not finite), and the loss
-scale updated.  The metrics are the reference's: loss (the mean CE over the
-microbatches), moe_aux, moe_drop (0 for the dense family), grad_norm,
-grads_finite and loss_scale, as 0-d tensors on the device.
+metrics)``, one step for both: an unsharded model (one device, no process
+group) takes each collective below as the identity, a sharded one runs
+them over its mesh's groups, of one rank or more.  The global batch is
+split as the reference splits it: into ``gas`` microbatches, then each
+microbatch's rows over the data ranks.
+Each microbatch's scaled loss (this rank's loss sum over every data rank's
+token count) is backpropagated and the gradients sum in fp32: in the
+parameters' ``.grad`` (stages 0-1: all-reduced over the data group after
+the last microbatch), reduce-scattered into the rank's block after each
+microbatch (stage 2), or by the gathers' own reduce-scatters (stage 3 and
+any leaf whose spec names the data axis).  Then they are divided by
+``gas`` and unscaled in place, checked for finiteness (a flag all-reduced
+over every rank, so all ranks skip an overflowed fp16 step together),
+their global norm taken (squares summed over every rank, a replicated
+leaf counted once), AdamW applied in place to the rank's blocks (stages
+1-2 then all-gather the updated blocks into the parameters), and the loss
+scale updated.  The metrics are the reference's, the same on every rank:
+loss (the mean CE over the microbatches), moe_aux, moe_drop (0 for these
+families), grad_norm, grads_finite and loss_scale, as 0-d tensors on the
+device.
 """
 from __future__ import annotations
 
@@ -23,42 +52,56 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import memplan as mpl
 from repro_torch.core import precision as prec
+from repro_torch.core import sharding as shd
 from repro_torch.core.compute import DEFAULT_POLICY, ComputePolicy
-from repro_torch.models.model import Model
+from repro_torch.models.common import ModelConfig, flatten_specs
+from repro_torch.models.model import Model, param_specs
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.runtime.collectives import (
+    MeshGroups, all_gather_dim, all_reduce_, reduce_scatter_dim,
+)
 
-# field -> the only value this slice runs
-_SINGLE_DEVICE = {"dp": 1, "tp": 1, "pp": 1, "zero": None, "ep": 1, "node": 1,
-                  "qcomm": "none"}
+# field -> the only value the port runs (pipelining, expert parallelism and
+# the CommPlan come with later slices)
+_NOT_PORTED = {"pp": 1, "virtual_stages": 1, "ep": 1, "node": 1, "qcomm": "none",
+               "overlap": False}
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """One point of the paper's plan space; the port runs its single-device
-    corner (see the module docstring)."""
+    """One point of the paper's plan space; the port runs its pp = 1 corner
+    (see the module docstring)."""
     dp: int = 1
     tp: int = 1
     pp: int = 1
-    zero: int | None = None
+    virtual_stages: int = 1
     ep: int = 1
+    rules: str = "megatron_tp"      # sharding preset (core/sharding.py:PRESETS)
+    zero: int | None = None         # ZeRO stage 0-3; None -> 1
     node: int = 1
     qcomm: str = "none"
+    overlap: bool = False
     gas: int = 1                    # gradient accumulation steps
     precision: str = "bf16"         # bf16 | fp16 | fp32
     remat: str = "full"             # full | none (selective: ROADMAP)
     kernels: bool = False           # hand-written CUDA kernels
 
     def __post_init__(self):
-        for name, only in _SINGLE_DEVICE.items():
+        for name in ("dp", "tp", "pp", "virtual_stages", "ep", "node", "gas"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        for name, only in _NOT_PORTED.items():
             if getattr(self, name) != only:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the parallel executor is "
-                    "not ported yet (see ROADMAP.md, Queue 1); this port trains "
-                    "on one device")
-        if self.gas < 1:
-            raise ValueError(f"gas must be >= 1, got {self.gas}")
+                    f"{name}={getattr(self, name)!r}: not ported yet (see ROADMAP.md, "
+                    "Queue 1); the port runs pp = 1 with dp, tp and ZeRO 0-3")
+        object.__setattr__(self, "zero", mpl.resolve_stage(self.zero))
+        if self.rules not in shd.PRESETS:
+            raise ValueError(f"rules must be one of {sorted(shd.PRESETS)}, got {self.rules!r}")
         prec.policy_from_name(self.precision)           # validates
         if self.remat == "selective":
             raise NotImplementedError(
@@ -68,21 +111,134 @@ class ParallelPlan:
                 "the CUDA kernels take bf16 and fp32; fp16 kernels are not "
                 "ported yet (see ROADMAP.md, Queue 2)")
         self.compute_policy()                           # validates remat
+        if self.dp > 1 and self.sharding_rules().mesh_axis("batch") != "data":
+            raise NotImplementedError(
+                f"rules {self.rules!r} keep the batch off the data axis: the port "
+                "splits the batch over the data ranks (see ROADMAP.md, Queue 1)")
+
+    @property
+    def n_devices(self) -> int:
+        return self.dp * self.tp * self.pp
 
     def compute_policy(self) -> ComputePolicy:
         return ComputePolicy(remat=self.remat, kernels=self.kernels)
+
+    def memory_plan(self) -> mpl.MemoryPlan:
+        return mpl.MemoryPlan(zero=self.zero)
+
+    def sharding_rules(self) -> shd.ShardingRules:
+        return shd.PRESETS[self.rules](data_axis="data", model_axis="model")
+
+    def mesh_sizes(self) -> dict:
+        return {"pipe": self.pp, "data": self.dp, "model": self.tp}
+
+
+def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
+                         ) -> tuple[dict, dict, dict, dict]:
+    """({leaf: whole shape}, and the param, optimizer and gradient specs
+    {leaf: spec}) under the plan's rules and ZeRO stage: the port's
+    counterpart of the reference's ``plan_state_shardings``.  The specs
+    keep a mesh axis of size 1 (``unit_axes``).  The hybrid and rwkv
+    families run replicated over the model group, and refuse tp > 1."""
+    rules = plan.sharding_rules()
+    if cfg.family != "dense":
+        if plan.tp > 1:
+            raise NotImplementedError(
+                f"tp={plan.tp}: tensor parallelism of the {cfg.family} family is not "
+                "ported yet (see ROADMAP.md, Queue 1)")
+        rules = rules.with_overrides(**{k: None for k, v in rules.rules.items()
+                                        if "model" in shd.spec_axes((v,))})
+    sizes = plan.mesh_sizes()
+    leaves = list(flatten_specs(param_specs(cfg)))
+    shapes = {k: s.shape for k, s in leaves}
+    axes = {k: s.axes for k, s in leaves}
+    base = {k: shd.partition_spec(s.shape, s.axes, sizes, rules, unit_axes=True)
+            for k, s in leaves}
+    mp = plan.memory_plan()
+    psh = mp.param_shardings(shapes, axes, base, sizes)
+    return (shapes, psh, mp.optimizer_shardings(shapes, axes, psh, sizes),
+            mp.grad_shardings(shapes, axes, psh, sizes))
+
+
+def train_state_bytes(cfg: ModelConfig, plan: ParallelPlan) -> dict:
+    """Bytes of each train-state class one rank holds under the plan (the
+    reference's ``train_state_bytes``): ``param_bytes`` the stored fp32
+    master parameters, ``grad_bytes`` the fp32 gradient accumulator,
+    ``opt_bytes`` both Adam moments."""
+    shapes, psh, opt_sh, grad_sh = plan_state_shardings(cfg, plan)
+    sizes = plan.mesh_sizes()
+    return {"zero": plan.zero,
+            "param_bytes": mpl.sharded_bytes(shapes, psh, sizes, 4),
+            "grad_bytes": mpl.sharded_bytes(shapes, grad_sh, sizes, 4),
+            "opt_bytes": 2 * mpl.sharded_bytes(shapes, opt_sh, sizes, 4)}
+
+
+def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype = torch.float32,
+                compute: ComputePolicy | None = None) -> Model:
+    """The rank's sharded model on ``mesh`` (a DeviceMesh from
+    ``launch/mesh.py:mesh_for_plan``), on the mesh's device."""
+    groups = MeshGroups.from_mesh(mesh)
+    if groups.sizes != plan.mesh_sizes():
+        raise ValueError(f"mesh {groups.sizes} is not the plan's {plan.mesh_sizes()}")
+    _, psh, _, _ = plan_state_shardings(cfg, plan)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """How the step treats one parameter leaf of the rank."""
+    stored_data: bool      # its spec names the data axis: gathered on use
+    update_dim: int | None  # stage >= 1: the dim of its block of the update
+    grad_dim: int | None   # stage 2: the dim its gradient is reduce-scattered on
+    counted: bool          # its block enters this rank's grad-norm sum
+
+
+def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
+    if model.shardings is None:        # one device: whole leaves, no group
+        return {k: _Leaf(False, None, None, True) for k, _ in model.named_parameters()}
+    _, psh, opt_sh, grad_sh = plan_state_shardings(model.cfg, plan)
+    if psh != model.shardings:
+        raise ValueError("the model is not sharded as the plan asks "
+                         "(build it with train_loop.build_model)")
+    coord = model.mesh.coord
+
+    def added(spec, base):
+        dims = [i for i, (a, b) in enumerate(zip(spec, base)) if a != b]
+        return dims[0] if dims else None
+
+    out = {}
+    for k, spec in psh.items():
+        block = shd.spec_axes(opt_sh[k])
+        out[k] = _Leaf(stored_data="data" in shd.spec_axes(spec),
+                       update_dim=added(opt_sh[k], spec), grad_dim=added(grad_sh[k], spec),
+                       counted=all(coord[a] == 0 for a in ("data", "model") if a not in block))
+    return out
+
+
+def _block(t: torch.Tensor, dim: int | None, mesh: MeshGroups) -> torch.Tensor:
+    """The rank's block of ``t`` along ``dim`` over the data group (a view)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // mesh.sizes["data"]
+    return t.narrow(dim, mesh.coord["data"] * n, n)
 
 
 def init_train_state(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan,
                      generator: torch.Generator | None = None) -> dict:
     """The train state over ``model``'s own parameters (drawn from
     ``generator`` when one is given): {"params": {name: Parameter}, "opt",
-    "loss_scale", "step"}.  Parameters get ``requires_grad``."""
+    "loss_scale", "step"}.  Parameters get ``requires_grad``; a sharded
+    model's moments cover the rank's blocks of the update."""
     if generator is not None:
         model.init(generator)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    return {"params": params, "opt": adamw_init(params),
+    leaves = _leaves(model, plan)
+    return {"params": params,
+            "opt": adamw_init({k: _block(p, leaves[k].update_dim, model.mesh)
+                               for k, p in params.items()}),
             "loss_scale": prec.init_loss_scale(plan.precision == "fp16",
                                                device=model.device),
             "step": 0}
@@ -93,16 +249,27 @@ def _to_device(batch: dict, device: torch.device) -> dict:
                 else v).to(device) for k, v in batch.items()}
 
 
-def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan):
+def _sum(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` all-reduced over ``group`` in place; None (no process group)
+    leaves it as it is."""
+    return t if group is None else all_reduce_(t, group, op)
+
+
+def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); ``state`` is
     updated in place.  The step runs ``model``'s weights, which must be
     stored in the policy's fp32 master dtype, under the plan's compute policy
     and compute dtype through a view of the model (``Model.with_policy``):
-    ``model`` itself keeps its own policy."""
+    ``model`` itself keeps its own policy.  With ``mesh`` (the plan's
+    DeviceMesh) ``model`` is the rank's sharded model (``build_model``) and
+    ``batch`` the global batch, the same on every rank."""
     policy = prec.policy_from_name(plan.precision)
     if model.dtype != policy.param_dtype:
         raise ValueError(f"master weights must be stored in {policy.param_dtype}, "
                          f"the model stores {model.dtype}")
+    if (mesh is None) != (model.shardings is None) or (mesh is None and plan.n_devices > 1):
+        raise ValueError(f"a plan of {plan.n_devices} ranks runs a sharded model "
+                         "(train_loop.build_model) on its mesh (launch/mesh.py:mesh_for_plan)")
     compute = plan.compute_policy()
     if model.compute not in (DEFAULT_POLICY, compute):
         warnings.warn(
@@ -110,37 +277,67 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan):
             f"specifies {compute}; the plan wins inside the step — set "
             f"remat/kernels on the ParallelPlan instead", stacklevel=2)
     model = model.with_policy(compute, policy.compute_dtype)
-    gas = plan.gas
+    gas, dp = plan.gas, plan.dp
+    mesh = model.mesh
+    data, world = (None, None) if mesh is None else (mesh.groups["data"], mesh.world)
+    rank = 0 if mesh is None else mesh.coord["data"]
+    leaves = _leaves(model, plan)
+    device = model.device
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         ls = state["loss_scale"]
-        batch = _to_device(batch, model.device)
+        batch = _to_device(batch, device)
         B = batch["tokens"].shape[0]
-        if B % gas:
-            raise ValueError(f"global batch {B} is not a multiple of gas={gas}")
+        if B % (gas * dp):
+            raise ValueError(f"global batch {B} is not a multiple of gas x dp = {gas * dp}")
+        b = B // gas // dp
         for p in params.values():
             p.grad = None
-        ce_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        gsum: dict[str, torch.Tensor] = {}
+        ce_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(gas):
-            mb = {k: v[i * B // gas:(i + 1) * B // gas] for k, v in batch.items()}
-            loss, metrics = model.loss(mb)
+            lo = i * B // gas + rank * b
+            loss, metrics = model.loss({k: v[lo:lo + b] for k, v in batch.items()})
             prec.scale_loss(ls, loss).backward()
             ce_sum += metrics["ce"].detach()
+            for k, p in params.items():         # stage 2: into the rank's block
+                dim = leaves[k].grad_dim
+                if dim is not None:
+                    part = reduce_scatter_dim(p.grad, dim, data)
+                    gsum[k] = part if i == 0 else gsum[k].add_(part)
+                    p.grad = None
         inv = 1.0 / ls["scale"]
         grads = {}
         for k, p in params.items():    # in place: (sum / gas) unscaled, fp32
-            grads[k] = p.grad.div_(gas).mul_(inv)
-        finite = prec.all_finite(grads.values())
-        grad_norm = global_norm(grads.values())
-        state["opt"] = adamw_update(opt_cfg, params, grads, state["opt"],
-                                    skip=not bool(finite))
+            leaf = leaves[k]
+            g = gsum.get(k)
+            if g is None:
+                g = p.grad
+                if not leaf.stored_data:
+                    _sum(g, data)
+                g = _block(g, leaf.update_dim, mesh)
+            grads[k] = g.div_(gas).mul_(inv)
+        finite = _sum(prec.all_finite(grads.values()).to(device, torch.float32),
+                      world, dist.ReduceOp.MIN) > 0
+        grad_norm = global_norm([g for k, g in grads.items() if leaves[k].counted],
+                                group=world, device=device)
+        blocks = {k: _block(p, leaves[k].update_dim, mesh) for k, p in params.items()}
+        skip = not bool(finite)
+        state["opt"] = adamw_update(opt_cfg, blocks, grads, state["opt"], skip=skip,
+                                    grad_norm=grad_norm)
+        if not skip:                   # stages 1-2: the updated blocks to every rank
+            with torch.no_grad():
+                for k, p in params.items():
+                    dim = leaves[k].update_dim
+                    if dim is not None:
+                        p.copy_(all_gather_dim(blocks[k], dim, data))
         state["loss_scale"] = prec.update_loss_scale(ls, finite)
         state["step"] += 1
         for p in params.values():
             p.grad = None
-        zero = torch.zeros((), dtype=torch.float32, device=model.device)
-        return state, {"loss": ce_sum / gas, "moe_aux": zero, "moe_drop": zero,
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        return state, {"loss": _sum(ce_sum, data) / gas, "moe_aux": zero, "moe_drop": zero,
                        "grad_norm": grad_norm, "grads_finite": finite,
                        "loss_scale": state["loss_scale"]["scale"]}
 

@@ -1,0 +1,113 @@
+"""The port's sharded executor over data ranks (gloo on the CPU) against
+its single-device step and the JAX package's: yi-6b reduced as
+tests/test_parallel_plan.py reduces it (4 layers, d 128, 4 heads / 2 kv of
+32, d_ff 256, vocab 256), fp32, 3 steps of 8 x 32 tokens, weights from the
+reference (``interop.shard_params``), at dp = 2 with ZeRO 0-3 and gas 2,
+kernels off and on; zamba2-2.7b and rwkv6-1.6b reduced to 4 layers at
+dp = 2, zero = 3, kernels on, from the reference's weights; one fp16 step
+at dp = 2, zero = 3.  Losses and grad norms agree within rtol 1e-5, atol 0
+with the port's single device (the reference's bar between plans,
+tests/test_memplan.py) and within 1e-4 with the reference's jitted
+single-device step (tests/test_torch_train.py), for the recurrent families
+its plain path (their Pallas bodies' interpret mode is held to the port in
+tests/test_torch_ssm.py and tests/test_torch_wkv.py).  Two ranks run every
+plan in one spawn."""
+import numpy as np
+import pytest
+import torch
+
+import _torch_jax_ref
+import _torch_ranks as ranks
+from repro_torch.interop import gather_params
+from repro_torch.runtime.train_loop import ParallelPlan, plan_state_shardings
+
+torch.set_num_threads(1)
+
+RTOL_PLANS, RTOL_REF = 1e-5, 1e-4
+STAGES = (0, 1, 2, 3)
+RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
+
+
+def _plan(**kw):
+    return dict(gas=2, precision="fp32", **kw)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    weights, ref, single = {}, {}, {}
+    for k in (False, True):
+        weights["yi"], ref[k] = _torch_jax_ref.reference("yi-6b", ranks.YI, _plan(kernels=k))
+        single[k] = ranks.single_device("yi-6b", ranks.YI, weights["yi"], _plan(kernels=k))
+    jobs = [{"name": f"z{z} k{k}", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
+             "plan": _plan(dp=2, zero=z, kernels=k)} for z in STAGES for k in (False, True)]
+    for arch, ov in RECURRENT.items():
+        weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan(kernels=False))
+        single[arch] = ranks.single_device(arch, ov, weights[arch], _plan(kernels=True))
+        jobs.append({"name": arch, "arch": arch, "overrides": ov, "weights": arch,
+                     "plan": _plan(dp=2, zero=3, kernels=True)})
+    jobs.append({"name": "fp16", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
+                 "plan": dict(dp=2, zero=3, gas=2, precision="fp16"), "steps": 1})
+    res = ranks.run_ranks(2, jobs, weights, str(tmp_path_factory.mktemp("ranks")))
+    for name, by_rank in res.items():
+        for r, v in by_rank.items():
+            assert "error" not in v, (name, r, v.get("error"))
+    return {"ref": ref, "single": single, "ranks": res}
+
+
+def _losses(traj):
+    return np.array([t[:2] for t in traj])
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("zero", STAGES)
+def test_dp2_zero_matches_single_device(runs, zero, kernels):
+    by_rank = runs["ranks"][f"z{zero} k{kernels}"]
+    single, _ = runs["single"][kernels]
+    for r, res in by_rank.items():
+        port = _losses(res["trajectory"])
+        np.testing.assert_allclose(port, _losses(single), rtol=RTOL_PLANS, atol=0,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(port, runs["ref"][kernels], rtol=RTOL_REF, atol=0)
+    assert by_rank[0]["trajectory"] == by_rank[1]["trajectory"]   # every rank the same
+
+
+@pytest.mark.parametrize("zero", STAGES)
+def test_dp2_state_is_sharded_by_stage(runs, zero):
+    """Stage 3 stores only the blocks (half of every leaf here), stage >= 1
+    holds half of each moment; the blocks put back together are the
+    single-device weights after the same steps."""
+    by_rank = runs["ranks"][f"z{zero} k{False}"]
+    cfg = ranks.config("yi-6b", ranks.YI)
+    shapes, *_ = plan_state_shardings(cfg, ParallelPlan(**_plan(dp=2, zero=zero)))
+    whole = sum(int(np.prod(s)) for s in shapes.values())
+    stored = sum(b.size for b in by_rank[0]["blocks"].values())
+    moments = sum(int(np.prod(s)) for s in by_rank[0]["moments"].values())
+    assert stored == (whole // 2 if zero == 3 else whole)
+    assert moments == (whole if zero == 0 else whole // 2)
+    plan = ParallelPlan(**_plan(dp=2, zero=zero))
+    gathered = gather_params({(r["coord"]["data"], r["coord"]["model"]): r["blocks"]
+                              for r in by_rank.values()}, cfg, plan)
+    _, after = runs["single"][False]
+    # Adam's normalised step turns fp32 noise in a near-zero gradient into
+    # a change of up to lr (1e-3) a step: atol is 1% of that
+    for k, w in after.items():
+        np.testing.assert_allclose(gathered[k], w, rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT))
+def test_recurrent_families_dp2_zero3(runs, arch):
+    single, _ = runs["single"][arch]
+    for res in runs["ranks"][arch].values():
+        port = _losses(res["trajectory"])
+        np.testing.assert_allclose(port, _losses(single), rtol=RTOL_PLANS, atol=0)
+        np.testing.assert_allclose(port, runs["ref"][arch], rtol=RTOL_REF, atol=0)
+
+
+def test_fp16_dp2_zero3_step(runs):
+    """The reference's bar (tests/test_memplan.py): finite grads, a loss
+    scale above 1, the loss within 2e-2 of the fp32 step's."""
+    fp32 = runs["single"][False][0][0][0]
+    for res in runs["ranks"]["fp16"].values():
+        loss, _, finite, scale = res["trajectory"][0]
+        assert finite and scale > 1.0
+        assert abs(loss - fp32) / fp32 < 2e-2

@@ -1,0 +1,88 @@
+"""The port's jax-free copies of the sharding rules and the ZeRO byte
+accounting against the JAX package's originals on the same shapes: every
+leaf of yi-6b and gpt-1.4b reduced under the four presets at dp in {2, 4}
+x tp in {1, 2, 4}; zero_divisors and Table II's bytes per parameter; and
+each rank's train-state bytes at dp = 2 x tp = 2, ZeRO 0-3, against the
+reference's ``train_state_bytes`` on 4 host devices."""
+import json
+import types
+
+import pytest
+
+from repro.configs import get_config as jax_get_config
+from repro.core import memplan as jax_memplan
+from repro.core import sharding as jax_sharding
+from repro.models.model import Model as JaxModel
+from repro_torch.configs import get_config
+from repro_torch.core import memplan, sharding
+from repro_torch.models.common import flatten_specs
+from repro_torch.models.model import param_specs
+from repro_torch.runtime.train_loop import ParallelPlan, train_state_bytes
+
+ARCHS = ["yi-6b", "gpt-1.4b"]
+MESHES = [(dp, tp) for dp in (2, 4) for tp in (1, 2, 4)]
+
+
+def _leaves(arch):
+    ours = dict(flatten_specs(param_specs(get_config(arch).reduced())))
+    import jax
+    ref = JaxModel(jax_get_config(arch).reduced()).param_specs()
+    flat = {".".join(str(getattr(k, "key", k)) for k in path): leaf
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                ref, is_leaf=lambda x: hasattr(x, "axes"))[0]}
+    assert flat.keys() == ours.keys()
+    return ours, flat
+
+
+@pytest.mark.parametrize("preset", sorted(sharding.PRESETS))
+@pytest.mark.parametrize("dp,tp", MESHES, ids=[f"dp{d}tp{t}" for d, t in MESHES])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_partition_specs_equal_reference(arch, dp, tp, preset):
+    sizes = {"pipe": 1, "data": dp, "model": tp}
+    mesh = types.SimpleNamespace(shape=sizes)       # all the reference reads of a Mesh
+    rules = sharding.PRESETS[preset]()
+    ref_rules = jax_sharding.PRESETS[preset]()
+    assert dict(rules.rules) == dict(ref_rules.rules)
+    ours, ref = _leaves(arch)
+    for path, spec in ours.items():
+        base = sharding.partition_spec(spec.shape, spec.axes, sizes, rules)
+        rbase = jax_sharding.partition_spec(ref[path].shape, ref[path].axes, mesh, ref_rules)
+        assert base == tuple(rbase), path
+        assert (sharding.zero_partition_spec(spec.shape, base, sizes, "data")
+                == tuple(jax_sharding.zero_partition_spec(ref[path].shape, rbase, mesh,
+                                                          "data"))), path
+
+
+@pytest.mark.parametrize("zero", memplan.STAGES)
+def test_byte_accounting_equals_reference(zero):
+    for dp in (1, 2, 8):
+        assert memplan.zero_divisors(zero, dp) == jax_memplan.zero_divisors(zero, dp)
+        assert (memplan.table2_bytes_per_param(zero, dp)
+                == jax_memplan.table2_bytes_per_param(zero, dp))
+    assert memplan.resolve_stage(None) == jax_memplan.resolve_stage(None) == 1
+
+
+STATE_BYTES_CODE = '''
+import json, jax.numpy as jnp
+from repro.configs import get_config
+from repro.models.model import Model
+from repro.runtime.train_loop import ParallelPlan, train_state_bytes
+from repro.launch.mesh import mesh_for_plan
+cfg = get_config("yi-6b").reduced(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
+                                  d_ff=256, vocab_size=256, head_dim=32)
+out = {}
+for z in (0, 1, 2, 3):
+    plan = ParallelPlan(dp=2, tp=2, zero=z, precision="fp32")
+    out[z] = train_state_bytes(Model(cfg, jnp.float32), mesh_for_plan(plan), plan)
+print("BYTES", json.dumps(out))
+'''
+
+
+def test_train_state_bytes_equal_reference(multidev):
+    out = multidev(STATE_BYTES_CODE, n_devices=4)
+    ref = json.loads(out.split("BYTES", 1)[1])
+    cfg = get_config("yi-6b").reduced(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
+                                      d_ff=256, vocab_size=256, head_dim=32)
+    for z in memplan.STAGES:
+        ours = train_state_bytes(cfg, ParallelPlan(dp=2, tp=2, zero=z, precision="fp32"))
+        assert ours == {k: int(v) for k, v in ref[str(z)].items()}, z

@@ -16,6 +16,7 @@ from repro.core import precision as jax_prec
 from repro.core.compute import ComputePolicy as JaxPolicy
 from repro.data import SyntheticCorpus as JaxCorpus, make_batch_iterator as jax_batches
 from repro.models.model import Model as JaxModel
+from repro.runtime.train_loop import ParallelPlan as JaxPlan
 from repro.optim import (AdamWConfig as JaxAdamW, adamw_init as jax_adamw_init,
                          adamw_update as jax_adamw_update,
                          cosine_schedule as jax_cosine, linear_warmup as jax_warmup)
@@ -129,12 +130,23 @@ def test_model_loss_and_logits_match_jax(kernels):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2), ("pp", 2), ("zero", 1),
-                                         ("ep", 2), ("node", 2), ("qcomm", "gather"),
+@pytest.mark.parametrize("field,value", [("pp", 2), ("virtual_stages", 2), ("ep", 2),
+                                         ("node", 2), ("qcomm", "gather"), ("overlap", True),
                                          ("remat", "selective")])
 def test_plan_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParallelPlan(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2), ("zero", 1)])
+def test_plan_accepts_the_parallel_fields(field, value):
+    """dp, tp and the ZeRO stage are the sharded executor's: accepted and
+    resolved as the reference resolves them (zero=None is stage 1)."""
+    ours, ref = ParallelPlan(**{field: value}), JaxPlan(**{field: value})
+    for name in ("dp", "tp", "zero", "n_devices"):
+        assert getattr(ours, name) == getattr(ref, name)
+    assert ParallelPlan().zero == JaxPlan().zero == 1
+    assert dict(ours.sharding_rules().rules) == dict(ref.sharding_rules().rules)
 
 
 def test_selective_remat_raises_and_fp16_kernels_refused():
