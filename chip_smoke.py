@@ -109,7 +109,20 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      ranks (``_parallel_rank``) run the reduced yi-6b's fp32 plans against
      the single-device port, yi-6b (TRAIN_LAYERS) at dp = ranks, ZeRO 3,
      against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers;
-  6. the ``kernels`` line: per kernel its launches on each path, its error,
+  6. pipeline (``phase_pipeline``): gpt-1.4b at full width and depth, gas
+     4, split into 4 logical stages of 6 layers (as 4 pipe ranks, and as 2
+     ranks of 2 virtual stages) run in one process through the pipeline
+     executor's stage functions, input leaves and boundary backward, the
+     hand-off a local tensor: the stage split and its boundary backward on
+     the card, not the transport; step 0's loss and grad norm held to the
+     single-device step on the same weights and batch at PARALLEL_RTOL,
+     each kernel's launches counted exactly, the planner's ticks and idle
+     share beside the analytic bubble; with 2 or more cards, 4 (or 2) nccl
+     ranks (``_pipeline_rank``) run the reduced yi-6b's fp32 pipelined
+     plans against the single-device port, gpt-1.4b at pp = ranks (v = 1
+     and 2) against phase 5's single-device step 0, and at 4 ranks yi-6b
+     at all 32 layers at pp = 4, gas 8, ZeRO 1 against dp = 4, ZeRO 3;
+  7. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
      flash forward and backward, swiglu, gelu_mlp, CE, the grouped expert
      MLP, the two scans and the two decode steps also ``parent_ms`` and
@@ -3269,8 +3282,9 @@ def train_config(arch: str):
     return dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch])
 
 
-def expected_train_launches(cfg, steps: int) -> dict[str, int]:
-    """Launches of each kernel in ``steps`` steps of TRAIN under remat full:
+def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"]) -> dict[str, int]:
+    """Launches of each kernel in ``steps`` steps of TRAIN (at ``gas``
+    microbatches) under remat full:
     per layer and microbatch each forward kernel runs twice (the forward and
     its recompute) and each backward kernel once; the final norm and the CE
     run once per microbatch.  For hybrid the attention layers are the shared
@@ -3283,7 +3297,7 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
     if cfg.family == "rwkv":
         per_mb = {norm: 2 * cfg.n_layers + 1, "wkv_scan": 2 * cfg.n_layers,
                   "cross_entropy": 1}
-        return {k: n * TRAIN["gas"] * steps for k, n in per_mb.items()}
+        return {k: n * gas * steps for k, n in per_mb.items()}
     mlp = "swiglu" if cfg.act == "swiglu" else "gelu_mlp"
     norms_per_layer = 2 + (2 if cfg.qk_norm else 0)
     hybrid = cfg.family == "hybrid"
@@ -3294,7 +3308,7 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
               "flash_attention_bwd_dkv": n_attn, "cross_entropy": 1}
     if hybrid:
         per_mb["ssd_scan"] = 2 * n_mamba
-    return {k: n * TRAIN["gas"] * steps for k, n in per_mb.items()}
+    return {k: n * gas * steps for k, n in per_mb.items()}
 
 
 def phase_train(card: str, arch: str) -> dict:
@@ -3379,6 +3393,9 @@ def phase_train(card: str, arch: str) -> dict:
 # phase 4's kernels-on step 0 of each arch (loss, grad_norm), which the
 # multi-rank branch of phase 5 holds its yi-6b step 0 to
 TRAIN_STEP0: dict = {}
+# phase 5's single-device gpt-1.4b step 0, which the multi-rank branch of
+# phase 6 holds its pipelined gpt-1.4b step 0 to
+PARALLEL_STEP0: dict = {}
 # phase 5, one card: gpt-1.4b at full width and depth through the sharded
 # executor over a one-rank nccl group, ZeRO 3 (every leaf stored as its
 # block and gathered on use, over a data group of one), TRAIN's batch
@@ -3443,6 +3460,7 @@ def phase_parallel(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     single = _run_steps(model, ParallelPlan(**kw), batches[:1], 0)
     single_peak = torch.cuda.max_memory_allocated() / 1e9
+    PARALLEL_STEP0.update(single[0])
     del model
     torch.cuda.empty_cache()
 
@@ -3540,6 +3558,181 @@ def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | Non
     dist.destroy_process_group()
 
 
+# phase 6, one card: PIPELINE_ARCH at full width and depth, TRAIN's batch at
+# PIPELINE_GAS microbatches, split into 4 logical stages (6 layers each) run
+# in one process, as (pipe ranks, virtual stages) = each of PIPELINE_SPLITS
+PIPELINE_ARCH, PIPELINE_GAS, PIPELINE_SPLITS = "gpt-1.4b", 4, ((4, 1), (2, 2))
+
+
+def _local_sweep(model, plan, batch: dict, p: int, v: int) -> dict:
+    """One pipelined step's loss and grad norm on ``model`` (unsharded,
+    every stage local; no update): the pipeline executor's sweep with the
+    hand-off a local tensor, over ``schedule(p, gas, v)``."""
+    from repro_torch.core import precision as prec
+    from repro_torch.core.pipeline import schedule
+    from repro_torch.optim import global_norm
+    from repro_torch.runtime import pipeline
+
+    view = model.with_policy(plan.compute_policy(),
+                             prec.policy_from_name(plan.precision).compute_dtype)
+    tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(model.device)
+    b = tokens.shape[0] // plan.gas
+    micro = [{"tokens": tokens[i * b:(i + 1) * b]} for i in range(plan.gas)]
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ce = pipeline.sweep(view, schedule(p, plan.gas, v), micro,
+                        pipeline.loss_count({"tokens": tokens}, model.device),
+                        prec.init_loss_scale(False))
+    norm = global_norm([q.grad for q in model.parameters()])
+    torch.cuda.synchronize()
+    out = {"loss": float(ce), "grad_norm": float(norm), "step_s": time.perf_counter() - t0}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_pipeline(card: str) -> dict:
+    """PIPELINE_ARCH's step 0 through the pipeline executor's stage split on
+    one card against the single-device step on the same weights and batch;
+    then, where the host has 2 or more cards, the multi-rank branch."""
+    from repro_torch.core.bubble import bubble_fraction
+    from repro_torch.core.pipeline import schedule, spmd_idle_fraction
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = train_config(PIPELINE_ARCH)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    batch = _batches(cfg.vocab_size, S, gb, 1)[0]
+    plan = ParallelPlan(gas=PIPELINE_GAS, precision="bf16", remat="full", kernels=True)
+    model = Model(cfg, torch.float32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    single = _run_steps(model, plan, [batch], 0)[0]
+    single["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    expected = expected_train_launches(cfg, 1, PIPELINE_GAS)
+    runs, launches = [], {}
+    for p, v in PIPELINE_SPLITS:
+        model.init(torch.Generator(device=model.device).manual_seed(0))   # step 0's weights
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r = _local_sweep(model, plan, batch, p, v)
+        got = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[PIPELINE_ARCH]}
+        sched = schedule(p, PIPELINE_GAS, v)
+        r.update(pipe_ranks=p, virtual_stages=v, stages=p * v,
+                 layers_per_stage=cfg.n_layers // (p * v), ticks=sched.ticks,
+                 spmd_idle_fraction=spmd_idle_fraction(p, PIPELINE_GAS, v),
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=got,
+                 rel_diff=_rel(r, single))
+        runs.append(r)
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+    emit({"phase": "pipeline", "check": "the stage split and its boundary backward on "
+          "one card (every stage in one process, the hand-off a local tensor), not the "
+          "transport", "arch": cfg.name, "layers": cfg.n_layers, "global_batch": gb,
+          "seq_len": S, "gas": PIPELINE_GAS, "plan": "bf16 compute, fp32 master, remat "
+          "full, kernels", "single_device_step0": single, "splits": runs,
+          "rtol": PARALLEL_RTOL, "expected_launches_per_split": expected,
+          "schedule_4x4": [{"v": v, "ticks": schedule(4, 4, v).ticks,
+                            "spmd_idle_fraction": spmd_idle_fraction(4, 4, v),
+                            "bubble_fraction": bubble_fraction(
+                                4, 4, v, schedule="gpipe" if v == 1 else "1f1b_interleaved")}
+                           for v in (1, 2)], "card": card})
+    del model
+    torch.cuda.empty_cache()
+    for r in runs:
+        if not all(np.isfinite([r["loss"], r["grad_norm"]])) or any(
+                x > PARALLEL_RTOL for x in r["rel_diff"].values()):
+            raise AssertionError(f"pipelined step 0 (p={r['pipe_ranks']}, v="
+                                 f"{r['virtual_stages']}) vs single device: {r['rel_diff']}")
+        if r["launches"] != expected:
+            raise AssertionError(f"pipelined launches {r['launches']}, expected {expected}")
+    world = min(torch.cuda.device_count(), 4)
+    if world >= 2:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_pipeline_rank, args=(world, _process_group_file("pipe_ranks"),
+                                       dict(PARALLEL_STEP0) or None), nprocs=world)
+    else:
+        emit({"phase": "pipeline_ranks", "ran": False,
+              "why": f"{torch.cuda.device_count()} card: a pipe rank needs a neighbour on "
+                     "another card (nccl refuses two ranks on one card)"})
+    return launches
+
+
+def _pipeline_rank(rank: int, world: int, init_method: str, gpt_step0: dict | None) -> None:
+    """One nccl rank of phase 6's multi-rank branch: the reduced yi-6b's fp32
+    pipelined plans (PARALLEL_REDUCED, kernels off and on) against the
+    single-device port at PARALLEL_RTOL (4 ranks: pp = 2 x dp = 2 at ZeRO
+    0-3, pp = 2 x dp = 2 with 2 virtual stages, pp = 4, pp = 2 x tp = 2; 2
+    ranks: pp = 2, with 2 virtual stages, and at ZeRO 3); gpt-1.4b at full
+    width and depth at pp = world, v = 1 and 2, step 0 against phase 5's
+    single-device step at PARALLEL_RTOL; at 4 ranks yi-6b at all 32 layers
+    at pp = 4, gas 8, ZeRO 1 for 3 steps with each rank's step time and peak
+    memory, step 0 against dp = 4, ZeRO 3 at STEP0_RTOL."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank that fails mid-exchange leaves the others waiting: time out
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    if world == 4:
+        plans = [dict(pp=2, dp=2, zero=z) for z in (0, 1, 2, 3)]
+        plans += [dict(pp=2, dp=2, virtual_stages=2), dict(pp=4), dict(pp=2, tp=2)]
+    else:
+        plans = [dict(pp=world), dict(pp=world, virtual_stages=2), dict(pp=world, zero=3)]
+    for kernels, overrides in PARALLEL_REDUCED.items():
+        red = get_config("yi-6b").reduced(**overrides)
+        rb = _batches(red.vocab_size, 32, 8, 3)
+        kw = dict(gas=2, precision="fp32", kernels=kernels)
+        single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+        for p in plans:
+            steps, _ = _sharded_steps(red, ParallelPlan(**p, **kw), rb, 0)
+            rel = [_rel(a, b) for a, b in zip(steps, single)]
+            emit({"phase": "pipeline_ranks_reduced", "rank": rank, "plan": {**p, **kw},
+                  "rel_diff": rel, "rtol": PARALLEL_RTOL})
+            if any(v > PARALLEL_RTOL for r in rel for v in r.values()):
+                raise AssertionError(f"rank {rank} plan {p} kernels={kernels}: {rel}")
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    cfg = train_config(PIPELINE_ARCH)
+    for v in (1, 2):
+        steps, peak = _sharded_steps(cfg, ParallelPlan(pp=world, virtual_stages=v, **kw),
+                                     _batches(cfg.vocab_size, S, gb, 1), 0)
+        rel0 = None if gpt_step0 is None else _rel(steps[0], gpt_step0)
+        emit({"phase": "pipeline_ranks", "rank": rank, "arch": cfg.name,
+              "layers": cfg.n_layers, "pp": world, "virtual_stages": v, "gas": kw["gas"],
+              "step0": steps[0], "single_device_step0": gpt_step0, "rel_diff": rel0,
+              "rtol": PARALLEL_RTOL, "peak_mem_gb": peak})
+        if rel0 is None or any(x > PARALLEL_RTOL for x in rel0.values()):
+            raise AssertionError(f"rank {rank}: gpt-1.4b pp={world} v={v} step 0 vs "
+                                 f"phase 5's: {rel0}")
+    if world == 4:
+        cfg = get_config("yi-6b")
+        batches = _batches(cfg.vocab_size, S, gb, 3)
+        dp, _ = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw), batches[:1], 0)
+        steps, peak = _sharded_steps(cfg, ParallelPlan(pp=world, zero=1,
+                                                       **{**kw, "gas": 8}), batches, 0)
+        rel0 = _rel(steps[0], dp[0])
+        emit({"phase": "pipeline_ranks", "rank": rank, "arch": cfg.name,
+              "layers": cfg.n_layers, "pp": world, "gas": 8, "zero": 1, "steps": steps,
+              "peak_mem_gb": peak, "dp4_zero3_step0": dp[0], "rel_diff": rel0,
+              "rtol": STEP0_RTOL["yi-6b"]})
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps) or any(
+                rel0[k] > STEP0_RTOL["yi-6b"][k] for k in rel0):
+            raise AssertionError(f"rank {rank}: yi-6b pp=4 steps {steps}, step 0 vs "
+                                 f"dp=4 ZeRO 3: {rel0}")
+    dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3592,6 +3785,7 @@ def main() -> int:
     for arch in TRAIN_KERNELS:
         paths[f"{arch} train"] = timed(f"{arch} train", lambda: phase_train(card, arch))
     paths[f"{PARALLEL_ARCH} parallel"] = timed("parallel", lambda: phase_parallel(card))
+    paths[f"{PIPELINE_ARCH} pipeline"] = timed("pipeline", lambda: phase_pipeline(card))
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}

@@ -11,7 +11,8 @@ names, or None (replicated).  Mesh axis sizes come from a plain
 divide its dimension leaves that dimension replicated.
 
 :func:`shard_shape` and :func:`shard_slices` give one rank's block of a
-leaf under a spec (blocks in rank order along each sharded dim).
+leaf under a spec (blocks in rank order along each sharded dim; the layer
+stack round-robin over the pipe ranks under virtual stages).
 """
 from __future__ import annotations
 
@@ -177,12 +178,24 @@ def shard_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int]) -> t
 
 
 def shard_slices(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
-                 coord: Mapping[str, int]) -> tuple[slice, ...]:
+                 coord: Mapping[str, int], virtual_stages: int = 1) -> tuple:
     """The index of the rank at mesh coordinate ``coord`` ({axis: index})
     into the whole leaf: along a dim sharded over a composite axis the
-    first named axis is the slowest."""
-    out = []
+    first named axis is the slowest.  With ``virtual_stages`` v > 1 a dim
+    sharded over "pipe" alone (the layer stack) is cut into v x p blocks
+    and pipe rank d holds blocks d, d + p, ..., d + (v - 1) p, the layers of
+    its logical stages (``core/pipeline.py``): a list of indices, where
+    every other dim is a slice."""
+    out: list = []
     for d, e in zip(shape, spec):
+        if virtual_stages > 1 and "pipe" in _axes(e):
+            if e != "pipe":
+                raise NotImplementedError(f"virtual stages on the composite axis {e!r}")
+            p = sizes["pipe"]
+            n = d // (virtual_stages * p)
+            out.append([(k * p + coord["pipe"]) * n + i
+                        for k in range(virtual_stages) for i in range(n)])
+            continue
         idx, n = 0, 1
         for a in _axes(e):
             idx = idx * sizes[a] + coord[a]

@@ -1,0 +1,147 @@
+"""StageProgram: the family-agnostic layer-stack IR (the semantics of
+``repro/core/stage_program.py``).
+
+Each model family lowers its layer stack (``models/model.py:
+Model.stage_program``) into an ordered list of :class:`Segment` s: a list
+of per-unit parameter views in the storage dtype, and the body a unit
+runs, ``body(unit_params, x) -> x``.  The body is the unit's training step
+as the compute policy wraps it: the cast to the compute dtype happens
+inside the remat wrapper, so the compute-dtype copies are recomputed in
+the backward and the weight gradients arrive in fp32.
+
+  * :func:`run_program`: the pp = 1 path, every unit in order;
+  * :func:`split_stages`: cut the program into ``n_stages`` identical
+    stages for the pipeline (``runtime/pipeline.py``).  A one-segment
+    program splits on its unit list; a program of several segments splits
+    on the segment list into structurally equal groups, its weight-tied
+    segments (``tied``) closed over by every stage.
+
+The training stack carries nothing beside the activation: the recurrent
+families' state is sequence-level and layer-local, and the carries of the
+moe and encdec families come with their training (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class Segment:
+    """A uniform run of ``n`` units: ``body`` applied to each of ``params``
+    (one unit's parameter views each) in order.  ``tied`` marks a
+    weight-tied segment: every occurrence in the program holds the same
+    parameters, which :func:`split_stages` closes over instead of giving
+    each stage its own."""
+    name: str
+    params: list
+    n: int
+    body: Callable[[Any, torch.Tensor], torch.Tensor]
+    tied: bool = False
+
+    def __post_init__(self):
+        if len(self.params) != self.n:
+            raise ValueError(f"segment {self.name!r}: {len(self.params)} units, n={self.n}")
+
+
+@dataclasses.dataclass
+class StageProgram:
+    segments: tuple[Segment, ...]
+
+    @property
+    def n_units(self) -> int:
+        return sum(seg.n for seg in self.segments)
+
+
+def _run(seg: Segment, units: list, x: torch.Tensor) -> torch.Tensor:
+    for lp in units:
+        x = seg.body(lp, x)
+    return x
+
+
+def run_program(program: StageProgram, x: torch.Tensor) -> torch.Tensor:
+    """The non-pipelined executor: each segment's units in order."""
+    for seg in program.segments:
+        x = _run(seg, seg.params, x)
+    return x
+
+
+def units_error(name: str, n: int, n_stages: int) -> ValueError:
+    """The error of a one-segment program whose units do not split."""
+    return ValueError(f"segment {name!r} has {n} scan units, not divisible "
+                      f"by pp*virtual_stages={n_stages}")
+
+
+def _structure(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_structure(v) for v in tree]
+    return None
+
+
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _check_groups_equal(chunks: list[list[Segment]]) -> None:
+    ref = chunks[0]
+    for c in chunks[1:]:
+        for a, b in zip(ref, c):
+            same = (a.name == b.name and a.n == b.n and a.tied == b.tied
+                    and _structure(a.params) == _structure(b.params))
+            if not same:
+                raise ValueError(
+                    "stage split requires structurally identical segment "
+                    "groups per stage; got "
+                    f"{[(s.name, s.n) for s in ref]} vs "
+                    f"{[(s.name, s.n) for s in c]} — choose pp*virtual_stages "
+                    "to divide the program's repeating pattern")
+            if a.tied and any(x is not y for x, y in zip(_leaves(a.params),
+                                                         _leaves(b.params))):
+                raise ValueError(
+                    f"tied segment {a.name!r} references different param "
+                    "tensors across stages — tied segments must share one "
+                    "set of weights (or drop tied=True to stack per-stage "
+                    "copies)")
+
+
+def split_stages(program: StageProgram, n_stages: int
+                 ) -> tuple[list[tuple], Callable[[tuple, torch.Tensor], torch.Tensor]]:
+    """Cut the program into ``n_stages`` identical stages.  Returns
+    ``(stage_params, stage_fn)``: ``stage_params[s]`` is stage ``s``'s
+    tuple of unit lists (one per untied segment of a stage), and
+    ``stage_fn(stage_params[s], x)`` runs stage ``s``; chained over the
+    stages in order it is :func:`run_program`."""
+    segs = program.segments
+    if len(segs) == 1:
+        seg = segs[0]
+        if seg.n % n_stages:
+            raise units_error(seg.name, seg.n, n_stages)
+        per = seg.n // n_stages
+        ref = [seg]
+        stage_params = [(seg.params[s * per:(s + 1) * per],) for s in range(n_stages)]
+    else:
+        if len(segs) % n_stages:
+            raise ValueError(
+                f"program has {len(segs)} segments ({[s.name for s in segs]}), not "
+                f"divisible by pp*virtual_stages={n_stages}")
+        k = len(segs) // n_stages
+        chunks = [list(segs[i * k:(i + 1) * k]) for i in range(n_stages)]
+        _check_groups_equal(chunks)
+        ref = chunks[0]
+        stage_params = [tuple(seg.params for seg in c if not seg.tied) for c in chunks]
+
+    def stage_fn(sp_slice: tuple, x: torch.Tensor) -> torch.Tensor:
+        it = iter(sp_slice)
+        for seg in ref:
+            x = _run(seg, seg.params if seg.tied else next(it), x)
+        return x
+
+    return stage_params, stage_fn

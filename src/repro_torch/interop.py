@@ -56,27 +56,31 @@ def _specs(cfg, plan) -> tuple[dict, dict]:
     return shapes, psh
 
 
+def _index(shape, spec, plan, coord: dict) -> tuple:
+    return shd.shard_slices(shape, spec, plan.mesh_sizes(), coord,
+                            plan.virtual_stages if plan.pp > 1 else 1)
+
+
 def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
-    """The blocks of the rank at mesh coordinate ``coord`` ({"data": i,
-    "model": j}) of a whole parameter tree (nested or flat), under the
-    plan's shardings of ``cfg``."""
+    """The blocks of the rank at mesh coordinate ``coord`` ({"pipe": i,
+    "data": j, "model": k}) of a whole parameter tree (nested or flat),
+    under the plan's shardings of ``cfg``: at pp > 1 the layers of the
+    rank's logical stages (round-robin under virtual stages)."""
     shapes, psh = _specs(cfg, plan)
-    coord = {"pipe": 0, **coord}
-    return {k: np.asarray(a)[shd.shard_slices(shapes[k], psh[k], plan.mesh_sizes(), coord)]
+    return {k: np.asarray(a)[_index(shapes[k], psh[k], plan, coord)]
             for k, a in flatten_tree(tree).items()}
 
 
-def gather_params(blocks: dict[tuple[int, int], dict], cfg, plan) -> dict[str, np.ndarray]:
-    """The whole tree from every rank's blocks, ``{(data, model): {key:
-    block}}`` (the inverse of :func:`shard_params`)."""
+def gather_params(blocks: dict[tuple[int, int, int], dict], cfg, plan) -> dict[str, np.ndarray]:
+    """The whole tree from every rank's blocks, ``{(pipe, data, model):
+    {key: block}}`` (the inverse of :func:`shard_params`)."""
     shapes, psh = _specs(cfg, plan)
     out = {}
     for k, shape in shapes.items():
         first = next(iter(blocks.values()))[k]
         whole = np.empty(shape, dtype=np.asarray(first).dtype)
-        for (i, j), tree in blocks.items():
-            idx = shd.shard_slices(shape, psh[k], plan.mesh_sizes(),
-                                   {"pipe": 0, "data": i, "model": j})
-            whole[idx] = np.asarray(tree[k])
+        for (i, j, m), tree in blocks.items():
+            whole[_index(shape, psh[k], plan, {"pipe": i, "data": j, "model": m})] = \
+                np.asarray(tree[k])
         out[k] = whole
     return out

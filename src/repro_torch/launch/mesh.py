@@ -7,9 +7,9 @@ Ranks come from the launcher's environment (``torchrun`` /
 master's address) unless the caller passes them with an ``init_method``.
 On the card the group is nccl and each rank sets ``cuda:LOCAL_RANK`` before
 the group is made; on the CPU it is gloo.  The mesh puts the model dim
-fastest, as the reference does: ranks 2i and 2i + 1 share a model group at
-tp = 2.  Pipelining is the next slice of the port, so the pipe dim has size
-1.
+fastest and the pipe dim slowest, as the reference does: ranks 2i and
+2i + 1 share a model group at tp = 2, and at pp = 2 the first half of the
+ranks is pipe rank 0.  The pipe dim has size pp.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Training launcher (the pp = 1 flags of ``repro/launch/train.py``):
+"""Training launcher (the plan flags of ``repro/launch/train.py``):
 synthetic packed batches through ``build_train_step``, one line per logged
 step with loss, grad_norm, tokens/s and MFU against the H100's bf16 peak
 (the global step's FLOPs over the wall time x the peak x the ranks).  Runs
@@ -6,15 +6,18 @@ on the card unless ``--device cpu``.
 
 Under ``torchrun`` / ``python -m torch.distributed.run`` (one process per
 rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
-executor over a (pp = 1, dp, tp) mesh: ``--dp``, ``--tp``, ``--zero`` 0-3
-and ``--rules``; rank 0 prints.  dp x tp must be the number of ranks.
-Plans that still raise, naming ROADMAP.md: pp > 1, virtual stages, ep,
-node, qcomm, overlap, tp on the hybrid and rwkv families, ``--rules
-tp_only`` at dp > 1 (it keeps the batch off the data axis),
-``--remat selective``.  Every plan prints the same losses as one device:
+executor over a (pp, dp, tp) mesh: ``--pp`` (the gas microbatches are the
+pipeline's), ``--virtual-stages``, ``--dp``, ``--tp``, ``--zero`` 0-3 and
+``--rules``; rank 0 prints.  pp x dp x tp must be the number of ranks.
+Plans that still raise, naming ROADMAP.md: ep, node, qcomm, overlap, tp on
+the hybrid and rwkv families, ``--rules tp_only`` at dp > 1 (it keeps the
+batch off the data axis), ``--remat selective``.  Every plan prints the
+same losses as one device:
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch yi-6b --reduced --pp 2 --dp 2 --gas 2 --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
       --seq-len 2048 --precision bf16 --kernels
@@ -72,6 +75,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          "CUDA kernels")
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (dense family)")
+    ap.add_argument("--pp", type=int, default=1, help="pipeline ranks")
+    ap.add_argument("--virtual-stages", type=int, default=1,
+                    help="logical stages per pipeline rank (interleaved)")
     ap.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None,
                     help="ZeRO stage (default 1)")
     ap.add_argument("--rules", default="megatron_tp",
@@ -85,7 +91,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
     cfg = get_config(args.arch)
     overrides = {"n_layers": args.layers} if args.layers else {}
     cfg = cfg.reduced(**overrides) if args.reduced else dataclasses.replace(cfg, **overrides)
-    plan = ParallelPlan(dp=args.dp, tp=args.tp, zero=args.zero, rules=args.rules,
+    plan = ParallelPlan(dp=args.dp, tp=args.tp, pp=args.pp,
+                        virtual_stages=args.virtual_stages, zero=args.zero, rules=args.rules,
                         gas=args.gas, precision=args.precision, remat=args.remat,
                         kernels=args.kernels)
     mesh, world, rank0 = None, 1, True
@@ -95,13 +102,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
         model = build_model(cfg, plan, mesh)
         device, world, rank0 = model.device, dist.get_world_size(), dist.get_rank() == 0
     elif plan.n_devices > 1:
-        raise SystemExit(f"dp x tp = {plan.n_devices} ranks: run under torchrun / "
+        raise SystemExit(f"pp x dp x tp = {plan.n_devices} ranks: run under torchrun / "
                          "python -m torch.distributed.run")
     else:
         model = Model(cfg, torch.float32, device=device)
     say = print if rank0 else (lambda *a, **k: None)
     say(f"arch={cfg.name} params={model.n_params():,} device={device} ranks={world} "
-        f"dp={plan.dp} tp={plan.tp} zero={plan.zero if mesh else '-'} "
+        f"pp={plan.pp} v={plan.virtual_stages} dp={plan.dp} tp={plan.tp} "
+        f"zero={plan.zero if mesh else '-'} "
         f"gas={plan.gas} precision={plan.precision} remat={plan.remat} "
         f"kernels={plan.kernels}", flush=True)
     opt = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps))

@@ -43,8 +43,16 @@ Under the model axis the dense blocks run Megatron tensor parallelism
 (``blocks.py``), the embedding lookup is vocab-parallel (rows outside the
 shard are zero, then all-reduced over the model group) and the lm_head
 column-parallel into the vocab-parallel CE
-(``models/vocab_parallel.py``).  Training only:
-prefill, decode and ``logits`` of a sharded model raise.
+(``models/vocab_parallel.py``).  Under the pipe axis the model stores the
+layers of its rank's logical stages only (with ``virtual_stages`` v > 1 a
+round-robin set, ``core/sharding.py:shard_slices``), and the embedding,
+final norm, lm_head and the zamba2 shared block whole, as the reference's
+specs keep them; its stack runs through ``runtime/pipeline.py``.  Training
+only: prefill, decode and ``logits`` of a sharded model raise.
+
+The layer stack of every family lowers into the StageProgram IR
+(:meth:`Model.stage_program`, ``core/stage_program.py``): ``hidden_states``
+runs it whole, the pipeline split into stages.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from repro_torch.kernels.ref import masked_update_
 from repro_torch.models import blocks, layers, moe, rwkv, ssm
 from repro_torch.models.vocab_parallel import vocab_parallel_tokens
 from repro_torch.core import sharding as shd
+from repro_torch.core import stage_program as sp
 from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
@@ -136,6 +145,14 @@ def _n_super(cfg: ModelConfig) -> int:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple "
                          f"of hybrid_attn_every={per}")
     return cfg.n_layers // per
+
+
+def stage_units(cfg: ModelConfig) -> tuple[str, int]:
+    """The name and unit count of the family's one-segment stage program
+    (:meth:`Model.stage_program`): what a pipeline's stages split."""
+    if cfg.family == "hybrid":
+        return "super", _n_super(cfg)
+    return ("rwkv" if cfg.family == "rwkv" else "block"), _n_stack(cfg)
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -252,7 +269,7 @@ class Model(nn.Module):
                  compute: ComputePolicy | None = None,
                  device: str | torch.device | None = None,
                  shardings: dict[str, shd.Spec] | None = None,
-                 mesh: MeshGroups | None = None):
+                 mesh: MeshGroups | None = None, virtual_stages: int = 1):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype                # storage
@@ -263,6 +280,7 @@ class Model(nn.Module):
         if (shardings is None) != (mesh is None):
             raise ValueError("a sharded model needs both its shardings and its mesh")
         self.shardings, self.mesh = shardings, mesh
+        self.virtual_stages = virtual_stages     # logical stages per pipe rank
         self._tp = None
         if shardings is not None:
             heads = (cfg.n_heads, cfg.n_kv_heads)
@@ -308,12 +326,12 @@ class Model(nn.Module):
         if self.shardings is None:
             return tuple(slice(None) for _ in shape)
         return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes,
-                                self.mesh.coord)
+                                self.mesh.coord, self.virtual_stages)
 
     def _refuse_sharded(self, what: str) -> None:
         if self.shardings is not None and any(shd.spec_axes(s)
                                                for s in self.shardings.values()):
-            raise NotImplementedError(f"{what} of a sharded model (tp or ZeRO-3) is not "
+            raise NotImplementedError(f"{what} of a sharded model (tp, pp or ZeRO-3) is not "
                                       "ported yet (see ROADMAP.md, Queue 1: serving on a mesh)")
 
     def _uses(self, tree: dict, prefix: str = "", stacked: bool = False) -> dict:
@@ -454,10 +472,15 @@ class Model(nn.Module):
         x = table[torch.where(own, local, 0)] * own[..., None]
         return reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
 
-    def hidden_states(self, batch: dict) -> torch.Tensor:
-        """Final-normed hidden states (B, S, d) in the compute dtype: the
-        pp=1 path of ``repro/core/stage_program.py:run_program``, a loop
-        over the layers under the policy's remat wrapper."""
+    def stage_program(self) -> sp.StageProgram:
+        """The rank's layer stack in the StageProgram IR (the dense, hybrid
+        and rwkv lowerings of ``repro/models/model.py:stage_program``): one
+        segment of per-layer units ("block", "rwkv"), each under the
+        policy's remat wrapper with the cast inside; for hybrid one "super"
+        unit per ``hybrid_attn_every`` mamba layers, which closes over the
+        weight-tied shared block (``ssm.hybrid_segment_body`` wraps each
+        mamba layer and the shared application).  Data-sharded leaves are
+        wrapped to gather on use, so a program serves one pass."""
         cfg = self.cfg
         if cfg.family == "moe":
             raise NotImplementedError("training the moe family (loss with the aux "
@@ -465,35 +488,47 @@ class Model(nn.Module):
                                       "ROADMAP.md, Queue 1)")
         cdt = self.compute_dtype
         params = self.params()
-        x = self._embed(params, batch)
+        stack = params["layers"]
+        while isinstance(stack, dict):
+            stack = next(iter(stack.values()))
         # one layer's leaves (views of the stacked ones), data-sharded ones
         # wrapped to gather on use
         lps = [self._uses(lp, "layers", stacked=True)
-               for lp in _unstack(params["layers"], cfg.n_layers)]
+               for lp in _unstack(params["layers"], stack.shape[0])]
         if cfg.family == "hybrid":
             # the shared block's Parameters are closed over by every unit:
             # autograd sums their gradients over the applications
             per = cfg.n_layers // _n_super(cfg)
-            unit = ssm.hybrid_segment_body(cfg, self.compute,
+            units = [lps[s:s + per] for s in range(0, len(lps), per)]
+            body = ssm.hybrid_segment_body(cfg, self.compute,
                                            self._uses(params["shared"], "shared"),
                                            lambda t: _cast_floating(t, cdt))
-            for s in range(0, cfg.n_layers, per):
-                x = unit(lps[s:s + per], x)
+            return sp.StageProgram((sp.Segment("super", units, len(units), body),))
+        if cfg.family == "rwkv":
+            name, layer = "rwkv", rwkv.segment_body(cfg, self.compute)
         else:
-            family = rwkv if cfg.family == "rwkv" else blocks
-            body = (blocks.segment_body(cfg, self.compute, tp=self._tp)
-                    if family is blocks else family.segment_body(cfg, self.compute))
+            name, layer = "block", blocks.segment_body(cfg, self.compute, tp=self._tp)
+        # lp in the storage dtype: cast inside the remat
+        step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
+        return sp.StageProgram((sp.Segment(name, lps, len(lps), step),))
 
-            def layer(x, lp):     # lp in the storage dtype: cast inside the remat
-                return body(_cast_floating(lp, cdt), x)
+    def normed(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of the stack's output, in the compute dtype."""
+        cfg = self.cfg
+        final_norm = self._uses(self.params()["final_norm"], "final_norm")
+        return layers.apply_norm(x, _cast_floating(final_norm, self.compute_dtype),
+                                 cfg.norm, cfg.rms_eps, use_kernel=self.compute.kernels)
 
-            layer = self.compute.checkpoint(layer)
-            for lp in lps:
-                x = layer(x, lp)
-        final_norm = self._uses(params["final_norm"], "final_norm")
-        return layers.apply_norm(x, _cast_floating(final_norm, cdt),
-                                 cfg.norm, cfg.rms_eps,
-                                 use_kernel=self.compute.kernels)
+    def hidden_states(self, batch: dict) -> torch.Tensor:
+        """Final-normed hidden states (B, S, d) in the compute dtype: the
+        pp=1 path, ``core/stage_program.py:run_program`` over
+        :meth:`stage_program`.  A model split over pipe ranks runs its
+        stack through ``runtime/pipeline.py`` instead."""
+        if self.mesh is not None and self.mesh.sizes["pipe"] > 1:
+            raise ValueError("a model split over pipe ranks runs its layer stack "
+                             "through runtime/pipeline.py (train_loop.build_train_step)")
+        x = self._embed(self.params(), batch)
+        return self.normed(sp.run_program(self.stage_program(), x))
 
     def logits(self, batch: dict) -> torch.Tensor:
         self._refuse_sharded("logits")
@@ -501,9 +536,11 @@ class Model(nn.Module):
         W = self._unembed_matrix(self.params()).to(self.compute_dtype)
         return (h @ W).float()[..., :self.cfg.vocab_size]
 
-    def _loss_from_hidden(self, h: torch.Tensor, batch: dict
-                          ) -> tuple[torch.Tensor, dict]:
-        """LM loss tail: final-normed hidden states -> (loss, metrics)."""
+    def _loss_from_hidden(self, h: torch.Tensor, batch: dict,
+                          count: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+        """LM loss tail: final-normed hidden states -> (loss, metrics): the
+        CE sum over the rows of ``batch`` divided by ``count``, or by the
+        token count of the batch (sharded: over every data rank's rows)."""
         cfg = self.cfg
         h = grad_cast(h, self.compute_dtype)
         tokens = batch["tokens"]
@@ -515,7 +552,7 @@ class Model(nn.Module):
         if self.shardings is None:
             W = self._unembed_matrix(self.params()).to(self.compute_dtype)
             ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
-                                        policy=self.compute)
+                                        policy=self.compute, count=count)
             return ce, {"ce": ce}
         # sharded: the loss sum over this rank's rows over the token count of
         # every data rank's rows (the microbatch's mean once summed over them)
@@ -524,7 +561,8 @@ class Model(nn.Module):
         W = W.T if cfg.tie_embeddings else W
         vocab_dim = _model_dim(self.shardings[name])
         group = self.mesh.groups["model"]
-        count = all_reduce_(mask.sum(), self.mesh.groups["data"])
+        if count is None:
+            count = all_reduce_(mask.sum(), self.mesh.groups["data"])
         if vocab_dim is None:
             ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
                                         policy=self.compute, count=count)

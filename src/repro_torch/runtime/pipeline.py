@@ -1,0 +1,173 @@
+"""The pipeline executor: one all-forward-then-all-backward sweep of the
+microbatches through ``pp x virtual_stages`` logical stages (the port's
+counterpart of ``repro/core/pipeline.py:pipeline_spmd`` as
+``repro/models/model.py:loss_pipelined`` drives it).
+
+Each pipe rank walks its applications of ``core/pipeline.py:schedule`` in
+tick order.  At an application (microbatch ``j``, logical stage ``s``) it
+embeds microbatch ``j`` (``s == 0``) or takes the activation that stage
+``s - 1`` handed over as a leaf with ``requires_grad``, runs its local
+stage (``core/stage_program.py:split_stages`` of the model's program), and
+keeps the (input, output) pair; the last stage applies the final norm and
+the CE, whose output is the loss scaled for the backward.  The backward
+walks the same applications in reverse tick order:
+``torch.autograd.backward(output, grad)`` with the gradient that stage
+``s + 1`` handed back (the loss takes none), then hands ``input.grad`` to
+stage ``s - 1``.  Parameter gradients accumulate in fp32 in ``.grad`` over
+the applications, as the reference's pipeline-scan transpose does.
+
+The hand-off is a local tensor when one process runs every stage
+(``ring=None``: the stage split and its boundary backward checked on one
+card), or a point-to-point exchange on the pipe group (:class:`Ring`):
+activations go to rank ``d + 1`` and their gradients back to ``d - 1``
+(mod p: the ring wraps under virtual stages), both in the compute dtype,
+received into buffers of the known shape (b, seq, d).  Each tick's sends
+and receives are posted together (``dist.batch_isend_irecv``), so no order
+of the ranks can deadlock.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import precision as prec
+from repro_torch.core.pipeline import Schedule
+from repro_torch.core.stage_program import split_stages
+
+
+class Ring:
+    """This rank's neighbours on the pipe group (global ranks)."""
+
+    def __init__(self, group, device: torch.device):
+        self.group = group
+        p, d = dist.get_world_size(group), dist.get_rank(group)
+        self.prev = dist.get_global_rank(group, (d - 1) % p)
+        self.next = dist.get_global_rank(group, (d + 1) % p)
+        self.rank = d
+        # a collective on every rank of the group before its first
+        # point-to-point exchange, which only some ranks join (nccl)
+        dist.all_reduce(torch.zeros(1, device=device), group=group)
+
+
+def loss_count(batch: dict, device: torch.device) -> torch.Tensor:
+    """The CE's divisor: the token count of the whole global batch."""
+    mask = batch.get("loss_mask")
+    tokens = batch["tokens"]
+    if mask is None:
+        return torch.tensor(float(tokens.shape[0] * (tokens.shape[1] - 1)),
+                            dtype=torch.float32, device=device)
+    return mask[:, 1:].float().sum()
+
+
+class _Stages:
+    """What a rank runs at its applications: the model's local stages,
+    logical stage s in local slot ``slot(s)``."""
+
+    def __init__(self, model, sched: Schedule, micro: list[dict], count: torch.Tensor,
+                 loss_scale: dict, n_local: int, slot):
+        self.model, self.micro, self.count, self.ls = model, micro, count, loss_scale
+        self.last = sched.n_stages - 1
+        self.n_local, self.slot = n_local, slot
+        self.ce = torch.zeros((), dtype=torch.float32, device=model.device)
+
+    def forward(self, j: int, s: int, x: torch.Tensor | None):
+        """(input leaf or None at stage 0, output: activation or scaled loss)."""
+        model = self.model
+        if s == 0:
+            inp, h = None, model._embed(model.params(), self.micro[j])
+        else:
+            inp = x.detach().requires_grad_()
+            h = inp
+        # a fresh program per application: its data-sharded leaves gather
+        # anew, as each microbatch's pass does at pp = 1
+        params, stage_fn = split_stages(model.stage_program(), self.n_local)
+        h = stage_fn(params[self.slot(s)], h)
+        if s < self.last:
+            return inp, h
+        ce, _ = model._loss_from_hidden(model.normed(h), self.micro[j], self.count)
+        self.ce += ce.detach()
+        return inp, prec.scale_loss(self.ls, ce)
+
+    @staticmethod
+    def backward(inp, out, grad) -> torch.Tensor | None:
+        torch.autograd.backward(out, grad)
+        return None if inp is None else inp.grad
+
+
+def _walk(events: list, compute, recv_from: int, send_to: int, group, buffer) -> None:
+    """Run ``events`` ([(tick, item, receives, sends)] in tick order): at each
+    tick post the send of the previous tick's result and this tick's
+    receive together, then ``compute(item, received)``."""
+    at = {t: (item, recv, send) for t, item, recv, send in events}
+    ticks = sorted(set(at) | {t + 1 for t, _, _, send in events if send})
+    outbox: dict[int, torch.Tensor] = {}
+    for t in ticks:
+        ops, x = [], None
+        if t in outbox:
+            ops.append(dist.P2POp(dist.isend, outbox.pop(t), send_to, group))
+        item, recv, send = at.get(t, (None, False, False))
+        if recv:
+            x = buffer()
+            ops.append(dist.P2POp(dist.irecv, x, recv_from, group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        if item is not None:
+            y = compute(item, x)
+            if send:
+                outbox[t + 1] = y.detach().contiguous()
+
+
+def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
+          loss_scale: dict, ring: Ring | None = None) -> torch.Tensor:
+    """One sweep of ``sched.m`` microbatches (``micro``: this data rank's
+    rows of each): fills the ``.grad`` of the parameters the rank's stages
+    and its embedding or loss used, and returns the sum of the last stage's
+    CE over the microbatches (zero on any other rank).  ``model`` holds
+    every stage when ``ring`` is None (one process), else the stages of pipe
+    rank ``ring.rank``; the CE of each microbatch is its rows' sum over
+    ``count``."""
+    S = sched.n_stages
+    if ring is None:
+        stages = _Stages(model, sched, micro, count, loss_scale, S, lambda s: s)
+        outs, kept = {}, []
+        for t, j, s in sorted(a for apps in sched.ranks for a in apps):
+            inp, out = stages.forward(j, s, outs.pop((j, s - 1), None))
+            if s < S - 1:
+                outs[j, s] = out
+            kept.append((j, s, inp, out))
+        grads: dict = {}
+        while kept:
+            j, s, inp, out = kept.pop()
+            g = stages.backward(inp, out, grads.pop((j, s), None))
+            if s > 0:
+                grads[j, s - 1] = g
+        return stages.ce
+
+    stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of)
+    b, seq = micro[0]["tokens"].shape
+    shape = (b, seq, model.cfg.d_model)
+
+    def buffer():
+        return torch.empty(shape, dtype=model.compute_dtype, device=model.device)
+
+    apps = sched.ranks[ring.rank]
+    kept = {}
+
+    def forward(item, x):
+        inp, out = stages.forward(*item, x)
+        if item[1] < S - 1 and (out.shape != shape or out.dtype != model.compute_dtype):
+            raise RuntimeError(f"stage {item[1]} hands over {out.dtype} {tuple(out.shape)}, "
+                               f"the next expects {model.compute_dtype} {shape}")
+        kept[item] = (inp, out)
+        return out
+
+    def backward(item, g):
+        return stages.backward(*kept.pop(item), g)
+
+    _walk([(t, (j, s), s > 0, s < S - 1) for t, j, s in apps],
+          forward, ring.prev, ring.next, ring.group, buffer)
+    last = sched.ticks - 1
+    _walk([(last - t, (j, s), s < S - 1, s > 0) for t, j, s in reversed(apps)],
+          backward, ring.next, ring.prev, ring.group, buffer)
+    return stages.ce

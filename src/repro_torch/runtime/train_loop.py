@@ -1,5 +1,5 @@
-"""The training step: the pp = 1 path of ``repro/runtime/train_loop.py``,
-on one device or over a ``torch.distributed`` mesh.
+"""The training step of ``repro/runtime/train_loop.py``, on one device or
+over a ``torch.distributed`` mesh.
 
 ``ParallelPlan`` carries the reference's plan fields.  What runs:
 
@@ -7,21 +7,24 @@ on one device or over a ``torch.distributed`` mesh.
     accumulation microbatches, ``precision`` (bf16 | fp16 | fp32 compute
     over fp32 master weights), the compute policy (``remat`` full | none,
     ``kernels``);
-  * over a ("pipe", "data", "model") mesh of pp = 1 x dp x tp ranks
+  * over a ("pipe", "data", "model") mesh of pp x dp x tp ranks
     (``launch/mesh.py:mesh_for_plan``): the same, plus data parallelism
     with ZeRO stage ``zero`` 0-3 (None is stage 1, as in the reference;
     ``core/memplan.py`` says what each stage shards and how), Megatron
     tensor parallelism of the dense family over the model group
     (``models/blocks.py``; vocab-parallel embedding and CE), and the
     sharding ``rules`` preset (``core/sharding.py:PRESETS``; ``tp_only``
-    at dp = 1).  The hybrid and rwkv families run dp and every stage, not
-    tp.
+    at dp = 1), and pipeline parallelism over the pipe group: the layer
+    stack split into ``pp x virtual_stages`` logical stages
+    (``runtime/pipeline.py``; GPipe at ``virtual_stages`` = 1, Megatron's
+    interleaved round-robin assignment above).  The hybrid and rwkv
+    families run dp, pp and every stage, not tp.
 
-What still raises, naming ROADMAP.md: ``pp`` > 1 and ``virtual_stages`` > 1
-(pipelining, the next slice), ``ep`` > 1, ``node`` > 1, ``qcomm`` and
-``overlap`` (the CommPlan), ``remat="selective"``, fp16 kernels, tp on the
-hybrid and rwkv families, and a batch rule other than the data axis at
-dp > 1 (``tp_only``).  The reference's ``rule_overrides`` are not ported.
+What still raises, naming ROADMAP.md: ``multi_segment``, ``ep`` > 1,
+``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan),
+``remat="selective"``, fp16 kernels, tp on the hybrid and rwkv families,
+and a batch rule other than the data axis at dp > 1 (``tp_only``).  The
+reference's ``rule_overrides`` are not ported.
 
 ``build_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, one step for both: an unsharded model (one device, no process
@@ -29,19 +32,29 @@ group) takes each collective below as the identity, a sharded one runs
 them over its mesh's groups, of one rank or more.  The global batch is
 split as the reference splits it: into ``gas`` microbatches, then each
 microbatch's rows over the data ranks.
-Each microbatch's scaled loss (this rank's loss sum over every data rank's
-token count) is backpropagated and the gradients sum in fp32: in the
-parameters' ``.grad`` (stages 0-1: all-reduced over the data group after
-the last microbatch), reduce-scattered into the rank's block after each
-microbatch (stage 2), or by the gathers' own reduce-scatters (stage 3 and
-any leaf whose spec names the data axis).  Then they are divided by
-``gas`` and unscaled in place, checked for finiteness (a flag all-reduced
-over every rank, so all ranks skip an overflowed fp16 step together),
-their global norm taken (squares summed over every rank, a replicated
-leaf counted once), AdamW applied in place to the rank's blocks (stages
-1-2 then all-gather the updated blocks into the parameters), and the loss
-scale updated.  The metrics are the reference's, the same on every rank:
-loss (the mean CE over the microbatches), moe_aux, moe_drop (0 for these
+At pp = 1 each microbatch's scaled loss (this rank's loss sum over every
+data rank's token count) is backpropagated and the gradients sum in fp32:
+in the parameters' ``.grad`` (stages 0-1: all-reduced over the data group
+after the last microbatch), reduce-scattered into the rank's block after
+each microbatch (stage 2), or by the gathers' own reduce-scatters (stage 3
+and any leaf whose spec names the data axis).  At pp > 1 the ``gas``
+microbatches run through the pipeline in one sweep, as the reference's
+``outer_gas = 1`` runs them: each microbatch's loss is its rows' CE sum
+over the token count of the whole global batch (``loss_pipelined``'s
+normalisation), the gradients sum in fp32 in ``.grad``, those of the
+leaves kept whole over the pipe group (embedding, final norm, lm_head, the
+zamba2 shared block) are summed over it (zeros where a rank did not use
+one), and then reduced over the data group as above, stage 2 by one
+reduce-scatter after the sweep.  Then the gradients are divided by ``gas``
+(pp = 1 only) and unscaled in place, checked for finiteness (a flag
+all-reduced over every rank, so all ranks skip an overflowed fp16 step
+together), their global norm taken (squares summed over every rank, a
+replicated leaf counted once: one kept whole over the pipe group on pipe
+rank 0), AdamW applied in place to the rank's blocks (stages 1-2 then
+all-gather the updated blocks into the parameters), and the loss scale
+updated.  The metrics are the reference's, the same on every rank: loss
+(the mean CE over the microbatches; at pp > 1 the CE of the global batch,
+the same when every token counts), moe_aux, moe_drop (0 for these
 families), grad_norm, grads_finite and loss_scale, as 0-d tensors on the
 device.
 """
@@ -57,24 +70,27 @@ import torch.distributed as dist
 from repro_torch.core import memplan as mpl
 from repro_torch.core import precision as prec
 from repro_torch.core import sharding as shd
+from repro_torch.core import stage_program as sp
 from repro_torch.core.compute import DEFAULT_POLICY, ComputePolicy
+from repro_torch.core.pipeline import schedule
 from repro_torch.models.common import ModelConfig, flatten_specs
-from repro_torch.models.model import Model, param_specs
+from repro_torch.models.model import Model, param_specs, stage_units
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
+from repro_torch.runtime import pipeline
 from repro_torch.runtime.collectives import (
     MeshGroups, all_gather_dim, all_reduce_, reduce_scatter_dim,
 )
 
-# field -> the only value the port runs (pipelining, expert parallelism and
-# the CommPlan come with later slices)
-_NOT_PORTED = {"pp": 1, "virtual_stages": 1, "ep": 1, "node": 1, "qcomm": "none",
-               "overlap": False}
+# field -> the only value the port runs (expert parallelism and the
+# CommPlan come with later slices; multi_segment works around an XLA
+# miscompile the port does not have)
+_NOT_PORTED = {"ep": 1, "node": 1, "qcomm": "none", "overlap": False,
+               "multi_segment": False}
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """One point of the paper's plan space; the port runs its pp = 1 corner
-    (see the module docstring)."""
+    """One point of the paper's plan space (see the module docstring)."""
     dp: int = 1
     tp: int = 1
     pp: int = 1
@@ -89,6 +105,7 @@ class ParallelPlan:
     precision: str = "bf16"         # bf16 | fp16 | fp32
     remat: str = "full"             # full | none (selective: ROADMAP)
     kernels: bool = False           # hand-written CUDA kernels
+    multi_segment: bool = False     # the reference's hybrid lowering: refused
 
     def __post_init__(self):
         for name in ("dp", "tp", "pp", "virtual_stages", "ep", "node", "gas"):
@@ -98,7 +115,7 @@ class ParallelPlan:
             if getattr(self, name) != only:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet (see ROADMAP.md, "
-                    "Queue 1); the port runs pp = 1 with dp, tp and ZeRO 0-3")
+                    "Queue 1); the port runs dp, tp, pp with virtual stages and ZeRO 0-3")
         object.__setattr__(self, "zero", mpl.resolve_stage(self.zero))
         if self.rules not in shd.PRESETS:
             raise ValueError(f"rules must be one of {sorted(shd.PRESETS)}, got {self.rules!r}")
@@ -120,6 +137,11 @@ class ParallelPlan:
     def n_devices(self) -> int:
         return self.dp * self.tp * self.pp
 
+    @property
+    def n_stages(self) -> int:
+        """Logical pipeline depth (interleaving included)."""
+        return self.pp * self.virtual_stages
+
     def compute_policy(self) -> ComputePolicy:
         return ComputePolicy(remat=self.remat, kernels=self.kernels)
 
@@ -127,7 +149,8 @@ class ParallelPlan:
         return mpl.MemoryPlan(zero=self.zero)
 
     def sharding_rules(self) -> shd.ShardingRules:
-        return shd.PRESETS[self.rules](data_axis="data", model_axis="model")
+        return shd.PRESETS[self.rules](data_axis="data", model_axis="model",
+                                       pipe_axis="pipe" if self.pp > 1 else None)
 
     def mesh_sizes(self) -> dict:
         return {"pipe": self.pp, "data": self.dp, "model": self.tp}
@@ -139,7 +162,14 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     {leaf: spec}) under the plan's rules and ZeRO stage: the port's
     counterpart of the reference's ``plan_state_shardings``.  The specs
     keep a mesh axis of size 1 (``unit_axes``).  The hybrid and rwkv
-    families run replicated over the model group, and refuse tp > 1."""
+    families run replicated over the model group, and refuse tp > 1.  At
+    pp > 1 the layer stack is on the pipe axis, and its units must split
+    into the plan's logical stages (the reference's ``split_stages``
+    error otherwise)."""
+    if plan.pp > 1:
+        name, n = stage_units(cfg)
+        if n % plan.n_stages:
+            raise sp.units_error(name, n, plan.n_stages)
     rules = plan.sharding_rules()
     if cfg.family != "dense":
         if plan.tp > 1:
@@ -183,7 +213,8 @@ def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype =
     _, psh, _, _ = plan_state_shardings(cfg, plan)
     device = (torch.device("cuda", torch.cuda.current_device())
               if mesh.device_type == "cuda" else torch.device("cpu"))
-    return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups)
+    return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups,
+                 virtual_stages=plan.virtual_stages if plan.pp > 1 else 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,11 +224,12 @@ class _Leaf:
     update_dim: int | None  # stage >= 1: the dim of its block of the update
     grad_dim: int | None   # stage 2: the dim its gradient is reduce-scattered on
     counted: bool          # its block enters this rank's grad-norm sum
+    on_pipe: bool          # split over the pipe ranks (the layer stack at pp > 1)
 
 
 def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
     if model.shardings is None:        # one device: whole leaves, no group
-        return {k: _Leaf(False, None, None, True) for k, _ in model.named_parameters()}
+        return {k: _Leaf(False, None, None, True, False) for k, _ in model.named_parameters()}
     _, psh, opt_sh, grad_sh = plan_state_shardings(model.cfg, plan)
     if psh != model.shardings:
         raise ValueError("the model is not sharded as the plan asks "
@@ -213,7 +245,9 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
         block = shd.spec_axes(opt_sh[k])
         out[k] = _Leaf(stored_data="data" in shd.spec_axes(spec),
                        update_dim=added(opt_sh[k], spec), grad_dim=added(grad_sh[k], spec),
-                       counted=all(coord[a] == 0 for a in ("data", "model") if a not in block))
+                       counted=all(coord[a] == 0 for a in ("pipe", "data", "model")
+                                   if a not in block),
+                       on_pipe="pipe" in shd.spec_axes(spec))
     return out
 
 
@@ -283,6 +317,39 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
     rank = 0 if mesh is None else mesh.coord["data"]
     leaves = _leaves(model, plan)
     device = model.device
+    if plan.pp > 1:            # the gas microbatches are the pipeline's
+        sched = schedule(plan.pp, gas, plan.virtual_stages)
+        ring = pipeline.Ring(mesh.groups["pipe"], device)
+    # the gradient sum of the pp = 1 loop over gas microbatches is divided
+    # by gas; the pipelined loss is already the global batch's mean
+    div = gas if plan.pp == 1 else 1
+
+    def backward_pp1(params: dict, micro: list[dict], ls: dict, gsum: dict) -> torch.Tensor:
+        ce_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for i, mb in enumerate(micro):
+            loss, metrics = model.loss(mb)
+            prec.scale_loss(ls, loss).backward()
+            ce_sum += metrics["ce"].detach()
+            for k, p in params.items():         # stage 2: into the rank's block
+                dim = leaves[k].grad_dim
+                if dim is not None:
+                    part = reduce_scatter_dim(p.grad, dim, data)
+                    gsum[k] = part if i == 0 else gsum[k].add_(part)
+                    p.grad = None
+        return _sum(ce_sum, data) / gas
+
+    def backward_pipelined(params: dict, micro: list[dict], ls: dict, gsum: dict,
+                           count: torch.Tensor) -> torch.Tensor:
+        ce_sum = pipeline.sweep(model, sched, micro, count, ls, ring)
+        for k, p in params.items():
+            if not leaves[k].on_pipe:           # every pipe rank joins, zeros if unused
+                p.grad = _sum(torch.zeros_like(p) if p.grad is None else p.grad,
+                              mesh.groups["pipe"])
+            dim = leaves[k].grad_dim
+            if dim is not None:                 # stage 2: once, after the sweep
+                gsum[k] = reduce_scatter_dim(p.grad, dim, data)
+                p.grad = None
+        return _sum(_sum(ce_sum, data), mesh.groups["pipe"])
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
@@ -292,24 +359,19 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         if B % (gas * dp):
             raise ValueError(f"global batch {B} is not a multiple of gas x dp = {gas * dp}")
         b = B // gas // dp
+        micro = [{k: v[i * B // gas + rank * b:i * B // gas + (rank + 1) * b]
+                  for k, v in batch.items()} for i in range(gas)]
         for p in params.values():
             p.grad = None
         gsum: dict[str, torch.Tensor] = {}
-        ce_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for i in range(gas):
-            lo = i * B // gas + rank * b
-            loss, metrics = model.loss({k: v[lo:lo + b] for k, v in batch.items()})
-            prec.scale_loss(ls, loss).backward()
-            ce_sum += metrics["ce"].detach()
-            for k, p in params.items():         # stage 2: into the rank's block
-                dim = leaves[k].grad_dim
-                if dim is not None:
-                    part = reduce_scatter_dim(p.grad, dim, data)
-                    gsum[k] = part if i == 0 else gsum[k].add_(part)
-                    p.grad = None
+        if plan.pp == 1:
+            loss = backward_pp1(params, micro, ls, gsum)
+        else:
+            loss = backward_pipelined(params, micro, ls, gsum,
+                                      pipeline.loss_count(batch, device))
         inv = 1.0 / ls["scale"]
         grads = {}
-        for k, p in params.items():    # in place: (sum / gas) unscaled, fp32
+        for k, p in params.items():    # in place: (sum / div) unscaled, fp32
             leaf = leaves[k]
             g = gsum.get(k)
             if g is None:
@@ -317,7 +379,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
                 if not leaf.stored_data:
                     _sum(g, data)
                 g = _block(g, leaf.update_dim, mesh)
-            grads[k] = g.div_(gas).mul_(inv)
+            grads[k] = g.div_(div).mul_(inv)
         finite = _sum(prec.all_finite(grads.values()).to(device, torch.float32),
                       world, dist.ReduceOp.MIN) > 0
         grad_norm = global_norm([g for k, g in grads.items() if leaves[k].counted],
@@ -337,7 +399,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         for p in params.values():
             p.grad = None
         zero = torch.zeros((), dtype=torch.float32, device=device)
-        return state, {"loss": _sum(ce_sum, data) / gas, "moe_aux": zero, "moe_drop": zero,
+        return state, {"loss": loss, "moe_aux": zero, "moe_drop": zero,
                        "grad_norm": grad_norm, "grads_finite": finite,
                        "loss_scale": state["loss_scale"]["scale"]}
 

@@ -79,7 +79,7 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             cfg = config(job["arch"], job["overrides"])
             mesh = mesh_for_plan(plan, torch.device("cpu"))
             model = build_model(cfg, plan, mesh)
-            coord = {a: model.mesh.coord[a] for a in ("data", "model")}
+            coord = {a: model.mesh.coord[a] for a in ("pipe", "data", "model")}
             model.load_state_dict(from_jax_params(
                 shard_params(weights[job["weights"]], cfg, plan, coord), model))
             opt = AdamWConfig(lr=LR)

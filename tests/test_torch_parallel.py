@@ -85,7 +85,7 @@ def test_dp2_state_is_sharded_by_stage(runs, zero):
     assert stored == (whole // 2 if zero == 3 else whole)
     assert moments == (whole if zero == 0 else whole // 2)
     plan = ParallelPlan(**_plan(dp=2, zero=zero))
-    gathered = gather_params({(r["coord"]["data"], r["coord"]["model"]): r["blocks"]
+    gathered = gather_params({(0, r["coord"]["data"], r["coord"]["model"]): r["blocks"]
                               for r in by_rank.values()}, cfg, plan)
     _, after = runs["single"][False]
     # Adam's normalised step turns fp32 noise in a near-zero gradient into

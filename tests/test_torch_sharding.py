@@ -2,8 +2,9 @@
 accounting against the JAX package's originals on the same shapes: every
 leaf of yi-6b and gpt-1.4b reduced under the four presets at dp in {2, 4}
 x tp in {1, 2, 4}; zero_divisors and Table II's bytes per parameter; and
-each rank's train-state bytes at dp = 2 x tp = 2, ZeRO 0-3, against the
-reference's ``train_state_bytes`` on 4 host devices."""
+each rank's train-state bytes at dp = 2 x tp = 2 and at pp = 2 x dp = 2
+(the layer stack on the pipe axis), ZeRO 0-3, against the reference's
+``train_state_bytes`` on 4 host devices."""
 import json
 import types
 
@@ -72,17 +73,29 @@ cfg = get_config("yi-6b").reduced(n_layers=4, d_model=128, n_heads=4, n_kv_heads
                                   d_ff=256, vocab_size=256, head_dim=32)
 out = {}
 for z in (0, 1, 2, 3):
-    plan = ParallelPlan(dp=2, tp=2, zero=z, precision="fp32")
+    plan = ParallelPlan(%s, zero=z, precision="fp32")
     out[z] = train_state_bytes(Model(cfg, jnp.float32), mesh_for_plan(plan), plan)
 print("BYTES", json.dumps(out))
 '''
 
 
-def test_train_state_bytes_equal_reference(multidev):
-    out = multidev(STATE_BYTES_CODE, n_devices=4)
+def _state_bytes_match(multidev, mesh: dict):
+    out = multidev(STATE_BYTES_CODE % ", ".join(f"{k}={v}" for k, v in mesh.items()),
+                   n_devices=4)
     ref = json.loads(out.split("BYTES", 1)[1])
     cfg = get_config("yi-6b").reduced(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2,
                                       d_ff=256, vocab_size=256, head_dim=32)
     for z in memplan.STAGES:
-        ours = train_state_bytes(cfg, ParallelPlan(dp=2, tp=2, zero=z, precision="fp32"))
+        ours = train_state_bytes(cfg, ParallelPlan(**mesh, zero=z, precision="fp32"))
         assert ours == {k: int(v) for k, v in ref[str(z)].items()}, z
+
+
+def test_train_state_bytes_equal_reference(multidev):
+    _state_bytes_match(multidev, dict(dp=2, tp=2))
+
+
+def test_pipelined_train_state_bytes_equal_reference(multidev):
+    """pp = 2 x dp = 2: each pipe rank stores half of the layer stack and
+    the embedding, final norm and lm_head whole; ZeRO's data axis lands
+    past the layer dim (the reference's first free dim there too)."""
+    _state_bytes_match(multidev, dict(pp=2, dp=2))

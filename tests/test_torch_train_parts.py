@@ -130,20 +130,23 @@ def test_model_loss_and_logits_match_jax(kernels):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [("pp", 2), ("virtual_stages", 2), ("ep", 2),
-                                         ("node", 2), ("qcomm", "gather"), ("overlap", True),
-                                         ("remat", "selective")])
+@pytest.mark.parametrize("field,value", [("ep", 2), ("node", 2), ("qcomm", "gather"),
+                                         ("overlap", True), ("remat", "selective"),
+                                         ("multi_segment", True)])
 def test_plan_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParallelPlan(**{field: value})
 
 
-@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2), ("zero", 1)])
+@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2), ("zero", 1), ("pp", 2),
+                                         ("virtual_stages", 2)])
 def test_plan_accepts_the_parallel_fields(field, value):
-    """dp, tp and the ZeRO stage are the sharded executor's: accepted and
-    resolved as the reference resolves them (zero=None is stage 1)."""
+    """dp, tp, pp, virtual_stages and the ZeRO stage are the sharded
+    executor's: accepted and resolved as the reference resolves them
+    (zero=None is stage 1; at pp > 1 the layer stack goes on "pipe";
+    virtual_stages at pp = 1 is accepted and has no effect)."""
     ours, ref = ParallelPlan(**{field: value}), JaxPlan(**{field: value})
-    for name in ("dp", "tp", "zero", "n_devices"):
+    for name in ("dp", "tp", "pp", "virtual_stages", "zero", "n_devices", "n_stages"):
         assert getattr(ours, name) == getattr(ref, name)
     assert ParallelPlan().zero == JaxPlan().zero == 1
     assert dict(ours.sharding_rules().rules) == dict(ref.sharding_rules().rules)
