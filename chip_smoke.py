@@ -3252,25 +3252,39 @@ def _batches(vocab: int, seq_len: int, global_batch: int, n: int) -> list:
     return [next(it) for _ in range(n)]
 
 
-def _run_steps(model, plan, batches, seed: int, mesh=None) -> list[dict]:
+def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[dict]:
     """Fresh train state from ``seed``, then one step per batch; per step its
     metrics and synchronized wall time.  With ``mesh``, ``model`` is the
-    rank's sharded model (it draws every leaf whole from the same seed)."""
+    rank's sharded model (it draws every leaf whole from the same seed).
+    With ``tele`` (a ``core/telemetry.py:Telemetry``) each step is also a
+    telemetry record, of which ``telemetry`` keeps the MFU, the drift, the
+    peak memory (since the caller's reset; every rank's, gathered, under a
+    mesh), the collective bytes and, at pp > 1, the measured pipeline."""
+    from repro_torch.launch.train import step_extras
     from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import collectives
     from repro_torch.runtime.train_loop import build_train_step, init_train_state
 
     opt = AdamWConfig(lr=TRAIN_LR)
     state = init_train_state(model, opt, plan,
                              torch.Generator(device=model.device).manual_seed(seed))
     step = build_train_step(model, opt, plan, mesh)
+    world = 1 if mesh is None else mesh.size()
     out = []
-    for b in batches:
+    for i, b in enumerate(batches):
+        collectives.reset_comm_bytes()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, b)
         torch.cuda.synchronize()
         out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                     "step_s": time.perf_counter() - t0})
+        if tele is not None:
+            rec = tele.step(i + 1, out[-1]["step_s"], m,
+                            **step_extras(plan, model.device, world, mesh is not None))
+            out[-1]["telemetry"] = {k: rec[k] for k in (
+                "mfu", "tokens_per_s", "peak_bytes", "comm_bytes", "pipeline", "drift")
+                if k in rec}
     del state
     return out
 
@@ -3282,20 +3296,23 @@ def train_config(arch: str):
     return dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch])
 
 
-def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"]) -> dict[str, int]:
+def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
+                            remat: str = "full") -> dict[str, int]:
     """Launches of each kernel in ``steps`` steps of TRAIN (at ``gas``
-    microbatches) under remat full:
+    microbatches) under remat full or selective:
     per layer and microbatch each forward kernel runs twice (the forward and
-    its recompute) and each backward kernel once; the final norm and the CE
-    run once per microbatch.  For hybrid the attention layers are the shared
+    its recompute: selective saves no kernel's output) and each backward
+    kernel once; the final norm and the CE run once per microbatch.  Under
+    remat none each forward kernel runs once.  For hybrid the attention layers are the shared
     block's applications, each mamba layer runs one norm and one SSD scan
     (whose backward is plain torch), and its gated norm is plain.  rwkv has
     no attention and no MLP kernel: each layer runs one kernel norm
     (time-mix's; channel-mix's and ln_x are plain) and one wkv scan (whose
     backward is plain torch)."""
     norm = "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
+    fwd = 1 if remat == "none" else 2
     if cfg.family == "rwkv":
-        per_mb = {norm: 2 * cfg.n_layers + 1, "wkv_scan": 2 * cfg.n_layers,
+        per_mb = {norm: fwd * cfg.n_layers + 1, "wkv_scan": fwd * cfg.n_layers,
                   "cross_entropy": 1}
         return {k: n * gas * steps for k, n in per_mb.items()}
     mlp = "swiglu" if cfg.act == "swiglu" else "gelu_mlp"
@@ -3303,17 +3320,17 @@ def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"]) -> dict[st
     hybrid = cfg.family == "hybrid"
     n_attn = cfg.n_layers // cfg.hybrid_attn_every if hybrid else cfg.n_layers
     n_mamba = cfg.n_layers if hybrid else 0
-    per_mb = {norm: 2 * (norms_per_layer * n_attn + n_mamba) + 1, mlp: 2 * n_attn,
-              "flash_attention": 2 * n_attn, "flash_attention_bwd_dq": n_attn,
+    per_mb = {norm: fwd * (norms_per_layer * n_attn + n_mamba) + 1, mlp: fwd * n_attn,
+              "flash_attention": fwd * n_attn, "flash_attention_bwd_dq": n_attn,
               "flash_attention_bwd_dkv": n_attn, "cross_entropy": 1}
     if hybrid:
-        per_mb["ssd_scan"] = 2 * n_mamba
+        per_mb["ssd_scan"] = fwd * n_mamba
     return {k: n * gas * steps for k, n in per_mb.items()}
 
 
 def phase_train(card: str, arch: str) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.core import costmodel
+    from repro_torch.core import costmodel, telemetry
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamWConfig
@@ -3345,15 +3362,18 @@ def phase_train(card: str, arch: str) -> dict:
     model = Model(cfg, torch.float32, device="cuda")
     batches = _batches(cfg.vocab_size, S, gb, steps)
     plan = ParallelPlan(gas=gas, precision="bf16", remat="full", kernels=True)
+    # the drift is a reading here, not a limit: no warning
+    tele = telemetry.Telemetry(cfg, plan, gb, S, machine="h100",
+                               drift_threshold=float("inf"))
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    on = _run_steps(model, plan, batches, 0)
+    on = _run_steps(model, plan, batches, 0, tele=tele)
     launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[arch]}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    flops = costmodel.train_step_flops(cfg, gb, S).total
+    flops = tele.flops.total
     for r in on:
         r["tokens_per_s"] = gb * S / r["step_s"]
-        r["mfu"] = costmodel.mfu(flops, r["step_s"], costmodel.H100.peak_flops)
+        r["mfu"] = r["telemetry"]["mfu"]
     expected = expected_train_launches(cfg, steps)
     if launches != expected:
         raise AssertionError(f"{arch} train step launches {launches}, expected {expected}")
@@ -3375,7 +3395,9 @@ def phase_train(card: str, arch: str) -> dict:
            "remat": "full", "kernels": True, "global_batch": gb, "gas": gas,
            "seq_len": S, "steps": on, "median_step_s": med,
            "median_tokens_per_s": gb * S / med,
-           "median_mfu": costmodel.mfu(flops, med, costmodel.H100.peak_flops),
+           "median_mfu": telemetry.mfu(flops, med, 1, costmodel.H100.peak_flops),
+           "predicted_step_s": tele.prediction.step_time_s,
+           "median_drift": med / tele.prediction.step_time_s,
            "flops_per_step": flops, "peak_mem_gb": peak, "launches": launches,
            "kernels_off_steps": off, "step0_loss_rel_diff": rel0["loss"],
            "step0_grad_norm_rel_diff": rel0["grad_norm"],
@@ -3393,6 +3415,174 @@ def phase_train(card: str, arch: str) -> dict:
 # phase 4's kernels-on step 0 of each arch (loss, grad_norm), which the
 # multi-rank branch of phase 5 holds its yi-6b step 0 to
 TRAIN_STEP0: dict = {}
+
+# the cuBLAS bf16 GEMM whose rate over the bf16 peak is costmodel.H100's
+# matmul_eff (the costmodel's big-GEMM efficiency)
+GEMM_N = 8192
+
+
+def phase_gemm(card: str) -> None:
+    """One cuBLAS bf16 GEMM of GEMM_N^3 (torch.mm), 20 timed calls after 3
+    warm ones (CUDA events): its median rate over the bf16 peak is the
+    reading behind ``costmodel.H100.matmul_eff``."""
+    from repro_torch.core import costmodel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.randn((GEMM_N, GEMM_N), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    for _ in range(3):
+        torch.mm(a, b)
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.mm(a, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    med = float(np.median(times))
+    eff = 2.0 * GEMM_N ** 3 / med / PEAK_FLOPS[torch.bfloat16]
+    emit({"phase": "gemm", "n": GEMM_N, "dtype": "bf16", "median_s": med,
+          "min_s": min(times), "tflops": 2.0 * GEMM_N ** 3 / med / 1e12,
+          "matmul_eff": eff, "costmodel_matmul_eff": costmodel.H100.matmul_eff,
+          "card": card})
+
+
+# phase "remat": the archs phase 4 trains at remat full, at remat selective
+# and none, on phase 4's weights (seed 0) and first REMAT_STEPS batches;
+# step 0 is held to phase 4's at PARALLEL_RTOL (the same arithmetic:
+# selective keeps products the recompute would give bit for bit)
+REMAT_ARCHS, REMAT_MODES, REMAT_STEPS = ("gpt-1.4b", "yi-6b"), ("selective", "none"), 3
+
+
+def kept_for_backward(model, plan, batch: dict) -> dict:
+    """One microbatch's loss and gradient through ``model`` under ``plan``'s
+    compute policy: the bytes its forward leaves allocated for the backward
+    (``kept_gb``) and the peak above the start over the forward and the
+    backward (``peak_gb``).  The step's own peak is set by the optimizer's
+    update and the CE, where no activation is alive, so it does not show
+    what a remat mode keeps."""
+    from repro_torch.core import precision as prec
+
+    view = model.with_policy(plan.compute_policy(),
+                             prec.policy_from_name(plan.precision).compute_dtype)
+    tokens = torch.from_numpy(np.asarray(batch["tokens"])).to(model.device)
+    micro = {"tokens": tokens[:tokens.shape[0] // plan.gas]}
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    loss, _ = view.loss(micro)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - start
+    loss.backward()
+    torch.cuda.synchronize()
+    out = {"kept_gb": kept / 1e9, "peak_gb": (torch.cuda.max_memory_allocated() - start) / 1e9}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_remat(card: str, arch: str) -> dict:
+    """Selective and no recompute on ``arch`` at TRAIN's batch, bf16 over
+    fp32 masters, kernels on: step 0 against phase 4's remat-full step 0,
+    every kernel's launches counted exactly (selective as full: it saves no
+    kernel's output; none: each forward kernel once per microbatch), step
+    time, peak memory and MFU from ``Telemetry`` records; and what each
+    mode, full too, keeps for one microbatch's backward
+    (:func:`kept_for_backward`), which must grow from full to selective to
+    none."""
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = train_config(arch)
+    gb, gas, S = TRAIN["global_batch"], TRAIN["gas"], TRAIN["seq_len"]
+    batches = _batches(cfg.vocab_size, S, gb, REMAT_STEPS)
+    model = Model(cfg, torch.float32, device="cuda")
+    model.init(torch.Generator(device=model.device).manual_seed(0))
+    counts, failed = {}, []
+    kept = {r: kept_for_backward(model, ParallelPlan(gas=gas, precision="bf16", remat=r,
+                                                     kernels=True), batches[0])
+            for r in ("full",) + REMAT_MODES}
+    emit({"phase": "remat_kept", "arch": cfg.name, "layers": cfg.n_layers,
+          "microbatch": [gb // gas, S], "kept": kept, "card": card})
+    if not kept["full"]["kept_gb"] < kept["selective"]["kept_gb"] < kept["none"]["kept_gb"]:
+        failed.append(f"bytes kept for the backward not full < selective < none: {kept}")
+    for remat in REMAT_MODES:
+        plan = ParallelPlan(gas=gas, precision="bf16", remat=remat, kernels=True)
+        # the drift is a reading here, not a limit: no warning
+        tele = telemetry.Telemetry(cfg, plan, gb, S, machine="h100",
+                                   drift_threshold=float("inf"))
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        steps = _run_steps(model, plan, batches, 0, tele=tele)
+        launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[arch]}
+        counts[f"{arch} remat {remat}"] = launches
+        expected = expected_train_launches(cfg, REMAT_STEPS, remat=remat)
+        rel0 = _rel(steps[0], TRAIN_STEP0[arch])
+        med = float(np.median([r["step_s"] for r in steps[1:]]))
+        emit({"phase": "remat", "arch": cfg.name, "layers": cfg.n_layers, "remat": remat,
+              "precision": "bf16 compute, fp32 master", "kernels": True,
+              "global_batch": gb, "gas": gas, "seq_len": S, "steps": steps,
+              "median_step_s": med,
+              "median_mfu": telemetry.mfu(tele.flops.total, med, 1, tele.machine.peak_flops),
+              "median_drift": med / tele.prediction.step_time_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "full_step0": TRAIN_STEP0[arch], "step0_rel_diff": rel0, "rtol": PARALLEL_RTOL,
+              "launches": launches, "expected_launches": expected, "card": card})
+        if launches != expected:
+            failed.append(f"{remat} launches {launches}, expected {expected}")
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps) or any(
+                v > PARALLEL_RTOL for v in rel0.values()):
+            failed.append(f"{remat} step 0 vs remat full: {rel0}")
+    del model
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{arch} phase remat: {failed}")
+    return counts
+
+
+# the train launcher on the card: its entry point with telemetry output
+ENTRY_ARCH, ENTRY_STEPS = "gpt-1.4b", 2
+
+
+def phase_entry(card: str) -> dict:
+    """``launch/train.py``'s ``main`` on ENTRY_ARCH at full width and depth,
+    TRAIN's batch, bf16, kernels, remat selective, for ENTRY_STEPS steps with
+    ``--log-jsonl``: its file passes ``validate_jsonl`` and its launches are
+    counted exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+
+    path = ROOT / "build" / "train_telemetry.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    recs = launcher.main(["--arch", ENTRY_ARCH, "--steps", str(ENTRY_STEPS),
+                          "--global-batch", str(TRAIN["global_batch"]),
+                          "--gas", str(TRAIN["gas"]), "--seq-len", str(TRAIN["seq_len"]),
+                          "--precision", "bf16", "--kernels", "--remat", "selective",
+                          "--log-every", "1", "--log-jsonl", str(path)])
+    launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[ENTRY_ARCH]}
+    records = telemetry.validate_jsonl(str(path))
+    cfg = get_config(ENTRY_ARCH)
+    expected = expected_train_launches(cfg, ENTRY_STEPS, remat="selective")
+    steps = [r for r in records if r["kind"] == "step"]
+    emit({"phase": "entry", "arch": ENTRY_ARCH, "argv": "--remat selective --kernels "
+          "--precision bf16 --log-jsonl", "returned": recs,
+          "records": [{k: r.get(k) for k in ("kind", "step", "wall_s", "mfu", "loss",
+                                             "peak_bytes", "compile_s", "drift")}
+                      for r in records],
+          "launches": launches, "expected_launches": expected, "card": card})
+    if (launches != expected or len(steps) != ENTRY_STEPS
+            or not all(np.isfinite(r["loss"]) and r.get("peak_bytes") for r in steps)):
+        raise AssertionError(f"train launcher on the card: launches {launches} "
+                             f"(expected {expected}), step records {steps}")
+    return launches
 # phase 5's single-device gpt-1.4b step 0, which the multi-rank branch of
 # phase 6 holds its pipelined gpt-1.4b step 0 to
 PARALLEL_STEP0: dict = {}
@@ -3419,9 +3609,13 @@ def _process_group_file(tag: str) -> str:
     return f"file://{path}"
 
 
-def _sharded_steps(cfg, plan, batches, seed: int) -> tuple[list[dict], float]:
+def _sharded_steps(cfg, plan, batches, seed: int,
+                   tele: bool = False) -> tuple[list[dict], float]:
     """The sharded executor over the default group's plan mesh from
-    ``seed``: its per-step records and this rank's peak memory in GB."""
+    ``seed``: its per-step records (with ``tele``, telemetry records too:
+    every rank's peak memory, at pp > 1 the measured idle share) and this rank's
+    peak memory in GB."""
+    from repro_torch.core import telemetry
     from repro_torch.launch.mesh import mesh_for_plan
     from repro_torch.runtime.train_loop import build_model
 
@@ -3429,7 +3623,10 @@ def _sharded_steps(cfg, plan, batches, seed: int) -> tuple[list[dict], float]:
     mesh = mesh_for_plan(plan, device)
     model = build_model(cfg, plan, mesh)
     torch.cuda.reset_peak_memory_stats()
-    out = _run_steps(model, plan, batches, seed, mesh)
+    gb, S = batches[0]["tokens"].shape
+    rec = (telemetry.Telemetry(cfg, plan, gb, S, machine="h100", drift_threshold=float("inf"))
+           if tele else None)
+    out = _run_steps(model, plan, batches, seed, mesh, rec)
     peak = torch.cuda.max_memory_allocated() / 1e9
     del model
     torch.cuda.empty_cache()
@@ -3446,7 +3643,7 @@ def phase_parallel(card: str) -> dict:
     host has 2 or more cards, the multi-rank branch."""
     import torch.distributed as dist
 
-    from repro_torch.core import costmodel
+    from repro_torch.core import costmodel, telemetry
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import init_distributed
     from repro_torch.models.model import Model
@@ -3476,7 +3673,7 @@ def phase_parallel(card: str) -> dict:
           "plan": {"dp": 1, "tp": 1, "zero": PARALLEL_ZERO, **kw}, "backend": "nccl",
           "ranks": 1, "global_batch": gb, "seq_len": S, "steps": steps,
           "median_step_s": float(np.median([r["step_s"] for r in steps[1:]])),
-          "mfu_by_step": [costmodel.mfu(flops, r["step_s"], costmodel.H100.peak_flops)
+          "mfu_by_step": [telemetry.mfu(flops, r["step_s"], 1, costmodel.H100.peak_flops)
                           for r in steps],
           "peak_mem_gb": peak, "single_device_step0": single[0],
           "single_device_peak_mem_gb": single_peak, "step0_rel_diff": rel0,
@@ -3539,7 +3736,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | Non
     gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
     cfg = train_config("yi-6b")
     steps, peak = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw),
-                                 _batches(cfg.vocab_size, S, gb, 1), 0)
+                                 _batches(cfg.vocab_size, S, gb, 1), 0, tele=True)
     rel0 = None if yi_step0 is None else _rel(steps[0], yi_step0)
     emit({"phase": "parallel_ranks", "rank": rank, "arch": cfg.name, "layers": cfg.n_layers,
           "dp": world, "zero": 3, "step0": steps[0], "train_step0": yi_step0,
@@ -3549,7 +3746,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | Non
     if world == 4:
         cfg = get_config("yi-6b")
         steps, peak = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw),
-                                     _batches(cfg.vocab_size, S, gb, 3), 0)
+                                     _batches(cfg.vocab_size, S, gb, 3), 0, tele=True)
         emit({"phase": "parallel_ranks", "rank": rank, "arch": cfg.name,
               "layers": cfg.n_layers, "dp": world, "zero": 3, "steps": steps,
               "peak_mem_gb": peak})
@@ -3596,9 +3793,11 @@ def phase_pipeline(card: str) -> dict:
     """PIPELINE_ARCH's step 0 through the pipeline executor's stage split on
     one card against the single-device step on the same weights and batch;
     then, where the host has 2 or more cards, the multi-rank branch."""
+    from repro_torch.core import telemetry
     from repro_torch.core.bubble import bubble_fraction
     from repro_torch.core.pipeline import schedule, spmd_idle_fraction
     from repro_torch.kernels import ops
+    from repro_torch.runtime import pipeline
     from repro_torch.models.model import Model
     from repro_torch.runtime.train_loop import ParallelPlan
 
@@ -3619,6 +3818,10 @@ def phase_pipeline(card: str) -> dict:
         r = _local_sweep(model, plan, batch, p, v)
         got = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[PIPELINE_ARCH]}
         sched = schedule(p, PIPELINE_GAS, v)
+        # the sweep's measured times (one process runs every stage in turn:
+        # its idle share is the gaps between applications, not a bubble)
+        r["measured"] = telemetry.pipeline_fields(p, PIPELINE_GAS, v,
+                                                  [pipeline.walk_reading()])
         r.update(pipe_ranks=p, virtual_stages=v, stages=p * v,
                  layers_per_stage=cfg.n_layers // (p * v), ticks=sched.ticks,
                  spmd_idle_fraction=spmd_idle_fraction(p, PIPELINE_GAS, v),
@@ -3646,6 +3849,11 @@ def phase_pipeline(card: str) -> dict:
                                  f"{r['virtual_stages']}) vs single device: {r['rel_diff']}")
         if r["launches"] != expected:
             raise AssertionError(f"pipelined launches {r['launches']}, expected {expected}")
+        m = r["measured"]
+        if m["applications"] != r["stages"] * PIPELINE_GAS or not (
+                0 < m["busy_s"][0] <= m["wall_s"][0]):
+            raise AssertionError(f"the sweep's measurement {m}: expected "
+                                 f"{r['stages'] * PIPELINE_GAS} applications inside its time")
     world = min(torch.cuda.device_count(), 4)
     if world >= 2:
         import torch.multiprocessing as mp
@@ -3706,7 +3914,7 @@ def _pipeline_rank(rank: int, world: int, init_method: str, gpt_step0: dict | No
     cfg = train_config(PIPELINE_ARCH)
     for v in (1, 2):
         steps, peak = _sharded_steps(cfg, ParallelPlan(pp=world, virtual_stages=v, **kw),
-                                     _batches(cfg.vocab_size, S, gb, 1), 0)
+                                     _batches(cfg.vocab_size, S, gb, 1), 0, tele=True)
         rel0 = None if gpt_step0 is None else _rel(steps[0], gpt_step0)
         emit({"phase": "pipeline_ranks", "rank": rank, "arch": cfg.name,
               "layers": cfg.n_layers, "pp": world, "virtual_stages": v, "gas": kw["gas"],
@@ -3720,7 +3928,8 @@ def _pipeline_rank(rank: int, world: int, init_method: str, gpt_step0: dict | No
         batches = _batches(cfg.vocab_size, S, gb, 3)
         dp, _ = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw), batches[:1], 0)
         steps, peak = _sharded_steps(cfg, ParallelPlan(pp=world, zero=1,
-                                                       **{**kw, "gas": 8}), batches, 0)
+                                                       **{**kw, "gas": 8}), batches, 0,
+                                     tele=True)
         rel0 = _rel(steps[0], dp[0])
         emit({"phase": "pipeline_ranks", "rank": rank, "arch": cfg.name,
               "layers": cfg.n_layers, "pp": world, "gas": 8, "zero": 1, "steps": steps,
@@ -3784,6 +3993,10 @@ def main() -> int:
         paths[f"{arch} serve"] = timed(f"{arch} serve", lambda: phase_serve(card, arch))
     for arch in TRAIN_KERNELS:
         paths[f"{arch} train"] = timed(f"{arch} train", lambda: phase_train(card, arch))
+    timed("gemm", lambda: phase_gemm(card))
+    for arch in REMAT_ARCHS:
+        paths.update(timed(f"{arch} remat", lambda: phase_remat(card, arch)))
+    paths[f"{ENTRY_ARCH} entry"] = timed("entry", lambda: phase_entry(card))
     paths[f"{PARALLEL_ARCH} parallel"] = timed("parallel", lambda: phase_parallel(card))
     paths[f"{PIPELINE_ARCH} pipeline"] = timed("pipeline", lambda: phase_pipeline(card))
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start,

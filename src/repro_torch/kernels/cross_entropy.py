@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import cross_entropy_bwd_ref, cross_entropy_ref
 
@@ -139,6 +140,7 @@ def cross_entropy_cuda(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 class CrossEntropyTokens(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, h, w, labels, valid_vocab):
         if h.device.type == "cpu":
             lse, ll = cross_entropy_ref(h, w, labels, valid_vocab)

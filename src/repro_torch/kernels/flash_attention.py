@@ -28,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -325,6 +326,7 @@ def _bhsd(*ts):
 
 class FlashAttention(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, q, k, v, causal, sliding_window, softcap, q_offset):
         kw = dict(causal=causal, sliding_window=sliding_window, softcap=softcap,
                   q_offset=q_offset)

@@ -17,6 +17,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gelu_mlp_in_bwd_ref, gelu_mlp_in_ref
 from repro_torch.kernels.tiling import gemm_tile
@@ -74,6 +75,7 @@ def gelu_mlp_cuda(x2d: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
 
 class GeluMLP(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x2d, w1):
         ctx.save_for_backward(x2d, w1)
         if x2d.device.type == "cpu":

@@ -23,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import grouped_mlp_bwd_ref, grouped_mlp_ref
 from repro_torch.kernels.tiling import GROUPED_COLS, GROUPED_ROWS, cdiv
@@ -107,6 +108,7 @@ def grouped_items_cuda(mask: torch.Tensor, cols: int) -> list[tuple[int, int, in
 
 class GroupedMLP(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x, w1, w3, w2, mask, act):
         ctx.act = act
         ctx.save_for_backward(x, w1, w3, w2, mask)

@@ -15,6 +15,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import layernorm_bwd_ref, layernorm_ref
 
@@ -57,6 +58,7 @@ def layernorm_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 class LayerNorm(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x, w, b, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps

@@ -14,6 +14,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
@@ -53,6 +54,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 class RMSNorm(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mamba_decode_ref, mamba_decode_ref_, ssd_scan_ref
 
@@ -157,6 +158,7 @@ def ssd_scan_staged(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: tor
 
 class SSDScan(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x, dt, Bm, Cm, A_log, chunk):
         ctx.chunk = chunk
         ctx.save_for_backward(x, dt, Bm, Cm, A_log)

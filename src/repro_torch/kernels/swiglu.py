@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import swiglu_bwd_ref, swiglu_ref
 from repro_torch.kernels.tiling import gemm_tile
@@ -74,6 +75,7 @@ def swiglu_cuda(x2d: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.
 
 class SwiGLU(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, x2d, w1, w3):
         ctx.save_for_backward(x2d, w1, w3)
         if x2d.device.type == "cpu":

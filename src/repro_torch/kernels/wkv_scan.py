@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from repro_torch.core.compute import kernel_forward
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import wkv_decode_ref, wkv_decode_ref_, wkv_scan_ref
 
@@ -151,6 +152,7 @@ def wkv_scan_staged(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.
 
 class WKVScan(torch.autograd.Function):
     @staticmethod
+    @kernel_forward
     def forward(ctx, r, k, v, w, u, state, chunk):
         ctx.chunk = chunk
         ctx.save_for_backward(r, k, v, w, u, state)

@@ -1,8 +1,21 @@
 """Training launcher (the plan flags of ``repro/launch/train.py``):
 synthetic packed batches through ``build_train_step``, one line per logged
-step with loss, grad_norm, tokens/s and MFU against the H100's bf16 peak
-(the global step's FLOPs over the wall time x the peak x the ranks).  Runs
-on the card unless ``--device cpu``.
+step with loss, grad_norm and tokens/s, and MFU against the ``--machine``
+peak (the global step's FLOPs over the wall time x the peak x the ranks;
+``core/telemetry.py``) on the card or when telemetry output is asked for.
+Runs on the card unless ``--device cpu``.
+
+Every step goes through ``core/telemetry.py:Telemetry``: ``--log-jsonl
+PATH`` writes its records (one compile record, then a step record each:
+MFU, the drift against ``costmodel.predict_step``, on a card the peak
+memory, under a mesh the collective bytes, at pp > 1 the measured idle
+share of the pipeline),
+``--trace PATH`` the pipeline timeline of the run
+(``analysis/trace.py``).  Rank 0 writes both; each rank's peak memory (and
+pipeline sweep times) reaches it by one gather at the end of a logged
+step.  The records are appended to PATH: remove it before a rerun.
+``python -m repro_torch.analysis.report --telemetry PATH`` renders the
+records.
 
 Under ``torchrun`` / ``python -m torch.distributed.run`` (one process per
 rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
@@ -11,7 +24,7 @@ pipeline's), ``--virtual-stages``, ``--dp``, ``--tp``, ``--zero`` 0-3 and
 ``--rules``; rank 0 prints.  pp x dp x tp must be the number of ranks.
 Plans that still raise, naming ROADMAP.md: ep, node, qcomm, overlap, tp on
 the hybrid and rwkv families, ``--rules tp_only`` at dp > 1 (it keeps the
-batch off the data axis), ``--remat selective``.  Every plan prints the
+batch off the data axis).  Every plan and every ``--remat`` prints the
 same losses as one device:
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
@@ -31,7 +44,8 @@ One device, without a launcher:
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
       --steps 5 --global-batch 8 --gas 2 --seq-len 2048 --precision bf16 --kernels
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch yi-6b \
-      --reduced --steps 5 --global-batch 4 --seq-len 32 --precision fp32
+      --reduced --steps 5 --global-batch 4 --seq-len 32 --precision fp32 \
+      --remat selective --log-jsonl build/run.jsonl
 """
 from __future__ import annotations
 
@@ -45,13 +59,53 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ASSIGNED, PAPER, get_config
-from repro_torch.core import costmodel
+from repro_torch.core import telemetry
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig, cosine_schedule
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
+from repro_torch.runtime import collectives, pipeline
 from repro_torch.runtime.train_loop import (ParallelPlan, build_model, build_train_step,
-                                            init_train_state)
+                                            init_train_state, train_state_bytes)
+
+
+def rank_readings(device: torch.device, world: int, pipelined: bool) -> list[dict]:
+    """Each rank's peak device memory since the last reset (0 off a card)
+    and, when ``pipelined``, its last pipeline sweep
+    (``runtime/pipeline.py:walk_reading``; zeros otherwise), on every rank:
+    one all-gather over the default group (none at world 1)."""
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    w = (pipeline.walk_reading() if pipelined
+         else {"applications": 0, "busy_s": 0.0, "wall_s": 0.0})
+    mine = torch.tensor([peak, w["applications"], round(w["busy_s"] * 1e9),
+                         round(w["wall_s"] * 1e9)], dtype=torch.int64, device=device)
+    rows = [mine]
+    if world > 1:
+        rows = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(rows, mine)
+    return [{"peak": r[0], "applications": r[1], "busy_s": r[2] / 1e9, "wall_s": r[3] / 1e9}
+            for r in (row.tolist() for row in rows)]
+
+
+def step_extras(plan: ParallelPlan, device: torch.device, world: int, sharded: bool,
+                gather: bool = True) -> dict:
+    """The telemetry fields of a step beyond its metrics: under a mesh
+    (``sharded``) the collective bytes this rank moved; with ``gather``
+    every rank's peak memory (on a card) and at pp > 1 the measured
+    pipeline (one gather), else this rank's peak alone."""
+    out = {}
+    if sharded:
+        out["comm_bytes"] = collectives.comm_bytes()
+    if gather:
+        ranks = rank_readings(device, world, plan.pp > 1)
+        if device.type == "cuda":
+            out["peak_bytes"] = [r["peak"] for r in ranks]
+        if plan.pp > 1:
+            out["pipeline"] = telemetry.pipeline_fields(
+                plan.pp, plan.gas, plan.virtual_stages, ranks)
+    elif device.type == "cuda":
+        out["peak_bytes"] = [torch.cuda.max_memory_allocated(device)]
+    return out
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -67,8 +121,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--gas", type=int, default=1)
     ap.add_argument("--precision", choices=["bf16", "fp16", "fp32"], default="fp32")
     ap.add_argument("--remat", choices=["full", "selective", "none"], default="full",
-                    help="full = save layer boundaries only; none = save "
-                         "everything; selective is not ported yet")
+                    help="full = save layer boundaries only; selective = also save "
+                         "the products without batch dims; none = save everything")
     ap.add_argument("--kernels", action="store_true",
                     help="the norms (RMSNorm or LayerNorm), the MLP input half "
                          "(SwiGLU or GELU), attention, the SSD scan and CE in the "
@@ -85,6 +139,15 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--log-jsonl", default=None, metavar="PATH",
+                    help="write the telemetry records (core/telemetry.py) here")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the pipeline timeline (analysis/trace.py) here")
+    ap.add_argument("--machine", choices=sorted(telemetry.MACHINES), default="h100",
+                    help="the peak MFU is read against and the drift's costmodel machine")
+    ap.add_argument("--drift-threshold", type=float, default=10.0,
+                    help="warn when the rolling measured/predicted step time leaves "
+                         "[1/x, x] (with telemetry output only)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -118,27 +181,41 @@ def main(argv: list[str] | None = None) -> list[dict]:
     step_fn = build_train_step(model, opt, plan, mesh)
     it = make_batch_iterator(SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed),
                              seq_len=args.seq_len, global_batch=args.global_batch)
-    flops = costmodel.train_step_flops(cfg, args.global_batch, args.seq_len).total
-    tokens = args.global_batch * args.seq_len
+    tele_on = bool(args.log_jsonl or args.trace)
+    tele = telemetry.Telemetry(
+        cfg, plan, args.global_batch, args.seq_len, machine=args.machine,
+        jsonl=args.log_jsonl if rank0 else None,
+        drift_threshold=args.drift_threshold if tele_on and rank0 else float("inf"))
+    on_card = device.type == "cuda"
     records = []
+    t_start = time.perf_counter()
     for i in range(args.steps):
         batch = next(it)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        rec = {"step": i + 1, "loss": float(metrics["loss"]),
-               "grad_norm": float(metrics["grad_norm"]), "wall_s": wall,
-               "tokens_per_s": tokens / wall}
-        if device.type == "cuda":
-            rec["mfu"] = costmodel.mfu(flops, wall, costmodel.H100.peak_flops * world)
-        records.append(rec)
-        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
-            mfu = f" mfu {100 * rec['mfu']:.2f}%" if "mfu" in rec else ""
-            say(f"step {rec['step']:5d} loss {rec['loss']:.4f} grad_norm "
-                f"{rec['grad_norm']:.4f} {rec['tokens_per_s']:,.0f} tok/s{mfu}",
-                flush=True)
+        collectives.reset_comm_bytes()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        (state, metrics), wall = telemetry.timed_call(step_fn, state, batch)
+        if i == 0:
+            tele.record_compile(device=device, devices=world,
+                                state_bytes=train_state_bytes(cfg, plan),
+                                compile_s=time.perf_counter() - t_start)
+        logged = (i + 1) % args.log_every == 0 or i + 1 == args.steps
+        extra = step_extras(plan, device, world, mesh is not None, gather=logged)
+        rec = tele.step(i + 1, wall, metrics, **extra)
+        out = {"step": rec["step"], "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+               "wall_s": wall, "tokens_per_s": rec["tokens_per_s"]}
+        if on_card:
+            out["mfu"] = rec["mfu"]
+        records.append(out)
+        if logged:
+            say(tele.console_line(rec, with_mfu=on_card or tele_on), flush=True)
+    if args.trace and rank0:
+        from repro_torch.analysis import trace as trace_mod
+        tr = trace_mod.build_trace(plan.pp, plan.gas, plan.virtual_stages, tele.step_walls,
+                                   meta={"arch": cfg.name, "plan": telemetry.plan_dict(plan)})
+        trace_mod.write_trace(tr, args.trace)
+        say(f"wrote pipeline trace to {args.trace} ({len(tr['traceEvents'])} events)")
+    tele.close()
     if mesh is not None:
         dist.destroy_process_group()
     return records

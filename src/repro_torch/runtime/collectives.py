@@ -14,6 +14,15 @@ explicit ``torch.distributed`` calls on the mesh's process groups.
 
 A one-rank group runs the same calls.  :class:`MeshGroups` is the mesh as
 the executor reads it: axis sizes, this rank's coordinate, the groups.
+
+Each call adds the bytes it moves to :data:`COMM_BYTES`, by kind, in the
+convention of the reference's ``analysis/hlo.py:comm_bytes``: an
+all-gather its output, a reduce-scatter its input, an all-reduce twice its
+input (a ring's reduce-scatter and all-gather), a point-to-point send its
+operand (``runtime/pipeline.py``).  ZeRO 3's gathers on use count apart,
+as ``zero3_gather`` (the ``core/costmodel.py`` key).  The telemetry reads
+them per step (:func:`comm_bytes`, :func:`reset_comm_bytes`); a count is
+one integer add on the call.
 """
 from __future__ import annotations
 
@@ -28,6 +37,24 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 AXES = ("pipe", "data", "model")
+
+COMM_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "zero3_gather", "send")
+COMM_BYTES = dict.fromkeys(COMM_KINDS, 0)
+
+
+def _count(kind: str, t: torch.Tensor, times: int = 1) -> None:
+    COMM_BYTES[kind] += times * t.numel() * t.element_size()
+
+
+def comm_bytes() -> dict:
+    """The bytes this rank's collectives moved since the last reset, by
+    kind, and their ``total``."""
+    return {**COMM_BYTES, "total": sum(COMM_BYTES.values())}
+
+
+def reset_comm_bytes() -> None:
+    for k in COMM_BYTES:
+        COMM_BYTES[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +82,17 @@ class MeshGroups:
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     dist.all_reduce(t, op=op, group=group)
+    _count("all-reduce", t, 2)
     return t
 
 
-def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, group,
+                   kind: str = "all-gather") -> torch.Tensor:
     """The ranks' blocks ``x`` concatenated along ``dim`` in rank order."""
     n = dist.get_world_size(group)
     buf = x.new_empty((n, *x.shape))
     _all_gather(buf.view(-1), x.contiguous().view(-1), group=group)
+    _count(kind, buf)
     s = x.shape
     return buf.movedim(0, dim).reshape(*s[:dim], n * s[dim], *s[dim + 1:])
 
@@ -76,6 +106,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = x.reshape(*s[:dim], n, s[dim] // n, *s[dim + 1:]).movedim(dim, 0).contiguous()
     out = x.new_empty(block)
     _reduce_scatter(out.view(-1), parts.view(-1), group=group)
+    _count("reduce-scatter", parts)
     return out
 
 
@@ -129,7 +160,7 @@ class _ScatterBack(torch.autograd.Function):
 class _GatherUse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, handle, block, dim, group, dtype):
-        return all_gather_dim(block.to(dtype), dim, group)
+        return all_gather_dim(block.to(dtype), dim, group, kind="zero3_gather")
 
     @staticmethod
     def backward(ctx, g):

@@ -23,9 +23,17 @@ activations go to rank ``d + 1`` and their gradients back to ``d - 1``
 (mod p: the ring wraps under virtual stages), both in the compute dtype,
 received into buffers of the known shape (b, seq, d).  Each tick's sends
 and receives are posted together (``dist.batch_isend_irecv``), so no order
-of the ranks can deadlock.
+of the ranks can deadlock; each send's bytes count in
+``runtime/collectives.py``'s ``send``.  :func:`walk_reading` measures the
+last sweep of this process: its stage applications, the time they took
+(forward and backward) and the sweep's time, on the device's clock (CUDA
+events on the compute stream, so a wait for a neighbour's hand-off is
+idle time) or on the host's on the CPU; the telemetry's measured idle
+share of the pipeline comes from it.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
@@ -33,6 +41,57 @@ import torch.distributed as dist
 from repro_torch.core import precision as prec
 from repro_torch.core.pipeline import Schedule
 from repro_torch.core.stage_program import split_stages
+from repro_torch.runtime import collectives
+
+
+class _Clock:
+    """Marks of one sweep: its start, each application's start and end,
+    its end.  On a card a mark is a CUDA event on the current stream, read
+    only by :func:`walk_reading`; on the CPU, where an op has ended when it
+    returns, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks: list = []
+        self.applications = 0
+
+    def mark(self) -> None:
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append(event)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def timed(self, fn):
+        def run(*args):
+            self.mark()
+            out = fn(*args)
+            self.mark()
+            return out
+        return run
+
+    def seconds(self, a, b) -> float:
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+
+_last_clock: _Clock | None = None
+
+
+def walk_reading() -> dict:
+    """This process's last sweep: its forward stage applications, the
+    seconds they took forward and backward (``busy_s``) and the seconds of
+    the whole sweep (``wall_s``); zeros before the first sweep.  On a card
+    it waits for the sweep's end."""
+    clock = _last_clock
+    if clock is None:
+        return {"applications": 0, "busy_s": 0.0, "wall_s": 0.0}
+    marks = clock.marks
+    if clock.cuda:
+        marks[-1].synchronize()
+    busy = sum(clock.seconds(marks[i], marks[i + 1]) for i in range(1, len(marks) - 1, 2))
+    return {"applications": clock.applications, "busy_s": busy,
+            "wall_s": clock.seconds(marks[0], marks[-1])}
 
 
 class Ring:
@@ -104,7 +163,9 @@ def _walk(events: list, compute, recv_from: int, send_to: int, group, buffer) ->
     for t in ticks:
         ops, x = [], None
         if t in outbox:
-            ops.append(dist.P2POp(dist.isend, outbox.pop(t), send_to, group))
+            y = outbox.pop(t)
+            ops.append(dist.P2POp(dist.isend, y, send_to, group))
+            collectives._count("send", y)
         item, recv, send = at.get(t, (None, False, False))
         if recv:
             x = buffer()
@@ -127,21 +188,29 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
     every stage when ``ring`` is None (one process), else the stages of pipe
     rank ``ring.rank``; the CE of each microbatch is its rows' sum over
     ``count``."""
+    global _last_clock
     S = sched.n_stages
+    clock = _Clock(model.device)
+    clock.mark()
     if ring is None:
         stages = _Stages(model, sched, micro, count, loss_scale, S, lambda s: s)
+        forward, backward = clock.timed(stages.forward), clock.timed(stages.backward)
         outs, kept = {}, []
-        for t, j, s in sorted(a for apps in sched.ranks for a in apps):
-            inp, out = stages.forward(j, s, outs.pop((j, s - 1), None))
+        walk = sorted(a for apps in sched.ranks for a in apps)
+        for _, j, s in walk:
+            inp, out = forward(j, s, outs.pop((j, s - 1), None))
             if s < S - 1:
                 outs[j, s] = out
             kept.append((j, s, inp, out))
         grads: dict = {}
         while kept:
             j, s, inp, out = kept.pop()
-            g = stages.backward(inp, out, grads.pop((j, s), None))
+            g = backward(inp, out, grads.pop((j, s), None))
             if s > 0:
                 grads[j, s - 1] = g
+        clock.mark()
+        clock.applications = len(walk)
+        _last_clock = clock
         return stages.ce
 
     stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of)
@@ -166,8 +235,11 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
         return stages.backward(*kept.pop(item), g)
 
     _walk([(t, (j, s), s > 0, s < S - 1) for t, j, s in apps],
-          forward, ring.prev, ring.next, ring.group, buffer)
+          clock.timed(forward), ring.prev, ring.next, ring.group, buffer)
     last = sched.ticks - 1
     _walk([(last - t, (j, s), s < S - 1, s > 0) for t, j, s in reversed(apps)],
-          backward, ring.next, ring.prev, ring.group, buffer)
+          clock.timed(backward), ring.next, ring.prev, ring.group, buffer)
+    clock.mark()
+    clock.applications = len(apps)
+    _last_clock = clock
     return stages.ce

@@ -5,8 +5,8 @@ over a ``torch.distributed`` mesh.
 
   * one device (``build_train_step`` without a mesh): ``gas`` gradient-
     accumulation microbatches, ``precision`` (bf16 | fp16 | fp32 compute
-    over fp32 master weights), the compute policy (``remat`` full | none,
-    ``kernels``);
+    over fp32 master weights), the compute policy (``remat`` full |
+    selective | none, ``kernels``);
   * over a ("pipe", "data", "model") mesh of pp x dp x tp ranks
     (``launch/mesh.py:mesh_for_plan``): the same, plus data parallelism
     with ZeRO stage ``zero`` 0-3 (None is stage 1, as in the reference;
@@ -21,8 +21,7 @@ over a ``torch.distributed`` mesh.
     families run dp, pp and every stage, not tp.
 
 What still raises, naming ROADMAP.md: ``multi_segment``, ``ep`` > 1,
-``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan),
-``remat="selective"``, fp16 kernels, tp on the hybrid and rwkv families,
+``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan), fp16 kernels, tp on the hybrid and rwkv families,
 and a batch rule other than the data axis at dp > 1 (``tp_only``).  The
 reference's ``rule_overrides`` are not ported.
 
@@ -103,7 +102,7 @@ class ParallelPlan:
     overlap: bool = False
     gas: int = 1                    # gradient accumulation steps
     precision: str = "bf16"         # bf16 | fp16 | fp32
-    remat: str = "full"             # full | none (selective: ROADMAP)
+    remat: str = "full"             # full | selective | none
     kernels: bool = False           # hand-written CUDA kernels
     multi_segment: bool = False     # the reference's hybrid lowering: refused
 
@@ -120,9 +119,6 @@ class ParallelPlan:
         if self.rules not in shd.PRESETS:
             raise ValueError(f"rules must be one of {sorted(shd.PRESETS)}, got {self.rules!r}")
         prec.policy_from_name(self.precision)           # validates
-        if self.remat == "selective":
-            raise NotImplementedError(
-                "remat='selective' is not ported yet (see ROADMAP.md, Queue 1)")
         if self.kernels and self.precision == "fp16":
             raise NotImplementedError(
                 "the CUDA kernels take bf16 and fp32; fp16 kernels are not "

@@ -18,6 +18,7 @@ from repro_torch.interop import from_jax_params, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import collectives, pipeline
 from repro_torch.runtime.train_loop import (ParallelPlan, build_model, build_train_step,
                                             init_train_state)
 
@@ -35,10 +36,19 @@ def config(arch: str, overrides: dict):
     return get_config(arch).reduced(**overrides)
 
 
-def trajectory(step, state, bs) -> list[tuple]:
+def trajectory(step, state, bs, comm: list | None = None,
+               walks: list | None = None) -> list[tuple]:
+    """(loss, grad_norm, grads_finite, loss_scale) of each step; ``comm``
+    takes each step's collective bytes (``runtime/collectives.py``),
+    ``walks`` its pipeline sweep's times (``runtime/pipeline.py``)."""
     out = []
     for b in bs:
+        collectives.reset_comm_bytes()
         state, m = step(state, b)
+        if comm is not None:
+            comm.append(collectives.comm_bytes())
+        if walks is not None:
+            walks.append(pipeline.walk_reading())
         out.append((float(m["loss"]), float(m["grad_norm"]), bool(m["grads_finite"]),
                     float(m["loss_scale"])))
     return out
@@ -84,9 +94,12 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
                 shard_params(weights[job["weights"]], cfg, plan, coord), model))
             opt = AdamWConfig(lr=LR)
             state = init_train_state(model, opt, plan)
+            comm: list = []
+            walks: list = []
             res = {"trajectory": trajectory(build_train_step(model, opt, plan, mesh), state,
-                                            batches(cfg.vocab_size, job.get("steps", STEPS))),
-                   "coord": coord,
+                                            batches(cfg.vocab_size, job.get("steps", STEPS)),
+                                            comm, walks),
+                   "comm_bytes": comm, "walks": walks, "coord": coord,
                    "blocks": {k: p.detach().numpy().copy()
                               for k, p in model.state_dict().items()},
                    "moments": {k: tuple(m.shape) for k, m in state["opt"]["mu"].items()}}

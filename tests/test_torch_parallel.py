@@ -10,15 +10,21 @@ with the port's single device (the reference's bar between plans,
 tests/test_memplan.py) and within 1e-4 with the reference's jitted
 single-device step (tests/test_torch_train.py), for the recurrent families
 its plain path (their Pallas bodies' interpret mode is held to the port in
-tests/test_torch_ssm.py and tests/test_torch_wkv.py).  Two ranks run every
-plan in one spawn."""
+tests/test_torch_ssm.py and tests/test_torch_wkv.py).  ZeRO 3 also runs
+under remat selective (kernels off and on) and none, held to the same
+bars, and the collectives' byte counters of the ZeRO 3 runs are held to
+``costmodel.predict_comm_bytes`` of the same shapes and specs.  Two ranks
+run every plan in one spawn."""
 import numpy as np
 import pytest
 import torch
 
 import _torch_jax_ref
 import _torch_ranks as ranks
+from repro_torch.core import commplan, costmodel
 from repro_torch.interop import gather_params
+from repro_torch.models.common import flatten_specs
+from repro_torch.models.model import param_specs
 from repro_torch.runtime.train_loop import ParallelPlan, plan_state_shardings
 
 torch.set_num_threads(1)
@@ -40,6 +46,9 @@ def runs(tmp_path_factory):
         single[k] = ranks.single_device("yi-6b", ranks.YI, weights["yi"], _plan(kernels=k))
     jobs = [{"name": f"z{z} k{k}", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
              "plan": _plan(dp=2, zero=z, kernels=k)} for z in STAGES for k in (False, True)]
+    jobs += [{"name": f"z3 {remat} k{k}", "arch": "yi-6b", "overrides": ranks.YI,
+              "weights": "yi", "plan": _plan(dp=2, zero=3, kernels=k, remat=remat)}
+             for remat, k in (("selective", False), ("selective", True), ("none", False))]
     for arch, ov in RECURRENT.items():
         weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan(kernels=False))
         single[arch] = ranks.single_device(arch, ov, weights[arch], _plan(kernels=True))
@@ -111,3 +120,45 @@ def test_fp16_dp2_zero3_step(runs):
         loss, _, finite, scale = res["trajectory"][0]
         assert finite and scale > 1.0
         assert abs(loss - fp32) / fp32 < 2e-2
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_dp2_zero3_selective_matches_single_device(runs, kernels):
+    """remat selective at ZeRO 3: each layer's leaves gathered inside the
+    selective checkpoint, gathered again in its recompute (never saved)."""
+    single, _ = runs["single"][kernels]
+    for r, res in runs["ranks"][f"z3 selective k{kernels}"].items():
+        port = _losses(res["trajectory"])
+        np.testing.assert_allclose(port, _losses(single), rtol=RTOL_PLANS, atol=0,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(port, runs["ref"][kernels], rtol=RTOL_REF, atol=0)
+
+
+@pytest.mark.parametrize("remat", ["full", "selective", "none"])
+def test_zero3_gather_bytes_equal_the_costmodel(runs, remat):
+    """Each step's ``zero3_gather`` bytes (an all-gather's output, as the
+    reference's ``analysis/hlo.py:comm_bytes`` counts it) equal
+    ``costmodel.predict_comm_bytes`` over the plan's shapes and specs: the
+    layer stack gathered twice a microbatch under remat full and selective
+    (the forward and the recompute; the backward gathers nothing: the
+    reference's ``predict`` bills 3 for XLA) and once under none, the
+    embedding, the final norm and the lm_head once a microbatch."""
+    job = "z3 kFalse" if remat == "full" else f"z3 {remat} kFalse"
+    cfg = ranks.config("yi-6b", ranks.YI)
+    plan = ParallelPlan(**_plan(dp=2, zero=3, remat=remat))
+    shapes, psh, _, _ = plan_state_shardings(cfg, plan)
+    stacked = {k for k, spec in flatten_specs(param_specs(cfg)) if spec.axes[:1] == ("layers",)}
+    gathers = (1 if remat == "none" else 2) * plan.gas
+
+    def predicted(keys, multiplier):
+        return costmodel.predict_comm_bytes([shapes[k] for k in keys], [psh[k] for k in keys],
+                                            plan.mesh_sizes(), commplan.CommPlan(),
+                                            itemsize=4, multiplier=multiplier)["total"]
+    want = (predicted(sorted(stacked), gathers)
+            + predicted(sorted(set(shapes) - stacked), plan.gas))
+    for res in runs["ranks"][job].values():
+        assert len(res["comm_bytes"]) == ranks.STEPS
+        for step in res["comm_bytes"]:
+            assert step["zero3_gather"] == want
+            assert step["reduce-scatter"] > 0 and step["total"] == sum(
+                v for k, v in step.items() if k != "total")

@@ -4,7 +4,8 @@ reduces it (4 layers), fp32, 3 steps of 8 x 32 tokens at gas 2 (the
 pipeline's two microbatches), weights from the reference, kernels off and
 on, at pp = 2 x dp = 2 with ZeRO 0-3, pp = 2 x dp = 2 with two virtual
 stages a rank (the round-robin assignment: rank d holds layers d and
-d + 2), pp = 4 and pp = 2 x tp = 2; zamba2-2.7b and rwkv6-1.6b reduced to 4
+d + 2), pp = 4, pp = 2 x tp = 2 and pp = 2 x dp = 2 at ZeRO 3 under remat
+selective (the policy inside each stage); zamba2-2.7b and rwkv6-1.6b reduced to 4
 layers at pp = 2 x dp = 2, ZeRO 3, kernels on; one fp16 step at pp = 2 x
 dp = 2.  Losses and grad norms within rtol 1e-5, atol 0 of the port's
 single device and 1e-4 of the reference's jitted single-device step (the
@@ -16,6 +17,8 @@ import torch
 
 import _torch_jax_ref
 import _torch_ranks as ranks
+from repro_torch.core import telemetry
+from repro_torch.core.pipeline import schedule
 from repro_torch.interop import gather_params
 from repro_torch.runtime.train_loop import ParallelPlan
 
@@ -28,7 +31,8 @@ RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
 YI_PLANS = {**{f"pp2 dp2 z{z}": dict(pp=2, dp=2, zero=z) for z in STAGES},
             "pp2 dp2 v2": dict(pp=2, dp=2, virtual_stages=2),
             "pp4": dict(pp=4),
-            "pp2 tp2": dict(pp=2, tp=2)}
+            "pp2 tp2": dict(pp=2, tp=2),
+            "pp2 dp2 z3 selective": dict(pp=2, dp=2, zero=3, remat="selective")}
 
 
 def _plan(**kw):
@@ -107,6 +111,24 @@ def test_recurrent_families_pp2_dp2_zero3(runs, arch):
     """zamba2's shared block runs in both stages (its gradient summed over
     the pipe ranks); rwkv6's blocks split two a stage."""
     _check(runs, arch, arch)
+
+
+@pytest.mark.parametrize("plan", ["pp4", "pp2 dp2 v2"])
+def test_step_records_measure_the_pipeline(runs, plan):
+    """Each rank measures its sweep: its applications are the schedule's,
+    its time in them lies inside the sweep's, and a rank waits for its
+    neighbours, so the measured idle share of a step lies in (0, 1)."""
+    fields = YI_PLANS[plan]
+    p, v = fields["pp"], fields.get("virtual_stages", 1)
+    sched = schedule(p, 2, v)
+    by_rank = runs["ranks"][f"{plan} kFalse"]
+    for step in range(ranks.STEPS):
+        walks = [res["walks"][step] for res in by_rank.values()]
+        for res, w in zip(by_rank.values(), walks):
+            assert w["applications"] == len(sched.ranks[res["coord"]["pipe"]])
+            assert 0.0 < w["busy_s"] <= w["wall_s"]
+        measured = telemetry.pipeline_fields(p, 2, v, walks)
+        assert 0.0 < measured["idle_fraction"] < 1.0
 
 
 def test_fp16_pp2_step(runs):

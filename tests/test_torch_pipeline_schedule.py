@@ -178,6 +178,10 @@ def test_local_sweep_is_the_gas_loop(S, m):
     ce = runner.sweep(model, pipe.schedule(S, m), micro,
                       runner.loss_count({"tokens": toks}, model.device), ls)
     ours = {k: p.grad.clone() for k, p in model.named_parameters()}
+    # the sweep's own measurement: every application, inside the sweep's time
+    walked = runner.walk_reading()
+    assert walked["applications"] == S * m
+    assert 0.0 < walked["busy_s"] <= walked["wall_s"]
     model.zero_grad(set_to_none=True)
     ref = 0.0
     for mb in micro:

@@ -48,6 +48,12 @@ def test_port_imports_no_jax_and_no_reference():
     files = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
              + [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py")))
     assert len(files) > 20
+    # the measurement and search layer is scanned like the rest
+    names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
+             if f.is_relative_to(REPO / "src" / "repro_torch")}
+    assert {"core/commplan.py", "core/costmodel.py", "core/expertplan.py", "core/telemetry.py",
+            "core/hpo.py", "core/sensitivity.py", "analysis/trace.py",
+            "analysis/report.py"} <= names
     bad = {str(f.relative_to(REPO)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in files}
     assert not {f: r for f, r in bad.items() if r}

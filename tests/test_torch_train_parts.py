@@ -3,6 +3,7 @@ synthetic batches, train_step_flops, AdamW (clip, decay mask, skip), the LR
 schedules, loss scaling, Model.loss/logits; and the single-device plan's
 refusals, the remat policy and the training launcher on the CPU."""
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import jax
@@ -22,6 +23,7 @@ from repro.optim import (AdamWConfig as JaxAdamW, adamw_init as jax_adamw_init,
                          cosine_schedule as jax_cosine, linear_warmup as jax_warmup)
 from repro_torch.configs import get_config
 from repro_torch.core import costmodel, precision
+from repro_torch.core import compute
 from repro_torch.core.compute import ComputePolicy
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.interop import from_jax_params
@@ -131,8 +133,7 @@ def test_model_loss_and_logits_match_jax(kernels):
 
 
 @pytest.mark.parametrize("field,value", [("ep", 2), ("node", 2), ("qcomm", "gather"),
-                                         ("overlap", True), ("remat", "selective"),
-                                         ("multi_segment", True)])
+                                         ("overlap", True), ("multi_segment", True)])
 def test_plan_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParallelPlan(**{field: value})
@@ -152,9 +153,29 @@ def test_plan_accepts_the_parallel_fields(field, value):
     assert dict(ours.sharding_rules().rules) == dict(ref.sharding_rules().rules)
 
 
-def test_selective_remat_raises_and_fp16_kernels_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ComputePolicy(remat="selective").checkpoint(lambda x: x)
+def test_selective_remat_runs_and_fp16_kernels_refused():
+    """remat="selective" runs (tests/test_torch_remat.py): the plan takes it
+    and its wrapper consults ``save_policy``, which keeps the product, where
+    full consults no policy; a remat mode the reference does not have
+    raises, as fp16 kernels do."""
+    assert ParallelPlan(remat="selective").compute_policy() == ComputePolicy("selective")
+    w = torch.ones((4, 4), requires_grad=True)
+    policy = compute.save_policy
+    for remat, kept in (("selective", 1), ("full", 0)):
+        log = []
+
+        def recording(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if not ctx.is_recompute:
+                log.append((op, decision))
+            return decision
+        with mock.patch.object(compute, "save_policy", recording):
+            ComputePolicy(remat=remat).checkpoint(lambda x: torch.tanh(x @ w))(
+                torch.ones((2, 4), requires_grad=True)).sum().backward()
+        assert [op for op, d in log if d == compute.CheckpointPolicy.MUST_SAVE] == \
+            [torch.ops.aten.mm.default] * kept
+    with pytest.raises(ValueError, match="remat must be one of"):
+        ComputePolicy(remat="offload")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParallelPlan(precision="fp16", kernels=True)
 
