@@ -61,12 +61,17 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      step at 4 slots; three planted faults of the scan (and the carry one
      chunk late at every case of 4 chunks or more) and one of the decode
      step must fail their limits; the scan's work division held to its
-     mirrors, a second launch bit-identical; the dense train step's
-     kernels (flash forward and backward, swiglu, gelu_mlp, CE) at the
-     shard shapes of tensor parallelism, tp = 2 and 4, of yi-6b and
-     gpt-1.4b (``phase_kernels_tp``: heads, d_ff and vocab over tp; CE on
-     each vocab shard with labels outside it and a local valid vocab, the
-     shards merged as the vocab-parallel CE merges them);
+     mirrors, a second launch bit-identical; the train steps' kernels at
+     the shard shapes of tensor parallelism, tp = 2 and 4
+     (``phase_kernels_tp``: heads, d_ff and vocab over tp): yi-6b's and
+     gpt-1.4b's flash forward and backward, swiglu, gelu_mlp and CE, and
+     (``recurrent_kernels_tp``) zamba2-2.7b's SSD scan at 40 and 20 heads,
+     its shared block's flash forward and backward at 16 and 8 heads of 80
+     and swiglu at F 5120 and 2560, rwkv6-1.6b's wkv scan at 16 and 8
+     heads, and both families' CE on vocab shards of 16000 / 8000 and
+     32768 / 16384; CE on each vocab shard with labels outside it and a
+     local valid vocab, the shards merged as the vocab-parallel CE merges
+     them;
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
      arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers) and
      rwkv6-1.6b (all 24 layers): the model
@@ -108,7 +113,12 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      the single-device step's; with 2 or more cards, min(count, 4) nccl
      ranks (``_parallel_rank``) run the reduced yi-6b's fp32 plans against
      the single-device port, yi-6b (TRAIN_LAYERS) at dp = ranks, ZeRO 3,
-     against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers;
+     against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers; then
+     (``_recurrent_tp``) the reduced zamba2's and rwkv6's fp32 plans at tp
+     = ranks and dp x tp against the single-device port, zamba2-2.7b
+     (TRAIN_LAYERS) and rwkv6-1.6b (24 layers) at full width and tp =
+     ranks against phase 4's step 0 (TP_STEP0_RTOL), with telemetry
+     records, and at 4 ranks zamba2-2.7b at all 54 layers at tp 4;
   6. pipeline (``phase_pipeline``): gpt-1.4b at full width and depth, gas
      4, split into 4 logical stages of 6 layers (as 4 pipe ranks, and as 2
      ranks of 2 virtual stages) run in one process through the pipeline
@@ -309,11 +319,16 @@ def timed_with_parent(timer, name: str, fn) -> tuple[float, float]:
 
 def readings_in_turns(timer, fn, parent) -> tuple[dict, dict]:
     """``Timer.readings`` of ``fn`` and of ``parent`` in turns (fn, parent,
-    parent, fn), each reading the mean of its two turns."""
+    parent, fn), each reading the mean of its two turns ("not measured"
+    where either turn's profile caught no device time)."""
     a, b, c, d = (timer.readings(f) for f in (fn, parent, parent, fn))
 
     def mean(x: dict, y: dict) -> dict:
-        return {k: (x[k] + y[k]) / 2 if isinstance(x[k], float) else x[k] for k in x}
+        def both(k):
+            if isinstance(x[k], float) and isinstance(y.get(k), float):
+                return (x[k] + y[k]) / 2
+            return "not measured" if isinstance(y.get(k), str) else x[k]
+        return {k: both(k) for k in x}
     return mean(a, d), mean(b, c)
 
 
@@ -2251,68 +2266,97 @@ def flash_hd80(timer: Timer) -> dict:
 TP_WAYS = (2, 4)
 
 
+def flash_tp_case(timer: Timer, gen, out: dict, label: str, Hq: int, Hkv: int, hd: int,
+                  dtypes: tuple, **tags) -> None:
+    """The flash forward and backward at one shard shape of the train
+    microbatch (4 x 2048, causal) in each of ``dtypes``, under phase 2's
+    limits; the bf16 rows (``tags`` added) join ``out``."""
+    for dtype in dtypes:
+        name = f"{label} {dtype} (4, 2048, {Hq}q/{Hkv}kv, {hd}) causal"
+        err, (q, k, v) = _flash_case(gen, f"flash {name}", 4, 2048, 2048, Hq, Hkv, hd,
+                                     dtype, causal=True)
+        if dtype == torch.bfloat16:
+            out["flash_attention"].append({**_flash_row(timer, err, q, k, v, parent=False),
+                                           **tags})
+        del q, k, v
+        errs, tensors = flash_bwd_case(f"flash bwd {name}", gen, 4, 2048, 2048, Hq, Hkv, hd,
+                                       dtype, causal=True)
+        if dtype == torch.bfloat16:
+            dq, dkv = flash_bwd_times(timer, errs, *tensors, parent=False)
+            out["flash_attention_bwd_dq"].append({**dq, **tags})
+            out["flash_attention_bwd_dkv"].append({**dkv, **tags})
+        del tensors
+        torch.cuda.empty_cache()
+
+
+def swiglu_tp_case(timer: Timer, gen, out: dict, label: str, d: int, F_: int, dtypes: tuple,
+                   **tags) -> None:
+    """swiglu at one shard shape (N 8192 rows, d_ff / tp columns) in each of
+    ``dtypes``, under phase 2's limits; the bf16 row joins ``out``."""
+    from repro_torch.kernels import swiglu as sg
+    from repro_torch.kernels.ref import swiglu_ref
+
+    N = 8192
+    for dtype in dtypes:
+        x = randn(gen, N, d, dtype=dtype)
+        w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+        w3 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+        rtol, atol = TOL["swiglu"][dtype]
+        err = check_close(f"swiglu {label} {dtype} ({N}, {d})x({d}, {F_})",
+                          sg.swiglu_cuda(x, w1, w3),
+                          swiglu_ref(x.float(), w1.float(), w3.float()).to(dtype),
+                          rtol=rtol, atol=atol, why=TOL["swiglu"]["why"])
+        if dtype == torch.bfloat16:
+            b, by = bound_ms((x.numel() + w1.numel() + w3.numel() + N * F_) * 2,
+                             4 * N * d * F_, dtype)
+            out["swiglu"].append({
+                "shape": f"x ({N}, {d}), w1/w3 ({d}, {F_}) bf16", **tags,
+                "max_abs_err": err, "rtol": rtol, "atol": atol,
+                "tile": sg.swiglu_tile(N, F_, card_sms()),
+                "ms": timer(lambda: sg.swiglu_cuda(x, w1, w3)),
+                "plain_ms": timer(lambda: swiglu_ref(x, w1, w3)),
+                "library_ms": timer(lambda: F.silu(x @ w1) * (x @ w3)),
+                "library_call": "F.silu(x@w1)*(x@w3), a cuBLAS composition",
+                "bound_ms": b, "bound_by": by})
+        del x, w1, w3
+
+
 def phase_kernels_tp(timer: Timer) -> dict:
-    """The dense train step's kernels at the shard shapes of tensor
-    parallelism (tp = 2 and 4) of yi-6b (32q/4kv heads of 128, d_ff 11008,
-    vocab 64000) and gpt-1.4b (24 heads of 88, d_ff 8448, vocab 51200) on
-    the train microbatch (4 x 2048 tokens), bf16 and fp32, under the limits
-    of phase 2: the flash forward and backward at heads / tp, swiglu and
+    """The train steps' kernels at the shard shapes of tensor parallelism
+    (tp = 2 and 4) on the train microbatch (4 x 2048 tokens), under the
+    limits of phase 2.  Dense (bf16 and fp32): yi-6b (32q/4kv heads of 128,
+    d_ff 11008, vocab 64000) and gpt-1.4b (24 heads of 88, d_ff 8448, vocab
+    51200): the flash forward and backward at heads / tp, swiglu and
     gelu_mlp at d_ff / tp, and CE on each vocab shard with labels outside
     it (their stand-in 0 and the ownership mask of the vocab-parallel CE)
     and, on the last shard, a local valid vocab short of the shard, through
     the vocab-parallel CE's shard and merge steps (``ce_shards``), against
-    the whole vocab's plain CE.  bf16 rows timed, without parents:
-    rows to join each kernel's cases."""
+    the whole vocab's plain CE.  The recurrent families
+    (``recurrent_kernels_tp``): zamba2-2.7b's SSD scan at 40 and 20 of its
+    80 heads (bf16, chunk 128), its shared block's flash forward and
+    backward at 16 and 8 of 32 heads of 80 and swiglu at F 5120 and 2560
+    (d 2560), its CE on vocab shards of 16000 and 8000; rwkv6-1.6b's wkv
+    scan at 16 and 8 of its 32 heads (fp32, chunk 32) and its CE on shards
+    of 32768 and 16384 (d 2048).  bf16 rows (the wkv scan's fp32) timed
+    beside their bounds and library calls: rows to join each kernel's
+    cases."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cross_entropy as ce, gelu_mlp as gm, swiglu as sg
-    from repro_torch.kernels.ref import cross_entropy_ref, gelu_mlp_in_ref, swiglu_ref
+    from repro_torch.kernels import gelu_mlp as gm
+    from repro_torch.kernels.ref import gelu_mlp_in_ref
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {k: [] for k in ("flash_attention", "flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkv", "cross_entropy", "swiglu", "gelu_mlp")}
+                           "flash_attention_bwd_dkv", "cross_entropy", "swiglu", "gelu_mlp",
+                           "ssd_scan", "wkv_scan")}
     bf16, N = torch.bfloat16, 8192
     for tp in TP_WAYS:
         for c in (get_config("yi-6b"), get_config("gpt-1.4b")):
-            Hq, Hkv, hd = c.n_heads // tp, c.n_kv_heads // tp, c.resolved_head_dim
-            for dtype in (bf16, torch.float32):
-                name = f"tp{tp} {c.name} {dtype} (4, 2048, {Hq}q/{Hkv}kv, {hd}) causal"
-                err, (q, k, v) = _flash_case(gen, f"flash {name}", 4, 2048, 2048, Hq, Hkv, hd,
-                                             dtype, causal=True)
-                if dtype == bf16:
-                    out["flash_attention"].append(
-                        {**_flash_row(timer, err, q, k, v, parent=False), "tp": tp})
-                del q, k, v
-                errs, tensors = flash_bwd_case(f"flash bwd {name}", gen, 4, 2048, 2048, Hq,
-                                               Hkv, hd, dtype, causal=True)
-                if dtype == bf16:
-                    dq, dkv = flash_bwd_times(timer, errs, *tensors, parent=False)
-                    out["flash_attention_bwd_dq"].append({**dq, "tp": tp})
-                    out["flash_attention_bwd_dkv"].append({**dkv, "tp": tp})
-                del tensors
-                torch.cuda.empty_cache()
+            flash_tp_case(timer, gen, out, f"tp{tp} {c.name}", c.n_heads // tp,
+                          c.n_kv_heads // tp, c.resolved_head_dim, (bf16, torch.float32),
+                          tp=tp)
         for dtype in (bf16, torch.float32):
-            d, F_ = 4096, 11008 // tp                           # yi-6b's gate
-            x = randn(gen, N, d, dtype=dtype)
-            w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
-            w3 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
-            rtol, atol = TOL["swiglu"][dtype]
-            err = check_close(f"swiglu tp{tp} {dtype} ({N}, {d})x({d}, {F_})",
-                              sg.swiglu_cuda(x, w1, w3),
-                              swiglu_ref(x.float(), w1.float(), w3.float()).to(dtype),
-                              rtol=rtol, atol=atol, why=TOL["swiglu"]["why"])
-            if dtype == bf16:
-                b, by = bound_ms((x.numel() + w1.numel() + w3.numel() + N * F_) * 2,
-                                 4 * N * d * F_, dtype)
-                out["swiglu"].append({
-                    "shape": f"x ({N}, {d}), w1/w3 ({d}, {F_}) bf16", "tp": tp,
-                    "max_abs_err": err, "rtol": rtol, "atol": atol,
-                    "tile": sg.swiglu_tile(N, F_, card_sms()),
-                    "ms": timer(lambda: sg.swiglu_cuda(x, w1, w3)),
-                    "plain_ms": timer(lambda: swiglu_ref(x, w1, w3)),
-                    "library_ms": timer(lambda: F.silu(x @ w1) * (x @ w3)),
-                    "library_call": "F.silu(x@w1)*(x@w3), a cuBLAS composition",
-                    "bound_ms": b, "bound_by": by})
-            del x, w1, w3
+            swiglu_tp_case(timer, gen, out, f"tp{tp}", 4096, 11008 // tp, (dtype,),
+                           tp=tp)                               # yi-6b's gate
             F_ = GPT_F // tp                                    # gpt-1.4b's GELU half
             x = randn(gen, N, GPT_D, dtype=dtype)
             w1 = randn(gen, GPT_D, F_, dtype=dtype, scale=GPT_D ** -0.5)
@@ -2337,6 +2381,54 @@ def phase_kernels_tp(timer: Timer) -> dict:
             for dtype in (bf16, torch.float32):
                 out["cross_entropy"] += ce_shards(timer, gen, tp, 4 * 2047, d, V, dtype)
             torch.cuda.empty_cache()
+    for name, rows in recurrent_kernels_tp(timer).items():
+        out[name] += rows
+    return out
+
+
+def recurrent_kernels_tp(timer: Timer) -> dict:
+    """zamba2-2.7b's and rwkv6-1.6b's train-step kernels at the shard shapes
+    of tp = 2 and 4 on the train microbatch (4 x 2048 tokens) in the dtype
+    their step runs them (see ``phase_kernels_tp``), under phase 2's limits:
+    the SSD scan (its work division held to the mirrors at the shard's
+    heads; the carry one chunk late must fail the limit), the wkv scan (the
+    same), the flash kernels at zamba2's shared-block heads of 80 (MHA),
+    swiglu at its shared MLP's d_ff / tp, CE through the vocab-parallel
+    shard and merge steps.  Each bf16 row (the wkv scan's fp32) carries
+    ``tp`` and ``arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv as rwkv_mod, ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    z, rw = get_config(ZAMBA), get_config(RWKV)
+    h_ssm, h_wkv, B, T = ssm.n_ssm_heads(z), rwkv_mod.n_rwkv_heads(rw), 4, 2048
+    out = {k: [] for k in ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "cross_entropy", "swiglu",
+                           "ssd_scan", "wkv_scan")}
+    check_scan_mirrors("ssd_scan", [(B, T, h_ssm // tp, 128) for tp in TP_WAYS])
+    check_scan_mirrors("wkv_scan", [(B, T, h_wkv // tp, 32) for tp in TP_WAYS])
+    bf16 = torch.bfloat16
+    for tp in TP_WAYS:
+        H = h_ssm // tp
+        args = ssd_inputs(gen, B, T, bf16, H=H)
+        err = check_ssd(f"ssd_scan tp{tp} {bf16} (B {B}, T {T}, H {H}, P 64, N 64) chunk 128",
+                        args, 128)
+        out["ssd_scan"].append({**ssd_row(timer, err, args, 128), "tp": tp, "arch": ZAMBA})
+        del args
+        H = h_wkv // tp
+        args = wkv_inputs(gen, B, T, H=H)
+        res = check_wkv(f"wkv_scan tp{tp} fp32 (B {B}, T {T}, H {H}, K 64) chunk 32", args, 32)
+        out["wkv_scan"].append({**wkv_row(timer, res, args, 32), "tp": tp, "arch": RWKV})
+        del args
+        torch.cuda.empty_cache()
+        flash_tp_case(timer, gen, out, f"tp{tp} {ZAMBA} shared", z.n_heads // tp,
+                      z.n_kv_heads // tp, z.resolved_head_dim, (bf16,), tp=tp, arch=ZAMBA)
+        swiglu_tp_case(timer, gen, out, f"tp{tp} {ZAMBA} shared", z.d_model, z.d_ff // tp,
+                       (bf16,), tp=tp, arch=ZAMBA)
+        for c in (z, rw):
+            out["cross_entropy"] += [{**row, "arch": c.name} for row in ce_shards(
+                timer, gen, tp, 4 * 2047, c.d_model, c.vocab_size, bf16)]
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3688,21 +3780,23 @@ def phase_parallel(card: str) -> dict:
         import torch.multiprocessing as mp
 
         mp.spawn(_parallel_rank, args=(world, _process_group_file("ranks"),
-                                       TRAIN_STEP0.get("yi-6b")), nprocs=world)
+                                       dict(TRAIN_STEP0)), nprocs=world)
     else:
         emit({"phase": "parallel_ranks", "ran": False,
               "why": f"{torch.cuda.device_count()} card: the multi-rank branch needs 2 or more"})
     return launches
 
 
-def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | None) -> None:
+def _parallel_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
     """One nccl rank of the multi-rank branch: the reduced yi-6b's fp32 plans
     (PARALLEL_REDUCED) against the single-device port at PARALLEL_RTOL (dp =
     world at ZeRO 0-3, dp = world / 2 x tp = 2 at ZeRO 1 and 3, kernels off
     and on); yi-6b at
     TRAIN_LAYERS depth and full width at dp = world, ZeRO 3, step 0 within
-    STEP0_RTOL of phase 4's single-device step; at 4 ranks yi-6b at all 32
-    layers, ZeRO 3, 3 steps, with each rank's peak memory."""
+    STEP0_RTOL of phase 4's single-device step (``step0``: {arch: phase 4's
+    step 0}); at 4 ranks yi-6b at all 32 layers, ZeRO 3, 3 steps, with each
+    rank's peak memory; then the recurrent families under tp
+    (``_recurrent_tp``)."""
     import datetime
     import os
 
@@ -3735,6 +3829,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | Non
     kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
     gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
     cfg = train_config("yi-6b")
+    yi_step0 = step0.get("yi-6b")
     steps, peak = _sharded_steps(cfg, ParallelPlan(dp=world, zero=3, **kw),
                                  _batches(cfg.vocab_size, S, gb, 1), 0, tele=True)
     rel0 = None if yi_step0 is None else _rel(steps[0], yi_step0)
@@ -3752,6 +3847,115 @@ def _parallel_rank(rank: int, world: int, init_method: str, yi_step0: dict | Non
               "peak_mem_gb": peak})
         if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
             raise AssertionError(f"rank {rank}: non-finite yi-6b steps {steps}")
+    _recurrent_tp(rank, world, step0)
+    dist.destroy_process_group()
+
+
+# the recurrent families' reduced fp32 models of the multi-rank branch, at
+# their kernels' widths: zamba2 at the SSD kernels' P = N = 64 (8 SSM heads)
+# and a shared block of 4 heads of 64, MHA (so tp 4 splits both); rwkv6 as
+# plain .reduced() gives it (4 heads of K = V = 64), 4 blocks
+TP_REDUCED = {ZAMBA: dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+                          ssm_head_dim=64, ssm_state=64),
+              RWKV: dict(n_layers=4)}
+# the grad norms after the first update: Adam's first step moves every
+# weight by +-lr whatever its gradient's size, so a gradient element whose
+# sign is within rounding flips its update, and the next steps' grad norms
+# move by more than PARALLEL_RTOL under any reordering of fp32 sums
+# (tests/test_torch_parallel_tp.py:RWKV_LATER_NORMS; on four H100s zamba2's
+# reduced tp = 4 read 1.3e-5 at step 2, its step 0 at 1.5e-6, its losses
+# within 7.6e-8): held at the reference's bar, step 0 and every loss at
+# PARALLEL_RTOL
+TP_LATER_NORMS_RTOL = 1e-4
+# full-width tp steps of each arch (step 0 checked, the next timed)
+TP_STEPS = 2
+# the step-0 limits of the full-width tp steps against phase 4's single-device
+# step (bf16): tp rounds each rank's partial sums of the row-parallel
+# outputs to bf16 before they are summed, which the kernels-on vs off
+# readings behind STEP0_RTOL do not cover.  Stated before the first card
+# run, by step0_limits' rule (1.5x the largest sound reading over 3 seeds)
+# on CPU stand-ins (gloo ranks, the families reduced to 2 and 4 layers of
+# d 256, 4 x 32 tokens, bf16, kernels' plain versions): tp 2 and 4 vs one
+# process read up to 1.4e-4 (loss) and 1.3e-2 (grad norm) for zamba2, 2.9e-4
+# and 3.3e-2 for rwkv6; the larger of that and STEP0_RTOL.
+TP_STEP0_RTOL = {ZAMBA: STEP0_RTOL[ZAMBA], RWKV: {"loss": 5e-4, "grad_norm": 5e-2}}
+
+
+def _recurrent_tp(rank: int, world: int, step0: dict) -> None:
+    """The recurrent families under tensor parallelism on ``world`` nccl
+    ranks (2 or 4; the default group is up): the reduced fp32 models
+    (TP_REDUCED) at tp = world and dp = world / 2 x tp = 2 at ZeRO 1 and 3,
+    kernels off and on, against the single-device port (losses at every
+    step and step 0's grad norm at PARALLEL_RTOL, later grad norms at
+    TP_LATER_NORMS_RTOL); zamba2-2.7b (TRAIN_LAYERS depth) and rwkv6-1.6b
+    (all 24 layers) at full width, tp = world, bf16, kernels, TRAIN's
+    batch, step 0 within TP_STEP0_RTOL of phase 4's single-device step
+    (``step0``: the same weights and batch) and a telemetry record a step
+    (MFU, each rank's peak, the collective bytes by kind); at 4 ranks
+    zamba2-2.7b at all 54 layers at tp = 4 (about 10.8 GB of fp32 state a
+    card), its steps finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    plans = [dict(tp=world)] + ([dict(dp=world // 2, tp=2, zero=z) for z in (1, 3)]
+                                if world == 4 else [])
+    for arch, overrides in TP_REDUCED.items():
+        red = get_config(arch).reduced(**overrides)
+        rb = _batches(red.vocab_size, 32, 8, 3)
+        for kernels in (False, True):
+            kw = dict(gas=2, precision="fp32", kernels=kernels)
+            single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw),
+                                rb, 0)
+            for p in plans:
+                steps, _ = _sharded_steps(red, ParallelPlan(**p, **kw), rb, 0)
+                rel = [_rel(a, b) for a, b in zip(steps, single)]
+                emit({"phase": "parallel_ranks_tp_reduced", "rank": rank, "arch": red.name,
+                      "plan": {**p, **kw}, "rel_diff": rel, "rtol": PARALLEL_RTOL,
+                      "later_grad_norm_rtol": TP_LATER_NORMS_RTOL})
+                if (any(r["loss"] > PARALLEL_RTOL for r in rel)
+                        or rel[0]["grad_norm"] > PARALLEL_RTOL
+                        or any(r["grad_norm"] > TP_LATER_NORMS_RTOL for r in rel[1:])):
+                    raise AssertionError(f"rank {rank} {arch} plan {p} kernels={kernels}: {rel}")
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    # (arch, config, whether step 0 is held to phase 4's)
+    runs = [(ZAMBA, train_config(ZAMBA), True), (RWKV, train_config(RWKV), True)]
+    if world == 4:
+        runs.append((ZAMBA, get_config(ZAMBA), False))
+    for arch, cfg, held in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps, peak = _sharded_steps(cfg, ParallelPlan(tp=world, **kw),
+                                     _batches(cfg.vocab_size, S, gb, TP_STEPS), 0, tele=True)
+        ref = step0.get(arch) if held else None
+        rel0 = None if ref is None else _rel(steps[0], ref)
+        emit({"phase": "parallel_ranks_tp", "rank": rank, "arch": cfg.name,
+              "layers": cfg.n_layers, "tp": world, "steps": steps, "peak_mem_gb": peak,
+              "train_step0": ref, "rel_diff": rel0, "rtol": TP_STEP0_RTOL[arch] if held else None,
+              "seconds": time.perf_counter() - t0})
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+            raise AssertionError(f"rank {rank}: non-finite {cfg.name} tp={world} steps {steps}")
+        if held and (rel0 is None or any(rel0[k] > TP_STEP0_RTOL[arch][k] for k in rel0)):
+            raise AssertionError(f"rank {rank}: {cfg.name} tp={world} step 0 vs phase 4's: "
+                                 f"{rel0}, limits {TP_STEP0_RTOL[arch]}")
+
+
+def _recurrent_tp_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
+    """``_recurrent_tp`` alone on one nccl rank (``tools/parallel_ranks.py
+    recurrent``)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    _recurrent_tp(rank, world, step0)
     dist.destroy_process_group()
 
 

@@ -127,8 +127,12 @@ def table2_bytes_per_param(zero: int, dp: int, *, param_bytes: float = 2.0,
     return out
 
 
-def sharded_bytes(shapes: dict, specs: dict, sizes: Mapping[str, int], itemsize: int) -> int:
+def sharded_bytes(shapes: dict, specs: dict, sizes: Mapping[str, int], itemsize: int,
+                  pieces: Mapping[str, shd.Pieces] | None = None) -> int:
     """Exact bytes one rank holds of a {leaf: shape} tree under
-    {leaf: spec}: ``prod(shard_shape) * itemsize`` summed over the leaves."""
-    return sum(int(np.prod(shd.shard_shape(shape, specs[k], sizes), dtype=np.int64)) * itemsize
+    {leaf: spec}: ``prod(shard_shape) * itemsize`` summed over the leaves
+    (the leaves in ``pieces`` laid out by them over the model axis)."""
+    pieces = pieces or {}
+    return sum(int(np.prod(shd.shard_shape(shape, specs[k], sizes, pieces.get(k)),
+                           dtype=np.int64)) * itemsize
                for k, shape in shapes.items())

@@ -12,7 +12,8 @@ divide its dimension leaves that dimension replicated.
 
 :func:`shard_shape` and :func:`shard_slices` give one rank's block of a
 leaf under a spec (blocks in rank order along each sharded dim; the layer
-stack round-robin over the pipe ranks under virtual stages).
+stack round-robin over the pipe ranks under virtual stages; a dim laid out
+as :class:`Pieces` over the model axis, the rank's part of each piece).
 """
 from __future__ import annotations
 
@@ -172,22 +173,91 @@ def zero_partition_spec(shape: Sequence[int], base_spec: Spec, sizes: Mapping[st
     return tuple(spec)
 
 
-def shard_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int]) -> tuple[int, ...]:
-    """The block one rank holds of a leaf of ``shape`` under ``spec``."""
-    return tuple(d // axis_size(sizes, e) for d, e in zip(shape, spec))
+@dataclasses.dataclass(frozen=True)
+class Pieces:
+    """A dim sharded over the model axis that is not one even split: the
+    dim is consecutive pieces ``(width, split)``; a split piece is cut into
+    one even block per model rank, a piece that is not split is held whole
+    by every model rank, and a rank's block is its part of each piece, in
+    the dim's order (a fused projection whose columns are several tensors,
+    some of them used whole by every rank)."""
+    parts: tuple[tuple[int, bool], ...]
+
+    @property
+    def size(self) -> int:
+        return sum(w for w, _ in self.parts)
+
+    def _cut(self, ways: int) -> list[tuple[int, int, bool]]:
+        """(start in the dim, width in a rank's block, split) of each piece."""
+        out, start = [], 0
+        for w, split in self.parts:
+            if split and w % ways:
+                raise ValueError(f"a piece of width {w} does not split over {ways} ranks")
+            out.append((start, w // ways if split else w, split))
+            start += w
+        return out
+
+    def width(self, ways: int) -> int:
+        """The dim of one rank's block."""
+        return sum(n for _, n, _ in self._cut(ways))
+
+    def index(self, ways: int, k: int) -> list[int]:
+        """Rank ``k``'s entries of the whole dim, in its block's order."""
+        return [i for start, n, split in self._cut(ways)
+                for i in range(start + k * n if split else start,
+                               start + (k + 1) * n if split else start + n)]
+
+    def split_ranges(self, ways: int) -> list[tuple[int, int]]:
+        """(offset, length) in a rank's block of its split pieces' parts:
+        what the rank holds alone."""
+        out, off = [], 0
+        for _, n, split in self._cut(ways):
+            if split:
+                out.append((off, n))
+            off += n
+        return out
+
+
+def _pieces_dim(spec: Spec, pieces: Pieces | None) -> int | None:
+    """The dim that ``pieces`` lays out: the one sharded over "model" alone
+    (None: the leaf is not sharded over it, and is held whole)."""
+    if pieces is None or "model" not in spec_axes(spec):
+        return None
+    dims = [i for i, e in enumerate(spec) if e == "model"]
+    if len(dims) != 1:
+        raise ValueError(f"pieces lay out the dim sharded over 'model' alone; spec {spec}")
+    return dims[0]
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
+                pieces: Pieces | None = None) -> tuple[int, ...]:
+    """The block one rank holds of a leaf of ``shape`` under ``spec`` (the
+    dim sharded over "model" laid out as ``pieces``, if given)."""
+    at = _pieces_dim(spec, pieces)
+    return tuple(pieces.width(sizes["model"]) if i == at else d // axis_size(sizes, e)
+                 for i, (d, e) in enumerate(zip(shape, spec)))
 
 
 def shard_slices(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
-                 coord: Mapping[str, int], virtual_stages: int = 1) -> tuple:
+                 coord: Mapping[str, int], virtual_stages: int = 1,
+                 pieces: Pieces | None = None) -> tuple:
     """The index of the rank at mesh coordinate ``coord`` ({axis: index})
     into the whole leaf: along a dim sharded over a composite axis the
     first named axis is the slowest.  With ``virtual_stages`` v > 1 a dim
     sharded over "pipe" alone (the layer stack) is cut into v x p blocks
     and pipe rank d holds blocks d, d + p, ..., d + (v - 1) p, the layers of
     its logical stages (``core/pipeline.py``): a list of indices, where
-    every other dim is a slice."""
+    every other dim is a slice.  The dim that ``pieces`` lays out is a list
+    of indices too (:meth:`Pieces.index`); :func:`outer` makes an index
+    with two lists apply as one block."""
+    at = _pieces_dim(spec, pieces)
     out: list = []
-    for d, e in zip(shape, spec):
+    for i, (d, e) in enumerate(zip(shape, spec)):
+        if i == at:
+            if d != pieces.size:
+                raise ValueError(f"pieces of {pieces.size} lay out a dim of {d}")
+            out.append(pieces.index(sizes["model"], coord["model"]))
+            continue
         if virtual_stages > 1 and "pipe" in _axes(e):
             if e != "pipe":
                 raise NotImplementedError(f"virtual stages on the composite axis {e!r}")
@@ -202,6 +272,16 @@ def shard_slices(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int],
             n *= sizes[a]
         out.append(slice(idx * (d // n), (idx + 1) * (d // n)))
     return tuple(out)
+
+
+def outer(index: tuple) -> tuple:
+    """A :func:`shard_slices` index that numpy (get and set) and torch (get)
+    apply as the block it names: as it is with at most one list, else every
+    dim as an open-mesh array (``np.ix_``)."""
+    if sum(not isinstance(e, slice) for e in index) <= 1:
+        return index
+    return np.ix_(*[np.arange(e.start, e.stop) if isinstance(e, slice) else np.asarray(e)
+                    for e in index])
 
 
 def spec_axes(spec: Spec) -> set[str]:

@@ -56,18 +56,23 @@ def _specs(cfg, plan) -> tuple[dict, dict]:
     return shapes, psh
 
 
-def _index(shape, spec, plan, coord: dict) -> tuple:
-    return shd.shard_slices(shape, spec, plan.mesh_sizes(), coord,
-                            plan.virtual_stages if plan.pp > 1 else 1)
+def _index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
+    from repro_torch.models.model import tp_pieces
+
+    return shd.outer(shd.shard_slices(shape, spec, plan.mesh_sizes(), coord,
+                                      plan.virtual_stages if plan.pp > 1 else 1,
+                                      tp_pieces(cfg).get(key)))
 
 
 def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
     """The blocks of the rank at mesh coordinate ``coord`` ({"pipe": i,
     "data": j, "model": k}) of a whole parameter tree (nested or flat),
     under the plan's shardings of ``cfg``: at pp > 1 the layers of the
-    rank's logical stages (round-robin under virtual stages)."""
+    rank's logical stages (round-robin under virtual stages); zamba2's
+    in_proj and conv blocks the rank's heads' columns and the B and C ones
+    (``models/model.py:tp_pieces``)."""
     shapes, psh = _specs(cfg, plan)
-    return {k: np.asarray(a)[_index(shapes[k], psh[k], plan, coord)]
+    return {k: np.asarray(a)[_index(k, shapes[k], psh[k], cfg, plan, coord)]
             for k, a in flatten_tree(tree).items()}
 
 
@@ -80,7 +85,7 @@ def gather_params(blocks: dict[tuple[int, int, int], dict], cfg, plan) -> dict[s
         first = next(iter(blocks.values()))[k]
         whole = np.empty(shape, dtype=np.asarray(first).dtype)
         for (i, j, m), tree in blocks.items():
-            whole[_index(shape, psh[k], plan, {"pipe": i, "data": j, "model": m})] = \
-                np.asarray(tree[k])
+            whole[_index(k, shape, psh[k], cfg, plan,
+                         {"pipe": i, "data": j, "model": m})] = np.asarray(tree[k])
         out[k] = whole
     return out

@@ -22,13 +22,16 @@ rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
 executor over a (pp, dp, tp) mesh: ``--pp`` (the gas microbatches are the
 pipeline's), ``--virtual-stages``, ``--dp``, ``--tp``, ``--zero`` 0-3 and
 ``--rules``; rank 0 prints.  pp x dp x tp must be the number of ranks.
-Plans that still raise, naming ROADMAP.md: ep, node, qcomm, overlap, tp on
-the hybrid and rwkv families, ``--rules tp_only`` at dp > 1 (it keeps the
-batch off the data axis).  Every plan and every ``--remat`` prints the
-same losses as one device:
+``--tp`` splits the heads and the MLP of the dense, hybrid (zamba2) and
+rwkv families; ``--rules tp_only`` keeps the batch off the data axis (every
+data rank takes the whole batch).  Plans that still raise, naming
+ROADMAP.md: ep, node, qcomm, overlap, tp on the moe family.  Every plan and
+every ``--remat`` prints the same losses as one device:
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
+  python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
+      --device cpu --arch zamba2-2.7b --reduced --layers 4 --tp 2 --precision fp32
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --pp 2 --dp 2 --gas 2 --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -128,7 +131,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          "(SwiGLU or GELU), attention, the SSD scan and CE in the "
                          "CUDA kernels")
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (dense family)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks")
     ap.add_argument("--pp", type=int, default=1, help="pipeline ranks")
     ap.add_argument("--virtual-stages", type=int, default=1,
                     help="logical stages per pipeline rank (interleaved)")

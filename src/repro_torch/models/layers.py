@@ -8,11 +8,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.compute import ComputePolicy, checkpointed, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import layernorm_ref, rmsnorm_ref, swiglu_ref
+from repro_torch.runtime.collectives import sum_over_model
 
 # queries per block of the plain attention: bounds the (chunk x Skv) scores
 Q_CHUNK = 1024
@@ -23,6 +25,24 @@ Q_CHUNK = 1024
 
 rms_norm = rmsnorm_ref
 layer_norm = layernorm_ref
+
+
+def rms_norm_split(x: torch.Tensor, weight: torch.Tensor, eps: float, group=None
+                   ) -> torch.Tensor:
+    """RMSNorm over a last dim that is split over the ranks of ``group``
+    (each holds its block of x and of the weight): the mean square of the
+    whole dim is the ranks' fp32 mean squares summed over the group
+    (``collectives.sum_over_model``, whose backward sums the ranks'
+    gradients of it) over their count (a one-rank group: the ops of
+    :func:`rms_norm`); without a group, :func:`rms_norm`."""
+    if group is None:
+        return rms_norm(x, weight, eps)
+    x32 = x.float()
+    var = sum_over_model(x32.square().mean(dim=-1, keepdim=True), group)
+    n = dist.get_world_size(group)
+    if n > 1:
+        var = var / n
+    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
 def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float,

@@ -39,9 +39,12 @@ gathers again and no whole stack is saved; the embedding in the storage
 dtype (its duplicate-token rows then sum in fp32, as unsharded), the rest
 in the compute dtype.  The zamba2 shared block is gathered at each
 application and its uses' gradients summed before one reduce-scatter.
-Under the model axis the dense blocks run Megatron tensor parallelism
-(``blocks.py``), the embedding lookup is vocab-parallel (rows outside the
-shard are zero, then all-reduced over the model group) and the lm_head
+Under the model axis the blocks run Megatron tensor parallelism (the dense
+blocks and zamba2's shared block in ``blocks.py``, the mamba layers in
+``ssm.py``, rwkv's blocks in ``rwkv.py``; ``tp_dims`` names the leaves and
+their dims, ``tp_pieces`` the zamba2 leaves whose block is not one even
+cut), the embedding lookup is vocab-parallel (rows outside the shard are
+zero, then all-reduced over the model group) and the lm_head
 column-parallel into the vocab-parallel CE
 (``models/vocab_parallel.py``).  Under the pipe axis the model stores the
 layers of its rank's logical stages only (with ``virtual_stages`` v > 1 a
@@ -207,10 +210,9 @@ def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-# the leaves of the dense family that Megatron tensor parallelism shards,
-# and the dim (of the stacked leaf) that holds the model axis
-_MEGATRON_DIMS = {"attn.wq": 2, "attn.wk": 2, "attn.wv": 2, "attn.wo": 1,
-                  "mlp.w1": 2, "mlp.w3": 2, "mlp.w2": 1}
+# the logical axes the model axis sits on under Megatron tensor parallelism
+# (core/sharding.py's rules), the vocab aside
+_TP_AXES = ("heads", "kv_heads", "mlp", "ssm_heads")
 
 
 def _model_dim(spec: shd.Spec) -> int | None:
@@ -218,37 +220,71 @@ def _model_dim(spec: shd.Spec) -> int | None:
     return dims[0] if dims else None
 
 
-def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec]) -> bool:
-    """What the port's sharded model can run; returns whether the dense
-    blocks are tensor-parallel.  The model axis may sit only on the
-    Megatron dims, on all of the block leaves or none, on whole heads, and
-    on the vocab dim of the embedding and lm_head; anything else raises,
-    naming the leaf."""
+def tp_dims(cfg: ModelConfig) -> dict[str, int]:
+    """{leaf: the dim tensor parallelism splits} of the family's blocks (the
+    dense and moe blocks, zamba2's mamba layers and shared block, rwkv's
+    time-mix and channel-mix): the dim of the leaf's first head, kv-head,
+    MLP or SSM-head axis."""
+    out = {}
+    for path, spec in flatten_specs(param_specs(cfg)):
+        dims = [i for i, a in enumerate(spec.axes) if a in _TP_AXES]
+        if dims:
+            out[path] = dims[0]
+    return out
+
+
+def tp_pieces(cfg: ModelConfig) -> dict[str, shd.Pieces]:
+    """{leaf: its model-axis layout} of the leaves whose split is not one
+    even cut (``ssm.head_pieces``: zamba2's in_proj and conv)."""
+    if cfg.family != "hybrid":
+        return {}
+    return {f"layers.{k}": v for k, v in ssm.head_pieces(cfg).items()}
+
+
+def _tp_heads(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """(a leaf that splits on whole heads, its head count) of the family."""
+    if cfg.family == "rwkv":
+        return [("layers.tm.wr", rwkv.n_rwkv_heads(cfg))]
+    attn = "shared.attn" if cfg.family == "hybrid" else "layers.attn"
+    heads = [(f"{attn}.wq", cfg.n_heads), (f"{attn}.wk", cfg.n_kv_heads)]
+    if cfg.family == "hybrid":
+        heads.insert(0, ("layers.in_proj", ssm.n_ssm_heads(cfg)))
+    return heads
+
+
+def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec],
+                    sizes: dict[str, int]) -> bool:
+    """What the port's sharded model can run; returns whether the blocks are
+    tensor-parallel.  The model axis may sit only on the dims of
+    :func:`tp_dims`, on all of those leaves or none, on whole heads (given
+    the mesh ``sizes``), and on the vocab dim of the embedding and lm_head;
+    anything else raises, naming the leaf."""
     where = "(see ROADMAP.md, Queue 1)"
+    expected = tp_dims(cfg)
     block = {}
     for path, spec in specs.items():
         dim = _model_dim(spec)
         if dim is None:
             continue
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"{path}: tensor parallelism of the {cfg.family} family is not "
-                f"ported yet {where}")
-        key = path.removeprefix("layers.")
         if path in ("embed", "lm_head"):
             if dim != (0 if path == "embed" else 1):
                 raise NotImplementedError(f"{path}: the model axis on dim {dim} {where}")
-        elif _MEGATRON_DIMS.get(key) != dim:
+        elif expected.get(path) != dim:
             raise NotImplementedError(f"{path}: the model axis on dim {dim} is not "
                                       f"Megatron's split {where}")
         else:
-            block[key] = dim
+            block[path] = dim
     if not block:
         return False
-    if set(block) != {k for k in _MEGATRON_DIMS if f"layers.{k}" in specs}:
-        missing = sorted(k for k in _MEGATRON_DIMS if k not in block
-                         and f"layers.{k}" in specs)
-        raise NotImplementedError(f"layers.{missing[0]}: replicated while the other "
+    tp = sizes["model"]
+    for leaf, heads in _tp_heads(cfg):
+        if heads % tp:
+            what = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads" if leaf.endswith(".wk")
+                    else f"{heads} heads")
+            raise NotImplementedError(f"{leaf}: {what} do not split over tp={tp} {where}")
+    if set(block) != {k for k in expected if k in specs}:
+        missing = sorted(k for k in expected if k not in block and k in specs)
+        raise NotImplementedError(f"{missing[0]}: replicated while the other "
                                   f"block leaves are tensor-parallel {where}")
     return True
 
@@ -282,15 +318,9 @@ class Model(nn.Module):
         self.shardings, self.mesh = shardings, mesh
         self.virtual_stages = virtual_stages     # logical stages per pipe rank
         self._tp = None
-        if shardings is not None:
-            heads = (cfg.n_heads, cfg.n_kv_heads)
-            if check_shardings(cfg, shardings):
-                tp = mesh.sizes["model"]
-                if any(h % tp for h in heads):
-                    raise NotImplementedError(
-                        f"layers.attn.wk: {cfg.n_heads} query / {cfg.n_kv_heads} kv heads "
-                        f"do not split over tp={tp} (see ROADMAP.md, Queue 1)")
-                self._tp = mesh.groups["model"]
+        self.pieces = tp_pieces(cfg)
+        if shardings is not None and check_shardings(cfg, shardings, mesh.sizes):
+            self._tp = mesh.groups["model"]
         for path, spec in flatten_specs(self.param_specs()):
             *parents, leaf = path.split(".")
             node: nn.Module = self
@@ -299,7 +329,7 @@ class Model(nn.Module):
                     node.add_module(name, _Tree())
                 node = getattr(node, name)
             shape = spec.shape if shardings is None else shd.shard_shape(
-                spec.shape, shardings[path], mesh.sizes)
+                spec.shape, shardings[path], mesh.sizes, self.pieces.get(path))
             node.register_parameter(leaf, nn.Parameter(
                 torch.empty(shape, dtype=spec.dtype or dtype, device=self.device),
                 requires_grad=False))
@@ -318,15 +348,17 @@ class Model(nn.Module):
         params = dict(self.named_parameters())
         for path, spec in flatten_specs(self.param_specs()):
             leaf = init_leaf(spec, generator, self.device, self.dtype)
-            params[path].copy_(leaf[self.block_of(path, spec.shape)])
+            params[path].copy_(leaf[shd.outer(self.block_of(path, spec.shape))])
         return self
 
-    def block_of(self, path: str, shape: tuple[int, ...]) -> tuple[slice, ...]:
-        """The index of this rank's block into the whole leaf ``path``."""
+    def block_of(self, path: str, shape: tuple[int, ...]) -> tuple:
+        """The index of this rank's block into the whole leaf ``path``
+        (``core/sharding.py:shard_slices``; :func:`tp_pieces` lays out the
+        leaves whose split is not one even cut)."""
         if self.shardings is None:
             return tuple(slice(None) for _ in shape)
         return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes,
-                                self.mesh.coord, self.virtual_stages)
+                                self.mesh.coord, self.virtual_stages, self.pieces.get(path))
 
     def _refuse_sharded(self, what: str) -> None:
         if self.shardings is not None and any(shd.spec_axes(s)
@@ -502,10 +534,10 @@ class Model(nn.Module):
             units = [lps[s:s + per] for s in range(0, len(lps), per)]
             body = ssm.hybrid_segment_body(cfg, self.compute,
                                            self._uses(params["shared"], "shared"),
-                                           lambda t: _cast_floating(t, cdt))
+                                           lambda t: _cast_floating(t, cdt), tp=self._tp)
             return sp.StageProgram((sp.Segment("super", units, len(units), body),))
         if cfg.family == "rwkv":
-            name, layer = "rwkv", rwkv.segment_body(cfg, self.compute)
+            name, layer = "rwkv", rwkv.segment_body(cfg, self.compute, tp=self._tp)
         else:
             name, layer = "block", blocks.segment_body(cfg, self.compute, tp=self._tp)
         # lp in the storage dtype: cast inside the remat

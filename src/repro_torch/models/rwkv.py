@@ -11,6 +11,20 @@ kernel; a decode tick takes that step in place on the cache's state, in
 the active slots' rows.  Time-mix's norm takes the rmsnorm kernel under
 ``policy.kernels``; channel-mix's norm and ``ln_x`` stay plain, as they
 are in the reference.
+
+``tp`` (a model-group process group, training only) runs a block on the
+rank's heads.  Time-mix: ``wr``/``wk``/``wv``/``wg`` and ``w_lora_b`` are
+column-parallel (the rank's heads), ``w0``, ``u`` and ``ln_x`` split on head
+boundaries, ``wo`` is row-parallel (``collectives.reduce_from_model``); the
+normed input enters through ``collectives.copy_to_model``, and so do the
+replicated ``mu_*`` and ``w_lora_a``, which are used inside the region (each
+rank's heads give part of their gradient); ``ln_x``, an RMSNorm over all of
+d, sums its squares over the group (``layers.rms_norm_split``).
+Channel-mix: ``wk`` is column-parallel on d_ff and ``wv`` row-parallel, and
+``wr`` column-parallel on d, so ``r`` holds the rank's d / tp columns: the
+partial ``k @ wv`` is reduce-scattered over d, multiplied by the rank's
+``r`` and all-gathered (``collectives.reduce_scatter_to_model``,
+``all_gather_from_model``: the bytes of one all-reduce).
 """
 from __future__ import annotations
 
@@ -24,6 +38,9 @@ from repro_torch.kernels.tiling import WKV_CHUNK, pick_chunk
 from repro_torch.models import layers
 from repro_torch.models.blocks import norm_spec
 from repro_torch.models.common import ModelConfig, Spec
+from repro_torch.runtime.collectives import (
+    all_gather_from_model, copy_to_model, reduce_from_model, reduce_scatter_to_model,
+)
 
 LORA_RANK = 64
 
@@ -75,9 +92,15 @@ def _lerp(x: torch.Tensor, x_prev: torch.Tensor, mu: torch.Tensor) -> torch.Tens
     return x + (x_prev - x) * mu
 
 
-def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
+def _shared(t: torch.Tensor, tp) -> torch.Tensor:
+    """A replicated leaf used inside the tensor-parallel region: its
+    gradient is summed over ``tp`` (``copy_to_model``); itself without tp."""
+    return t if tp is None else copy_to_model(t, tp)
+
+
+def _decay(p: dict, xw: torch.Tensor, tp=None) -> torch.Tensor:
     """Data-dependent per-channel decay in (0, 1): exp(-exp(w)), fp32."""
-    w = p["w0"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    w = p["w0"] + torch.tanh(xw @ _shared(p["w_lora_a"], tp)) @ p["w_lora_b"]
     return torch.exp(-torch.exp(w.float()))
 
 
@@ -101,27 +124,36 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], H, x.shape[-1] // H)
 
 
+def _local_heads(p: dict, cfg: ModelConfig) -> int:
+    """The heads a time-mix's weights hold (all, or the rank's under tp)."""
+    return p["u"].shape[-1] // rwkv_head_dim(cfg)
+
+
 def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, state: torch.Tensor,
              cfg: ModelConfig, policy: ComputePolicy | None = None, *,
-             in_place: bool = False, active: torch.Tensor | None = None):
+             in_place: bool = False, active: torch.Tensor | None = None, tp=None):
     """x: (B, T, d); x_prev: (B, d) the token before x[:, 0]; state:
-    (B, H, K, V).  Returns (x + the time-mix output, the last normed token
-    (B, d), the new state (B, H, K, V) fp32, a fresh tensor).  With
-    ``in_place`` (serving's decode tick, T = 1) the step writes the new
-    state over ``state`` (fp32) in the rows of the slots that ``active``
-    ((B,) bool, or None: all) marks and returns ``state`` itself; autograd
-    and prefill take the pure form."""
+    (B, H, K, V) over the heads the weights hold (the rank's under ``tp``).
+    Returns (x + the time-mix output, the last normed token (B, d), the new
+    state (B, H, K, V) fp32, a fresh tensor).  With ``in_place`` (serving's
+    decode tick, T = 1) the step writes the new state over ``state`` (fp32)
+    in the rows of the slots that ``active`` ((B,) bool, or None: all) marks
+    and returns ``state`` itself; autograd and prefill take the pure form."""
     pol = resolve_policy(policy)
-    B, T, d = x.shape
-    H = n_rwkv_heads(cfg)
+    B, T, _ = x.shape
+    H = _local_heads(p, cfg)
+    d = H * rwkv_head_dim(cfg)
     h = layers.apply_norm(x, p["ln"], cfg.norm, cfg.rms_eps, use_kernel=pol.kernels)
+    if tp is not None:
+        h = copy_to_model(h, tp)
     hs = torch.cat([x_prev[:, None, :], h[:, :-1, :]], dim=1)        # shifted
-    xr, xk, xv, xw, xg = (_lerp(h, hs, p[m]) for m in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
+    xr, xk, xv, xw, xg = (_lerp(h, hs, _shared(p[m], tp))
+                          for m in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))
     r = _heads(xr @ p["wr"], H).float()
     k = _heads(xk @ p["wk"], H).float()
     v = _heads(xv @ p["wv"], H).float()
     g = F.silu(xg @ p["wg"])
-    w = _heads(_decay(p, xw), H)                                       # (B, T, H, K) fp32
+    w = _heads(_decay(p, xw, tp), H)                                   # (B, T, H, K) fp32
     u = _heads(p["u"].float(), H)                                      # (H, K)
 
     if in_place:
@@ -142,41 +174,51 @@ def time_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, state: torch.Tensor
             out, state = step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
             outs.append(out)
         y = torch.stack(outs, dim=1).reshape(B, T, d).to(x.dtype)
-    y = layers.rms_norm(y, p["ln_x"], cfg.rms_eps) * g
-    return x + y @ p["wo"], h[:, -1, :], state
+    y = layers.rms_norm_split(y, p["ln_x"], cfg.rms_eps, tp) * g
+    out = y @ p["wo"]
+    if tp is not None:
+        out = reduce_from_model(out, tp)
+    return x + out, h[:, -1, :], state
 
 
-def channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig):
+def channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig, tp=None):
     h = layers.apply_norm(x, p["ln"], cfg.norm, cfg.rms_eps)
+    if tp is not None:
+        h = copy_to_model(h, tp)
     hs = torch.cat([x_prev[:, None, :], h[:, :-1, :]], dim=1)
-    r = torch.sigmoid(_lerp(h, hs, p["mu_r"]) @ p["wr"])
-    k = torch.square(torch.relu(_lerp(h, hs, p["mu_k"]) @ p["wk"]))
-    return x + r * (k @ p["wv"]), h[:, -1, :]
+    r = torch.sigmoid(_lerp(h, hs, _shared(p["mu_r"], tp)) @ p["wr"])
+    k = torch.square(torch.relu(_lerp(h, hs, _shared(p["mu_k"], tp)) @ p["wk"]))
+    if tp is None:
+        return x + r * (k @ p["wv"]), h[:, -1, :]
+    kv = reduce_scatter_to_model(k @ p["wv"], -1, tp)        # the rank's d / tp columns
+    return x + all_gather_from_model(r * kv, -1, tp), h[:, -1, :]
 
 
-def _zero_carry(x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """The token before the sequence (zeros) and the zero wkv state."""
+def _zero_carry(x: torch.Tensor, cfg: ModelConfig,
+                heads: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The token before the sequence (zeros) and the zero wkv state of
+    ``heads`` heads (all by default)."""
     B, _, d = x.shape
     hd = rwkv_head_dim(cfg)
     return (torch.zeros((B, d), dtype=x.dtype, device=x.device),
-            torch.zeros((B, n_rwkv_heads(cfg), hd, hd), dtype=torch.float32,
+            torch.zeros((B, heads or n_rwkv_heads(cfg), hd, hd), dtype=torch.float32,
                         device=x.device))
 
 
 def rwkv_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-               policy: ComputePolicy | None = None) -> torch.Tensor:
-    zeros_prev, state0 = _zero_carry(x, cfg)
-    x, _, _ = time_mix(params["tm"], x, zeros_prev, state0, cfg, policy=policy)
-    x, _ = channel_mix(params["cm"], x, zeros_prev, cfg)
+               policy: ComputePolicy | None = None, tp=None) -> torch.Tensor:
+    zeros_prev, state0 = _zero_carry(x, cfg, _local_heads(params["tm"], cfg))
+    x, _, _ = time_mix(params["tm"], x, zeros_prev, state0, cfg, policy=policy, tp=tp)
+    x, _ = channel_mix(params["cm"], x, zeros_prev, cfg, tp)
     return x
 
 
-def segment_body(cfg: ModelConfig, policy: ComputePolicy | None = None):
-    """The layer body over one rwkv block's weights: the wkv state is
-    sequence-level and layer-local in training (each layer starts from zero
-    at t = 0), so nothing is carried."""
+def segment_body(cfg: ModelConfig, policy: ComputePolicy | None = None, tp=None):
+    """The layer body over one rwkv block's weights (the rank's heads under
+    ``tp``): the wkv state is sequence-level and layer-local in training
+    (each layer starts from zero at t = 0), so nothing is carried."""
     def body(lp: dict, x: torch.Tensor) -> torch.Tensor:
-        return rwkv_block(lp, x, cfg, policy=policy)
+        return rwkv_block(lp, x, cfg, policy=policy, tp=tp)
     return body
 
 

@@ -5,6 +5,15 @@ explicit ``torch.distributed`` calls on the mesh's process groups.
     identity whose backward all-reduces over the model group, in front of a
     column-parallel product, and the all-reduce whose backward is the
     identity, after a row-parallel product (its output is a partial sum);
+  * :func:`sum_over_model`, an all-reduce whose backward all-reduces too:
+    a sum of the ranks' parts that each rank then uses on its own columns
+    only (the sum of squares of a norm over a dim split over the group);
+  * :func:`reduce_scatter_to_model` and :func:`all_gather_from_model`, a
+    partial sum reduce-scattered into the rank's block of a dim (backward:
+    the gradients' blocks all-gathered) and the blocks all-gathered into
+    the replicated whole (backward: the rank's block of the gradient), the
+    two halves of an all-reduce with a product on the rank's block between
+    them (rwkv's channel-mix);
   * ZeRO stage 3's gather-on-use (:class:`LeafGather`): a leaf's block
     all-gathered along its data dim in the compute dtype at each use, and
     the fp32 sum of the uses' gradients reduce-scattered into the block;
@@ -139,6 +148,58 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduces a partial sum over ``group``; identity backward."""
     return _ReduceFromModel.apply(x, group)
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``group``; the backward sums the
+    ranks' gradients too, since each rank uses the sum on its own part."""
+    return _SumOverModel.apply(x, group)
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+class _AllGatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.n = dim, group, x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
+
+
+def reduce_scatter_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' partial ``x``, this rank's block
+    along ``dim``; the backward all-gathers the blocks' gradients."""
+    return _ReduceScatterToModel.apply(x, dim % x.ndim, group)
+
+
+def all_gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks ``x`` along ``dim`` gathered into the whole, which
+    every rank then uses alike; the backward takes the rank's block of the
+    gradient."""
+    return _AllGatherFromModel.apply(x, dim % x.ndim, group)
 
 
 class _ScatterBack(torch.autograd.Function):

@@ -11,19 +11,20 @@ over a ``torch.distributed`` mesh.
     (``launch/mesh.py:mesh_for_plan``): the same, plus data parallelism
     with ZeRO stage ``zero`` 0-3 (None is stage 1, as in the reference;
     ``core/memplan.py`` says what each stage shards and how), Megatron
-    tensor parallelism of the dense family over the model group
-    (``models/blocks.py``; vocab-parallel embedding and CE), and the
-    sharding ``rules`` preset (``core/sharding.py:PRESETS``; ``tp_only``
-    at dp = 1), and pipeline parallelism over the pipe group: the layer
-    stack split into ``pp x virtual_stages`` logical stages
+    tensor parallelism over the model group of the dense, hybrid and rwkv
+    families (``models/blocks.py``, ``models/ssm.py``, ``models/rwkv.py``;
+    vocab-parallel embedding and CE), the sharding ``rules`` preset
+    (``core/sharding.py:PRESETS``; under ``tp_only`` the batch is off the
+    data axis: every data rank takes the whole global batch, as the
+    reference's ``batch -> None`` does, and the data reductions act on
+    equal gradients), and pipeline parallelism over the pipe group: the
+    layer stack split into ``pp x virtual_stages`` logical stages
     (``runtime/pipeline.py``; GPipe at ``virtual_stages`` = 1, Megatron's
-    interleaved round-robin assignment above).  The hybrid and rwkv
-    families run dp, pp and every stage, not tp.
+    interleaved round-robin assignment above).
 
 What still raises, naming ROADMAP.md: ``multi_segment``, ``ep`` > 1,
-``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan), fp16 kernels, tp on the hybrid and rwkv families,
-and a batch rule other than the data axis at dp > 1 (``tp_only``).  The
-reference's ``rule_overrides`` are not ported.
+``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan), fp16 kernels and
+tp on the moe family.  The reference's ``rule_overrides`` are not ported.
 
 ``build_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, one step for both: an unsharded model (one device, no process
@@ -73,7 +74,7 @@ from repro_torch.core import stage_program as sp
 from repro_torch.core.compute import DEFAULT_POLICY, ComputePolicy
 from repro_torch.core.pipeline import schedule
 from repro_torch.models.common import ModelConfig, flatten_specs
-from repro_torch.models.model import Model, param_specs, stage_units
+from repro_torch.models.model import Model, param_specs, stage_units, tp_pieces
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.runtime import pipeline
 from repro_torch.runtime.collectives import (
@@ -124,14 +125,19 @@ class ParallelPlan:
                 "the CUDA kernels take bf16 and fp32; fp16 kernels are not "
                 "ported yet (see ROADMAP.md, Queue 2)")
         self.compute_policy()                           # validates remat
-        if self.dp > 1 and self.sharding_rules().mesh_axis("batch") != "data":
-            raise NotImplementedError(
-                f"rules {self.rules!r} keep the batch off the data axis: the port "
-                "splits the batch over the data ranks (see ROADMAP.md, Queue 1)")
+        if self.sharding_rules().mesh_axis("batch") not in ("data", None):
+            raise NotImplementedError(f"rules {self.rules!r}: the batch on "
+                                      f"{self.sharding_rules().mesh_axis('batch')!r}")
 
     @property
     def n_devices(self) -> int:
         return self.dp * self.tp * self.pp
+
+    @property
+    def batch_ranks(self) -> int:
+        """The data ranks a global batch's rows split over: dp, or 1 where
+        the rules keep the batch off the data axis (``tp_only``)."""
+        return self.dp if self.sharding_rules().mesh_axis("batch") == "data" else 1
 
     @property
     def n_stages(self) -> int:
@@ -157,21 +163,25 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     """({leaf: whole shape}, and the param, optimizer and gradient specs
     {leaf: spec}) under the plan's rules and ZeRO stage: the port's
     counterpart of the reference's ``plan_state_shardings``.  The specs
-    keep a mesh axis of size 1 (``unit_axes``).  The hybrid and rwkv
-    families run replicated over the model group, and refuse tp > 1.  At
-    pp > 1 the layer stack is on the pipe axis, and its units must split
-    into the plan's logical stages (the reference's ``split_stages``
-    error otherwise)."""
+    keep a mesh axis of size 1 (``unit_axes``), but for the families other
+    than dense at tp = 1, which run replicated over the model group as one
+    device runs them (embedding and CE included); the moe family refuses
+    tp > 1.  zamba2's in_proj and conv leaves (``tp_pieces``) take the
+    model axis on their head dim whatever its width divides: the rank's
+    block is its heads' columns and the shared B and C ones.  At pp > 1
+    the layer stack is on the pipe axis, and its units must split into the
+    plan's logical stages (the reference's ``split_stages`` error
+    otherwise)."""
     if plan.pp > 1:
         name, n = stage_units(cfg)
         if n % plan.n_stages:
             raise sp.units_error(name, n, plan.n_stages)
     rules = plan.sharding_rules()
-    if cfg.family != "dense":
-        if plan.tp > 1:
-            raise NotImplementedError(
-                f"tp={plan.tp}: tensor parallelism of the {cfg.family} family is not "
-                "ported yet (see ROADMAP.md, Queue 1)")
+    if cfg.family == "moe" and plan.tp > 1:
+        raise NotImplementedError(
+            f"tp={plan.tp}: tensor parallelism of the moe family is not "
+            "ported yet (see ROADMAP.md, Queue 1)")
+    if cfg.family != "dense" and plan.tp == 1:
         rules = rules.with_overrides(**{k: None for k, v in rules.rules.items()
                                         if "model" in shd.spec_axes((v,))})
     sizes = plan.mesh_sizes()
@@ -180,6 +190,9 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     axes = {k: s.axes for k, s in leaves}
     base = {k: shd.partition_spec(s.shape, s.axes, sizes, rules, unit_axes=True)
             for k, s in leaves}
+    for k in tp_pieces(cfg):
+        base[k] = tuple(rules.mesh_axis("ssm_heads") if a == "ssm_heads" else e
+                        for a, e in zip(axes[k], base[k]))
     mp = plan.memory_plan()
     psh = mp.param_shardings(shapes, axes, base, sizes)
     return (shapes, psh, mp.optimizer_shardings(shapes, axes, psh, sizes),
@@ -190,13 +203,16 @@ def train_state_bytes(cfg: ModelConfig, plan: ParallelPlan) -> dict:
     """Bytes of each train-state class one rank holds under the plan (the
     reference's ``train_state_bytes``): ``param_bytes`` the stored fp32
     master parameters, ``grad_bytes`` the fp32 gradient accumulator,
-    ``opt_bytes`` both Adam moments."""
+    ``opt_bytes`` both Adam moments.  zamba2's in_proj and conv leaves are
+    counted as the ranks hold them (``tp_pieces``): at tp > 1 each model
+    rank also holds the B and C columns, 2N (1 - 1/tp)(d + K + 1)
+    parameters a mamba layer more than the reference's even split counts."""
     shapes, psh, opt_sh, grad_sh = plan_state_shardings(cfg, plan)
-    sizes = plan.mesh_sizes()
+    sizes, pieces = plan.mesh_sizes(), tp_pieces(cfg)
     return {"zero": plan.zero,
-            "param_bytes": mpl.sharded_bytes(shapes, psh, sizes, 4),
-            "grad_bytes": mpl.sharded_bytes(shapes, grad_sh, sizes, 4),
-            "opt_bytes": 2 * mpl.sharded_bytes(shapes, opt_sh, sizes, 4)}
+            "param_bytes": mpl.sharded_bytes(shapes, psh, sizes, 4, pieces),
+            "grad_bytes": mpl.sharded_bytes(shapes, grad_sh, sizes, 4, pieces),
+            "opt_bytes": 2 * mpl.sharded_bytes(shapes, opt_sh, sizes, 4, pieces)}
 
 
 def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype = torch.float32,
@@ -221,6 +237,16 @@ class _Leaf:
     grad_dim: int | None   # stage 2: the dim its gradient is reduce-scattered on
     counted: bool          # its block enters this rank's grad-norm sum
     on_pipe: bool          # split over the pipe ranks (the layer stack at pp > 1)
+    # (dim, [(offset, length)]): the parts of its block this rank counts,
+    # where other model ranks hold the rest whole as well (tp_pieces); None: all
+    own: tuple | None = None
+
+    def norm_parts(self, g: torch.Tensor) -> list[torch.Tensor]:
+        """What of the gradient block ``g`` enters this rank's norm sum."""
+        if self.own is None:
+            return [g]
+        dim, ranges = self.own
+        return [g.narrow(dim, o, n) for o, n in ranges]
 
 
 def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
@@ -231,6 +257,12 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
         raise ValueError("the model is not sharded as the plan asks "
                          "(build it with train_loop.build_model)")
     coord = model.mesh.coord
+    pieces = tp_pieces(model.cfg)
+
+    def own(k, spec):
+        if k not in pieces or "model" not in shd.spec_axes(spec) or coord["model"] == 0:
+            return None
+        return spec.index("model"), pieces[k].split_ranges(model.mesh.sizes["model"])
 
     def added(spec, base):
         dims = [i for i, (a, b) in enumerate(zip(spec, base)) if a != b]
@@ -243,7 +275,7 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
                        update_dim=added(opt_sh[k], spec), grad_dim=added(grad_sh[k], spec),
                        counted=all(coord[a] == 0 for a in ("pipe", "data", "model")
                                    if a not in block),
-                       on_pipe="pipe" in shd.spec_axes(spec))
+                       on_pipe="pipe" in shd.spec_axes(spec), own=own(k, spec))
     return out
 
 
@@ -307,10 +339,13 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             f"specifies {compute}; the plan wins inside the step — set "
             f"remat/kernels on the ParallelPlan instead", stacklevel=2)
     model = model.with_policy(compute, policy.compute_dtype)
-    gas, dp = plan.gas, plan.dp
+    # dp: the data ranks the rows split over; under tp_only (dp = 1 here)
+    # each data rank takes every row, and its loss, over the token count
+    # summed over the data ranks, is its 1 / dp share of their sum
+    gas, dp = plan.gas, plan.batch_ranks
     mesh = model.mesh
     data, world = (None, None) if mesh is None else (mesh.groups["data"], mesh.world)
-    rank = 0 if mesh is None else mesh.coord["data"]
+    rank = 0 if mesh is None or dp == 1 else mesh.coord["data"]
     leaves = _leaves(model, plan)
     device = model.device
     if plan.pp > 1:            # the gas microbatches are the pipeline's
@@ -364,7 +399,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             loss = backward_pp1(params, micro, ls, gsum)
         else:
             loss = backward_pipelined(params, micro, ls, gsum,
-                                      pipeline.loss_count(batch, device))
+                                      pipeline.loss_count(batch, device) * (plan.dp // dp))
         inv = 1.0 / ls["scale"]
         grads = {}
         for k, p in params.items():    # in place: (sum / div) unscaled, fp32
@@ -378,7 +413,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             grads[k] = g.div_(div).mul_(inv)
         finite = _sum(prec.all_finite(grads.values()).to(device, torch.float32),
                       world, dist.ReduceOp.MIN) > 0
-        grad_norm = global_norm([g for k, g in grads.items() if leaves[k].counted],
+        grad_norm = global_norm([part for k, g in grads.items() if leaves[k].counted
+                                 for part in leaves[k].norm_parts(g)],
                                 group=world, device=device)
         blocks = {k: _block(p, leaves[k].update_dim, mesh) for k, p in params.items()}
         skip = not bool(finite)

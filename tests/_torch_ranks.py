@@ -8,13 +8,14 @@ import datetime
 import os
 import pickle
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
-from repro_torch.interop import from_jax_params, shard_params
+from repro_torch.interop import from_jax_params, gather_params, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
@@ -68,13 +69,68 @@ def single_device(arch: str, overrides: dict, weights: dict, plan: dict,
     return traj, {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
-def prefill_refused(model: Model) -> str:
+def grads_check(model: Model, plan: ParallelPlan) -> dict:
+    """The gradients of one fp32 loss (the first batch's first 4 rows) on
+    the rank's blocks, put together over every rank (``gather_params``),
+    against the single-device port's on the same whole weights and rows:
+    {leaf: (max |difference|, max |single-device gradient|)}."""
+    cfg = model.cfg
+    batch = {"tokens": torch.from_numpy(batches(cfg.vocab_size, 1)[0]["tokens"][:4])}
+
+    def grads(m: Model) -> dict:
+        m.requires_grad_(True)
+        m.zero_grad(set_to_none=True)
+        m.with_policy(m.compute, torch.float32).loss(batch)[0].backward()
+        return {k: p.grad.numpy().copy() for k, p in m.named_parameters()}
+
+    mine = grads(model)
+    blocks = {k: p.detach().numpy().copy() for k, p in model.named_parameters()}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (dict(model.mesh.coord), blocks, mine))
+    where = {(c["pipe"], c["data"], c["model"]): i for i, (c, _, _) in enumerate(ranks)}
+    whole = gather_params({k: ranks[i][1] for k, i in where.items()}, cfg, plan)
+    tp = gather_params({k: ranks[i][2] for k, i in where.items()}, cfg, plan)
+    single = Model(cfg, torch.float32, device="cpu")
+    single.load_state_dict(from_jax_params(whole, single))
+    return {k: (float(np.abs(tp[k] - g).max()), float(np.abs(g).max()))
+            for k, g in grads(single).items()}
+
+
+def prefill_refused(model: Model, plan: ParallelPlan) -> str:
     """What prefill of a sharded model raises."""
     try:
         model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)
     except NotImplementedError as e:
         return str(e)
     return "no error"
+
+
+def split_norm_check(model: Model, plan: ParallelPlan) -> dict:
+    """``layers.rms_norm_split`` over the model's model group on each rank's
+    column block of one seeded (x, weight, output gradient), all-gathered:
+    its value and the gradients of x and the weight (the sum over the ranks
+    of each one's output against its block of the gradient), and the
+    whole-dim ``rms_norm``'s on the same inputs."""
+    from repro_torch.models import layers
+    from repro_torch.runtime.collectives import all_gather_dim
+
+    group = model.mesh.groups["model"]
+    n, k = dist.get_world_size(group), model.mesh.coord["model"]
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 16, 96, generator=gen)
+    w = 1.0 + 0.1 * torch.randn(96, generator=gen)
+    dy = torch.randn(4, 16, 96, generator=gen)
+    cols = slice(k * 96 // n, (k + 1) * 96 // n)
+    parts = [t[..., cols].clone().requires_grad_() for t in (x, w)]
+    y = layers.rms_norm_split(*parts, 1e-5, group)
+    (y * dy[..., cols]).sum().backward()
+    split = [all_gather_dim(t.detach(), t.ndim - 1, group)
+             for t in (y, parts[0].grad, parts[1].grad)]
+    whole = [t.clone().requires_grad_() for t in (x, w)]
+    ref = layers.rms_norm(*whole, 1e-5)
+    (ref * dy).sum().backward()
+    return {"split": [t.numpy() for t in split],
+            "whole": [t.detach().numpy() for t in (ref, whole[0].grad, whole[1].grad)]}
 
 
 def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out: str):
@@ -104,7 +160,7 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
                               for k, p in model.state_dict().items()},
                    "moments": {k: tuple(m.shape) for k, m in state["opt"]["mu"].items()}}
             if "check" in job:
-                res["check"] = globals()[job["check"]](model)
+                res["check"] = globals()[job["check"]](model, plan)
         except Exception as e:  # noqa: BLE001 - handed back to the test
             res = {"error": f"{type(e).__name__}: {e}"}
         results.setdefault(job["name"], {})[rank] = res
@@ -125,6 +181,10 @@ def run_ranks(world: int, jobs: list, weights: dict, tmp: str) -> dict:
                 merged.setdefault(name, {}).update(by_rank)
     return merged
 
+
+# the recurrent families as the multi-rank tests reduce them: zamba2 in two
+# super units of hybrid_attn_every = 2 mamba layers, rwkv6 in 4 blocks
+RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
 
 # the reduced yi-6b of the reference's plan tests (tests/test_parallel_plan.py)
 YI = dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=256,

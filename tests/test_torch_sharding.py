@@ -4,7 +4,10 @@ leaf of yi-6b and gpt-1.4b reduced under the four presets at dp in {2, 4}
 x tp in {1, 2, 4}; zero_divisors and Table II's bytes per parameter; and
 each rank's train-state bytes at dp = 2 x tp = 2 and at pp = 2 x dp = 2
 (the layer stack on the pipe axis), ZeRO 0-3, against the reference's
-``train_state_bytes`` on 4 host devices."""
+``train_state_bytes`` on 4 host devices; zamba2-2.7b reduced at dp = 2 x
+tp = 2, whose regrouped in_proj and conv blocks hold the B and C columns
+whole on every model rank: its parameters exceed the reference's even
+split by exactly 2N (1 - 1/tp)(d + K + 1) a mamba layer."""
 import json
 import types
 
@@ -99,3 +102,42 @@ def test_pipelined_train_state_bytes_equal_reference(multidev):
     the embedding, final norm and lm_head whole; ZeRO's data axis lands
     past the layer dim (the reference's first free dim there too)."""
     _state_bytes_match(multidev, dict(pp=2, dp=2))
+
+
+ZAMBA_BYTES_CODE = '''
+import json, jax.numpy as jnp
+from repro.configs import get_config
+from repro.models.model import Model
+from repro.runtime.train_loop import ParallelPlan, train_state_bytes
+from repro.launch.mesh import mesh_for_plan
+cfg = get_config("zamba2-2.7b").reduced(n_layers=4)
+out = {}
+for z in (0, 1, 2, 3):
+    plan = ParallelPlan(dp=2, tp=2, zero=z, precision="fp32")
+    out[z] = train_state_bytes(Model(cfg, jnp.float32), mesh_for_plan(plan), plan)
+print("BYTES", json.dumps(out))
+'''
+
+
+def test_regrouped_state_bytes_exceed_reference_by_the_bc_columns(multidev):
+    """The reference splits in_proj's fused [z | x | B | C | dt] columns and
+    the conv's [x | B | C] channels evenly; the port's rank holds its heads'
+    z, x, dt and the B and C columns whole: 2N (1 - 1/tp)(d + K + 1) more
+    parameters a mamba layer (246,240 for zamba2-2.7b at tp 4).  At ZeRO 0
+    every state class differs by exactly that; at stages 1-2 the stored
+    parameters still do (ZeRO's data axis then lands on other dims of the
+    layer-stacked (L, H) leaves, past the layer dim in the port)."""
+    out = multidev(ZAMBA_BYTES_CODE, n_devices=4)
+    ref = json.loads(out.split("BYTES", 1)[1])
+    cfg = get_config("zamba2-2.7b").reduced(n_layers=4)
+    tp, N = 2, cfg.ssm_state
+    extra = 4 * cfg.n_layers * (2 * N - 2 * N // tp) * (cfg.d_model + cfg.conv_kernel + 1)
+    assert extra == 4 * 4 * 16 * 261
+    for z in memplan.STAGES:
+        ours = train_state_bytes(cfg, ParallelPlan(dp=2, tp=2, zero=z, precision="fp32"))
+        theirs = {k: int(v) for k, v in ref[str(z)].items()}
+        if z < 3:
+            assert ours["param_bytes"] - theirs["param_bytes"] == extra, z
+        if z == 0:
+            assert ours["grad_bytes"] - theirs["grad_bytes"] == extra
+            assert ours["opt_bytes"] - theirs["opt_bytes"] == 2 * extra
