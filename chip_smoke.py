@@ -34,10 +34,14 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      in turns;
      The grouped expert MLP (both bodies) at llama4-maverick's and arctic's
      widths, 128 experts, at their serve prefill and decode slot counts
+     (and arctic's at the train microbatch of 4 x 2048 tokens, N 160)
      with masks from top-k routing of random gates, bf16 and reduced fp32,
      with masked rows exactly 0, a bf16 case with every slot masked, its
      work list held to the Python mirror and its bf16 times beside the
-     version before its Hopper redesign.  The SSD scan at zamba2's widths
+     version before its Hopper redesign; at the train phase's cut of 8
+     experts (N 2560) forward against its plain version, then its
+     Function's backward (the plain fp32 recompute) against fp32 autograd
+     of the plain version, with its time.  The SSD scan at zamba2's widths
      (80 heads of 64, state 64) at its serve prefills (256 tokens, chunk 128; 255,
      chunk 1; 96, chunk 32) and the train microbatch (4 x 2048), y and the
      final state, the chunk-parallel work division held to its Python
@@ -95,16 +99,20 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      rwkv6 also a 255-token prefill, which scans at chunk 1, and the scan's
      share of its device time);
   4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
-     layers), zamba2-2.7b (full width, 18 of 54 layers) and rwkv6-1.6b
-     (full width, all 24 layers): a reduced fp32
-     model (at the arch's head dim) with kernels on vs off over 5 steps,
+     layers), zamba2-2.7b (full width, 18 of 54 layers), rwkv6-1.6b
+     (full width, all 24 layers) and arctic-480b (full width, 2 of 35
+     layers, 8 of 128 experts): a reduced fp32
+     model (at the arch's head dim; with arctic, llama4-maverick's too) with
+     kernels on vs off over 5 steps,
      tightly; then the arch in bf16 compute
      over fp32 master weights, remat full, kernels=True, 5 steps of global
      batch 8 (gas 2, 2048 tokens); every kernel of the arch's step must
      count its launches; the same steps with kernels=False from the same
      weights and batches, step 0 held to the limits that
-     ``tools/step0_limits.py`` measured; a ``torch.profiler`` pass over one
-     step;
+     ``tools/step0_limits.py`` measured (for arctic also moe_aux, moe_drop
+     beside ``expertplan.predicted_drop_fraction`` and the share of
+     microbatch 0's routing choices that kernels on and off agree on); a
+     ``torch.profiler`` pass over one step;
   5. parallel (``phase_parallel``): gpt-1.4b at full width and depth
      through the sharded executor (``runtime/train_loop.py``) over a
      one-rank nccl group, ZeRO 3, TRAIN's plan, 3 steps; step 0 held to
@@ -118,7 +126,11 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      = ranks and dp x tp against the single-device port, zamba2-2.7b
      (TRAIN_LAYERS) and rwkv6-1.6b (24 layers) at full width and tp =
      ranks against phase 4's step 0 (TP_STEP0_RTOL), with telemetry
-     records, and at 4 ranks zamba2-2.7b at all 54 layers at tp 4;
+     records, and at 4 ranks zamba2-2.7b at all 54 layers at tp 4; then
+     (``_moe_ranks``) the reduced llama4-maverick's and arctic's fp32
+     expert-parallel plans against the single-device port (losses,
+     moe_drop, the token all-to-all's bytes against the predictor), and at
+     4 ranks arctic at full width, 1 layer of 64 experts, ep 4;
   6. pipeline (``phase_pipeline``): gpt-1.4b at full width and depth, gas
      4, split into 4 logical stages of 6 layers (as 4 pipe ranks, and as 2
      ranks of 2 virtual stages) run in one process through the pipeline
@@ -195,7 +207,7 @@ SERVE_KERNELS = {
     ZAMBA: ("rmsnorm", "swiglu", "flash_attention", "ssd_scan", "mamba_decode_step"),
     RWKV: ("rmsnorm", "wkv_scan", "wkv_decode_step"),
 }
-# the kernels each arch's train step runs (the moe family serves only)
+# the kernels each arch's train step runs
 TRAIN_KERNELS = {
     "yi-6b": ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv", "cross_entropy"),
@@ -204,6 +216,8 @@ TRAIN_KERNELS = {
     ZAMBA: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
             "flash_attention_bwd_dkv", "cross_entropy", "ssd_scan"),
     RWKV: ("rmsnorm", "cross_entropy", "wkv_scan"),
+    ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv", "cross_entropy", "grouped_mlp"),
 }
 # the reduced fp32 model each arch is first held against kernels=False with,
 # at the arch's own head dim (plain .reduced() has hd 64)
@@ -1635,8 +1649,10 @@ def phase_kernels_moe(timer: Timer) -> dict:
                                   dtype=torch.bfloat16).mul_(shape[1] ** -0.5)
                       for shape in ((E, d, F_), (E, d, F_), (E, F_, d)))
         for act in acts:
-            for what, G, g in (("prefill 256", 1, 256), ("decode", 4, 1)):
-                if act == "gelu" and what == "decode":
+            for what, G, g in (("prefill 256", 1, 256), ("decode", 4, 1),
+                               ("train 4 x 2048", 4, 2048)):
+                if (act == "gelu" and what == "decode"
+                        or what.startswith("train") and (arch != ARCTIC or act == "gelu")):
                     continue
                 C = moe_capacity(g, cfg)
                 mask = routed_mask(gen, G, g, E, cfg.top_k, C)
@@ -1644,7 +1660,8 @@ def phase_kernels_moe(timer: Timer) -> dict:
                                 dtype=torch.bfloat16)
                 w3a = w3 if act == "swiglu" else None
                 name = f"grouped {arch} {what} {act} bf16 (E {E}, N {G * C}, d {d}, F {F_})"
-                err = check_grouped(name, x, w1, w3a, w2, mask, act, planted=True)
+                err = check_grouped(name, x, w1, w3a, w2, mask, act,
+                                    planted=not what.startswith("train"))
                 orders += check_grouped_order(mask, d, F_)
                 if what == "decode":
                     first = gp.grouped_mlp_cuda(x, w1, w3a, w2, mask, act)
@@ -1681,7 +1698,103 @@ def phase_kernels_moe(timer: Timer) -> dict:
     orders += check_grouped_order(mask, 256, 520)
     emit({"phase": "kernel_check", "case": "grouped work list agrees with its mirror",
           "masks_and_widths": orders})
+    timed += grouped_train_expert_cut(timer, gen)
     return {"grouped_mlp": {**timed[0], "cases": timed[1:]}}
+
+
+# the grouped Function's backward (kernels/ref.py:grouped_mlp_bwd_ref: an fp32
+# recompute of h, its gradients rounded to the inputs' bf16) against torch
+# autograd of the plain fp32 grouped_mlp_ref on the same bf16-valued inputs.
+# Both run fp32 products of the same values; they differ by the output
+# rounding (at most half a bf16 ULP, 2^-8 of the value) and by the few fp32
+# roundings by which their formulas for silu' and h part (GROUPED_BWD_U)
+# and the order of the fp32 sums over F or N (GROUPED_SUM_RMS sqrt(n)), each
+# carried through as an RSS of the summed terms, 8 of its rms
+GROUPED_BWD_U = 4 * 2.0 ** -24
+GROUPED_BWD_WHY = ("the Function's gradients rounded to bf16 (2^-8 of the value); "
+                   "its fp32 formulas for h and silu' a few roundings from autograd's "
+                   "and fp32 sums in another order, carried through each sum as an "
+                   "RSS of its terms (8 rms)")
+
+
+def grouped_bwd_terms(x, w1, w3, w2, mask, g) -> dict:
+    """{grad: the RSS scale of its sum} for dx (over F), dw1 / dw3 (over
+    N) and dw2 (over N), from the fp32 recompute's terms."""
+    m = mask.float()[..., None]
+    x32, g32 = x.float() * m, g.float() * m
+    w1_32, w3_32, w2_32 = w1.float(), w3.float(), w2.float()
+    a, b = torch.bmm(x32, w1_32), torch.bmm(x32, w3_32)
+    dh = torch.bmm(g32, w2_32.transpose(1, 2))
+    sig = torch.sigmoid(a)
+    h = a * sig * b
+    da, db = dh * b * (sig * (1.0 + a * (1.0 - sig))), dh * a * sig
+    x2 = x32.square().transpose(1, 2)
+    out = {"dx": (torch.bmm(da.square(), w1_32.square().transpose(1, 2))
+                  + torch.bmm(db.square(), w3_32.square().transpose(1, 2))).sqrt_(),
+           "dw1": torch.bmm(x2, da.square()).sqrt_(), "dw3": torch.bmm(x2, db.square()).sqrt_(),
+           "dw2": torch.bmm(h.square().transpose(1, 2), g32.square()).sqrt_()}
+    return out
+
+
+def grouped_train_expert_cut(timer: Timer, gen) -> list[dict]:
+    """The grouped kernel at the train phase's arctic shape: 8 of its 128
+    experts (the expert count the card trains), TRAIN's microbatch of 4 x
+    2048 tokens, so C 640 and N 2560 rows an expert, bf16, the mask from
+    the model's router: forward against its plain version, timed beside
+    the version before the Hopper redesign and the bmm composition; then
+    the Function's backward (the plain fp32 recompute) against fp32
+    autograd of ``grouped_mlp_ref``, and its time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_mlp as gp
+    from repro_torch.kernels.ref import grouped_mlp_bwd_ref, grouped_mlp_ref
+    from repro_torch.models.moe import moe_capacity
+
+    cfg = train_config(ARCTIC)
+    E, d, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+    G, g = TRAIN["global_batch"] // TRAIN["gas"], TRAIN["seq_len"]
+    C = moe_capacity(g, cfg)
+    w1, w3, w2 = (torch.randn(*shape, generator=gen, device="cuda",
+                              dtype=torch.bfloat16).mul_(shape[1] ** -0.5)
+                  for shape in ((E, d, F_), (E, d, F_), (E, F_, d)))
+    mask = routed_mask(gen, G, g, E, cfg.top_k, C)
+    x = torch.randn(E, G * C, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    name = f"grouped {ARCTIC} train {E} experts swiglu bf16 (E {E}, N {G * C}, d {d}, F {F_})"
+    err = check_grouped(name, x, w1, w3, w2, mask, "swiglu")
+    row = {"case": f"{ARCTIC} train, {E} of {get_config(ARCTIC).n_experts} experts",
+           **grouped_row(timer, err, x, w1, w3, w2, mask, "swiglu")}
+    # the backward: the Function (kernel forward, plain fp32 recompute
+    # backward) against fp32 autograd of the plain version
+    dy = torch.randn(x.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (x, w1, w3, w2)]
+    gp.grouped_mlp(leaves[0], leaves[1], leaves[2], leaves[3], mask, "swiglu").backward(dy)
+    got = {n: t.grad for n, t in zip(("dx", "dw1", "dw3", "dw2"), leaves)}
+    del leaves
+    ref_leaves = [t.detach().float().requires_grad_() for t in (x, w1, w3, w2)]
+    grouped_mlp_ref(ref_leaves[0], ref_leaves[1], ref_leaves[2], ref_leaves[3], mask,
+                    "swiglu").backward(dy.float())
+    scales = grouped_bwd_terms(x, w1, w3, w2, mask, dy)
+    errs = {}
+    for n, t in zip(("dx", "dw1", "dw3", "dw2"), ref_leaves):
+        summed = F_ if n == "dx" else G * C          # the length of its sum
+        tol = GROUPED_SIGMAS * (GROUPED_BWD_U + GROUPED_SUM_RMS * summed ** 0.5)
+        errs[n] = check_close(f"{name} backward {n}", got[n], t.grad, rtol=2.0 ** -8 * 1.1,
+                              atol=1e-6, why=GROUPED_BWD_WHY,
+                              terms=((scales[n], tol, f"RSS({n})"),))
+    del ref_leaves, scales, got
+    torch.cuda.empty_cache()
+    n_w = 3
+    valid = int(mask.ne(0).sum())
+    # the backward's work: 2 products to recompute h, 1 for dh, and 2 a
+    # weight (its gradient and dx's part), over the valid slots
+    bwd_b, bwd_by = bound_ms(2 * n_w * E * d * F_ * 2 + 3 * x.numel() * 2 + mask.numel() * 4,
+                             2 * valid * d * F_ * (2 + 1 + 2 * n_w), torch.float32)
+    row.update(backward_ms=timer(lambda: grouped_mlp_bwd_ref(x, w1, w3, w2, mask, dy)),
+               backward_bound_ms=bwd_b, backward_bound_by=bwd_by,
+               backward_what="kernels/ref.py:grouped_mlp_bwd_ref, plain fp32 (no TF32)",
+               backward_max_abs_err=errs)
+    del x, w1, w3, w2
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def check_grouped_order(mask: torch.Tensor, d: int, F_: int) -> int:
@@ -3194,6 +3307,8 @@ PROFILE_GROUPS = (
     ("flash fwd kernel", ("flash_fwd_",)),
     ("flash bwd kernels", ("flash_bwd_",)),
     ("ce kernels", ("ce_partial_", "ce_merge_")),
+    # the moe family's dispatch and combine (torch.gather and its backward)
+    ("gather / scatter", ("scatter_gather", "index_elementwise")),
     ("fp32 GEMMs", ("f32f32_f32f32", "sgemm")),
     ("other GEMMs", ("gemm", "nvjet", "cutlass")),
 )
@@ -3321,15 +3436,29 @@ TRAIN_FP32_RTOL = 1e-4
 # grad_norm by 8.6e-2, which fail; one of the wkv scan's output makes
 # grad_norm non-finite (the finite check fails it) and moves the loss by
 # 3.8e-5, inside the spread: phase 2e holds that kernel at the step's shape.
+# arctic (2 layers, 8 of 128 experts; the same card): sound runs differ by
+# at most 4.85e-5 in loss and 6.33e-4 in grad_norm (seed 1; seeds 0 and 2:
+# 2.7e-5 and 3.3e-5, 6.1e-4 and 4.3e-4), with 0.99988 of microbatch 0's
+# routing choices the same kernels on and off; the limits are about 1.5x
+# those.  A zeroed tile of the grouped MLP's output (rows 1024:1088 of
+# expert 0) moves the loss by 9.9e-5 and grad_norm by 1.6e-3, the swiglu
+# forward's by 1.2e-4 and 9.9e-3, which fail; the flash faults stay inside
+# the sound spread (phase 2 holds those kernels at the step's shapes).
 STEP0_RTOL = {"yi-6b": {"loss": 2e-5, "grad_norm": 1e-3},
               "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3},
               ZAMBA: {"loss": 3e-4, "grad_norm": 0.11},
-              RWKV: {"loss": 8e-5, "grad_norm": 3.3e-3}}
+              RWKV: {"loss": 8e-5, "grad_norm": 3.3e-3},
+              ARCTIC: {"loss": 7.5e-5, "grad_norm": 1e-3}}
 TRAIN = dict(global_batch=8, gas=2, seq_len=2048, steps=5)
 # gpt-1.4b and rwkv6: all layers; zamba2: 18 of 54 (3 of its 9 super units),
 # cut so that the script keeps to its time (its 54-layer step took 11-16 s,
 # the plain one 17-40 s; PERF.md)
-TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 18, RWKV: 24}
+TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 18, RWKV: 24, ARCTIC: 2}
+# arctic trains at its published widths with 8 of its 128 experts: one layer
+# with all 128 is 14.07e9 parameters, about 225 GB at 16 bytes a parameter
+# (fp32 master, gradient, Adam's two moments); 2 layers of 8 experts are
+# about 2.6e9, 41 GB
+TRAIN_EXPERTS = {ARCTIC: 8}
 TRAIN_LR = 1e-4
 # kernels=False steps per arch (step 0 is the one compared; zamba2's plain
 # steps take 17-40 s, so it runs only that one)
@@ -3371,6 +3500,9 @@ def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[di
         torch.cuda.synchronize()
         out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                     "step_s": time.perf_counter() - t0})
+        if model.cfg.family == "moe":
+            out[-1].update(moe_aux=float(m["moe_aux"]), moe_drop=float(m["moe_drop"]),
+                           all_to_all_bytes=collectives.comm_bytes()["all-to-all"])
         if tele is not None:
             rec = tele.step(i + 1, out[-1]["step_s"], m,
                             **step_extras(plan, model.device, world, mesh is not None))
@@ -3382,10 +3514,14 @@ def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[di
 
 
 def train_config(arch: str):
-    """The arch at full width with the train phase's depth."""
+    """The arch at full width with the train phase's depth (and expert
+    count, TRAIN_EXPERTS)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch])
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_LAYERS[arch])
+    if arch in TRAIN_EXPERTS:
+        cfg = dataclasses.replace(cfg, n_experts=TRAIN_EXPERTS[arch])
+    return cfg
 
 
 def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
@@ -3400,7 +3536,11 @@ def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
     (whose backward is plain torch), and its gated norm is plain.  rwkv has
     no attention and no MLP kernel: each layer runs one kernel norm
     (time-mix's; channel-mix's and ln_x are plain) and one wkv scan (whose
-    backward is plain torch)."""
+    backward is plain torch).  The moe family's layers each run two norms,
+    one flash attention and one swiglu (a dense layer's MLP, llama4's
+    shared expert or arctic's dense residual), and each MoE unit one
+    grouped expert MLP (forward and recompute; its backward is plain
+    torch)."""
     norm = "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
     fwd = 1 if remat == "none" else 2
     if cfg.family == "rwkv":
@@ -3417,19 +3557,36 @@ def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
               "flash_attention_bwd_dkv": n_attn, "cross_entropy": 1}
     if hybrid:
         per_mb["ssd_scan"] = fwd * n_mamba
+    if cfg.family == "moe":
+        per_mb["grouped_mlp"] = fwd * (cfg.n_layers // cfg.moe_every)
     return {k: n * gas * steps for k, n in per_mb.items()}
 
 
-def phase_train(card: str, arch: str) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.core import costmodel, telemetry
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import Model
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime.train_loop import (ParallelPlan, build_train_step,
-                                                init_train_state)
+def routing_agreement(model, batch: dict) -> float:
+    """The share of the moe family's routing choices (each token's top-k
+    experts, every MoE layer) on the first microbatch of ``batch`` that
+    kernels on and off agree on, in bf16 compute at the model's weights."""
+    from repro_torch.core.compute import ComputePolicy
 
-    # the reduced model in fp32 at the arch's head dim: kernels on vs off, tightly
+    rows = batch["tokens"].shape[0] // TRAIN["gas"]
+    mb = {"tokens": torch.as_tensor(np.asarray(batch["tokens"][:rows])).cuda()}
+    choices = {}
+    for kernels in (True, False):
+        view = model.with_policy(ComputePolicy("full", kernels), torch.bfloat16)
+        with torch.no_grad(), capture_moe() as seen:
+            view.loss(mb)
+        choices[kernels] = seen["experts"]
+    return float(np.mean([float((a == b).float().mean())
+                          for a, b in zip(choices[True], choices[False])]))
+
+
+def train_reduced(arch: str) -> None:
+    """The arch reduced, in fp32 at its head dim: 5 steps kernels on vs
+    off, loss and grad norm at TRAIN_FP32_RTOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
     red_cfg = get_config(arch).reduced(**REDUCED[arch])
     red = Model(red_cfg, torch.float32, device="cuda")
     rb = _batches(red_cfg.vocab_size, 256, 4, 5)
@@ -3448,6 +3605,21 @@ def phase_train(card: str, arch: str) -> dict:
           "rtol": TRAIN_FP32_RTOL})
     del red
     torch.cuda.empty_cache()
+
+
+def phase_train(card: str, arch: str) -> dict:
+    from repro_torch.core import costmodel, expertplan, telemetry
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import (ParallelPlan, build_train_step,
+                                                init_train_state)
+
+    # the reduced model in fp32 at the arch's head dim: kernels on vs off,
+    # tightly (with arctic, llama4-maverick's too: its reduced train step
+    # reaches the moe lowering's dense sub-stack and shared expert)
+    for name in (LLAMA4, arch) if arch == ARCTIC else (arch,):
+        train_reduced(name)
 
     cfg = train_config(arch)
     gb, gas, S, steps = TRAIN["global_batch"], TRAIN["gas"], TRAIN["seq_len"], TRAIN["steps"]
@@ -3496,6 +3668,15 @@ def phase_train(card: str, arch: str) -> dict:
            "loss_rtol": STEP0_RTOL[arch]["loss"],
            "grad_norm_rtol": STEP0_RTOL[arch]["grad_norm"],
            "profile_one_step": prof, "card": card}
+    if cfg.family == "moe":
+        from repro_torch.models.moe import group_shape
+
+        res.update(n_experts=cfg.n_experts, moe_aux=[r["moe_aux"] for r in on],
+                   moe_drop=[r["moe_drop"] for r in on],
+                   predicted_drop_fraction=expertplan.predicted_drop_fraction(
+                       cfg.top_k, cfg.n_experts, cfg.capacity_factor,
+                       group_shape(gb // gas, S)[1]),
+                   routing_agreement_step0_microbatch0=routing_agreement(model, batches[0]))
     emit(res)
     if any(rel0[key] > STEP0_RTOL[arch][key] for key in rel0):
         raise AssertionError(f"{arch} step 0 kernels on vs off: {rel0}, limits "
@@ -3848,6 +4029,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, step0: dict) -> None
         if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
             raise AssertionError(f"rank {rank}: non-finite yi-6b steps {steps}")
     _recurrent_tp(rank, world, step0)
+    _moe_ranks(rank, world)
     dist.destroy_process_group()
 
 
@@ -3956,6 +4138,116 @@ def _recurrent_tp_rank(rank: int, world: int, init_method: str, step0: dict) -> 
     init_distributed(torch.device("cuda"), init_method, rank, world,
                      timeout=datetime.timedelta(minutes=5))
     _recurrent_tp(rank, world, step0)
+    dist.destroy_process_group()
+
+
+# the moe family's reduced fp32 models of the multi-rank branch (4 experts,
+# .reduced(ep=2)): llama4 at 4 layers (2 MoE units, so pp 2 splits them), at
+# the flash kernels' head dim 64; their plans on 4 ranks (on 2: ep 2 alone)
+MOE_REDUCED = {LLAMA4: dict(ep=2, n_layers=4), ARCTIC: dict(ep=2)}
+MOE_PLANS = {"ep4": dict(ep=4), "ep2 dp2": dict(ep=2, dp=2),
+             "ep2 dp2 z3": dict(ep=2, dp=2, zero=3), "ep2 tp2": dict(ep=2, tp=2),
+             "ep2 pp2": dict(ep=2, pp=2)}
+MOE_DROP_ATOL = 1e-6
+# arctic at full width on 4 ranks: 1 layer of 64 experts at ep 4 (16 a card:
+# about 27 GB of expert state and 11 GB of the rest); 128 would be about
+# 78 GB a card before activations (train_state_bytes, emitted)
+MOE_EP_EXPERTS = 64
+
+
+def _moe_a2a_bytes(cfg, plan, gb: int, S: int) -> int:
+    """``costmodel.predict_a2a_bytes`` for a step of the rank: the dispatch
+    and combine forward and backward, and again in remat's recompute, of
+    each MoE unit on the rank and each microbatch."""
+    from repro_torch.core import costmodel
+    from repro_torch.models.model import stage_units
+    from repro_torch.models.moe import group_shape, moe_capacity
+
+    G, g = group_shape(gb // plan.gas, S)
+    itemsize = 4 if plan.precision == "fp32" else 2       # the compute dtype's
+    per = sum(costmodel.predict_a2a_bytes(G, cfg.n_experts, moe_capacity(g, cfg), cfg.d_model,
+                                          dp=plan.dp, ep=plan.ep, itemsize=itemsize,
+                                          with_backward=bwd)
+              for bwd in ((True, False) if plan.remat != "none" else (True,)))
+    return per * plan.gas * stage_units(cfg)[1] // plan.pp
+
+
+def _moe_ranks(rank: int, world: int) -> None:
+    """The moe family under expert parallelism on ``world`` nccl ranks (2 or
+    4; the default group is up): the reduced fp32 models (MOE_REDUCED) at
+    each of MOE_PLANS that tiles ``world`` (kernels on) against the
+    single-device port: losses at PARALLEL_RTOL, moe_drop within
+    MOE_DROP_ATOL, each step's all-to-all bytes equal to the predictor's;
+    then, at 4 ranks, arctic at full width, 1 layer, MOE_EP_EXPERTS experts,
+    ep 4, bf16, kernels, TRAIN's batch: its steps' time, each rank's peak
+    memory and all-to-all bytes, and the state bytes a card would hold at
+    all 128 experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan, train_state_bytes
+
+    for arch, overrides in MOE_REDUCED.items():
+        red = get_config(arch).reduced(**overrides)
+        rb = _batches(red.vocab_size, 32, 8, 3)
+        kw = dict(gas=2, precision="fp32", kernels=True)
+        single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+        for p in MOE_PLANS.values() if world == 4 else (dict(ep=2),):
+            plan = ParallelPlan(**p, **kw)
+            steps, peak = _sharded_steps(red, plan, rb, 0)
+            rel = [_rel(a, b) for a, b in zip(steps, single)]
+            drop = [abs(a["moe_drop"] - b["moe_drop"]) for a, b in zip(steps, single)]
+            a2a = _moe_a2a_bytes(red, plan, 8, 32)
+            emit({"phase": "parallel_ranks_moe_reduced", "rank": rank, "arch": red.name,
+                  "plan": {**p, **kw}, "rel_diff": rel,
+                  "rtol": PARALLEL_RTOL, "moe_drop_diff": drop,
+                  "all_to_all_bytes": [r["all_to_all_bytes"] for r in steps],
+                  "predicted_all_to_all_bytes": a2a})
+            if (any(v > PARALLEL_RTOL for r in rel for v in r.values())
+                    or max(drop) > MOE_DROP_ATOL
+                    or any(r["all_to_all_bytes"] != a2a for r in steps)):
+                raise AssertionError(f"rank {rank} {arch} plan {p}: {rel}, drop {drop}, "
+                                     f"all-to-all {[r['all_to_all_bytes'] for r in steps]} "
+                                     f"vs {a2a}")
+    if world != 4:
+        return
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    full = get_config(ARCTIC)
+    cfg = dataclasses.replace(full, n_layers=1, n_experts=MOE_EP_EXPERTS)
+    plan = ParallelPlan(ep=4, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, peak = _sharded_steps(cfg, plan, _batches(cfg.vocab_size, S, gb, 3), 0, tele=True)
+    a2a = _moe_a2a_bytes(cfg, plan, gb, S)
+    all_experts = train_state_bytes(dataclasses.replace(full, n_layers=1), plan)
+    emit({"phase": "parallel_ranks_moe", "rank": rank, "arch": cfg.name, "layers": 1,
+          "n_experts": cfg.n_experts, "ep": 4, "steps": steps, "peak_mem_gb": peak,
+          "state_gb": sum(v for k, v in train_state_bytes(cfg, plan).items()
+                          if k != "zero") / 1e9,
+          "predicted_all_to_all_bytes": a2a,
+          "state_gb_at_128_experts": sum(v for k, v in all_experts.items() if k != "zero") / 1e9,
+          "fits_at_128_experts": False, "seconds": time.perf_counter() - t0})
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+        raise AssertionError(f"rank {rank}: non-finite arctic ep=4 steps {steps}")
+    if any(r["all_to_all_bytes"] != a2a for r in steps):
+        raise AssertionError(f"rank {rank}: arctic ep=4 all-to-all "
+                             f"{[r['all_to_all_bytes'] for r in steps]} vs {a2a}")
+
+
+def _moe_rank(rank: int, world: int, init_method: str, step0: dict | None = None) -> None:
+    """``_moe_ranks`` alone on one nccl rank (``tools/parallel_ranks.py moe``)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    _moe_ranks(rank, world)
     dist.destroy_process_group()
 
 
@@ -4209,11 +4501,11 @@ def main() -> int:
                for name in KERNELS}
     # ``launches``: the kernel's count in the first of these paths that runs
     # it: the gpt-1.4b train step, the yi-6b train step, the zamba2 train
-    # step, the llama4-maverick serve run (the grouped MLP), the zamba2 serve
-    # run (the mamba decode step), the rwkv6 train step (the wkv scan), the
-    # rwkv6 serve run (the wkv decode step)
-    order = ("gpt-1.4b train", "yi-6b train", f"{ZAMBA} train", f"{LLAMA4} serve",
-             f"{ZAMBA} serve", f"{RWKV} train", f"{RWKV} serve")
+    # step, the arctic train step (the grouped MLP), the llama4-maverick
+    # serve run, the zamba2 serve run (the mamba decode step), the rwkv6
+    # train step (the wkv scan), the rwkv6 serve run (the wkv decode step)
+    order = ("gpt-1.4b train", "yi-6b train", f"{ZAMBA} train", f"{ARCTIC} train",
+             f"{LLAMA4} serve", f"{ZAMBA} serve", f"{RWKV} train", f"{RWKV} serve")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
          "replaces": replaces,

@@ -96,8 +96,8 @@ def trial_plan(config: dict, *, gpus_per_node: int = 8,
     failed; an ``ep`` that does not tile the devices downgrades to 1.
     Returns ``None`` when the config cannot tile the device count (the
     F-objective failure case).  A draw the port's ParallelPlan refuses
-    (``qcomm``, ``node``, ``overlap`` or ``ep`` past their defaults) raises
-    its ``NotImplementedError``: it is not scored.  ``mbs`` stays a
+    (``qcomm``, ``node`` or ``overlap`` past their defaults) raises its
+    ``NotImplementedError``: it is not scored.  ``mbs`` stays a
     cost-model knob: the executor derives the microbatch size from
     global_batch / gas.
     """

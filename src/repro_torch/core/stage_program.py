@@ -4,10 +4,11 @@
 Each model family lowers its layer stack (``models/model.py:
 Model.stage_program``) into an ordered list of :class:`Segment` s: a list
 of per-unit parameter views in the storage dtype, and the body a unit
-runs, ``body(unit_params, x) -> x``.  The body is the unit's training step
-as the compute policy wraps it: the cast to the compute dtype happens
-inside the remat wrapper, so the compute-dtype copies are recomputed in
-the backward and the weight gradients arrive in fp32.
+runs, ``body(unit_params, x, carry) -> (x, carry)``, with the
+:class:`CarrySpec` tuple the program declares.  The body is the unit's
+training step as the compute policy wraps it: the cast to the compute dtype
+happens inside the remat wrapper, so the compute-dtype copies are
+recomputed in the backward and the weight gradients arrive in fp32.
 
   * :func:`run_program`: the pp = 1 path, every unit in order;
   * :func:`split_stages`: cut the program into ``n_stages`` identical
@@ -16,9 +17,15 @@ the backward and the weight gradients arrive in fp32.
     on the segment list into structurally equal groups, its weight-tied
     segments (``tied``) closed over by every stage.
 
-The training stack carries nothing beside the activation: the recurrent
-families' state is sequence-level and layer-local, and the carries of the
-moe and encdec families come with their training (ROADMAP.md, Queue 1).
+The carry rides along with the activation: ``"accum"`` carries are fp32
+accumulators that start at zero (:meth:`StageProgram.init_carry`), the moe
+family's load-balance loss ``aux`` and measured drop fraction
+``moe_drop``, which the loss reduces after the last segment; the dense,
+hybrid and rwkv programs carry the reference's single ``aux`` at 0, which
+their bodies pass through untouched.  The recurrent families' state is
+sequence-level and layer-local, so it never enters the carry.  The
+reference's ``"input"`` carries (the encdec memory) come with that family
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -26,6 +33,21 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+
+ACCUM = "accum"
+
+
+@dataclasses.dataclass(frozen=True)
+class CarrySpec:
+    """One entry of the cross-stage carry contract (the ``"accum"`` kind)."""
+    name: str
+    kind: str = ACCUM
+
+    def __post_init__(self):
+        if self.kind != ACCUM:
+            raise ValueError(f"carry kind must be {ACCUM!r}, got {self.kind!r} (the "
+                             "reference's input carries come with the encdec family)")
 
 
 @dataclasses.dataclass
@@ -38,7 +60,7 @@ class Segment:
     name: str
     params: list
     n: int
-    body: Callable[[Any, torch.Tensor], torch.Tensor]
+    body: Callable[[Any, torch.Tensor, dict], tuple[torch.Tensor, dict]]
     tied: bool = False
 
     def __post_init__(self):
@@ -49,23 +71,31 @@ class Segment:
 @dataclasses.dataclass
 class StageProgram:
     segments: tuple[Segment, ...]
+    carry_spec: tuple[CarrySpec, ...] = (CarrySpec("aux"),)
+
+    def init_carry(self, device: torch.device | str | None = None) -> dict:
+        """Every accumulator at an fp32 zero."""
+        return {cs.name: torch.zeros((), dtype=torch.float32, device=device)
+                for cs in self.carry_spec}
 
     @property
     def n_units(self) -> int:
         return sum(seg.n for seg in self.segments)
 
 
-def _run(seg: Segment, units: list, x: torch.Tensor) -> torch.Tensor:
+def _run(seg: Segment, units: list, x: torch.Tensor, carry: dict
+         ) -> tuple[torch.Tensor, dict]:
     for lp in units:
-        x = seg.body(lp, x)
-    return x
+        x, carry = seg.body(lp, x, carry)
+    return x, carry
 
 
-def run_program(program: StageProgram, x: torch.Tensor) -> torch.Tensor:
+def run_program(program: StageProgram, x: torch.Tensor, carry: dict
+                ) -> tuple[torch.Tensor, dict]:
     """The non-pipelined executor: each segment's units in order."""
     for seg in program.segments:
-        x = _run(seg, seg.params, x)
-    return x
+        x, carry = _run(seg, seg.params, x, carry)
+    return x, carry
 
 
 def units_error(name: str, n: int, n_stages: int) -> ValueError:
@@ -112,13 +142,12 @@ def _check_groups_equal(chunks: list[list[Segment]]) -> None:
                     "copies)")
 
 
-def split_stages(program: StageProgram, n_stages: int
-                 ) -> tuple[list[tuple], Callable[[tuple, torch.Tensor], torch.Tensor]]:
+def split_stages(program: StageProgram, n_stages: int) -> tuple[list[tuple], Callable]:
     """Cut the program into ``n_stages`` identical stages.  Returns
     ``(stage_params, stage_fn)``: ``stage_params[s]`` is stage ``s``'s
     tuple of unit lists (one per untied segment of a stage), and
-    ``stage_fn(stage_params[s], x)`` runs stage ``s``; chained over the
-    stages in order it is :func:`run_program`."""
+    ``stage_fn(stage_params[s], x, carry) -> (x, carry)`` runs stage ``s``;
+    chained over the stages in order it is :func:`run_program`."""
     segs = program.segments
     if len(segs) == 1:
         seg = segs[0]
@@ -138,10 +167,11 @@ def split_stages(program: StageProgram, n_stages: int
         ref = chunks[0]
         stage_params = [tuple(seg.params for seg in c if not seg.tied) for c in chunks]
 
-    def stage_fn(sp_slice: tuple, x: torch.Tensor) -> torch.Tensor:
+    def stage_fn(sp_slice: tuple, x: torch.Tensor, carry: dict
+                 ) -> tuple[torch.Tensor, dict]:
         it = iter(sp_slice)
         for seg in ref:
-            x = _run(seg, seg.params if seg.tied else next(it), x)
-        return x
+            x, carry = _run(seg, seg.params if seg.tied else next(it), x, carry)
+        return x, carry
 
     return stage_params, stage_fn

@@ -66,26 +66,29 @@ def _index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
 
 def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
     """The blocks of the rank at mesh coordinate ``coord`` ({"pipe": i,
-    "data": j, "model": k}) of a whole parameter tree (nested or flat),
-    under the plan's shardings of ``cfg``: at pp > 1 the layers of the
-    rank's logical stages (round-robin under virtual stages); zamba2's
-    in_proj and conv blocks the rank's heads' columns and the B and C ones
+    "data": j, "model": k}, and "expert" at ep > 1) of a whole parameter
+    tree (nested or flat), under the plan's shardings of ``cfg``: at pp > 1
+    the layers of the rank's logical stages (round-robin under virtual
+    stages); at ep > 1 the rank's E/ep experts of each expert leaf (at
+    ep = 1 its block of them over the data ranks); zamba2's in_proj and
+    conv blocks the rank's heads' columns and the B and C ones
     (``models/model.py:tp_pieces``)."""
     shapes, psh = _specs(cfg, plan)
     return {k: np.asarray(a)[_index(k, shapes[k], psh[k], cfg, plan, coord)]
             for k, a in flatten_tree(tree).items()}
 
 
-def gather_params(blocks: dict[tuple[int, int, int], dict], cfg, plan) -> dict[str, np.ndarray]:
+def gather_params(blocks: dict[tuple[int, ...], dict], cfg, plan) -> dict[str, np.ndarray]:
     """The whole tree from every rank's blocks, ``{(pipe, data, model):
-    {key: block}}`` (the inverse of :func:`shard_params`)."""
+    {key: block}}``, or ``{(pipe, data, expert, model): ...}`` at ep > 1
+    (the inverse of :func:`shard_params`)."""
     shapes, psh = _specs(cfg, plan)
+    axes = ("pipe", "data", "model") if plan.ep == 1 else ("pipe", "data", "expert", "model")
     out = {}
     for k, shape in shapes.items():
         first = next(iter(blocks.values()))[k]
         whole = np.empty(shape, dtype=np.asarray(first).dtype)
-        for (i, j, m), tree in blocks.items():
-            whole[_index(k, shape, psh[k], cfg, plan,
-                         {"pipe": i, "data": j, "model": m})] = np.asarray(tree[k])
+        for at, tree in blocks.items():
+            whole[_index(k, shape, psh[k], cfg, plan, dict(zip(axes, at)))] = np.asarray(tree[k])
         out[k] = whole
     return out

@@ -6,10 +6,13 @@ its plain version, and the ``torch.autograd.Function`` that carries the
 gradient.
 
 The Function's forward is the kernel for a CUDA tensor (or raises) and the
-plain version for a CPU tensor.  It saves only (x, weights, mask); its
+plain version for a CPU tensor: the moe family's serving and, through
+``models/moe.py``, its train step (under remat full its forward runs again
+in the backward's recompute).  It saves only (x, weights, mask); its
 backward recomputes h in fp32 in plain torch
 (``kernels/ref.py:grouped_mlp_bwd_ref``), as the reference's jnp backward
-does.  ``launches`` counts the kernel's launches (one per call: the live
+(``repro/kernels/grouped_mlp.py:_grouped_bwd``, not a Pallas kernel) does;
+a backward kernel is ROADMAP.md's Queue 2.  ``launches`` counts the kernel's launches (one per call: the live
 row-tile list, the gate and the down kernel of one entry).
 
 ``grouped_items_cuda`` returns the bf16 kernels' work order as the C entry

@@ -1,5 +1,6 @@
 """The process group and the ("pipe", "data", "model") device mesh of a
-``ParallelPlan`` (the port of ``repro/launch/mesh.py:validate_plan_shape``
+``ParallelPlan``, or ("pipe", "data", "expert", "model") at ep > 1 (the
+port of ``repro/launch/mesh.py:validate_plan_shape``, ``make_mesh_4d_ep``
 and ``mesh_for_plan``).
 
 Ranks come from the launcher's environment (``torchrun`` /
@@ -9,7 +10,10 @@ On the card the group is nccl and each rank sets ``cuda:LOCAL_RANK`` before
 the group is made; on the CPU it is gloo.  The mesh puts the model dim
 fastest and the pipe dim slowest, as the reference does: ranks 2i and
 2i + 1 share a model group at tp = 2, and at pp = 2 the first half of the
-ranks is pipe rank 0.  The pipe dim has size pp.
+ranks is pipe rank 0.  The pipe dim has size pp.  The expert dim sits
+between data and model: tensor parallelism keeps the nearest ranks, the
+token all-to-all the next, and the batch's rows split over data then
+expert, so an ep plan gives each rank the rows of the flat dp x ep plan.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.runtime.collectives import AXES
+from repro_torch.runtime.collectives import AXES, EP_AXES
 
 BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -49,14 +53,16 @@ def check_backend(device: torch.device) -> None:
                            f"process group, this one is {backend}")
 
 
-def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None = None) -> None:
-    """Raise a clear error when (pp, dp, tp) cannot tile the ranks."""
-    for name, v in (("pp", pipe), ("dp", data), ("tp", model)):
+def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None = None,
+                        ep: int = 1) -> None:
+    """Raise a clear error when (pp, dp, ep, tp) cannot tile the ranks."""
+    for name, v in (("pp", pipe), ("dp", data), ("tp", model), ("ep", ep)):
         if v < 1:
             raise ValueError(f"--{name} must be >= 1, got {v}")
     n = dist.get_world_size() if n_devices is None else n_devices
-    want = pipe * data * model
-    plan_txt = f"pp={pipe} x dp={data} x tp={model}"
+    want = pipe * data * ep * model
+    plan_txt = (f"pp={pipe} x dp={data} x tp={model}" if ep == 1
+                else f"pp={pipe} x dp={data} x ep={ep} x tp={model}")
     if want != n:
         raise ValueError(f"parallel plan {plan_txt} = {want} ranks, but the process "
                          f"group has {n}; pick factors whose product is the world size "
@@ -64,8 +70,13 @@ def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None 
 
 
 def mesh_for_plan(plan, device: torch.device, n_devices: int | None = None) -> DeviceMesh:
-    """The (pp, dp, tp) mesh a ParallelPlan asks for, over the default group."""
-    validate_plan_shape(plan.pp, plan.dp, plan.tp, n_devices)
+    """The (pp, dp, tp) mesh a ParallelPlan asks for, over the default
+    group; (pp, dp, ep, tp) at ep > 1."""
+    ep = getattr(plan, "ep", 1)
+    validate_plan_shape(plan.pp, plan.dp, plan.tp, n_devices, ep=ep)
     check_backend(device)
+    if ep > 1:
+        return init_device_mesh(device.type, (plan.pp, plan.dp, ep, plan.tp),
+                                mesh_dim_names=EP_AXES)
     return init_device_mesh(device.type, (plan.pp, plan.dp, plan.tp),
                             mesh_dim_names=AXES)

@@ -22,11 +22,16 @@ rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
 executor over a (pp, dp, tp) mesh: ``--pp`` (the gas microbatches are the
 pipeline's), ``--virtual-stages``, ``--dp``, ``--tp``, ``--zero`` 0-3 and
 ``--rules``; rank 0 prints.  pp x dp x tp must be the number of ranks.
-``--tp`` splits the heads and the MLP of the dense, hybrid (zamba2) and
-rwkv families; ``--rules tp_only`` keeps the batch off the data axis (every
-data rank takes the whole batch).  Plans that still raise, naming
-ROADMAP.md: ep, node, qcomm, overlap, tp on the moe family.  Every plan and
-every ``--remat`` prints the same losses as one device:
+``--tp`` splits the heads and the MLP of every family (the moe family's
+expert MLPs on their d_ff); ``--ep`` splits the moe family's experts over
+an expert axis (the mesh is then (pp, dp, ep, tp), the batch's rows over
+data then expert; with ``--reduced`` the expert count is kept divisible by
+ep, as the reference's launcher keeps it); ``--rules tp_only`` keeps the
+batch off the data axis (every data rank takes the whole batch).  The moe
+family's step line also carries ``moe_aux`` and ``moe_drop`` (and the step
+records carry them).  Plans that still raise, naming ROADMAP.md: node,
+qcomm, overlap.  Every plan and every ``--remat`` prints the same losses as
+one device:
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
@@ -34,6 +39,8 @@ every ``--remat`` prints the same losses as one device:
       --device cpu --arch zamba2-2.7b --reduced --layers 4 --tp 2 --precision fp32
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --pp 2 --dp 2 --gas 2 --precision fp32
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch arctic-480b --reduced --ep 2 --dp 2 --gas 2 --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
       --seq-len 2048 --precision bf16 --kernels
@@ -128,11 +135,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
                          "the products without batch dims; none = save everything")
     ap.add_argument("--kernels", action="store_true",
                     help="the norms (RMSNorm or LayerNorm), the MLP input half "
-                         "(SwiGLU or GELU), attention, the SSD scan and CE in the "
-                         "CUDA kernels")
+                         "(SwiGLU or GELU), attention, the grouped expert MLP, the "
+                         "SSD and wkv scans and CE in the CUDA kernels")
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks")
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks")
     ap.add_argument("--pp", type=int, default=1, help="pipeline ranks")
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ranks (the moe family's experts split over "
+                         "them, tokens moved by an all-to-all); ep must divide n_experts")
     ap.add_argument("--virtual-stages", type=int, default=1,
                     help="logical stages per pipeline rank (interleaved)")
     ap.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None,
@@ -156,8 +166,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     overrides = {"n_layers": args.layers} if args.layers else {}
-    cfg = cfg.reduced(**overrides) if args.reduced else dataclasses.replace(cfg, **overrides)
-    plan = ParallelPlan(dp=args.dp, tp=args.tp, pp=args.pp,
+    cfg = (cfg.reduced(ep=args.ep, **overrides) if args.reduced
+           else dataclasses.replace(cfg, **overrides))
+    plan = ParallelPlan(dp=args.dp, tp=args.tp, pp=args.pp, ep=args.ep,
                         virtual_stages=args.virtual_stages, zero=args.zero, rules=args.rules,
                         gas=args.gas, precision=args.precision, remat=args.remat,
                         kernels=args.kernels)
@@ -168,13 +179,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
         model = build_model(cfg, plan, mesh)
         device, world, rank0 = model.device, dist.get_world_size(), dist.get_rank() == 0
     elif plan.n_devices > 1:
-        raise SystemExit(f"pp x dp x tp = {plan.n_devices} ranks: run under torchrun / "
-                         "python -m torch.distributed.run")
+        raise SystemExit(f"pp x dp x ep x tp = {plan.n_devices} ranks: run under "
+                         "torchrun / python -m torch.distributed.run")
     else:
         model = Model(cfg, torch.float32, device=device)
     say = print if rank0 else (lambda *a, **k: None)
     say(f"arch={cfg.name} params={model.n_params():,} device={device} ranks={world} "
-        f"pp={plan.pp} v={plan.virtual_stages} dp={plan.dp} tp={plan.tp} "
+        f"pp={plan.pp} v={plan.virtual_stages} dp={plan.dp} "
+        f"{f'ep={plan.ep} ' if plan.ep > 1 else ''}tp={plan.tp} "
         f"zero={plan.zero if mesh else '-'} "
         f"gas={plan.gas} precision={plan.precision} remat={plan.remat} "
         f"kernels={plan.kernels}", flush=True)
@@ -209,9 +221,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
                "wall_s": wall, "tokens_per_s": rec["tokens_per_s"]}
         if on_card:
             out["mfu"] = rec["mfu"]
+        moe = ""
+        if cfg.family == "moe":
+            out.update(moe_aux=rec["moe_aux"], moe_drop=rec["moe_drop"])
+            moe = f" moe_aux {rec['moe_aux']:.4f} moe_drop {rec['moe_drop']:.4f}"
         records.append(out)
         if logged:
-            say(tele.console_line(rec, with_mfu=on_card or tele_on), flush=True)
+            say(tele.console_line(rec, with_mfu=on_card or tele_on) + moe, flush=True)
     if args.trace and rank0:
         from repro_torch.analysis import trace as trace_mod
         tr = trace_mod.build_trace(plan.pp, plan.gas, plan.virtual_stages, tele.step_walls,

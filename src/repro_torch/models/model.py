@@ -6,8 +6,8 @@
     so weights carry over from the JAX pytree 1:1 (``repro_torch.interop``)
   * ``init(generator)`` — draw the weights from an explicit generator
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
-    blocked-kernel CE) and the full-sequence logits (dense, hybrid and
-    rwkv families; training the moe family is not ported yet)
+    blocked-kernel CE, and for the moe family the load-balance aux loss)
+    and the full-sequence logits
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + cache
     (KV; for hybrid also each mamba layer's conv window and SSD state; for
     rwkv each layer's last tokens and wkv state, no KV)
@@ -41,7 +41,8 @@ in the compute dtype.  The zamba2 shared block is gathered at each
 application and its uses' gradients summed before one reduce-scatter.
 Under the model axis the blocks run Megatron tensor parallelism (the dense
 blocks and zamba2's shared block in ``blocks.py``, the mamba layers in
-``ssm.py``, rwkv's blocks in ``rwkv.py``; ``tp_dims`` names the leaves and
+``ssm.py``, rwkv's blocks in ``rwkv.py``, the expert MLPs, the shared
+expert and the dense residual in ``moe.py``; ``tp_dims`` names the leaves and
 their dims, ``tp_pieces`` the zamba2 leaves whose block is not one even
 cut), the embedding lookup is vocab-parallel (rows outside the shard are
 zero, then all-reduced over the model group) and the lm_head
@@ -50,12 +51,20 @@ column-parallel into the vocab-parallel CE
 layers of its rank's logical stages only (with ``virtual_stages`` v > 1 a
 round-robin set, ``core/sharding.py:shard_slices``), and the embedding,
 final norm, lm_head and the zamba2 shared block whole, as the reference's
-specs keep them; its stack runs through ``runtime/pipeline.py``.  Training
+specs keep them; its stack runs through ``runtime/pipeline.py``.  Under
+the expert axis (ep > 1) the model stores the rank's E/ep experts of each
+expert leaf and its MoE blocks dispatch tokens to them
+(``moe.ExpertDispatch``); at ep = 1 the expert leaves are on the data
+axis, as the reference's rules put them, and gathered on use.  Training
 only: prefill, decode and ``logits`` of a sharded model raise.
 
 The layer stack of every family lowers into the StageProgram IR
 (:meth:`Model.stage_program`, ``core/stage_program.py``): ``hidden_states``
-runs it whole, the pipeline split into stages.
+runs it whole, the pipeline split into stages.  The moe family's units add
+their aux loss and drop fraction into the program's ``aux`` and
+``moe_drop`` carries; the loss adds ``MOE_AUX_COEF * aux / n_layers`` to the
+CE (over the rank's groups, a sharded model's share of the mean over the
+batch ranks' groups).
 """
 from __future__ import annotations
 
@@ -85,6 +94,8 @@ from repro_torch.models.common import (
 from repro_torch.runtime.collectives import (
     LeafGather, MeshGroups, all_reduce_, copy_to_model, reduce_from_model,
 )
+
+MOE_AUX_COEF = 0.01
 
 
 class _GradCast(torch.autograd.Function):
@@ -155,7 +166,7 @@ def stage_units(cfg: ModelConfig) -> tuple[str, int]:
     (:meth:`Model.stage_program`): what a pipeline's stages split."""
     if cfg.family == "hybrid":
         return "super", _n_super(cfg)
-    return ("rwkv" if cfg.family == "rwkv" else "block"), _n_stack(cfg)
+    return {"rwkv": "rwkv", "moe": "moe_unit"}.get(cfg.family, "block"), _n_stack(cfg)
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -212,7 +223,7 @@ def _cast_floating(tree: Any, dtype: torch.dtype) -> Any:
 
 # the logical axes the model axis sits on under Megatron tensor parallelism
 # (core/sharding.py's rules), the vocab aside
-_TP_AXES = ("heads", "kv_heads", "mlp", "ssm_heads")
+_TP_AXES = ("heads", "kv_heads", "mlp", "ssm_heads", "expert_mlp")
 
 
 def _model_dim(spec: shd.Spec) -> int | None:
@@ -224,7 +235,7 @@ def tp_dims(cfg: ModelConfig) -> dict[str, int]:
     """{leaf: the dim tensor parallelism splits} of the family's blocks (the
     dense and moe blocks, zamba2's mamba layers and shared block, rwkv's
     time-mix and channel-mix): the dim of the leaf's first head, kv-head,
-    MLP or SSM-head axis."""
+    MLP, expert-MLP or SSM-head axis."""
     out = {}
     for path, spec in flatten_specs(param_specs(cfg)):
         dims = [i for i, a in enumerate(spec.axes) if a in _TP_AXES]
@@ -317,10 +328,12 @@ class Model(nn.Module):
             raise ValueError("a sharded model needs both its shardings and its mesh")
         self.shardings, self.mesh = shardings, mesh
         self.virtual_stages = virtual_stages     # logical stages per pipe rank
-        self._tp = None
+        self._tp = self._ep = None
         self.pieces = tp_pieces(cfg)
         if shardings is not None and check_shardings(cfg, shardings, mesh.sizes):
             self._tp = mesh.groups["model"]
+        if mesh is not None and mesh.sizes["expert"] > 1:
+            self._ep = moe.ExpertDispatch(mesh.groups["expert"], mesh.sizes["expert"])
         for path, spec in flatten_specs(self.param_specs()):
             *parents, leaf = path.split(".")
             node: nn.Module = self
@@ -505,19 +518,18 @@ class Model(nn.Module):
         return reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
 
     def stage_program(self) -> sp.StageProgram:
-        """The rank's layer stack in the StageProgram IR (the dense, hybrid
-        and rwkv lowerings of ``repro/models/model.py:stage_program``): one
-        segment of per-layer units ("block", "rwkv"), each under the
-        policy's remat wrapper with the cast inside; for hybrid one "super"
-        unit per ``hybrid_attn_every`` mamba layers, which closes over the
-        weight-tied shared block (``ssm.hybrid_segment_body`` wraps each
-        mamba layer and the shared application).  Data-sharded leaves are
-        wrapped to gather on use, so a program serves one pass."""
+        """The rank's layer stack in the StageProgram IR (the lowerings of
+        ``repro/models/model.py:stage_program``): one segment of per-layer
+        units ("block", "rwkv"), each under the policy's remat wrapper with
+        the cast inside; for moe one "moe_unit" per stacked unit
+        (``moe.segment_body``), which carries ``aux`` and ``moe_drop``; for
+        hybrid one "super" unit per ``hybrid_attn_every`` mamba layers,
+        which closes over the weight-tied shared block
+        (``ssm.hybrid_segment_body`` wraps each mamba layer and the shared
+        application).  The other families carry the single ``aux`` at 0,
+        untouched.  Data-sharded leaves are wrapped to gather on use, so a
+        program serves one pass."""
         cfg = self.cfg
-        if cfg.family == "moe":
-            raise NotImplementedError("training the moe family (loss with the aux "
-                                      "loss and moe_drop) is not ported yet (see "
-                                      "ROADMAP.md, Queue 1)")
         cdt = self.compute_dtype
         params = self.params()
         stack = params["layers"]
@@ -527,22 +539,30 @@ class Model(nn.Module):
         # wrapped to gather on use
         lps = [self._uses(lp, "layers", stacked=True)
                for lp in _unstack(params["layers"], stack.shape[0])]
+        if cfg.family == "moe":
+            body = moe.segment_body(cfg, self.compute, lambda t: _cast_floating(t, cdt),
+                                    tp=self._tp, ep=self._ep)
+            return sp.StageProgram((sp.Segment("moe_unit", lps, len(lps), body),),
+                                   (sp.CarrySpec("aux"), sp.CarrySpec("moe_drop")))
         if cfg.family == "hybrid":
             # the shared block's Parameters are closed over by every unit:
             # autograd sums their gradients over the applications
             per = cfg.n_layers // _n_super(cfg)
             units = [lps[s:s + per] for s in range(0, len(lps), per)]
-            body = ssm.hybrid_segment_body(cfg, self.compute,
+            step = ssm.hybrid_segment_body(cfg, self.compute,
                                            self._uses(params["shared"], "shared"),
                                            lambda t: _cast_floating(t, cdt), tp=self._tp)
-            return sp.StageProgram((sp.Segment("super", units, len(units), body),))
-        if cfg.family == "rwkv":
-            name, layer = "rwkv", rwkv.segment_body(cfg, self.compute, tp=self._tp)
+            name = "super"
         else:
-            name, layer = "block", blocks.segment_body(cfg, self.compute, tp=self._tp)
-        # lp in the storage dtype: cast inside the remat
-        step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
-        return sp.StageProgram((sp.Segment(name, lps, len(lps), step),))
+            if cfg.family == "rwkv":
+                name, layer = "rwkv", rwkv.segment_body(cfg, self.compute, tp=self._tp)
+            else:
+                name, layer = "block", blocks.segment_body(cfg, self.compute, tp=self._tp)
+            # lp in the storage dtype: cast inside the remat
+            step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
+            units = lps
+        return sp.StageProgram((sp.Segment(name, units, len(units),
+                                           lambda lp, x, carry: (step(lp, x), carry)),))
 
     def normed(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm of the stack's output, in the compute dtype."""
@@ -551,28 +571,74 @@ class Model(nn.Module):
         return layers.apply_norm(x, _cast_floating(final_norm, self.compute_dtype),
                                  cfg.norm, cfg.rms_eps, use_kernel=self.compute.kernels)
 
-    def hidden_states(self, batch: dict) -> torch.Tensor:
-        """Final-normed hidden states (B, S, d) in the compute dtype: the
-        pp=1 path, ``core/stage_program.py:run_program`` over
-        :meth:`stage_program`.  A model split over pipe ranks runs its
+    def hidden_states(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(final-normed hidden states (B, S, d) in the compute dtype, the
+        moe aux loss, the moe drop sum; both fp32 0 for the other
+        families): the pp=1 path, ``core/stage_program.py:run_program``
+        over :meth:`stage_program`.  A model split over pipe ranks runs its
         stack through ``runtime/pipeline.py`` instead."""
         if self.mesh is not None and self.mesh.sizes["pipe"] > 1:
             raise ValueError("a model split over pipe ranks runs its layer stack "
                              "through runtime/pipeline.py (train_loop.build_train_step)")
         x = self._embed(self.params(), batch)
-        return self.normed(sp.run_program(self.stage_program(), x))
+        prog = self.stage_program()
+        x, carry = sp.run_program(prog, x, prog.init_carry(x.device))
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.normed(x), carry.get("aux", zero), carry.get("moe_drop", zero)
 
     def logits(self, batch: dict) -> torch.Tensor:
         self._refuse_sharded("logits")
-        h = self.hidden_states(batch)
+        h, _, _ = self.hidden_states(batch)
         W = self._unembed_matrix(self.params()).to(self.compute_dtype)
         return (h @ W).float()[..., :self.cfg.vocab_size]
 
-    def _loss_from_hidden(self, h: torch.Tensor, batch: dict,
-                          count: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    @property
+    def loss_ranks(self) -> int:
+        """The ranks whose losses sum in the gradient reduction: every rank
+        of the data and expert groups (1 unsharded)."""
+        return 1 if self.mesh is None else self.mesh.sizes["data"] * self.mesh.sizes["expert"]
+
+    def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the data group, then the expert group
+        (as it is unsharded)."""
+        if self.mesh is not None:
+            for axis in ("data", "expert"):
+                if self.mesh.groups[axis] is not None:
+                    all_reduce_(t, self.mesh.groups[axis])
+        return t
+
+    @property
+    def n_moe_units(self) -> int:
+        """What the ``moe_drop`` metric divides the drop sum by: the MoE
+        units of the stack (1 for the other families)."""
+        return _n_stack(self.cfg) if self.cfg.family == "moe" else 1
+
+    def aux_loss(self, aux: torch.Tensor) -> torch.Tensor:
+        """The moe aux loss's term of the objective
+        (``MOE_AUX_COEF * aux / n_layers``, the reference's), as this rank's
+        share: ``aux`` is the mean over its groups, and every batch rank
+        holds as many, so the mean over all of them is the sum of the ranks'
+        shares."""
+        return MOE_AUX_COEF * aux / max(self.cfg.n_layers, 1) / self.loss_ranks
+
+    def _loss_from_hidden(self, h: torch.Tensor, batch: dict, aux: torch.Tensor,
+                          drop: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """LM loss tail: final-normed hidden states -> (loss, metrics): the
-        CE sum over the rows of ``batch`` divided by ``count``, or by the
-        token count of the batch (sharded: over every data rank's rows)."""
+        CE (:meth:`_ce_from_hidden`) plus the moe family's :meth:`aux_loss`
+        of ``aux``.  The metrics are the reference's: ``ce``, ``moe_aux``
+        (``aux``) and ``moe_drop`` (``drop`` over the MoE units), the last
+        two this rank's."""
+        ce = self._ce_from_hidden(h, batch)
+        metrics = {"ce": ce, "moe_aux": aux, "moe_drop": drop / self.n_moe_units}
+        if self.cfg.family != "moe":
+            return ce, metrics
+        return ce + self.aux_loss(aux), metrics
+
+    def _ce_from_hidden(self, h: torch.Tensor, batch: dict,
+                        count: torch.Tensor | None = None) -> torch.Tensor:
+        """The CE sum over the rows of ``batch`` divided by ``count``, or by
+        the token count of the batch (sharded: over every batch rank's
+        rows)."""
         cfg = self.cfg
         h = grad_cast(h, self.compute_dtype)
         tokens = batch["tokens"]
@@ -583,35 +649,34 @@ class Model(nn.Module):
                 if mask is None else mask[:, 1:].float())
         if self.shardings is None:
             W = self._unembed_matrix(self.params()).to(self.compute_dtype)
-            ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
-                                        policy=self.compute, count=count)
-            return ce, {"ce": ce}
+            return _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
+                                          policy=self.compute, count=count)
         # sharded: the loss sum over this rank's rows over the token count of
-        # every data rank's rows (the microbatch's mean once summed over them)
+        # every batch rank's rows (the microbatch's mean once summed over them)
         name = "embed" if cfg.tie_embeddings else "lm_head"
         W = _cast_floating(self._uses({name: self.params()[name]})[name], self.compute_dtype)
         W = W.T if cfg.tie_embeddings else W
         vocab_dim = _model_dim(self.shardings[name])
         group = self.mesh.groups["model"]
         if count is None:
-            count = all_reduce_(mask.sum(), self.mesh.groups["data"])
+            count = self.sum_over_batch(mask.sum())
         if vocab_dim is None:
-            ce = _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
-                                        policy=self.compute, count=count)
-            return ce, {"ce": ce}
+            return _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
+                                          policy=self.compute, count=count)
         hf = copy_to_model(h.reshape(-1, h.shape[-1]), group)
         losses = vocab_parallel_tokens(hf, W, labels.reshape(-1), cfg.vocab_size,
                                        self.mesh.coord["model"] * W.shape[1], group,
                                        plain=not self.compute.kernels)
-        ce = (losses * mask.reshape(-1)).sum() / count.clamp(min=1.0)
-        return ce, {"ce": ce}
+        return (losses * mask.reshape(-1)).sum() / count.clamp(min=1.0)
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """The training objective of one (micro)batch {"tokens": (B, S)}
-        (optionally "loss_mask"): mean next-token CE, and {"ce": ...}.  A
-        sharded model takes its data rank's rows and returns their part of
-        the mean over all the data ranks' tokens."""
-        return self._loss_from_hidden(self.hidden_states(batch), batch)
+        (optionally "loss_mask"): mean next-token CE (plus the moe aux
+        term), and {"ce", "moe_aux", "moe_drop"}.  A sharded model takes its
+        batch rank's rows and returns their part of the mean over all the
+        batch ranks' tokens."""
+        h, aux, drop = self.hidden_states(batch)
+        return self._loss_from_hidden(h, batch, aux, drop)
 
     # ------------------------------------------------------------------
     # Prefill

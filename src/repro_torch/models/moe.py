@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with grouped, capacity-bounded dispatch: the
-single-device part of ``repro/models/moe.py``.
+"""Mixture-of-Experts FFN with grouped, capacity-bounded dispatch (the port
+of ``repro/models/moe.py``).
 
 Tokens are grouped per sequence (sequences longer than 8192 tokens split
 into chunks of at most 4096), and each group routes its tokens to the top-k
@@ -16,12 +16,27 @@ otherwise the einsums in the compute dtype.
 Supports top-1 routing with a shared expert (llama4-maverick), top-2
 routing with a parallel dense residual MLP (arctic), the switch-style
 load-balance auxiliary loss and the measured dropped-assignment fraction.
-Expert parallelism (``ExpertDispatch``, the ``ep`` plan axis) waits for the
-parallel executor (ROADMAP.md, Queue 1).
+
+Expert parallelism (the ``ep`` plan axis, :class:`ExpertDispatch`): a rank
+holds E/ep experts and routes its own groups; dispatch is the token
+all-to-all over the expert group that moves the (G, E, C, d) slots from
+group-major (every expert, the rank's groups) to expert-major (the rank's
+experts, the groups of every rank of the group), and combine the inverse
+one (``runtime/collectives.py:all_to_all_dim``; each one's backward is the
+other).  Under tensor parallelism (``tp``, the model group) the expert
+MLPs run on the rank's d_ff columns (w1, w3) and rows (w2), as do the
+shared expert and the dense residual: their input passes
+``copy_to_model``, and the sum of their partial outputs, after the
+combine, one ``reduce_from_model``.  The combine weights pass
+``copy_to_model`` too: their gradient is a product with the partial
+expert outputs, so each rank holds a part of it.  The router, its gates,
+the aux loss and the drop fraction are computed alike on every model rank.
+:func:`segment_body` is the StageProgram body of one MoE stack unit.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +47,28 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.models.blocks import mlp_specs, norm_spec
 from repro_torch.models.common import ModelConfig, Spec
+from repro_torch.runtime.collectives import all_to_all_dim, copy_to_model, reduce_from_model
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertDispatch:
+    """The expert group of a rank (``runtime/train_loop.py`` builds it at
+    ep > 1): ``ep`` ranks, each holding E/ep consecutive experts, rank i of
+    the group experts [i E/ep, (i + 1) E/ep)."""
+    group: Any
+    ep: int
+
+    def dispatch(self, t: torch.Tensor, kind: str = "all-to-all") -> torch.Tensor:
+        """(G, E, C, ...) group-major -> (ep G, E/ep, C, ...) expert-major:
+        the slots of the rank's experts from every rank of the group, the
+        source rank slowest (the token all-to-all; ``kind`` names its byte
+        count)."""
+        return all_to_all_dim(t, 1, 0, self.group, kind)
+
+    def combine(self, t: torch.Tensor) -> torch.Tensor:
+        """(ep G, E/ep, C, ...) expert-major -> (G, E, C, ...) group-major
+        (the inverse all-to-all)."""
+        return all_to_all_dim(t, 0, 1, self.group)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -110,9 +147,10 @@ def _route(gates: torch.Tensor, top_k: int, capacity: int):
     return assignments, slot_to_token[:, :EC], slot_valid[:, :EC], aux
 
 
-def _expert_mlps(params: dict, expert_in: torch.Tensor, slot_valid: torch.Tensor,
+def _expert_mlps(params: dict, expert_in: torch.Tensor, slot_valid: torch.Tensor | None,
                  cfg: ModelConfig, pol: ComputePolicy) -> torch.Tensor:
-    """(G, E, C, d) expert slots -> (G, E, C, d) expert outputs."""
+    """(G, E, C, d) expert slots -> (G, E, C, d) expert outputs; the
+    grouped kernel takes the (G, E, C) slot mask."""
     G, E, C, d = expert_in.shape
     if pol.kernels:
         xs = expert_in.transpose(0, 1).reshape(E, G * C, d)
@@ -130,14 +168,13 @@ def _expert_mlps(params: dict, expert_in: torch.Tensor, slot_valid: torch.Tensor
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              policy: ComputePolicy | None = None, ep: Any = None,
-              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              policy: ComputePolicy | None = None, ep: ExpertDispatch | None = None,
+              tp: Any = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (x + MoE(x), aux_loss, drop_fraction), the last two
-    fp32 scalars; ``drop_fraction`` is the share of routed (token, k)
-    assignments dropped at the capacity limit."""
-    if ep is not None:
-        raise NotImplementedError("expert parallelism (ep) is not ported yet "
-                                  "(see ROADMAP.md, Queue 1)")
+    fp32 scalars over the rank's groups; ``drop_fraction`` is the share of
+    routed (token, k) assignments dropped at the capacity limit.  ``ep``
+    runs the expert MLPs on the rank's experts between the two all-to-alls,
+    ``tp`` on the rank's d_ff shard (the module docstring)."""
     pol = resolve_policy(policy)
     B, S, d = x.shape
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
@@ -152,9 +189,19 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     drop = 1.0 - slot_valid.sum().float() / float(G * g * max(cfg.top_k, 1))
 
     # dispatch: gather token activations into (G, E*C, d) expert slots
-    expert_in = torch.gather(xg, 1, slot_to_token[..., None].expand(G, E * C, d))
+    xe = xg if tp is None else copy_to_model(xg, tp)
+    expert_in = torch.gather(xe, 1, slot_to_token[..., None].expand(G, E * C, d))
     expert_in = torch.where(slot_valid[..., None], expert_in, 0).reshape(G, E, C, d)
-    expert_out = _expert_mlps(params, expert_in, slot_valid, cfg, pol)
+    valid = slot_valid.reshape(G, E, C)
+    if ep is not None:
+        expert_in = ep.dispatch(expert_in)
+        # the grouped kernel's slot mask follows its slots (the plain
+        # products need none: an empty slot's row is zero)
+        valid = (ep.dispatch(valid.to(torch.uint8), "all-to-all-mask").bool()
+                 if pol.kernels else None)
+    expert_out = _expert_mlps(params, expert_in, valid, cfg, pol)
+    if ep is not None:
+        expert_out = ep.combine(expert_out)
     expert_out = expert_out.reshape(G, E * C, d)
 
     # combine: each token's expert outputs, weighted, in x's dtype, k in order
@@ -162,11 +209,49 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     for e_k, p_k, keep, w_k in assignments:
         s = torch.where(keep, e_k * C + p_k, 0)     # dropped: weight 0
         vals = torch.gather(expert_out, 1, s[..., None].expand(G, g, d))
-        out = out + vals * (w_k * keep).to(x.dtype)[..., None]
+        wk = (w_k * keep).to(x.dtype)
+        out = out + vals * (wk if tp is None else copy_to_model(wk, tp))[..., None]
 
     out = out.reshape(B, S, d)
+    hs = h if tp is None else copy_to_model(h, tp)
     if cfg.shared_expert:
-        out = out + layers.mlp(h, params["shared"], cfg.act, use_kernel=pol.kernels)
+        out = out + layers.mlp(hs, params["shared"], cfg.act, use_kernel=pol.kernels)
     if cfg.moe_dense_residual:
-        out = out + layers.mlp(h, params["dense"], cfg.act, use_kernel=pol.kernels)
+        out = out + layers.mlp(hs, params["dense"], cfg.act, use_kernel=pol.kernels)
+    if tp is not None:
+        out = reduce_from_model(out, tp)
     return x + out, aux.float(), drop
+
+
+def _index(tree: dict, j: int) -> dict:
+    return {k: _index(v, j) if isinstance(v, dict) else v[j] for k, v in tree.items()}
+
+
+def segment_body(cfg: ModelConfig, policy: ComputePolicy | None,
+                 cast: Callable[[dict], dict], tp: Any = None,
+                 ep: ExpertDispatch | None = None):
+    """The StageProgram body of one MoE stack unit
+    (``repro/models/moe.py:segment_body``): the nested ``moe_every - 1``
+    dense sub-stack (llama4), attention, then :func:`moe_block`, whose aux
+    loss and drop fraction add into the ``aux`` and ``moe_drop`` carries.
+    The unit runs under the policy's remat wrapper with the cast of its
+    storage-dtype weights (``cast``) inside, as the other families' bodies."""
+    from repro_torch.models import blocks
+
+    pol = resolve_policy(policy)
+
+    def unit(lp: dict, x: torch.Tensor):
+        lp = cast(lp)
+        for j in range(cfg.moe_every - 1):
+            dlp = _index(lp["dense"], j)
+            x = blocks.self_attn_block(dlp["attn"], x, cfg, causal=True, policy=pol, tp=tp)
+            x = blocks.mlp_block(dlp["mlp"], x, cfg, policy=pol, tp=tp)
+        x = blocks.self_attn_block(lp["attn"], x, cfg, causal=True, policy=pol, tp=tp)
+        return moe_block(lp["moe"], x, cfg, policy=pol, ep=ep, tp=tp)
+
+    step = pol.checkpoint(unit)
+
+    def body(lp: dict, x: torch.Tensor, carry: dict):
+        x, a, dr = step(lp, x)
+        return x, {**carry, "aux": carry["aux"] + a, "moe_drop": carry["moe_drop"] + dr}
+    return body

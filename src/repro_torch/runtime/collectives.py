@@ -19,17 +19,27 @@ explicit ``torch.distributed`` calls on the mesh's process groups.
     the fp32 sum of the uses' gradients reduce-scattered into the block;
   * :func:`all_gather_dim` / :func:`reduce_scatter_dim` along any dim (the
     stage 1-2 update's all-gather and stage 2's per-microbatch
-    reduce-scatter), and :func:`all_reduce_` in place.
+    reduce-scatter), and :func:`all_reduce_` in place;
+  * :func:`all_to_all_dim`, the expert group's token all-to-all
+    (``models/moe.py:ExpertDispatch``): a tensor split along one dim into
+    one block per rank, block j sent to rank j, the blocks received
+    concatenated along another dim in rank order; its backward is the
+    inverse all-to-all of the gradient.
 
 A one-rank group runs the same calls.  :class:`MeshGroups` is the mesh as
-the executor reads it: axis sizes, this rank's coordinate, the groups.
+the executor reads it: axis sizes, this rank's coordinate, the groups
+(the expert axis of size 1, and no group, on a mesh without one).
 
 Each call adds the bytes it moves to :data:`COMM_BYTES`, by kind, in the
 convention of the reference's ``analysis/hlo.py:comm_bytes``: an
 all-gather its output, a reduce-scatter its input, an all-reduce twice its
 input (a ring's reduce-scatter and all-gather), a point-to-point send its
-operand (``runtime/pipeline.py``).  ZeRO 3's gathers on use count apart,
-as ``zero3_gather`` (the ``core/costmodel.py`` key).  The telemetry reads
+operand (``runtime/pipeline.py``), an all-to-all its input, the block the
+rank keeps included: the local tensor, as ``core/costmodel.py:
+predict_a2a_bytes`` prices a reshard.  ZeRO 3's gathers on use count apart,
+as ``zero3_gather`` (the ``core/costmodel.py`` key), and so do the expert
+slot mask's all-to-alls (one byte a slot, beside the tokens' d values), as
+``all-to-all-mask``.  The telemetry reads
 them per step (:func:`comm_bytes`, :func:`reset_comm_bytes`); a count is
 one integer add on the call.
 """
@@ -46,8 +56,11 @@ _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_t
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 AXES = ("pipe", "data", "model")
+# the mesh of a plan with expert parallelism: expert between data and model
+EP_AXES = ("pipe", "data", "expert", "model")
 
-COMM_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "zero3_gather", "send")
+COMM_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "zero3_gather", "send",
+              "all-to-all", "all-to-all-mask")
 COMM_BYTES = dict.fromkeys(COMM_KINDS, 0)
 
 
@@ -68,24 +81,32 @@ def reset_comm_bytes() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class MeshGroups:
-    """The ("pipe", "data", "model") mesh of one rank: ``sizes`` and
-    ``coord`` ({axis: int}) and ``groups`` ({axis: ProcessGroup});
-    ``world`` is the group of every rank of the mesh."""
+    """The ("pipe", "data", "expert", "model") mesh of one rank: ``sizes``
+    and ``coord`` ({axis: int}) and ``groups`` ({axis: ProcessGroup});
+    ``world`` is the group of every rank of the mesh.  An axis the mesh
+    lacks (the expert axis of a plan without expert parallelism) has size
+    1, coordinate 0 and no group: a collective over it is skipped."""
     sizes: dict
     coord: dict
     groups: dict
     world: object
 
+    def __post_init__(self):
+        for a in EP_AXES:
+            self.sizes.setdefault(a, 1)
+            self.coord.setdefault(a, 0)
+            self.groups.setdefault(a, None)
+
     @classmethod
     def from_mesh(cls, mesh) -> "MeshGroups":
         """From a ``torch.distributed.device_mesh.DeviceMesh`` with dims
-        named ``AXES``."""
+        named ``AXES`` or ``EP_AXES``."""
         names = tuple(mesh.mesh_dim_names)
-        if names != AXES:
-            raise ValueError(f"mesh dims {names}, expected {AXES}")
-        return cls(sizes={a: mesh.size(i) for i, a in enumerate(AXES)},
-                   coord={a: mesh.get_local_rank(a) for a in AXES},
-                   groups={a: mesh.get_group(a) for a in AXES},
+        if names not in (AXES, EP_AXES):
+            raise ValueError(f"mesh dims {names}, expected {AXES} or {EP_AXES}")
+        return cls(sizes={a: mesh.size(i) for i, a in enumerate(names)},
+                   coord={a: mesh.get_local_rank(a) for a in names},
+                   groups={a: mesh.get_group(a) for a in names},
                    world=dist.group.WORLD)
 
 
@@ -117,6 +138,41 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     _reduce_scatter(out.view(-1), parts.view(-1), group=group)
     _count("reduce-scatter", parts)
     return out
+
+
+def _all_to_all(x: torch.Tensor, split: int, cat: int, group, kind: str) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    s = x.shape
+    send = x.reshape(*s[:split], n, s[split] // n, *s[split + 1:]).movedim(split, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    _count(kind, send)
+    block = list(send.shape[1:])
+    block[cat] *= n
+    return recv.movedim(0, cat).reshape(block)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, cat, group, kind):
+        ctx.split, ctx.cat, ctx.group, ctx.kind = split, cat, group, kind
+        return _all_to_all(x, split, cat, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.cat, ctx.split, ctx.group, ctx.kind), None, None, None, None
+
+
+def all_to_all_dim(x: torch.Tensor, split: int, cat: int, group,
+                   kind: str = "all-to-all") -> torch.Tensor:
+    """``x`` split along ``split`` into one block per rank of ``group``,
+    block j sent to rank j; the blocks this rank receives concatenated
+    along ``cat`` in rank order.  The send buffer is laid out contiguously
+    per destination; the backward is the inverse exchange (split along
+    ``cat``, concatenated along ``split``)."""
+    if not x.is_floating_point():
+        return _all_to_all(x, split, cat, group, kind)
+    return _AllToAll.apply(x, split, cat, group, kind)
 
 
 class _CopyToModel(torch.autograd.Function):

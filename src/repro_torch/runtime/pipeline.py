@@ -7,14 +7,20 @@ Each pipe rank walks its applications of ``core/pipeline.py:schedule`` in
 tick order.  At an application (microbatch ``j``, logical stage ``s``) it
 embeds microbatch ``j`` (``s == 0``) or takes the activation that stage
 ``s - 1`` handed over as a leaf with ``requires_grad``, runs its local
-stage (``core/stage_program.py:split_stages`` of the model's program), and
-keeps the (input, output) pair; the last stage applies the final norm and
-the CE, whose output is the loss scaled for the backward.  The backward
-walks the same applications in reverse tick order:
+stage (``core/stage_program.py:split_stages`` of the model's program,
+from a zero carry), and keeps the (input, output) pair; the last stage
+applies the final norm and the CE, whose output is the loss scaled for the
+backward.  The backward walks the same applications in reverse tick order:
 ``torch.autograd.backward(output, grad)`` with the gradient that stage
 ``s + 1`` handed back (the loss takes none), then hands ``input.grad`` to
-stage ``s - 1``.  Parameter gradients accumulate in fp32 in ``.grad`` over
-the applications, as the reference's pipeline-scan transpose does.
+stage ``s - 1``.  The moe family's carries stay on the rank: an
+application's aux loss enters the objective as its own term
+(``Model.aux_loss`` over the gas microbatches, scaled like the loss), which
+its backward takes beside the output (``backward((output, term), (grad,
+None))``), so the router's gradient reaches the earlier stages through
+``input.grad``; its aux and drop sums add into the sweep's ``sums``.
+Parameter gradients accumulate in fp32 in ``.grad`` over the
+applications, as the reference's pipeline-scan transpose does.
 
 The hand-off is a local tensor when one process runs every stage
 (``ring=None``: the stage split and its boundary backward checked on one
@@ -123,14 +129,17 @@ class _Stages:
     logical stage s in local slot ``slot(s)``."""
 
     def __init__(self, model, sched: Schedule, micro: list[dict], count: torch.Tensor,
-                 loss_scale: dict, n_local: int, slot):
+                 loss_scale: dict, n_local: int, slot, sums: dict | None):
         self.model, self.micro, self.count, self.ls = model, micro, count, loss_scale
         self.last = sched.n_stages - 1
+        self.gas = sched.m
         self.n_local, self.slot = n_local, slot
         self.ce = torch.zeros((), dtype=torch.float32, device=model.device)
+        self.sums = sums
 
     def forward(self, j: int, s: int, x: torch.Tensor | None):
-        """(input leaf or None at stage 0, output: activation or scaled loss)."""
+        """(input leaf or None at stage 0, output: activation or scaled
+        loss, the scaled aux term its backward also takes, or None)."""
         model = self.model
         if s == 0:
             inp, h = None, model._embed(model.params(), self.micro[j])
@@ -139,17 +148,27 @@ class _Stages:
             h = inp
         # a fresh program per application: its data-sharded leaves gather
         # anew, as each microbatch's pass does at pp = 1
-        params, stage_fn = split_stages(model.stage_program(), self.n_local)
-        h = stage_fn(params[self.slot(s)], h)
+        prog = model.stage_program()
+        params, stage_fn = split_stages(prog, self.n_local)
+        h, carry = stage_fn(params[self.slot(s)], h, prog.init_carry(h.device))
+        term = None
+        if "moe_drop" in carry:
+            if self.sums is not None:
+                self.sums["aux"] += carry["aux"].detach()
+                self.sums["moe_drop"] += carry["moe_drop"].detach() / model.n_moe_units
+            term = model.aux_loss(carry["aux"]) / self.gas
         if s < self.last:
-            return inp, h
-        ce, _ = model._loss_from_hidden(model.normed(h), self.micro[j], self.count)
+            return inp, h, None if term is None else prec.scale_loss(self.ls, term)
+        ce = model._ce_from_hidden(model.normed(h), self.micro[j], self.count)
         self.ce += ce.detach()
-        return inp, prec.scale_loss(self.ls, ce)
+        return inp, prec.scale_loss(self.ls, ce if term is None else ce + term), None
 
     @staticmethod
-    def backward(inp, out, grad) -> torch.Tensor | None:
-        torch.autograd.backward(out, grad)
+    def backward(inp, out, grad, term=None) -> torch.Tensor | None:
+        if term is None:
+            torch.autograd.backward(out, grad)
+        else:
+            torch.autograd.backward((out, term), (grad, None))
         return None if inp is None else inp.grad
 
 
@@ -180,32 +199,34 @@ def _walk(events: list, compute, recv_from: int, send_to: int, group, buffer) ->
 
 
 def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
-          loss_scale: dict, ring: Ring | None = None) -> torch.Tensor:
-    """One sweep of ``sched.m`` microbatches (``micro``: this data rank's
+          loss_scale: dict, ring: Ring | None = None, sums: dict | None = None
+          ) -> torch.Tensor:
+    """One sweep of ``sched.m`` microbatches (``micro``: this batch rank's
     rows of each): fills the ``.grad`` of the parameters the rank's stages
     and its embedding or loss used, and returns the sum of the last stage's
     CE over the microbatches (zero on any other rank).  ``model`` holds
     every stage when ``ring`` is None (one process), else the stages of pipe
     rank ``ring.rank``; the CE of each microbatch is its rows' sum over
-    ``count``."""
+    ``count``.  ``sums`` ({"aux", "moe_drop"} fp32 scalars), if given,
+    takes the moe family's carries of the rank's applications."""
     global _last_clock
     S = sched.n_stages
     clock = _Clock(model.device)
     clock.mark()
     if ring is None:
-        stages = _Stages(model, sched, micro, count, loss_scale, S, lambda s: s)
+        stages = _Stages(model, sched, micro, count, loss_scale, S, lambda s: s, sums)
         forward, backward = clock.timed(stages.forward), clock.timed(stages.backward)
         outs, kept = {}, []
         walk = sorted(a for apps in sched.ranks for a in apps)
         for _, j, s in walk:
-            inp, out = forward(j, s, outs.pop((j, s - 1), None))
+            inp, out, term = forward(j, s, outs.pop((j, s - 1), None))
             if s < S - 1:
                 outs[j, s] = out
-            kept.append((j, s, inp, out))
+            kept.append((j, s, inp, out, term))
         grads: dict = {}
         while kept:
-            j, s, inp, out = kept.pop()
-            g = backward(inp, out, grads.pop((j, s), None))
+            j, s, inp, out, term = kept.pop()
+            g = backward(inp, out, grads.pop((j, s), None), term)
             if s > 0:
                 grads[j, s - 1] = g
         clock.mark()
@@ -213,7 +234,7 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
         _last_clock = clock
         return stages.ce
 
-    stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of)
+    stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of, sums)
     b, seq = micro[0]["tokens"].shape
     shape = (b, seq, model.cfg.d_model)
 
@@ -224,15 +245,16 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
     kept = {}
 
     def forward(item, x):
-        inp, out = stages.forward(*item, x)
+        inp, out, term = stages.forward(*item, x)
         if item[1] < S - 1 and (out.shape != shape or out.dtype != model.compute_dtype):
             raise RuntimeError(f"stage {item[1]} hands over {out.dtype} {tuple(out.shape)}, "
                                f"the next expects {model.compute_dtype} {shape}")
-        kept[item] = (inp, out)
+        kept[item] = (inp, out, term)
         return out
 
     def backward(item, g):
-        return stages.backward(*kept.pop(item), g)
+        inp, out, term = kept.pop(item)
+        return stages.backward(inp, out, g, term)
 
     _walk([(t, (j, s), s > 0, s < S - 1) for t, j, s in apps],
           clock.timed(forward), ring.prev, ring.next, ring.group, buffer)

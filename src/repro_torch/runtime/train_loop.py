@@ -7,13 +7,18 @@ over a ``torch.distributed`` mesh.
     accumulation microbatches, ``precision`` (bf16 | fp16 | fp32 compute
     over fp32 master weights), the compute policy (``remat`` full |
     selective | none, ``kernels``);
-  * over a ("pipe", "data", "model") mesh of pp x dp x tp ranks
+  * over a ("pipe", "data", "model") mesh of pp x dp x tp ranks, or
+    ("pipe", "data", "expert", "model") at ep > 1
     (``launch/mesh.py:mesh_for_plan``): the same, plus data parallelism
     with ZeRO stage ``zero`` 0-3 (None is stage 1, as in the reference;
     ``core/memplan.py`` says what each stage shards and how), Megatron
-    tensor parallelism over the model group of the dense, hybrid and rwkv
-    families (``models/blocks.py``, ``models/ssm.py``, ``models/rwkv.py``;
-    vocab-parallel embedding and CE), the sharding ``rules`` preset
+    tensor parallelism over the model group (``models/blocks.py``,
+    ``models/ssm.py``, ``models/rwkv.py``, ``models/moe.py``; vocab-parallel
+    embedding and CE), expert parallelism over the expert group (the moe
+    family's experts split over it, the tokens moved by the all-to-all of
+    ``models/moe.py:ExpertDispatch``; the batch's rows split over data then
+    expert, as the reference's composite batch axis does; at ep = 1 the
+    experts are on the data axis and gathered on use), the sharding ``rules`` preset
     (``core/sharding.py:PRESETS``; under ``tp_only`` the batch is off the
     data axis: every data rank takes the whole global batch, as the
     reference's ``batch -> None`` does, and the data reductions act on
@@ -22,18 +27,19 @@ over a ``torch.distributed`` mesh.
     (``runtime/pipeline.py``; GPipe at ``virtual_stages`` = 1, Megatron's
     interleaved round-robin assignment above).
 
-What still raises, naming ROADMAP.md: ``multi_segment``, ``ep`` > 1,
-``node`` > 1, ``qcomm`` and ``overlap`` (the CommPlan), fp16 kernels and
-tp on the moe family.  The reference's ``rule_overrides`` are not ported.
+What still raises, naming ROADMAP.md: ``multi_segment``, ``node`` > 1,
+``qcomm`` and ``overlap`` (the CommPlan) and fp16 kernels.  The
+reference's ``rule_overrides`` are not ported.
 
 ``build_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, one step for both: an unsharded model (one device, no process
 group) takes each collective below as the identity, a sharded one runs
 them over its mesh's groups, of one rank or more.  The global batch is
 split as the reference splits it: into ``gas`` microbatches, then each
-microbatch's rows over the data ranks.
+microbatch's rows over the batch ranks (data, then expert).
 At pp = 1 each microbatch's scaled loss (this rank's loss sum over every
-data rank's token count) is backpropagated and the gradients sum in fp32:
+batch rank's token count, and the moe family's share of the aux term,
+``Model.aux_loss``) is backpropagated and the gradients sum in fp32:
 in the parameters' ``.grad`` (stages 0-1: all-reduced over the data group
 after the last microbatch), reduce-scattered into the rank's block after
 each microbatch (stage 2), or by the gathers' own reduce-scatters (stage 3
@@ -45,7 +51,10 @@ normalisation), the gradients sum in fp32 in ``.grad``, those of the
 leaves kept whole over the pipe group (embedding, final norm, lm_head, the
 zamba2 shared block) are summed over it (zeros where a rank did not use
 one), and then reduced over the data group as above, stage 2 by one
-reduce-scatter after the sweep.  Then the gradients are divided by ``gas``
+reduce-scatter after the sweep.  At ep > 1 every leaf but the experts' is
+then summed over the expert group too (each expert rank holds other
+experts, whose gradients are whole over the group's tokens already).
+Then the gradients are divided by ``gas``
 (pp = 1 only) and unscaled in place, checked for finiteness (a flag
 all-reduced over every rank, so all ranks skip an overflowed fp16 step
 together), their global norm taken (squares summed over every rank, a
@@ -54,9 +63,11 @@ rank 0), AdamW applied in place to the rank's blocks (stages 1-2 then
 all-gather the updated blocks into the parameters), and the loss scale
 updated.  The metrics are the reference's, the same on every rank: loss
 (the mean CE over the microbatches; at pp > 1 the CE of the global batch,
-the same when every token counts), moe_aux, moe_drop (0 for these
-families), grad_norm, grads_finite and loss_scale, as 0-d tensors on the
-device.
+the same when every token counts), moe_aux and moe_drop (the moe family's
+load-balance loss and dropped share of its routed assignments, each the
+mean over the microbatches of the mean over every batch rank's groups,
+summed over the pipe ranks' stages; 0 for the other families),
+grad_norm, grads_finite and loss_scale, as 0-d tensors on the device.
 """
 from __future__ import annotations
 
@@ -67,6 +78,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import expertplan as epl
 from repro_torch.core import memplan as mpl
 from repro_torch.core import precision as prec
 from repro_torch.core import sharding as shd
@@ -81,11 +93,9 @@ from repro_torch.runtime.collectives import (
     MeshGroups, all_gather_dim, all_reduce_, reduce_scatter_dim,
 )
 
-# field -> the only value the port runs (expert parallelism and the
-# CommPlan come with later slices; multi_segment works around an XLA
-# miscompile the port does not have)
-_NOT_PORTED = {"ep": 1, "node": 1, "qcomm": "none", "overlap": False,
-               "multi_segment": False}
+# field -> the only value the port runs (the CommPlan comes with a later
+# slice; multi_segment works around an XLA miscompile the port does not have)
+_NOT_PORTED = {"node": 1, "qcomm": "none", "overlap": False, "multi_segment": False}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +105,7 @@ class ParallelPlan:
     tp: int = 1
     pp: int = 1
     virtual_stages: int = 1
-    ep: int = 1
+    ep: int = 1                     # expert-parallel ways ("expert" mesh axis)
     rules: str = "megatron_tp"      # sharding preset (core/sharding.py:PRESETS)
     zero: int | None = None         # ZeRO stage 0-3; None -> 1
     node: int = 1
@@ -115,7 +125,7 @@ class ParallelPlan:
             if getattr(self, name) != only:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet (see ROADMAP.md, "
-                    "Queue 1); the port runs dp, tp, pp with virtual stages and ZeRO 0-3")
+                    "Queue 1); the port runs dp, ep, tp, pp with virtual stages and ZeRO 0-3")
         object.__setattr__(self, "zero", mpl.resolve_stage(self.zero))
         if self.rules not in shd.PRESETS:
             raise ValueError(f"rules must be one of {sorted(shd.PRESETS)}, got {self.rules!r}")
@@ -125,19 +135,19 @@ class ParallelPlan:
                 "the CUDA kernels take bf16 and fp32; fp16 kernels are not "
                 "ported yet (see ROADMAP.md, Queue 2)")
         self.compute_policy()                           # validates remat
-        if self.sharding_rules().mesh_axis("batch") not in ("data", None):
+        if self.sharding_rules().mesh_axis("batch") not in ("data", ("data", "expert"), None):
             raise NotImplementedError(f"rules {self.rules!r}: the batch on "
                                       f"{self.sharding_rules().mesh_axis('batch')!r}")
 
     @property
     def n_devices(self) -> int:
-        return self.dp * self.tp * self.pp
+        return self.dp * self.ep * self.tp * self.pp
 
     @property
     def batch_ranks(self) -> int:
-        """The data ranks a global batch's rows split over: dp, or 1 where
-        the rules keep the batch off the data axis (``tp_only``)."""
-        return self.dp if self.sharding_rules().mesh_axis("batch") == "data" else 1
+        """The ranks a global batch's rows split over: dp x ep, or 1 where
+        the rules keep the batch off the data axis (``tp_only`` at ep = 1)."""
+        return shd.axis_size(self.mesh_sizes(), self.sharding_rules().mesh_axis("batch"))
 
     @property
     def n_stages(self) -> int:
@@ -150,12 +160,24 @@ class ParallelPlan:
     def memory_plan(self) -> mpl.MemoryPlan:
         return mpl.MemoryPlan(zero=self.zero)
 
+    def expert_plan(self) -> epl.ExpertPlan:
+        """The expert-parallelism policy this plan carries."""
+        return epl.ExpertPlan(ep=self.ep)
+
     def sharding_rules(self) -> shd.ShardingRules:
-        return shd.PRESETS[self.rules](data_axis="data", model_axis="model",
-                                       pipe_axis="pipe" if self.pp > 1 else None)
+        """The preset's rules; at ep > 1 the reference's overrides: the
+        batch on the composite ("data", "expert"), expert last, so an ep
+        plan gives each rank the rows of the flat dp x ep plan, and the
+        experts moved from the data axis onto the expert axis."""
+        rules = shd.PRESETS[self.rules](data_axis="data", model_axis="model",
+                                        pipe_axis="pipe" if self.pp > 1 else None)
+        if self.ep > 1:
+            rules = rules.with_overrides(name=rules.name + "+ep", batch=("data", "expert"),
+                                         cache_batch=("data", "expert"), experts="expert")
+        return rules
 
     def mesh_sizes(self) -> dict:
-        return {"pipe": self.pp, "data": self.dp, "model": self.tp}
+        return {"pipe": self.pp, "data": self.dp, "expert": self.ep, "model": self.tp}
 
 
 def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
@@ -165,22 +187,21 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     counterpart of the reference's ``plan_state_shardings``.  The specs
     keep a mesh axis of size 1 (``unit_axes``), but for the families other
     than dense at tp = 1, which run replicated over the model group as one
-    device runs them (embedding and CE included); the moe family refuses
-    tp > 1.  zamba2's in_proj and conv leaves (``tp_pieces``) take the
+    device runs them (embedding and CE included).  The moe family's expert
+    leaves are on the data axis at ep = 1 and on the expert axis above (the
+    reference's rules); ZeRO adds the data axis only.  zamba2's in_proj and conv leaves (``tp_pieces``) take the
     model axis on their head dim whatever its width divides: the rank's
     block is its heads' columns and the shared B and C ones.  At pp > 1
     the layer stack is on the pipe axis, and its units must split into the
     plan's logical stages (the reference's ``split_stages`` error
-    otherwise)."""
+    otherwise), and ep must divide the expert count
+    (``expertplan.ExpertDivisibilityError`` otherwise)."""
     if plan.pp > 1:
         name, n = stage_units(cfg)
         if n % plan.n_stages:
             raise sp.units_error(name, n, plan.n_stages)
+    epl.validate_experts(cfg.n_experts, plan.ep, where=f"ParallelPlan(ep={plan.ep}) on {cfg.name}")
     rules = plan.sharding_rules()
-    if cfg.family == "moe" and plan.tp > 1:
-        raise NotImplementedError(
-            f"tp={plan.tp}: tensor parallelism of the moe family is not "
-            "ported yet (see ROADMAP.md, Queue 1)")
     if cfg.family != "dense" and plan.tp == 1:
         rules = rules.with_overrides(**{k: None for k, v in rules.rules.items()
                                         if "model" in shd.spec_axes((v,))})
@@ -237,6 +258,7 @@ class _Leaf:
     grad_dim: int | None   # stage 2: the dim its gradient is reduce-scattered on
     counted: bool          # its block enters this rank's grad-norm sum
     on_pipe: bool          # split over the pipe ranks (the layer stack at pp > 1)
+    on_expert: bool = False  # split over the expert ranks (the experts at ep > 1)
     # (dim, [(offset, length)]): the parts of its block this rank counts,
     # where other model ranks hold the rest whole as well (tp_pieces); None: all
     own: tuple | None = None
@@ -273,9 +295,10 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
         block = shd.spec_axes(opt_sh[k])
         out[k] = _Leaf(stored_data="data" in shd.spec_axes(spec),
                        update_dim=added(opt_sh[k], spec), grad_dim=added(grad_sh[k], spec),
-                       counted=all(coord[a] == 0 for a in ("pipe", "data", "model")
+                       counted=all(coord[a] == 0 for a in ("pipe", "data", "expert", "model")
                                    if a not in block),
-                       on_pipe="pipe" in shd.spec_axes(spec), own=own(k, spec))
+                       on_pipe="pipe" in shd.spec_axes(spec),
+                       on_expert="expert" in shd.spec_axes(spec), own=own(k, spec))
     return out
 
 
@@ -317,6 +340,17 @@ def _sum(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t if group is None else all_reduce_(t, group, op)
 
 
+def _fill_unused(params: dict) -> None:
+    """A zero gradient for each parameter the pass did not use (a pipe
+    rank's leaves kept whole that only another stage uses; the moe
+    family's shared-expert and dense-residual "ln" leaves, which the
+    reference keeps and never applies), as the reference's gradient of an
+    unused leaf is zero."""
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); ``state`` is
     updated in place.  The step runs ``model``'s weights, which must be
@@ -329,6 +363,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
     if model.dtype != policy.param_dtype:
         raise ValueError(f"master weights must be stored in {policy.param_dtype}, "
                          f"the model stores {model.dtype}")
+    epl.validate_experts(model.cfg.n_experts, plan.ep,
+                         where=f"ParallelPlan(ep={plan.ep}) on {model.cfg.name}")
     if (mesh is None) != (model.shardings is None) or (mesh is None and plan.n_devices > 1):
         raise ValueError(f"a plan of {plan.n_devices} ranks runs a sharded model "
                          "(train_loop.build_model) on its mesh (launch/mesh.py:mesh_for_plan)")
@@ -339,13 +375,15 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             f"specifies {compute}; the plan wins inside the step — set "
             f"remat/kernels on the ParallelPlan instead", stacklevel=2)
     model = model.with_policy(compute, policy.compute_dtype)
-    # dp: the data ranks the rows split over; under tp_only (dp = 1 here)
-    # each data rank takes every row, and its loss, over the token count
-    # summed over the data ranks, is its 1 / dp share of their sum
+    # dp: the batch ranks the rows split over (data, then expert); under
+    # tp_only (dp = 1 here) each data rank takes every row, and its loss,
+    # over the token count summed over the data ranks, is its 1 / dp share
+    # of their sum
     gas, dp = plan.gas, plan.batch_ranks
     mesh = model.mesh
     data, world = (None, None) if mesh is None else (mesh.groups["data"], mesh.world)
-    rank = 0 if mesh is None or dp == 1 else mesh.coord["data"]
+    expert = None if mesh is None else mesh.groups["expert"]
+    rank = 0 if mesh is None or dp == 1 else mesh.coord["data"] * plan.ep + mesh.coord["expert"]
     leaves = _leaves(model, plan)
     device = model.device
     if plan.pp > 1:            # the gas microbatches are the pipeline's
@@ -355,32 +393,38 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
     # by gas; the pipelined loss is already the global batch's mean
     div = gas if plan.pp == 1 else 1
 
-    def backward_pp1(params: dict, micro: list[dict], ls: dict, gsum: dict) -> torch.Tensor:
+    def backward_pp1(params: dict, micro: list[dict], ls: dict, gsum: dict,
+                     sums: dict) -> torch.Tensor:
         ce_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i, mb in enumerate(micro):
             loss, metrics = model.loss(mb)
             prec.scale_loss(ls, loss).backward()
+            _fill_unused(params)
             ce_sum += metrics["ce"].detach()
+            sums["aux"] += metrics["moe_aux"].detach()
+            sums["moe_drop"] += metrics["moe_drop"].detach()
             for k, p in params.items():         # stage 2: into the rank's block
                 dim = leaves[k].grad_dim
                 if dim is not None:
                     part = reduce_scatter_dim(p.grad, dim, data)
                     gsum[k] = part if i == 0 else gsum[k].add_(part)
                     p.grad = None
-        return _sum(ce_sum, data) / gas
+        return _sum(_sum(ce_sum, data), expert) / gas
 
     def backward_pipelined(params: dict, micro: list[dict], ls: dict, gsum: dict,
-                           count: torch.Tensor) -> torch.Tensor:
-        ce_sum = pipeline.sweep(model, sched, micro, count, ls, ring)
+                           count: torch.Tensor, sums: dict) -> torch.Tensor:
+        ce_sum = pipeline.sweep(model, sched, micro, count, ls, ring, sums)
+        _fill_unused(params)
         for k, p in params.items():
-            if not leaves[k].on_pipe:           # every pipe rank joins, zeros if unused
-                p.grad = _sum(torch.zeros_like(p) if p.grad is None else p.grad,
-                              mesh.groups["pipe"])
+            if not leaves[k].on_pipe:           # every pipe rank joins
+                _sum(p.grad, mesh.groups["pipe"])
             dim = leaves[k].grad_dim
             if dim is not None:                 # stage 2: once, after the sweep
                 gsum[k] = reduce_scatter_dim(p.grad, dim, data)
                 p.grad = None
-        return _sum(_sum(ce_sum, data), mesh.groups["pipe"])
+        _sum(sums["aux"], mesh.groups["pipe"])
+        _sum(sums["moe_drop"], mesh.groups["pipe"])
+        return _sum(_sum(_sum(ce_sum, data), expert), mesh.groups["pipe"])
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
@@ -395,11 +439,14 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         for p in params.values():
             p.grad = None
         gsum: dict[str, torch.Tensor] = {}
+        sums = {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in ("aux", "moe_drop")}
         if plan.pp == 1:
-            loss = backward_pp1(params, micro, ls, gsum)
+            loss = backward_pp1(params, micro, ls, gsum, sums)
         else:
             loss = backward_pipelined(params, micro, ls, gsum,
-                                      pipeline.loss_count(batch, device) * (plan.dp // dp))
+                                      pipeline.loss_count(batch, device)
+                                      * (plan.dp * plan.ep // dp), sums)
         inv = 1.0 / ls["scale"]
         grads = {}
         for k, p in params.items():    # in place: (sum / div) unscaled, fp32
@@ -409,7 +456,11 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
                 g = p.grad
                 if not leaf.stored_data:
                     _sum(g, data)
+                if not leaf.on_expert:          # ep > 1: every expert rank's tokens
+                    _sum(g, expert)
                 g = _block(g, leaf.update_dim, mesh)
+            elif not leaf.on_expert:
+                _sum(g, expert)
             grads[k] = g.div_(div).mul_(inv)
         finite = _sum(prec.all_finite(grads.values()).to(device, torch.float32),
                       world, dist.ReduceOp.MIN) > 0
@@ -430,8 +481,10 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         state["step"] += 1
         for p in params.values():
             p.grad = None
-        zero = torch.zeros((), dtype=torch.float32, device=device)
-        return state, {"loss": loss, "moe_aux": zero, "moe_drop": zero,
+        # each rank's sums are over its groups: the mean over the batch ranks
+        moe = {k: _sum(_sum(v, data), expert) / (model.loss_ranks * gas)
+               for k, v in sums.items()}
+        return state, {"loss": loss, "moe_aux": moe["aux"], "moe_drop": moe["moe_drop"],
                        "grad_norm": grad_norm, "grads_finite": finite,
                        "loss_scale": state["loss_scale"]["scale"]}
 

@@ -38,10 +38,11 @@ def config(arch: str, overrides: dict):
 
 
 def trajectory(step, state, bs, comm: list | None = None,
-               walks: list | None = None) -> list[tuple]:
+               walks: list | None = None, moe: list | None = None) -> list[tuple]:
     """(loss, grad_norm, grads_finite, loss_scale) of each step; ``comm``
     takes each step's collective bytes (``runtime/collectives.py``),
-    ``walks`` its pipeline sweep's times (``runtime/pipeline.py``)."""
+    ``walks`` its pipeline sweep's times (``runtime/pipeline.py``), ``moe``
+    its (moe_aux, moe_drop)."""
     out = []
     for b in bs:
         collectives.reset_comm_bytes()
@@ -50,22 +51,25 @@ def trajectory(step, state, bs, comm: list | None = None,
             comm.append(collectives.comm_bytes())
         if walks is not None:
             walks.append(pipeline.walk_reading())
+        if moe is not None:
+            moe.append((float(m["moe_aux"]), float(m["moe_drop"])))
         out.append((float(m["loss"]), float(m["grad_norm"]), bool(m["grads_finite"]),
                     float(m["loss_scale"])))
     return out
 
 
 def single_device(arch: str, overrides: dict, weights: dict, plan: dict,
-                  n: int = STEPS) -> tuple[list[tuple], dict]:
+                  n: int = STEPS, moe: list | None = None) -> tuple[list[tuple], dict]:
     """The port's single-device step from ``weights`` (a flat numpy tree):
-    (its trajectory, its weights after the steps)."""
+    (its trajectory, its weights after the steps); ``moe`` takes each
+    step's (moe_aux, moe_drop)."""
     cfg = config(arch, overrides)
     model = Model(cfg, torch.float32, device="cpu")
     model.load_state_dict(from_jax_params(weights, model))
     opt = AdamWConfig(lr=LR)
     p = ParallelPlan(**plan)
     traj = trajectory(build_train_step(model, opt, p), init_train_state(model, opt, p),
-                      batches(cfg.vocab_size, n))
+                      batches(cfg.vocab_size, n), moe=moe)
     return traj, {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
@@ -87,7 +91,8 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
     blocks = {k: p.detach().numpy().copy() for k, p in model.named_parameters()}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, (dict(model.mesh.coord), blocks, mine))
-    where = {(c["pipe"], c["data"], c["model"]): i for i, (c, _, _) in enumerate(ranks)}
+    axes = ("pipe", "data", "model") if plan.ep == 1 else ("pipe", "data", "expert", "model")
+    where = {tuple(c[a] for a in axes): i for i, (c, _, _) in enumerate(ranks)}
     whole = gather_params({k: ranks[i][1] for k, i in where.items()}, cfg, plan)
     tp = gather_params({k: ranks[i][2] for k, i in where.items()}, cfg, plan)
     single = Model(cfg, torch.float32, device="cpu")
@@ -145,17 +150,18 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             cfg = config(job["arch"], job["overrides"])
             mesh = mesh_for_plan(plan, torch.device("cpu"))
             model = build_model(cfg, plan, mesh)
-            coord = {a: model.mesh.coord[a] for a in ("pipe", "data", "model")}
+            coord = {a: model.mesh.coord[a] for a in ("pipe", "data", "expert", "model")}
             model.load_state_dict(from_jax_params(
                 shard_params(weights[job["weights"]], cfg, plan, coord), model))
             opt = AdamWConfig(lr=LR)
             state = init_train_state(model, opt, plan)
             comm: list = []
             walks: list = []
+            moe: list = []
             res = {"trajectory": trajectory(build_train_step(model, opt, plan, mesh), state,
                                             batches(cfg.vocab_size, job.get("steps", STEPS)),
-                                            comm, walks),
-                   "comm_bytes": comm, "walks": walks, "coord": coord,
+                                            comm, walks, moe),
+                   "comm_bytes": comm, "walks": walks, "moe": moe, "coord": coord,
                    "blocks": {k: p.detach().numpy().copy()
                               for k, p in model.state_dict().items()},
                    "moments": {k: tuple(m.shape) for k, m in state["opt"]["mu"].items()}}
@@ -185,6 +191,14 @@ def run_ranks(world: int, jobs: list, weights: dict, tmp: str) -> dict:
 # the recurrent families as the multi-rank tests reduce them: zamba2 in two
 # super units of hybrid_attn_every = 2 mamba layers, rwkv6 in 4 blocks
 RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
+
+# the moe family as the multi-rank tests reduce it (.reduced(ep=2): 4
+# experts): llama4 at 4 layers (two MoE units, so that pp = 2 splits them)
+MOE = {"llama4-maverick-400b-a17b": dict(ep=2, n_layers=4), "arctic-480b": dict(ep=2)}
+# name -> the parallel fields of the moe family's plans on 4 ranks
+MOE_PLANS = {"ep4": dict(ep=4), "ep2 dp2": dict(ep=2, dp=2),
+             "ep2 dp2 z3": dict(ep=2, dp=2, zero=3), "ep2 tp2": dict(ep=2, tp=2),
+             "ep2 pp2": dict(ep=2, pp=2), "dp4": dict(dp=4)}
 
 # the reduced yi-6b of the reference's plan tests (tests/test_parallel_plan.py)
 YI = dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=256,

@@ -9,7 +9,10 @@ called); the other sharding presets, kernels off: fsdp and dp_only at
 dp = 2 x tp = 2, zero 1, and tp_only at tp = 2 and at dp = 2 x tp = 2
 (every data rank takes the whole batch); zamba2-2.7b (4 layers,
 hybrid_attn_every 2) and rwkv6-1.6b (4 layers) reduced at tp = 2, kernels
-off and on, and at dp = 2 x tp = 2 at ZeRO 1 (kernels off) and 3 (on).
+off and on, and at dp = 2 x tp = 2 at ZeRO 1 (kernels off) and 3 (on);
+llama4-maverick (4 layers) and arctic reduced with 4 experts at ep 4, ep 2
+x dp 2 (ZeRO 1, and 3 kernels on), ep 2 x tp 2 (kernels on), ep 2 x pp 2
+and dp 4, with their drop fractions, all-to-all bytes and state bytes.
 Losses and grad norms within rtol 1e-5, atol 0 of the port's single device
 and 1e-4 of the reference's; rwkv6's grad norms after the first update
 within 1e-4 of both (see ``RWKV_LATER_NORMS``).  Two spawns (2 and 4 ranks)
@@ -33,8 +36,9 @@ import jax.numpy as jnp
 import _torch_jax_ref
 import _torch_ranks as ranks
 from repro.kernels import ops as jops
+from repro_torch.core import costmodel
 from repro_torch.interop import gather_params, shard_params
-from repro_torch.models import ssm
+from repro_torch.models import model, moe, ssm
 from repro_torch.models import vocab_parallel as vp
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
@@ -50,6 +54,8 @@ GPT = dict(d_model=176, n_heads=2, head_dim=88)
 # 120 tokens padded to 256 columns: the second tp = 2 shard is all padding
 PADDED = dict(ranks.YI, vocab_size=120, vocab_pad_multiple=256)
 RECURRENT = ranks.RECURRENT
+MOE = ranks.MOE
+MOE_KERNELS = ("ep2 dp2 z3", "ep2 tp2")    # the moe plans run with kernels on
 # rwkv6 reduced: its bonus u takes a gradient of ~500 at step 0 against
 # 1e-2 to 1e-1 for every other leaf, and Adam's first step moves each
 # weight by +-lr whatever its gradient's size, so an element whose sign is
@@ -93,6 +99,16 @@ def runs(tmp_path_factory):
               "plan": _plan(dp=2, tp=2, zero=1, rules=rules)} for rules in ("fsdp", "dp_only")]
     four.append({"name": "tp_only dp2", "arch": "yi-6b", "overrides": ranks.YI,
                  "weights": "yi", "plan": _plan(dp=2, tp=2, zero=1, rules="tp_only")})
+    for arch, ov in MOE.items():
+        weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan())
+        for k in (False, True):
+            moe = []
+            single[arch, k], _ = ranks.single_device(arch, ov, weights[arch],
+                                                     _plan(kernels=k), moe=moe)
+            single[arch, k, "moe"] = moe
+        four += [{"name": f"{arch} {name}", "arch": arch, "overrides": ov, "weights": arch,
+                  "plan": _plan(kernels=name in MOE_KERNELS, **plan)}
+                 for name, plan in ranks.MOE_PLANS.items()]
     for arch, ov in RECURRENT.items():
         weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan())
         for k in (False, True):
@@ -263,6 +279,43 @@ def test_split_rms_norm_matches_whole(runs):
                                        err_msg=f"rank {r} {name}")
 
 
+@pytest.mark.parametrize("plan", sorted(ranks.MOE_PLANS))
+@pytest.mark.parametrize("arch", sorted(MOE))
+def test_moe_plans_match_single_device(runs, arch, plan):
+    """The moe family's plans on 4 ranks (llama4 at 2 MoE units, arctic at
+    2; 4 experts): ep 4, ep 2 x dp 2 at ZeRO 1 and 3, ep 2 x tp 2, ep 2 x
+    pp 2 and dp 4 (ep 1: the experts on the data axis, gathered on use).
+    Losses and grad norms as every plan's; the measured drop fraction
+    within 1e-6 of the single device's at every step, whatever the plan
+    (each rank routes the rows the flat dp x ep plan gives it); each step's
+    token all-to-all bytes equal ``costmodel.predict_a2a_bytes`` for the
+    rank's MoE units and the gas microbatches (dispatch and combine forward
+    and backward, and again in remat full's recompute); each rank holds
+    the parameter and Adam-moment bytes ``train_state_bytes`` counts."""
+    job, p = f"{arch} {plan}", ParallelPlan(**_plan(kernels=plan in MOE_KERNELS,
+                                                       **ranks.MOE_PLANS[plan]))
+    _check(runs, job, (arch, p.kernels), ref_key=arch)
+    cfg = ranks.config(arch, MOE[arch])
+    G, g = moe.group_shape(ranks.BATCH // p.gas, ranks.SEQ)
+    C = moe.moe_capacity(g, cfg)
+    per = sum(costmodel.predict_a2a_bytes(G, cfg.n_experts, C, cfg.d_model, dp=p.dp,
+                                          ep=p.ep, with_backward=bwd) for bwd in (True, False))
+    a2a = per * p.gas * model.stage_units(cfg)[1] // p.pp
+    want = train_state_bytes(cfg, p)
+    single = runs["single"][arch, p.kernels, "moe"]
+    for r, res in runs["ranks"][job].items():
+        np.testing.assert_allclose([m[1] for m in res["moe"]], [m[1] for m in single],
+                                   rtol=0, atol=1e-6, err_msg=f"rank {r} moe_drop")
+        np.testing.assert_allclose([m[0] for m in res["moe"]], [m[0] for m in single],
+                                   rtol=RTOL_PLANS, err_msg=f"rank {r} moe_aux")
+        assert [c["all-to-all"] for c in res["comm_bytes"]] == [a2a if p.ep > 1 else 0] * 3
+        assert 4 * sum(int(np.prod(b.shape)) for b in res["blocks"].values()) \
+            == want["param_bytes"]
+        assert 2 * 4 * sum(int(np.prod(s)) for s in res["moments"].values()) \
+            == want["opt_bytes"]
+    assert single[0][1] > 0          # capacity 1.25 drops some assignments
+
+
 def _zamba2():
     return ranks.config("zamba2-2.7b", RECURRENT["zamba2-2.7b"])
 
@@ -297,6 +350,42 @@ def test_regrouped_blocks_round_trip(plan):
                 np.testing.assert_array_equal(b["layers.conv_b"],
                                               tree["layers.conv_b"][rows][..., chans])
                 assert b["layers.conv_w"].shape[-1] == len(chans)
+    gathered = gather_params(blocks, cfg, p)
+    for k, w in tree.items():
+        np.testing.assert_array_equal(gathered[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("plan", sorted(ranks.MOE_PLANS))
+def test_moe_blocks_round_trip(plan):
+    """arctic reduced (4 experts) under each moe plan: the rank at expert
+    coordinate e holds experts [e E/ep, (e + 1) E/ep) of every expert leaf
+    (at ep 1 its block over the data ranks), its d_ff columns under tp;
+    every rank's blocks put back together are the whole tree, bit for
+    bit."""
+    cfg = ranks.config("arctic-480b", MOE["arctic-480b"])
+    p = ParallelPlan(**_plan(**ranks.MOE_PLANS[plan]))
+    rng = np.random.RandomState(1)
+    shapes, _, _, _ = plan_state_shardings(cfg, p)
+    tree = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    blocks = {}
+    for i in range(p.pp):
+        for j in range(p.dp):
+            for e in range(p.ep):
+                for m in range(p.tp):
+                    coord = {"pipe": i, "data": j, "expert": e, "model": m}
+                    b = shard_params(tree, cfg, p, coord)
+                    blocks[(i, j, m) if p.ep == 1 else (i, j, e, m)] = b
+                    w1 = tree["layers.moe.w1"]
+                    if p.ep > 1:
+                        w1 = w1[:, e * 4 // p.ep:(e + 1) * 4 // p.ep]
+                    else:
+                        w1 = w1[:, j * 4 // p.dp:(j + 1) * 4 // p.dp]
+                    rows = slice(i, i + 1) if p.pp > 1 else slice(None)
+                    cols = slice(m * 512 // p.tp, (m + 1) * 512 // p.tp)
+                    w1 = w1[rows][..., cols]
+                    if p.zero == 3 and p.ep > 1:        # ZeRO 3: the data axis on d
+                        w1 = w1[:, :, j * 256 // p.dp:(j + 1) * 256 // p.dp]
+                    np.testing.assert_array_equal(b["layers.moe.w1"], w1)
     gathered = gather_params(blocks, cfg, p)
     for k, w in tree.items():
         np.testing.assert_array_equal(gathered[k], w, err_msg=k)

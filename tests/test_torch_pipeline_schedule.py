@@ -104,21 +104,24 @@ def test_split_stages_chained_is_run_program(family):
     model = _model(family)
     x = model._embed(model.params(), {"tokens": _tokens(model.cfg)})
     with torch.no_grad():
-        whole = sp.run_program(model.stage_program(), x)
-        n = model.stage_program().n_units
+        prog = model.stage_program()
+        whole, carry = sp.run_program(prog, x, prog.init_carry())
+        assert carry.keys() == {"aux"} and float(carry["aux"]) == 0.0
+        n = prog.n_units
         for S in (s for s in (1, 2, 4) if n % s == 0):
             params, stage_fn = sp.split_stages(model.stage_program(), S)
             assert len(params) == S
-            y = x
+            y, c = x, prog.init_carry()
             for s in range(S):
-                y = stage_fn(params[s], y)
-            assert torch.equal(y, whole), (family, S)
+                y, c = stage_fn(params[s], y, c)
+            assert torch.equal(y, whole) and c.keys() == carry.keys(), (family, S)
         with pytest.raises(ValueError, match=f"not divisible by pp\\*virtual_stages={n + 1}"):
             sp.split_stages(model.stage_program(), n + 1)
 
 
 def _unit(name, weight, tied=False):
-    return sp.Segment(name, [{"w": weight}], 1, lambda lp, x: x * lp["w"], tied=tied)
+    return sp.Segment(name, [{"w": weight}], 1,
+                      lambda lp, x, c: (x * lp["w"], {"aux": c["aux"] + lp["w"]}), tied=tied)
 
 
 def test_split_stages_multi_segment_and_its_errors():
@@ -130,10 +133,12 @@ def test_split_stages_multi_segment_and_its_errors():
                                                              _unit("s", shared, tied=True))))
     params, stage_fn = sp.split_stages(prog, 2)
     assert [len(p) for p in params] == [2, 2]       # [m, s, m, s] a stage: s closed over
-    y = torch.tensor(1.0)
+    y, c = torch.tensor(1.0), prog.init_carry()
     for s in range(2):
-        y = stage_fn(params[s], y)
-    assert y == sp.run_program(prog, torch.tensor(1.0)) == 2 * 3 * 4 * 5 * 3 ** 4
+        y, c = stage_fn(params[s], y, c)
+    whole, carry = sp.run_program(prog, torch.tensor(1.0), prog.init_carry())
+    assert y == whole == 2 * 3 * 4 * 5 * 3 ** 4
+    assert c["aux"] == carry["aux"] == 2 + 3 + 4 + 5 + 3 * 4
     with pytest.raises(ValueError, match="program has 8 segments"):
         sp.split_stages(prog, 3)
     odd = sp.StageProgram((_unit("m", ws[0]), _unit("s", shared), _unit("s", shared),

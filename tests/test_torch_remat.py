@@ -186,7 +186,7 @@ def _layer_backward(arch: str, batch: int, seq: int, remat: str,
     x = torch.randn((batch, seq, cfg.d_model), generator=torch.Generator().manual_seed(1),
                     requires_grad=True)
     with saved_products() as log:
-        y = seg.body(seg.params[0], x)
+        y, _ = seg.body(seg.params[0], x, model.stage_program().init_carry())
     with _CountMM() as mm:
         y.sum().backward()
     assert all(op == "aten.mm.default" for op, _, _ in log)

@@ -95,9 +95,8 @@ def test_cpu_path_launches_no_kernel():
         toks = torch.randint(0, 512, (2, 9), generator=torch.Generator().manual_seed(1))
         logits, cache = m.prefill({"tokens": toks}, 16)
         m.decode_step(cache, {"token": torch.argmax(logits, -1)[:, None]})
-        if cfg.family != "moe":              # the moe family serves only
-            m.requires_grad_(True)
-            m.loss({"tokens": toks})[0].backward()
+        m.requires_grad_(True)
+        m.loss({"tokens": toks})[0].backward()
     counts = ops.launch_counts()
     assert set(counts) == {"flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "rmsnorm", "swiglu",

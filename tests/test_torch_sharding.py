@@ -7,7 +7,9 @@ each rank's train-state bytes at dp = 2 x tp = 2 and at pp = 2 x dp = 2
 ``train_state_bytes`` on 4 host devices; zamba2-2.7b reduced at dp = 2 x
 tp = 2, whose regrouped in_proj and conv blocks hold the B and C columns
 whole on every model rank: its parameters exceed the reference's even
-split by exactly 2N (1 - 1/tp)(d + K + 1) a mamba layer."""
+split by exactly 2N (1 - 1/tp)(d + K + 1) a mamba layer; llama4-maverick and
+arctic reduced at the multi-rank tests' moe plans (ep 4, ep 2 x dp 2,
+ep 2 x tp 2, ep 2 x pp 2, dp 4), ZeRO 0-3, equal to the reference's."""
 import json
 import types
 
@@ -141,3 +143,42 @@ def test_regrouped_state_bytes_exceed_reference_by_the_bc_columns(multidev):
         if z == 0:
             assert ours["grad_bytes"] - theirs["grad_bytes"] == extra
             assert ours["opt_bytes"] - theirs["opt_bytes"] == 2 * extra
+
+
+MOE_BYTES_CODE = '''
+import json, jax.numpy as jnp
+from repro.configs import get_config
+from repro.models.model import Model
+from repro.runtime.train_loop import ParallelPlan, train_state_bytes
+from repro.launch.mesh import mesh_for_plan
+out = {}
+for arch, ov in %s:
+    cfg = get_config(arch).reduced(**ov)
+    for name, plan in %s:
+        for z in (0, 1, 2, 3):
+            p = ParallelPlan(**plan, zero=z, precision="fp32")
+            out[f"{arch} {name} {z}"] = train_state_bytes(Model(cfg, jnp.float32),
+                                                          mesh_for_plan(p), p)
+print("BYTES", json.dumps(out))
+'''
+
+
+def test_moe_train_state_bytes_equal_reference(multidev):
+    """The moe family's plans of the multi-rank tests (tests/_torch_ranks.py:
+    MOE_PLANS) at ZeRO 0-3 on 4 host devices: at ep > 1 the expert leaves
+    on the expert axis, at ep = 1 on the data axis, ZeRO adding the data
+    axis only; every state class's bytes per rank equal the reference's."""
+    import _torch_ranks as ranks
+
+    plans = {k: v for k, v in ranks.MOE_PLANS.items() if "zero" not in v}
+    out = multidev(MOE_BYTES_CODE % (sorted(ranks.MOE.items()), sorted(plans.items())),
+                   n_devices=4)
+    ref = json.loads(out.split("BYTES", 1)[1])
+    assert len(ref) == len(ranks.MOE) * len(plans) * 4
+    for arch, ov in ranks.MOE.items():
+        cfg = get_config(arch).reduced(**ov)
+        for name, plan in plans.items():
+            for z in memplan.STAGES:
+                ours = train_state_bytes(cfg, ParallelPlan(**plan, zero=z, precision="fp32"))
+                assert ours == {k: int(v) for k, v in ref[f"{arch} {name} {z}"].items()}, \
+                    (arch, name, z)

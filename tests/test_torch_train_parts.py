@@ -132,7 +132,7 @@ def test_model_loss_and_logits_match_jax(kernels):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [("ep", 2), ("node", 2), ("qcomm", "gather"),
+@pytest.mark.parametrize("field,value", [("node", 2), ("qcomm", "gather"),
                                          ("overlap", True), ("multi_segment", True)])
 def test_plan_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

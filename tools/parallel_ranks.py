@@ -4,7 +4,7 @@ single-device step 0 of yi-6b, zamba2-2.7b and rwkv6-1.6b, or phase 5's of
 gpt-1.4b) on card 0, then chip_smoke._parallel_rank, _recurrent_tp_rank or
 _pipeline_rank on min(count, 4) ranks.
 
-  python3 tools/parallel_ranks.py [parallel|recurrent|pipeline]
+  python3 tools/parallel_ranks.py [parallel|recurrent|moe|pipeline]
                                        (default: parallel; a host with 2 or
                                         more CUDA cards, from the repo root)
 
@@ -14,7 +14,13 @@ port, yi-6b (TRAIN_LAYERS) at dp = ranks and ZeRO 3 to that step 0, and at
 alone (_recurrent_tp): the reduced zamba2 and rwkv6 fp32 plans at tp =
 ranks and dp x tp held to the single-device port, zamba2 (TRAIN_LAYERS)
 and rwkv6 (all 24 layers) at full width and tp = ranks, bf16, step 0 held
-to phase 4's, and at 4 ranks zamba2 at all 54 layers at tp 4.
+to phase 4's, and at 4 ranks zamba2 at all 54 layers at tp 4; and what
+"moe" runs alone (_moe_ranks): the reduced llama4-maverick and arctic fp32
+plans (ep 4, ep 2 x dp 2 at ZeRO 1 and 3, ep 2 x tp 2, ep 2 x pp 2; at 2
+ranks ep 2) held to the single-device port (losses, moe_drop, the token
+all-to-all's bytes against the predictor), and at 4 ranks arctic at full
+width, 1 layer of 64 experts, ep 4 (step time, each card's peak, the
+all-to-all bytes, and the state a card would hold at all 128 experts).
 _pipeline_rank holds the reduced yi-6b's fp32 pipelined plans to the
 single-device port, gpt-1.4b at pp = ranks (1 and 2 virtual stages) to
 phase 5's step 0, and at 4 ranks trains yi-6b at all 32 layers at pp = 4,
@@ -33,6 +39,7 @@ from repro_torch.runtime.train_loop import ParallelPlan
 # branch -> (the archs whose single-device step 0 it is compared with, its rank)
 BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV), cs._parallel_rank),
             "recurrent": ((cs.ZAMBA, cs.RWKV), cs._recurrent_tp_rank),
+            "moe": ((), cs._moe_rank),
             "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank)}
 
 if __name__ == "__main__":

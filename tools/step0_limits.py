@@ -1,10 +1,11 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
-  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b]
+  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b|arctic-480b]
                                        (one CUDA card, from the repo root)
 
 The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
-gpt-1.4b at all 24, zamba2-2.7b at 18 of 54, rwkv6-1.6b at all 24; bf16
+gpt-1.4b at all 24, zamba2-2.7b at 18 of 54, rwkv6-1.6b at all 24,
+arctic-480b at 2 of 35 with 8 of its 128 experts; bf16
 compute over fp32 masters,
 remat full, gas 2 microbatches of 4 x 2048 tokens) with kernels=True against
 kernels=False, in loss and grad_norm.  This script measures what that
@@ -15,7 +16,8 @@ comparison can tell apart:
   * planted: the same difference on seed 0 when one kernel is wrong in a
     single 64-row tile at the step's grid (its output there zeroed after the
     real kernel ran): the MLP input half (swiglu or gelu_mlp), for gpt-1.4b
-    the layernorm forward, for zamba2-2.7b the SSD scan forward, the flash
+    the layernorm forward, for zamba2-2.7b the SSD scan forward, for
+    arctic-480b the grouped expert MLP's forward (rows of expert 0), the flash
     forward, the dQ kernel, and the dK/dV kernel; for rwkv6-1.6b (no
     attention, no MLP kernel) the wkv scan forward and the rmsnorm forward.
 
@@ -59,8 +61,8 @@ def main() -> int:
         print("step0_limits: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import (_build, flash_attention as fa, gelu_mlp as gm,
-                                     layernorm as ln, rmsnorm as rn, ssd_scan as ssd,
-                                     swiglu as sg, wkv_scan as wkv)
+                                     grouped_mlp as gp, layernorm as ln, rmsnorm as rn,
+                                     ssd_scan as ssd, swiglu as sg, wkv_scan as wkv)
     from repro_torch.models.model import Model
     from repro_torch.runtime.train_loop import ParallelPlan
 
@@ -103,6 +105,9 @@ def main() -> int:
     if cfg.family == "hybrid":
         faults["ssd_scan forward, tokens 1024:1088 of sequence 0"] = (
             ssd, "ssd_scan_cuda", (0,), (0, TILE))
+    if cfg.family == "moe":
+        faults["grouped_mlp forward, rows 1024:1088 of expert 0"] = (
+            gp, "grouped_mlp_cuda", (0,), (0, TILE))
     faults.update({} if cfg.family == "rwkv" else {
         "flash forward, query rows 1024:1088 of head 0":
             (fa, "flash_attention_fwd_cuda", (0,), (0, TILE, 0)),
