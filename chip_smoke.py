@@ -118,7 +118,13 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      one-rank nccl group, ZeRO 3, TRAIN's plan, 3 steps; step 0 held to
      the single-device step on the same weights and batch at
      PARALLEL_RTOL, its launches counted, step time and peak memory beside
-     the single-device step's; with 2 or more cards, min(count, 4) nccl
+     the single-device step's; then over the same group the CommPlan
+     (``_comm_one_rank``): yi-6b (TRAIN_LAYERS) at ZeRO 3 with fp gathers,
+     qcomm gather, qcomm both and overlap on the same weights and
+     batches, each run's launches exact, its gather bytes every step equal
+     to ``comm_gather_bytes``, a quantized run's losses within COMM_DRIFT
+     of the fp run's, overlap's step 0 within PARALLEL_RTOL of it; with 2
+     or more cards, min(count, 4) nccl
      ranks (``_parallel_rank``) run the reduced yi-6b's fp32 plans against
      the single-device port, yi-6b (TRAIN_LAYERS) at dp = ranks, ZeRO 3,
      against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers; then
@@ -130,7 +136,12 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      (``_moe_ranks``) the reduced llama4-maverick's and arctic's fp32
      expert-parallel plans against the single-device port (losses,
      moe_drop, the token all-to-all's bytes against the predictor), and at
-     4 ranks arctic at full width, 1 layer of 64 experts, ep 4;
+     4 ranks arctic at full width, 1 layer of 64 experts, ep 4; then
+     (``_comm_ranks``, an even count of ranks) the CommPlan's reduced fp32
+     plans at node 2 x dp = ranks / 2 and dp = ranks against the
+     single-device port and the gather-bytes predictor, and yi-6b at all
+     32 layers, ZeRO 3, at both layouts, fp, qcomm gather, overlap and
+     both;
   6. pipeline (``phase_pipeline``): gpt-1.4b at full width and depth, gas
      4, split into 4 logical stages of 6 layers (as 4 pipe ranks, and as 2
      ranks of 2 virtual stages) run in one process through the pipeline
@@ -3500,6 +3511,8 @@ def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[di
         torch.cuda.synchronize()
         out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                     "step_s": time.perf_counter() - t0})
+        if mesh is not None:        # the ZeRO gathers' bytes, by phase
+            out[-1]["zero3_gather"] = collectives.gather_phase_bytes()
         if model.cfg.family == "moe":
             out[-1].update(moe_aux=float(m["moe_aux"]), moe_drop=float(m["moe_drop"]),
                            all_to_all_bytes=collectives.comm_bytes()["all-to-all"])
@@ -3939,6 +3952,8 @@ def phase_parallel(card: str) -> dict:
     ops.reset_launch_counts()
     steps, peak = _sharded_steps(cfg, plan, batches, 0)
     launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[PARALLEL_ARCH]}
+    paths = {f"{PARALLEL_ARCH} parallel": launches}
+    paths.update(_comm_one_rank(card))
     dist.destroy_process_group()
     flops = costmodel.train_step_flops(cfg, gb, S).total
     rel0 = _rel(steps[0], single[0])
@@ -3965,7 +3980,101 @@ def phase_parallel(card: str) -> dict:
     else:
         emit({"phase": "parallel_ranks", "ran": False,
               "why": f"{torch.cuda.device_count()} card: the multi-rank branch needs 2 or more"})
-    return launches
+    return paths
+
+
+# phase 5's CommPlan runs over the same one-rank group: COMM_ARCH at
+# TRAIN_LAYERS depth, full width, TRAIN's plan at ZeRO 3 with fp gathers,
+# then the same plan and batches with each of COMM_VARIANTS.  A one-rank
+# group still places the data axis (unit_axes), so each quantized leaf is
+# quantized, its int8 payload and scales all-gathered and dequantized.
+COMM_ARCH = "yi-6b"
+COMM_VARIANTS = {"fp": {}, "qcomm gather": dict(qcomm="gather"),
+                 "qcomm both": dict(qcomm="both"), "overlap": dict(overlap=True)}
+# a quantized plan's loss at every step within 5% of the fp plan's: the
+# reference's BENCH_comm.json validator's bar
+COMM_DRIFT = 0.05
+
+
+def comm_gather_bytes(cfg, plan) -> dict:
+    """The ZeRO gathers' bytes of one step of ``plan`` (intra, inter,
+    total) by ``costmodel.predict_comm_bytes`` over the plan's shapes, specs
+    and CommPlan, with the port's one-rank phases (``unit_axes``): the
+    layer stack twice a microbatch under remat full or selective (the
+    forward and the recompute) in the compute dtype, the embedding once in
+    its fp32 storage dtype, the rest once in the compute dtype."""
+    from repro_torch.core import costmodel
+    from repro_torch.core import precision as prec
+    from repro_torch.runtime.train_loop import plan_state_shardings
+
+    shapes, psh, _, _ = plan_state_shardings(cfg, plan)
+    item = prec.policy_from_name(plan.precision).compute_dtype.itemsize
+    stack = sorted(k for k in shapes if k.startswith("layers."))
+    rest = sorted(k for k in shapes if k not in stack and k != "embed")
+    parts = [(stack, item, plan.gas * (1 if plan.remat == "none" else 2)),
+             (rest, item, plan.gas), (["embed"], 4, plan.gas)]
+    if cfg.tie_embeddings:          # the lm_head's use of it, in the compute dtype
+        parts.append((["embed"], item, plan.gas))
+    out = {"intra": 0.0, "inter": 0.0, "total": 0.0}
+    for keys, size, times in parts:
+        b = costmodel.predict_comm_bytes([shapes[k] for k in keys], [psh[k] for k in keys],
+                                         plan.mesh_sizes(), plan.comm_plan(), itemsize=size,
+                                         multiplier=times, unit_axes=True)
+        out = {k: out[k] + b[k] for k in out}
+    return out
+
+
+def _comm_one_rank(card: str) -> dict:
+    """COMM_VARIANTS over the default one-rank group; returns each run's
+    launches ({path: {kernel: count}}).  Each run's median step time, peak
+    memory and gather bytes are readings; its launches must be exact, its
+    gather bytes every step the predicted ones, a quantized run's losses
+    within COMM_DRIFT of the fp run's, overlap's step 0 within
+    PARALLEL_RTOL of it (it reorders no arithmetic)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = train_config(COMM_ARCH)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    batches = _batches(cfg.vocab_size, S, gb, PARALLEL_STEPS)
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True, zero=3)
+    expected = expected_train_launches(cfg, PARALLEL_STEPS)
+    runs, paths = {}, {}
+    for name, extra in COMM_VARIANTS.items():
+        plan = ParallelPlan(**kw, **extra)
+        ops.reset_launch_counts()
+        steps, peak = _sharded_steps(cfg, plan, batches, 0)
+        paths[f"{COMM_ARCH} parallel {name}"] = launches = {
+            k: ops.launch_counts()[k] for k in TRAIN_KERNELS[COMM_ARCH]}
+        runs[name] = steps
+        want = comm_gather_bytes(cfg, plan)
+        fp = runs["fp"]
+        drift = [abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(steps, fp)]
+        emit({"phase": "parallel_comm", "arch": cfg.name, "layers": cfg.n_layers,
+              "variant": name, "plan": {"dp": 1, **kw, **extra}, "backend": "nccl",
+              "ranks": 1, "steps": steps,
+              "median_step_s": float(np.median([r["step_s"] for r in steps[1:]])),
+              "median_step_s_fp": float(np.median([r["step_s"] for r in fp[1:]])),
+              "peak_mem_gb": peak, "zero3_gather": steps[-1]["zero3_gather"],
+              "predicted_zero3_gather": want,
+              "bytes_vs_fp": steps[-1]["zero3_gather"]["total"]
+              / fp[-1]["zero3_gather"]["total"],
+              "loss_drift_vs_fp": drift, "step0_rel_diff_vs_fp": _rel(steps[0], fp[0]),
+              "launches": launches, "card": card})
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches}, expected {expected}")
+        for i, r in enumerate(steps):
+            if r["zero3_gather"] != want:
+                raise AssertionError(f"{name} step {i}: gather bytes {r['zero3_gather']}, "
+                                     f"predicted {want}")
+        if "qcomm" in extra and max(drift) >= COMM_DRIFT:
+            raise AssertionError(f"{name}: loss drift {drift} from the fp run")
+        if extra.get("overlap") and any(v > PARALLEL_RTOL
+                                        for v in _rel(steps[0], fp[0]).values()):
+            raise AssertionError(f"overlap step 0 vs fp: {_rel(steps[0], fp[0])}")
+        if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+            raise AssertionError(f"{name}: non-finite steps {steps}")
+    return paths
 
 
 def _parallel_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
@@ -4030,6 +4139,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, step0: dict) -> None
             raise AssertionError(f"rank {rank}: non-finite yi-6b steps {steps}")
     _recurrent_tp(rank, world, step0)
     _moe_ranks(rank, world)
+    _comm_ranks(rank, world)
     dist.destroy_process_group()
 
 
@@ -4248,6 +4358,108 @@ def _moe_rank(rank: int, world: int, init_method: str, step0: dict | None = None
     init_distributed(torch.device("cuda"), init_method, rank, world,
                      timeout=datetime.timedelta(minutes=5))
     _moe_ranks(rank, world)
+    dist.destroy_process_group()
+
+
+# the CommPlan's plans of the multi-rank branch, at node 2 x dp = ranks / 2
+# beside dp = ranks: the reduced yi-6b's fp32 plans (PARALLEL_REDUCED, kernels
+# off) of tests/test_torch_parallel_tp.py, the fp ones held to the
+# single-device port at PARALLEL_RTOL, the quantized ones within COMM_DRIFT
+# of it, every one's gather bytes to the predictor; then yi-6b at all 32
+# layers, ZeRO 3, TRAIN's bf16 plan with kernels, each of COMM_RANK_VARIANTS
+# at both layouts (step time, every card's peak, intra and inter bytes),
+# node 2's fp step 0 held to dp's at STEP0_RTOL
+COMM_RANK_VARIANTS = {"fp": {}, "qcomm gather": dict(qcomm="gather"),
+                      "overlap": dict(overlap=True),
+                      "qcomm gather overlap": dict(qcomm="gather", overlap=True)}
+
+
+def _comm_reduced_plans(world: int) -> tuple[dict, dict]:
+    """({name: fp plan fields}, {name: quantized plan fields}) at ``world``."""
+    node = dict(node=2, dp=world // 2)
+    fp = {"node z1": dict(node, zero=1), "node z3": dict(node, zero=3),
+          "dp z3 overlap": dict(dp=world, zero=3, overlap=True),
+          "dp tp2 z3 overrides": dict(dp=world // 2, tp=2, zero=3,
+                                      rule_overrides=(("vocab", None),))}
+    quant = {"dp z3 gather": dict(dp=world, zero=3, qcomm="gather"),
+             "dp z3 both": dict(dp=world, zero=3, qcomm="both"),
+             "node z3 gather overlap": dict(node, zero=3, qcomm="gather", overlap=True)}
+    return fp, quant
+
+
+def _comm_ranks(rank: int, world: int) -> None:
+    """The CommPlan's multi-rank plans (above) on this nccl rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    if world % 2:
+        emit({"phase": "parallel_comm_ranks", "rank": rank, "ran": False,
+              "why": f"{world} ranks: node 2 needs an even count"})
+        return
+    red = get_config("yi-6b").reduced(**PARALLEL_REDUCED[False])
+    rb = _batches(red.vocab_size, 32, 8, 3)
+    kw = dict(gas=2, precision="fp32")
+    single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+    fp, quant = _comm_reduced_plans(world)
+    for name, fields in {**fp, **quant}.items():
+        plan = ParallelPlan(**fields, **kw)
+        steps, _ = _sharded_steps(red, plan, rb, 0)
+        rel = [_rel(a, b) for a, b in zip(steps, single)]
+        want = comm_gather_bytes(red, plan)
+        emit({"phase": "parallel_comm_ranks_reduced", "rank": rank, "plan": name,
+              "fields": {**fields, **kw}, "rel_diff": rel, "rtol": PARALLEL_RTOL,
+              "drift_bar": COMM_DRIFT, "zero3_gather": steps[-1]["zero3_gather"],
+              "predicted_zero3_gather": want})
+        if name in fp and any(v > PARALLEL_RTOL for r in rel for v in r.values()):
+            raise AssertionError(f"rank {rank} {name}: {rel}")
+        if name in quant and max(r["loss"] for r in rel) >= COMM_DRIFT:
+            raise AssertionError(f"rank {rank} {name}: loss drift {rel}")
+        if any(r["zero3_gather"] != want for r in steps):
+            raise AssertionError(f"rank {rank} {name}: gather bytes "
+                                 f"{[r['zero3_gather'] for r in steps]}, predicted {want}")
+    cfg = get_config("yi-6b")
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    batches = _batches(cfg.vocab_size, S, gb, 3)
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True, zero=3)
+    step0 = {}
+    for layout, fields in (("dp", dict(dp=world)), ("node", dict(node=2, dp=world // 2))):
+        for name, extra in COMM_RANK_VARIANTS.items():
+            plan = ParallelPlan(**fields, **kw, **extra)
+            steps, peak = _sharded_steps(cfg, plan, batches, 0, tele=True)
+            step0[layout, name] = steps[0]
+            emit({"phase": "parallel_comm_ranks", "rank": rank, "arch": cfg.name,
+                  "layers": cfg.n_layers, "layout": layout, "variant": name,
+                  "fields": {**fields, **extra}, "steps": steps,
+                  "median_step_s": float(np.median([r["step_s"] for r in steps[1:]])),
+                  "peak_mem_gb": peak,
+                  "peak_gb_by_rank": [b / 1e9 for b in
+                                      steps[-1]["telemetry"].get("peak_bytes", [])],
+                  "zero3_gather": steps[-1]["zero3_gather"],
+                  "predicted_zero3_gather": comm_gather_bytes(cfg, plan)})
+            if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in steps):
+                raise AssertionError(f"rank {rank}: non-finite {layout} {name} {steps}")
+    rel0 = _rel(step0["node", "fp"], step0["dp", "fp"])
+    emit({"phase": "parallel_comm_ranks", "rank": rank, "node_vs_dp_step0": rel0,
+          "rtol": STEP0_RTOL["yi-6b"]})
+    if any(rel0[k] > STEP0_RTOL["yi-6b"][k] for k in rel0):
+        raise AssertionError(f"rank {rank}: node 2 step 0 vs dp's: {rel0}")
+
+
+def _comm_rank(rank: int, world: int, init_method: str, step0: dict | None = None) -> None:
+    """``_comm_ranks`` alone on one nccl rank (``tools/parallel_ranks.py comm``)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    _comm_ranks(rank, world)
     dist.destroy_process_group()
 
 
@@ -4493,7 +4705,7 @@ def main() -> int:
     for arch in REMAT_ARCHS:
         paths.update(timed(f"{arch} remat", lambda: phase_remat(card, arch)))
     paths[f"{ENTRY_ARCH} entry"] = timed("entry", lambda: phase_entry(card))
-    paths[f"{PARALLEL_ARCH} parallel"] = timed("parallel", lambda: phase_parallel(card))
+    paths.update(timed("parallel", lambda: phase_parallel(card)))
     paths[f"{PIPELINE_ARCH} pipeline"] = timed("pipeline", lambda: phase_pipeline(card))
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})

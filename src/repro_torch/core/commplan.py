@@ -3,15 +3,20 @@ semantics of ``repro/core/commplan.py``).
 
 The plan fields are the reference's: ``qcomm`` (block-quantized ZeRO 3
 gathers: int8 payloads with one fp32 scale per ``block`` elements of the
-last dim; ``"both"`` also quantizes the gradient reduce-scatter),
-``node`` (a hierarchical ("node", ..., "data", ...) mesh whose data-group
-collectives run in an intra-node and an inter-node phase) and
-``overlap`` (weight gathers interleaved with the compute).  The port's
-executor runs none of them yet: ``runtime/train_loop.py:ParallelPlan``
-refuses them (ROADMAP.md, Queue 1).  What is here prices them: the spec
-algebra and :func:`leaf_gather_bytes` / :func:`tree_gather_bytes`, which
-``core/costmodel.py:predict_comm_bytes`` and the telemetry's measured
-gather bytes (``runtime/collectives.py``) are read against.
+last dim; ``"both"`` also block-quantizes the gradient the gather's
+backward reduce-scatters into the rank's block), ``node`` (a hierarchical
+("node", ..., "data", ...) mesh whose ZeRO gathers and reduce-scatters run
+in an inter-node phase over the node group and an intra-node one over the
+data group) and ``overlap`` (each segment's weight gathers issued a chunk
+of layers ahead of the compute).  The port's executor runs all three over
+``torch.distributed``: ``runtime/qcollect.py`` (the quantizer,
+``CommExec`` and ``LayerComm``), ``runtime/collectives.py:LeafGather``
+(the phases) and ``core/stage_program.py:run_program`` (the overlap).
+What is here decides and prices them: the spec algebra, which leaves a
+gather moves and quantizes (:func:`gathers_over`, :func:`quant_eligible`)
+and :func:`leaf_gather_bytes` / :func:`tree_gather_bytes`, which
+``core/costmodel.py:predict_comm_bytes`` bridges to and the gather bytes
+``runtime/collectives.py`` counts are read against.
 
 Specs are plain tuples (entries None | str | tuple of str) and the mesh a
 name -> size mapping: numpy only.
@@ -175,7 +180,7 @@ def quant_specs(spec: Sequence[Entry]) -> tuple[tuple, tuple]:
 
 def leaf_gather_bytes(shape: Sequence[int], spec: Sequence[Entry],
                       mesh_shape: Mapping[str, int], cp: CommPlan,
-                      itemsize: int = 4) -> dict[str, float]:
+                      itemsize: int = 4, unit_axes: bool = False) -> dict[str, float]:
     """Predicted all-gather payload bytes to ungather one leaf once.
 
     Convention of the reference's ``analysis/hlo.py:comm_bytes``, which
@@ -186,14 +191,21 @@ def leaf_gather_bytes(shape: Sequence[int], spec: Sequence[Entry],
     lowers to one per-axis phase each; phase k's output covers every axis
     gathered so far, so the total exceeds the flat single-phase payload —
     the win is that only the final (node) phase touches the slow fabric.
-    Returns ``{"intra": bytes, "inter": bytes, "total": bytes}``.
+    Returns ``{"intra": bytes, "inter": bytes, "total": bytes}``.  With
+    ``unit_axes`` a stripped axis of one rank named in the spec is a phase
+    too, as the port's executor runs it (a gather over a one-rank group
+    outputs its block); without, such a phase moves nothing, as XLA drops
+    it.
     """
     numel = float(np.prod(np.asarray(shape, dtype=np.float64))) if shape else 1.0
     strip = cp.strip_axes
     present = spec_axes(spec)
     data_ways = entry_size(cp.data_axis, mesh_shape) if cp.data_axis in present else 1
     node_ways = entry_size(cp.node_axis, mesh_shape) if cp.node_axis in present else 1
-    if data_ways <= 1 and node_ways <= 1:
+    least = 1 if unit_axes else 2
+    has_data = cp.data_axis in present and data_ways >= least
+    has_node = cp.node_axis in present and node_ways >= least
+    if not (has_data or has_node):
         return {"intra": 0.0, "inter": 0.0, "total": 0.0}
     quant = cp.quantizes and quant_eligible(shape, spec, mesh_shape, strip,
                                             cp.block)
@@ -205,10 +217,9 @@ def leaf_gather_bytes(shape: Sequence[int], spec: Sequence[Entry],
     for entry in strip_spec(spec, strip):
         residual *= entry_size(entry, mesh_shape)
     full = numel * per_elem / residual
-    if node_ways <= 1 or data_ways <= 1:
+    if not (has_data and has_node):
         # single-phase gather over whichever axis is present
-        ways = max(data_ways, node_ways)
-        bucket = "intra" if data_ways > 1 else "inter"
+        bucket = "intra" if has_data else "inter"
         out = {"intra": 0.0, "inter": 0.0}
         out[bucket] = full
         out["total"] = full
@@ -225,7 +236,8 @@ def leaf_gather_bytes(shape: Sequence[int], spec: Sequence[Entry],
 def tree_gather_bytes(shapes: Sequence[Sequence[int]],
                       specs: Sequence[Sequence[Entry]],
                       mesh_shape: Mapping[str, int], cp: CommPlan,
-                      itemsize: int = 4, multiplier: float = 1.0) -> dict:
+                      itemsize: int = 4, multiplier: float = 1.0,
+                      unit_axes: bool = False) -> dict:
     """Sum :func:`leaf_gather_bytes` over parallel (shape, spec) lists.
 
     ``multiplier`` is how many times each leaf is gathered per train step
@@ -234,7 +246,7 @@ def tree_gather_bytes(shapes: Sequence[Sequence[int]],
     """
     tot = {"intra": 0.0, "inter": 0.0, "total": 0.0}
     for shape, spec in zip(shapes, specs):
-        b = leaf_gather_bytes(shape, spec, mesh_shape, cp, itemsize)
+        b = leaf_gather_bytes(shape, spec, mesh_shape, cp, itemsize, unit_axes)
         for k in tot:
             tot[k] += b[k] * multiplier
     return tot

@@ -20,8 +20,9 @@ and a ``matmul_eff`` measured on the card (``chip_smoke.py``'s GEMM
 reading); the constants no run measured say so.  The CommPlan terms
 (``core/commplan.py``: node, qcomm, overlap) and the ExpertPlan terms
 (``core/expertplan.py``: the ep all-to-all, the capacity drop) are the
-reference's; the port's executor runs neither yet (ROADMAP.md, Queue 1),
-so here they only price plans.
+reference's; the port's executor runs both (``runtime/qcollect.py``,
+``models/moe.py:ExpertDispatch``), and its byte counters are read against
+:func:`predict_comm_bytes` and :func:`predict_a2a_bytes`.
 
 :func:`train_step_flops` is the model FLOPs of a step (the MFU numerator
 ``core/telemetry.py`` reads); :func:`predict_step` prices an actual
@@ -423,7 +424,8 @@ def predict_comm_bytes(shapes: Sequence[Sequence[int]],
                        mesh_shape: Mapping[str, int],
                        cp: commplan.CommPlan,
                        itemsize: int = 4,
-                       multiplier: float = 1.0) -> dict:
+                       multiplier: float = 1.0,
+                       unit_axes: bool = False) -> dict:
     """Predicted zero=3 weight all-gather payload bytes per train step.
 
     Thin bridge over :func:`commplan.tree_gather_bytes`, read against the
@@ -433,10 +435,12 @@ def predict_comm_bytes(shapes: Sequence[Sequence[int]],
     recompute of a checkpointed layer (2 per microbatch under remat full or
     selective, 1 under none; the backward reuses no gather), where the
     reference's ``predict`` bills 3 (XLA re-gathers in the backward).
+    ``unit_axes`` prices the phases over one-rank groups the port runs
+    (``commplan.leaf_gather_bytes``).
     """
     return commplan.tree_gather_bytes(shapes, specs, mesh_shape, cp,
                                       itemsize=itemsize,
-                                      multiplier=multiplier)
+                                      multiplier=multiplier, unit_axes=unit_axes)
 
 
 def predict_a2a_bytes(n_groups: int, n_experts: int, capacity: int,
@@ -445,8 +449,8 @@ def predict_a2a_bytes(n_groups: int, n_experts: int, capacity: int,
                       with_backward: bool = False) -> int:
     """Predicted ExpertPlan token all-to-all payload bytes per MoE layer.
 
-    Thin bridge over :func:`expertplan.dispatch_a2a_bytes` (the ep axis
-    is not run by the port's executor yet: ROADMAP.md, Queue 1).
+    Thin bridge over :func:`expertplan.dispatch_a2a_bytes`, read against
+    the ``all-to-all`` bytes ``runtime/collectives.py`` counts.
     """
     return expertplan.dispatch_a2a_bytes(
         n_groups, n_experts, capacity, d_model, dp=dp, ep=ep, node=node,

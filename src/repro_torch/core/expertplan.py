@@ -7,9 +7,8 @@ cut from.  ``round_experts`` / ``validate_experts`` are what
 ``ModelConfig.reduced`` needs to keep scaled-down configs shardable.
 :class:`ExpertPlan` is the semantics of the ``ep`` plan axis;
 :func:`dispatch_a2a_bytes` and :func:`predicted_drop_fraction` are what
-``core/costmodel.py`` prices it with.  The executor of ``ep > 1`` is not
-ported: ``runtime/train_loop.py:ParallelPlan`` refuses it (ROADMAP.md,
-Queue 1).
+``core/costmodel.py`` prices it with; ``models/moe.py:ExpertDispatch``
+runs it.
 """
 from __future__ import annotations
 

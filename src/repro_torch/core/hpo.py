@@ -15,8 +15,7 @@ numpy-only Bayesian optimization: an RBF-kernel ridge surrogate (a GP
 posterior-mean stand-in) + expected-improvement-flavoured acquisition over
 random candidate draws, mirroring DeepHyper's centralized async search.
 Each trial is a concrete ``runtime/train_loop.py:ParallelPlan``
-(:func:`trial_plan`); a draw the port's executor does not run yet raises
-the plan's ``NotImplementedError`` (ROADMAP.md, Queue 1).
+(:func:`trial_plan`), which the port's executor runs.
 """
 from __future__ import annotations
 
@@ -66,8 +65,7 @@ SPACE_INTERLEAVED = SPACE_COMPUTE + (
 # collectives, a hierarchical node axis splitting data-parallel collectives
 # into intra/inter-node phases, and gather/compute overlap.  qcomm/overlap
 # only bind at zero=3 — trial_plan downgrades them elsewhere so the
-# surrogate sees a smooth space instead of a wall of failures; the port's
-# executor does not run them yet, so a draw that binds one raises.
+# surrogate sees a smooth space instead of a wall of failures.
 SPACE_COMM = SPACE_INTERLEAVED + (
     Param("qcomm", ("none", "gather", "both")),
     Param("node", (1, 2)),
@@ -95,9 +93,7 @@ def trial_plan(config: dict, *, gpus_per_node: int = 8,
     pp=1, so other draws are downgraded to their no-op values rather than
     failed; an ``ep`` that does not tile the devices downgrades to 1.
     Returns ``None`` when the config cannot tile the device count (the
-    F-objective failure case).  A draw the port's ParallelPlan refuses
-    (``qcomm``, ``node`` or ``overlap`` past their defaults) raises its
-    ``NotImplementedError``: it is not scored.  ``mbs`` stays a
+    F-objective failure case).  ``mbs`` stays a
     cost-model knob: the executor derives the microbatch size from
     global_batch / gas.
     """

@@ -24,7 +24,11 @@ the layer dim, making it a broadcast from the rank that owns the layer).
 The bytes per rank are the same wherever the dims divide; a stacked leaf
 with no divisible dim after the layer dim stays replicated.  A data axis of
 size 1 is placed all the same (``unit_axes``): a one-rank plan runs the
-same gathers and reduce-scatters as any other.
+same gathers and reduce-scatters as any other.  Under the hierarchical
+CommPlan (``node_axis``, a node axis of more than one rank) each stage
+also adds the node axis, on the next free divisible dim or composite with
+the data axis (``sharding.zero_partition_spec``): the state is then 1 /
+(dp x node) of the leaf per rank.
 """
 from __future__ import annotations
 
@@ -53,13 +57,16 @@ def resolve_stage(zero: int | None, zero1: object = None) -> int:
 
 
 def data_spec(shape: tuple[int, ...], axes: tuple[str | None, ...], spec: shd.Spec,
-              sizes: Mapping[str, int], data_axis: str) -> shd.Spec:
-    """``spec`` with the data axis on the leaf's first divisible free dim,
-    past a leading ``layers`` dim (see the module docstring)."""
+              sizes: Mapping[str, int], data_axis: str,
+              node_axis: str | None = None) -> shd.Spec:
+    """``spec`` with the data axis (and ``node_axis``) on the leaf's first
+    divisible free dims, past a leading ``layers`` dim (see the module
+    docstring)."""
     if axes and axes[0] == "layers":
         return spec[:1] + shd.zero_partition_spec(shape[1:], spec[1:], sizes, data_axis,
-                                                  unit_axes=True)
-    return shd.zero_partition_spec(shape, spec, sizes, data_axis, unit_axes=True)
+                                                  unit_axes=True, node_axis=node_axis)
+    return shd.zero_partition_spec(shape, spec, sizes, data_axis, unit_axes=True,
+                                   node_axis=node_axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +75,7 @@ class MemoryPlan:
 
     zero: int = 1
     data_axis: str = "data"
+    node_axis: str | None = None    # hierarchical CommPlan: a second ZeRO axis
 
     def __post_init__(self):
         if self.zero not in STAGES:
@@ -89,8 +97,8 @@ class MemoryPlan:
                   sizes: Mapping[str, int]) -> dict:
         if not on:
             return specs
-        return {k: data_spec(shapes[k], axes[k], specs[k], sizes, self.data_axis)
-                for k in specs}
+        return {k: data_spec(shapes[k], axes[k], specs[k], sizes, self.data_axis,
+                             self.node_axis) for k in specs}
 
     def param_shardings(self, shapes: dict, axes: dict, base: dict,
                         sizes: Mapping[str, int]) -> dict:

@@ -157,19 +157,36 @@ def partition_spec(shape: Sequence[int], axes: Sequence[str | None],
 
 
 def zero_partition_spec(shape: Sequence[int], base_spec: Spec, sizes: Mapping[str, int],
-                        dp_axis: str, unit_axes: bool = False) -> Spec:
+                        dp_axis: str, unit_axes: bool = False,
+                        node_axis: str | None = None) -> Spec:
     """Add the DP axis to the first divisible, unsharded dim of
-    ``base_spec``; ``unit_axes`` as in :func:`partition_spec`.  (The
-    reference's second, node axis comes with the CommPlan.)"""
+    ``base_spec``; ``unit_axes`` as in :func:`partition_spec`.  With
+    ``node_axis`` (the hierarchical CommPlan, ``core/commplan.py``) of more
+    than one rank, the node axis goes on the first other free divisible
+    dim, so a gather runs as an inter-node phase over the node group and an
+    intra-node one over the data group; a leaf without such a dim falls
+    back to the composite ``(dp, node)`` entry on the data dim where that
+    divides (still 1/(dp x node) of the leaf, over one dim), else keeps the
+    node axis off."""
     spec = list(base_spec) + [None] * (len(shape) - len(base_spec))
     used = {a for entry in spec for a in _axes(entry)}
-    ways = sizes.get(dp_axis, 1)
-    if dp_axis in used or ways < 1 or (ways == 1 and not unit_axes):
-        return tuple(spec)
-    for i, (dim, entry) in enumerate(zip(shape, spec)):
-        if entry is None and dim % ways == 0 and dim >= ways:
-            spec[i] = dp_axis
-            break
+
+    def place(axis: str, min_ways: int) -> int:
+        ways = sizes.get(axis, 1)
+        if axis in used or ways < min_ways:
+            return -1
+        for i, (dim, entry) in enumerate(zip(shape, spec)):
+            if entry is None and dim % ways == 0 and dim >= ways:
+                spec[i] = axis
+                used.add(axis)
+                return i
+        return -1
+
+    dp_dim = place(dp_axis, 1 if unit_axes else 2)
+    if node_axis is not None and place(node_axis, 2) < 0 and node_axis not in used \
+            and dp_dim >= 0 and sizes.get(node_axis, 1) > 1 \
+            and shape[dp_dim] % (sizes[dp_axis] * sizes[node_axis]) == 0:
+        spec[dp_dim] = (dp_axis, node_axis)
     return tuple(spec)
 
 

@@ -90,11 +90,29 @@ def _run(seg: Segment, units: list, x: torch.Tensor, carry: dict
     return x, carry
 
 
-def run_program(program: StageProgram, x: torch.Tensor, carry: dict
-                ) -> tuple[torch.Tensor, dict]:
-    """The non-pipelined executor: each segment's units in order."""
+def run_program(program: StageProgram, x: torch.Tensor, carry: dict,
+                comm: Any = None) -> tuple[torch.Tensor, dict]:
+    """The non-pipelined executor: each segment's units in order.
+
+    ``comm`` (a ``runtime/qcollect.py:LayerComm``) is the CommPlan's
+    overlap hook: each untied segment's units are cut into
+    ``comm.plan_chunks`` chunks, and chunk k + 1's weight gathers are
+    issued (asynchronously) before chunk k's units run; each unit's use of
+    a leaf waits on that leaf's gather.  Only the forward's gathers are
+    issued early: a checkpointed unit's recompute gathers again, so no
+    gathered chunk is kept for the backward.  With ``comm=None`` (or one
+    chunk) every gather runs at its use."""
     for seg in program.segments:
-        x, carry = _run(seg, seg.params, x, carry)
+        chunks = 1 if comm is None or seg.tied else comm.plan_chunks(seg.n)
+        if chunks == 1:
+            x, carry = _run(seg, seg.params, x, carry)
+            continue
+        per = seg.n // chunks
+        comm.prefetch(seg.params[:per])
+        for k in range(chunks):
+            if k + 1 < chunks:
+                comm.prefetch(seg.params[(k + 1) * per:(k + 2) * per])
+            x, carry = _run(seg, seg.params[k * per:(k + 1) * per], x, carry)
     return x, carry
 
 

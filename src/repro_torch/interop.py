@@ -66,7 +66,7 @@ def _index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
 
 def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
     """The blocks of the rank at mesh coordinate ``coord`` ({"pipe": i,
-    "data": j, "model": k}, and "expert" at ep > 1) of a whole parameter
+    "data": j, "model": k}, "expert" at ep > 1, "node" at node > 1) of a whole parameter
     tree (nested or flat), under the plan's shardings of ``cfg``: at pp > 1
     the layers of the rank's logical stages (round-robin under virtual
     stages); at ep > 1 the rank's E/ep experts of each expert leaf (at
@@ -78,12 +78,20 @@ def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
             for k, a in flatten_tree(tree).items()}
 
 
+def mesh_axes(plan) -> tuple[str, ...]:
+    """The mesh axes of a plan's coordinates, as :func:`gather_params`
+    keys them."""
+    axes = ("pipe", "data", "model") if plan.ep == 1 else ("pipe", "data", "expert", "model")
+    return (("node",) if plan.node > 1 else ()) + axes
+
+
 def gather_params(blocks: dict[tuple[int, ...], dict], cfg, plan) -> dict[str, np.ndarray]:
     """The whole tree from every rank's blocks, ``{(pipe, data, model):
-    {key: block}}``, or ``{(pipe, data, expert, model): ...}`` at ep > 1
+    {key: block}}``, or ``{(pipe, data, expert, model): ...}`` at ep > 1,
+    either led by the node coordinate at node > 1
     (the inverse of :func:`shard_params`)."""
     shapes, psh = _specs(cfg, plan)
-    axes = ("pipe", "data", "model") if plan.ep == 1 else ("pipe", "data", "expert", "model")
+    axes = mesh_axes(plan)
     out = {}
     for k, shape in shapes.items():
         first = next(iter(blocks.values()))[k]

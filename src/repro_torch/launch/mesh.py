@@ -1,7 +1,8 @@
 """The process group and the ("pipe", "data", "model") device mesh of a
-``ParallelPlan``, or ("pipe", "data", "expert", "model") at ep > 1 (the
-port of ``repro/launch/mesh.py:validate_plan_shape``, ``make_mesh_4d_ep``
-and ``mesh_for_plan``).
+``ParallelPlan``, ("pipe", "data", "expert", "model") at ep > 1, and with a
+hierarchical node axis (node > 1) the same led by "node" (the port of
+``repro/launch/mesh.py:validate_plan_shape``, ``make_mesh_4d``,
+``make_mesh_4d_ep``, ``make_mesh_5d`` and ``mesh_for_plan``).
 
 Ranks come from the launcher's environment (``torchrun`` /
 ``python -m torch.distributed.run``: RANK, WORLD_SIZE, LOCAL_RANK and the
@@ -14,6 +15,10 @@ ranks is pipe rank 0.  The pipe dim has size pp.  The expert dim sits
 between data and model: tensor parallelism keeps the nearest ranks, the
 token all-to-all the next, and the batch's rows split over data then
 expert, so an ep plan gives each rank the rows of the flat dp x ep plan.
+The node dim is the slowest of all (node-major): a data group is
+adjacent ranks (one node's fast links), a node group strided ones (the
+inter-node fabric), and the rows split over node first, so a node x dp
+plan gives each rank the rows of the flat (node dp) plan.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.runtime.collectives import AXES, EP_AXES
+from repro_torch.runtime.collectives import AXES, EP_AXES, NODE
 
 BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -54,15 +59,18 @@ def check_backend(device: torch.device) -> None:
 
 
 def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None = None,
-                        ep: int = 1) -> None:
-    """Raise a clear error when (pp, dp, ep, tp) cannot tile the ranks."""
-    for name, v in (("pp", pipe), ("dp", data), ("tp", model), ("ep", ep)):
+                        node: int = 1, ep: int = 1) -> None:
+    """Raise a clear error when (node, pp, dp, ep, tp) cannot tile the
+    ranks."""
+    for name, v in (("pp", pipe), ("dp", data), ("tp", model), ("node", node), ("ep", ep)):
         if v < 1:
             raise ValueError(f"--{name} must be >= 1, got {v}")
     n = dist.get_world_size() if n_devices is None else n_devices
-    want = pipe * data * ep * model
+    want = node * pipe * data * ep * model
     plan_txt = (f"pp={pipe} x dp={data} x tp={model}" if ep == 1
                 else f"pp={pipe} x dp={data} x ep={ep} x tp={model}")
+    if node > 1:
+        plan_txt = f"node={node} x " + plan_txt
     if want != n:
         raise ValueError(f"parallel plan {plan_txt} = {want} ranks, but the process "
                          f"group has {n}; pick factors whose product is the world size "
@@ -71,12 +79,13 @@ def validate_plan_shape(pipe: int, data: int, model: int, n_devices: int | None 
 
 def mesh_for_plan(plan, device: torch.device, n_devices: int | None = None) -> DeviceMesh:
     """The (pp, dp, tp) mesh a ParallelPlan asks for, over the default
-    group; (pp, dp, ep, tp) at ep > 1."""
+    group; (pp, dp, ep, tp) at ep > 1; led by the node dim at node > 1."""
     ep = getattr(plan, "ep", 1)
-    validate_plan_shape(plan.pp, plan.dp, plan.tp, n_devices, ep=ep)
+    node = getattr(plan, "node", 1)
+    validate_plan_shape(plan.pp, plan.dp, plan.tp, n_devices, node=node, ep=ep)
     check_backend(device)
-    if ep > 1:
-        return init_device_mesh(device.type, (plan.pp, plan.dp, ep, plan.tp),
-                                mesh_dim_names=EP_AXES)
-    return init_device_mesh(device.type, (plan.pp, plan.dp, plan.tp),
-                            mesh_dim_names=AXES)
+    names = EP_AXES if ep > 1 else AXES
+    sizes = (plan.pp, plan.dp, ep, plan.tp) if ep > 1 else (plan.pp, plan.dp, plan.tp)
+    if node > 1:
+        names, sizes = (NODE,) + names, (node,) + sizes
+    return init_device_mesh(device.type, sizes, mesh_dim_names=names)

@@ -29,9 +29,15 @@ data then expert; with ``--reduced`` the expert count is kept divisible by
 ep, as the reference's launcher keeps it); ``--rules tp_only`` keeps the
 batch off the data axis (every data rank takes the whole batch).  The moe
 family's step line also carries ``moe_aux`` and ``moe_drop`` (and the step
-records carry them).  Plans that still raise, naming ROADMAP.md: node,
-qcomm, overlap.  Every plan and every ``--remat`` prints the same losses as
-one device:
+records carry them).  The CommPlan (``runtime/qcollect.py``): ``--node``
+leads the mesh with a node axis (rows split over node, then data; the ZeRO
+gathers and reduce-scatters in an inter-node and an intra-node phase),
+``--qcomm gather|both`` and ``--comm-block`` quantize the ZeRO 3 weight
+gathers to int8 blocks, ``--overlap`` issues each chunk of layers' gathers
+a chunk ahead; node x pp x dp x ep x tp must be the number of ranks.
+Every plan but qcomm and every ``--remat`` prints the same losses as one
+device (qcomm within a few per cent: the forward sees int8-rounded
+weights):
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
@@ -41,6 +47,9 @@ one device:
       --device cpu --arch yi-6b --reduced --pp 2 --dp 2 --gas 2 --precision fp32
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch arctic-480b --reduced --ep 2 --dp 2 --gas 2 --precision fp32
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
+      --device cpu --arch yi-6b --reduced --node 2 --dp 2 --zero 3 --qcomm gather \
+      --overlap --gas 2 --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
       --seq-len 2048 --precision bf16 --kernels
@@ -149,6 +158,20 @@ def main(argv: list[str] | None = None) -> list[dict]:
                     help="ZeRO stage (default 1)")
     ap.add_argument("--rules", default="megatron_tp",
                     choices=["megatron_tp", "fsdp", "dp_only", "tp_only"])
+    ap.add_argument("--qcomm", choices=["none", "gather", "both"], default="none",
+                    help="CommPlan quantized collectives (zero=3 only): gather = int8 "
+                         "block-quantize the weight all-gathers; both = also "
+                         "fake-quantize the gradient's reduce-scattered block")
+    ap.add_argument("--comm-block", type=int, default=32,
+                    help="qcomm quantization block size (last-dim elements per int8 "
+                         "scale group)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap zero=3 per-chunk weight gathers with the layer-stack "
+                         "compute (pp=1 only)")
+    ap.add_argument("--node", type=int, default=1,
+                    help="hierarchical node axis ways: ZeRO gathers and reduce-scatters "
+                         "split into inter-node + intra-node phases over a (node, pipe, "
+                         "data, model) mesh")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -168,8 +191,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     overrides = {"n_layers": args.layers} if args.layers else {}
     cfg = (cfg.reduced(ep=args.ep, **overrides) if args.reduced
            else dataclasses.replace(cfg, **overrides))
-    plan = ParallelPlan(dp=args.dp, tp=args.tp, pp=args.pp, ep=args.ep,
+    plan = ParallelPlan(dp=args.dp, tp=args.tp, pp=args.pp, ep=args.ep, node=args.node,
                         virtual_stages=args.virtual_stages, zero=args.zero, rules=args.rules,
+                        qcomm=args.qcomm, overlap=args.overlap, comm_block=args.comm_block,
                         gas=args.gas, precision=args.precision, remat=args.remat,
                         kernels=args.kernels)
     mesh, world, rank0 = None, 1, True
@@ -179,15 +203,18 @@ def main(argv: list[str] | None = None) -> list[dict]:
         model = build_model(cfg, plan, mesh)
         device, world, rank0 = model.device, dist.get_world_size(), dist.get_rank() == 0
     elif plan.n_devices > 1:
-        raise SystemExit(f"pp x dp x ep x tp = {plan.n_devices} ranks: run under "
+        raise SystemExit(f"node x pp x dp x ep x tp = {plan.n_devices} ranks: run under "
                          "torchrun / python -m torch.distributed.run")
     else:
         model = Model(cfg, torch.float32, device=device)
     say = print if rank0 else (lambda *a, **k: None)
     say(f"arch={cfg.name} params={model.n_params():,} device={device} ranks={world} "
+        f"{f'node={plan.node} ' if plan.node > 1 else ''}"
         f"pp={plan.pp} v={plan.virtual_stages} dp={plan.dp} "
         f"{f'ep={plan.ep} ' if plan.ep > 1 else ''}tp={plan.tp} "
         f"zero={plan.zero if mesh else '-'} "
+        f"{f'qcomm={plan.qcomm} ' if plan.qcomm != 'none' else ''}"
+        f"{'overlap ' if plan.overlap else ''}"
         f"gas={plan.gas} precision={plan.precision} remat={plan.remat} "
         f"kernels={plan.kernels}", flush=True)
     opt = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps))

@@ -33,12 +33,16 @@ Sharded (``shardings`` and ``mesh``: a spec per leaf, from
 rank's block of each leaf.  ``init`` still draws every leaf whole, in the
 same order from the same generator, and keeps the block, so every plan
 starts from the single-device weights.  A leaf whose spec names the data
-axis is gathered on use (``collectives.LeafGather``): a stacked leaf layer
-by layer inside the layer's remat wrapper, so the backward's recompute
-gathers again and no whole stack is saved; the embedding in the storage
-dtype (its duplicate-token rows then sum in fp32, as unsharded), the rest
-in the compute dtype.  The zamba2 shared block is gathered at each
-application and its uses' gradients summed before one reduce-scatter.
+or the node axis is gathered on use (``collectives.LeafGather``, as the
+CommPlan's ``runtime/qcollect.py:CommExec`` decides: its phases, and int8
+block-quantized under ``qcomm``): a stacked leaf layer by layer inside the
+layer's remat wrapper, so the backward's recompute gathers again and no
+whole stack is saved (under ``overlap`` a chunk of layers' gathers is
+issued ahead of the chunk before it, ``core/stage_program.py:
+run_program``); the embedding in the storage dtype (its duplicate-token
+rows then sum in fp32, as unsharded), the rest in the compute dtype.  The
+zamba2 shared block is gathered at each application and its uses'
+gradients summed before one reduce-scatter.
 Under the model axis the blocks run Megatron tensor parallelism (the dense
 blocks and zamba2's shared block in ``blocks.py``, the mamba layers in
 ``ssm.py``, rwkv's blocks in ``rwkv.py``, the expert MLPs, the shared
@@ -91,9 +95,11 @@ from repro_torch.models.common import (
     ModelConfig, Spec, flatten_specs, init_leaf, init_params, param_count,
     spec_tree_map,
 )
+from repro_torch.core.commplan import CommPlan
 from repro_torch.runtime.collectives import (
     LeafGather, MeshGroups, all_reduce_, copy_to_model, reduce_from_model,
 )
+from repro_torch.runtime.qcollect import CommExec
 
 MOE_AUX_COEF = 0.01
 
@@ -316,7 +322,8 @@ class Model(nn.Module):
                  compute: ComputePolicy | None = None,
                  device: str | torch.device | None = None,
                  shardings: dict[str, shd.Spec] | None = None,
-                 mesh: MeshGroups | None = None, virtual_stages: int = 1):
+                 mesh: MeshGroups | None = None, virtual_stages: int = 1,
+                 comm: CommPlan | None = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype                # storage
@@ -334,6 +341,10 @@ class Model(nn.Module):
             self._tp = mesh.groups["model"]
         if mesh is not None and mesh.sizes["expert"] > 1:
             self._ep = moe.ExpertDispatch(mesh.groups["expert"], mesh.sizes["expert"])
+        # the CommPlan's per-leaf gathers (runtime/qcollect.py)
+        self.comm = None if shardings is None else CommExec(
+            comm or CommPlan(), mesh, {k: s.shape for k, s in flatten_specs(param_specs(cfg))},
+            shardings, self.pieces)
         for path, spec in flatten_specs(self.param_specs()):
             *parents, leaf = path.split(".")
             node: nn.Module = self
@@ -381,18 +392,17 @@ class Model(nn.Module):
 
     def _uses(self, tree: dict, prefix: str = "", stacked: bool = False) -> dict:
         """``tree`` (stored leaves, or one layer's views of the stacked
-        leaves when ``stacked``) with each data-sharded leaf wrapped in a
-        :class:`LeafGather` over the data group."""
+        leaves when ``stacked``) with each leaf on the data or node axis
+        wrapped in the :class:`LeafGather` the CommPlan gives it
+        (``runtime/qcollect.py:CommExec.gather``: its phases, fp or
+        quantized)."""
         out = {}
         for k, v in tree.items():
             path = f"{prefix}.{k}" if prefix else k
             if isinstance(v, dict):
                 out[k] = self._uses(v, path, stacked)
-                continue
-            spec = () if self.shardings is None else self.shardings[path]
-            data = [i for i, e in enumerate(spec) if "data" in shd.spec_axes((e,))]
-            out[k] = v if not data else LeafGather(v, data[0] - stacked,
-                                                   self.mesh.groups["data"])
+            else:
+                out[k] = v if self.comm is None else self.comm.gather(path, v, int(stacked))
         return out
 
     def with_policy(self, compute: ComputePolicy, compute_dtype: torch.dtype) -> "Model":
@@ -582,7 +592,9 @@ class Model(nn.Module):
                              "through runtime/pipeline.py (train_loop.build_train_step)")
         x = self._embed(self.params(), batch)
         prog = self.stage_program()
-        x, carry = sp.run_program(prog, x, prog.init_carry(x.device))
+        x, carry = sp.run_program(prog, x, prog.init_carry(x.device),
+                                  None if self.comm is None
+                                  else self.comm.layer_comm(self.compute_dtype, x.device))
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         return self.normed(x), carry.get("aux", zero), carry.get("moe_drop", zero)
 
@@ -595,16 +607,18 @@ class Model(nn.Module):
     @property
     def loss_ranks(self) -> int:
         """The ranks whose losses sum in the gradient reduction: every rank
-        of the data and expert groups (1 unsharded)."""
-        return 1 if self.mesh is None else self.mesh.sizes["data"] * self.mesh.sizes["expert"]
+        of the node, data and expert groups (1 unsharded)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.sizes["node"] * self.mesh.sizes["data"] * self.mesh.sizes["expert"]
 
     def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed in place over the data group, then the expert group
-        (as it is unsharded)."""
+        """``t`` summed in place over the (node, data) ranks, then the
+        expert group (as it is unsharded)."""
         if self.mesh is not None:
-            for axis in ("data", "expert"):
-                if self.mesh.groups[axis] is not None:
-                    all_reduce_(t, self.mesh.groups[axis])
+            for group in (self.mesh.dp, self.mesh.groups["expert"]):
+                if group is not None:
+                    all_reduce_(t, group)
         return t
 
     @property

@@ -52,9 +52,14 @@ from repro_torch.runtime.collectives import all_to_all_dim, copy_to_model, reduc
 
 @dataclasses.dataclass(frozen=True)
 class ExpertDispatch:
-    """The expert group of a rank (``runtime/train_loop.py`` builds it at
-    ep > 1): ``ep`` ranks, each holding E/ep consecutive experts, rank i of
-    the group experts [i E/ep, (i + 1) E/ep)."""
+    """The expert group of a rank (``models/model.py`` builds it at ep > 1):
+    ``ep`` ranks, each holding E/ep consecutive experts, rank i of the
+    group experts [i E/ep, (i + 1) E/ep).  The reference's
+    ``group_axes`` (the batch axes a rank's routing groups are split over
+    besides the expert axis: ("data",), or ("node", "data") on the
+    hierarchical 5-D mesh) need no field here: the ranks that share them
+    and differ in the expert axis alone exchange tokens, which is the
+    expert group whichever they are."""
     group: Any
     ep: int
 

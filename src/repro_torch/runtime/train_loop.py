@@ -25,25 +25,40 @@ over a ``torch.distributed`` mesh.
     equal gradients), and pipeline parallelism over the pipe group: the
     layer stack split into ``pp x virtual_stages`` logical stages
     (``runtime/pipeline.py``; GPipe at ``virtual_stages`` = 1, Megatron's
-    interleaved round-robin assignment above).
+    interleaved round-robin assignment above);
+  * the CommPlan (``comm_plan()``, ``core/commplan.py``, executed by
+    ``runtime/qcollect.py``): a hierarchical ``node`` axis ahead of the
+    others (the ("node", "pipe", "data", ["expert",] "model") mesh, node-
+    major): the batch's rows split over node, then data, then expert, every
+    data reduction runs over the node x data ranks, and each ZeRO stage
+    shards its state over the node axis too, so a ZeRO gather runs as an
+    inter-node phase over the node group and an intra-node one over the
+    data group (``collectives.LeafGather``); at ZeRO 3, ``qcomm`` "gather"
+    (int8 block-quantized weight gathers of ``comm_block`` elements a
+    scale) or "both" (also the gradient's block fake-quantized after its
+    reduce-scatter), and at pp = 1 ``overlap`` (a segment's layers cut into
+    chunks whose gathers are issued a chunk ahead, ``core/stage_program.py:
+    run_program``); and ``rule_overrides``, the reference's ((logical
+    axis, mesh axis), ...) applied after the preset.
 
-What still raises, naming ROADMAP.md: ``multi_segment``, ``node`` > 1,
-``qcomm`` and ``overlap`` (the CommPlan) and fp16 kernels.  The
-reference's ``rule_overrides`` are not ported.
+What still raises, naming ROADMAP.md: ``multi_segment`` and fp16 kernels;
+as in the reference, ``qcomm`` or ``overlap`` at a ZeRO stage other than 3
+and ``overlap`` at pp > 1 raise ValueError.
 
 ``build_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, one step for both: an unsharded model (one device, no process
 group) takes each collective below as the identity, a sharded one runs
 them over its mesh's groups, of one rank or more.  The global batch is
 split as the reference splits it: into ``gas`` microbatches, then each
-microbatch's rows over the batch ranks (data, then expert).
+microbatch's rows over the batch ranks (node, then data, then expert).
 At pp = 1 each microbatch's scaled loss (this rank's loss sum over every
 batch rank's token count, and the moe family's share of the aux term,
 ``Model.aux_loss``) is backpropagated and the gradients sum in fp32:
-in the parameters' ``.grad`` (stages 0-1: all-reduced over the data group
-after the last microbatch), reduce-scattered into the rank's block after
-each microbatch (stage 2), or by the gathers' own reduce-scatters (stage 3
-and any leaf whose spec names the data axis).  At pp > 1 the ``gas``
+in the parameters' ``.grad`` (stages 0-1: all-reduced over the node x data
+ranks after the last microbatch), reduce-scattered into the rank's block
+after each microbatch (stage 2), or by the gathers' own reduce-scatters
+(stage 3 and any leaf whose spec names the data or node axis); a
+data-parallel axis no phase took is then all-reduced over.  At pp > 1 the ``gas``
 microbatches run through the pipeline in one sweep, as the reference's
 ``outer_gas = 1`` runs them: each microbatch's loss is its rows' CE sum
 over the token count of the whole global batch (``loss_pipelined``'s
@@ -78,6 +93,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import commplan as cpl
 from repro_torch.core import expertplan as epl
 from repro_torch.core import memplan as mpl
 from repro_torch.core import precision as prec
@@ -90,12 +106,14 @@ from repro_torch.models.model import Model, param_specs, stage_units, tp_pieces
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.runtime import pipeline
 from repro_torch.runtime.collectives import (
-    MeshGroups, all_gather_dim, all_reduce_, reduce_scatter_dim,
+    NODE, MeshGroups, all_reduce_, gather_phases, scatter_phases,
 )
 
-# field -> the only value the port runs (the CommPlan comes with a later
-# slice; multi_segment works around an XLA miscompile the port does not have)
-_NOT_PORTED = {"node": 1, "qcomm": "none", "overlap": False, "multi_segment": False}
+# field -> the only value the port runs (multi_segment works around an XLA
+# miscompile the port does not have)
+_NOT_PORTED = {"multi_segment": False}
+# the batch's mesh axes the executor splits rows over (slowest first)
+_BATCH_AXES = ((), ("data",), ("data", "expert"), (NODE, "data"), (NODE, "data", "expert"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +126,17 @@ class ParallelPlan:
     ep: int = 1                     # expert-parallel ways ("expert" mesh axis)
     rules: str = "megatron_tp"      # sharding preset (core/sharding.py:PRESETS)
     zero: int | None = None         # ZeRO stage 0-3; None -> 1
-    node: int = 1
-    qcomm: str = "none"
-    overlap: bool = False
+    node: int = 1                   # hierarchical ways ("node" mesh axis)
+    qcomm: str = "none"             # none | gather | both: int8 ZeRO 3 gathers
+    overlap: bool = False           # chunked gathers ahead of the compute (pp = 1)
+    comm_block: int = 32            # quantization block (core/commplan.py)
     gas: int = 1                    # gradient accumulation steps
     precision: str = "bf16"         # bf16 | fp16 | fp32
     remat: str = "full"             # full | selective | none
     kernels: bool = False           # hand-written CUDA kernels
     multi_segment: bool = False     # the reference's hybrid lowering: refused
+    # ((logical axis, mesh axis | None), ...): applied after the preset
+    rule_overrides: tuple = ()
 
     def __post_init__(self):
         for name in ("dp", "tp", "pp", "virtual_stages", "ep", "node", "gas"):
@@ -125,8 +146,10 @@ class ParallelPlan:
             if getattr(self, name) != only:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet (see ROADMAP.md, "
-                    "Queue 1); the port runs dp, ep, tp, pp with virtual stages and ZeRO 0-3")
-        object.__setattr__(self, "zero", mpl.resolve_stage(self.zero))
+                    "Queue 1); the port runs node, dp, ep, tp, pp with virtual stages, "
+                    "ZeRO 0-3 and the CommPlan")
+        stage = mpl.resolve_stage(self.zero)
+        object.__setattr__(self, "zero", stage)
         if self.rules not in shd.PRESETS:
             raise ValueError(f"rules must be one of {sorted(shd.PRESETS)}, got {self.rules!r}")
         prec.policy_from_name(self.precision)           # validates
@@ -135,18 +158,35 @@ class ParallelPlan:
                 "the CUDA kernels take bf16 and fp32; fp16 kernels are not "
                 "ported yet (see ROADMAP.md, Queue 2)")
         self.compute_policy()                           # validates remat
-        if self.sharding_rules().mesh_axis("batch") not in ("data", ("data", "expert"), None):
-            raise NotImplementedError(f"rules {self.rules!r}: the batch on "
-                                      f"{self.sharding_rules().mesh_axis('batch')!r}")
+        self.comm_plan()                                # validates qcomm/comm_block/node
+        if (self.qcomm != "none" or self.overlap) and stage != 3:
+            raise ValueError(
+                f"qcomm={self.qcomm!r}/overlap={self.overlap} act on the "
+                f"zero=3 weight gathers; this plan has zero={stage}")
+        if self.overlap and self.pp > 1:
+            raise ValueError(
+                "overlap interleaves gathers with the pp==1 StageProgram "
+                "scan; pp > 1 already gathers per stage")
+        if self.batch_axes not in _BATCH_AXES:
+            batch = self.sharding_rules().mesh_axis("batch")
+            raise NotImplementedError(f"rules {self.rules!r}: the batch on {batch!r} "
+                                      "(see ROADMAP.md, Queue 1)")
 
     @property
     def n_devices(self) -> int:
-        return self.dp * self.ep * self.tp * self.pp
+        return self.node * self.dp * self.ep * self.tp * self.pp
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        """The mesh axes the batch's rows split over, slowest first."""
+        batch = self.sharding_rules().mesh_axis("batch")
+        return () if batch is None else (batch,) if isinstance(batch, str) else tuple(batch)
 
     @property
     def batch_ranks(self) -> int:
-        """The ranks a global batch's rows split over: dp x ep, or 1 where
-        the rules keep the batch off the data axis (``tp_only`` at ep = 1)."""
+        """The ranks a global batch's rows split over: node x dp x ep, or 1
+        where the rules keep the batch off the data axis (``tp_only`` at
+        ep = 1 and node = 1)."""
         return shd.axis_size(self.mesh_sizes(), self.sharding_rules().mesh_axis("batch"))
 
     @property
@@ -158,26 +198,40 @@ class ParallelPlan:
         return ComputePolicy(remat=self.remat, kernels=self.kernels)
 
     def memory_plan(self) -> mpl.MemoryPlan:
-        return mpl.MemoryPlan(zero=self.zero)
+        return mpl.MemoryPlan(zero=self.zero, node_axis=NODE if self.node > 1 else None)
+
+    def comm_plan(self) -> cpl.CommPlan:
+        """The communication-axis policy this plan carries."""
+        return cpl.CommPlan(qcomm=self.qcomm, block=self.comm_block, overlap=self.overlap,
+                            node=self.node, node_axis=NODE, data_axis="data")
 
     def expert_plan(self) -> epl.ExpertPlan:
         """The expert-parallelism policy this plan carries."""
         return epl.ExpertPlan(ep=self.ep)
 
     def sharding_rules(self) -> shd.ShardingRules:
-        """The preset's rules; at ep > 1 the reference's overrides: the
-        batch on the composite ("data", "expert"), expert last, so an ep
-        plan gives each rank the rows of the flat dp x ep plan, and the
-        experts moved from the data axis onto the expert axis."""
+        """The preset's rules with the reference's overrides: the batch on
+        every data-parallel axis, slowest first (node, then data, then
+        expert), so a node or ep plan gives each rank the rows of the flat
+        plan; at ep > 1 the experts moved from the data axis onto the
+        expert axis; then ``rule_overrides``."""
         rules = shd.PRESETS[self.rules](data_axis="data", model_axis="model",
                                         pipe_axis="pipe" if self.pp > 1 else None)
+        batch = (NODE,) if self.node > 1 else ()
+        if batch or self.ep > 1:
+            batch += ("data",) + (("expert",) if self.ep > 1 else ())
+            rules = rules.with_overrides(
+                name=rules.name + ("+ep" if self.ep > 1 else "+hier_dp"),
+                batch=batch, cache_batch=batch)
         if self.ep > 1:
-            rules = rules.with_overrides(name=rules.name + "+ep", batch=("data", "expert"),
-                                         cache_batch=("data", "expert"), experts="expert")
+            rules = rules.with_overrides(name=rules.name, experts="expert")
+        if self.rule_overrides:
+            rules = rules.with_overrides(**dict(self.rule_overrides))
         return rules
 
     def mesh_sizes(self) -> dict:
-        return {"pipe": self.pp, "data": self.dp, "expert": self.ep, "model": self.tp}
+        return {NODE: self.node, "pipe": self.pp, "data": self.dp, "expert": self.ep,
+                "model": self.tp}
 
 
 def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
@@ -189,7 +243,8 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     than dense at tp = 1, which run replicated over the model group as one
     device runs them (embedding and CE included).  The moe family's expert
     leaves are on the data axis at ep = 1 and on the expert axis above (the
-    reference's rules); ZeRO adds the data axis only.  zamba2's in_proj and conv leaves (``tp_pieces``) take the
+    reference's rules); ZeRO adds the data axis, and at node > 1 the node
+    axis (``sharding.zero_partition_spec``).  zamba2's in_proj and conv leaves (``tp_pieces``) take the
     model axis on their head dim whatever its width divides: the rank's
     block is its heads' columns and the shared B and C ones.  At pp > 1
     the layer stack is on the pipe axis, and its units must split into the
@@ -247,15 +302,22 @@ def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype =
     device = (torch.device("cuda", torch.cuda.current_device())
               if mesh.device_type == "cuda" else torch.device("cpu"))
     return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups,
-                 virtual_stages=plan.virtual_stages if plan.pp > 1 else 1)
+                 virtual_stages=plan.virtual_stages if plan.pp > 1 else 1,
+                 comm=plan.comm_plan())
+
+
+# the data-parallel axes a gradient is reduced over
+_DP_AXES = (NODE, "data")
 
 
 @dataclasses.dataclass(frozen=True)
 class _Leaf:
-    """How the step treats one parameter leaf of the rank."""
-    stored_data: bool      # its spec names the data axis: gathered on use
-    update_dim: int | None  # stage >= 1: the dim of its block of the update
-    grad_dim: int | None   # stage 2: the dim its gradient is reduce-scattered on
+    """How the step treats one parameter leaf of the rank.  A phase list is
+    ((axis, dim), ...) in gather order: the node axis first (both on one
+    dim for the composite entry)."""
+    update: tuple          # stage >= 1: the phases its block of the update adds
+    grad: tuple            # stage 2: the phases its gradient is reduce-scattered on
+    reduce: tuple          # the data-parallel axes its gradient is all-reduced over
     counted: bool          # its block enters this rank's grad-norm sum
     on_pipe: bool          # split over the pipe ranks (the layer stack at pp > 1)
     on_expert: bool = False  # split over the expert ranks (the experts at ep > 1)
@@ -273,7 +335,7 @@ class _Leaf:
 
 def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
     if model.shardings is None:        # one device: whole leaves, no group
-        return {k: _Leaf(False, None, None, True, False) for k, _ in model.named_parameters()}
+        return {k: _Leaf((), (), (), True, False) for k, _ in model.named_parameters()}
     _, psh, opt_sh, grad_sh = plan_state_shardings(model.cfg, plan)
     if psh != model.shardings:
         raise ValueError("the model is not sharded as the plan asks "
@@ -287,27 +349,34 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
         return spec.index("model"), pieces[k].split_ranges(model.mesh.sizes["model"])
 
     def added(spec, base):
-        dims = [i for i, (a, b) in enumerate(zip(spec, base)) if a != b]
-        return dims[0] if dims else None
+        return tuple((a, i) for a in _DP_AXES for i, (e, b) in enumerate(zip(spec, base))
+                     if a in shd.spec_axes((e,)) and a not in shd.spec_axes((b,)))
 
     out = {}
     for k, spec in psh.items():
         block = shd.spec_axes(opt_sh[k])
-        out[k] = _Leaf(stored_data="data" in shd.spec_axes(spec),
-                       update_dim=added(opt_sh[k], spec), grad_dim=added(grad_sh[k], spec),
-                       counted=all(coord[a] == 0 for a in ("pipe", "data", "expert", "model")
-                                   if a not in block),
+        out[k] = _Leaf(update=added(opt_sh[k], spec), grad=added(grad_sh[k], spec),
+                       reduce=tuple(a for a in _DP_AXES if a not in shd.spec_axes(grad_sh[k])),
+                       counted=all(coord[a] == 0 for a in (NODE, "pipe", "data", "expert",
+                                                           "model") if a not in block),
                        on_pipe="pipe" in shd.spec_axes(spec),
                        on_expert="expert" in shd.spec_axes(spec), own=own(k, spec))
     return out
 
 
-def _block(t: torch.Tensor, dim: int | None, mesh: MeshGroups) -> torch.Tensor:
-    """The rank's block of ``t`` along ``dim`` over the data group (a view)."""
-    if dim is None:
-        return t
-    n = t.shape[dim] // mesh.sizes["data"]
-    return t.narrow(dim, mesh.coord["data"] * n, n)
+def _groups(phases: tuple, mesh: MeshGroups) -> list:
+    """A phase list's (group, dim) pairs (``collectives.gather_phases``)."""
+    return [(mesh.groups[a], dim) for a, dim in phases]
+
+
+def _block(t: torch.Tensor, phases: tuple, mesh: MeshGroups) -> torch.Tensor:
+    """The rank's block of ``t`` over ``phases`` (a view): the data axis's
+    part first, then the node axis's part of it, as a composite
+    ("data", "node") entry lays the blocks out."""
+    for a, dim in reversed(phases):
+        n = t.shape[dim] // mesh.sizes[a]
+        t = t.narrow(dim, mesh.coord[a] * n, n)
+    return t
 
 
 def init_train_state(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan,
@@ -322,7 +391,7 @@ def init_train_state(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan,
     params = dict(model.named_parameters())
     leaves = _leaves(model, plan)
     return {"params": params,
-            "opt": adamw_init({k: _block(p, leaves[k].update_dim, model.mesh)
+            "opt": adamw_init({k: _block(p, leaves[k].update, model.mesh)
                                for k, p in params.items()}),
             "loss_scale": prec.init_loss_scale(plan.precision == "fp16",
                                                device=model.device),
@@ -368,6 +437,12 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
     if (mesh is None) != (model.shardings is None) or (mesh is None and plan.n_devices > 1):
         raise ValueError(f"a plan of {plan.n_devices} ranks runs a sharded model "
                          "(train_loop.build_model) on its mesh (launch/mesh.py:mesh_for_plan)")
+    if mesh is None and (plan.qcomm != "none" or plan.overlap):
+        raise ValueError("qcomm/overlap act on the ZeRO 3 gathers of a sharded model "
+                         "(train_loop.build_model) on its mesh, of one rank or more")
+    if mesh is not None and model.comm.cp != plan.comm_plan():
+        raise ValueError(f"the model's CommPlan {model.comm.cp} is not the plan's "
+                         f"{plan.comm_plan()} (build it with train_loop.build_model)")
     compute = plan.compute_policy()
     if model.compute not in (DEFAULT_POLICY, compute):
         warnings.warn(
@@ -375,15 +450,18 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             f"specifies {compute}; the plan wins inside the step — set "
             f"remat/kernels on the ParallelPlan instead", stacklevel=2)
     model = model.with_policy(compute, policy.compute_dtype)
-    # dp: the batch ranks the rows split over (data, then expert); under
-    # tp_only (dp = 1 here) each data rank takes every row, and its loss,
-    # over the token count summed over the data ranks, is its 1 / dp share
-    # of their sum
+    # dp: the batch ranks the rows split over (node, then data, then
+    # expert); under tp_only (dp = 1 here) each data rank takes every row,
+    # and its loss, over the token count summed over the data ranks, is its
+    # 1 / dp share of their sum.  ``data`` is the group of the (node, data)
+    # ranks, which every data reduction runs over.
     gas, dp = plan.gas, plan.batch_ranks
     mesh = model.mesh
-    data, world = (None, None) if mesh is None else (mesh.groups["data"], mesh.world)
+    data, world = (None, None) if mesh is None else (mesh.dp, mesh.world)
     expert = None if mesh is None else mesh.groups["expert"]
-    rank = 0 if mesh is None or dp == 1 else mesh.coord["data"] * plan.ep + mesh.coord["expert"]
+    rank = 0
+    for a in plan.batch_axes if mesh is not None else ():
+        rank = rank * mesh.sizes[a] + mesh.coord[a]
     leaves = _leaves(model, plan)
     device = model.device
     if plan.pp > 1:            # the gas microbatches are the pipeline's
@@ -404,9 +482,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
             sums["aux"] += metrics["moe_aux"].detach()
             sums["moe_drop"] += metrics["moe_drop"].detach()
             for k, p in params.items():         # stage 2: into the rank's block
-                dim = leaves[k].grad_dim
-                if dim is not None:
-                    part = reduce_scatter_dim(p.grad, dim, data)
+                if leaves[k].grad:
+                    part = scatter_phases(p.grad, _groups(leaves[k].grad, mesh))
                     gsum[k] = part if i == 0 else gsum[k].add_(part)
                     p.grad = None
         return _sum(_sum(ce_sum, data), expert) / gas
@@ -418,9 +495,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         for k, p in params.items():
             if not leaves[k].on_pipe:           # every pipe rank joins
                 _sum(p.grad, mesh.groups["pipe"])
-            dim = leaves[k].grad_dim
-            if dim is not None:                 # stage 2: once, after the sweep
-                gsum[k] = reduce_scatter_dim(p.grad, dim, data)
+            if leaves[k].grad:                  # stage 2: once, after the sweep
+                gsum[k] = scatter_phases(p.grad, _groups(leaves[k].grad, mesh))
                 p.grad = None
         _sum(sums["aux"], mesh.groups["pipe"])
         _sum(sums["moe_drop"], mesh.groups["pipe"])
@@ -446,37 +522,36 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
         else:
             loss = backward_pipelined(params, micro, ls, gsum,
                                       pipeline.loss_count(batch, device)
-                                      * (plan.dp * plan.ep // dp), sums)
+                                      * (plan.node * plan.dp * plan.ep // dp), sums)
         inv = 1.0 / ls["scale"]
         grads = {}
         for k, p in params.items():    # in place: (sum / div) unscaled, fp32
             leaf = leaves[k]
             g = gsum.get(k)
-            if g is None:
+            staged = g is not None              # stage 2: already the rank's block
+            if not staged:
                 g = p.grad
-                if not leaf.stored_data:
-                    _sum(g, data)
-                if not leaf.on_expert:          # ep > 1: every expert rank's tokens
-                    _sum(g, expert)
-                g = _block(g, leaf.update_dim, mesh)
-            elif not leaf.on_expert:
+            if mesh is not None:                # the dp axes no gradient phase took
+                _sum(g, mesh.group_over(leaf.reduce))
+            if not leaf.on_expert:              # ep > 1: every expert rank's tokens
                 _sum(g, expert)
+            if not staged:
+                g = _block(g, leaf.update, mesh)
             grads[k] = g.div_(div).mul_(inv)
         finite = _sum(prec.all_finite(grads.values()).to(device, torch.float32),
                       world, dist.ReduceOp.MIN) > 0
         grad_norm = global_norm([part for k, g in grads.items() if leaves[k].counted
                                  for part in leaves[k].norm_parts(g)],
                                 group=world, device=device)
-        blocks = {k: _block(p, leaves[k].update_dim, mesh) for k, p in params.items()}
+        blocks = {k: _block(p, leaves[k].update, mesh) for k, p in params.items()}
         skip = not bool(finite)
         state["opt"] = adamw_update(opt_cfg, blocks, grads, state["opt"], skip=skip,
                                     grad_norm=grad_norm)
         if not skip:                   # stages 1-2: the updated blocks to every rank
             with torch.no_grad():
                 for k, p in params.items():
-                    dim = leaves[k].update_dim
-                    if dim is not None:
-                        p.copy_(all_gather_dim(blocks[k], dim, data))
+                    if leaves[k].update:
+                        p.copy_(gather_phases(blocks[k], _groups(leaves[k].update, mesh)))
         state["loss_scale"] = prec.update_loss_scale(ls, finite)
         state["step"] += 1
         for p in params.values():

@@ -15,7 +15,7 @@ import torch.multiprocessing as mp
 
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
-from repro_torch.interop import from_jax_params, gather_params, shard_params
+from repro_torch.interop import from_jax_params, gather_params, mesh_axes, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
@@ -38,17 +38,20 @@ def config(arch: str, overrides: dict):
 
 
 def trajectory(step, state, bs, comm: list | None = None,
-               walks: list | None = None, moe: list | None = None) -> list[tuple]:
+               walks: list | None = None, moe: list | None = None,
+               phases: list | None = None) -> list[tuple]:
     """(loss, grad_norm, grads_finite, loss_scale) of each step; ``comm``
     takes each step's collective bytes (``runtime/collectives.py``),
     ``walks`` its pipeline sweep's times (``runtime/pipeline.py``), ``moe``
-    its (moe_aux, moe_drop)."""
+    its (moe_aux, moe_drop), ``phases`` its ZeRO gather bytes by phase."""
     out = []
     for b in bs:
         collectives.reset_comm_bytes()
         state, m = step(state, b)
         if comm is not None:
             comm.append(collectives.comm_bytes())
+        if phases is not None:
+            phases.append(collectives.gather_phase_bytes())
         if walks is not None:
             walks.append(pipeline.walk_reading())
         if moe is not None:
@@ -91,8 +94,7 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
     blocks = {k: p.detach().numpy().copy() for k, p in model.named_parameters()}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, (dict(model.mesh.coord), blocks, mine))
-    axes = ("pipe", "data", "model") if plan.ep == 1 else ("pipe", "data", "expert", "model")
-    where = {tuple(c[a] for a in axes): i for i, (c, _, _) in enumerate(ranks)}
+    where = {tuple(c[a] for a in mesh_axes(plan)): i for i, (c, _, _) in enumerate(ranks)}
     whole = gather_params({k: ranks[i][1] for k, i in where.items()}, cfg, plan)
     tp = gather_params({k: ranks[i][2] for k, i in where.items()}, cfg, plan)
     single = Model(cfg, torch.float32, device="cpu")
@@ -150,7 +152,7 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             cfg = config(job["arch"], job["overrides"])
             mesh = mesh_for_plan(plan, torch.device("cpu"))
             model = build_model(cfg, plan, mesh)
-            coord = {a: model.mesh.coord[a] for a in ("pipe", "data", "expert", "model")}
+            coord = {a: model.mesh.coord[a] for a in ("node", "pipe", "data", "expert", "model")}
             model.load_state_dict(from_jax_params(
                 shard_params(weights[job["weights"]], cfg, plan, coord), model))
             opt = AdamWConfig(lr=LR)
@@ -158,10 +160,12 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             comm: list = []
             walks: list = []
             moe: list = []
+            phases: list = []
             res = {"trajectory": trajectory(build_train_step(model, opt, plan, mesh), state,
                                             batches(cfg.vocab_size, job.get("steps", STEPS)),
-                                            comm, walks, moe),
+                                            comm, walks, moe, phases),
                    "comm_bytes": comm, "walks": walks, "moe": moe, "coord": coord,
+                   "gather_phases": phases,
                    "blocks": {k: p.detach().numpy().copy()
                               for k, p in model.state_dict().items()},
                    "moments": {k: tuple(m.shape) for k, m in state["opt"]["mu"].items()}}
@@ -199,6 +203,21 @@ MOE = {"llama4-maverick-400b-a17b": dict(ep=2, n_layers=4), "arctic-480b": dict(
 MOE_PLANS = {"ep4": dict(ep=4), "ep2 dp2": dict(ep=2, dp=2),
              "ep2 dp2 z3": dict(ep=2, dp=2, zero=3), "ep2 tp2": dict(ep=2, tp=2),
              "ep2 pp2": dict(ep=2, pp=2), "dp4": dict(dp=4)}
+# the hierarchical node axis with ep (the 5-D mesh), arctic only
+MOE_NODE_PLANS = {"node2 ep2": dict(node=2, ep=2), "node2 ep2 z3": dict(node=2, ep=2, zero=3)}
+
+# the CommPlan's plans on 4 ranks (reduced yi, fp32): name -> plan fields
+COMM_PLANS = {
+    "dp4 z3 gather": dict(dp=4, zero=3, qcomm="gather"),
+    "dp4 z3 both": dict(dp=4, zero=3, qcomm="both"),
+    "dp4 z3 overlap": dict(dp=4, zero=3, overlap=True),
+    "dp2 tp2 z3 gather": dict(dp=2, tp=2, zero=3, qcomm="gather"),
+    "node2 dp2 z1": dict(node=2, dp=2, zero=1),
+    "node2 dp2 z3": dict(node=2, dp=2, zero=3),
+    "node2 dp2 z3 gather overlap": dict(node=2, dp=2, zero=3, qcomm="gather", overlap=True),
+    "node2 dp2 z3 both overlap": dict(node=2, dp=2, zero=3, qcomm="both", overlap=True),
+    "dp2 tp2 z3 overrides": dict(dp=2, tp=2, zero=3, rule_overrides=(("vocab", None),)),
+}
 
 # the reduced yi-6b of the reference's plan tests (tests/test_parallel_plan.py)
 YI = dict(n_layers=4, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=256,

@@ -12,7 +12,17 @@ hybrid_attn_every 2) and rwkv6-1.6b (4 layers) reduced at tp = 2, kernels
 off and on, and at dp = 2 x tp = 2 at ZeRO 1 (kernels off) and 3 (on);
 llama4-maverick (4 layers) and arctic reduced with 4 experts at ep 4, ep 2
 x dp 2 (ZeRO 1, and 3 kernels on), ep 2 x tp 2 (kernels on), ep 2 x pp 2
-and dp 4, with their drop fractions, all-to-all bytes and state bytes.
+and dp 4, with their drop fractions, all-to-all bytes and state bytes,
+and arctic at node 2 x ep 2 (ZeRO 1 and 3, the 5-D mesh); the CommPlan's
+yi plans (``_torch_ranks.COMM_PLANS``): node 2 x dp 2 at ZeRO 1 and 3,
+dp 4 with overlap, a rule override (the vocab off the model axis) at
+dp 2 x tp 2, and the int8 gathers (qcomm gather and both at dp 4, gather
+at dp 2 x tp 2, both with overlap at node 2 x dp 2), the quantized ones
+held to the reference's own quantized plans run live in a subprocess of
+4 virtual devices (step 0 within 1e-4, later steps within
+``QUANT_LATER_RTOL``, every step within 5% of the fp trajectory), and
+every CommPlan plan's gather bytes, intra and inter, to
+``costmodel.predict_comm_bytes``.
 Losses and grad norms within rtol 1e-5, atol 0 of the port's single device
 and 1e-4 of the reference's; rwkv6's grad norms after the first update
 within 1e-4 of both (see ``RWKV_LATER_NORMS``).  Two spawns (2 and 4 ranks)
@@ -118,6 +128,12 @@ def runs(tmp_path_factory):
         four += [{"name": f"{arch} dp2 tp2 z{z}", "arch": arch, "overrides": ov,
                   "weights": arch, "plan": _plan(dp=2, tp=2, zero=z, kernels=z == 3)}
                  for z in (1, 3)]
+    four += [{"name": f"arctic-480b {name}", "arch": "arctic-480b",
+              "overrides": MOE["arctic-480b"], "weights": "arctic-480b", "plan": _plan(**plan)}
+             for name, plan in ranks.MOE_NODE_PLANS.items()]
+    four += [{"name": name, "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
+              "plan": _plan(**plan)} for name, plan in ranks.COMM_PLANS.items()]
+    live = _start_quantized_reference(tmp_path_factory.mktemp("live"))
     checks = {"zamba2-2.7b tp2 kFalse": "split_norm_check",
               "zamba2-2.7b tp2 kTrue": "grads_check", "rwkv6-1.6b tp2 kFalse": "grads_check"}
     for job in two:
@@ -130,7 +146,64 @@ def runs(tmp_path_factory):
     for name, by_rank in res.items():
         for r, v in by_rank.items():
             assert "error" not in v, (name, r, v.get("error"))
-    return {"ref": ref, "single": single, "ranks": res}
+    return {"ref": ref, "single": single, "ranks": res, "live": _finish(live)}
+
+
+# the reference's quantized plans, live on 4 virtual CPU devices (ZeRO 3,
+# gas 2, fp32, the reduced yi from PRNGKey(0), the port's batches)
+LIVE = {"dp2 tp2 z3 gather": dict(dp=2, tp=2, zero=3, qcomm="gather"),
+        "node2 dp2 z3 both overlap": dict(node=2, dp=2, zero=3, qcomm="both", overlap=True)}
+LIVE_CODE = """
+import json, sys
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import get_config
+from repro.launch.mesh import mesh_for_plan
+from repro.models.model import Model
+from repro.optim import AdamWConfig
+from repro.runtime.train_loop import ParallelPlan, init_train_state, jit_train_step
+yi, plans, lr, path = json.loads(sys.argv[1])
+tokens = np.load(path)
+model = Model(get_config("yi-6b").reduced(**yi), jnp.float32)
+opt = AdamWConfig(lr=lr)
+out = {}
+for name, kw in plans.items():
+    plan = ParallelPlan(gas=2, precision="fp32", **kw)
+    state = init_train_state(model, jax.random.PRNGKey(0), opt, plan)
+    step = jit_train_step(model, opt, plan, mesh_for_plan(plan), *tokens.shape[1:])
+    traj = []
+    for t in tokens:
+        state, m = step(state, {"tokens": jnp.asarray(t)})
+        traj.append([float(m["loss"]), float(m["grad_norm"])])
+    out[name] = traj
+print("LIVE" + json.dumps(out))
+"""
+
+
+def _start_quantized_reference(tmp):
+    """Start the reference's LIVE plans in a subprocess of 4 virtual
+    devices (``conftest.run_multidev``'s environment), beside the spawn."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from conftest import REPO
+
+    path = os.path.join(str(tmp), "tokens.npy")
+    np.save(path, np.stack([b["tokens"] for b in ranks.batches(ranks.YI["vocab_size"])]))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    return subprocess.Popen([sys.executable, "-c", LIVE_CODE,
+                             json.dumps([ranks.YI, LIVE, ranks.LR, path])],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc) -> dict:
+    import json
+
+    out, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, err[-4000:]
+    return {k: np.array(v) for k, v in json.loads(out.split("LIVE")[-1]).items()}
 
 
 def _check(runs, job: str, key: tuple, ref_key=None, later_norms: float = RTOL_PLANS):
@@ -294,12 +367,17 @@ def test_moe_plans_match_single_device(runs, arch, plan):
     the parameter and Adam-moment bytes ``train_state_bytes`` counts."""
     job, p = f"{arch} {plan}", ParallelPlan(**_plan(kernels=plan in MOE_KERNELS,
                                                        **ranks.MOE_PLANS[plan]))
+    _check_moe(runs, arch, job, p)
+
+
+def _check_moe(runs, arch: str, job: str, p: ParallelPlan) -> None:
     _check(runs, job, (arch, p.kernels), ref_key=arch)
     cfg = ranks.config(arch, MOE[arch])
     G, g = moe.group_shape(ranks.BATCH // p.gas, ranks.SEQ)
     C = moe.moe_capacity(g, cfg)
     per = sum(costmodel.predict_a2a_bytes(G, cfg.n_experts, C, cfg.d_model, dp=p.dp,
-                                          ep=p.ep, with_backward=bwd) for bwd in (True, False))
+                                          ep=p.ep, node=p.node, with_backward=bwd)
+              for bwd in (True, False))
     a2a = per * p.gas * model.stage_units(cfg)[1] // p.pp
     want = train_state_bytes(cfg, p)
     single = runs["single"][arch, p.kernels, "moe"]
@@ -314,6 +392,117 @@ def test_moe_plans_match_single_device(runs, arch, plan):
         assert 2 * 4 * sum(int(np.prod(s)) for s in res["moments"].values()) \
             == want["opt_bytes"]
     assert single[0][1] > 0          # capacity 1.25 drops some assignments
+
+
+@pytest.mark.parametrize("plan", sorted(ranks.MOE_NODE_PLANS))
+def test_moe_node_by_ep_matches_single_device(runs, plan):
+    """Reduced arctic on the 5-D (node, pipe, data, expert, model) mesh at
+    node 2 x ep 2, ZeRO 1 and 3: the rows split over node, then expert (as
+    the flat ep 2 x dp 2 plan splits them over data, then expert), the
+    token all-to-all over the expert group; held as every moe plan."""
+    p = ParallelPlan(**_plan(**ranks.MOE_NODE_PLANS[plan]))
+    _check_moe(runs, "arctic-480b", f"arctic-480b {plan}", p)
+    for res in runs["ranks"][f"arctic-480b {plan}"].values():
+        assert res["gather_phases"][0]["inter"] > 0 or p.zero < 3
+
+
+# the CommPlan's plans that move no value: held as every plan
+COMM_FP = ("node2 dp2 z1", "node2 dp2 z3", "dp4 z3 overlap", "dp2 tp2 z3 overrides")
+COMM_QUANT = tuple(k for k in ranks.COMM_PLANS if k not in COMM_FP)
+# a quantized plan's later steps against the reference's live plan: after
+# the first update a weight that sits within rounding of a boundary of its
+# block's int8 grid (a step of max|block| / 127) can dequantize one step
+# apart in the two programs, whose fp32 updates round differently; the
+# grad norms of these plans' steps 1-2 move by up to 3.6e-5 so (losses
+# 2.1e-6; step 0 within 1.4e-6), held with a 5x margin
+QUANT_LATER_RTOL = 2e-4
+# the reference's bar on a quantized plan's drift from the fp trajectory
+QUANT_DRIFT = 0.05
+
+
+@pytest.mark.parametrize("job", COMM_FP)
+def test_commplan_fp_plans_match_single_device(runs, job):
+    """node 2 x dp 2 at ZeRO 1 and 3 (the state on the node axis too, each
+    gather in an inter- and an intra-node phase), dp 4 with overlap (a
+    chunk of layers' gathers issued a chunk ahead), and a rule override
+    (the vocab off the model axis) equal the single device, as any plan."""
+    _check(runs, job, ("yi", False))
+    p = ParallelPlan(**_plan(**ranks.COMM_PLANS[job]))
+    want = train_state_bytes(ranks.config("yi-6b", ranks.YI), p)
+    for res in runs["ranks"][job].values():
+        assert 4 * sum(int(np.prod(b.shape)) for b in res["blocks"].values()) \
+            == want["param_bytes"]
+        assert 2 * 4 * sum(int(np.prod(s)) for s in res["moments"].values()) \
+            == want["opt_bytes"]
+    if job == "dp2 tp2 z3 overrides":
+        assert runs["ranks"][job][0]["blocks"]["embed"].shape == (128, 128)
+
+
+@pytest.mark.parametrize("job", COMM_QUANT)
+def test_quantized_plans_match_the_reference(runs, job):
+    """Every quantized plan's step 0 within RTOL_REF of the reference's live
+    quantized plan (its loss sees the same int8 weights whatever the plan;
+    its grad norm the live plan of the same qcomm), its later steps within
+    QUANT_LATER_RTOL of the live plan of the same fields, every step
+    within QUANT_DRIFT of the fp trajectory, every rank the same."""
+    p = ParallelPlan(**_plan(**ranks.COMM_PLANS[job]))
+    live = runs["live"]
+    same = {"gather": "dp2 tp2 z3 gather", "both": "node2 dp2 z3 both overlap"}[p.qcomm]
+    fp = np.array([t[:2] for t in runs["single"]["yi", False]])
+    by_rank = runs["ranks"][job]
+    for r, res in by_rank.items():
+        port = np.array([t[:2] for t in res["trajectory"]])
+        np.testing.assert_allclose(port[0], live[same][0], rtol=RTOL_REF, atol=0,
+                                   err_msg=f"rank {r} step 0")
+        if job in live:
+            np.testing.assert_allclose(port, live[job], rtol=QUANT_LATER_RTOL, atol=0,
+                                       err_msg=f"rank {r}")
+        assert (np.abs(port[:, 0] - fp[:, 0]) / fp[:, 0]).max() < QUANT_DRIFT
+        assert not np.array_equal(port[:, 0], fp[:, 0])     # the gathers did quantize
+    first = by_rank[0]["trajectory"]
+    assert all(res["trajectory"] == first for res in by_rank.values())
+
+
+def test_live_reference_quantized_plans_drift_within_the_bar(runs):
+    fp = np.array(runs["ref"]["yi", False])
+    for name, traj in runs["live"].items():
+        assert (np.abs(traj[:, 0] - fp[:, 0]) / fp[:, 0]).max() < QUANT_DRIFT, name
+
+
+@pytest.mark.parametrize("job", sorted(ranks.COMM_PLANS))
+def test_commplan_gather_bytes_equal_the_costmodel(runs, job):
+    """Each step's ``zero3_gather`` bytes, and their intra (data group) and
+    inter (node group) phases, equal ``costmodel.predict_comm_bytes`` over
+    the plan's shapes, specs and CommPlan (``unit_axes``: the one-rank data
+    group of an ep plan is a phase): the layer stack gathered twice a
+    microbatch (forward, or its early issue under overlap, and the
+    recompute), every other leaf once; at ZeRO 1 nothing is gathered."""
+    cfg = ranks.config("yi-6b", ranks.YI)
+    p = ParallelPlan(**_plan(**ranks.COMM_PLANS[job]))
+    shapes, psh, _, _ = plan_state_shardings(cfg, p)
+    stacked = {k for k in shapes if k.startswith("layers.")}
+
+    def predicted(keys, multiplier):
+        return costmodel.predict_comm_bytes([shapes[k] for k in keys], [psh[k] for k in keys],
+                                            p.mesh_sizes(), p.comm_plan(), itemsize=4,
+                                            multiplier=multiplier, unit_axes=True)
+    a, b = predicted(sorted(stacked), 2 * p.gas), predicted(sorted(set(shapes) - stacked), p.gas)
+    want = {k: a[k] + b[k] for k in a}
+    for res in runs["ranks"][job].values():
+        for step, phases in zip(res["comm_bytes"], res["gather_phases"]):
+            assert step["zero3_gather"] == want["total"] == phases["total"]
+            assert phases["intra"] == want["intra"] and phases["inter"] == want["inter"]
+    if p.node > 1 and p.zero == 3:
+        assert 0 < want["inter"] < want["intra"]
+
+
+def test_quantized_gather_moves_3x_fewer_bytes_in_fp32(runs):
+    """int8 payloads with an fp32 scale per 32 elements: (1 + 4/32) / 4 of
+    the fp32 gather's bytes, 3.56x fewer (the reference's >= 3x bar)."""
+    fp = runs["ranks"]["dp4 z3 overlap"][0]["comm_bytes"][0]["zero3_gather"]
+    for job in ("dp4 z3 gather", "dp4 z3 both"):
+        q = runs["ranks"][job][0]["comm_bytes"][0]["zero3_gather"]
+        assert fp / q >= 3.0, (job, fp / q)
 
 
 def _zamba2():

@@ -333,7 +333,8 @@ def test_trial_plan_is_the_ports_plan():
     assert isinstance(plan, ParallelPlan) and plan.dp == 12 and plan.remat == "selective"
     assert hpo.trial_plan({"pp": 16, "tp": 8, "nnodes": 12}) is None    # 96 cards, 128 a replica
     assert hpo.trial_plan({"pp": 1, "tp": 2, "zero": 3, "nnodes": 12, "ep": 2}).ep == 2
-    # a draw the executor does not run yet raises, naming ROADMAP
-    for extra in ({"qcomm": "gather"}, {"overlap": 1}, {"node": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hpo.trial_plan({"pp": 1, "tp": 2, "zero": 3, "nnodes": 12, **extra})
+    # a draw that binds the CommPlan builds the plan the executor runs
+    for extra, field, value in (({"qcomm": "gather"}, "qcomm", "gather"),
+                                ({"overlap": 1}, "overlap", True), ({"node": 2}, "node", 2)):
+        plan = hpo.trial_plan({"pp": 1, "tp": 2, "zero": 3, "nnodes": 12, **extra})
+        assert getattr(plan, field) == value and plan.n_devices == 96

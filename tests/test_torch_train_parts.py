@@ -135,8 +135,20 @@ def test_model_loss_and_logits_match_jax(kernels):
 @pytest.mark.parametrize("field,value", [("node", 2), ("qcomm", "gather"),
                                          ("overlap", True), ("multi_segment", True)])
 def test_plan_refuses_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParallelPlan(**{field: value})
+    """Only multi_segment is refused as not ported, naming ROADMAP; the
+    CommPlan's fields run, and are refused only where the reference
+    refuses them (qcomm and overlap off ZeRO 3)."""
+    if field == "multi_segment":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ParallelPlan(**{field: value})
+        return
+    kw = {field: value} if field == "node" else {field: value, "zero": 3}
+    ours, ref = ParallelPlan(**kw), JaxPlan(**kw)
+    assert getattr(ours, field) == getattr(ref, field) == value
+    assert ours.n_devices == ref.n_devices
+    if field != "node":
+        with pytest.raises(ValueError, match="zero=3"):
+            ParallelPlan(**{field: value})
 
 
 @pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2), ("zero", 1), ("pp", 2),

@@ -4,7 +4,7 @@ single-device step 0 of yi-6b, zamba2-2.7b and rwkv6-1.6b, or phase 5's of
 gpt-1.4b) on card 0, then chip_smoke._parallel_rank, _recurrent_tp_rank or
 _pipeline_rank on min(count, 4) ranks.
 
-  python3 tools/parallel_ranks.py [parallel|recurrent|moe|pipeline]
+  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline]
                                        (default: parallel; a host with 2 or
                                         more CUDA cards, from the repo root)
 
@@ -20,7 +20,14 @@ plans (ep 4, ep 2 x dp 2 at ZeRO 1 and 3, ep 2 x tp 2, ep 2 x pp 2; at 2
 ranks ep 2) held to the single-device port (losses, moe_drop, the token
 all-to-all's bytes against the predictor), and at 4 ranks arctic at full
 width, 1 layer of 64 experts, ep 4 (step time, each card's peak, the
-all-to-all bytes, and the state a card would hold at all 128 experts).
+all-to-all bytes, and the state a card would hold at all 128 experts);
+and what "comm" runs alone (_comm_ranks): the CommPlan's reduced yi-6b
+fp32 plans at node 2 x dp = ranks / 2 and dp = ranks (ZeRO 1 and 3,
+overlap, a rule override held to the single-device port; qcomm gather and
+both within 5% of it; every gather's bytes, intra and inter, to the
+predictor), then yi-6b at all 32 layers, ZeRO 3, bf16, at node 2 x dp
+and dp = ranks, each fp, with qcomm gather, with overlap and with both
+(step time, each card's peak, the intra and inter gather bytes).
 _pipeline_rank holds the reduced yi-6b's fp32 pipelined plans to the
 single-device port, gpt-1.4b at pp = ranks (1 and 2 virtual stages) to
 phase 5's step 0, and at 4 ranks trains yi-6b at all 32 layers at pp = 4,
@@ -40,6 +47,7 @@ from repro_torch.runtime.train_loop import ParallelPlan
 BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV), cs._parallel_rank),
             "recurrent": ((cs.ZAMBA, cs.RWKV), cs._recurrent_tp_rank),
             "moe": ((), cs._moe_rank),
+            "comm": ((), cs._comm_rank),
             "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank)}
 
 if __name__ == "__main__":
