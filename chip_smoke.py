@@ -75,13 +75,25 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      heads, and both families' CE on vocab shards of 16000 / 8000 and
      32768 / 16384; CE on each vocab shard with labels outside it and a
      local valid vocab, the shards merged as the vocab-parallel CE merges
-     them;
+     them; the dense serving paths' own shapes (``phase_kernels_serve``):
+     h2o-danube-1.8b's windowed flash forward (32q/8kv of 80, window 4096)
+     at its 8192-token prefill bucket against SDPA with a boolean window
+     mask, qwen3-32b's flash forward (64q/8kv of 128), swiglu at qwen3's
+     (5120, 25600), phi4-mini's (3072, 8192) and danube's (2560, 6912)
+     widths, rmsnorm on qwen3's 128-wide qk-norm rows;
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
-     arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers) and
-     rwkv6-1.6b (all 24 layers): the model
+     arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers),
+     rwkv6-1.6b (all 24 layers), h2o-danube-1.8b (all 24 layers, cache_len
+     8192: a ring of its 4096-position window a slot, two prompts longer
+     than the window), phi4-mini-3.8b (all 32) and qwen3-32b (all 64,
+     65.5 GB of weights): the model
      at full width in bf16 with kernels=True through ``ServeEngine`` (8
-     requests, 4 slots; a paged pool, for zamba2 and rwkv6 the slot-swap
-     cache with exact-length prefill); the serving kernels' launch counters
+     requests, 4 slots; a paged pool, for zamba2, rwkv6 and danube the
+     slot-swap cache, zamba2's and rwkv6's with exact-length prefill); for
+     yi-6b also the int8 KV cache (``phase_serve_int8``: the same weights
+     and requests on an int8 pool, its first decode tick's logits within
+     the reference's bar of the bf16 pool's, the pool (hd + 4) / (2 hd) of
+     bf16's bytes, greedy agreement a reading); the serving kernels' launch counters
      must rise (the grouped MLP's to (prefills + ticks) x MoE layers
      exactly; zamba2's SSD scan to prefills x 54, its decode step to ticks
      x 54 and flash to prefills x 9; rwkv6's wkv scan to (prefills of 8
@@ -141,7 +153,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      plans at node 2 x dp = ranks / 2 and dp = ranks against the
      single-device port and the gather-bytes predictor, and yi-6b at all
      32 layers, ZeRO 3, at both layouts, fp, qcomm gather, overlap and
-     both;
+     both; over the one-rank group also the dp serve engine
+     (``_serve_dp_one_rank``: yi-6b at TRAIN_LAYERS through
+     ``ServeEngine(mesh=, plan=)`` at dp 1), its tokens equal to the
+     meshless engine's and its logits all-gather bytes exact;
   6. pipeline (``phase_pipeline``): gpt-1.4b at full width and depth, gas
      4, split into 4 logical stages of 6 layers (as 4 pipe ranks, and as 2
      ranks of 2 virtual stages) run in one process through the pipeline
@@ -207,6 +222,7 @@ KERNELS = {
 }
 LLAMA4, ARCTIC, ZAMBA = "llama4-maverick-400b-a17b", "arctic-480b", "zamba2-2.7b"
 RWKV = "rwkv6-1.6b"
+DANUBE, QWEN3, PHI4 = "h2o-danube-1.8b", "qwen3-32b", "phi4-mini-3.8b"
 # the families whose cache is slot-swapped, with exact-length prefill
 RECURRENT = ("hybrid", "rwkv")
 # the kernels each arch's serving path runs
@@ -217,6 +233,9 @@ SERVE_KERNELS = {
     ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "grouped_mlp"),
     ZAMBA: ("rmsnorm", "swiglu", "flash_attention", "ssd_scan", "mamba_decode_step"),
     RWKV: ("rmsnorm", "wkv_scan", "wkv_decode_step"),
+    DANUBE: ("rmsnorm", "swiglu", "flash_attention"),
+    PHI4: ("rmsnorm", "swiglu", "flash_attention"),
+    QWEN3: ("rmsnorm", "swiglu", "flash_attention"),
 }
 # the kernels each arch's train step runs
 TRAIN_KERNELS = {
@@ -237,12 +256,22 @@ REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2,
            # zamba2: hd 80 (d 160 over 2 heads) and the SSD kernels' P = N = 64
            ZAMBA: dict(d_model=160, n_heads=2, head_dim=80, ssm_head_dim=64, ssm_state=64),
            # rwkv6: plain .reduced() has d 256 in 4 heads of 64, the kernels' K = V
-           RWKV: {}}
+           RWKV: {},
+           # h2o-danube: hd 80 in danube's GQA 4 (4q/1kv), .reduced()'s window 16
+           DANUBE: dict(d_model=320, n_heads=4, n_kv_heads=1, head_dim=80),
+           # qwen3: 4 heads of 128 over d 256 (wider than d, as at full width),
+           # qk-norm on 128-wide rows; phi4-mini: hd 128
+           QWEN3: dict(head_dim=128), PHI4: dict(head_dim=128)}
 # serving depth of the moe family at full width in bf16 on one 80 GB card:
 # llama4 one stack unit (a dense layer, then a MoE layer: 18.55e9
-# parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the init draws
-# a stacked expert leaf whole in fp32 beside them
+# parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the dense
+# family serves at all its layers (qwen3-32b: 64, 32.8e9 parameters, 65.5
+# GB; ``models/common.py:init_leaf`` draws a leaf past 2^30 elements a slice
+# at a time, so the init needs no fp32 copy of a whole stacked leaf)
 SERVE_LAYERS = {LLAMA4: 2, ARCTIC: 1}
+# the serve engine's cache_len (512 unless named): h2o-danube at 8192, so
+# that each slot holds a ring of its whole 4096-position window
+SERVE_CACHE_LEN = {DANUBE: 8192}
 
 
 # the sources redesigned for Hopper, the wrapper module's library loader and
@@ -2385,6 +2414,104 @@ def flash_hd80(timer: Timer) -> dict:
     return out
 
 
+def window_pairs(S: int, W: int) -> int:
+    """The (query, key) pairs a causal window of W keys keeps over S tokens."""
+    return S * (S + 1) // 2 if S <= W else W * (W + 1) // 2 + (S - W) * W
+
+
+def _flash_window_row(timer: Timer, err, q, k, v, window: int) -> dict:
+    """The timed row of a causal windowed bf16 forward at q's shape; the
+    library call is SDPA with the window as a boolean mask."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    B, S, Hq, hd = q.shape
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Hq * S * 4
+    b, by = bound_ms(nbytes, 4 * hd * B * Hq * window_pairs(S, window), q.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(S, device="cuda")
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    rtol, atol = TOL["flash_attention"][q.dtype]
+    row = {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal, window {window}",
+           "max_abs_err": err, "rtol": rtol, "atol": atol, "p_rounding_tol": FLASH_P_TOL,
+           "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True,
+                                                           sliding_window=window)),
+           "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True,
+                                                         sliding_window=window)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+           "library_call": "F.scaled_dot_product_attention(attn_mask=window, enable_gqa=True)",
+           "bound_ms": b, "bound_by": by}
+    del mask
+    return row
+
+
+def rmsnorm_rows_case(timer: Timer, gen, out: list, rows_n: int, d: int, **tags) -> None:
+    """rmsnorm on (rows_n, d) in bf16 and fp32 under phase 2's limits; the
+    bf16 row (``tags`` added) joins ``out``."""
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+
+    for dtype in (torch.bfloat16, torch.float32):
+        rtol, atol = TOL["rmsnorm"][dtype]
+        x = randn(gen, rows_n, d, dtype=dtype)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+        err = check_close(f"rmsnorm {dtype} ({rows_n}, {d})", rn.rmsnorm_cuda(x, w, 1e-6),
+                          rmsnorm_ref(x, w, 1e-6), rtol=rtol, atol=atol,
+                          why=TOL["rmsnorm"]["why"])
+        if dtype == torch.bfloat16:
+            nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+            b, by = bound_ms(nbytes, 4 * x.numel(), torch.float32)
+            out.append({"shape": f"x ({rows_n}, {d}) bf16", **tags, "max_abs_err": err,
+                        "rtol": rtol, "atol": atol,
+                        "ms": timer(lambda: rn.rmsnorm_cuda(x, w, 1e-6)),
+                        "plain_ms": timer(lambda: rmsnorm_ref(x, w, 1e-6)),
+                        "library_ms": (timer(lambda: F.rms_norm(x, (d,), w, 1e-6))
+                                       if hasattr(F, "rms_norm") else None),
+                        "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by})
+
+
+def phase_kernels_serve(timer: Timer) -> dict:
+    """The kernels at the shapes of the dense serving paths no other phase
+    reaches, bf16 and fp32 under phase 2's limits: h2o-danube-1.8b's
+    windowed flash forward (32q/8kv of 80, window 4096) at its 8192-token
+    prefill bucket; qwen3-32b's flash forward (64q/8kv of 128) at a
+    256-token prefill; swiglu at qwen3's (5120, 25600), phi4-mini's (3072,
+    8192) and danube's (2560, 6912) for a 256-token prefill and a 4-slot
+    decode tick (danube also its 8192-token bucket); rmsnorm on qwen3's
+    128-wide qk-norm rows (a 256-token prefill's 64 query heads and 8 key
+    heads, a tick's 4 x 64).  Rows to join the kernels' cases."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {"flash_attention": [], "swiglu": [], "rmsnorm": []}
+    dan, qwen, phi = (get_config(a) for a in (DANUBE, QWEN3, PHI4))
+    W = dan.sliding_window
+    for arch, S, c, kw in ((DANUBE, 8192, dan, dict(sliding_window=W)), (QWEN3, 256, qwen, {})):
+        for dtype in (torch.bfloat16, torch.float32):
+            err, (q, k, v) = _flash_case(
+                gen, f"flash {arch} {dtype} (1, {S}, {c.n_heads}q/{c.n_kv_heads}kv, "
+                     f"{c.resolved_head_dim}) causal {kw}", 1, S, S, c.n_heads, c.n_kv_heads,
+                c.resolved_head_dim, dtype, causal=True, **kw)
+            if dtype == torch.bfloat16:
+                row = (_flash_window_row(timer, err, q, k, v, W) if kw
+                       else _flash_row(timer, err, q, k, v, parent=False))
+                out["flash_attention"].append({**row, "arch": arch})
+            del q, k, v
+            torch.cuda.empty_cache()
+    for c, Ns in ((qwen, (256, 4)), (phi, (256, 4)), (dan, (8192, 256, 4))):
+        for N in Ns:
+            swiglu_tp_case(timer, gen, out, f"{c.name}", c.d_model, c.d_ff,
+                           (torch.bfloat16, torch.float32), N=N, arch=c.name)
+        torch.cuda.empty_cache()
+    hd = qwen.resolved_head_dim
+    for rows_n, what in ((256 * qwen.n_heads, "prefill q"), (256 * qwen.n_kv_heads, "prefill k"),
+                         (4 * qwen.n_heads, "decode q")):
+        rmsnorm_rows_case(timer, gen, out["rmsnorm"], rows_n, hd, arch=QWEN3,
+                          use=f"qk-norm, {what}")
+    return out
+
+
 # the tensor-parallel plans' ways: each rank's kernels see heads / tp,
 # d_ff / tp and vocab / tp
 TP_WAYS = (2, 4)
@@ -2414,13 +2541,13 @@ def flash_tp_case(timer: Timer, gen, out: dict, label: str, Hq: int, Hkv: int, h
 
 
 def swiglu_tp_case(timer: Timer, gen, out: dict, label: str, d: int, F_: int, dtypes: tuple,
-                   **tags) -> None:
-    """swiglu at one shard shape (N 8192 rows, d_ff / tp columns) in each of
-    ``dtypes``, under phase 2's limits; the bf16 row joins ``out``."""
+                   N: int = 8192, **tags) -> None:
+    """swiglu at one shape (by default a shard shape: N 8192 rows, d_ff / tp
+    columns) in each of ``dtypes``, under phase 2's limits; the bf16 row
+    joins ``out``."""
     from repro_torch.kernels import swiglu as sg
     from repro_torch.kernels.ref import swiglu_ref
 
-    N = 8192
     for dtype in dtypes:
         x = randn(gen, N, d, dtype=dtype)
         w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
@@ -3007,6 +3134,10 @@ LOGITS_TOL_WHY = {
           "from an fp32 copy, so no limit above the sound spread tells a wrong "
           "kernel; the bf16 readings are reported, and an fp32 copy of the model "
           "is held on vs off over prefill and decode ticks at FP32_LOGITS_RTOL",
+    DANUBE: "bf16 through 24 layers; as yi-6b, with a 4096-key window in the flash "
+            "kernel's mask and a 6000-token prompt",
+    PHI4: "bf16 through 32 layers; as yi-6b",
+    QWEN3: "bf16 through 64 layers; as yi-6b, with qk-norm in the rmsnorm kernel",
 }
 # the archs whose bf16 logits are reported, not held to LOGITS_REL_TOL (their
 # fp32 copy is held on vs off instead)
@@ -3025,9 +3156,12 @@ FP32_DECODE_TICKS = 8
 # zamba2's serve prompts: odd lengths (chunk 1), small powers of two and a
 # 96-token prompt (chunk 32); rwkv6's the same with a 5-token prompt in place
 # of the 32-token one (under 8 tokens its prefill loops the decode step);
-# the other archs draw 8 lengths in [64, 256]
+# h2o-danube's two past its 4096-token window (its prefill bucket 8192:
+# the windowed flash at full width, a ring wrapped at prefill) among short
+# ones; the other archs draw 8 lengths in [64, 256]
 SERVE_PROMPT_LENS = {ZAMBA: (255, 64, 96, 200, 129, 32, 256, 77),
-                     RWKV: (255, 64, 96, 200, 129, 5, 256, 77)}
+                     RWKV: (255, 64, 96, 200, 129, 5, 256, 77),
+                     DANUBE: (6000, 64, 200, 129, 4500, 77, 256, 96)}
 
 
 def slot_cache(cache: dict, n_slots: int) -> dict:
@@ -3173,6 +3307,7 @@ def phase_serve(card: str, arch: str) -> dict:
     del red
 
     cfg = serve_config(arch)
+    cache_len = SERVE_CACHE_LEN.get(arch, 512)
     moe_layers = cfg.n_layers // cfg.moe_every if cfg.family == "moe" else 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3180,12 +3315,13 @@ def phase_serve(card: str, arch: str) -> dict:
     model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
 
     rng = np.random.RandomState(0)
     lens = SERVE_PROMPT_LENS.get(arch, rng.randint(64, 257, 8))
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
     reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
-    engine = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
+    engine = ServeEngine(model, n_slots=4, cache_len=cache_len, block_size=16)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = engine.run(reqs)
@@ -3226,7 +3362,7 @@ def phase_serve(card: str, arch: str) -> dict:
             raise AssertionError(f"{arch} serve launches {got}, expected {expected}")
         # exact-length prefill makes every request's stream comparable with
         # greedy decoding at the engine's shapes, token for token
-        same = [bool(np.array_equal(greedy_at_slots(model, p, 32, 512, 4), out[i]))
+        same = [bool(np.array_equal(greedy_at_slots(model, p, 32, cache_len, 4), out[i]))
                 for i, p in enumerate(prompts)]
         hybrid_res = {"expected_launches": expected, "prompt_lens": [len(p) for p in prompts],
                       "engine_equals_greedy_by_request": same}
@@ -3239,11 +3375,11 @@ def phase_serve(card: str, arch: str) -> dict:
     # runs and the grouped kernel's own inputs
     p0 = torch.from_numpy(prompts[0].astype(np.int64))[None].cuda()
     with capture_moe() as on:
-        lk, _ = model.prefill({"tokens": p0}, 512)
+        lk, _ = model.prefill({"tokens": p0}, cache_len)
     model.compute = ComputePolicy(kernels=False)
     with capture_moe() as off:
-        lp, _ = model.prefill({"tokens": p0}, 512)
-    gp = greedy_generate(model, p0, 32, 512)[0].cpu().numpy()
+        lp, _ = model.prefill({"tokens": p0}, cache_len)
+    gp = greedy_generate(model, p0, 32, cache_len)[0].cpu().numpy()
     model.compute = ComputePolicy(kernels=True)
     moe_res = {}
     if moe_layers:
@@ -3273,9 +3409,22 @@ def phase_serve(card: str, arch: str) -> dict:
     first_diverge = int(np.argmax(gp != out[0])) if agree < 1 else 32
     recs = engine.records
     ttft = [r["t_first_token"] - r["t_arrival"] for r in recs]
+    window_res = {}
+    if cfg.sliding_window is not None:
+        # every slot a ring of the window; prompts past it wrap their ring at
+        # prefill, and every request's decode wraps it further
+        ring = engine.cache["layers"]["k"].shape[2]
+        window_res = {"window": cfg.sliding_window, "ring_positions": ring,
+                      "prompts_past_window": sum(len(p) > cfg.sliding_window
+                                                 for p in prompts)}
+        if ring != cfg.sliding_window or not window_res["prompts_past_window"]:
+            raise AssertionError(f"{arch}: ring of {ring} positions, prompts {lens}")
+    int8_res, paths = {}, {f"{arch} serve": launches}
+    if arch == KV_QUANT_ARCH:
+        int8_res, paths[f"{arch} serve int8"] = phase_serve_int8(model, engine, reqs, out)
     res = {"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
            "params": model.n_params(),
-           "dtype": "bf16", "kernels": True, "n_slots": 4, "cache_len": 512,
+           "dtype": "bf16", "kernels": True, "n_slots": 4, "cache_len": cache_len,
            "block_size": 16, "requests": len(recs),
            "prompt_tokens": int(sum(len(p) for p in prompts)),
            "generated_tokens": int(sum(len(t) for t in out.values())),
@@ -3289,15 +3438,114 @@ def phase_serve(card: str, arch: str) -> dict:
            "logits_rel_tol": None if arch in LOGITS_NOT_HELD else LOGITS_REL_TOL,
            "logits_tol_why": LOGITS_TOL_WHY[arch],
            "greedy_agree_vs_plain": agree, "greedy_first_divergence": first_diverge,
-           **moe_res, **hybrid_res,
+           **moe_res, **hybrid_res, **window_res, **int8_res,
+           "init_peak_mem_gb": init_peak,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card}
     emit(res)
     if not torch.isfinite(lk).all() or (rel > LOGITS_REL_TOL and arch not in LOGITS_NOT_HELD):
         raise AssertionError(f"{arch} logits kernels on vs off: rel err {rel}")
     if hybrid_res.get("failed"):
         raise AssertionError(f"{arch} fp32 copy, kernels on vs off: {hybrid_res['failed']}")
-    phase_profile(model, prompts, card)
-    return launches
+    if int8_res.get("int8_failed"):
+        raise AssertionError(f"{arch} int8 KV cache: {int8_res['int8_failed']}")
+    phase_profile(model, prompts, card, cache_len)
+    return paths
+
+
+# the int8 KV cache's serve run: KV_QUANT_ARCH at full width and depth on
+# the paged pool with kv_quant=True, the weights and requests of its bf16
+# run; its first KV_QUANT_TICKS decode ticks' logits held to the bf16
+# pool's at the reference's bar (tests/test_kv_quant.py: rtol 0.08, atol
+# 0.15)
+KV_QUANT_ARCH = "yi-6b"
+KV_QUANT_TOL = dict(rtol=0.08, atol=0.15)
+KV_QUANT_TICKS = 4
+
+
+def pool_bytes(cache: dict) -> int:
+    """The bytes of an engine cache's KV leaves (``pos`` aside)."""
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(cache["layers"])
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def decode_tick_logits(model, prompt: np.ndarray, tokens) -> list[torch.Tensor]:
+    """The fp32 logits of ``prompt``'s first ``len(tokens)`` decode ticks
+    through a fresh engine (4 slots, the paged pool of 512 positions, the
+    request alone), tick k fed ``tokens[k]`` whatever the engine sampled,
+    so that two models' ticks read the same stream."""
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+
+    eng = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
+    seen, decode = [], eng._decode
+
+    def rec(cache, batch):
+        batch["token"][0, 0] = int(tokens[len(seen)])
+        logits, cache = decode(cache, batch)
+        seen.append(logits[0].float().clone())
+        return logits, cache
+    eng._decode = rec
+    eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=len(tokens) + 1))
+    for _ in tokens:
+        eng.step()
+    return seen
+
+
+def phase_serve_int8(model, engine, reqs: list, out: dict) -> tuple[dict, dict]:
+    """The int8 KV cache on ``model``'s weights (a view with kv_quant=True):
+    request 0's first KV_QUANT_TICKS decode ticks' logits (both fed the bf16
+    run's greedy tokens) against the bf16 pool's at KV_QUANT_TOL (prefill
+    attends over the fresh full-precision K/V and quantizes them only into
+    the cache, so its logits are the bf16 run's: the decode ticks are the
+    int8 path), the pool's bytes against the bf16
+    ``engine``'s ((hd + 4) / (2 hd) of it: int8 values and an fp32 scale a
+    head and position), and, a reading, the share of greedy tokens that
+    equal the bf16 run's ``out``.  Returns (readings, with "int8_failed"
+    naming the checks that did not hold; the run's launches)."""
+    import copy
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serve_engine import ServeEngine
+
+    mq = copy.copy(model)                    # the same Parameters
+    mq.cfg = dataclasses.replace(model.cfg, kv_quant=True)
+    p0, fed = reqs[0].prompt, out[0][:KV_QUANT_TICKS]
+    db = torch.stack(decode_tick_logits(model, p0, fed))
+    dq = torch.stack(decode_tick_logits(mq, p0, fed))
+    tol = KV_QUANT_TOL
+
+    def excess(a, b):                        # max of |a - b| - (atol + rtol |b|)
+        return float(((a - b).abs() - tol["atol"] - tol["rtol"] * b.abs()).max())
+    eng = ServeEngine(mq, n_slots=4, cache_len=512, block_size=16)
+    ops.reset_launch_counts()
+    outq = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = {k: ops.launch_counts()[k] for k in SERVE_KERNELS[KV_QUANT_ARCH]}
+    hd = model.cfg.resolved_head_dim
+    ratio = pool_bytes(eng.cache) / pool_bytes(engine.cache)
+    agree = [float(np.mean(outq[i] == out[i])) for i in sorted(out)]
+    res = {"int8_pool_bytes": pool_bytes(eng.cache), "bf16_pool_bytes": pool_bytes(engine.cache),
+           "int8_pool_ratio": ratio, "int8_pool_ratio_expected": (hd + 4) / (2 * hd),
+           "int8_decode_ticks": len(fed),
+           "int8_decode_logits_max_abs_diff_by_tick": [max_err(q, b) for q, b in zip(dq, db)],
+           "int8_decode_logits_max_abs_diff": max_err(dq, db),
+           "int8_decode_logits_excess_over_bar": excess(dq, db),
+           "int8_decode_logits_rel_range": max_err(dq, db) / float(db.abs().max()),
+           "int8_tol": tol, "int8_greedy_agree_by_request": agree,
+           "int8_greedy_agree": float(np.mean(agree)),
+           "int8_decode_tok_s": eng.n_decode_tokens / eng.decode_s,
+           "int8_launches": launches}
+    res["int8_failed"] = [name for name, bad in (
+        ("decode logits", excess(dq, db) > 0), ("ticks", len(fed) != KV_QUANT_TICKS),
+        ("pool bytes", ratio != res["int8_pool_ratio_expected"]),
+        ("not finite", not torch.isfinite(dq).all()),
+        ("launches", min(launches.values()) == 0),
+        ("tokens", sorted(outq) != sorted(out))) if bad]
+    return res, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3370,7 +3618,7 @@ def _profile(fn) -> dict:
                             for name, (ms, n) in top]}
 
 
-def phase_profile(model, prompts, card: str) -> None:
+def phase_profile(model, prompts, card: str, cache_len: int = 512) -> None:
     from repro_torch.runtime.serve_engine import Request, ServeEngine
 
     p = torch.from_numpy(prompts[0][:64].astype(np.int64))[None].cuda()
@@ -3385,7 +3633,7 @@ def phase_profile(model, prompts, card: str) -> None:
             odd["scan_device_ms"] = scan_ms
             odd["scan_share_of_busy"] = scan_ms / 1e3 / odd["device_busy_s"]
         odd = {"prefill_255_tokens": odd}
-    engine = ServeEngine(model, n_slots=4, cache_len=512, block_size=16)
+    engine = ServeEngine(model, n_slots=4, cache_len=cache_len, block_size=16)
     for i in range(4):
         engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=16))
     engine.step()                                      # 4 prefills + 1 tick
@@ -3954,6 +4202,7 @@ def phase_parallel(card: str) -> dict:
     launches = {k: ops.launch_counts()[k] for k in TRAIN_KERNELS[PARALLEL_ARCH]}
     paths = {f"{PARALLEL_ARCH} parallel": launches}
     paths.update(_comm_one_rank(card))
+    paths.update(_serve_dp_one_rank(card))
     dist.destroy_process_group()
     flops = costmodel.train_step_flops(cfg, gb, S).total
     rel0 = _rel(steps[0], single[0])
@@ -3981,6 +4230,114 @@ def phase_parallel(card: str) -> dict:
         emit({"phase": "parallel_ranks", "ran": False,
               "why": f"{torch.cuda.device_count()} card: the multi-rank branch needs 2 or more"})
     return paths
+
+
+# phase 5's dp serving over the same one-rank group: SERVE_DP_ARCH at full
+# width and TRAIN_LAYERS depth, bf16, kernels on, 8 requests over 4 slots of
+# the paged pool, meshless and then through ``ServeEngine(mesh=, plan=)``
+# (plan dp 1, ZeRO 0): every slot on the one data rank, the tick's logits
+# all-gathered and each prefill's broadcast over its group, on the same
+# kernels at the same shapes, so the tokens must be equal
+SERVE_DP_ARCH = "yi-6b"
+
+
+def _serve_dp_one_rank(card: str) -> dict:
+    from repro_torch.core.compute import ComputePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import mesh_for_plan
+    from repro_torch.models.model import Model
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = train_config(SERVE_DP_ARCH)
+    model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(3)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(rng.randint(64, 257, 8))]
+    kw = dict(n_slots=4, cache_len=512, block_size=16)
+    single = ServeEngine(model, **kw).run(reqs)
+    plan = ParallelPlan(dp=1, zero=0)
+    device = torch.device("cuda", torch.cuda.current_device())
+    engine = ServeEngine(model, **kw, mesh=mesh_for_plan(plan, device), plan=plan)
+    ops.reset_launch_counts()
+    collectives.reset_comm_bytes()
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launch_counts()[k] for k in SERVE_KERNELS[SERVE_DP_ARCH]}
+    same = [bool(np.array_equal(out[i], single[i])) for i in sorted(single)]
+    gathered = collectives.comm_bytes()["all-gather"]
+    emit({"phase": "serve_dp", "arch": cfg.name, "layers": cfg.n_layers, "backend": "nccl",
+          "ranks": 1, "plan": {"dp": 1, "zero": 0}, **kw, "requests": len(reqs),
+          "ticks": engine.n_ticks, "wall_s": wall,
+          "decode_tok_s": engine.n_decode_tokens / engine.decode_s,
+          "tokens_equal_meshless_by_request": same,
+          "logits_all_gather_bytes": gathered,
+          "logits_all_gather_bytes_expected": engine.n_ticks * 4 * cfg.vocab_size * 4,
+          "launches": launches, "card": card})
+    if not all(same) or min(launches.values()) == 0:
+        raise AssertionError(f"dp engine over one rank: tokens equal {same}, launches {launches}")
+    if gathered != engine.n_ticks * 4 * cfg.vocab_size * 4:
+        raise AssertionError(f"dp engine gathered {gathered} logits bytes")
+    del model, engine
+    torch.cuda.empty_cache()
+    return {f"{SERVE_DP_ARCH} serve dp": launches}
+
+
+def _serve_rank(rank: int, world: int, init_method: str, step0: dict | None = None) -> None:
+    """The dp engine on ``world`` nccl ranks (``tools/parallel_ranks.py
+    serve``, a host of 2-4 cards): SERVE_DP_ARCH as in ``_serve_dp_one_rank``
+    with 4 slots a rank over dp = world (ZeRO 0), 4 x world requests; every
+    rank's tokens equal a meshless 4-slot engine's (the same shapes on each
+    card, so the same kernels) and every rank holds 1/world of the pool the
+    meshless engine of all the slots holds."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core.compute import ComputePolicy
+    from repro_torch.launch.mesh import init_distributed, mesh_for_plan
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    cfg = train_config(SERVE_DP_ARCH)
+    model = Model(cfg, torch.bfloat16, compute=ComputePolicy(kernels=True), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.RandomState(3)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(rng.randint(64, 257, 4 * world))]
+    blocks = 1 + 4 * (512 // 16 + 1)
+    single = ServeEngine(model, n_slots=4, cache_len=512, block_size=16).run(reqs)
+    whole = ServeEngine(model, n_slots=4 * world, cache_len=512, block_size=16,
+                        n_blocks=world * blocks)
+    plan = ParallelPlan(dp=world, zero=0)
+    device = torch.device("cuda", torch.cuda.current_device())
+    engine = ServeEngine(model, n_slots=4 * world, cache_len=512, block_size=16,
+                         n_blocks=world * blocks, mesh=mesh_for_plan(plan, device), plan=plan)
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = [bool(np.array_equal(out[i], single[i])) for i in sorted(single)]
+    share = pool_bytes(engine.cache) / pool_bytes(whole.cache)
+    if rank == 0:
+        emit({"phase": "serve_dp_ranks", "arch": cfg.name, "layers": cfg.n_layers,
+              "ranks": world, "slots": 4 * world, "requests": len(reqs), "wall_s": wall,
+              "ticks": engine.n_ticks, "decode_tok_s": engine.n_decode_tokens / engine.decode_s,
+              "tokens_equal_4_slot_engine_by_request": same, "pool_share": share,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    dist.destroy_process_group()
+    if not all(same) or share != 1 / world:
+        raise AssertionError(f"rank {rank}: tokens equal {same}, pool share {share}")
 
 
 # phase 5's CommPlan runs over the same one-rank group: COMM_ARCH at
@@ -4693,12 +5050,14 @@ def main() -> int:
         rows[name]["cases"] += extra
     for name, extra in timed("kernels tp", lambda: phase_kernels_tp(timer)).items():
         rows[name]["cases"] += extra
+    for name, extra in timed("kernels serve", lambda: phase_kernels_serve(timer)).items():
+        rows[name]["cases"] += extra
     del timer
     torch.cuda.empty_cache()
     # each path's counts are zeroed just before it runs and read just after
     paths = {}
     for arch in SERVE_KERNELS:
-        paths[f"{arch} serve"] = timed(f"{arch} serve", lambda: phase_serve(card, arch))
+        paths.update(timed(f"{arch} serve", lambda: phase_serve(card, arch)))
     for arch in TRAIN_KERNELS:
         paths[f"{arch} train"] = timed(f"{arch} train", lambda: phase_train(card, arch))
     timed("gemm", lambda: phase_gemm(card))

@@ -24,6 +24,9 @@ schema-tagged JSONL records (``SCHEMA``, the reference's, so either side's
     took their plain versions (CPU tensors), the per-rank state bytes
     (``runtime/train_loop.py:train_state_bytes``) and the time to the
     first step, builds included;
+  * one ``request`` record per finished serving request (arrival,
+    admission, first-token and done times on the engine clock, token
+    counts, finish reason, evictions), from ``runtime/serve_engine.py``;
   * a **drift** block: the costmodel's predicted step time
     (``costmodel.predict_step``) next to the measured one, with a
     measured/predicted ratio and a rolling-window summary
@@ -31,7 +34,7 @@ schema-tagged JSONL records (``SCHEMA``, the reference's, so either side's
 
 Every record goes through :func:`sanitize_record` and
 :func:`validate_record`.  ``launch/train.py --log-jsonl`` writes the
-stream, ``analysis/report.py --telemetry`` renders it, and
+stream (``launch/serve.py --log-jsonl`` the request records), ``analysis/report.py --telemetry`` renders it, and
 ``analysis/trace.py`` draws the pipeline timeline of the same run.
 """
 from __future__ import annotations
@@ -64,6 +67,13 @@ _COMPILE_KEYS = frozenset({
     "schema", "kind", "arch", "family", "plan", "global_batch", "seq_len",
     "devices", "backend", "kernels_interpret_mode", "machine", "peak_flops",
     "flops_per_step", "predicted",
+})
+# per-request serving records (runtime/serve_engine.py emits one per
+# finished request; launch/serve.py --log-jsonl writes them)
+_REQUEST_KEYS = frozenset({
+    "schema", "kind", "rid", "arch", "t_arrival", "t_admit",
+    "t_first_token", "t_done", "n_prompt", "n_generated", "finish_reason",
+    "evictions",
 })
 
 
@@ -375,10 +385,18 @@ def validate_record(rec: Mapping[str, Any]) -> None:
         missing = _STEP_KEYS - rec.keys()
     elif kind == "compile":
         missing = _COMPILE_KEYS - rec.keys()
+    elif kind == "request":
+        missing = _REQUEST_KEYS - rec.keys()
     else:
         raise ValueError(f"unknown record kind {kind!r}")
     if missing:
         raise ValueError(f"{kind} record missing keys: {sorted(missing)}")
+    if kind == "request":
+        if rec["n_generated"] < 0 or rec["n_prompt"] <= 0:
+            raise ValueError("request record with non-positive token counts")
+        t = [rec["t_arrival"], rec["t_admit"], rec["t_first_token"], rec["t_done"]]
+        if any(x is None for x in t) or not all(a <= b + 1e-9 for a, b in zip(t, t[1:])):
+            raise ValueError(f"request timestamps not monotone: {t}")
     if kind == "step":
         d = rec["drift"]
         for k in ("step_time_ratio", "rolling_ratio", "warn", "threshold"):
@@ -394,8 +412,8 @@ def validate_record(rec: Mapping[str, Any]) -> None:
 
 def validate_jsonl(path: str, *, require_step: bool = True) -> list[dict]:
     """Parse and validate a telemetry JSONL file; returns the records.  By
-    default at least one step record is required (a run that never stepped
-    is not a telemetry artifact)."""
+    default at least one step or request record is required (a run that
+    never stepped or finished a request is not a telemetry artifact)."""
     records = []
     with open(path) as f:
         for i, line in enumerate(f):
@@ -408,6 +426,6 @@ def validate_jsonl(path: str, *, require_step: bool = True) -> list[dict]:
                 raise ValueError(f"{path}:{i + 1}: not JSON: {e}") from e
             validate_record(rec)
             records.append(rec)
-    if require_step and not any(r["kind"] == "step" for r in records):
-        raise ValueError(f"{path}: no step records")
+    if require_step and not any(r["kind"] in ("step", "request") for r in records):
+        raise ValueError(f"{path}: no step or request records")
     return records

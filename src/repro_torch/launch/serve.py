@@ -9,10 +9,21 @@ TTFT percentiles and goodput.  Runs on the card unless ``--device cpu``.
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
       --device cpu --dtype fp32 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+      --cache-len 8192               # a 4096-position sliding-window ring a slot
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --kv-quant
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch yi-6b --reduced --device cpu --dp 2 --log-jsonl build/serve.jsonl
+
+``--kv-quant`` serves from the int8 KV cache; ``--dp N`` (under a launcher of
+N processes) serves data-parallel slots, each rank holding its slots'
+cache; ``--log-jsonl`` appends one telemetry ``request`` record per finished
+request (rank 0's).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -21,6 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ASSIGNED, PAPER, get_config
 from repro_torch.core.compute import ComputePolicy
+from repro_torch.core.telemetry import JsonlSink
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_engine import Request, ServeEngine
 
@@ -84,7 +96,12 @@ def main() -> None:
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--static", action="store_true",
                     help="static-batch baseline (no slot refill mid-flight)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel slots over a dp-way mesh (a launcher of dp "
+                         "processes)")
+    ap.add_argument("--kv-quant", action="store_true", help="the int8 KV cache")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-jsonl", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                     help="default: bf16 on the card, fp32 on the CPU")
@@ -99,12 +116,30 @@ def main() -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    mesh = plan = None
+    rank = 0
+    if args.dp > 1:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed, mesh_for_plan
+        from repro_torch.runtime.train_loop import ParallelPlan
+
+        init_distributed(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        plan = ParallelPlan(dp=args.dp, zero=0)
+        mesh = mesh_for_plan(plan, device)
+        rank = dist.get_rank()
     model = Model(cfg, dtype, compute=ComputePolicy(kernels=args.kernels),
                   device=device)
     model.init(torch.Generator(device=device).manual_seed(args.seed))
 
+    sink = JsonlSink(args.log_jsonl) if args.log_jsonl and rank == 0 else None
     engine = ServeEngine(model, n_slots=args.n_slots, cache_len=args.cache_len,
-                         block_size=args.block_size, continuous=not args.static)
+                         block_size=args.block_size, continuous=not args.static,
+                         mesh=mesh, plan=plan, telemetry_sink=sink)
     reqs = synthetic_requests(
         cfg, args.requests, rate=args.rate, prompt_lens=(4, args.cache_len // 4),
         max_new=(2, args.max_new), temperature=args.temperature,
@@ -113,11 +148,20 @@ def main() -> None:
     mode = "static" if args.static else "continuous"
     cache = (f"paged pool: {engine.n_blocks}x{engine.block_size} blocks" if engine.paged
              else f"slot-swap cache: {args.n_slots}x{args.cache_len} positions")
-    print(f"{cfg.name} [{cfg.family}] {mode} batching, {args.n_slots} slots, {cache}, "
-          f"{device} {str(dtype).removeprefix('torch.')}, kernels={args.kernels}")
+    quant = ", int8 KV" if cfg.kv_quant else ""
+    if rank == 0:
+        print(f"{cfg.name} [{cfg.family}] {mode} batching, {args.n_slots} slots "
+              f"over dp={args.dp}, {cache}{quant}, {device.type} "
+              f"{str(dtype).removeprefix('torch.')}, kernels={args.kernels}")
     t0 = time.monotonic()
     engine.run(reqs)
     wall = time.monotonic() - t0
+    if sink is not None:
+        sink.close()
+    if mesh is not None:
+        dist.destroy_process_group()
+    if rank != 0:
+        return
     s = summarize(engine.records)
     print(f"{s['n_requests']} requests, {s['completed_tokens']} tokens in "
           f"{wall:.2f}s wall ({engine.n_ticks} decode ticks, "
@@ -126,6 +170,8 @@ def main() -> None:
           f"{s['latency_p50_s'] * 1e3:.0f} ms p99 "
           f"{s['latency_p99_s'] * 1e3:.0f} ms | ttft p50 "
           f"{s['ttft_p50_s'] * 1e3:.0f} ms p99 {s['ttft_p99_s'] * 1e3:.0f} ms")
+    if sink is not None:
+        print(f"request records -> {args.log_jsonl}")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ MLP block, and ``segment_body``, the layer body of the training stack.
 Under ``policy.kernels`` every RMSNorm or LayerNorm and every SwiGLU gate or
 GELU input half runs in its CUDA kernel, in training, prefill and decode,
 and full-sequence attention runs in the flash kernels (forward and
-backward); decode attention over the cache stays plain PyTorch.
+backward); decode attention over the cache stays plain PyTorch, as does
+the int8 KV cache's quantizer (``layers.kv_quantize``; the reference's is
+jnp, with no Pallas body).
 
 ``tp`` (a model-group process group, training only) runs a block on the
 rank's Megatron shards: column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3``
@@ -103,12 +105,11 @@ def self_attn_decode(params: dict, x: torch.Tensor, cache: dict,
                      policy: ComputePolicy | None = None,
                      active: torch.Tensor | None = None):
     """One-token cached attention; ``cache`` = {"k", "v"} of (B, C, Hkv, hd)
-    (C may be a ring) is written in place.  ``pos`` is a scalar (lockstep
-    batch) or a (B,) vector (a position per slot); the rows of slots that
-    ``active`` (B,) marks inactive are left as they were."""
+    (C may be a ring; an int8 cache adds the (B, C, Hkv) "k_scale" and
+    "v_scale") is written in place.  ``pos`` is a scalar (lockstep batch) or
+    a (B,) vector (a position per slot); the rows of slots that ``active``
+    (B,) marks inactive are left as they were."""
     pol = resolve_policy(policy)
-    if "k_scale" in cache:
-        raise NotImplementedError("kv_quant caches are not ported yet (ROADMAP.md)")
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
     q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
@@ -119,19 +120,30 @@ def self_attn_decode(params: dict, x: torch.Tensor, cache: dict,
         k = layers.apply_rope(k, p, cfg.rope_theta)
     clen = cache["k"].shape[1]
     slot = torch.remainder(pos, clen)
-    ck, cv = layers.cache_update(cache["k"], cache["v"], k, v, slot, active)
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = layers.kv_quantize(k), layers.kv_quantize(v)
+        ck, cv = layers.cache_update(cache["k"], cache["v"], kq, vq, slot, active)
+        cks, cvs = layers.cache_update(cache["k_scale"], cache["v_scale"], ks, vs, slot,
+                                       active)
+        k_att = layers.kv_dequantize(ck, cks, q.dtype)
+        v_att = layers.kv_dequantize(cv, cvs, q.dtype)
+        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
+    else:
+        ck, cv = layers.cache_update(cache["k"], cache["v"], k, v, slot, active)
+        k_att, v_att = ck.to(q.dtype), cv.to(q.dtype)
+        new_cache = {"k": ck, "v": cv}
     # absolute position held by each ring slot (negative = not yet written)
     slots = torch.arange(clen, device=x.device)
     if batched:
         kv_positions = pos[:, None] - torch.remainder(pos[:, None] - slots[None, :], clen)
     else:
         kv_positions = pos - torch.remainder(pos - slots, clen)
-    out = layers.attention(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
+    out = layers.attention(q, k_att, v_att, causal=True,
                            q_offset=pos, sliding_window=cfg.sliding_window,
                            softcap=cfg.attn_logit_softcap,
                            kv_positions=kv_positions)
     out = x + out.reshape(x.shape[0], 1, -1) @ params["wo"]
-    return out, {"k": ck, "v": cv}
+    return out, new_cache
 
 
 def paged_attn_decode(params: dict, x: torch.Tensor, cache: dict,
@@ -143,13 +155,12 @@ def paged_attn_decode(params: dict, x: torch.Tensor, cache: dict,
     logical block j (positions [j*bs, (j+1)*bs)) to a physical block.  The
     new token's KV is written into the pool in place before the gather, so
     position ``pos`` itself is attended; inactive slots write to block 0,
-    the reserved garbage block."""
+    the reserved garbage block.  An int8 pool's "k_scale" and "v_scale"
+    blocks (n_blocks, bs, Hkv) take the new token's scales the same way."""
     pol = resolve_policy(policy)
     if cfg.sliding_window is not None:
         raise ValueError("paged KV pool serves full-attention caches; "
                          "SWA rings are fixed-size (whole-slot swap)")
-    if "k_scale" in cache:
-        raise NotImplementedError("kv_quant caches are not ported yet (ROADMAP.md)")
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
     q, k, v = _project_qkv(params, h, h, cfg, pol.kernels)
@@ -164,17 +175,28 @@ def paged_attn_decode(params: dict, x: torch.Tensor, cache: dict,
     if active is not None:
         phys = torch.where(active, phys, 0)
     off = torch.remainder(pos, bs).long()
-    ck[phys, off] = k[:, 0].to(ck.dtype)
-    cv[phys, off] = v[:, 0].to(cv.dtype)
     skv = block_table.shape[1] * bs
     bt = block_table.long()
-    gk = ck[bt].reshape(B, skv, *ck.shape[2:]).to(q.dtype)
-    gv = cv[bt].reshape(B, skv, *cv.shape[2:]).to(q.dtype)
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = layers.kv_quantize(k), layers.kv_quantize(v)
+        cks, cvs = cache["k_scale"], cache["v_scale"]
+        ck[phys, off], cv[phys, off] = kq[:, 0], vq[:, 0]
+        cks[phys, off], cvs[phys, off] = ks[:, 0], vs[:, 0]
+        new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs}
+        gk = layers.kv_dequantize(ck[bt], cks[bt], q.dtype)
+        gv = layers.kv_dequantize(cv[bt], cvs[bt], q.dtype)
+    else:
+        ck[phys, off] = k[:, 0].to(ck.dtype)
+        cv[phys, off] = v[:, 0].to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        gk, gv = ck[bt].to(q.dtype), cv[bt].to(q.dtype)
+    gk = gk.reshape(B, skv, *ck.shape[2:])
+    gv = gv.reshape(B, skv, *cv.shape[2:])
     out = layers.attention(q, gk, gv, causal=True, q_offset=pos,
                            softcap=cfg.attn_logit_softcap,
                            kv_positions=torch.arange(skv, device=x.device))
     out = x + out.reshape(B, 1, -1) @ params["wo"]
-    return out, {"k": ck, "v": cv}
+    return out, new_cache
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:

@@ -54,16 +54,33 @@ def param_count(specs: Any) -> int:
     return int(sum(np.prod(s.shape) for _, s in flatten_specs(specs)))
 
 
+# the most elements a leaf draws in one fp32 piece: a larger leaf draws one
+# slice of its leading dims at a time into its storage dtype, so the
+# transient fp32 buffer stays at 4 GiB (qwen3-32b's stacked (64, 5120,
+# 25600) MLP leaf would take 33.5 GB whole); smaller leaves draw whole, as
+# they always did
+INIT_PIECE = 1 << 30
+
+
+def _pieces(shape: tuple[int, ...]) -> int:
+    """How many leading dims :func:`init_leaf` iterates over: the fewest
+    that bring a piece under ``INIT_PIECE`` elements."""
+    k = 0
+    while k < len(shape) - 1 and int(np.prod(shape[k:])) > INIT_PIECE:
+        k += 1
+    return k
+
+
 def init_leaf(spec: Spec, generator: torch.Generator | None,
-              device: torch.device | str, dtype: torch.dtype) -> torch.Tensor:
+              device: torch.device | str, dtype: torch.dtype,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """The init rules of ``repro/models/common.py:_init_leaf``: fan-in std
     on the second-to-last dim, ``ones``, ``zeros`` and ``embed`` (std 1).
-    The draws come from ``generator`` (torch's stream, not Threefry)."""
+    The draws come from ``generator`` (torch's stream, not Threefry), in
+    fp32, whole or (past ``INIT_PIECE`` elements) a slice of the leading
+    dims at a time, each cast to the storage dtype.  ``out``, if given,
+    takes the leaf in place (a tensor of its shape)."""
     dtype = spec.dtype or dtype
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
     if spec.init in ("normal", "embed", "scaled"):
         if spec.scale is not None:
             std = spec.scale
@@ -72,14 +89,25 @@ def init_leaf(spec: Spec, generator: torch.Generator | None,
         else:
             fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
             std = 1.0 / np.sqrt(max(fan_in, 1))
-        x = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(std).to(dtype)
+        k = _pieces(spec.shape)
+        if out is None:
+            out = torch.empty(spec.shape, dtype=dtype, device=device)
+        for idx in np.ndindex(*spec.shape[:k]):
+            x = torch.randn(spec.shape[k:], generator=generator, device=device,
+                            dtype=torch.float32)
+            out[idx].copy_(x.mul_(std))
+        return out
+    if spec.init == "zeros":
+        return (torch.zeros(spec.shape, dtype=dtype, device=device) if out is None
+                else out.zero_())
+    if spec.init == "ones":
+        return (torch.ones(spec.shape, dtype=dtype, device=device) if out is None
+                else out.fill_(1))
     if spec.init == "arange_neg":
         n = spec.shape[-1] if spec.shape else 1
         base = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
-                                      device=device))
-        return base.expand(spec.shape).to(dtype).clone()
+                                      device=device)).expand(spec.shape)
+        return base.to(dtype).clone() if out is None else out.copy_(base)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

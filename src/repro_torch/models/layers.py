@@ -195,8 +195,9 @@ def mlp(x: torch.Tensor, params: dict, act: str, use_kernel: bool = False) -> to
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, pos: torch.Tensor,
                  active: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write (B, 1, Hkv, hd) new KV at position ``pos`` of (B, S, Hkv, hd),
-    in place.  ``pos`` is a scalar (whole-batch decode) or a (B,) vector
+    """Write (B, 1, ...) new entries at position ``pos`` of (B, S, ...)
+    caches, in place: the KV (B, S, Hkv, hd), or an int8 cache's scales
+    (B, S, Hkv).  ``pos`` is a scalar (whole-batch decode) or a (B,) vector
     (every slot writes its own position); an ``active`` (B,) mask keeps the
     entries of inactive slots as they were."""
     b = torch.arange(cache_k.shape[0], device=cache_k.device)
@@ -204,6 +205,25 @@ def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor, k: torch.Tensor,
     for cache, new in ((cache_k, k), (cache_v, v)):
         new = new[:, 0].to(cache.dtype)
         if active is not None:
-            new = torch.where(active[:, None, None], new, cache[b, p])
+            keep = active.reshape(-1, *([1] * (new.ndim - 1)))
+            new = torch.where(keep, new, cache[b, p])
         cache[b, p] = new
     return cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization (per-token, per-head absmax scales)
+# ---------------------------------------------------------------------------
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., hd) -> (int8 values, fp32 scale over the trailing dim), the
+    rule of ``repro/models/layers.py:kv_quantize``: absmax / 127 with a
+    1e-8 floor, round half to even, clip to +-127."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None].float()).to(dtype)

@@ -14,7 +14,10 @@
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``, or ``active`` alone for a
     slot-swap cache (the hybrid and rwkv families' fixed-size state)
-  * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``
+  * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``: a
+    sliding-window config's KV is a ring of ``min(cache_len, window)``
+    positions (slot-swapped, never paged); under ``kv_quant`` every KV leaf
+    is int8 beside fp32 per-token, per-head scales
 
 Weights keep the JAX layout (``x @ W`` with W (d_in, d_out), per-layer
 leaves stacked on a leading ``L`` dim).  They are stored in ``dtype`` (fp32
@@ -197,10 +200,6 @@ def check_supported(cfg: ModelConfig) -> None:
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
     if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f"sliding-window ring caches {where}")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"the int8 KV cache {where}")
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"pos={cfg.pos!r} {where}")
 
@@ -367,10 +366,14 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None) -> "Model":
         """Draw every weight with the JAX package's init rules, leaf by leaf
-        in state_dict order, from ``generator`` (on the model's device); a
-        sharded model draws each leaf whole and keeps its block."""
+        in state_dict order, from ``generator`` (on the model's device),
+        into the Parameters themselves; a sharded model draws each leaf
+        whole and keeps its block."""
         params = dict(self.named_parameters())
         for path, spec in flatten_specs(self.param_specs()):
+            if self.shardings is None:
+                init_leaf(spec, generator, self.device, self.dtype, out=params[path])
+                continue
             leaf = init_leaf(spec, generator, self.device, self.dtype)
             params[path].copy_(leaf[shd.outer(self.block_of(path, spec.shape))])
         return self
@@ -388,7 +391,9 @@ class Model(nn.Module):
         if self.shardings is not None and any(shd.spec_axes(s)
                                                for s in self.shardings.values()):
             raise NotImplementedError(f"{what} of a sharded model (tp, pp or ZeRO-3) is not "
-                                      "ported yet (see ROADMAP.md, Queue 1: serving on a mesh)")
+                                      "ported yet (see ROADMAP.md, Queue 1: tp, pp and ZeRO "
+                                      "serving); dp slots serve a replicated model "
+                                      "(ServeEngine(mesh=, plan=))")
 
     def _uses(self, tree: dict, prefix: str = "", stacked: bool = False) -> dict:
         """``tree`` (stored leaves, or one layer's views of the stacked
@@ -445,16 +450,30 @@ class Model(nn.Module):
     def paged_cacheable(self) -> bool:
         return self.cfg.family in ("dense", "moe") and self.cfg.sliding_window is None
 
+    def _attn_cache_len(self, cache_len: int) -> int:
+        """The KV positions a cache of ``cache_len`` holds: a sliding
+        window's ring keeps the last ``window`` only."""
+        if self.cfg.sliding_window is not None:
+            return min(cache_len, self.cfg.sliding_window)
+        return cache_len
+
     def _kv_specs(self, lead: tuple[int, ...], axes: tuple[str, ...]) -> dict:
         """The KV leaves of every attention layer, stacked like the weights:
         flat (n_layers, ...); for moe with ``moe_every > 1`` per unit
         {"moe_kv": (n_stack, ...), "dense": (n_stack, moe_every - 1, ...)};
-        for hybrid one per application of the shared block (n_super, ...)."""
+        for hybrid one per application of the shared block (n_super, ...).
+        Under ``kv_quant`` "k" and "v" are int8 and "k_scale" / "v_scale"
+        hold their fp32 scales (``lead`` + (Hkv,))."""
         cfg = self.cfg
         shape = (*lead, cfg.n_kv_heads, cfg.resolved_head_dim)
         full_axes = (*axes, "cache_heads", "head_dim")
-        kv = {"k": Spec(shape, full_axes, init="zeros"),
-              "v": Spec(shape, full_axes, init="zeros")}
+        dt = torch.int8 if cfg.kv_quant else None
+        kv = {"k": Spec(shape, full_axes, init="zeros", dtype=dt),
+              "v": Spec(shape, full_axes, init="zeros", dtype=dt)}
+        if cfg.kv_quant:
+            for name in ("k_scale", "v_scale"):
+                kv[name] = Spec(shape[:-1], full_axes[:-1], init="zeros",
+                                dtype=torch.float32)
         if cfg.family == "moe" and cfg.moe_every > 1:
             unit = {"moe_kv": kv, "dense": stack_specs(kv, cfg.moe_every - 1)}
             return stack_specs(unit, _n_stack(cfg))
@@ -492,7 +511,8 @@ class Model(nn.Module):
         if cfg.family == "rwkv":
             return {"pos": pos,
                     "layers": stack_specs(rwkv.rwkv_cache_specs(cfg, batch), cfg.n_layers)}
-        kv = self._kv_specs((batch, cache_len), ("cache_batch", "cache_seq"))
+        kv = self._kv_specs((batch, self._attn_cache_len(cache_len)),
+                            ("cache_batch", "cache_seq"))
         specs = {"pos": pos, "layers": kv}
         if cfg.family == "hybrid":
             specs["layers"] = stack_specs(ssm.mamba_cache_specs(cfg, batch), cfg.n_layers)
@@ -502,7 +522,13 @@ class Model(nn.Module):
     def paged_cache_specs(self, n_slots: int, n_blocks: int, block_size: int) -> dict:
         """The KV pool of the serve engine: ``n_blocks`` physical blocks of
         ``block_size`` positions shared by the slots through a block table;
-        ``pos`` is a per-slot vector."""
+        ``pos`` is a per-slot vector.  Only full-attention KV pages: a
+        sliding window's ring (and the recurrent families' state) is
+        slot-swapped instead."""
+        if not self.paged_cacheable:
+            raise ValueError(f"{self.cfg.family} (sliding_window={self.cfg.sliding_window}) "
+                             "has a fixed-size cache; paged pools serve full-attention KV "
+                             "families only")
         return {"pos": Spec((n_slots,), ("cache_batch",), init="zeros",
                             dtype=torch.int32),
                 "layers": self._kv_specs((n_blocks, block_size),
@@ -726,14 +752,14 @@ class Model(nn.Module):
         elif cfg.family == "rwkv":
             x, cache["layers"] = self._prefill_rwkv(params, x)
         else:
-            kv = init_params(self._kv_specs((B, cache_len), ("cache_batch", "cache_seq")),
+            clen = self._attn_cache_len(cache_len)
+            kv = init_params(self._kv_specs((B, clen), ("cache_batch", "cache_seq")),
                              None, self.device, self.compute_dtype)
             for ap, kvc, ffn in self._attn_layers(params["layers"], kv):
                 x, k, v = blocks.self_attn_block(ap, x, cfg, causal=True,
                                                  return_kv=True, policy=self.compute)
                 x = ffn(x)
-                kvc["k"].copy_(_ring_place(k, cache_len, total))
-                kvc["v"].copy_(_ring_place(v, cache_len, total))
+                _kv_into_cache(kvc, k, v, clen, total)
             cache["layers"] = kv
         last = x[:, -1] if total is None else x[torch.arange(B, device=x.device),
                                                total.long() - 1]
@@ -763,9 +789,8 @@ class Model(nn.Module):
                 x, k, v = blocks.self_attn_block(shared["attn"], x, cfg, causal=True,
                                                  return_kv=True, policy=pol)
                 x = blocks.mlp_block(shared["mlp"], x, cfg, policy=pol)
-                kvc = _layer(cache["shared"], i // per)
-                kvc["k"].copy_(_ring_place(k, cache_len, total))
-                kvc["v"].copy_(_ring_place(v, cache_len, total))
+                _kv_into_cache(_layer(cache["shared"], i // per), k, v,
+                               self._attn_cache_len(cache_len), total)
             if layer_hook is not None:
                 layer_hook(i, x)
         return x, cache
@@ -887,6 +912,21 @@ def _ring_place(x: torch.Tensor, clen: int,
     gathered = x[torch.arange(B, device=x.device)[:, None], t.clamp(0, S - 1)]
     keep = (t >= 0).reshape(B, clen, *([1] * (x.ndim - 2)))
     return torch.where(keep, gathered, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _kv_into_cache(kvc: dict, k: torch.Tensor, v: torch.Tensor, clen: int,
+                   lens: torch.Tensor | None) -> None:
+    """Place a prompt's K and V (B, S, Hkv, hd) into one layer's cache
+    leaves (views) by :func:`_ring_place`; an int8 cache (``k_scale`` among
+    them) takes them quantized, with their scales
+    (``repro/models/model.py:_kv_into_cache``)."""
+    if "k_scale" in kvc:
+        (kq, ks), (vq, vs) = layers.kv_quantize(k), layers.kv_quantize(v)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k, "v": v}
+    for name, t in new.items():
+        kvc[name].copy_(_ring_place(t, clen, lens))
 
 
 def _chunked_cross_entropy(h: torch.Tensor, W: torch.Tensor, labels: torch.Tensor,

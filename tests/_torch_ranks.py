@@ -7,6 +7,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
@@ -140,6 +141,49 @@ def split_norm_check(model: Model, plan: ParallelPlan) -> dict:
             "whole": [t.detach().numpy() for t in (ref, whole[0].grad, whole[1].grad)]}
 
 
+# the serve engine jobs: 4 slots, 5 requests (a refill on each rank)
+SERVE = dict(n_slots=4, cache_len=32, block_size=4)
+SERVE_PROMPTS = (5, 9, 7, 12, 6)
+SERVE_NEW = 6
+SERVE_SKEW = 0.05
+
+
+def serve_prompts(vocab: int) -> list[np.ndarray]:
+    return [np.random.RandomState(70 + i).randint(0, vocab, n).astype(np.int32)
+            for i, n in enumerate(SERVE_PROMPTS)]
+
+
+def serve_engine(arch: str, overrides: dict, weights: dict, mesh=None,
+                 plan: ParallelPlan | None = None, stagger: float = 0.0) -> dict:
+    """The port's ServeEngine on ``weights`` (one device, or this rank's
+    share of dp slots under ``mesh``/``plan``) over :func:`serve_prompts`,
+    request i arriving at ``i * stagger`` seconds: {"tokens": {rid: ids},
+    "cache_bytes": the bytes of this rank's cache, "paged"}.  A paged pool
+    has 2 (1 + 2 max_blocks) blocks, which split over 2 ranks.  With
+    staggered arrivals under a mesh, rank r starts its engine clock
+    ``r * SERVE_SKEW`` seconds after rank 0, so that the ranks' clocks
+    disagree on which requests have arrived."""
+    from repro_torch.runtime.serve_engine import Request, ServeEngine
+
+    cfg = config(arch, overrides)
+    model = Model(cfg, torch.float32, device="cpu")
+    model.load_state_dict(from_jax_params(weights, model))
+    n_blocks = 2 * (1 + 2 * (SERVE["cache_len"] // SERVE["block_size"] + 1))
+    eng = ServeEngine(model, **SERVE, n_blocks=n_blocks, mesh=mesh, plan=plan)
+    if mesh is not None and stagger:
+        time.sleep(dist.get_rank() * SERVE_SKEW)
+    out = eng.run([Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW, arrival=i * stagger)
+                   for i, p in enumerate(serve_prompts(cfg.vocab_size))])
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+    walk(eng.cache)
+    return {"tokens": {k: v.tolist() for k, v in out.items()}, "paged": eng.paged,
+            "cache_bytes": sum(t.numel() * t.element_size() for t in leaves)}
+
+
 def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out: str):
     torch.set_num_threads(1)
     # a rank that fails mid-collective leaves the others waiting: time out
@@ -151,6 +195,11 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             plan = ParallelPlan(**job["plan"])
             cfg = config(job["arch"], job["overrides"])
             mesh = mesh_for_plan(plan, torch.device("cpu"))
+            if job.get("serve"):
+                results.setdefault(job["name"], {})[rank] = serve_engine(
+                    job["arch"], job["overrides"], weights[job["weights"]], mesh, plan,
+                    job.get("stagger", 0.0))
+                continue
             model = build_model(cfg, plan, mesh)
             coord = {a: model.mesh.coord[a] for a in ("node", "pipe", "data", "expert", "model")}
             model.load_state_dict(from_jax_params(

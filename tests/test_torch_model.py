@@ -5,7 +5,10 @@ and a per-slot ``pos``, and decode over a paged KV pool.  yi-6b reduced with
 kernels off and on (on the CPU the port's kernels take their plain versions,
 the JAX package's run in interpret mode), and gpt-1.4b reduced for its
 LayerNorm, GELU and MHA layers: kernels off, and kernels on at gpt-1.4b's
-head dim 88.  fp32 throughout."""
+head dim 88.  qwen3-32b (qk-norm; also at head dim 128, where its 4 heads
+of 128 are wider than d 256, as 64 x 128 > 5120 at full width) and
+phi4-mini-3.8b reduced, kernels off and on: prefill logits, 3 decode steps
+and the loss.  fp32 throughout."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -151,3 +154,29 @@ def test_gpt_hd88_kernels_match_jax():
     jm, jp, tm = build("gpt-1.4b", True, **GPT_HD88)
     assert tm.cfg.resolved_head_dim == 88 and tm.cfg.n_kv_heads == tm.cfg.n_heads
     _gpt_prefill_decode(jm, jp, tm)
+
+
+# qwen3-32b and phi4-mini-3.8b: the dense configs beside yi-6b and gpt-1.4b
+DENSE = [("qwen3-32b", {}), ("qwen3-32b", dict(head_dim=128)), ("phi4-mini-3.8b", {})]
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("arch,overrides", DENSE, ids=["qwen3", "qwen3_hd128", "phi4"])
+def test_dense_config_matches_jax(arch, overrides, kernels):
+    """Prefill logits, 3 decode steps and the loss against the JAX Model."""
+    jm, jp, tm = build(arch, kernels, **overrides)
+    assert tm.cfg.qk_norm == (arch == "qwen3-32b")
+    toks = _tokens(4, 2, 12, tm.cfg.vocab_size)
+    (lj, cj), (lt, ct) = _prefill_both(jm, jp, tm, toks, 16)
+    _close(lj, lt)
+    step = jax.jit(jm.decode_step)
+    for i in range(3):
+        tok = _tokens(40 + i, 2, 1, tm.cfg.vocab_size)
+        lj, cj = step(jp, cj, {"token": jnp.asarray(tok)})
+        lt, ct = tm.decode_step(ct, {"token": torch.from_numpy(tok)})
+        _close(lj, lt)
+    batch = _tokens(5, 2, 24, tm.cfg.vocab_size)
+    lj, _ = jm.loss(jp, {"tokens": jnp.asarray(batch)})
+    with torch.no_grad():
+        lt, _ = tm.loss({"tokens": torch.from_numpy(batch)})
+    np.testing.assert_allclose(float(lt), float(lj), **TOL)

@@ -13,16 +13,30 @@ its plain path (their Pallas bodies' interpret mode is held to the port in
 tests/test_torch_ssm.py and tests/test_torch_wkv.py).  ZeRO 3 also runs
 under remat selective (kernels off and on) and none, held to the same
 bars, and the collectives' byte counters of the ZeRO 3 runs are held to
-``costmodel.predict_comm_bytes`` of the same shapes and specs.  Two ranks
-run every plan in one spawn."""
+``costmodel.predict_comm_bytes`` of the same shapes and specs.  The serve
+engine's dp slots (``ServeEngine(mesh=, plan=)``, plan dp = 2, ZeRO 0) for
+yi-6b reduced (the paged pool), rwkv6-1.6b reduced (slot state) and
+h2o-danube-1.8b reduced with the int8 cache (its ring), and yi-6b again
+with arrivals 20 ms apart and the ranks' clocks 50 ms apart (admission on
+data rank 0's clock): each rank's tokens
+equal the single-device engine's and the JAX package's greedy streams, and
+each rank holds half the single-device cache.  Two ranks run every plan in
+one spawn."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import _torch_jax_ref
 import _torch_ranks as ranks
+from repro.configs import get_config as jax_get_config
+from repro.models.model import Model as JaxModel
+from repro.runtime.serve_loop import greedy_generate as jax_greedy_generate
 from repro_torch.core import commplan, costmodel
-from repro_torch.interop import gather_params
+from repro_torch.interop import flatten_tree, gather_params
 from repro_torch.models.common import flatten_specs
 from repro_torch.models.model import param_specs
 from repro_torch.runtime.train_loop import ParallelPlan, plan_state_shardings
@@ -32,6 +46,32 @@ torch.set_num_threads(1)
 RTOL_PLANS, RTOL_REF = 1e-5, 1e-4
 STAGES = (0, 1, 2, 3)
 RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
+# the dp = 2 serve jobs: name -> (arch, .reduced() overrides, weights,
+# seconds between arrivals).  Staggered arrivals land between ticks, and
+# the ranks' clocks differ by ranks.SERVE_SKEW, so they would admit
+# different requests unless they agree on admission.
+SERVE = {"yi paged": ("yi-6b", ranks.YI, "yi", 0.0),
+         "yi paged staggered": ("yi-6b", ranks.YI, "yi", 0.02),
+         "rwkv6 slots": ("rwkv6-1.6b", RECURRENT["rwkv6-1.6b"], "rwkv6-1.6b", 0.0),
+         "danube int8 ring": ("h2o-danube-1.8b", dict(kv_quant=True), "danube", 0.0)}
+
+
+def _jax_greedy(arch: str, overrides: dict, weights: dict) -> dict:
+    """The JAX package's greedy stream of each serve prompt on ``weights``."""
+    jm = JaxModel(jax_get_config(arch).reduced(**overrides), jnp.float32)
+    jp = jm.init(jax.random.PRNGKey(0))
+    assert flatten_tree(jax.tree.map(np.asarray, jp)).keys() == weights.keys()
+    jp = jax.tree.map(lambda _, k: jnp.asarray(weights[k]), jp, _paths(jp))
+    return {i: np.asarray(jax_greedy_generate(jm, jp, jnp.asarray(p)[None], ranks.SERVE_NEW,
+                                              ranks.SERVE["cache_len"]))[0].tolist()
+            for i, p in enumerate(ranks.serve_prompts(jm.cfg.vocab_size))}
+
+
+def _paths(tree, prefix=""):
+    """``tree`` with each leaf replaced by its dotted path."""
+    if not isinstance(tree, dict):
+        return prefix
+    return {k: _paths(v, f"{prefix}.{k}" if prefix else k) for k, v in tree.items()}
 
 
 def _plan(**kw):
@@ -56,11 +96,23 @@ def runs(tmp_path_factory):
                      "plan": _plan(dp=2, zero=3, kernels=True)})
     jobs.append({"name": "fp16", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
                  "plan": dict(dp=2, zero=3, gas=2, precision="fp16"), "steps": 1})
+    jd = JaxModel(dataclasses.replace(jax_get_config("h2o-danube-1.8b").reduced(),
+                                      kv_quant=True), jnp.float32)
+    weights["danube"] = flatten_tree(jax.tree.map(np.asarray, jd.init(jax.random.PRNGKey(0))))
+    serve = {}
+    jax_greedy = {}
+    for name, (arch, ov, w, stagger) in SERVE.items():
+        if w not in jax_greedy:
+            jax_greedy[w] = _jax_greedy(arch, ov, weights[w])
+        serve[name] = {"single": ranks.serve_engine(arch, ov, weights[w], stagger=stagger),
+                       "jax": jax_greedy[w]}
+        jobs.append({"name": name, "arch": arch, "overrides": ov, "weights": w,
+                     "plan": dict(dp=2, zero=0), "serve": True, "stagger": stagger})
     res = ranks.run_ranks(2, jobs, weights, str(tmp_path_factory.mktemp("ranks")))
     for name, by_rank in res.items():
         for r, v in by_rank.items():
             assert "error" not in v, (name, r, v.get("error"))
-    return {"ref": ref, "single": single, "ranks": res}
+    return {"ref": ref, "single": single, "ranks": res, "serve": serve}
 
 
 def _losses(traj):
@@ -162,3 +214,17 @@ def test_zero3_gather_bytes_equal_the_costmodel(runs, remat):
             assert step["zero3_gather"] == want
             assert step["reduce-scatter"] > 0 and step["total"] == sum(
                 v for k, v in step.items() if k != "total")
+
+
+@pytest.mark.parametrize("name", sorted(SERVE))
+def test_dp2_engine_matches_single_device(runs, name):
+    """Every rank's tokens equal the single-device engine's and the JAX
+    greedy streams (every rank samples from the gathered logits); each
+    rank holds half of the single-device cache: its slots' rows, or its
+    half of the paged pool."""
+    single, ref = runs["serve"][name]["single"], runs["serve"][name]["jax"]
+    assert single["tokens"] == ref
+    for r, res in runs["ranks"][name].items():
+        assert res["tokens"] == single["tokens"], f"rank {r}"
+        assert res["paged"] == single["paged"] == name.startswith("yi paged")
+        assert 2 * res["cache_bytes"] == single["cache_bytes"], f"rank {r}"

@@ -169,9 +169,9 @@ def test_from_jax_params_is_strict(fault):
 
 
 @pytest.mark.parametrize("arch,kernels", [
-    ("h2o-danube-1.8b", False),             # sliding-window ring cache
+    ("internvl2-2b", False),                # vlm family
     ("seamless-m4t-medium", False),         # encdec family
-], ids=["swa", "encdec"])
+], ids=["vlm", "encdec"])
 def test_out_of_scope_raises(arch, kernels):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), torch.float32,

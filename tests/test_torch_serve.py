@@ -1,7 +1,9 @@
 """Serving in the port: temperature-0 greedy tokens equal the JAX package's,
 and the port's ServeEngine is invisible to any single request (slot refill,
 eviction replay, batch composition), with continuous batching taking fewer
-ticks than static.  yi-6b reduced, fp32, on the CPU."""
+ticks than static; its request records pass both packages'
+``validate_record``, and the serving plans it does not run raise.  yi-6b
+reduced, fp32, on the CPU."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -9,14 +11,17 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.core import telemetry as jax_tel
 from repro.models.model import Model as JaxModel
 from repro.runtime.serve_loop import greedy_generate as jax_greedy_generate
 from repro_torch.configs import get_config
+from repro_torch.core import telemetry as tel
 from repro_torch.core.compute import ComputePolicy
 from repro_torch.interop import from_jax_params
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_engine import Request, ServeEngine
 from repro_torch.runtime.serve_loop import greedy_generate
+from repro_torch.runtime.train_loop import ParallelPlan
 
 # tiny shapes: intra-op threads only add overhead here, and they
 # oversubscribe the cores shared by parallel test workers
@@ -135,3 +140,38 @@ def test_stop_token_finishes_request(pair):
     first = int(np.argmax(ref == ref[2]))
     np.testing.assert_array_equal(out[0], ref[:first + 1])
     assert eng.records[0]["finish_reason"] == "stop_token"
+
+
+def test_request_records_validate_under_both(pair, tmp_path):
+    """One ``request`` record per finished request, in ``records`` and in a
+    JSONL sink: each passes the port's and the reference's
+    ``validate_record``, and the file both ``validate_jsonl``."""
+    _, _, tm = pair
+    path = str(tmp_path / "serve.jsonl")
+    with tel.JsonlSink(path) as sink:
+        eng = ServeEngine(tm, n_slots=2, cache_len=64, block_size=4, n_blocks=7,
+                          telemetry_sink=sink)
+        eng.run([Request(rid=i, prompt=_prompt(60 + i, 6), max_new_tokens=10)
+                 for i in range(2)])
+    assert eng.n_evictions >= 1
+    assert sorted(r["rid"] for r in eng.records) == [0, 1]
+    for rec in eng.records:
+        assert rec["kind"] == "request" and rec["n_generated"] == 10
+        tel.validate_record(rec)
+        jax_tel.validate_record(rec)
+    assert sum(r["evictions"] for r in eng.records) == eng.n_evictions
+    assert tel.validate_jsonl(path) == jax_tel.validate_jsonl(path) == eng.records
+    bad = dict(eng.records[0], t_done=eng.records[0]["t_arrival"] - 1.0)
+    for validate in (tel.validate_record, jax_tel.validate_record):
+        with pytest.raises(ValueError, match="monotone"):
+            validate(bad)
+
+
+@pytest.mark.parametrize("plan", [dict(tp=2), dict(pp=2), dict(dp=2, zero=1)],
+                         ids=["tp", "pp", "zero1"])
+def test_serving_plans_not_ported_raise(pair, plan):
+    """dp slots only: tp, pp and ZeRO serving raise before any group is
+    touched."""
+    _, _, tm = pair
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(tm, n_slots=2, cache_len=32, mesh=object(), plan=ParallelPlan(**plan))

@@ -4,7 +4,7 @@ single-device step 0 of yi-6b, zamba2-2.7b and rwkv6-1.6b, or phase 5's of
 gpt-1.4b) on card 0, then chip_smoke._parallel_rank, _recurrent_tp_rank or
 _pipeline_rank on min(count, 4) ranks.
 
-  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline]
+  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline|serve]
                                        (default: parallel; a host with 2 or
                                         more CUDA cards, from the repo root)
 
@@ -31,7 +31,10 @@ and dp = ranks, each fp, with qcomm gather, with overlap and with both
 _pipeline_rank holds the reduced yi-6b's fp32 pipelined plans to the
 single-device port, gpt-1.4b at pp = ranks (1 and 2 virtual stages) to
 phase 5's step 0, and at 4 ranks trains yi-6b at all 32 layers at pp = 4,
-gas 8 against dp = 4, ZeRO 3.  Each reading is a JSON line, and a failed
+gas 8 against dp = 4, ZeRO 3.  "serve" runs chip_smoke._serve_rank: the
+dp serve engine of yi-6b (TRAIN_LAYERS, bf16, kernels) at dp = ranks, 4
+slots a rank, every rank's tokens equal to a meshless 4-slot engine's and
+its pool 1/ranks of the whole.  Each reading is a JSON line, and a failed
 check ends the run non-zero."""
 import subprocess, sys, time
 from pathlib import Path
@@ -48,7 +51,8 @@ BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV), cs._parallel_rank),
             "recurrent": ((cs.ZAMBA, cs.RWKV), cs._recurrent_tp_rank),
             "moe": ((), cs._moe_rank),
             "comm": ((), cs._comm_rank),
-            "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank)}
+            "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank),
+            "serve": ((), cs._serve_rank)}
 
 if __name__ == "__main__":
     branch = sys.argv[1] if len(sys.argv) > 1 else "parallel"
