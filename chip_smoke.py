@@ -80,13 +80,22 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      at its 8192-token prefill bucket against SDPA with a boolean window
      mask, qwen3-32b's flash forward (64q/8kv of 128), swiglu at qwen3's
      (5120, 25600), phi4-mini's (3072, 8192) and danube's (2560, 6912)
-     widths, rmsnorm on qwen3's 128-wide qk-norm rows;
+     widths, rmsnorm on qwen3's 128-wide qk-norm rows; the encdec path's
+     own shapes (``phase_kernels_encdec``, seamless-m4t-medium at the train
+     microbatch): the flash forward and backward non-causal over 16 heads
+     of 64, the cross-attention's 2048 queries over 1024 frames and the
+     encoder's 1024 over 1024, layernorm (8192, 1024), gelu_mlp (8192,
+     1024) x (1024, 4096), and the bf16 CE at V 256206 (no multiple of 8:
+     W padded for the kernel's TMA map; the pad timed apart) with planted
+     faults;
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
      arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers),
      rwkv6-1.6b (all 24 layers), h2o-danube-1.8b (all 24 layers, cache_len
      8192: a ring of its 4096-position window a slot, two prompts longer
-     than the window), phi4-mini-3.8b (all 32) and qwen3-32b (all 64,
-     65.5 GB of weights): the model
+     than the window), phi4-mini-3.8b (all 32), qwen3-32b (all 64,
+     65.5 GB of weights) and seamless-m4t-medium (12 encoder and 12 decoder
+     layers, each request with its frames, the engine's per-slot memory):
+     the model
      at full width in bf16 with kernels=True through ``ServeEngine`` (8
      requests, 4 slots; a paged pool, for zamba2, rwkv6 and danube the
      slot-swap cache, zamba2's and rwkv6's with exact-length prefill); for
@@ -106,14 +115,18 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      kernels=False tightly; the grouped kernel is held against its plain
      version on the (x, mask) a real prefill gives it; zamba2's and rwkv6's
      tokens equal greedy decoding at the engine's shapes for every
-     request; then a ``torch.profiler`` pass over prefill and decode (the
+     request, and seamless's (exact launches; ``greedy_paged``: the model
+     alone at the engine's buckets and shapes, on a paged pool whose blocks
+     it places itself); then a
+     ``torch.profiler`` pass over prefill and decode (the
      device time, idle share and kernels of a decode tick; for zamba2 and
      rwkv6 also a 255-token prefill, which scans at chunk 1, and the scan's
      share of its device time);
   4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
      layers), zamba2-2.7b (full width, 18 of 54 layers), rwkv6-1.6b
-     (full width, all 24 layers) and arctic-480b (full width, 2 of 35
-     layers, 8 of 128 experts): a reduced fp32
+     (full width, all 24 layers), arctic-480b (full width, 2 of 35
+     layers, 8 of 128 experts) and seamless-m4t-medium (full width, all 12
+     + 12 layers, with synthetic frames): a reduced fp32
      model (at the arch's head dim; with arctic, llama4-maverick's too) with
      kernels on vs off over 5 steps,
      tightly; then the arch in bf16 compute
@@ -223,6 +236,7 @@ KERNELS = {
 LLAMA4, ARCTIC, ZAMBA = "llama4-maverick-400b-a17b", "arctic-480b", "zamba2-2.7b"
 RWKV = "rwkv6-1.6b"
 DANUBE, QWEN3, PHI4 = "h2o-danube-1.8b", "qwen3-32b", "phi4-mini-3.8b"
+SEAMLESS = "seamless-m4t-medium"
 # the families whose cache is slot-swapped, with exact-length prefill
 RECURRENT = ("hybrid", "rwkv")
 # the kernels each arch's serving path runs
@@ -236,6 +250,7 @@ SERVE_KERNELS = {
     DANUBE: ("rmsnorm", "swiglu", "flash_attention"),
     PHI4: ("rmsnorm", "swiglu", "flash_attention"),
     QWEN3: ("rmsnorm", "swiglu", "flash_attention"),
+    SEAMLESS: ("layernorm", "gelu_mlp", "flash_attention"),
 }
 # the kernels each arch's train step runs
 TRAIN_KERNELS = {
@@ -248,6 +263,8 @@ TRAIN_KERNELS = {
     RWKV: ("rmsnorm", "cross_entropy", "wkv_scan"),
     ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv", "cross_entropy", "grouped_mlp"),
+    SEAMLESS: ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "cross_entropy"),
 }
 # the reduced fp32 model each arch is first held against kernels=False with,
 # at the arch's own head dim (plain .reduced() has hd 64)
@@ -261,7 +278,9 @@ REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2,
            DANUBE: dict(d_model=320, n_heads=4, n_kv_heads=1, head_dim=80),
            # qwen3: 4 heads of 128 over d 256 (wider than d, as at full width),
            # qk-norm on 128-wide rows; phi4-mini: hd 128
-           QWEN3: dict(head_dim=128), PHI4: dict(head_dim=128)}
+           QWEN3: dict(head_dim=128), PHI4: dict(head_dim=128),
+           # seamless: plain .reduced() is its own head dim, 64 (d 256 in 4 heads)
+           SEAMLESS: {}}
 # serving depth of the moe family at full width in bf16 on one 80 GB card:
 # llama4 one stack unit (a dense layer, then a MoE layer: 18.55e9
 # parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the dense
@@ -877,28 +896,34 @@ def _timed(timer: Timer, name: str, fn, parent: bool) -> tuple[float, float | No
     return timed_with_parent(timer, name, fn) if parent else (timer(fn), None)
 
 
-def _flash_row(timer: Timer, err, q, k, v, parent: bool = True) -> dict:
-    """The timed row of a causal bf16 forward at q's shape."""
+def flash_pairs(B: int, Hq: int, Sq: int, Skv: int, causal: bool) -> int:
+    """The unmasked (q, k) pairs of a flash call (causal: Sq == Skv)."""
+    return B * Hq * Sq * (Sq + 1) // 2 if causal else B * Hq * Sq * Skv
+
+
+def _flash_row(timer: Timer, err, q, k, v, parent: bool = True, causal: bool = True) -> dict:
+    """The timed row of a bf16 forward at q's and k's shapes."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
     B, S, Hq, hd = q.shape
-    pairs = B * Hq * S * (S + 1) // 2           # unmasked (q, k) pairs
+    pairs = flash_pairs(B, Hq, S, k.shape[1], causal)
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + B * Hq * S * 4
     b, by = bound_ms(nbytes, 4 * hd * pairs, q.dtype)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     try:
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
     except TypeError:                           # torch without enable_gqa
         lib_ms = None
     rtol, atol = TOL["flash_attention"][q.dtype]
     ms, parent_ms = _timed(timer, "flash_attention",
-                           lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=True), parent)
-    return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal",
+                           lambda: fa.flash_attention_fwd_cuda(q, k, v, causal=causal), parent)
+    return {"shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 "
+                     f"{'causal' if causal else 'non-causal'}",
             "max_abs_err": err, "rtol": rtol, "atol": atol,
             "p_rounding_tol": FLASH_P_TOL, "ms": ms, "parent_ms": parent_ms,
-            "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=True)),
+            "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, causal=causal)),
             "library_ms": lib_ms,
             "library_call": "F.scaled_dot_product_attention(enable_gqa=True)",
             "bound_ms": b, "bound_by": by}
@@ -1356,26 +1381,26 @@ def ce_case(name, gen, N, d, V, dtype, valid_vocab=None, labels=None, planted=Fa
 
 
 def flash_bwd_times(timer: Timer, errs: list, q, k, v, o, lse, do,
-                    parent: bool = True) -> tuple[dict, dict]:
-    """The dQ and dK/dV rows of the kernels line at q's shape (causal)."""
+                    parent: bool = True, causal: bool = True) -> tuple[dict, dict]:
+    """The dQ and dK/dV rows of the kernels line at q's and k's shapes."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_bwd_ref
 
     B, S, Hq, hd = q.shape
-    pairs = B * Hq * S * (S + 1) // 2               # unmasked (q, k) pairs
-    args, _ = fa.bwd_args(q, k, v, o, lse, do, causal=True)
+    pairs = flash_pairs(B, Hq, S, k.shape[1], causal)
+    args, _ = fa.bwd_args(q, k, v, o, lse, do, causal=causal)
     qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
-    plain_ms = timer(lambda: flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot))
+    plain_ms = timer(lambda: flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, causal=causal))
     try:
         ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
-        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
         lib_ms = timer(lambda: torch.autograd.grad(out, (ql, kl, vl), dot,
                                                    retain_graph=True))
     except TypeError:                               # torch without enable_gqa
         lib_ms = None
     el = q.element_size()
-    common = {"shape": f"q/o/dO ({B}, {S}, {Hq}, {hd}), k/v ({B}, {S}, {k.shape[2]}, "
-                       f"{hd}) bf16 causal",
+    common = {"shape": f"q/o/dO ({B}, {S}, {Hq}, {hd}), k/v ({B}, {k.shape[1]}, "
+                       f"{k.shape[2]}, {hd}) bf16 {'causal' if causal else 'non-causal'}",
               "plain_ms": plain_ms, "plain_call": "flash_attention_bwd_ref (dq, dk, dv)",
               "library_ms": lib_ms,
               "library_call": "SDPA(enable_gqa=True) backward on a retained graph "
@@ -2512,6 +2537,105 @@ def phase_kernels_serve(timer: Timer) -> dict:
     return out
 
 
+def phase_kernels_encdec(timer: Timer) -> dict:
+    """The encdec path's kernels at seamless-m4t-medium's shapes, the train
+    microbatch (4 rows), bf16 and fp32 under phase 2's limits, the bf16
+    ones timed against the plain version, the library call and the bound:
+    the flash forward and backward non-causal over 16 heads of 64, the
+    decoder's cross-attention (2048 queries over the encoder's 1024
+    frames) and the encoder's self-attention (1024 over 1024); layernorm
+    on (8192, 1024); gelu_mlp (8192, 1024) x (1024, 4096); and the bf16 CE
+    at V 256206, which is no multiple of 8 (its W padded for the kernel's
+    TMA map, ``cross_entropy.pad_vocab``; the pad copy timed apart), on 4 x
+    2047 tokens, with planted faults.  Rows to join the kernels' cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cross_entropy as ce, gelu_mlp as gm, layernorm as ln
+    from repro_torch.kernels.ref import cross_entropy_ref, gelu_mlp_in_ref, layernorm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cfg = get_config(SEAMLESS)
+    H, hd, d, F_, V = cfg.n_heads, cfg.resolved_head_dim, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    T = cfg.enc_seq_len
+    out = {k: [] for k in ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "layernorm", "gelu_mlp", "cross_entropy")}
+    tags = {"arch": SEAMLESS}
+    for use, Sq in (("cross-attention", 2048), ("encoder self-attention", T)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"seamless {use} {dtype} (4, {Sq} q, {T} kv, {H} heads, {hd}) non-causal"
+            err, (q, k, v) = _flash_case(gen, f"flash {name}", 4, Sq, T, H, H, hd, dtype,
+                                         causal=False)
+            if dtype == torch.bfloat16:
+                out["flash_attention"].append(
+                    {**_flash_row(timer, err, q, k, v, parent=False, causal=False),
+                     **tags, "use": use})
+            del q, k, v
+            errs, tensors = flash_bwd_case(f"flash bwd {name}", gen, 4, Sq, T, H, H, hd,
+                                           dtype, causal=False)
+            if dtype == torch.bfloat16:
+                dq, dkv = flash_bwd_times(timer, errs, *tensors, parent=False, causal=False)
+                out["flash_attention_bwd_dq"].append({**dq, **tags, "use": use})
+                out["flash_attention_bwd_dkv"].append({**dkv, **tags, "use": use})
+            del tensors
+            torch.cuda.empty_cache()
+    N = 8192
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(N, d, generator=gen, device="cuda") + 1.0).to(dtype)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+        b = randn(gen, d, dtype=dtype, scale=0.1)
+        err = check_layernorm(f"layernorm seamless {dtype} ({N}, {d})", x, w, b)
+        if dtype == torch.bfloat16:
+            rtol, atol = TOL["layernorm"][dtype]
+            bnd, by = bound_ms(2 * x.numel() * 2 + 2 * d * 2, 8 * x.numel(), torch.float32)
+            out["layernorm"].append({
+                "shape": f"x ({N}, {d}) bf16", "max_abs_err": err, "rtol": rtol,
+                "atol": atol, "scale_tol": LN_SCALE_TOL,
+                "ms": timer(lambda: ln.layernorm_cuda(x, w, b, 1e-5)),
+                "plain_ms": timer(lambda: layernorm_ref(x, w, b, 1e-5)),
+                "library_ms": timer(lambda: F.layer_norm(x, (d,), w, b, 1e-5)),
+                "library_call": "F.layer_norm", "bound_ms": bnd, "bound_by": by, **tags})
+        x = randn(gen, N, d, dtype=dtype)
+        w1 = randn(gen, d, F_, dtype=dtype, scale=d ** -0.5)
+        err = check_gelu_mlp(f"gelu_mlp seamless {dtype} ({N}, {d})x({d}, {F_})", x, w1)
+        if dtype == torch.bfloat16:
+            rtol, atol = TOL["gelu_mlp"][dtype]
+            bnd, by = bound_ms((x.numel() + w1.numel() + N * F_) * 2, 2 * N * d * F_, dtype)
+            out["gelu_mlp"].append({
+                "shape": f"x ({N}, {d}), w1 ({d}, {F_}) bf16", "max_abs_err": err,
+                "rtol": rtol, "atol": atol, "scale_tol": GELU_SCALE_TOL,
+                "tile": gm.gelu_mlp_tile(N, F_, card_sms()),
+                "ms": timer(lambda: gm.gelu_mlp_cuda(x, w1)),
+                "plain_ms": timer(lambda: gelu_mlp_in_ref(x, w1)),
+                "library_ms": timer(lambda: F.gelu(x @ w1, approximate="tanh")),
+                "library_call": "F.gelu(x @ w1, approximate='tanh'), cuBLAS + "
+                                "an elementwise pass", "bound_ms": bnd, "bound_by": by, **tags})
+        del x, w, b, w1
+    torch.cuda.empty_cache()
+    Nce = 4 * 2047
+    before = ce.launches
+    err, (h, w, labels) = ce_case(f"ce seamless bf16 ({Nce}, {d})x({d}, {V})", gen, Nce, d, V,
+                                  torch.bfloat16, planted=True)
+    if ce.launches == before:
+        raise AssertionError("the CE kernel was not launched at V 256206")
+    bnd, by = bound_ms(2 * (h.numel() + w.numel()) + 16 * Nce, 2 * Nce * d * V, torch.bfloat16)
+    pad_ms = timer(lambda: ce.pad_vocab(w))
+    ms, parent_ms = timed_with_parent(timer, "cross_entropy",
+                                      lambda: ce.cross_entropy_cuda(h, w, labels))
+    out["cross_entropy"].append({
+        "shape": f"h ({Nce}, {d}), w ({d}, {V}) bf16, padded to "
+                 f"{ce.pad_vocab(w).shape[1]} columns", "max_abs_err": err,
+        "tile": [ce.TILE_M, ce.TILE_N], "partials": ce.n_partials(V, torch.bfloat16),
+        "ms": ms, "parent_ms": parent_ms, "pad_ms": pad_ms,
+        "pad_call": "cross_entropy.pad_vocab (inside ms and parent_ms)",
+        "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
+        "plain_call": "cross_entropy_ref (materialized fp32 logits)",
+        "library_ms": timer(lambda: F.cross_entropy((h @ w).float(), labels, reduction="none")),
+        "library_call": "F.cross_entropy on (h @ w).float()", "bound_ms": bnd,
+        "bound_by": by, **tags})
+    del h, w, labels
+    torch.cuda.empty_cache()
+    return out
+
+
 # the tensor-parallel plans' ways: each rank's kernels see heads / tp,
 # d_ff / tp and vocab / tp
 TP_WAYS = (2, 4)
@@ -3138,6 +3262,8 @@ LOGITS_TOL_WHY = {
             "kernel's mask and a 6000-token prompt",
     PHI4: "bf16 through 32 layers; as yi-6b",
     QWEN3: "bf16 through 64 layers; as yi-6b, with qk-norm in the rmsnorm kernel",
+    SEAMLESS: "bf16 through 12 encoder and 12 decoder layers; as gpt-1.4b, with the "
+              "encoder's and the cross-attention's non-causal flash attention",
 }
 # the archs whose bf16 logits are reported, not held to LOGITS_REL_TOL (their
 # fp32 copy is held on vs off instead)
@@ -3244,6 +3370,89 @@ def greedy_at_slots(model, prompt: np.ndarray, n: int, cache_len: int,
     return np.asarray(toks, np.int32)
 
 
+def request_frames(cfg, rng, n: int) -> list:
+    """Each of ``n`` requests' non-token prefill inputs, as
+    ``launch/serve.py`` draws them from ``rng``: the encdec family's
+    ``frames``, 0.1 x a standard normal (enc_seq_len, frontend_dim) fp32; None
+    for the other families."""
+    if cfg.family != "encdec":
+        return [None] * n
+    return [{"frames": (0.1 * rng.randn(cfg.enc_seq_len, cfg.frontend_dim)).astype(np.float32)}
+            for _ in range(n)]
+
+
+def on_card(extras: dict | None, rows: int = 1) -> dict:
+    """A request's extras as a prefill batch takes them: each on the card,
+    repeated over ``rows`` rows ({} for None)."""
+    return {k: torch.from_numpy(np.repeat(v[None], rows, 0)).cuda()
+            for k, v in (extras or {}).items()}
+
+
+def greedy_paged(model, prompt: np.ndarray, extras: dict | None, n: int, n_slots: int,
+                 cache_len: int, block_size: int) -> np.ndarray:
+    """Greedy tokens of one request through the model alone, at the shapes a
+    ``ServeEngine(n_slots=, cache_len=, block_size=)`` gives it, built here
+    without the engine's code: ``Model.prefill`` of the prompt right-padded
+    to its bucket (the smallest power of two from max(4, block_size) that
+    holds it, else ``cache_len``; ``lens``), its K/V reshaped into blocks
+    and written into the highest-numbered blocks of a fresh
+    ``Model.paged_cache_specs`` pool (the engine takes the lowest), then
+    ``Model.decode_step`` over ``n_slots`` rows with the request alone
+    active in slot 0, its block table grown a block (the next lower id) as
+    its position crosses one, and (encdec) the prefill's memory in slot 0's
+    row of an fp32 memory.  Every row of a tick's products is then computed
+    as in the engine's ticks.  Only a flat cache of "k"/"v" leaves (no int8
+    scales, no nested stacks) is placed here."""
+    from repro_torch.models.common import init_params
+
+    L, bs = len(prompt), block_size
+    bucket = max(4, bs)
+    while bucket < L and bucket < cache_len:
+        bucket *= 2
+    bucket = min(bucket, cache_len)
+    clen = -(-bucket // bs) * bs
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, :L] = prompt
+    logits, small = model.prefill({"tokens": torch.from_numpy(toks).cuda(), **on_card(extras)},
+                                  clen, lens=torch.tensor([L], dtype=torch.int32, device="cuda"))
+    max_blocks = cache_len // bs + 1
+    n_blocks = 1 + n_slots * max_blocks
+    pool = init_params(model.paged_cache_specs(n_slots, n_blocks, bs), None, model.device,
+                       model.compute_dtype)
+    if set(small["layers"]) != {"k", "v"}:
+        raise ValueError(f"greedy_paged places k/v leaves only, not {sorted(small['layers'])}")
+    n_keep = L // bs + 1
+    blocks = list(range(n_blocks - 1, n_blocks - 1 - n_keep, -1))
+    nb = min(n_keep, clen // bs)
+    for name, leaf in small["layers"].items():             # (layers, 1, clen, H, hd)
+        kv = leaf[:, 0].reshape(leaf.shape[0], clen // bs, bs, *leaf.shape[3:])
+        pool["layers"][name][:, blocks[:nb]] = kv[:, :nb].to(pool["layers"][name].dtype)
+    pool["pos"][0] = L
+    bt = np.zeros((n_slots, max_blocks), np.int32)
+    bt[0, :n_keep] = blocks
+    fed = {}
+    if "memory" in small:
+        memory = torch.zeros((n_slots, *small["memory"].shape[1:]), dtype=torch.float32,
+                             device="cuda")
+        memory[0] = small["memory"][0]
+        fed["memory"] = memory
+    active = torch.zeros(n_slots, dtype=torch.bool, device="cuda")
+    active[0] = True
+    toks_out, pos = [int(torch.argmax(logits[0]))], L
+    for _ in range(n - 1):
+        if pos // bs >= len(blocks):
+            blocks.append(blocks[-1] - 1)
+            bt[0, len(blocks) - 1] = blocks[-1]
+        tok = torch.zeros((n_slots, 1), dtype=torch.int64, device="cuda")
+        tok[0, 0] = toks_out[-1]
+        logits, pool = model.decode_step(pool, {"token": tok, "active": active,
+                                                "block_table": torch.from_numpy(bt).cuda(),
+                                                **fed})
+        toks_out.append(int(torch.argmax(logits[0])))
+        pos += 1
+    return np.asarray(toks_out, np.int32)
+
+
 def serve_config(arch: str):
     """The arch at full width with its serving depth (all layers for the dense
     family)."""
@@ -3294,11 +3503,12 @@ def phase_serve(card: str, arch: str) -> dict:
                 compute=ComputePolicy(kernels=True), device="cuda")
     red.init(torch.Generator(device="cuda").manual_seed(1))
     toks = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 40))).cuda()
-    lk, _ = red.prefill({"tokens": toks}, 64)
-    gk = greedy_generate(red, toks, 8, 64)
+    rx = on_card(request_frames(red.cfg, np.random.RandomState(2), 1)[0], rows=2)
+    lk, _ = red.prefill({"tokens": toks, **rx}, 64)
+    gk = greedy_generate(red, toks, 8, 64, extras=rx)
     red.compute = ComputePolicy(kernels=False)
-    lp, _ = red.prefill({"tokens": toks}, 64)
-    gp = greedy_generate(red, toks, 8, 64)
+    lp, _ = red.prefill({"tokens": toks, **rx}, 64)
+    gp = greedy_generate(red, toks, 8, 64, extras=rx)
     check_close(f"{arch} reduced fp32 prefill logits, kernels on vs off", lk, lp,
                 rtol=1e-4, atol=1e-4,
                 why="fp32 through 2 layers; the kernels only change summation order")
@@ -3320,7 +3530,9 @@ def phase_serve(card: str, arch: str) -> dict:
     rng = np.random.RandomState(0)
     lens = SERVE_PROMPT_LENS.get(arch, rng.randint(64, 257, 8))
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+    extras = request_frames(cfg, rng, len(prompts))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32, extras=x)
+            for i, (p, x) in enumerate(zip(prompts, extras))]
     engine = ServeEngine(model, n_slots=4, cache_len=cache_len, block_size=16)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3369,17 +3581,40 @@ def phase_serve(card: str, arch: str) -> dict:
         if not all(same):
             raise AssertionError(f"{arch}: engine tokens differ from greedy for requests "
                                  f"{[i for i, ok in enumerate(same) if not ok]}")
+    if cfg.family == "encdec":
+        # exact launch counts: a prefill runs the encoder (2 norms, a flash
+        # attention and an MLP a layer, its final norm) and the decoder (3
+        # norms, 2 flash attentions and an MLP a layer) and the final norm;
+        # a tick the decoder's norms and MLPs (one-token attention is plain)
+        # and the final norm
+        e, n = cfg.enc_layers, cfg.n_layers
+        pf, tk = engine.n_prefills, engine.n_ticks
+        expected = {"flash_attention": pf * (e + 2 * n),
+                    "layernorm": pf * (2 * e + 3 * n + 2) + tk * (3 * n + 1),
+                    "gelu_mlp": pf * (e + n) + tk * n}
+        if launches != expected:
+            raise AssertionError(f"{arch} serve launches {launches}, expected {expected}")
+        # greedy decoding at the engine's buckets and shapes, token for token
+        same = [bool(np.array_equal(greedy_paged(model, p, x, 32, engine.n_slots,
+                                                 engine.cache_len, engine.block_size), out[i]))
+                for i, (p, x) in enumerate(zip(prompts, extras))]
+        hybrid_res = {"expected_launches": expected, "prompt_lens": [len(p) for p in prompts],
+                      "engine_equals_greedy_by_request": same}
+        if not all(same):
+            raise AssertionError(f"{arch}: engine tokens differ from greedy for requests "
+                                 f"{[i for i, ok in enumerate(same) if not ok]}")
 
     # request 0 against kernels=False on the card: last-token prefill logits
     # and the greedy stream; for the moe family the router's choices of both
     # runs and the grouped kernel's own inputs
     p0 = torch.from_numpy(prompts[0].astype(np.int64))[None].cuda()
+    x0 = on_card(extras[0])
     with capture_moe() as on:
-        lk, _ = model.prefill({"tokens": p0}, cache_len)
+        lk, _ = model.prefill({"tokens": p0, **x0}, cache_len)
     model.compute = ComputePolicy(kernels=False)
     with capture_moe() as off:
-        lp, _ = model.prefill({"tokens": p0}, cache_len)
-    gp = greedy_generate(model, p0, 32, cache_len)[0].cpu().numpy()
+        lp, _ = model.prefill({"tokens": p0, **x0}, cache_len)
+    gp = greedy_generate(model, p0, 32, cache_len, extras=x0)[0].cpu().numpy()
     model.compute = ComputePolicy(kernels=True)
     moe_res = {}
     if moe_layers:
@@ -3448,7 +3683,7 @@ def phase_serve(card: str, arch: str) -> dict:
         raise AssertionError(f"{arch} fp32 copy, kernels on vs off: {hybrid_res['failed']}")
     if int8_res.get("int8_failed"):
         raise AssertionError(f"{arch} int8 KV cache: {int8_res['int8_failed']}")
-    phase_profile(model, prompts, card, cache_len)
+    phase_profile(model, prompts, card, cache_len, extras)
     return paths
 
 
@@ -3618,12 +3853,14 @@ def _profile(fn) -> dict:
                             for name, (ms, n) in top]}
 
 
-def phase_profile(model, prompts, card: str, cache_len: int = 512) -> None:
+def phase_profile(model, prompts, card: str, cache_len: int = 512,
+                  extras: list | None = None) -> None:
     from repro_torch.runtime.serve_engine import Request, ServeEngine
 
+    extras = extras or [None] * len(prompts)
     p = torch.from_numpy(prompts[0][:64].astype(np.int64))[None].cuda()
     p = torch.cat([p] * 4, dim=1)                      # one 256-token prompt
-    prefill = _profile(lambda: model.prefill({"tokens": p}, 256))
+    prefill = _profile(lambda: model.prefill({"tokens": p, **on_card(extras[0])}, 256))
     odd = {}
     if model.cfg.family in RECURRENT:                  # an odd prompt scans at chunk 1
         odd = _profile(lambda: model.prefill({"tokens": p[:, :255]}, 256))
@@ -3635,7 +3872,7 @@ def phase_profile(model, prompts, card: str, cache_len: int = 512) -> None:
         odd = {"prefill_255_tokens": odd}
     engine = ServeEngine(model, n_slots=4, cache_len=cache_len, block_size=16)
     for i in range(4):
-        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=16))
+        engine.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=16, extras=extras[i]))
     engine.step()                                      # 4 prefills + 1 tick
     ticks = 8
 
@@ -3703,16 +3940,26 @@ TRAIN_FP32_RTOL = 1e-4
 # expert 0) moves the loss by 9.9e-5 and grad_norm by 1.6e-3, the swiglu
 # forward's by 1.2e-4 and 9.9e-3, which fail; the flash faults stay inside
 # the sound spread (phase 2 holds those kernels at the step's shapes).
+# seamless-m4t-medium (12 + 12 layers; the same card): sound runs differ by
+# at most 4.45e-6 in loss and 1.064e-3 in grad_norm (seed 2 for the loss,
+# seed 1 for grad_norm; seed 0 2.9e-6 and 1.056e-3); the limits are about
+# 1.5x those.  A zeroed tile moves the loss by 6.5e-5 (gelu_mlp forward),
+# 1.6e-4 (layernorm forward) and 2.5e-5 (flash forward), and grad_norm by
+# 7.5e-3 and 2.1e-3 (gelu_mlp, layernorm), which fail; in dQ and dK/dV it
+# moves neither out of the sound spread (phase 2 holds those, the encdec
+# shapes in ``phase_kernels_encdec``).
 STEP0_RTOL = {"yi-6b": {"loss": 2e-5, "grad_norm": 1e-3},
               "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3},
               ZAMBA: {"loss": 3e-4, "grad_norm": 0.11},
               RWKV: {"loss": 8e-5, "grad_norm": 3.3e-3},
-              ARCTIC: {"loss": 7.5e-5, "grad_norm": 1e-3}}
+              ARCTIC: {"loss": 7.5e-5, "grad_norm": 1e-3},
+              SEAMLESS: {"loss": 7e-6, "grad_norm": 1.6e-3}}
 TRAIN = dict(global_batch=8, gas=2, seq_len=2048, steps=5)
 # gpt-1.4b and rwkv6: all layers; zamba2: 18 of 54 (3 of its 9 super units),
 # cut so that the script keeps to its time (its 54-layer step took 11-16 s,
 # the plain one 17-40 s; PERF.md)
-TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 18, RWKV: 24, ARCTIC: 2}
+TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 18, RWKV: 24, ARCTIC: 2,
+                SEAMLESS: 12}
 # arctic trains at its published widths with 8 of its 128 experts: one layer
 # with all 128 is 14.07e9 parameters, about 225 GB at 16 bytes a parameter
 # (fp32 master, gradient, Adam's two moments); 2 layers of 8 experts are
@@ -3724,11 +3971,15 @@ TRAIN_LR = 1e-4
 TRAIN_OFF_STEPS = {ZAMBA: 1, RWKV: 1}
 
 
-def _batches(vocab: int, seq_len: int, global_batch: int, n: int) -> list:
+def _batches(vocab: int, seq_len: int, global_batch: int, n: int, cfg=None) -> list:
+    """``n`` synthetic global batches; ``cfg`` adds its family's dense inputs
+    (the encdec family's frames, ``launch/train.py:extra_specs``)."""
     from repro_torch.data import SyntheticCorpus, make_batch_iterator
+    from repro_torch.launch.train import extra_specs
 
     it = make_batch_iterator(SyntheticCorpus(vocab_size=vocab, seed=0),
-                             seq_len=seq_len, global_batch=global_batch, prefetch=0)
+                             seq_len=seq_len, global_batch=global_batch, prefetch=0,
+                             extra_specs=None if cfg is None else extra_specs(cfg))
     return [next(it) for _ in range(n)]
 
 
@@ -3759,8 +4010,9 @@ def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[di
         torch.cuda.synchronize()
         out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                     "step_s": time.perf_counter() - t0})
-        if mesh is not None:        # the ZeRO gathers' bytes, by phase
+        if mesh is not None:        # the ZeRO gathers' bytes, by phase; the encoder's pipe gather
             out[-1]["zero3_gather"] = collectives.gather_phase_bytes()
+            out[-1]["pipe_gather"] = collectives.comm_bytes()["pipe_gather"]
         if model.cfg.family == "moe":
             out[-1].update(moe_aux=float(m["moe_aux"]), moe_drop=float(m["moe_drop"]),
                            all_to_all_bytes=collectives.comm_bytes()["all-to-all"])
@@ -3801,7 +4053,12 @@ def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
     one flash attention and one swiglu (a dense layer's MLP, llama4's
     shared expert or arctic's dense residual), and each MoE unit one
     grouped expert MLP (forward and recompute; its backward is plain
-    torch)."""
+    torch).  The encdec family's encoder layers each run two norms, one
+    flash attention (non-causal) and one MLP, its decoder layers three
+    norms (self-attention, cross-attention, MLP), two flash attentions
+    (causal self, non-causal cross over the memory) and one MLP; the
+    encoder's final norm runs once per microbatch, outside the remat
+    wrapper, beside the decoder's."""
     norm = "rmsnorm" if cfg.norm == "rmsnorm" else "layernorm"
     fwd = 1 if remat == "none" else 2
     if cfg.family == "rwkv":
@@ -3809,6 +4066,12 @@ def expected_train_launches(cfg, steps: int, gas: int = TRAIN["gas"],
                   "cross_entropy": 1}
         return {k: n * gas * steps for k, n in per_mb.items()}
     mlp = "swiglu" if cfg.act == "swiglu" else "gelu_mlp"
+    if cfg.family == "encdec":
+        e, n = cfg.enc_layers, cfg.n_layers
+        per_mb = {norm: fwd * (2 * e + 3 * n) + 2, mlp: fwd * (e + n),
+                  "flash_attention": fwd * (e + 2 * n), "flash_attention_bwd_dq": e + 2 * n,
+                  "flash_attention_bwd_dkv": e + 2 * n, "cross_entropy": 1}
+        return {k: v * gas * steps for k, v in per_mb.items()}
     norms_per_layer = 2 + (2 if cfg.qk_norm else 0)
     hybrid = cfg.family == "hybrid"
     n_attn = cfg.n_layers // cfg.hybrid_attn_every if hybrid else cfg.n_layers
@@ -3850,7 +4113,7 @@ def train_reduced(arch: str) -> None:
 
     red_cfg = get_config(arch).reduced(**REDUCED[arch])
     red = Model(red_cfg, torch.float32, device="cuda")
-    rb = _batches(red_cfg.vocab_size, 256, 4, 5)
+    rb = _batches(red_cfg.vocab_size, 256, 4, 5, red_cfg)
     runs = {k: _run_steps(red, ParallelPlan(gas=2, precision="fp32", kernels=k), rb, 1)
             for k in (True, False)}
     for i, (a, b) in enumerate(zip(runs[True], runs[False])):
@@ -3885,7 +4148,7 @@ def phase_train(card: str, arch: str) -> dict:
     cfg = train_config(arch)
     gb, gas, S, steps = TRAIN["global_batch"], TRAIN["gas"], TRAIN["seq_len"], TRAIN["steps"]
     model = Model(cfg, torch.float32, device="cuda")
-    batches = _batches(cfg.vocab_size, S, gb, steps)
+    batches = _batches(cfg.vocab_size, S, gb, steps, cfg)
     plan = ParallelPlan(gas=gas, precision="bf16", remat="full", kernels=True)
     # the drift is a reading here, not a limit: no warning
     tele = telemetry.Telemetry(cfg, plan, gb, S, machine="h100",
@@ -5007,6 +5270,80 @@ def _pipeline_rank(rank: int, world: int, init_method: str, gpt_step0: dict | No
     dist.destroy_process_group()
 
 
+# the multi-rank encdec plans' reduced seamless (4 decoder layers, 2 encoder
+# layers over 16 frames: tests/test_torch_encdec_ranks.py's)
+ENCDEC_REDUCED = dict(n_layers=4, enc_layers=2, enc_seq_len=16)
+
+
+def _encdec_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
+    """One nccl rank of the encdec branch (``tools/parallel_ranks.py
+    encdec``): the reduced seamless's fp32 plans, kernels on, against the
+    single-device port at PARALLEL_RTOL (2 ranks: dp 2 at ZeRO 3, tp 2, pp
+    2 at 1 and 2 virtual stages; 4 ranks: dp 4 at ZeRO 3, dp 2 x tp 2, pp
+    2 x dp 2, pp 4, pp 2 x tp 2), each step's encoder pipe gather and
+    scatter bytes the fp32 encoder stack; then seamless at full width and
+    depth (TRAIN's plan) at pp = ranks and at dp = ranks, ZeRO 3, 3 steps,
+    step 0 against phase 4's single-device step (``step0``: {arch: phase
+    4's step 0}) at STEP0_RTOL, with each rank's step times, collective
+    bytes and peak memory."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sharding import shard_shape, spec_axes
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan, plan_state_shardings
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    if world == 4:
+        plans = [dict(dp=4, zero=3), dict(dp=2, tp=2), dict(pp=2, dp=2), dict(pp=4),
+                 dict(pp=2, tp=2)]
+    else:
+        plans = [dict(dp=2, zero=3), dict(tp=2), dict(pp=2), dict(pp=2, virtual_stages=2)]
+    red = get_config(SEAMLESS).reduced(**ENCDEC_REDUCED)
+    rb = _batches(red.vocab_size, 32, 8, 3, red)
+    kw = dict(gas=2, precision="fp32", kernels=True)
+    single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+    for p in plans:
+        plan = ParallelPlan(**p, **kw)
+        steps, _ = _sharded_steps(red, plan, rb, 0)
+        rel = [_rel(a, b) for a, b in zip(steps, single)]
+        # each rank gathers its block of each encoder leaf on the pipe axis
+        # (a tp block under tp) over the pipe ranks: pp blocks, fp32
+        shapes, psh, _, _ = plan_state_shardings(red, plan)
+        sizes = plan.mesh_sizes()
+        enc = 4 * sizes["pipe"] * sum(
+            int(np.prod(shard_shape(shape, psh[k], sizes))) for k, shape in shapes.items()
+            if k.startswith("encoder.layers.") and "pipe" in spec_axes(psh[k]))
+        gathered = [r["pipe_gather"] for r in steps]
+        emit({"phase": "encdec_ranks_reduced", "rank": rank, "plan": {**p, **kw},
+              "rel_diff": rel, "rtol": PARALLEL_RTOL, "pipe_gather": gathered,
+              "pipe_gather_predicted": enc})
+        if any(v > PARALLEL_RTOL for r in rel for v in r.values()) or any(
+                g != enc for g in gathered):
+            raise AssertionError(f"rank {rank} plan {p}: {rel}, pipe gather {gathered} "
+                                 f"against {enc}")
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    cfg = train_config(SEAMLESS)
+    for p in (dict(pp=world), dict(dp=world, zero=3)):
+        steps, peak = _sharded_steps(cfg, ParallelPlan(**p, **kw),
+                                     _batches(cfg.vocab_size, S, gb, 3, cfg), 0, tele=True)
+        rel0 = _rel(steps[0], step0[SEAMLESS])
+        emit({"phase": "encdec_ranks", "rank": rank, "arch": cfg.name, "plan": p,
+              "steps": steps, "single_device_step0": step0[SEAMLESS], "rel_diff": rel0,
+              "rtol": STEP0_RTOL[SEAMLESS], "peak_mem_gb": peak})
+        if any(rel0[k] > STEP0_RTOL[SEAMLESS][k] for k in rel0):
+            raise AssertionError(f"rank {rank}: seamless {p} step 0 vs phase 4's: {rel0}")
+    dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5051,6 +5388,8 @@ def main() -> int:
     for name, extra in timed("kernels tp", lambda: phase_kernels_tp(timer)).items():
         rows[name]["cases"] += extra
     for name, extra in timed("kernels serve", lambda: phase_kernels_serve(timer)).items():
+        rows[name]["cases"] += extra
+    for name, extra in timed("kernels encdec", lambda: phase_kernels_encdec(timer)).items():
         rows[name]["cases"] += extra
     del timer
     torch.cuda.empty_cache()

@@ -516,22 +516,23 @@ class StepFlops:
         return self.total / max(self.tokens, 1)
 
 
-_FLOPS_FAMILIES = ("dense", "moe", "hybrid", "rwkv")
+_FLOPS_FAMILIES = ("dense", "moe", "hybrid", "rwkv", "encdec")
 
 
-def _matmul_params(cfg) -> float:
-    """Active matmul parameters per token: the >= 2-D leaves of the spec
-    tree (vectors are O(d) elementwise, not billed); expert leaves weighted
-    by the routed top_k/E fraction; the hybrid family's weight-tied
-    "shared" block billed once per application; the untied embedding is a
-    lookup (the lm_head is its own leaf)."""
+def _matmul_params(cfg) -> dict[str, float]:
+    """Active matmul parameters per token of each stream, {"decoder",
+    "encoder"}: the >= 2-D leaves of the spec tree (vectors are O(d)
+    elementwise, not billed); expert leaves weighted by the routed top_k/E
+    fraction; the hybrid family's weight-tied "shared" block billed once
+    per application; the untied embedding is a lookup (the lm_head is its
+    own leaf); the encdec encoder's leaves per frame."""
     # lazy imports: core/ must not depend on models/ at module scope
     from repro_torch.models.common import flatten_specs
     from repro_torch.models.model import param_specs
 
     n_shared_apps = (cfg.n_layers // cfg.hybrid_attn_every
                      if cfg.family == "hybrid" and cfg.hybrid_attn_every else 1)
-    n = 0.0
+    n = {"decoder": 0.0, "encoder": 0.0}
     for path, spec in flatten_specs(param_specs(cfg)):
         if len(spec.shape) < 2 or (path == "embed" and not cfg.tie_embeddings):
             continue
@@ -540,15 +541,18 @@ def _matmul_params(cfg) -> float:
             leaf *= max(cfg.top_k, 1) / max(cfg.n_experts, 1)
         if path.startswith("shared."):
             leaf *= n_shared_apps
-        n += leaf
+        n["encoder" if path.startswith("encoder.") else "decoder"] += leaf
     return n
 
 
 def train_step_flops(cfg, global_batch: int, seq_len: int,
                      *, backward: bool = True) -> StepFlops:
     """Per-family analytic model FLOPs of one train step (all devices) of
-    the families the port has (dense, moe, hybrid, rwkv; the reference's
-    encdec, vlm and audio terms come with those families).
+    the families the port has (dense, moe, hybrid, rwkv, encdec; the
+    reference's vlm and audio terms come with those families): the encdec
+    encoder's matmuls at ``enc_seq_len`` frames a row, its self-attention
+    at enc_seq_len^2 and the decoder's cross-attention at seq x
+    enc_seq_len.
     ``backward=False`` gives the forward-only (prefill) count.  Invariant
     under the parallel plan: dividing by (step time x devices x peak) gives
     MFU whatever (dp, tp, pp, ep, gas)."""
@@ -561,15 +565,21 @@ def train_step_flops(cfg, global_batch: int, seq_len: int,
     mult = per_param / 2.0                 # fwd multiplier for attn/scan
     B, s = global_batch, seq_len
     tokens = B * s
-    matmul = per_param * _matmul_params(cfg) * tokens
+    enc_tokens = B * cfg.enc_seq_len if fam == "encdec" else 0
+    mm = _matmul_params(cfg)
+    matmul = per_param * (mm["decoder"] * tokens + mm["encoder"] * enc_tokens)
     t_kv = min(s, cfg.sliding_window) if cfg.sliding_window else s
+    n_cross = n_enc = 0
     if fam in ("dense", "moe"):
         n_self = cfg.n_layers
+    elif fam == "encdec":
+        n_self, n_cross, n_enc = cfg.n_layers, cfg.n_layers, cfg.enc_layers
     elif fam == "hybrid":
         n_self = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every else 0
     else:                                  # rwkv: attention-free
         n_self = 0
-    attn = mult * 4.0 * B * cfg.n_heads * cfg.resolved_head_dim * n_self * s * t_kv
+    attn = mult * 4.0 * B * cfg.n_heads * cfg.resolved_head_dim * (
+        n_self * s * t_kv + n_cross * s * cfg.enc_seq_len + n_enc * cfg.enc_seq_len ** 2)
     if fam == "rwkv":
         scan_per_tok = 4.0 * cfg.d_model * cfg.resolved_head_dim
     elif fam == "hybrid":

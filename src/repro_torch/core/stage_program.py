@@ -22,10 +22,11 @@ accumulators that start at zero (:meth:`StageProgram.init_carry`), the moe
 family's load-balance loss ``aux`` and measured drop fraction
 ``moe_drop``, which the loss reduces after the last segment; the dense,
 hybrid and rwkv programs carry the reference's single ``aux`` at 0, which
-their bodies pass through untouched.  The recurrent families' state is
-sequence-level and layer-local, so it never enters the carry.  The
-reference's ``"input"`` carries (the encdec memory) come with that family
-(ROADMAP.md, Queue 1).
+their bodies pass through untouched.  ``"input"`` carries are
+per-microbatch tensors that every unit reads and none writes, given to
+``init_carry``: the encdec decoder's ``memory`` (the encoder's output).
+The recurrent families' state is sequence-level and layer-local, so it
+never enters the carry.
 """
 from __future__ import annotations
 
@@ -36,18 +37,19 @@ import torch
 
 
 ACCUM = "accum"
+INPUT = "input"
 
 
 @dataclasses.dataclass(frozen=True)
 class CarrySpec:
-    """One entry of the cross-stage carry contract (the ``"accum"`` kind)."""
+    """One entry of the cross-stage carry contract: an fp32 accumulator
+    (``"accum"``) or a per-microbatch input every unit reads (``"input"``)."""
     name: str
     kind: str = ACCUM
 
     def __post_init__(self):
-        if self.kind != ACCUM:
-            raise ValueError(f"carry kind must be {ACCUM!r}, got {self.kind!r} (the "
-                             "reference's input carries come with the encdec family)")
+        if self.kind not in (ACCUM, INPUT):
+            raise ValueError(f"carry kind must be {ACCUM!r} or {INPUT!r}, got {self.kind!r}")
 
 
 @dataclasses.dataclass
@@ -73,10 +75,20 @@ class StageProgram:
     segments: tuple[Segment, ...]
     carry_spec: tuple[CarrySpec, ...] = (CarrySpec("aux"),)
 
-    def init_carry(self, device: torch.device | str | None = None) -> dict:
-        """Every accumulator at an fp32 zero."""
-        return {cs.name: torch.zeros((), dtype=torch.float32, device=device)
-                for cs in self.carry_spec}
+    def init_carry(self, device: torch.device | str | None = None,
+                   inputs: dict | None = None) -> dict:
+        """Every accumulator at an fp32 zero, every input carry from
+        ``inputs`` (a missing one raises)."""
+        inputs = inputs or {}
+        carry = {}
+        for cs in self.carry_spec:
+            if cs.kind == ACCUM:
+                carry[cs.name] = torch.zeros((), dtype=torch.float32, device=device)
+            elif cs.name not in inputs:
+                raise ValueError(f"carry input {cs.name!r} not provided")
+            else:
+                carry[cs.name] = inputs[cs.name]
+        return carry
 
     @property
     def n_units(self) -> int:

@@ -57,10 +57,10 @@ def _specs(cfg, plan) -> tuple[dict, dict]:
 
 
 def _index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
-    from repro_torch.models.model import tp_pieces
+    from repro_torch.models.model import pipe_interleaved, tp_pieces
 
-    return shd.outer(shd.shard_slices(shape, spec, plan.mesh_sizes(), coord,
-                                      plan.virtual_stages if plan.pp > 1 else 1,
+    v = plan.virtual_stages if plan.pp > 1 and pipe_interleaved(key) else 1
+    return shd.outer(shd.shard_slices(shape, spec, plan.mesh_sizes(), coord, v,
                                       tp_pieces(cfg).get(key)))
 
 
@@ -69,7 +69,7 @@ def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
     "data": j, "model": k}, "expert" at ep > 1, "node" at node > 1) of a whole parameter
     tree (nested or flat), under the plan's shardings of ``cfg``: at pp > 1
     the layers of the rank's logical stages (round-robin under virtual
-    stages); at ep > 1 the rank's E/ep experts of each expert leaf (at
+    stages; the encdec encoder's contiguous block); at ep > 1 the rank's E/ep experts of each expert leaf (at
     ep = 1 its block of them over the data ranks); zamba2's in_proj and
     conv blocks the rank's heads' columns and the B and C ones
     (``models/model.py:tp_pieces``)."""

@@ -14,6 +14,14 @@ and a second pass merges a row's pairs into its lse; :func:`partials_ref`
 and :func:`merge_ref` are that algebra in plain torch, and ``TILE_M``,
 ``TILE_N`` and :func:`n_partials` mirror the C entry's tiling, for the
 tests and ``chip_smoke.py``.
+
+The bf16 kernel reads W through a TMA map, whose row stride must be a
+multiple of 16 bytes: V % 8 == 0.  A vocab that is not (seamless-m4t's
+256206, and its 128103-column shard at tp = 2) is handed to the kernel as
+W with zero columns up to the next multiple of 8 (:func:`pad_vocab`, one
+copy of W a call) and ``valid_vocab`` at most the true V, which the kernel
+masks: the pad columns never enter the logsumexp, and the backward, on the
+unpadded W, never sees them.
 """
 from __future__ import annotations
 
@@ -34,6 +42,20 @@ NEG_INF = -1e30
 # 2048-column chunk in fp32.
 TILE_M, TILE_N = 128, 256
 VOCAB_CHUNK = {torch.bfloat16: TILE_N, torch.float32: 2048}
+# the bf16 kernel's vocab multiple: a TMA row stride of 16 bytes
+VOCAB_ALIGN = 8
+
+
+def pad_vocab(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (d, V) with zero columns up to the next multiple of ``VOCAB_ALIGN``
+    (``w`` itself when V is one already): what the bf16 kernel takes, with
+    ``valid_vocab`` <= V masking the pad."""
+    V = w.shape[1]
+    if V % VOCAB_ALIGN == 0:
+        return w
+    out = w.new_zeros((w.shape[0], V + (-V % VOCAB_ALIGN)))
+    out[:, :V] = w
+    return out
 
 
 def n_partials(V: int, dtype: torch.dtype) -> int:
@@ -107,7 +129,8 @@ def tiling_cuda(V: int, dtype: torch.dtype) -> tuple[tuple[int, int], int]:
 def cross_entropy_cuda(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                        valid_vocab: int | None = None):
     """h: (N, d), w: (d, V) on the card in one dtype, labels: (N,) ints ->
-    (lse (N,), label_logit (N,)) fp32; columns >= ``valid_vocab`` are masked."""
+    (lse (N,), label_logit (N,)) fp32; columns >= ``valid_vocab`` are masked.
+    A bf16 W whose V is no multiple of 8 is padded (:func:`pad_vocab`)."""
     global launches
     code = _build.dtype_code(h)
     N, d = h.shape
@@ -119,9 +142,11 @@ def cross_entropy_cuda(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"cross_entropy: h {h.dtype} {tuple(h.shape)}, w {w.dtype} "
                          f"{tuple(w.shape)}, labels {labels.dtype} "
                          f"{tuple(labels.shape)}, valid_vocab {valid_vocab}")
-    if h.dtype == torch.bfloat16 and (d % 8 or V % 8):
-        raise ValueError(f"cross_entropy: bf16 needs d % 8 == 0 and V % 8 == 0, "
-                         f"got d={d}, V={V}")
+    if h.dtype == torch.bfloat16:
+        if d % 8:
+            raise ValueError(f"cross_entropy: bf16 needs d % 8 == 0, got d={d}")
+        w = pad_vocab(w)
+        V = w.shape[1]
     h, w = _build.aligned(h), _build.aligned(w)
     labels = labels.to(torch.int64).contiguous()
     lse = torch.empty(N, dtype=torch.float32, device=h.device)

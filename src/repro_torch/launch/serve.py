@@ -45,7 +45,10 @@ def synthetic_requests(cfg, n: int, *, rate: float | None = None,
                        temperature: float = 0.0, top_p: float = 1.0,
                        seed: int = 0) -> list[Request]:
     """Poisson arrivals at ``rate`` req/s (all at t=0 when None), uniform
-    prompt and new-token lengths, per-request seeds."""
+    prompt and new-token lengths, per-request seeds, and the encdec
+    family's ``frames`` (0.1 x a standard normal (enc_seq_len,
+    frontend_dim), from the same stream), as the reference's launcher
+    draws them."""
     rng = np.random.RandomState(seed)
     t = 0.0
     reqs = []
@@ -55,9 +58,13 @@ def synthetic_requests(cfg, n: int, *, rate: float | None = None,
         length = int(rng.randint(prompt_lens[0], prompt_lens[1] + 1))
         n_new = int(rng.randint(max_new[0], max_new[1] + 1))
         prompt = rng.randint(0, cfg.vocab_size, size=length).astype(np.int32)
+        extras = None
+        if cfg.family == "encdec":
+            extras = {"frames": 0.1 * rng.randn(
+                cfg.enc_seq_len, cfg.frontend_dim).astype(np.float32)}
         reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=n_new,
                             temperature=temperature, top_p=top_p,
-                            seed=seed + rid, arrival=t))
+                            seed=seed + rid, arrival=t, extras=extras))
     return reqs
 
 

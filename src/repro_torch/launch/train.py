@@ -37,7 +37,9 @@ gathers to int8 blocks, ``--overlap`` issues each chunk of layers' gathers
 a chunk ahead; node x pp x dp x ep x tp must be the number of ranks.
 Every plan but qcomm and every ``--remat`` prints the same losses as one
 device (qcomm within a few per cent: the forward sees int8-rounded
-weights):
+weights).  The encdec family's batches carry synthetic ``frames``
+(enc_seq_len, frontend_dim) a row beside the tokens (``extra_specs``); at
+pp > 1 every pipe rank encodes them (``runtime/pipeline.py``):
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
@@ -50,6 +52,9 @@ weights):
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --node 2 --dp 2 --zero 3 --qcomm gather \
       --overlap --gas 2 --precision fp32
+  python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
+      --device cpu --arch seamless-m4t-medium --reduced --layers 4 --pp 2 --gas 2 \
+      --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
       --seq-len 2048 --precision bf16 --kernels
@@ -73,6 +78,7 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -125,6 +131,15 @@ def step_extras(plan: ParallelPlan, device: torch.device, world: int, sharded: b
     elif device.type == "cuda":
         out["peak_bytes"] = [torch.cuda.max_memory_allocated(device)]
     return out
+
+
+def extra_specs(cfg) -> dict | None:
+    """The family's dense inputs a row, as the reference's launcher makes
+    them: the encdec family's synthetic ``frames`` (enc_seq_len,
+    frontend_dim) fp32."""
+    if cfg.family == "encdec":
+        return {"frames": ((cfg.enc_seq_len, cfg.frontend_dim), np.float32)}
+    return None
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -222,7 +237,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
                              torch.Generator(device=device).manual_seed(args.seed))
     step_fn = build_train_step(model, opt, plan, mesh)
     it = make_batch_iterator(SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed),
-                             seq_len=args.seq_len, global_batch=args.global_batch)
+                             seq_len=args.seq_len, global_batch=args.global_batch,
+                             extra_specs=extra_specs(cfg))
     tele_on = bool(args.log_jsonl or args.trace)
     tele = telemetry.Telemetry(
         cfg, plan, args.global_batch, args.seq_len, machine=args.machine,

@@ -1,7 +1,8 @@
-"""Transformer blocks, the dense subset of ``repro/models/blocks.py``:
-self-attention (GQA, RoPE, optional qk-norm and softcap) for training and
-prefill, for per-slot cached decode and for decode over a paged KV pool, the
-MLP block, and ``segment_body``, the layer body of the training stack.
+"""Transformer blocks of ``repro/models/blocks.py``: self-attention (GQA,
+RoPE, optional qk-norm and softcap) for training and prefill, for per-slot
+cached decode and for decode over a paged KV pool, cross-attention over an
+encoder's memory (the encdec decoder), the MLP block, and
+``segment_body``, the layer body of the training stacks.
 Under ``policy.kernels`` every RMSNorm or LayerNorm and every SwiGLU gate or
 GELU input half runs in its CUDA kernel, in training, prefill and decode,
 and full-sequence attention runs in the flash kernels (forward and
@@ -16,7 +17,7 @@ rank's Megatron shards: column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3``
 partial sums all-reduced by ``collectives.reduce_from_model``).  Norms,
 RoPE and qk-norm stay replicated; the qk-norm scales pass through
 ``copy_to_model`` as well, since each rank's heads give part of their
-gradient.
+gradient, and so does a cross block's memory on its way into ``wk``/``wv``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def norm_spec(d: int, kind: str, axis: str = "embed") -> dict:
     return spec
 
 
-def attn_specs(cfg: ModelConfig) -> dict:
+def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     spec = {
@@ -45,7 +46,7 @@ def attn_specs(cfg: ModelConfig) -> dict:
         "wv": Spec((d, hkv * hd), ("embed", "kv_heads")),
         "wo": Spec((hq * hd, d), ("heads", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         spec["q_norm"] = Spec((hd,), ("head_dim",), init="ones")
         spec["k_norm"] = Spec((hd,), ("head_dim",), init="ones")
     return spec
@@ -199,6 +200,26 @@ def paged_attn_decode(params: dict, x: torch.Tensor, cache: dict,
     return out, new_cache
 
 
+def cross_attn_block(params: dict, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig, policy: ComputePolicy | None = None,
+                     tp=None) -> torch.Tensor:
+    """Cross attention with residual (``repro/models/blocks.py:
+    cross_attn_block``): queries from ``x`` (B, S, d), keys and values from
+    the encoder's ``memory`` (B, T, d), non-causal, no RoPE."""
+    pol = resolve_policy(policy)
+    h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
+                          use_kernel=pol.kernels)
+    if tp is not None:
+        h, memory = copy_to_model(h, tp), copy_to_model(memory, tp)
+    q, k, v = _project_qkv(params, h, memory, cfg, pol.kernels, tp)
+    out = layers.attention(q, k, v, causal=False, policy=pol)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, -1) @ params["wo"]
+    if tp is not None:
+        out = reduce_from_model(out, tp)
+    return x + out
+
+
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
     spec = {
@@ -222,12 +243,17 @@ def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + reduce_from_model(out, tp)
 
 
-def segment_body(cfg: ModelConfig, policy: ComputePolicy | None, tp=None):
-    """The layer body of the dense training stack
-    (``repro/models/blocks.py:segment_body``): attention block then MLP
-    block, on one layer's slice of the stacked weights (its Megatron shards
-    under ``tp``)."""
-    def body(lp: dict, x: torch.Tensor) -> torch.Tensor:
-        x = self_attn_block(lp["attn"], x, cfg, causal=True, policy=policy, tp=tp)
+def segment_body(cfg: ModelConfig, policy: ComputePolicy | None, *, causal: bool = True,
+                 cross: bool = False, tp=None):
+    """The layer body of a training stack (``repro/models/blocks.py:
+    segment_body``): attention block then MLP block, on one layer's slice of
+    the stacked weights (its Megatron shards under ``tp``).  The encdec
+    encoder takes ``causal=False``; its decoder takes ``cross=True`` and a
+    cross-attention block over ``memory`` between the two, which the body
+    then takes as a third argument (the program's ``memory`` carry)."""
+    def body(lp: dict, x: torch.Tensor, memory: torch.Tensor | None = None) -> torch.Tensor:
+        x = self_attn_block(lp["attn"], x, cfg, causal=causal, policy=policy, tp=tp)
+        if cross:
+            x = cross_attn_block(lp["cross"], x, memory, cfg, policy=policy, tp=tp)
         return mlp_block(lp["mlp"], x, cfg, policy=policy, tp=tp)
     return body

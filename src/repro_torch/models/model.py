@@ -1,5 +1,6 @@
-"""Top-level Model, the dense, moe, hybrid (zamba2) and rwkv families of
-``repro/models/model.py``, as an ``nn.Module`` that holds its weights.
+"""Top-level Model, the dense, moe, hybrid (zamba2), rwkv and encdec
+(seamless) families of ``repro/models/model.py``, as an ``nn.Module`` that
+holds its weights.
 
   * ``param_specs()``  — declarative tree (shapes/axes/init); its dotted
     paths (``layers.attn.wq``, ``layers.mlp.w1``, …) are the state_dict keys,
@@ -8,12 +9,18 @@
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
     blocked-kernel CE, and for the moe family the load-balance aux loss)
     and the full-sequence logits
+  * ``encode(frames)`` — the encdec encoder: precomputed frame embeddings
+    (B, T, frontend_dim) through ``in_proj``, its non-causal layer stack and
+    final norm, to the decoder's cross-attention ``memory`` (B, T, d)
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + cache
     (KV; for hybrid also each mamba layer's conv window and SSD state; for
-    rwkv each layer's last tokens and wkv state, no KV)
+    rwkv each layer's last tokens and wkv state, no KV; for encdec the
+    decoder's self-attention KV, and the encoded ``memory`` beside it)
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``, or ``active`` alone for a
-    slot-swap cache (the hybrid and rwkv families' fixed-size state)
+    slot-swap cache (the hybrid and rwkv families' fixed-size state); an
+    encdec step takes ``batch["memory"]`` and cross-attends to it in every
+    layer, its K and V projected again each step, as the reference does
   * ``cache_specs`` / ``paged_cache_specs`` / ``init_cache``: a
     sliding-window config's KV is a ring of ``min(cache_len, window)``
     positions (slot-swapped, never paged); under ``kv_quant`` every KV leaf
@@ -62,8 +69,14 @@ specs keep them; its stack runs through ``runtime/pipeline.py``.  Under
 the expert axis (ep > 1) the model stores the rank's E/ep experts of each
 expert leaf and its MoE blocks dispatch tokens to them
 (``moe.ExpertDispatch``); at ep = 1 the expert leaves are on the data
-axis, as the reference's rules put them, and gathered on use.  Training
-only: prefill, decode and ``logits`` of a sharded model raise.
+axis, as the reference's rules put them, and gathered on use.  The encdec
+encoder's layer stack is on the pipe axis too, as the reference's rules put
+every "layers" axis, but as a storage partition only (contiguous blocks,
+whatever ``virtual_stages`` says): every pipe rank runs the whole encoder,
+so the pipeline gathers it over the pipe group
+(``runtime/pipeline.py:PipeEncoder``) and reduce-scatters its gradient
+back.  Training only: prefill, decode and ``logits`` of a sharded model
+raise.
 
 The layer stack of every family lowers into the StageProgram IR
 (:meth:`Model.stage_program`, ``core/stage_program.py``): ``hidden_states``
@@ -135,11 +148,15 @@ def _layer_specs(cfg: ModelConfig) -> dict:
     """One stacked unit: attention and MLP (dense), attention and the MoE
     FFN after a sub-stack of ``moe_every - 1`` dense layers (moe), or one
     mamba2 layer (hybrid; the shared attention block is its own subtree),
-    or one time-mix + channel-mix block (rwkv)."""
+    or one time-mix + channel-mix block (rwkv), or one decoder layer:
+    self-attention, cross-attention and MLP (encdec)."""
     if cfg.family == "hybrid":
         return ssm.mamba_specs(cfg)
     if cfg.family == "rwkv":
         return rwkv.rwkv_specs(cfg)
+    if cfg.family == "encdec":
+        return {"attn": blocks.attn_specs(cfg), "cross": blocks.attn_specs(cfg, cross=True),
+                "mlp": blocks.mlp_specs(cfg)}
     if cfg.family != "moe":
         return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
     unit = {"attn": blocks.attn_specs(cfg), "moe": moe.moe_specs(cfg)}
@@ -175,7 +192,8 @@ def stage_units(cfg: ModelConfig) -> tuple[str, int]:
     (:meth:`Model.stage_program`): what a pipeline's stages split."""
     if cfg.family == "hybrid":
         return "super", _n_super(cfg)
-    return {"rwkv": "rwkv", "moe": "moe_unit"}.get(cfg.family, "block"), _n_stack(cfg)
+    return ({"rwkv": "rwkv", "moe": "moe_unit", "encdec": "decoder"}.get(cfg.family, "block"),
+            _n_stack(cfg))
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -192,13 +210,28 @@ def param_specs(cfg: ModelConfig) -> dict:
         # one weight-tied attention + MLP block, applied after every
         # hybrid_attn_every mamba layers
         specs["shared"] = {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
+    if cfg.family == "encdec":
+        enc_layer = {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
+        specs["encoder"] = {
+            "in_proj": Spec((cfg.frontend_dim, d), (None, "embed")),
+            "layers": stack_specs(enc_layer, cfg.enc_layers),
+            "final_norm": blocks.norm_spec(d, cfg.norm),
+        }
     return specs
+
+
+def pipe_interleaved(path: str) -> bool:
+    """Whether leaf ``path``'s pipe-axis block follows the logical stages'
+    round-robin under virtual stages: the decoder's layer stack does; the
+    encdec encoder's, a storage partition that every pipe rank gathers
+    whole, is cut into contiguous blocks."""
+    return not path.startswith("encoder.")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
-    if cfg.family not in ("dense", "moe", "hybrid", "rwkv"):
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv", "encdec"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"pos={cfg.pos!r} {where}")
@@ -261,8 +294,10 @@ def _tp_heads(cfg: ModelConfig) -> list[tuple[str, int]]:
     """(a leaf that splits on whole heads, its head count) of the family."""
     if cfg.family == "rwkv":
         return [("layers.tm.wr", rwkv.n_rwkv_heads(cfg))]
-    attn = "shared.attn" if cfg.family == "hybrid" else "layers.attn"
-    heads = [(f"{attn}.wq", cfg.n_heads), (f"{attn}.wk", cfg.n_kv_heads)]
+    attns = {"hybrid": ["shared.attn"],
+             "encdec": ["layers.attn", "layers.cross", "encoder.layers.attn"]}
+    heads = [(f"{attn}.{w}", n) for attn in attns.get(cfg.family, ["layers.attn"])
+             for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads))]
     if cfg.family == "hybrid":
         heads.insert(0, ("layers.in_proj", ssm.n_ssm_heads(cfg)))
     return heads
@@ -384,8 +419,9 @@ class Model(nn.Module):
         leaves whose split is not one even cut)."""
         if self.shardings is None:
             return tuple(slice(None) for _ in shape)
-        return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes,
-                                self.mesh.coord, self.virtual_stages, self.pieces.get(path))
+        return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes, self.mesh.coord,
+                                self.virtual_stages if pipe_interleaved(path) else 1,
+                                self.pieces.get(path))
 
     def _refuse_sharded(self, what: str) -> None:
         if self.shardings is not None and any(shd.spec_axes(s)
@@ -448,7 +484,8 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     @property
     def paged_cacheable(self) -> bool:
-        return self.cfg.family in ("dense", "moe") and self.cfg.sliding_window is None
+        return (self.cfg.family in ("dense", "moe", "encdec")
+                and self.cfg.sliding_window is None)
 
     def _attn_cache_len(self, cache_len: int) -> int:
         """The KV positions a cache of ``cache_len`` holds: a sliding
@@ -479,14 +516,20 @@ class Model(nn.Module):
             return stack_specs(unit, _n_stack(cfg))
         return stack_specs(kv, _n_super(cfg) if cfg.family == "hybrid" else cfg.n_layers)
 
-    def _attn_layers(self, params: dict, cache: dict
+    def _attn_layers(self, params: dict, cache: dict, memory: torch.Tensor | None = None
                      ) -> Iterator[tuple[dict, dict, Callable]]:
         """(attention weights, that layer's KV cache leaves (views), the FFN
         that follows it) for each attention layer in order, from the stacked
-        ``params["layers"]`` and ``cache["layers"]`` trees."""
+        ``params["layers"]`` and ``cache["layers"]`` trees; an encdec
+        layer's "FFN" is its cross-attention over ``memory``, then its MLP."""
         cfg, pol = self.cfg, self.compute
         for i in range(_n_stack(cfg)):
             lp, cl = _layer(params, i), _layer(cache, i)
+            if cfg.family == "encdec":
+                yield lp["attn"], cl, lambda x, p=lp: blocks.mlp_block(
+                    p["mlp"], blocks.cross_attn_block(p["cross"], x, memory, cfg, policy=pol),
+                    cfg, policy=pol)
+                continue
             if cfg.family != "moe":
                 yield lp["attn"], cl, lambda x, p=lp["mlp"]: blocks.mlp_block(
                     p, x, cfg, policy=pol)
@@ -562,7 +605,9 @@ class Model(nn.Module):
         hybrid one "super" unit per ``hybrid_attn_every`` mamba layers,
         which closes over the weight-tied shared block
         (``ssm.hybrid_segment_body`` wraps each mamba layer and the shared
-        application).  The other families carry the single ``aux`` at 0,
+        application); for encdec one "decoder" unit a layer
+        (``blocks.segment_body(cross=True)``) that reads the ``memory``
+        input carry.  The other families carry the single ``aux`` at 0,
         untouched.  Data-sharded leaves are wrapped to gather on use, so a
         program serves one pass."""
         cfg = self.cfg
@@ -589,6 +634,14 @@ class Model(nn.Module):
                                            self._uses(params["shared"], "shared"),
                                            lambda t: _cast_floating(t, cdt), tp=self._tp)
             name = "super"
+        elif cfg.family == "encdec":
+            layer = blocks.segment_body(cfg, self.compute, cross=True, tp=self._tp)
+            step = self.compute.checkpoint(
+                lambda lp, x, memory: layer(_cast_floating(lp, cdt), x, memory))
+            return sp.StageProgram(
+                (sp.Segment("decoder", lps, len(lps),
+                            lambda lp, x, carry: (step(lp, x, carry["memory"]), carry)),),
+                (sp.CarrySpec("aux"), sp.CarrySpec("memory", sp.INPUT)))
         else:
             if cfg.family == "rwkv":
                 name, layer = "rwkv", rwkv.segment_body(cfg, self.compute, tp=self._tp)
@@ -599,6 +652,35 @@ class Model(nn.Module):
             units = lps
         return sp.StageProgram((sp.Segment(name, units, len(units),
                                            lambda lp, x, carry: (step(lp, x), carry)),))
+
+    def encoder_program(self, layers_tree: dict | None = None) -> sp.StageProgram:
+        """The encdec encoder stack as its own carry-less StageProgram
+        (``repro/models/model.py:encoder_program``): one "encoder" unit a
+        layer, non-causal, under the remat wrapper with the cast inside, over
+        ``layers_tree`` (the stored ``encoder.layers`` by default; the
+        pipeline passes the stack it gathered over the pipe group)."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        tree = self.params()["encoder"]["layers"] if layers_tree is None else layers_tree
+        lps = [self._uses(lp, "encoder.layers", stacked=True)
+               for lp in _unstack(tree, cfg.enc_layers)]
+        layer = blocks.segment_body(cfg, self.compute, causal=False, tp=self._tp)
+        step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
+        return sp.StageProgram((sp.Segment("encoder", lps, len(lps),
+                                           lambda lp, x, carry: (step(lp, x), carry)),), ())
+
+    def encode(self, frames: torch.Tensor, layers_tree: dict | None = None) -> torch.Tensor:
+        """The encoder (``repro/models/model.py:encode``): frame embeddings
+        (B, T, frontend_dim) -> memory (B, T, d) in the compute dtype:
+        ``frames @ in_proj`` in the compute dtype, the
+        :meth:`encoder_program`, then the encoder's final norm (its kernel
+        under ``policy.kernels``)."""
+        cfg, cdt = self.cfg, self.compute_dtype
+        enc = self._uses(
+            {k: v for k, v in self.params()["encoder"].items() if k != "layers"}, "encoder")
+        x = frames.to(device=self.device, dtype=cdt) @ _cast_floating(enc["in_proj"], cdt)
+        x, _ = sp.run_program(self.encoder_program(layers_tree), x, {})
+        return layers.apply_norm(x, _cast_floating(enc["final_norm"], cdt), cfg.norm,
+                                 cfg.rms_eps, use_kernel=self.compute.kernels)
 
     def normed(self, x: torch.Tensor) -> torch.Tensor:
         """The final norm of the stack's output, in the compute dtype."""
@@ -611,14 +693,18 @@ class Model(nn.Module):
         """(final-normed hidden states (B, S, d) in the compute dtype, the
         moe aux loss, the moe drop sum; both fp32 0 for the other
         families): the pp=1 path, ``core/stage_program.py:run_program``
-        over :meth:`stage_program`.  A model split over pipe ranks runs its
-        stack through ``runtime/pipeline.py`` instead."""
+        over :meth:`stage_program` (for encdec after :meth:`encode` of
+        ``batch["frames"]``, its ``memory`` carry).  A model split over pipe
+        ranks runs its stack through ``runtime/pipeline.py`` instead."""
         if self.mesh is not None and self.mesh.sizes["pipe"] > 1:
             raise ValueError("a model split over pipe ranks runs its layer stack "
                              "through runtime/pipeline.py (train_loop.build_train_step)")
         x = self._embed(self.params(), batch)
+        inputs = {}
+        if self.cfg.family == "encdec":
+            inputs["memory"] = self.encode(batch["frames"])
         prog = self.stage_program()
-        x, carry = sp.run_program(prog, x, prog.init_carry(x.device),
+        x, carry = sp.run_program(prog, x, prog.init_carry(x.device, inputs),
                                   None if self.comm is None
                                   else self.comm.layer_comm(self.compute_dtype, x.device))
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -728,7 +814,12 @@ class Model(nn.Module):
 
         ``lens`` (B,) — true lengths of right-padded prompts: logits are
         read at ``lens - 1``, the cache holds only real positions, and
-        ``cache["pos"]`` becomes the per-slot vector ``lens``."""
+        ``cache["pos"]`` becomes the per-slot vector ``lens``.  An encdec
+        batch carries ``frames`` (B, T, frontend_dim): each layer runs
+        self-attention (its KV into the cache), cross-attention over their
+        encoding, then its MLP; the encoding is returned as
+        ``cache["memory"]`` (B, T, d), which every decode step takes as
+        ``batch["memory"]``."""
         cfg = self.cfg
         self._refuse_sharded("prefill")
         params = self._cparams()
@@ -755,7 +846,10 @@ class Model(nn.Module):
             clen = self._attn_cache_len(cache_len)
             kv = init_params(self._kv_specs((B, clen), ("cache_batch", "cache_seq")),
                              None, self.device, self.compute_dtype)
-            for ap, kvc, ffn in self._attn_layers(params["layers"], kv):
+            memory = None
+            if cfg.family == "encdec":
+                memory = cache["memory"] = self.encode(batch["frames"])
+            for ap, kvc, ffn in self._attn_layers(params["layers"], kv, memory):
                 x, k, v = blocks.self_attn_block(ap, x, cfg, causal=True,
                                                  return_kv=True, policy=self.compute)
                 x = ffn(x)
@@ -815,7 +909,8 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, cache: dict, batch: dict) -> tuple[torch.Tensor, dict]:
-        """One serving step: batch = {"token": (B, 1)}, optionally "active"
+        """One serving step: batch = {"token": (B, 1)} (and for encdec
+        "memory" (B, T, d), the encoder's output), optionally "active"
         (B,) bool (inactive slots do not advance ``pos``) and "block_table"
         (B, max_blocks) for the paged pool of :meth:`paged_cache_specs`,
         where inactive slots' writes go to block 0.  ``active`` without a
@@ -847,7 +942,10 @@ class Model(nn.Module):
                                               policy=self.compute, active=active)
                     _masked_copy(cl, new, active)
             return self._logits(params, x[:, 0]), {**cache, "pos": pos + step}
-        for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"]):
+        memory = None
+        if cfg.family == "encdec":
+            memory = batch["memory"].to(device=self.device, dtype=self.compute_dtype)
+        for ap, kvc, ffn in self._attn_layers(params["layers"], cache["layers"], memory):
             if bt is not None:
                 x, _ = blocks.paged_attn_decode(ap, x, kvc, bt, pos, cfg,
                                                 active=active, policy=self.compute)

@@ -192,7 +192,7 @@ def hybrid_segment_body(cfg: ModelConfig, policy: ComputePolicy | None,
     pair (``blocks.segment_body``)."""
     pol = resolve_policy(policy)
     mamba = segment_body(cfg, pol, tp)
-    shared = blocks.segment_body(cfg, pol, tp)
+    shared = blocks.segment_body(cfg, pol, tp=tp)
     mamba_step = pol.checkpoint(lambda lp, x: mamba(cast(lp), x))
     shared_step = pol.checkpoint(lambda sp, x: shared(cast(sp), x))
 

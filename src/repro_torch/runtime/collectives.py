@@ -54,7 +54,9 @@ into intra (over the data group) and inter (over the node group) bytes
 (:func:`gather_phase_bytes`, what ``core/commplan.py:leaf_gather_bytes``
 prices), and so do the expert
 slot mask's all-to-alls (one byte a slot, beside the tokens' d values), as
-``all-to-all-mask``.  The telemetry reads
+``all-to-all-mask``, and the encdec encoder's gather over the pipe group at
+pp > 1 and its gradient's reduce-scatter (``runtime/pipeline.py:PipeEncoder``),
+as ``pipe_gather`` and ``pipe_scatter``.  The telemetry reads
 them per step (:func:`comm_bytes`, :func:`reset_comm_bytes`); a count is
 one integer add on the call.
 """
@@ -80,7 +82,7 @@ ALL_AXES = (NODE,) + EP_AXES
 TIER = {"data": "intra", NODE: "inter"}
 
 COMM_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "zero3_gather", "send",
-              "all-to-all", "all-to-all-mask")
+              "all-to-all", "all-to-all-mask", "pipe_gather", "pipe_scatter")
 COMM_BYTES = dict.fromkeys(COMM_KINDS, 0)
 GATHER_PHASES = {"intra": 0, "inter": 0}
 
@@ -208,7 +210,8 @@ def scatter_phases(x: torch.Tensor, phases) -> torch.Tensor:
     return x
 
 
-def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
+                       kind: str = "reduce-scatter") -> torch.Tensor:
     """The sum over the ranks of ``x``, split along ``dim`` into one block
     per rank: this rank's block."""
     n = dist.get_world_size(group)
@@ -217,7 +220,7 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = x.reshape(*s[:dim], n, s[dim] // n, *s[dim + 1:]).movedim(dim, 0).contiguous()
     out = x.new_empty(block)
     _reduce_scatter(out.view(-1), parts.view(-1), group=group)
-    _count("reduce-scatter", parts)
+    _count(kind, parts)
     return out
 
 

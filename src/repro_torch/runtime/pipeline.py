@@ -22,6 +22,19 @@ None))``), so the router's gradient reaches the earlier stages through
 Parameter gradients accumulate in fp32 in ``.grad`` over the
 applications, as the reference's pipeline-scan transpose does.
 
+The encdec family's ``memory`` input carry is encoded on every pipe rank,
+as the reference's GSPMD runs its encoder on every pipe rank, and never
+rides the ring: before the forward walk each rank gathers the encoder's
+layer stack over the pipe group (:class:`PipeEncoder`; the plan
+stores it split over the pipe ranks) and encodes every microbatch's frames
+in microbatch order; each application reads its microbatch's memory as a
+leaf that sums the cotangents of the rank's stages; after the backward walk
+the rank backpropagates each microbatch's memory cotangent through its
+encode, in microbatch order, and reduce-scatters the gathered stack's
+gradient back over the pipe group.  So the ring's bytes are the dense
+family's, and every collective of the encoder runs at the same point on
+every rank.
+
 The hand-off is a local tensor when one process runs every stage
 (``ring=None``: the stage split and its boundary backward checked on one
 card), or a point-to-point exchange on the pipe group (:class:`Ring`):
@@ -45,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import precision as prec
+from repro_torch.core import sharding as shd
 from repro_torch.core.pipeline import Schedule
 from repro_torch.core.stage_program import split_stages
 from repro_torch.runtime import collectives
@@ -124,6 +138,47 @@ def loss_count(batch: dict, device: torch.device) -> torch.Tensor:
     return mask[:, 1:].float().sum()
 
 
+class PipeEncoder:
+    """The encdec encoder's layer stack for one pipelined step.  Each leaf
+    the plan puts on the pipe axis (a storage partition, contiguous blocks
+    in pipe order) is all-gathered whole over the pipe group, in the
+    storage dtype, into a leaf of its own that takes the gradient of every
+    encode this rank runs; the other leaves are the stored ones.
+    :meth:`scatter` reduce-scatters the gathered leaves' gradients over the
+    pipe group into the parameters' ``.grad``: each rank's block of the sum
+    over every rank's encodes.  The leaves kept whole over the pipe group
+    are summed over it by the step, as every such leaf is.  The bytes
+    count as ``pipe_gather`` and ``pipe_scatter`` in
+    ``runtime/collectives.py``.  ``layers`` is the stack as
+    :meth:`Model.encode` takes it."""
+
+    PREFIX = "encoder.layers."
+
+    def __init__(self, model):
+        self.group = None if model.mesh is None else model.mesh.groups["pipe"]
+        self.gathered: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.layers: dict = {}
+        for path, p in model.named_parameters():
+            if not path.startswith(self.PREFIX):
+                continue
+            leaf = p
+            if model.shardings is not None and "pipe" in shd.spec_axes(model.shardings[path]):
+                leaf = collectives.all_gather_dim(p.detach(), 0, self.group,
+                                                  "pipe_gather").requires_grad_()
+                self.gathered[path] = (p, leaf)
+            *parents, name = path[len(self.PREFIX):].split(".")
+            node = self.layers
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[name] = leaf
+
+    def scatter(self) -> None:
+        for p, leaf in self.gathered.values():
+            g = torch.zeros_like(leaf) if leaf.grad is None else leaf.grad
+            part = collectives.reduce_scatter_dim(g, 0, self.group, "pipe_scatter")
+            p.grad = part if p.grad is None else p.grad.add_(part)
+
+
 class _Stages:
     """What a rank runs at its applications: the model's local stages,
     logical stage s in local slot ``slot(s)``."""
@@ -136,6 +191,32 @@ class _Stages:
         self.n_local, self.slot = n_local, slot
         self.ce = torch.zeros((), dtype=torch.float32, device=model.device)
         self.sums = sums
+        # encdec: (the encode's output, the leaf the stages read) a microbatch
+        self.memory: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.encoder = None
+
+    def encode(self) -> None:
+        """Gather the encoder and encode every microbatch's frames, in
+        microbatch order (encdec; nothing for the other families)."""
+        model = self.model
+        if model.cfg.family != "encdec":
+            return
+        self.encoder = PipeEncoder(model)
+        for j, mb in enumerate(self.micro):
+            out = model.encode(mb["frames"], self.encoder.layers)
+            self.memory[j] = (out, out.detach().requires_grad_())
+
+    def encoder_backward(self) -> None:
+        """Each microbatch's memory cotangent through its encode, in
+        microbatch order, then the gathered stack's gradient reduce-scattered
+        over the pipe group (encdec; nothing for the other families)."""
+        if self.encoder is None:
+            return
+        for j in sorted(self.memory):
+            out, leaf = self.memory.pop(j)
+            if leaf.grad is not None:
+                torch.autograd.backward(out, leaf.grad)
+        self.encoder.scatter()
 
     def forward(self, j: int, s: int, x: torch.Tensor | None):
         """(input leaf or None at stage 0, output: activation or scaled
@@ -150,7 +231,8 @@ class _Stages:
         # anew, as each microbatch's pass does at pp = 1
         prog = model.stage_program()
         params, stage_fn = split_stages(prog, self.n_local)
-        h, carry = stage_fn(params[self.slot(s)], h, prog.init_carry(h.device))
+        inputs = {"memory": self.memory[j][1]} if self.memory else None
+        h, carry = stage_fn(params[self.slot(s)], h, prog.init_carry(h.device, inputs))
         term = None
         if "moe_drop" in carry:
             if self.sums is not None:
@@ -215,6 +297,7 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
     clock.mark()
     if ring is None:
         stages = _Stages(model, sched, micro, count, loss_scale, S, lambda s: s, sums)
+        clock.timed(stages.encode)()
         forward, backward = clock.timed(stages.forward), clock.timed(stages.backward)
         outs, kept = {}, []
         walk = sorted(a for apps in sched.ranks for a in apps)
@@ -229,12 +312,14 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
             g = backward(inp, out, grads.pop((j, s), None), term)
             if s > 0:
                 grads[j, s - 1] = g
+        clock.timed(stages.encoder_backward)()
         clock.mark()
         clock.applications = len(walk)
         _last_clock = clock
         return stages.ce
 
     stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of, sums)
+    clock.timed(stages.encode)()
     b, seq = micro[0]["tokens"].shape
     shape = (b, seq, model.cfg.d_model)
 
@@ -261,6 +346,7 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
     last = sched.ticks - 1
     _walk([(last - t, (j, s), s < S - 1, s > 0) for t, j, s in reversed(apps)],
           clock.timed(backward), ring.next, ring.prev, ring.group, buffer)
+    clock.timed(stages.encoder_backward)()
     clock.mark()
     clock.applications = len(apps)
     _last_clock = clock

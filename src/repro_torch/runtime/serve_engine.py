@@ -23,16 +23,21 @@
     prompt's exact length instead, because their state summarizes every
     position it sees, padding included;
   * sampling per request (``runtime/sampling.py``) with stop tokens,
-    ``max_new_tokens`` and the capacity cap.
+    ``max_new_tokens`` and the capacity cap;
+  * the encdec family's requests carry their ``frames`` in
+    ``Request.extras``: they enter the admission prefill, whose encoding
+    (the reference encodes a second time for the slot; the port keeps
+    prefill's) is written into the slot's row of an fp32 ``memory`` of
+    (n_slots, enc_seq_len, d) that every tick feeds to the decode step.
 
 Each finished request appends a ``repro.telemetry/1`` ``request`` record to
 ``records`` (arrival, admission, first-token and done times on the engine
 clock, token counts, finish reason, evictions), validated by
 ``core/telemetry.py``, and writes it to ``telemetry_sink`` if given.
 
-``mesh`` / ``plan`` (a dp-only ``ParallelPlan``: ZeRO 0, no tp, pp or ep)
-serve data-parallel slots on ``torch.distributed``
-(``serve_loop.build_decode_step``): data rank r holds the cache rows of
+``mesh`` / ``plan`` (a dp-only ``ParallelPlan``: ZeRO 0, no tp, pp or ep;
+not the encdec family, which raises) serve data-parallel slots on
+``torch.distributed`` (``serve_loop.build_decode_step``): data rank r holds the cache rows of
 slots [r n/dp, (r + 1) n/dp) or its n_blocks/dp blocks of the pool (its own
 garbage block 0 first); ``owner`` is the one place that says so.  Every
 rank keeps the whole request book (the same queue, slots, block tables and
@@ -65,7 +70,9 @@ from repro_torch.runtime.sampling import sample_tokens
 
 @dataclasses.dataclass
 class Request:
-    """One generation request; ``arrival`` is seconds from the run start."""
+    """One generation request; ``arrival`` is seconds from the run start;
+    ``extras`` the non-token prefill inputs (``frames`` (T, frontend_dim)
+    for encdec)."""
     rid: int
     prompt: np.ndarray
     max_new_tokens: int
@@ -74,6 +81,7 @@ class Request:
     seed: int = 0
     stop_tokens: tuple[int, ...] = ()
     arrival: float = 0.0
+    extras: dict | None = None
 
 
 @dataclasses.dataclass
@@ -147,6 +155,9 @@ class ServeEngine:
         # recurrent state summarizes every fed position, so padded prefill
         # would pollute it: these families prefill at the exact length
         self.exact_prefill = model.cfg.family in ("rwkv", "hybrid")
+        if mesh is not None and model.cfg.family == "encdec":
+            raise NotImplementedError("dp serving of the encdec family (each rank's slots' "
+                                      "memory) is not ported yet (see ROADMAP.md, Queue 1)")
         self.mesh = None if mesh is None else serve_loop.serve_mesh(model, mesh, plan)
         self.dp = 1 if self.mesh is None else self.mesh.sizes["data"]
         self.rank = 0 if self.mesh is None else self.mesh.coord["data"]
@@ -182,6 +193,10 @@ class ServeEngine:
             b *= 2
         self.prefill_buckets = tuple(buckets) + (cache_len,)
         self._prefills: dict[int, Callable] = {}
+        self.memory = None
+        if model.cfg.family == "encdec":
+            self.memory = torch.zeros((n_slots, model.cfg.enc_seq_len, model.cfg.d_model),
+                                      dtype=torch.float32, device=self.device)
 
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: collections.deque[Request] = collections.deque()
@@ -295,9 +310,13 @@ class ServeEngine:
         if owner == self.rank:
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :L] = prompt
+            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+            for k, v in (req.extras or {}).items():
+                batch[k] = torch.as_tensor(np.asarray(v))[None].to(self.device)
             logits, small = self._get_prefill(bucket)(
-                {"tokens": torch.from_numpy(toks).to(self.device)},
-                torch.tensor([L], dtype=torch.int32, device=self.device))
+                batch, torch.tensor([L], dtype=torch.int32, device=self.device))
+            if self.memory is not None:
+                self.memory[slot_idx] = small["memory"][0]
             if self.paged:
                 nb_bucket = _round_up(bucket, self.block_size) // self.block_size
                 nb_real = min(n_keep, nb_bucket)
@@ -437,6 +456,8 @@ class ServeEngine:
                  "active": torch.from_numpy(mask).to(self.device)}
         if self.paged:
             batch["block_table"] = torch.from_numpy(self.bt).to(self.device)
+        if self.memory is not None:
+            batch["memory"] = self.memory
         t0 = time.perf_counter()
         logits, self.cache = self._decode(self.cache, batch)
         sampled = sample_tokens(logits, self.temps, self.top_ps, self.seeds, self.steps)

@@ -99,15 +99,22 @@ def share_logits(logits: torch.Tensor | None, owner: int, mesh: MeshGroups, voca
 
 
 def greedy_generate(model: Model, prompt: torch.Tensor, n_steps: int,
-                    cache_len: int) -> torch.Tensor:
+                    cache_len: int, extras: dict | None = None) -> torch.Tensor:
     """Greedy loop, the temperature-0 reference that the serve engine must
-    match token for token: prompt (B, S) -> (B, n_steps) ids."""
-    logits, cache = model.prefill({"tokens": prompt}, cache_len)
+    match token for token: prompt (B, S) -> (B, n_steps) ids.  ``extras``
+    carries the non-token prefill inputs (``frames`` (B, T, frontend_dim)
+    for encdec); the encoder's output that prefill returns is fed to every
+    decode step as ``memory``."""
+    batch = {"tokens": prompt}
+    batch.update({k: torch.as_tensor(v) for k, v in (extras or {}).items()})
+    logits, cache = model.prefill(batch, cache_len)
+    memory = cache.pop("memory", None)
+    fed = {} if memory is None else {"memory": memory}
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     decode = build_decode_step(model)
     outs = [tok]
     for _ in range(n_steps - 1):
-        logits, cache = decode(cache, {"token": tok})
+        logits, cache = decode(cache, {"token": tok, **fed})
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         outs.append(tok)
     return torch.cat(outs, dim=1)

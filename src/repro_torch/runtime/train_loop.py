@@ -250,7 +250,11 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     the layer stack is on the pipe axis, and its units must split into the
     plan's logical stages (the reference's ``split_stages`` error
     otherwise), and ep must divide the expert count
-    (``expertplan.ExpertDivisibilityError`` otherwise)."""
+    (``expertplan.ExpertDivisibilityError`` otherwise).  Where the rules
+    put the vocab on the model axis, tp must divide the padded vocab: a
+    vocab-parallel embedding and lm_head that fell back to replication
+    would change the plan's memory silently, so that raises, naming the
+    leaf (seamless-m4t-medium's 256206 at tp = 4)."""
     if plan.pp > 1:
         name, n = stage_units(cfg)
         if n % plan.n_stages:
@@ -261,6 +265,10 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
         rules = rules.with_overrides(**{k: None for k, v in rules.rules.items()
                                         if "model" in shd.spec_axes((v,))})
     sizes = plan.mesh_sizes()
+    if "model" in shd.spec_axes((rules.mesh_axis("vocab"),)) and cfg.padded_vocab % plan.tp:
+        raise NotImplementedError(
+            f"{'embed' if cfg.tie_embeddings else 'embed, lm_head'}: the vocab of {cfg.padded_vocab} "
+            f"does not split over tp={plan.tp} (see ROADMAP.md, Queue 1)")
     leaves = list(flatten_specs(param_specs(cfg)))
     shapes = {k: s.shape for k, s in leaves}
     axes = {k: s.axes for k, s in leaves}

@@ -27,7 +27,7 @@ def reference(arch: str, overrides: dict, plan: dict, steps: int = ranks.STEPS
     weights = flatten_tree(jax.tree.map(np.asarray, state["params"]))
     step = jax.jit(jax_build(jm, jopt, jplan))
     out = []
-    for b in ranks.batches(jm.cfg.vocab_size, steps):
-        state, m = step(state, {"tokens": jnp.asarray(b["tokens"])})
+    for b in ranks.batches(jm.cfg.vocab_size, steps, ranks.config(arch, overrides)):
+        state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
         out.append((float(m["loss"]), float(m["grad_norm"])))
     return weights, np.array(out)

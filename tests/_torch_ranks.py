@@ -18,6 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.interop import from_jax_params, gather_params, mesh_axes, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
+from repro_torch.launch.train import extra_specs
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import collectives, pipeline
@@ -28,9 +29,12 @@ STEPS, SEQ, BATCH = 3, 32, 8
 LR = 1e-3
 
 
-def batches(vocab: int, n: int = STEPS) -> list[dict]:
+def batches(vocab: int, n: int = STEPS, cfg=None) -> list[dict]:
+    """``n`` global batches; ``cfg`` adds its family's dense inputs (the
+    encdec family's frames, ``launch/train.py:extra_specs``)."""
     it = make_batch_iterator(SyntheticCorpus(vocab_size=vocab, seed=0), seq_len=SEQ,
-                             global_batch=BATCH, prefetch=0)
+                             global_batch=BATCH, prefetch=0,
+                             extra_specs=None if cfg is None else extra_specs(cfg))
     return [next(it) for _ in range(n)]
 
 
@@ -73,7 +77,7 @@ def single_device(arch: str, overrides: dict, weights: dict, plan: dict,
     opt = AdamWConfig(lr=LR)
     p = ParallelPlan(**plan)
     traj = trajectory(build_train_step(model, opt, p), init_train_state(model, opt, p),
-                      batches(cfg.vocab_size, n), moe=moe)
+                      batches(cfg.vocab_size, n, cfg), moe=moe)
     return traj, {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
 
 
@@ -83,7 +87,7 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
     against the single-device port's on the same whole weights and rows:
     {leaf: (max |difference|, max |single-device gradient|)}."""
     cfg = model.cfg
-    batch = {"tokens": torch.from_numpy(batches(cfg.vocab_size, 1)[0]["tokens"][:4])}
+    batch = {k: torch.from_numpy(v[:4]) for k, v in batches(cfg.vocab_size, 1, cfg)[0].items()}
 
     def grads(m: Model) -> dict:
         m.requires_grad_(True)
@@ -211,7 +215,7 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
             moe: list = []
             phases: list = []
             res = {"trajectory": trajectory(build_train_step(model, opt, plan, mesh), state,
-                                            batches(cfg.vocab_size, job.get("steps", STEPS)),
+                                            batches(cfg.vocab_size, job.get("steps", STEPS), cfg),
                                             comm, walks, moe, phases),
                    "comm_bytes": comm, "walks": walks, "moe": moe, "coord": coord,
                    "gather_phases": phases,

@@ -170,8 +170,7 @@ def test_from_jax_params_is_strict(fault):
 
 @pytest.mark.parametrize("arch,kernels", [
     ("internvl2-2b", False),                # vlm family
-    ("seamless-m4t-medium", False),         # encdec family
-], ids=["vlm", "encdec"])
+], ids=["vlm"])
 def test_out_of_scope_raises(arch, kernels):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config(arch).reduced(), torch.float32,

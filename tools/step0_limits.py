@@ -1,11 +1,13 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
-  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b|arctic-480b]
+  python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b|arctic-480b|
+                                        seamless-m4t-medium]
                                        (one CUDA card, from the repo root)
 
 The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
 gpt-1.4b at all 24, zamba2-2.7b at 18 of 54, rwkv6-1.6b at all 24,
-arctic-480b at 2 of 35 with 8 of its 128 experts; bf16
+arctic-480b at 2 of 35 with 8 of its 128 experts, seamless-m4t-medium at
+all 12 + 12 with its synthetic frames; bf16
 compute over fp32 masters,
 remat full, gas 2 microbatches of 4 x 2048 tokens) with kernels=True against
 kernels=False, in loss and grad_norm.  This script measures what that
@@ -16,7 +18,7 @@ comparison can tell apart:
   * planted: the same difference on seed 0 when one kernel is wrong in a
     single 64-row tile at the step's grid (its output there zeroed after the
     real kernel ran): the MLP input half (swiglu or gelu_mlp), for gpt-1.4b
-    the layernorm forward, for zamba2-2.7b the SSD scan forward, for
+    and seamless-m4t-medium the layernorm forward, for zamba2-2.7b the SSD scan forward, for
     arctic-480b the grouped expert MLP's forward (rows of expert 0), the flash
     forward, the dQ kernel, and the dK/dV kernel; for rwkv6-1.6b (no
     attention, no MLP kernel) the wkv scan forward and the rmsnorm forward.
@@ -71,7 +73,7 @@ def main() -> int:
     cfg = cs.train_config(args.arch)
     gb, gas, S = cs.TRAIN["global_batch"], cs.TRAIN["gas"], cs.TRAIN["seq_len"]
     model = Model(cfg, torch.float32, device="cuda")
-    batches = cs._batches(cfg.vocab_size, S, gb, len(SEEDS))
+    batches = cs._batches(cfg.vocab_size, S, gb, len(SEEDS), cfg)
     plans = {k: ParallelPlan(gas=gas, precision="bf16", remat="full", kernels=k)
              for k in (True, False)}
 
