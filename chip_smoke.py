@@ -87,14 +87,23 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      encoder's 1024 over 1024, layernorm (8192, 1024), gelu_mlp (8192,
      1024) x (1024, 4096), and the bf16 CE at V 256206 (no multiple of 8:
      W padded for the kernel's TMA map; the pad timed apart) with planted
-     faults;
+     faults; the vlm path's own shapes (``phase_kernels_vlm``, internvl2-2b:
+     4 rows of 256 patch and 2048 text positions): rmsnorm (9216, 2048),
+     swiglu (9216, 2048) x (2048, 8192), both also at the serve prefill's
+     512 and a tick's 4 rows, the flash forward and backward causal over
+     4 x 2304 positions, 16q/8kv of 128, the bf16 CE at V 92553 (padded to
+     92560) with planted faults; and, first of this phase, rmsnorm on
+     qwen3's 128-wide qk-norm rows in turns with ``F.rms_norm`` (event,
+     device and host time; ``phase_rmsnorm_qk``);
   3. serve, for yi-6b, gpt-1.4b, llama4-maverick (2 of 48 layers),
      arctic-480b (1 of 35 layers), zamba2-2.7b (all 54 layers),
      rwkv6-1.6b (all 24 layers), h2o-danube-1.8b (all 24 layers, cache_len
      8192: a ring of its 4096-position window a slot, two prompts longer
      than the window), phi4-mini-3.8b (all 32), qwen3-32b (all 64,
-     65.5 GB of weights) and seamless-m4t-medium (12 encoder and 12 decoder
-     layers, each request with its frames, the engine's per-slot memory):
+     65.5 GB of weights), seamless-m4t-medium (12 encoder and 12 decoder
+     layers, each request with its frames, the engine's per-slot memory)
+     and internvl2-2b (all 24 layers, each request with its 256 patches,
+     their positions ahead of the prompt's in the slot's blocks):
      the model
      at full width in bf16 with kernels=True through ``ServeEngine`` (8
      requests, 4 slots; a paged pool, for zamba2, rwkv6 and danube the
@@ -115,9 +124,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      kernels=False tightly; the grouped kernel is held against its plain
      version on the (x, mask) a real prefill gives it; zamba2's and rwkv6's
      tokens equal greedy decoding at the engine's shapes for every
-     request, and seamless's (exact launches; ``greedy_paged``: the model
-     alone at the engine's buckets and shapes, on a paged pool whose blocks
-     it places itself); then a
+     request, and seamless's and internvl2's (exact launches;
+     ``greedy_paged``: the model alone at the engine's buckets and shapes,
+     on a paged pool whose blocks it places itself, the patch positions
+     counted as the engine counts them); then a
      ``torch.profiler`` pass over prefill and decode (the
      device time, idle share and kernels of a decode tick; for zamba2 and
      rwkv6 also a 255-token prefill, which scans at chunk 1, and the scan's
@@ -125,8 +135,9 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
   4. train, for yi-6b (full width, 8 layers), gpt-1.4b (full width, all 24
      layers), zamba2-2.7b (full width, 18 of 54 layers), rwkv6-1.6b
      (full width, all 24 layers), arctic-480b (full width, 2 of 35
-     layers, 8 of 128 experts) and seamless-m4t-medium (full width, all 12
-     + 12 layers, with synthetic frames): a reduced fp32
+     layers, 8 of 128 experts), seamless-m4t-medium (full width, all 12
+     + 12 layers, with synthetic frames) and internvl2-2b (full width, all
+     24 layers, 256 synthetic patches ahead of each row): a reduced fp32
      model (at the arch's head dim; with arctic, llama4-maverick's too) with
      kernels on vs off over 5 steps,
      tightly; then the arch in bf16 compute
@@ -155,7 +166,7 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      against phase 4's step 0, and at 4 ranks yi-6b at all 32 layers; then
      (``_recurrent_tp``) the reduced zamba2's and rwkv6's fp32 plans at tp
      = ranks and dp x tp against the single-device port, zamba2-2.7b
-     (TRAIN_LAYERS) and rwkv6-1.6b (24 layers) at full width and tp =
+     and rwkv6-1.6b (TRAIN_LAYERS) at full width and tp =
      ranks against phase 4's step 0 (TP_STEP0_RTOL), with telemetry
      records, and at 4 ranks zamba2-2.7b at all 54 layers at tp 4; then
      (``_moe_ranks``) the reduced llama4-maverick's and arctic's fp32
@@ -237,6 +248,7 @@ LLAMA4, ARCTIC, ZAMBA = "llama4-maverick-400b-a17b", "arctic-480b", "zamba2-2.7b
 RWKV = "rwkv6-1.6b"
 DANUBE, QWEN3, PHI4 = "h2o-danube-1.8b", "qwen3-32b", "phi4-mini-3.8b"
 SEAMLESS = "seamless-m4t-medium"
+INTERNVL = "internvl2-2b"
 # the families whose cache is slot-swapped, with exact-length prefill
 RECURRENT = ("hybrid", "rwkv")
 # the kernels each arch's serving path runs
@@ -251,6 +263,7 @@ SERVE_KERNELS = {
     PHI4: ("rmsnorm", "swiglu", "flash_attention"),
     QWEN3: ("rmsnorm", "swiglu", "flash_attention"),
     SEAMLESS: ("layernorm", "gelu_mlp", "flash_attention"),
+    INTERNVL: ("rmsnorm", "swiglu", "flash_attention"),
 }
 # the kernels each arch's train step runs
 TRAIN_KERNELS = {
@@ -264,6 +277,8 @@ TRAIN_KERNELS = {
     ARCTIC: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv", "cross_entropy", "grouped_mlp"),
     SEAMLESS: ("layernorm", "gelu_mlp", "flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "cross_entropy"),
+    INTERNVL: ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv", "cross_entropy"),
 }
 # the reduced fp32 model each arch is first held against kernels=False with,
@@ -280,7 +295,9 @@ REDUCED = {"yi-6b": dict(head_dim=128), "gpt-1.4b": dict(d_model=176, n_heads=2,
            # qk-norm on 128-wide rows; phi4-mini: hd 128
            QWEN3: dict(head_dim=128), PHI4: dict(head_dim=128),
            # seamless: plain .reduced() is its own head dim, 64 (d 256 in 4 heads)
-           SEAMLESS: {}}
+           SEAMLESS: {},
+           # internvl2: 4 heads of 128 over d 256, 8 patches of 64 ahead of the text
+           INTERNVL: dict(head_dim=128)}
 # serving depth of the moe family at full width in bf16 on one 80 GB card:
 # llama4 one stack unit (a dense layer, then a MoE layer: 18.55e9
 # parameters, 37.1 GB), arctic one layer (14.07e9, 28.1 GB); the dense
@@ -2549,8 +2566,8 @@ def phase_kernels_encdec(timer: Timer) -> dict:
     TMA map, ``cross_entropy.pad_vocab``; the pad copy timed apart), on 4 x
     2047 tokens, with planted faults.  Rows to join the kernels' cases."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cross_entropy as ce, gelu_mlp as gm, layernorm as ln
-    from repro_torch.kernels.ref import cross_entropy_ref, gelu_mlp_in_ref, layernorm_ref
+    from repro_torch.kernels import gelu_mlp as gm, layernorm as ln
+    from repro_torch.kernels.ref import gelu_mlp_in_ref, layernorm_ref
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     cfg = get_config(SEAMLESS)
@@ -2610,30 +2627,144 @@ def phase_kernels_encdec(timer: Timer) -> dict:
                                 "an elementwise pass", "bound_ms": bnd, "bound_by": by, **tags})
         del x, w, b, w1
     torch.cuda.empty_cache()
-    Nce = 4 * 2047
+    out["cross_entropy"].append(padded_ce_row(timer, gen, "seamless", 4 * 2047, d, V, tags))
+    return out
+
+
+def padded_ce_row(timer: Timer, gen, label: str, N: int, d: int, V: int, tags: dict) -> dict:
+    """The bf16 CE kernel on (N, d) x (d, V) at a V that is no multiple of
+    8 (its W padded for the kernel's TMA map, ``cross_entropy.pad_vocab``)
+    against its plain version, with planted faults: the timed row, the pad
+    copy timed apart beside its byte bound."""
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels.ref import cross_entropy_ref
+
     before = ce.launches
-    err, (h, w, labels) = ce_case(f"ce seamless bf16 ({Nce}, {d})x({d}, {V})", gen, Nce, d, V,
+    err, (h, w, labels) = ce_case(f"ce {label} bf16 ({N}, {d})x({d}, {V})", gen, N, d, V,
                                   torch.bfloat16, planted=True)
     if ce.launches == before:
-        raise AssertionError("the CE kernel was not launched at V 256206")
-    bnd, by = bound_ms(2 * (h.numel() + w.numel()) + 16 * Nce, 2 * Nce * d * V, torch.bfloat16)
+        raise AssertionError(f"the CE kernel was not launched at V {V}")
+    Vp = ce.pad_vocab(w).shape[1]
+    bnd, by = bound_ms(2 * (h.numel() + w.numel()) + 16 * N, 2 * N * d * V, torch.bfloat16)
     pad_ms = timer(lambda: ce.pad_vocab(w))
     ms, parent_ms = timed_with_parent(timer, "cross_entropy",
                                       lambda: ce.cross_entropy_cuda(h, w, labels))
-    out["cross_entropy"].append({
-        "shape": f"h ({Nce}, {d}), w ({d}, {V}) bf16, padded to "
-                 f"{ce.pad_vocab(w).shape[1]} columns", "max_abs_err": err,
-        "tile": [ce.TILE_M, ce.TILE_N], "partials": ce.n_partials(V, torch.bfloat16),
-        "ms": ms, "parent_ms": parent_ms, "pad_ms": pad_ms,
-        "pad_call": "cross_entropy.pad_vocab (inside ms and parent_ms)",
-        "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
-        "plain_call": "cross_entropy_ref (materialized fp32 logits)",
-        "library_ms": timer(lambda: F.cross_entropy((h @ w).float(), labels, reduction="none")),
-        "library_call": "F.cross_entropy on (h @ w).float()", "bound_ms": bnd,
-        "bound_by": by, **tags})
+    row = {"shape": f"h ({N}, {d}), w ({d}, {V}) bf16, padded to {Vp} columns",
+           "max_abs_err": err, "tile": [ce.TILE_M, ce.TILE_N],
+           "partials": ce.n_partials(V, torch.bfloat16), "ms": ms, "parent_ms": parent_ms,
+           "pad_ms": pad_ms, "pad_bound_ms": bound_ms(2 * d * (V + Vp), 0, torch.bfloat16)[0],
+           "pad_call": "cross_entropy.pad_vocab (inside ms and parent_ms)",
+           "plain_ms": timer(lambda: cross_entropy_ref(h, w, labels)),
+           "plain_call": "cross_entropy_ref (materialized fp32 logits)",
+           "library_ms": timer(lambda: F.cross_entropy((h @ w).float(), labels,
+                                                       reduction="none")),
+           "library_call": "F.cross_entropy on (h @ w).float()", "bound_ms": bnd,
+           "bound_by": by, **tags}
     del h, w, labels
     torch.cuda.empty_cache()
+    return row
+
+
+# the rounds of rmsnorm on qwen3's 128-wide qk-norm rows in turns with
+# F.rms_norm (``phase_kernels_vlm``): two separate runs on one H100 read the
+# kernel at 0.0326 and 0.0162 ms on (16384, 128), against the library's
+# 0.0168 (PERF.md, the kernel table's rmsnorm row), so only readings taken
+# in turns tell the two apart
+QK_NORM_ROUNDS = 3
+
+
+def rmsnorm_turns(timer: Timer, gen, rows_n: int, d: int) -> dict:
+    """rmsnorm on (rows_n, d) bf16 against ``F.rms_norm`` on the same inputs,
+    ``QK_NORM_ROUNDS`` rounds in turns (kernel, library, library, kernel):
+    each round's event ms, device ms and host us of both, and their means."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    x = randn(gen, rows_n, d, dtype=torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(torch.bfloat16)
+    rounds = [readings_in_turns(timer, lambda: rn.rmsnorm_cuda(x, w, 1e-6),
+                                lambda: F.rms_norm(x, (d,), w, 1e-6))
+              for _ in range(QK_NORM_ROUNDS)]
+
+    def mean(i: int, key: str):
+        vals = [r[i][key] for r in rounds]
+        return (float(np.mean(vals)) if all(isinstance(v, float) for v in vals)
+                else "not measured")
+    b, by = bound_ms(2 * x.numel() * 2 + 2 * d, 4 * x.numel(), torch.float32)
+    out = {"shape": f"x ({rows_n}, {d}) bf16", "arch": QWEN3,
+           "use": "qk-norm rows, in turns with F.rms_norm",
+           "rounds": [{"kernel": a, "library": c} for a, c in rounds],
+           "ms": mean(0, "ms"), "device_ms": mean(0, "device_ms"),
+           "host_us": mean(0, "host_us"), "library_ms": mean(1, "ms"),
+           "library_device_ms": mean(1, "device_ms"), "library_host_us": mean(1, "host_us"),
+           "library_call": "F.rms_norm", "bound_ms": b, "bound_by": by}
+    emit({"phase": "rmsnorm_qk_turns", **out})
     return out
+
+
+def phase_kernels_vlm(timer: Timer) -> dict:
+    """The vlm path's kernels at internvl2-2b's shapes, bf16 and fp32 under
+    phase 2's limits, the bf16 ones timed against the plain version, the
+    library call and the bound: the train microbatch is 4 rows of 256 patch
+    and 2048 text positions (9216 rows of 2304 positions), the serve
+    prefill of a 256-token bucket 512 positions, a tick 4 rows.  rmsnorm
+    (9216, 2048), (512, 2048) and (4, 2048); swiglu (9216, 2048) x (2048,
+    8192), and at 512 and 4 rows; the flash forward and backward causal
+    over 4 x 2304 positions (no multiple of a 128-position tile: a ragged
+    last tile), 16q/8kv of 128; the bf16 CE over the 4 x 2047 text rows at
+    V 92553, no multiple of 8 (W padded for the kernel's TMA map, the pad
+    timed apart), with planted faults.  Rows to join the kernels'
+    cases."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cfg = get_config(INTERNVL)
+    d, F_, V, P = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_patches
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    S = P + TRAIN["seq_len"]
+    N = TRAIN["global_batch"] // TRAIN["gas"] * S
+    out = {k: [] for k in ("rmsnorm", "swiglu", "flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "cross_entropy")}
+    tags = {"arch": INTERNVL}
+    for rows_n, use in ((N, "train microbatch"), (256 + P, "serve prefill, 256-token bucket"),
+                        (4, "serve tick")):
+        rmsnorm_rows_case(timer, gen, out["rmsnorm"], rows_n, d, use=use, **tags)
+    for n_rows, use, dtypes in ((N, "train microbatch", (torch.bfloat16, torch.float32)),
+                                (256 + P, "serve prefill", (torch.bfloat16,)),
+                                (4, "serve tick", (torch.bfloat16,))):
+        swiglu_tp_case(timer, gen, out, INTERNVL, d, F_, dtypes, N=n_rows, use=use, **tags)
+    torch.cuda.empty_cache()
+    B = TRAIN["global_batch"] // TRAIN["gas"]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"{INTERNVL} {dtype} ({B}, {S}, {Hq}q/{Hkv}kv, {hd}) causal"
+        err, (q, k, v) = _flash_case(gen, f"flash {name}", B, S, S, Hq, Hkv, hd, dtype,
+                                     causal=True)
+        if dtype == torch.bfloat16:
+            out["flash_attention"].append({**_flash_row(timer, err, q, k, v, parent=False),
+                                           **tags})
+        del q, k, v
+        errs, tensors = flash_bwd_case(f"flash bwd {name}", gen, B, S, S, Hq, Hkv, hd, dtype,
+                                       causal=True)
+        if dtype == torch.bfloat16:
+            dq, dkv = flash_bwd_times(timer, errs, *tensors, parent=False)
+            out["flash_attention_bwd_dq"].append({**dq, **tags})
+            out["flash_attention_bwd_dkv"].append({**dkv, **tags})
+        del tensors
+        torch.cuda.empty_cache()
+    out["cross_entropy"].append(padded_ce_row(timer, gen, INTERNVL,
+                                              B * (TRAIN["seq_len"] - 1), d, V, tags))
+    return out
+
+
+def phase_rmsnorm_qk(timer: Timer) -> list:
+    """rmsnorm on qwen3's 128-wide qk-norm rows (16384 and 2048 rows) in
+    turns with ``F.rms_norm``, with device and host time
+    (``rmsnorm_turns``): rows to join rmsnorm's cases."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    qwen = get_config(QWEN3)
+    return [rmsnorm_turns(timer, gen, rows_n, qwen.resolved_head_dim)
+            for rows_n in (256 * qwen.n_heads, 256 * qwen.n_kv_heads)]
 
 
 # the tensor-parallel plans' ways: each rank's kernels see heads / tp,
@@ -3264,6 +3395,8 @@ LOGITS_TOL_WHY = {
     QWEN3: "bf16 through 64 layers; as yi-6b, with qk-norm in the rmsnorm kernel",
     SEAMLESS: "bf16 through 12 encoder and 12 decoder layers; as gpt-1.4b, with the "
               "encoder's and the cross-attention's non-causal flash attention",
+    INTERNVL: "bf16 through 24 layers; as yi-6b, over 256 patch positions ahead of "
+              "the prompt",
 }
 # the archs whose bf16 logits are reported, not held to LOGITS_REL_TOL (their
 # fp32 copy is held on vs off instead)
@@ -3370,17 +3503,6 @@ def greedy_at_slots(model, prompt: np.ndarray, n: int, cache_len: int,
     return np.asarray(toks, np.int32)
 
 
-def request_frames(cfg, rng, n: int) -> list:
-    """Each of ``n`` requests' non-token prefill inputs, as
-    ``launch/serve.py`` draws them from ``rng``: the encdec family's
-    ``frames``, 0.1 x a standard normal (enc_seq_len, frontend_dim) fp32; None
-    for the other families."""
-    if cfg.family != "encdec":
-        return [None] * n
-    return [{"frames": (0.1 * rng.randn(cfg.enc_seq_len, cfg.frontend_dim)).astype(np.float32)}
-            for _ in range(n)]
-
-
 def on_card(extras: dict | None, rows: int = 1) -> dict:
     """A request's extras as a prefill batch takes them: each on the card,
     repeated over ``rows`` rows ({} for None)."""
@@ -3400,34 +3522,38 @@ def greedy_paged(model, prompt: np.ndarray, extras: dict | None, n: int, n_slots
     ``Model.decode_step`` over ``n_slots`` rows with the request alone
     active in slot 0, its block table grown a block (the next lower id) as
     its position crosses one, and (encdec) the prefill's memory in slot 0's
-    row of an fp32 memory.  Every row of a tick's products is then computed
-    as in the engine's ticks.  Only a flat cache of "k"/"v" leaves (no int8
-    scales, no nested stacks) is placed here."""
+    row of an fp32 memory.  A vlm request's ``num_patches`` patch positions
+    come before its prompt's: the prefill's cache length, the blocks it
+    keeps, the pool's blocks a slot and the positions count them.  Every
+    row of a tick's products is then computed as in the engine's ticks.
+    Only a flat cache of "k"/"v" leaves (no int8 scales, no nested stacks)
+    is placed here."""
     from repro_torch.models.common import init_params
 
     L, bs = len(prompt), block_size
+    P = model.cfg.num_patches if model.cfg.family == "vlm" else 0
     bucket = max(4, bs)
     while bucket < L and bucket < cache_len:
         bucket *= 2
     bucket = min(bucket, cache_len)
-    clen = -(-bucket // bs) * bs
+    clen = -(-(bucket + P) // bs) * bs
     toks = np.zeros((1, bucket), np.int64)
     toks[0, :L] = prompt
     logits, small = model.prefill({"tokens": torch.from_numpy(toks).cuda(), **on_card(extras)},
                                   clen, lens=torch.tensor([L], dtype=torch.int32, device="cuda"))
-    max_blocks = cache_len // bs + 1
+    max_blocks = (cache_len + P) // bs + 1
     n_blocks = 1 + n_slots * max_blocks
     pool = init_params(model.paged_cache_specs(n_slots, n_blocks, bs), None, model.device,
                        model.compute_dtype)
     if set(small["layers"]) != {"k", "v"}:
         raise ValueError(f"greedy_paged places k/v leaves only, not {sorted(small['layers'])}")
-    n_keep = L // bs + 1
+    n_keep = (L + P) // bs + 1
     blocks = list(range(n_blocks - 1, n_blocks - 1 - n_keep, -1))
     nb = min(n_keep, clen // bs)
     for name, leaf in small["layers"].items():             # (layers, 1, clen, H, hd)
         kv = leaf[:, 0].reshape(leaf.shape[0], clen // bs, bs, *leaf.shape[3:])
         pool["layers"][name][:, blocks[:nb]] = kv[:, :nb].to(pool["layers"][name].dtype)
-    pool["pos"][0] = L
+    pool["pos"][0] = L + P
     bt = np.zeros((n_slots, max_blocks), np.int32)
     bt[0, :n_keep] = blocks
     fed = {}
@@ -3438,7 +3564,7 @@ def greedy_paged(model, prompt: np.ndarray, extras: dict | None, n: int, n_slots
         fed["memory"] = memory
     active = torch.zeros(n_slots, dtype=torch.bool, device="cuda")
     active[0] = True
-    toks_out, pos = [int(torch.argmax(logits[0]))], L
+    toks_out, pos = [int(torch.argmax(logits[0]))], L + P
     for _ in range(n - 1):
         if pos // bs >= len(blocks):
             blocks.append(blocks[-1] - 1)
@@ -3494,6 +3620,7 @@ def phase_serve(card: str, arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.compute import ComputePolicy
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import draw_extras
     from repro_torch.models.model import Model
     from repro_torch.runtime.serve_engine import Request, ServeEngine
     from repro_torch.runtime.serve_loop import greedy_generate
@@ -3503,7 +3630,7 @@ def phase_serve(card: str, arch: str) -> dict:
                 compute=ComputePolicy(kernels=True), device="cuda")
     red.init(torch.Generator(device="cuda").manual_seed(1))
     toks = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 40))).cuda()
-    rx = on_card(request_frames(red.cfg, np.random.RandomState(2), 1)[0], rows=2)
+    rx = on_card(draw_extras(red.cfg, np.random.RandomState(2)), rows=2)
     lk, _ = red.prefill({"tokens": toks, **rx}, 64)
     gk = greedy_generate(red, toks, 8, 64, extras=rx)
     red.compute = ComputePolicy(kernels=False)
@@ -3530,7 +3657,7 @@ def phase_serve(card: str, arch: str) -> dict:
     rng = np.random.RandomState(0)
     lens = SERVE_PROMPT_LENS.get(arch, rng.randint(64, 257, 8))
     prompts = [rng.randint(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
-    extras = request_frames(cfg, rng, len(prompts))
+    extras = [draw_extras(cfg, rng) for _ in prompts]
     reqs = [Request(rid=i, prompt=p, max_new_tokens=32, extras=x)
             for i, (p, x) in enumerate(zip(prompts, extras))]
     engine = ServeEngine(model, n_slots=4, cache_len=cache_len, block_size=16)
@@ -3581,17 +3708,21 @@ def phase_serve(card: str, arch: str) -> dict:
         if not all(same):
             raise AssertionError(f"{arch}: engine tokens differ from greedy for requests "
                                  f"{[i for i, ok in enumerate(same) if not ok]}")
-    if cfg.family == "encdec":
-        # exact launch counts: a prefill runs the encoder (2 norms, a flash
-        # attention and an MLP a layer, its final norm) and the decoder (3
-        # norms, 2 flash attentions and an MLP a layer) and the final norm;
-        # a tick the decoder's norms and MLPs (one-token attention is plain)
-        # and the final norm
+    if cfg.family in ("encdec", "vlm"):
+        # exact launch counts: an encdec prefill runs the encoder (2 norms,
+        # a flash attention and an MLP a layer, its final norm) and the
+        # decoder (3 norms, 2 flash attentions and an MLP a layer) and the
+        # final norm; a tick the decoder's norms and MLPs (one-token
+        # attention is plain) and the final norm.  A vlm prefill runs 2
+        # norms, a flash attention and an MLP a layer and the final norm
+        # over the patch and prompt positions, a tick the same but flash.
         e, n = cfg.enc_layers, cfg.n_layers
         pf, tk = engine.n_prefills, engine.n_ticks
-        expected = {"flash_attention": pf * (e + 2 * n),
-                    "layernorm": pf * (2 * e + 3 * n + 2) + tk * (3 * n + 1),
-                    "gelu_mlp": pf * (e + n) + tk * n}
+        expected = ({"flash_attention": pf * (e + 2 * n),
+                     "layernorm": pf * (2 * e + 3 * n + 2) + tk * (3 * n + 1),
+                     "gelu_mlp": pf * (e + n) + tk * n} if cfg.family == "encdec" else
+                    {"rmsnorm": (pf + tk) * (2 * n + 1), "swiglu": (pf + tk) * n,
+                     "flash_attention": pf * n})
         if launches != expected:
             raise AssertionError(f"{arch} serve launches {launches}, expected {expected}")
         # greedy decoding at the engine's buckets and shapes, token for token
@@ -3614,7 +3745,9 @@ def phase_serve(card: str, arch: str) -> dict:
     model.compute = ComputePolicy(kernels=False)
     with capture_moe() as off:
         lp, _ = model.prefill({"tokens": p0, **x0}, cache_len)
-    gp = greedy_generate(model, p0, 32, cache_len, extras=x0)[0].cpu().numpy()
+    # a vlm request's patch positions come before its prompt's in the cache
+    gp = greedy_generate(model, p0, 32, cache_len + model.patch_offset,
+                         extras=x0)[0].cpu().numpy()
     model.compute = ComputePolicy(kernels=True)
     moe_res = {}
     if moe_layers:
@@ -3860,7 +3993,8 @@ def phase_profile(model, prompts, card: str, cache_len: int = 512,
     extras = extras or [None] * len(prompts)
     p = torch.from_numpy(prompts[0][:64].astype(np.int64))[None].cuda()
     p = torch.cat([p] * 4, dim=1)                      # one 256-token prompt
-    prefill = _profile(lambda: model.prefill({"tokens": p, **on_card(extras[0])}, 256))
+    prefill = _profile(lambda: model.prefill({"tokens": p, **on_card(extras[0])},
+                                             256 + model.patch_offset))
     odd = {}
     if model.cfg.family in RECURRENT:                  # an odd prompt scans at chunk 1
         odd = _profile(lambda: model.prefill({"tokens": p[:, :255]}, 256))
@@ -3948,18 +4082,26 @@ TRAIN_FP32_RTOL = 1e-4
 # 7.5e-3 and 2.1e-3 (gelu_mlp, layernorm), which fail; in dQ and dK/dV it
 # moves neither out of the sound spread (phase 2 holds those, the encdec
 # shapes in ``phase_kernels_encdec``).
+# internvl2-2b (all 24 layers, 256 patches a row; the same card): sound runs
+# differ by at most 1.43e-5 in loss and 8.42e-4 in grad_norm (seed 2; seeds 0
+# and 1: 9.5e-6 and 1.1e-5, 7.1e-4 and 8.2e-4); the limits are about 1.5x
+# those.  A zeroed tile moves grad_norm by 0.116 (swiglu forward), the loss
+# by 3.2e-4 (rmsnorm forward), 7.8e-3 (CE's lse on 64 text rows) and 3.1e-5
+# (flash forward), which fail; in dQ and dK/dV it moves neither out of the
+# sound spread (phase 2 holds those, the vlm shapes in ``phase_kernels_vlm``).
 STEP0_RTOL = {"yi-6b": {"loss": 2e-5, "grad_norm": 1e-3},
               "gpt-1.4b": {"loss": 2e-5, "grad_norm": 1e-3},
               ZAMBA: {"loss": 3e-4, "grad_norm": 0.11},
               RWKV: {"loss": 8e-5, "grad_norm": 3.3e-3},
               ARCTIC: {"loss": 7.5e-5, "grad_norm": 1e-3},
-              SEAMLESS: {"loss": 7e-6, "grad_norm": 1.6e-3}}
+              SEAMLESS: {"loss": 7e-6, "grad_norm": 1.6e-3},
+              INTERNVL: {"loss": 2.2e-5, "grad_norm": 1.3e-3}}
 TRAIN = dict(global_batch=8, gas=2, seq_len=2048, steps=5)
-# gpt-1.4b and rwkv6: all layers; zamba2: 18 of 54 (3 of its 9 super units),
-# cut so that the script keeps to its time (its 54-layer step took 11-16 s,
-# the plain one 17-40 s; PERF.md)
+# gpt-1.4b, rwkv6, seamless and internvl2: all layers; zamba2: 18 of 54 (3
+# of its 9 super units), cut so that the script keeps to its time (its
+# 54-layer step took 11-16 s, the plain one 17-40 s; PERF.md)
 TRAIN_LAYERS = {"yi-6b": 8, "gpt-1.4b": 24, ZAMBA: 18, RWKV: 24, ARCTIC: 2,
-                SEAMLESS: 12}
+                SEAMLESS: 12, INTERNVL: 24}
 # arctic trains at its published widths with 8 of its 128 experts: one layer
 # with all 128 is 14.07e9 parameters, about 225 GB at 16 bytes a parameter
 # (fp32 master, gradient, Adam's two moments); 2 layers of 8 experts are
@@ -4010,9 +4152,11 @@ def _run_steps(model, plan, batches, seed: int, mesh=None, tele=None) -> list[di
         torch.cuda.synchronize()
         out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                     "step_s": time.perf_counter() - t0})
-        if mesh is not None:        # the ZeRO gathers' bytes, by phase; the encoder's pipe gather
+        if mesh is not None:        # the ZeRO gathers' bytes, by phase; the encoder's pipe
+            # gather; the pipeline ring's sends
             out[-1]["zero3_gather"] = collectives.gather_phase_bytes()
             out[-1]["pipe_gather"] = collectives.comm_bytes()["pipe_gather"]
+            out[-1]["send"] = collectives.comm_bytes()["send"]
         if model.cfg.family == "moe":
             out[-1].update(moe_aux=float(m["moe_aux"]), moe_drop=float(m["moe_drop"]),
                            all_to_all_bytes=collectives.comm_bytes()["all-to-all"])
@@ -4799,8 +4943,8 @@ def _recurrent_tp(rank: int, world: int, step0: dict) -> None:
     (TP_REDUCED) at tp = world and dp = world / 2 x tp = 2 at ZeRO 1 and 3,
     kernels off and on, against the single-device port (losses at every
     step and step 0's grad norm at PARALLEL_RTOL, later grad norms at
-    TP_LATER_NORMS_RTOL); zamba2-2.7b (TRAIN_LAYERS depth) and rwkv6-1.6b
-    (all 24 layers) at full width, tp = world, bf16, kernels, TRAIN's
+    TP_LATER_NORMS_RTOL); zamba2-2.7b and rwkv6-1.6b (TRAIN_LAYERS
+    depth) at full width, tp = world, bf16, kernels, TRAIN's
     batch, step 0 within TP_STEP0_RTOL of phase 4's single-device step
     (``step0``: the same weights and batch) and a telemetry record a step
     (MFU, each rank's peak, the collective bytes by kind); at 4 ranks
@@ -5270,22 +5414,27 @@ def _pipeline_rank(rank: int, world: int, init_method: str, gpt_step0: dict | No
     dist.destroy_process_group()
 
 
-# the multi-rank encdec plans' reduced seamless (4 decoder layers, 2 encoder
-# layers over 16 frames: tests/test_torch_encdec_ranks.py's)
-ENCDEC_REDUCED = dict(n_layers=4, enc_layers=2, enc_seq_len=16)
+# the multi-rank plans' reduced models: seamless at 4 decoder and 2 encoder
+# layers over 16 frames, internvl2 at 4 layers of head dim 128 with 8 patches
+# of 64 a row (tests/test_torch_encdec_ranks.py's)
+FAMILY_REDUCED = {SEAMLESS: dict(n_layers=4, enc_layers=2, enc_seq_len=16),
+                  INTERNVL: dict(n_layers=4, head_dim=128)}
 
 
-def _encdec_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
-    """One nccl rank of the encdec branch (``tools/parallel_ranks.py
-    encdec``): the reduced seamless's fp32 plans, kernels on, against the
-    single-device port at PARALLEL_RTOL (2 ranks: dp 2 at ZeRO 3, tp 2, pp
-    2 at 1 and 2 virtual stages; 4 ranks: dp 4 at ZeRO 3, dp 2 x tp 2, pp
-    2 x dp 2, pp 4, pp 2 x tp 2), each step's encoder pipe gather and
-    scatter bytes the fp32 encoder stack; then seamless at full width and
-    depth (TRAIN's plan) at pp = ranks and at dp = ranks, ZeRO 3, 3 steps,
-    step 0 against phase 4's single-device step (``step0``: {arch: phase
-    4's step 0}) at STEP0_RTOL, with each rank's step times, collective
-    bytes and peak memory."""
+def _family_rank(rank: int, world: int, init_method: str, step0: dict, arch: str) -> None:
+    """One nccl rank of the encdec or vlm branch (``tools/parallel_ranks.py
+    encdec|vlm``): the reduced arch's fp32 plans (FAMILY_REDUCED), kernels
+    on, against the single-device port at PARALLEL_RTOL (2 ranks: dp 2 at
+    ZeRO 3, tp 2, pp 2 at 1 and 2 virtual stages; 4 ranks: dp 4 at ZeRO 3,
+    dp 2 x tp 2, pp 2 x dp 2, pp 4, pp 2 x tp 2), each step's bytes held to
+    their predictions: the encdec encoder's pipe gather (and scatter) the
+    fp32 encoder stack, and the ring's sends over every rank those of (b,
+    num_patches + seq, d) fp32 hand-offs (vlm: the patch positions ride the
+    ring), gas x (stages - 1) x 2 a pipe group; then the arch at full width
+    and depth (TRAIN's plan) at pp = ranks and at dp = ranks, ZeRO 3, 3
+    steps, step 0 against phase 4's single-device step (``step0``: {arch:
+    phase 4's step 0}) at STEP0_RTOL, with each rank's step times,
+    collective bytes and peak memory."""
     import datetime
     import os
 
@@ -5306,10 +5455,12 @@ def _encdec_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
                  dict(pp=2, tp=2)]
     else:
         plans = [dict(dp=2, zero=3), dict(tp=2), dict(pp=2), dict(pp=2, virtual_stages=2)]
-    red = get_config(SEAMLESS).reduced(**ENCDEC_REDUCED)
-    rb = _batches(red.vocab_size, 32, 8, 3, red)
+    red = get_config(arch).reduced(**FAMILY_REDUCED[arch])
+    gb, seq = 8, 32
+    rb = _batches(red.vocab_size, seq, gb, 3, red)
     kw = dict(gas=2, precision="fp32", kernels=True)
     single = _run_steps(Model(red, torch.float32, device="cuda"), ParallelPlan(**kw), rb, 0)
+    positions = seq + (red.num_patches if red.family == "vlm" else 0)
     for p in plans:
         plan = ParallelPlan(**p, **kw)
         steps, _ = _sharded_steps(red, plan, rb, 0)
@@ -5322,25 +5473,31 @@ def _encdec_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
             int(np.prod(shard_shape(shape, psh[k], sizes))) for k, shape in shapes.items()
             if k.startswith("encoder.layers.") and "pipe" in spec_axes(psh[k]))
         gathered = [r["pipe_gather"] for r in steps]
-        emit({"phase": "encdec_ranks_reduced", "rank": rank, "plan": {**p, **kw},
+        sent = torch.tensor([r["send"] for r in steps], dtype=torch.float64, device="cuda")
+        dist.all_reduce(sent)
+        handoff = gb // plan.gas // plan.dp * positions * red.d_model * 4
+        sends = (plan.dp * plan.tp * plan.gas * (plan.pp * plan.virtual_stages - 1) * 2 * handoff
+                 if plan.pp > 1 else 0)
+        emit({"phase": f"{red.family}_ranks_reduced", "rank": rank, "plan": {**p, **kw},
               "rel_diff": rel, "rtol": PARALLEL_RTOL, "pipe_gather": gathered,
-              "pipe_gather_predicted": enc})
+              "pipe_gather_predicted": enc, "sends_all_ranks": sent.tolist(),
+              "sends_predicted": sends})
         if any(v > PARALLEL_RTOL for r in rel for v in r.values()) or any(
-                g != enc for g in gathered):
+                g != enc for g in gathered) or any(x != sends for x in sent.tolist()):
             raise AssertionError(f"rank {rank} plan {p}: {rel}, pipe gather {gathered} "
-                                 f"against {enc}")
+                                 f"against {enc}, sends {sent.tolist()} against {sends}")
     kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
-    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
-    cfg = train_config(SEAMLESS)
+    cfg = train_config(arch)
     for p in (dict(pp=world), dict(dp=world, zero=3)):
         steps, peak = _sharded_steps(cfg, ParallelPlan(**p, **kw),
-                                     _batches(cfg.vocab_size, S, gb, 3, cfg), 0, tele=True)
-        rel0 = _rel(steps[0], step0[SEAMLESS])
-        emit({"phase": "encdec_ranks", "rank": rank, "arch": cfg.name, "plan": p,
-              "steps": steps, "single_device_step0": step0[SEAMLESS], "rel_diff": rel0,
-              "rtol": STEP0_RTOL[SEAMLESS], "peak_mem_gb": peak})
-        if any(rel0[k] > STEP0_RTOL[SEAMLESS][k] for k in rel0):
-            raise AssertionError(f"rank {rank}: seamless {p} step 0 vs phase 4's: {rel0}")
+                                     _batches(cfg.vocab_size, TRAIN["seq_len"],
+                                              TRAIN["global_batch"], 3, cfg), 0, tele=True)
+        rel0 = _rel(steps[0], step0[arch])
+        emit({"phase": f"{cfg.family}_ranks", "rank": rank, "arch": cfg.name, "plan": p,
+              "steps": steps, "single_device_step0": step0[arch], "rel_diff": rel0,
+              "rtol": STEP0_RTOL[arch], "peak_mem_gb": peak})
+        if any(rel0[k] > STEP0_RTOL[arch][k] for k in rel0):
+            raise AssertionError(f"rank {rank}: {arch} {p} step 0 vs phase 4's: {rel0}")
     dist.destroy_process_group()
 
 
@@ -5378,6 +5535,9 @@ def main() -> int:
         return out
 
     timer = Timer()
+    # first: the profiler missed this short kernel's device time when it ran
+    # after the other kernel phases, in the same process
+    qk_rows = timed("rmsnorm qk", lambda: phase_rmsnorm_qk(timer))
     rows = timed("kernels", lambda: phase_kernels(timer))
     rows.update(timed("kernels train", lambda: phase_kernels_train(timer)))
     rows.update(timed("kernels moe", lambda: phase_kernels_moe(timer)))
@@ -5391,6 +5551,9 @@ def main() -> int:
         rows[name]["cases"] += extra
     for name, extra in timed("kernels encdec", lambda: phase_kernels_encdec(timer)).items():
         rows[name]["cases"] += extra
+    for name, extra in timed("kernels vlm", lambda: phase_kernels_vlm(timer)).items():
+        rows[name]["cases"] += extra
+    rows["rmsnorm"]["cases"] += qk_rows
     del timer
     torch.cuda.empty_cache()
     # each path's counts are zeroed just before it runs and read just after

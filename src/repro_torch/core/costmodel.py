@@ -516,7 +516,7 @@ class StepFlops:
         return self.total / max(self.tokens, 1)
 
 
-_FLOPS_FAMILIES = ("dense", "moe", "hybrid", "rwkv", "encdec")
+_FLOPS_FAMILIES = ("dense", "moe", "hybrid", "rwkv", "encdec", "vlm")
 
 
 def _matmul_params(cfg) -> dict[str, float]:
@@ -548,11 +548,13 @@ def _matmul_params(cfg) -> dict[str, float]:
 def train_step_flops(cfg, global_batch: int, seq_len: int,
                      *, backward: bool = True) -> StepFlops:
     """Per-family analytic model FLOPs of one train step (all devices) of
-    the families the port has (dense, moe, hybrid, rwkv, encdec; the
-    reference's vlm and audio terms come with those families): the encdec
+    the families the port has (dense, moe, hybrid, rwkv, encdec, vlm; the
+    reference's audio terms come with that family): the encdec
     encoder's matmuls at ``enc_seq_len`` frames a row, its self-attention
     at enc_seq_len^2 and the decoder's cross-attention at seq x
-    enc_seq_len.
+    enc_seq_len; the vlm decoder's stream at ``seq + num_patches``
+    positions a row (the reference's ``s_stream``), its matmuls, ``proj``
+    among them, billed over all of them.  ``tokens`` is the text's.
     ``backward=False`` gives the forward-only (prefill) count.  Invariant
     under the parallel plan: dividing by (step time x devices x peak) gives
     MFU whatever (dp, tp, pp, ep, gas)."""
@@ -565,12 +567,13 @@ def train_step_flops(cfg, global_batch: int, seq_len: int,
     mult = per_param / 2.0                 # fwd multiplier for attn/scan
     B, s = global_batch, seq_len
     tokens = B * s
+    s_stream = s + (cfg.num_patches if fam == "vlm" else 0)
     enc_tokens = B * cfg.enc_seq_len if fam == "encdec" else 0
     mm = _matmul_params(cfg)
-    matmul = per_param * (mm["decoder"] * tokens + mm["encoder"] * enc_tokens)
-    t_kv = min(s, cfg.sliding_window) if cfg.sliding_window else s
+    matmul = per_param * (mm["decoder"] * B * s_stream + mm["encoder"] * enc_tokens)
+    t_kv = min(s_stream, cfg.sliding_window) if cfg.sliding_window else s_stream
     n_cross = n_enc = 0
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         n_self = cfg.n_layers
     elif fam == "encdec":
         n_self, n_cross, n_enc = cfg.n_layers, cfg.n_layers, cfg.enc_layers
@@ -579,7 +582,7 @@ def train_step_flops(cfg, global_batch: int, seq_len: int,
     else:                                  # rwkv: attention-free
         n_self = 0
     attn = mult * 4.0 * B * cfg.n_heads * cfg.resolved_head_dim * (
-        n_self * s * t_kv + n_cross * s * cfg.enc_seq_len + n_enc * cfg.enc_seq_len ** 2)
+        n_self * s_stream * t_kv + n_cross * s * cfg.enc_seq_len + n_enc * cfg.enc_seq_len ** 2)
     if fam == "rwkv":
         scan_per_tok = 4.0 * cfg.d_model * cfg.resolved_head_dim
     elif fam == "hybrid":
@@ -587,7 +590,7 @@ def train_step_flops(cfg, global_batch: int, seq_len: int,
         scan_per_tok = 6.0 * d_inner(cfg) * max(cfg.ssm_state, 1)
     else:
         scan_per_tok = 0.0
-    scan = mult * tokens * cfg.n_layers * scan_per_tok
+    scan = mult * B * s_stream * cfg.n_layers * scan_per_tok
     return StepFlops(matmul=matmul, attn=attn, scan=scan, tokens=tokens)
 
 

@@ -69,7 +69,8 @@ def make_batch_iterator(
     """Host-sharded batches: this host yields rows [host_id::n_hosts].
 
     ``extra_specs`` adds deterministic dense inputs for multimodal stubs,
-    e.g. {"frames": ((enc_seq, frontend_dim), np.float32)} per sample.
+    e.g. {"frames": ((enc_seq, frontend_dim), np.float32)} or
+    {"patches": ((num_patches, frontend_dim), np.float32)} per sample.
     """
     assert global_batch % n_hosts == 0
     local = global_batch // n_hosts

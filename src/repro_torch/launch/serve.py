@@ -33,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ASSIGNED, PAPER, get_config
 from repro_torch.core.compute import ComputePolicy
 from repro_torch.core.telemetry import JsonlSink
+from repro_torch.launch.train import draw_extras
 from repro_torch.models.model import Model
 from repro_torch.runtime.serve_engine import Request, ServeEngine
 
@@ -45,10 +46,9 @@ def synthetic_requests(cfg, n: int, *, rate: float | None = None,
                        temperature: float = 0.0, top_p: float = 1.0,
                        seed: int = 0) -> list[Request]:
     """Poisson arrivals at ``rate`` req/s (all at t=0 when None), uniform
-    prompt and new-token lengths, per-request seeds, and the encdec
-    family's ``frames`` (0.1 x a standard normal (enc_seq_len,
-    frontend_dim), from the same stream), as the reference's launcher
-    draws them."""
+    prompt and new-token lengths, per-request seeds, and the family's
+    dense inputs (``launch/train.py:draw_extras``: the encdec family's
+    ``frames``, the vlm family's ``patches``) from the same stream."""
     rng = np.random.RandomState(seed)
     t = 0.0
     reqs = []
@@ -58,13 +58,9 @@ def synthetic_requests(cfg, n: int, *, rate: float | None = None,
         length = int(rng.randint(prompt_lens[0], prompt_lens[1] + 1))
         n_new = int(rng.randint(max_new[0], max_new[1] + 1))
         prompt = rng.randint(0, cfg.vocab_size, size=length).astype(np.int32)
-        extras = None
-        if cfg.family == "encdec":
-            extras = {"frames": 0.1 * rng.randn(
-                cfg.enc_seq_len, cfg.frontend_dim).astype(np.float32)}
         reqs.append(Request(rid=rid, prompt=prompt, max_new_tokens=n_new,
                             temperature=temperature, top_p=top_p,
-                            seed=seed + rid, arrival=t, extras=extras))
+                            seed=seed + rid, arrival=t, extras=draw_extras(cfg, rng)))
     return reqs
 
 

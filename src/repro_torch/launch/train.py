@@ -39,7 +39,9 @@ Every plan but qcomm and every ``--remat`` prints the same losses as one
 device (qcomm within a few per cent: the forward sees int8-rounded
 weights).  The encdec family's batches carry synthetic ``frames``
 (enc_seq_len, frontend_dim) a row beside the tokens (``extra_specs``); at
-pp > 1 every pipe rank encodes them (``runtime/pipeline.py``):
+pp > 1 every pipe rank encodes them (``runtime/pipeline.py``).  The vlm
+family's carry ``patches`` (num_patches, frontend_dim) a row, projected
+and prepended to the text on pipe rank 0:
 
   python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \
       --device cpu --arch yi-6b --reduced --dp 2 --tp 2 --zero 3 --precision fp32
@@ -54,6 +56,9 @@ pp > 1 every pipe rank encodes them (``runtime/pipeline.py``):
       --overlap --gas 2 --precision fp32
   python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
       --device cpu --arch seamless-m4t-medium --reduced --layers 4 --pp 2 --gas 2 \
+      --precision fp32
+  python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
+      --device cpu --arch internvl2-2b --reduced --layers 4 --pp 2 --gas 2 \
       --precision fp32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch yi-6b --dp 4 --zero 3 --steps 5 --global-batch 8 --gas 2 \
@@ -136,10 +141,23 @@ def step_extras(plan: ParallelPlan, device: torch.device, world: int, sharded: b
 def extra_specs(cfg) -> dict | None:
     """The family's dense inputs a row, as the reference's launcher makes
     them: the encdec family's synthetic ``frames`` (enc_seq_len,
+    frontend_dim) fp32, the vlm family's ``patches`` (num_patches,
     frontend_dim) fp32."""
     if cfg.family == "encdec":
         return {"frames": ((cfg.enc_seq_len, cfg.frontend_dim), np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": ((cfg.num_patches, cfg.frontend_dim), np.float32)}
     return None
+
+
+def draw_extras(cfg, rng: np.random.RandomState) -> dict | None:
+    """One request's :func:`extra_specs` inputs, each 0.1 x a standard
+    normal of its shape from ``rng``, as the reference's serve launcher
+    draws them; None for a family with none."""
+    specs = extra_specs(cfg)
+    if specs is None:
+        return None
+    return {k: 0.1 * rng.randn(*shape).astype(dtype) for k, (shape, dtype) in specs.items()}
 
 
 def main(argv: list[str] | None = None) -> list[dict]:

@@ -1,6 +1,6 @@
-"""Top-level Model, the dense, moe, hybrid (zamba2), rwkv and encdec
-(seamless) families of ``repro/models/model.py``, as an ``nn.Module`` that
-holds its weights.
+"""Top-level Model, the dense, moe, hybrid (zamba2), rwkv, encdec
+(seamless) and vlm (internvl2) families of ``repro/models/model.py``, as an
+``nn.Module`` that holds its weights.
 
   * ``param_specs()``  — declarative tree (shapes/axes/init); its dotted
     paths (``layers.attn.wq``, ``layers.mlp.w1``, …) are the state_dict keys,
@@ -8,14 +8,18 @@ holds its weights.
   * ``init(generator)`` — draw the weights from an explicit generator
   * ``loss(batch)`` / ``logits(batch)`` — the training objective (chunked or
     blocked-kernel CE, and for the moe family the load-balance aux loss)
-    and the full-sequence logits
+    and the full-sequence logits; a vlm batch carries ``patches`` (B, P,
+    frontend_dim), projected by ``proj`` and prepended to the token
+    embeddings (the vision front end is a stub in the reference too), and
+    its CE runs over the text positions only
   * ``encode(frames)`` — the encdec encoder: precomputed frame embeddings
     (B, T, frontend_dim) through ``in_proj``, its non-causal layer stack and
     final norm, to the decoder's cross-attention ``memory`` (B, T, d)
   * ``prefill(batch, cache_len, lens=)`` — full-sequence forward + cache
     (KV; for hybrid also each mamba layer's conv window and SSD state; for
     rwkv each layer's last tokens and wkv state, no KV; for encdec the
-    decoder's self-attention KV, and the encoded ``memory`` beside it)
+    decoder's self-attention KV, and the encoded ``memory`` beside it; for
+    vlm the KV of the patch positions ahead of the prompt's)
   * ``decode_step(cache, batch)`` — one serving step, per-slot ``pos``,
     ``active`` and a paged ``block_table``, or ``active`` alone for a
     slot-swap cache (the hybrid and rwkv families' fixed-size state); an
@@ -217,6 +221,9 @@ def param_specs(cfg: ModelConfig) -> dict:
             "layers": stack_specs(enc_layer, cfg.enc_layers),
             "final_norm": blocks.norm_spec(d, cfg.norm),
         }
+    if cfg.family == "vlm":
+        # the patch projector: patch embeddings (frontend_dim) -> d
+        specs["proj"] = Spec((cfg.frontend_dim, d), (None, "embed"))
     return specs
 
 
@@ -231,7 +238,7 @@ def pipe_interleaved(path: str) -> bool:
 def check_supported(cfg: ModelConfig) -> None:
     """The slice of the JAX package this port covers; the rest raises."""
     where = "is not ported yet (see ROADMAP.md, Queue 1)"
-    if cfg.family not in ("dense", "moe", "hybrid", "rwkv", "encdec"):
+    if cfg.family not in ("dense", "moe", "hybrid", "rwkv", "encdec", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} {where}")
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"pos={cfg.pos!r} {where}")
@@ -484,8 +491,14 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     @property
     def paged_cacheable(self) -> bool:
-        return (self.cfg.family in ("dense", "moe", "encdec")
+        return (self.cfg.family in ("dense", "vlm", "moe", "encdec")
                 and self.cfg.sliding_window is None)
+
+    @property
+    def patch_offset(self) -> int:
+        """The positions ahead of the text: the vlm family's ``num_patches``
+        patch embeddings, 0 for the other families."""
+        return self.cfg.num_patches if self.cfg.family == "vlm" else 0
 
     def _attn_cache_len(self, cache_len: int) -> int:
         """The KV positions a cache of ``cache_len`` holds: a sliding
@@ -584,17 +597,34 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # Training forward / loss
     # ------------------------------------------------------------------
+    def _with_patches(self, x: torch.Tensor, params: dict, batch: dict) -> torch.Tensor:
+        """The text embeddings ``x`` (B, S, d), and for vlm ``patches @
+        proj`` in the compute dtype ahead of them (B, P + S, d)."""
+        if self.cfg.family != "vlm":
+            return x
+        cdt = self.compute_dtype
+        patches = batch["patches"].to(device=self.device, dtype=cdt)
+        return torch.cat([patches @ _cast_floating(params["proj"], cdt), x], dim=1)
+
     def _embed(self, params: dict, batch: dict) -> torch.Tensor:
+        """The token embeddings in the compute dtype (B, S, d), and for vlm
+        the projected patches ahead of them (B, P + S, d).  Under tp the
+        token lookup is vocab-parallel and the patch product whole on every
+        model rank."""
         tokens = batch["tokens"].long()
         table = _cast_floating(self._uses({"embed": params["embed"]})["embed"], self.dtype)
         if _model_dim(self.shardings["embed"] if self.shardings else ()) is None:
-            return table[tokens].to(self.compute_dtype)
-        # vocab-parallel: this rank's rows, zero elsewhere, summed over the group
-        rows = table.shape[0]
-        local = tokens - self.mesh.coord["model"] * rows
-        own = (local >= 0) & (local < rows)
-        x = table[torch.where(own, local, 0)] * own[..., None]
-        return reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
+            x = table[tokens].to(self.compute_dtype)
+        else:
+            # vocab-parallel: this rank's rows, zero elsewhere, summed over the group
+            rows = table.shape[0]
+            local = tokens - self.mesh.coord["model"] * rows
+            own = (local >= 0) & (local < rows)
+            x = table[torch.where(own, local, 0)] * own[..., None]
+            x = reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
+        if self.cfg.family == "vlm":
+            params = self._uses({"proj": params["proj"]})
+        return self._with_patches(x, params, batch)
 
     def stage_program(self) -> sp.StageProgram:
         """The rank's layer stack in the StageProgram IR (the lowerings of
@@ -767,6 +797,7 @@ class Model(nn.Module):
         rows)."""
         cfg = self.cfg
         h = grad_cast(h, self.compute_dtype)
+        h = h[:, self.patch_offset:, :]          # vlm: the text positions only
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
         h = h[:, :-1, :]
@@ -797,7 +828,8 @@ class Model(nn.Module):
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """The training objective of one (micro)batch {"tokens": (B, S)}
-        (optionally "loss_mask"): mean next-token CE (plus the moe aux
+        (optionally "loss_mask"; for vlm "patches", for encdec "frames"):
+        mean next-token CE over the text (plus the moe aux
         term), and {"ce", "moe_aux", "moe_drop"}.  A sharded model takes its
         batch rank's rows and returns their part of the mean over all the
         batch ranks' tokens."""
@@ -814,7 +846,10 @@ class Model(nn.Module):
 
         ``lens`` (B,) — true lengths of right-padded prompts: logits are
         read at ``lens - 1``, the cache holds only real positions, and
-        ``cache["pos"]`` becomes the per-slot vector ``lens``.  An encdec
+        ``cache["pos"]`` becomes the per-slot vector ``lens``.  A vlm batch
+        carries ``patches`` (B, P, frontend_dim), whose P positions come
+        before the prompt's: the cache holds ``lens + P`` positions and the
+        logits are read at ``lens + P - 1``.  An encdec
         batch carries ``frames`` (B, T, frontend_dim): each layer runs
         self-attention (its KV into the cache), cross-attention over their
         encoding, then its MLP; the encoding is returned as
@@ -823,14 +858,14 @@ class Model(nn.Module):
         cfg = self.cfg
         self._refuse_sharded("prefill")
         params = self._cparams()
-        x = params["embed"][batch["tokens"].long()]
+        x = self._with_patches(params["embed"][batch["tokens"].long()], params, batch)
         B, S = x.shape[:2]
         if lens is None:
             total = None
             cache: dict[str, Any] = {"pos": torch.tensor(S, dtype=torch.int32,
                                                          device=self.device)}
-        else:
-            total = lens.to(device=self.device, dtype=torch.int32)
+        else:        # the positions written: the patches' and the prompt's
+            total = lens.to(device=self.device, dtype=torch.int32) + self.patch_offset
             cache = {"pos": total}
         if cfg.family in ("hybrid", "rwkv"):
             if lens is not None and bool((lens != S).any()):
@@ -918,7 +953,8 @@ class Model(nn.Module):
         reference's ``_freeze_inactive``): an inactive slot's KV rows, conv
         windows, SSD and wkv states and last tokens are left exactly as
         they were.
-        ``cache["pos"]`` is a scalar or a (B,) vector.  The cache leaves are
+        ``cache["pos"]`` is a scalar or a (B,) vector (for vlm it counts the
+        patch positions too, as prefill wrote them).  The cache leaves are
         updated in place; returns (logits (B, V) fp32, cache with the
         advanced ``pos``)."""
         cfg = self.cfg

@@ -35,6 +35,11 @@ gradient back over the pipe group.  So the ring's bytes are the dense
 family's, and every collective of the encoder runs at the same point on
 every rank.
 
+The vlm family's ``patches`` enter at stage 0, whose embedding projects
+them and puts them ahead of the text, so every hand-off carries
+``num_patches + seq`` positions (``Model.patch_offset``); the last stage's
+CE drops them.
+
 The hand-off is a local tensor when one process runs every stage
 (``ring=None``: the stage split and its boundary backward checked on one
 card), or a point-to-point exchange on the pipe group (:class:`Ring`):
@@ -320,8 +325,9 @@ def sweep(model, sched: Schedule, micro: list[dict], count: torch.Tensor,
 
     stages = _Stages(model, sched, micro, count, loss_scale, sched.v, sched.slot_of, sums)
     clock.timed(stages.encode)()
+    # the hand-off's positions: the text's, and for vlm the patches' ahead of it
     b, seq = micro[0]["tokens"].shape
-    shape = (b, seq, model.cfg.d_model)
+    shape = (b, model.patch_offset + seq, model.cfg.d_model)
 
     def buffer():
         return torch.empty(shape, dtype=model.compute_dtype, device=model.device)

@@ -5,7 +5,7 @@
     ``Model.decode_step`` with a per-slot ``pos`` vector and an ``active``
     mask; a finished request's slot is refilled on the next tick
     (``continuous=False``: only once every slot has drained);
-  * full-attention KV families (dense, moe) keep one pool of
+  * full-attention KV families (dense, moe, encdec, vlm) keep one pool of
     ``block_size``-position blocks (``Model.paged_cache_specs``) addressed
     per slot through a block table; block 0 is the garbage target of
     inactive slots.  When the pool runs out, the youngest request is
@@ -28,7 +28,12 @@
     ``Request.extras``: they enter the admission prefill, whose encoding
     (the reference encodes a second time for the slot; the port keeps
     prefill's) is written into the slot's row of an fp32 ``memory`` of
-    (n_slots, enc_seq_len, d) that every tick feeds to the decode step.
+    (n_slots, enc_seq_len, d) that every tick feeds to the decode step;
+  * the vlm family's requests carry their ``patches`` (num_patches,
+    frontend_dim) in ``Request.extras`` into the admission prefill, whose
+    ``num_patches`` positions come before the prompt's in the slot's blocks
+    (``patch_off``): the capacity, the admission's block count, the
+    prefill's cache length and the slot's ``pos`` count them too.
 
 Each finished request appends a ``repro.telemetry/1`` ``request`` record to
 ``records`` (arrival, admission, first-token and done times on the engine
@@ -36,7 +41,7 @@ clock, token counts, finish reason, evictions), validated by
 ``core/telemetry.py``, and writes it to ``telemetry_sink`` if given.
 
 ``mesh`` / ``plan`` (a dp-only ``ParallelPlan``: ZeRO 0, no tp, pp or ep;
-not the encdec family, which raises) serve data-parallel slots on
+any family but encdec, which raises) serve data-parallel slots on
 ``torch.distributed`` (``serve_loop.build_decode_step``): data rank r holds the cache rows of
 slots [r n/dp, (r + 1) n/dp) or its n_blocks/dp blocks of the pool (its own
 garbage block 0 first); ``owner`` is the one place that says so.  Every
@@ -72,7 +77,7 @@ from repro_torch.runtime.sampling import sample_tokens
 class Request:
     """One generation request; ``arrival`` is seconds from the run start;
     ``extras`` the non-token prefill inputs (``frames`` (T, frontend_dim)
-    for encdec)."""
+    for encdec, ``patches`` (num_patches, frontend_dim) for vlm)."""
     rid: int
     prompt: np.ndarray
     max_new_tokens: int
@@ -87,7 +92,7 @@ class Request:
 @dataclasses.dataclass
 class _Slot:
     req: Request | None = None
-    pos: int = 0                # host mirror of the slot's cache pos
+    pos: int = 0                # host mirror of the slot's cache pos (vlm: + patches)
     next_token: int = 0         # token fed at the next decode tick
     blocks: list[int] = dataclasses.field(default_factory=list)
     admit_seq: int = 0
@@ -152,6 +157,8 @@ class ServeEngine:
         self.block_size = block_size
         self.sink = telemetry_sink
         self.paged = model.paged_cacheable
+        # the vlm family's patch positions ahead of every prompt
+        self.patch_off = model.patch_offset
         # recurrent state summarizes every fed position, so padded prefill
         # would pollute it: these families prefill at the exact length
         self.exact_prefill = model.cfg.family in ("rwkv", "hybrid")
@@ -165,7 +172,7 @@ class ServeEngine:
             raise ValueError(f"{n_slots} slots do not split over dp={self.dp}")
         self.rank_slots = n_slots // self.dp
         if self.paged:
-            self.max_blocks = cache_len // block_size + 1
+            self.max_blocks = (cache_len + self.patch_off) // block_size + 1
             # default pool: worst case for every slot, +1 garbage block a rank
             self.n_blocks = n_blocks or self.dp * (1 + self.rank_slots * self.max_blocks)
             if self.n_blocks % self.dp:
@@ -223,17 +230,19 @@ class ServeEngine:
 
     @property
     def capacity(self) -> int:
-        """Max total positions (prompt + generated) per request."""
+        """Max total positions (prompt + generated + patches) per request."""
+        cap = self.cache_len + self.patch_off
         if not self.paged:
-            return self.cache_len
-        return min(self.cache_len, self.max_blocks * self.block_size - 1)
+            return cap
+        return min(cap, self.max_blocks * self.block_size - 1)
 
     def _now(self) -> float:
         return time.monotonic() - self._t0
 
     def _get_prefill(self, bucket: int) -> Callable:
         if bucket not in self._prefills:
-            clen = _round_up(bucket, self.block_size) if self.paged else self.cache_len
+            clen = (_round_up(bucket + self.patch_off, self.block_size) if self.paged
+                    else self.cache_len)
             self._prefills[bucket] = serve_loop.build_prefill(self.model, clen,
                                                               with_lens=True)
         return self._prefills[bucket]
@@ -249,7 +258,7 @@ class ServeEngine:
     # Request lifecycle
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if len(req.prompt) + req.max_new_tokens > self.capacity:
+        if len(req.prompt) + req.max_new_tokens + self.patch_off > self.capacity:
             raise ValueError(
                 f"request {req.rid}: prompt {len(req.prompt)} + max_new "
                 f"{req.max_new_tokens} exceeds capacity {self.capacity}")
@@ -270,7 +279,8 @@ class ServeEngine:
             req = self.queue[0]
             slot = free[0]
             if self.paged:
-                total = len(req.prompt) + len(self.results[req.rid]["generated"])
+                total = (len(req.prompt) + self.patch_off
+                         + len(self.results[req.rid]["generated"]))
                 need = total // self.block_size + 1
                 fits = [i for i in free if len(self.free_blocks[self.owner(i)]) >= need]
                 if not fits:
@@ -295,13 +305,14 @@ class ServeEngine:
         if gen:
             prompt = np.concatenate([prompt, np.asarray(gen, np.int32)])
         L = len(prompt)
+        total = L + self.patch_off           # the positions the prefill writes
         bucket = L if self.exact_prefill else self._bucket(L)
         t0 = time.perf_counter()
         owner = self.owner(slot_idx)
         local = slot_idx - owner * self.rank_slots
         slot = self.slots[slot_idx]
         if self.paged:
-            n_keep = L // self.block_size + 1
+            n_keep = total // self.block_size + 1
             blocks = [self.free_blocks[owner].pop() for _ in range(n_keep)]
             self.bt[slot_idx] = 0
             self.bt[slot_idx, :n_keep] = blocks
@@ -318,7 +329,8 @@ class ServeEngine:
             if self.memory is not None:
                 self.memory[slot_idx] = small["memory"][0]
             if self.paged:
-                nb_bucket = _round_up(bucket, self.block_size) // self.block_size
+                nb_bucket = _round_up(bucket + self.patch_off,
+                                      self.block_size) // self.block_size
                 nb_real = min(n_keep, nb_bucket)
                 targets = np.zeros(nb_bucket, np.int64)      # pad blocks -> garbage
                 targets[:nb_real] = blocks[:nb_real]
@@ -328,14 +340,14 @@ class ServeEngine:
             else:
                 _place_row({k: v for k, v in self.cache_specs.items() if k != "pos"},
                            self.cache, small, local)
-            self.cache["pos"][local] = L
+            self.cache["pos"][local] = total
         if self.mesh is not None:
             logits = serve_loop.share_logits(logits, owner, self.mesh, self.cfg.vocab_size,
                                              self.device)
         self.n_prefills += 1
 
         slot.req = req
-        slot.pos = L
+        slot.pos = total
         slot.admit_seq = self._admit_seq
         self._admit_seq += 1
         self.temps[slot_idx] = req.temperature

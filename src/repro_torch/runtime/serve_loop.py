@@ -103,8 +103,9 @@ def greedy_generate(model: Model, prompt: torch.Tensor, n_steps: int,
     """Greedy loop, the temperature-0 reference that the serve engine must
     match token for token: prompt (B, S) -> (B, n_steps) ids.  ``extras``
     carries the non-token prefill inputs (``frames`` (B, T, frontend_dim)
-    for encdec); the encoder's output that prefill returns is fed to every
-    decode step as ``memory``."""
+    for encdec, ``patches`` (B, P, frontend_dim) for vlm); the encoder's
+    output that prefill returns is fed to every decode step as
+    ``memory``."""
     batch = {"tokens": prompt}
     batch.update({k: torch.as_tensor(v) for k, v in (extras or {}).items()})
     logits, cache = model.prefill(batch, cache_len)

@@ -18,7 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.interop import from_jax_params, gather_params, mesh_axes, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
-from repro_torch.launch.train import extra_specs
+from repro_torch.launch.train import draw_extras, extra_specs
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import collectives, pipeline
@@ -157,13 +157,21 @@ def serve_prompts(vocab: int) -> list[np.ndarray]:
             for i, n in enumerate(SERVE_PROMPTS)]
 
 
+def serve_extras(cfg) -> list[dict | None]:
+    """Each serve prompt's non-token inputs (``launch/train.py:draw_extras``:
+    the vlm family's ``patches``, none for the families served here)."""
+    return [draw_extras(cfg, np.random.RandomState(170 + i))
+            for i in range(len(SERVE_PROMPTS))]
+
+
 def serve_engine(arch: str, overrides: dict, weights: dict, mesh=None,
                  plan: ParallelPlan | None = None, stagger: float = 0.0) -> dict:
     """The port's ServeEngine on ``weights`` (one device, or this rank's
     share of dp slots under ``mesh``/``plan``) over :func:`serve_prompts`,
     request i arriving at ``i * stagger`` seconds: {"tokens": {rid: ids},
-    "cache_bytes": the bytes of this rank's cache, "paged"}.  A paged pool
-    has 2 (1 + 2 max_blocks) blocks, which split over 2 ranks.  With
+    "cache_bytes": the bytes of this rank's cache, "paged"}; a vlm request
+    carries its :func:`serve_extras`.  A paged pool has 2 (1 + 2
+    max_blocks) blocks, which split over 2 ranks.  With
     staggered arrivals under a mesh, rank r starts its engine clock
     ``r * SERVE_SKEW`` seconds after rank 0, so that the ranks' clocks
     disagree on which requests have arrived."""
@@ -172,12 +180,14 @@ def serve_engine(arch: str, overrides: dict, weights: dict, mesh=None,
     cfg = config(arch, overrides)
     model = Model(cfg, torch.float32, device="cpu")
     model.load_state_dict(from_jax_params(weights, model))
-    n_blocks = 2 * (1 + 2 * (SERVE["cache_len"] // SERVE["block_size"] + 1))
-    eng = ServeEngine(model, **SERVE, n_blocks=n_blocks, mesh=mesh, plan=plan)
+    max_blocks = (SERVE["cache_len"] + model.patch_offset) // SERVE["block_size"] + 1
+    eng = ServeEngine(model, **SERVE, n_blocks=2 * (1 + 2 * max_blocks), mesh=mesh, plan=plan)
     if mesh is not None and stagger:
         time.sleep(dist.get_rank() * SERVE_SKEW)
-    out = eng.run([Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW, arrival=i * stagger)
-                   for i, p in enumerate(serve_prompts(cfg.vocab_size))])
+    out = eng.run([Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW, arrival=i * stagger,
+                           extras=x)
+                   for i, (p, x) in enumerate(zip(serve_prompts(cfg.vocab_size),
+                                                  serve_extras(cfg)))])
     leaves = []
 
     def walk(t):

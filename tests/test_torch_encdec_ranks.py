@@ -19,7 +19,14 @@ bytes are ``train_state_bytes`` and the reference's.  The bytes moved
 equal their predictions: the ZeRO 3 gathers ``costmodel.
 predict_comm_bytes``; at pp 2 the ring's sends (the dense family's: the
 memory never rides the ring) and the encoder's pipe gather and scatter,
-each the whole fp32 encoder stack a step."""
+each the whole fp32 encoder stack a step.
+
+The same spawn runs the vlm family (internvl2-2b reduced to 4 layers at its
+head dim 128, 8 patches of 64 a row beside the tokens): dp 2 at ZeRO 3
+(``proj`` gathered on use), tp 2 (the patch product whole on every model
+rank), pp 2 at 1 and 2 virtual stages (stage 0 embeds the patches; every
+hand-off carries the patch positions ahead of the text), held to the same
+bars; at pp 2 the ring's sends are (b, num_patches + seq, d) fp32."""
 import json
 import os
 import subprocess
@@ -47,6 +54,9 @@ FP_PLANS = {"dp2 z3": dict(dp=2, zero=3), "tp2": dict(tp=2), "pp2": dict(pp=2),
             "pp2 v2": dict(pp=2, virtual_stages=2)}
 QUANT_PLANS = {"dp2 z3 gather": dict(dp=2, zero=3, qcomm="gather")}
 PLANS = {**FP_PLANS, **QUANT_PLANS}
+VLM_ARCH = "internvl2-2b"
+VLM = dict(n_layers=4, head_dim=128)
+VLM_PLANS = {f"vlm {name}": plan for name, plan in FP_PLANS.items()}
 
 LIVE_CODE = """
 import json, sys
@@ -103,31 +113,37 @@ def runs(tmp_path_factory):
     proc = _start_reference(tmp)
     weights, ref = _torch_jax_ref.reference(ARCH, ENC, _plan())
     single = ranks.single_device(ARCH, ENC, weights, _plan())
+    vlm_weights, vlm_ref = _torch_jax_ref.reference(VLM_ARCH, VLM, _plan())
+    vlm_single = ranks.single_device(VLM_ARCH, VLM, vlm_weights, _plan())
     jobs = [{"name": name, "arch": ARCH, "overrides": ENC, "weights": "seamless",
              "plan": _plan(**plan)} for name, plan in PLANS.items()]
-    res = ranks.run_ranks(2, jobs, {"seamless": weights}, str(tmp))
+    jobs += [{"name": name, "arch": VLM_ARCH, "overrides": VLM, "weights": "vlm",
+              "plan": _plan(**plan)} for name, plan in VLM_PLANS.items()]
+    res = ranks.run_ranks(2, jobs, {"seamless": weights, "vlm": vlm_weights}, str(tmp))
     out, err = proc.communicate(timeout=900)
     assert proc.returncode == 0, err[-4000:]
     for name, by_rank in res.items():
         for r, v in by_rank.items():
             assert "error" not in v, (name, r, v.get("error"))
     return {"ref": ref, "single": single, "ranks": res, "weights": weights,
-            "reference": json.loads(out.split("LIVE")[-1])}
+            "reference": json.loads(out.split("LIVE")[-1]),
+            "vlm": {"ref": vlm_ref, "single": vlm_single}}
 
 
 def _traj(res):
     return np.array([t[:2] for t in res["trajectory"]])
 
 
-@pytest.mark.parametrize("job", sorted(FP_PLANS))
+@pytest.mark.parametrize("job", sorted(FP_PLANS) + sorted(VLM_PLANS))
 def test_plans_match_single_device_and_jax(runs, job):
-    single = np.array([t[:2] for t in runs["single"][0]])
+    held = runs["vlm"] if job in VLM_PLANS else runs
+    single = np.array([t[:2] for t in held["single"][0]])
     by_rank = runs["ranks"][job]
     for r, res in by_rank.items():
         port = _traj(res)
         np.testing.assert_allclose(port, single, rtol=RTOL_PLANS, atol=0,
                                    err_msg=f"{job} rank {r}")
-        np.testing.assert_allclose(port, runs["ref"], rtol=RTOL_REF, atol=0,
+        np.testing.assert_allclose(port, held["ref"], rtol=RTOL_REF, atol=0,
                                    err_msg=f"{job} rank {r} against the reference")
     assert all(res["trajectory"] == by_rank[0]["trajectory"] for res in by_rank.values())
     assert _traj(by_rank[0])[-1, 0] < _traj(by_rank[0])[0, 0]
@@ -186,6 +202,19 @@ def test_pipelined_bytes_equal_the_prediction(runs):
     for res in runs["ranks"]["dp2 z3"].values():
         assert all(step["pipe_gather"] == step["pipe_scatter"] == 0
                    for step in res["comm_bytes"])
+
+
+def test_vlm_pipelined_sends_carry_the_patch_positions(runs):
+    """At pp 2 a vlm hand-off is (b, num_patches + seq, d) fp32: the patch
+    positions ride the ring ahead of the text; ``proj`` is kept whole on
+    both pipe ranks, as ``embed`` is."""
+    cfg = ranks.config(VLM_ARCH, VLM)
+    gas, b = 2, ranks.BATCH // 2
+    for job, v in (("vlm pp2", 1), ("vlm pp2 v2", 2)):
+        sends = gas * (2 * v - 1) * b * (cfg.num_patches + ranks.SEQ) * cfg.d_model * 4
+        for res in runs["ranks"][job].values():
+            assert all(step["send"] == sends for step in res["comm_bytes"])
+            assert res["blocks"]["proj"].shape == (cfg.frontend_dim, cfg.d_model)
 
 
 @pytest.mark.parametrize("job", ["dp2 z3", "dp2 z3 gather"])

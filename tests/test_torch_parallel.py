@@ -16,7 +16,9 @@ bars, and the collectives' byte counters of the ZeRO 3 runs are held to
 ``costmodel.predict_comm_bytes`` of the same shapes and specs.  The serve
 engine's dp slots (``ServeEngine(mesh=, plan=)``, plan dp = 2, ZeRO 0) for
 yi-6b reduced (the paged pool), rwkv6-1.6b reduced (slot state) and
-h2o-danube-1.8b reduced with the int8 cache (its ring), and yi-6b again
+h2o-danube-1.8b reduced with the int8 cache (its ring), internvl2-2b
+reduced at its head dim 128 (the paged pool, each request with its
+patches ahead of the prompt), and yi-6b again
 with arrivals 20 ms apart and the ranks' clocks 50 ms apart (admission on
 data rank 0's clock): each rank's tokens
 equal the single-device engine's and the JAX package's greedy streams, and
@@ -53,18 +55,24 @@ RECURRENT = {"zamba2-2.7b": dict(n_layers=4), "rwkv6-1.6b": dict(n_layers=4)}
 SERVE = {"yi paged": ("yi-6b", ranks.YI, "yi", 0.0),
          "yi paged staggered": ("yi-6b", ranks.YI, "yi", 0.02),
          "rwkv6 slots": ("rwkv6-1.6b", RECURRENT["rwkv6-1.6b"], "rwkv6-1.6b", 0.0),
-         "danube int8 ring": ("h2o-danube-1.8b", dict(kv_quant=True), "danube", 0.0)}
+         "danube int8 ring": ("h2o-danube-1.8b", dict(kv_quant=True), "danube", 0.0),
+         "vlm paged": ("internvl2-2b", dict(head_dim=128), "vlm", 0.0)}
 
 
 def _jax_greedy(arch: str, overrides: dict, weights: dict) -> dict:
-    """The JAX package's greedy stream of each serve prompt on ``weights``."""
+    """The JAX package's greedy stream of each serve prompt (with its
+    patches for vlm) on ``weights``."""
     jm = JaxModel(jax_get_config(arch).reduced(**overrides), jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
     assert flatten_tree(jax.tree.map(np.asarray, jp)).keys() == weights.keys()
     jp = jax.tree.map(lambda _, k: jnp.asarray(weights[k]), jp, _paths(jp))
-    return {i: np.asarray(jax_greedy_generate(jm, jp, jnp.asarray(p)[None], ranks.SERVE_NEW,
-                                              ranks.SERVE["cache_len"]))[0].tolist()
-            for i, p in enumerate(ranks.serve_prompts(jm.cfg.vocab_size))}
+    cfg = ranks.config(arch, overrides)
+    cache_len = ranks.SERVE["cache_len"] + (cfg.num_patches if cfg.family == "vlm" else 0)
+    return {i: np.asarray(jax_greedy_generate(
+        jm, jp, jnp.asarray(p)[None], ranks.SERVE_NEW, cache_len,
+        extras=None if x is None else {k: jnp.asarray(v)[None] for k, v in x.items()}))[0].tolist()
+        for i, (p, x) in enumerate(zip(ranks.serve_prompts(jm.cfg.vocab_size),
+                                       ranks.serve_extras(cfg)))}
 
 
 def _paths(tree, prefix=""):
@@ -99,6 +107,8 @@ def runs(tmp_path_factory):
     jd = JaxModel(dataclasses.replace(jax_get_config("h2o-danube-1.8b").reduced(),
                                       kv_quant=True), jnp.float32)
     weights["danube"] = flatten_tree(jax.tree.map(np.asarray, jd.init(jax.random.PRNGKey(0))))
+    jv = JaxModel(jax_get_config("internvl2-2b").reduced(head_dim=128), jnp.float32)
+    weights["vlm"] = flatten_tree(jax.tree.map(np.asarray, jv.init(jax.random.PRNGKey(0))))
     serve = {}
     jax_greedy = {}
     for name, (arch, ov, w, stagger) in SERVE.items():
@@ -226,5 +236,5 @@ def test_dp2_engine_matches_single_device(runs, name):
     assert single["tokens"] == ref
     for r, res in runs["ranks"][name].items():
         assert res["tokens"] == single["tokens"], f"rank {r}"
-        assert res["paged"] == single["paged"] == name.startswith("yi paged")
+        assert res["paged"] == single["paged"] == ("paged" in name)
         assert 2 * res["cache_bytes"] == single["cache_bytes"], f"rank {r}"

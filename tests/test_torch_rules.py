@@ -22,6 +22,7 @@ from repro_torch.kernels import (cross_entropy as ce, flash_attention as fa,
                                  rmsnorm as rn, ssd_scan as ssd, swiglu as sg,
                                  wkv_scan as wkv)
 from repro_torch.models.model import Model
+from repro_torch.runtime.train_loop import ParallelPlan
 
 # tiny shapes: intra-op threads only add overhead here, and they
 # oversubscribe the cores shared by parallel test workers
@@ -168,13 +169,15 @@ def test_from_jax_params_is_strict(fault):
         from_jax_params(tree, m)
 
 
-@pytest.mark.parametrize("arch,kernels", [
-    ("internvl2-2b", False),                # vlm family
-], ids=["vlm"])
-def test_out_of_scope_raises(arch, kernels):
+@pytest.mark.parametrize("plan", [
+    dict(multi_segment=True),               # the reference's hybrid lowering
+    dict(precision="fp16", kernels=True),   # the kernels take bf16 and fp32
+], ids=["multi_segment", "fp16_kernels"])
+def test_out_of_scope_raises(plan):
+    """What the port still refuses, naming ROADMAP.md; every model family
+    of the reference is ported, so the refusals are plan fields."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config(arch).reduced(), torch.float32,
-              compute=ComputePolicy(kernels=kernels), device="cpu")
+        ParallelPlan(**plan)
 
 
 @pytest.fixture

@@ -4,7 +4,7 @@ single-device step 0 of yi-6b, zamba2-2.7b and rwkv6-1.6b, or phase 5's of
 gpt-1.4b) on card 0, then chip_smoke._parallel_rank, _recurrent_tp_rank or
 _pipeline_rank on min(count, 4) ranks.
 
-  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline|serve|encdec]
+  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline|serve|encdec|vlm]
                                        (default: parallel; a host with 2 or
                                         more CUDA cards, from the repo root)
 
@@ -34,13 +34,17 @@ phase 5's step 0, and at 4 ranks trains yi-6b at all 32 layers at pp = 4,
 gas 8 against dp = 4, ZeRO 3.  "serve" runs chip_smoke._serve_rank: the
 dp serve engine of yi-6b (TRAIN_LAYERS, bf16, kernels) at dp = ranks, 4
 slots a rank, every rank's tokens equal to a meshless 4-slot engine's and
-its pool 1/ranks of the whole.  "encdec" runs chip_smoke._encdec_rank: the
-reduced seamless's fp32 plans (dp at ZeRO 3, tp, pp with the encoder
+its pool 1/ranks of the whole.  "encdec" runs chip_smoke._family_rank for
+seamless: the reduced seamless's fp32 plans (dp at ZeRO 3, tp, pp with the encoder
 gathered over the pipe group) held to the single-device port, then
 seamless-m4t-medium at full width at pp = ranks and dp = ranks (ZeRO 3),
-step 0 held to its single-device step 0.  Each reading is a JSON line, and a
-failed check ends the run non-zero."""
-import subprocess, sys, time
+step 0 held to its single-device step 0.  "vlm" runs it for internvl2:
+the reduced internvl2's fp32 plans (dp at ZeRO 3, tp, pp with the patch
+positions on the ring) held to the single-device port, then internvl2-2b
+at full width at pp = ranks and dp = ranks (ZeRO 3), step 0 held to its
+single-device step 0.  Each reading is a JSON line, and a failed check ends
+the run non-zero."""
+import functools, subprocess, sys, time
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch
@@ -57,7 +61,8 @@ BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV), cs._parallel_rank),
             "comm": ((), cs._comm_rank),
             "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank),
             "serve": ((), cs._serve_rank),
-            "encdec": ((cs.SEAMLESS,), cs._encdec_rank)}
+            "encdec": ((cs.SEAMLESS,), functools.partial(cs._family_rank, arch=cs.SEAMLESS)),
+            "vlm": ((cs.INTERNVL,), functools.partial(cs._family_rank, arch=cs.INTERNVL))}
 
 if __name__ == "__main__":
     branch = sys.argv[1] if len(sys.argv) > 1 else "parallel"

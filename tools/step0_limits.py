@@ -1,13 +1,14 @@
 """The readings behind the step-0 limits of ``chip_smoke.py``'s train phase.
 
   python3 tools/step0_limits.py [--arch yi-6b|gpt-1.4b|zamba2-2.7b|rwkv6-1.6b|arctic-480b|
-                                        seamless-m4t-medium]
+                                        seamless-m4t-medium|internvl2-2b]
                                        (one CUDA card, from the repo root)
 
 The train phase holds step 0 of each arch (full width; yi-6b at 8 layers,
 gpt-1.4b at all 24, zamba2-2.7b at 18 of 54, rwkv6-1.6b at all 24,
 arctic-480b at 2 of 35 with 8 of its 128 experts, seamless-m4t-medium at
-all 12 + 12 with its synthetic frames; bf16
+all 12 + 12 with its synthetic frames, internvl2-2b at all 24 with its
+synthetic patches; bf16
 compute over fp32 masters,
 remat full, gas 2 microbatches of 4 x 2048 tokens) with kernels=True against
 kernels=False, in loss and grad_norm.  This script measures what that
@@ -21,7 +22,9 @@ comparison can tell apart:
     and seamless-m4t-medium the layernorm forward, for zamba2-2.7b the SSD scan forward, for
     arctic-480b the grouped expert MLP's forward (rows of expert 0), the flash
     forward, the dQ kernel, and the dK/dV kernel; for rwkv6-1.6b (no
-    attention, no MLP kernel) the wkv scan forward and the rmsnorm forward.
+    attention, no MLP kernel) the wkv scan forward and the rmsnorm forward;
+    for internvl2-2b also the rmsnorm forward and the CE kernel (its lse
+    zeroed on 64 text rows).
 
 Each reading is one JSON line; the last line gives the largest sound and the
 smallest planted difference per metric.
@@ -62,7 +65,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("step0_limits: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import (_build, flash_attention as fa, gelu_mlp as gm,
+    from repro_torch.kernels import (_build, cross_entropy as ce, flash_attention as fa,
+                                     gelu_mlp as gm,
                                      grouped_mlp as gp, layernorm as ln, rmsnorm as rn,
                                      ssd_scan as ssd, swiglu as sg, wkv_scan as wkv)
     from repro_torch.models.model import Model
@@ -110,6 +114,11 @@ def main() -> int:
     if cfg.family == "moe":
         faults["grouped_mlp forward, rows 1024:1088 of expert 0"] = (
             gp, "grouped_mlp_cuda", (0,), (0, TILE))
+    if cfg.family == "vlm":
+        faults["rmsnorm forward, positions 1024:1088 of sequence 0"] = (
+            rn, "rmsnorm_cuda", (0,), (0, TILE))
+        faults["cross_entropy lse, text rows 1024:1088"] = (
+            ce, "cross_entropy_cuda", (0,), (TILE,))
     faults.update({} if cfg.family == "rwkv" else {
         "flash forward, query rows 1024:1088 of head 0":
             (fa, "flash_attention_fwd_cuda", (0,), (0, TILE, 0)),
