@@ -194,7 +194,22 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      plans against the single-device port, gpt-1.4b at pp = ranks (v = 1
      and 2) against phase 5's single-device step 0, and at 4 ranks yi-6b
      at all 32 layers at pp = 4, gas 8, ZeRO 1 against dp = 4, ZeRO 3;
-  7. the ``kernels`` line: per kernel its launches on each path, its error,
+  7. dryrun (``phase_dryrun``): ``launch/dryrun.py``'s trace of yi-6b at
+     full width and DRYRUN_LAYERS layers (TRAIN's shape and plan, kernels
+     off, one rank) on the meta device against the same step run 3 times
+     on the card (``--measure``): ``FlopCounterMode``'s totals equal, the
+     traced peak within DRYRUN_PEAK_BAND of ``max_memory_allocated``; then
+     the trace of one 256-rank production record (qwen3-32b train_4k on
+     "16x16", a fake group of 256 ranks), its ``trace_s`` printed;
+  8. checkpoint (``phase_checkpoint``): gpt-1.4b at full width and
+     CKPT_LAYERS layers, TRAIN's plan (kernels on): 4 steps straight,
+     twice, then 2 steps, ``save_checkpoint``, ``restore_checkpoint`` into
+     a fresh model and state drawn from another seed, and 2 more steps; the
+     resumed losses and final parameters bit-equal to the straight run's
+     where the two straight runs are bit-equal, else within their spread;
+     the save and restore seconds and the bytes on disk printed, the
+     directory deleted;
+  9. the ``kernels`` line: per kernel its launches on each path, its error,
      and the kernel / plain / library / bound times; for the redesigned
      flash forward and backward, swiglu, gelu_mlp, CE, the grouped expert
      MLP, the two scans and the two decode steps also ``parent_ms`` and
@@ -5501,6 +5516,143 @@ def _family_rank(rank: int, world: int, init_method: str, step0: dict, arch: str
     dist.destroy_process_group()
 
 
+# phase "dryrun": the trace's peak against the card's, as a share of it
+DRYRUN_ARCH, DRYRUN_LAYERS = "yi-6b", 8
+DRYRUN_PEAK_BAND = (0.9, 1.1)
+# a production record, traced on the host only (kept while under 60 s)
+DRYRUN_PRODUCTION = ("qwen3-32b", "train_4k")
+
+
+def phase_dryrun(card: str) -> None:
+    """``dryrun_one`` with ``measure``: the traced FLOPs must equal the
+    card's step's and the traced peak lie in DRYRUN_PEAK_BAND of the
+    card's; the production record must trace ``ok``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), n_layers=DRYRUN_LAYERS)
+    shape = InputShape("train_chip", "train", TRAIN["seq_len"], TRAIN["global_batch"])
+    plan = ParallelPlan(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=False)
+    rec = dryrun.dryrun_one(DRYRUN_ARCH, shape, multi_pod=False, plan=plan, cfg=cfg,
+                            measure=True, verbose=False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of {DRYRUN_ARCH}: {rec.get('error')}\n"
+                             f"{rec.get('traceback')}")
+    torch.cuda.empty_cache()
+    prod = dryrun.dryrun_one(*DRYRUN_PRODUCTION, multi_pod=False, verbose=False)
+    m, peak = rec["measured"], rec["memory_analysis"]["peak_bytes"]
+    ratio = peak / m["peak_bytes"]
+    emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "layers": DRYRUN_LAYERS, "plan": "1x1 " +
+          rec["plan"], "traced_peak_bytes": peak, "measured_peak_bytes": m["peak_bytes"],
+          "peak_ratio": ratio, "peak_band": DRYRUN_PEAK_BAND,
+          "traced_flops": rec["flops_per_device"], "measured_flops": m["flops"],
+          "traced_bytes": rec["bytes_per_device"], "roofline": rec["roofline"],
+          "measured_step_s": m["step_s"], "measured_step_s_all": m["step_s_all"],
+          "state_bytes": rec["state_bytes"], "trace_s": rec["trace_s"],
+          "production": {k: prod.get(k) for k in (
+              "arch", "shape", "mesh", "chips", "status", "error", "trace_s",
+              "flops_per_device", "bytes_per_device", "collective_bytes",
+              "memory_analysis", "state_bytes", "roofline", "useful_flops_ratio")},
+          "card": card, "measured_card": m["card"]})
+    if rec["flops_per_device"] != m["flops"]:
+        raise AssertionError(f"traced FLOPs {rec['flops_per_device']} != the card's "
+                             f"{m['flops']}")
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise AssertionError(f"traced peak {peak} is {ratio:.4f} of the card's "
+                             f"{m['peak_bytes']}, outside {DRYRUN_PEAK_BAND}")
+    if prod["status"] != "ok":
+        raise AssertionError(f"production dry run {DRYRUN_PRODUCTION}: {prod.get('error')}")
+
+
+# phase "checkpoint": gpt-1.4b at full width, 2 of 24 layers (323M
+# parameters: 3.9 GB of fp32 parameters and Adam moments), TRAIN's plan
+CKPT_ARCH, CKPT_LAYERS, CKPT_STEPS, CKPT_SAVE_AT = "gpt-1.4b", 2, 4, 2
+
+
+def phase_checkpoint(card: str) -> dict:
+    """4 steps straight (twice), against 2 steps, a save, a restore into a
+    fresh model and state, and 2 steps: losses and final parameters."""
+    import shutil
+
+    from repro_torch.checkpointing import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import (ParallelPlan, build_train_step,
+                                                init_train_state)
+
+    cfg = dataclasses.replace(get_config(CKPT_ARCH), n_layers=CKPT_LAYERS)
+    plan = ParallelPlan(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    batches = _batches(cfg.vocab_size, TRAIN["seq_len"], TRAIN["global_batch"], CKPT_STEPS)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    where = ROOT / "build" / "checkpoint"
+    shutil.rmtree(where, ignore_errors=True)
+
+    def fresh(seed: int):
+        model = Model(cfg, torch.float32, device="cuda")
+        state = init_train_state(model, opt, plan,
+                                 torch.Generator(device="cuda").manual_seed(seed))
+        return model, state, build_train_step(model, opt, plan)
+
+    def steps(step, state, bs) -> list[float]:
+        return [float(step(state, b)[1]["loss"]) for b in bs]
+
+    def weights(model) -> dict:
+        return {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+
+    straight = []
+    ops.reset_launch_counts()
+    for _ in range(2):
+        model, state, step = fresh(0)
+        straight.append((steps(step, state, batches), weights(model)))
+        del model, state, step
+    launches = dict(ops.launch_counts())
+    model, state, step = fresh(0)
+    first = steps(step, state, batches[:CKPT_SAVE_AT])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(where), CKPT_SAVE_AT, state)
+    save_s = time.perf_counter() - t0
+    disk = sum(f.stat().st_size for f in where.rglob("*") if f.is_file())
+    del model, state, step
+    torch.cuda.empty_cache()
+    model, state, step = fresh(1)
+    t0 = time.perf_counter()
+    state = restore_checkpoint(str(where), CKPT_SAVE_AT, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    resumed = first + steps(step, state, batches[CKPT_SAVE_AT:])
+    final = weights(model)
+    del model, state, step
+    shutil.rmtree(where, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    (loss_a, w_a), (loss_b, w_b) = straight
+    spread_w = max(float((w_a[k] - w_b[k]).abs().max()) for k in w_a)
+    diff_w = max(float((w_a[k] - final[k]).abs().max()) for k in w_a)
+    spread_l = max(abs(a - b) for a, b in zip(loss_a, loss_b))
+    diff_l = max(abs(a - b) for a, b in zip(loss_a, resumed))
+    emit({"phase": "checkpoint", "arch": CKPT_ARCH, "layers": CKPT_LAYERS,
+          "params": sum(v.numel() for v in final.values()), "steps": CKPT_STEPS,
+          "saved_at": CKPT_SAVE_AT, "straight_losses": straight[0][0],
+          "straight_again_losses": straight[1][0], "resumed_losses": resumed,
+          "straight_spread": {"loss": spread_l, "weights": spread_w},
+          "resumed_vs_straight": {"loss": diff_l, "weights": diff_w},
+          "save_s": save_s, "restore_s": restore_s, "bytes_on_disk": disk,
+          "launches": launches, "card": card})
+    if spread_l == spread_w == 0.0:
+        if diff_l or diff_w:
+            raise AssertionError(f"resumed run differs from the straight run, which is "
+                                 f"bit-equal to itself: loss {diff_l}, weights {diff_w}")
+    elif diff_l > spread_l or diff_w > spread_w:
+        raise AssertionError(f"resumed run off by loss {diff_l}, weights {diff_w}: outside "
+                             f"the straight runs' spread {spread_l}, {spread_w}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5568,6 +5720,8 @@ def main() -> int:
     paths[f"{ENTRY_ARCH} entry"] = timed("entry", lambda: phase_entry(card))
     paths.update(timed("parallel", lambda: phase_parallel(card)))
     paths[f"{PIPELINE_ARCH} pipeline"] = timed("pipeline", lambda: phase_pipeline(card))
+    timed("dryrun", lambda: phase_dryrun(card))
+    paths[f"{CKPT_ARCH} checkpoint"] = timed("checkpoint", lambda: phase_checkpoint(card))
     emit({"phase": "done", "seconds_after_build": time.perf_counter() - t_start,
           "seconds_by_phase": seconds})
     by_path = {name: {path: n[name] for path, n in paths.items() if name in n}

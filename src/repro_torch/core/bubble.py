@@ -15,6 +15,8 @@ schedule the port's executor walks, to be read beside these.
 """
 from __future__ import annotations
 
+import dataclasses
+
 
 def bubble_fraction(p: int, m: int, v: int = 1, *, schedule: str = "1f1b",
                     approximate: bool = False) -> float:
@@ -45,6 +47,25 @@ def wave_bubble_fraction(p: int, m: int, v: int) -> float:
     waves = -(-m // p)
     ticks = waves * (S + p - 1)
     return 1.0 - (m * S) / (p * ticks)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineMemory:
+    """Peak in-flight activation copies per device (relative units)."""
+    schedule: str
+    p: int
+    m: int
+    v: int = 1
+
+    @property
+    def inflight_microbatches(self) -> int:
+        # GPipe holds all m microbatch activations until backward;
+        # 1F1B holds at most p (stage-depth) microbatches.
+        if self.schedule == "gpipe":
+            return self.m
+        if self.schedule == "1f1b":
+            return min(self.p, self.m)
+        return min(self.p * self.v, self.m * self.v)
 
 
 def min_microbatches_for_efficiency(p: int, target_eff: float, v: int = 1) -> int:

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 import torch.utils.checkpoint
@@ -122,3 +122,48 @@ DEFAULT_POLICY = ComputePolicy()
 def resolve(policy: ComputePolicy | None) -> ComputePolicy:
     """None -> the default (full remat, plain compute path)."""
     return DEFAULT_POLICY if policy is None else policy
+
+
+# ---------------------------------------------------------------------------
+# Analytic activation-memory estimate (the paper's Table III axis): what each
+# remat mode saves per layer for the backward pass, per device.  The dry run
+# puts it beside the traced peak.
+# ---------------------------------------------------------------------------
+
+def activation_bytes_estimate(cfg: Any, global_batch: int, seq_len: int,
+                              policy: ComputePolicy, *,
+                              dp: int = 1, tp: int = 1, pp: int = 1,
+                              gas: int = 1, dtype_bytes: int = 2) -> int:
+    """Per-device bytes of saved (not recomputed) activations for one
+    microbatch's backward through the layer stack.
+
+    Counts only the dominant per-layer tensors of a dense block; attention
+    score matrices are excluded (the flash and chunked formulations never
+    save them).  MoE/SSM/RWKV stacks reuse the dense estimate of their
+    matmul skeleton: a lower bound, labelled as such by the caller.
+    """
+    tokens = (global_batch // max(dp * gas, 1)) * seq_len  # per-device microbatch
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    q_cols = cfg.n_heads * hd
+    kv_cols = cfg.n_kv_heads * hd
+    ff = cfg.d_ff
+    layers_local = cfg.n_layers // max(pp, 1)
+
+    boundary = d                                   # the layer's input (x)
+    # matmul outputs inside one block: q, k, v, attn-out, o-proj,
+    # w1/w3 gate halves, w2 out
+    dots = (q_cols + 2 * kv_cols + q_cols + d) + (2 * ff + d)
+    # elementwise/norm chains saved only under remat="none": the two norm
+    # outputs feeding the projections plus the silu*gate product
+    elementwise = 2 * d + ff
+
+    if policy.remat == "full":
+        per_layer = boundary
+    elif policy.remat == "selective":
+        per_layer = boundary + dots
+    else:
+        per_layer = boundary + dots + elementwise
+    # TP shards the head/mlp dims of the saved dots
+    sharded = boundary + (per_layer - boundary) / max(tp, 1)
+    return int(tokens * sharded * layers_local * dtype_bytes)

@@ -56,7 +56,10 @@ def _specs(cfg, plan) -> tuple[dict, dict]:
     return shapes, psh
 
 
-def _index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
+def block_index(key: str, shape, spec, cfg, plan, coord: dict) -> tuple:
+    """The index of the rank at ``coord`` into the whole leaf ``key`` of
+    ``shape`` under ``spec`` (a parameter's, or its Adam moments' under the
+    plan's ZeRO stage), as numpy and torch apply it."""
     from repro_torch.models.model import pipe_interleaved, tp_pieces
 
     v = plan.virtual_stages if plan.pp > 1 and pipe_interleaved(key) else 1
@@ -74,7 +77,7 @@ def shard_params(tree: Any, cfg, plan, coord: dict) -> dict[str, np.ndarray]:
     conv blocks the rank's heads' columns and the B and C ones
     (``models/model.py:tp_pieces``)."""
     shapes, psh = _specs(cfg, plan)
-    return {k: np.asarray(a)[_index(k, shapes[k], psh[k], cfg, plan, coord)]
+    return {k: np.asarray(a)[block_index(k, shapes[k], psh[k], cfg, plan, coord)]
             for k, a in flatten_tree(tree).items()}
 
 
@@ -97,6 +100,7 @@ def gather_params(blocks: dict[tuple[int, ...], dict], cfg, plan) -> dict[str, n
         first = next(iter(blocks.values()))[k]
         whole = np.empty(shape, dtype=np.asarray(first).dtype)
         for at, tree in blocks.items():
-            whole[_index(k, shape, psh[k], cfg, plan, dict(zip(axes, at)))] = np.asarray(tree[k])
+            whole[block_index(k, shape, psh[k], cfg, plan,
+                              dict(zip(axes, at)))] = np.asarray(tree[k])
         out[k] = whole
     return out

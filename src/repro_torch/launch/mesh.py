@@ -31,7 +31,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.runtime.collectives import AXES, EP_AXES, NODE
 
-BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+# the meta device's group is the dry run's fake one (launch/dryrun.py)
+BACKEND = {"cuda": "nccl", "cpu": "gloo", "meta": "cpu:fake,meta:fake"}
 
 
 def init_distributed(device: torch.device, init_method: str | None = None,

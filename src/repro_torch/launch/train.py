@@ -15,7 +15,11 @@ share of the pipeline),
 pipeline sweep times) reaches it by one gather at the end of a logged
 step.  The records are appended to PATH: remove it before a rerun.
 ``python -m repro_torch.analysis.report --telemetry PATH`` renders the
-records.
+records.  ``--ckpt-dir DIR`` resumes from the latest checkpoint in DIR
+(``checkpointing/checkpoint.py``, the reference's format; under a mesh the
+blocks of any plan's save) and saves every ``--ckpt-every`` steps; the
+resumed run skips the batches the restored steps took, so it continues the
+uninterrupted run's data.
 
 Under ``torchrun`` / ``python -m torch.distributed.run`` (one process per
 rank; nccl on the cards, gloo with ``--device cpu``) it runs the sharded
@@ -88,6 +92,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.checkpointing import (latest_step, restore_checkpoint, save_checkpoint,
+                                       state_shardings)
 from repro_torch.configs import ASSIGNED, PAPER, get_config
 from repro_torch.core import telemetry
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
@@ -205,6 +211,10 @@ def main(argv: list[str] | None = None) -> list[dict]:
                     help="hierarchical node axis ways: ZeRO gathers and reduce-scatters "
                          "split into inter-node + intra-node phases over a (node, pipe, "
                          "data, model) mesh")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the latest checkpoint here and save every "
+                         "--ckpt-every steps (checkpointing/checkpoint.py)")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -253,10 +263,17 @@ def main(argv: list[str] | None = None) -> list[dict]:
     opt = AdamWConfig(lr=cosine_schedule(args.lr, 10, args.steps))
     state = init_train_state(model, opt, plan,
                              torch.Generator(device=device).manual_seed(args.seed))
+    start, shardings = 0, state_shardings(model, plan)
+    if args.ckpt_dir and (s := latest_step(args.ckpt_dir)) is not None:
+        state = restore_checkpoint(args.ckpt_dir, s, state, shardings)
+        start = s
+        say(f"restored step {s} from {args.ckpt_dir}", flush=True)
     step_fn = build_train_step(model, opt, plan, mesh)
     it = make_batch_iterator(SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed),
                              seq_len=args.seq_len, global_batch=args.global_batch,
                              extra_specs=extra_specs(cfg))
+    for _ in range(start):                     # the batches the restored steps took
+        next(it)
     tele_on = bool(args.log_jsonl or args.trace)
     tele = telemetry.Telemetry(
         cfg, plan, args.global_batch, args.seq_len, machine=args.machine,
@@ -265,13 +282,13 @@ def main(argv: list[str] | None = None) -> list[dict]:
     on_card = device.type == "cuda"
     records = []
     t_start = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         batch = next(it)
         collectives.reset_comm_bytes()
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         (state, metrics), wall = telemetry.timed_call(step_fn, state, batch)
-        if i == 0:
+        if i == start:
             tele.record_compile(device=device, devices=world,
                                 state_bytes=train_state_bytes(cfg, plan),
                                 compile_s=time.perf_counter() - t_start)
@@ -289,6 +306,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
         records.append(out)
         if logged:
             say(tele.console_line(rec, with_mfu=on_card or tele_on) + moe, flush=True)
+        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1, state, shardings)
     if args.trace and rank0:
         from repro_torch.analysis import trace as trace_mod
         tr = trace_mod.build_trace(plan.pp, plan.gas, plan.virtual_stages, tele.step_walls,

@@ -14,7 +14,10 @@ jnp, with no Pallas body).
 rank's Megatron shards: column-parallel ``wq``/``wk``/``wv`` and ``w1``/``w3``
 (the rank's heads and d_ff columns; their input through
 ``collectives.copy_to_model``), row-parallel ``wo`` and ``w2`` (their
-partial sums all-reduced by ``collectives.reduce_from_model``).  Norms,
+partial sums all-reduced by ``collectives.reduce_from_model``).  Where tp
+exceeds the kv heads (:func:`kv_heads_replicated`) every model rank
+holds ``wk``/``wv`` whole and projects the one kv head its query heads
+share, the weights through ``copy_to_model``.  Norms,
 RoPE and qk-norm stay replicated; the qk-norm scales pass through
 ``copy_to_model`` as well, since each rank's heads give part of their
 gradient, and so does a cross block's memory on its way into ``wk``/``wv``.
@@ -22,6 +25,7 @@ gradient, and so does a cross block's memory on its way into ``wk``/``wv``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.models import layers
@@ -52,15 +56,32 @@ def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> dict:
     return spec
 
 
+def kv_heads_replicated(cfg: ModelConfig, tp: int) -> bool:
+    """Whether ``wk``/``wv`` stay whole over a model group of ``tp`` ranks:
+    tp above the kv head count and a multiple of it, the query heads
+    splitting over tp.  Each model rank then projects the one kv head its
+    query heads share, as Megatron replicates kv heads
+    (``models/model.py:kv_replicated`` names the leaves)."""
+    kv = cfg.n_kv_heads
+    return tp > kv and tp % kv == 0 and cfg.n_heads % tp == 0
+
+
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
                  cfg: ModelConfig, use_kernel: bool = False, tp=None):
     """q, k, v over the heads the weights hold (all, or the rank's under tp)."""
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
     hd = cfg.resolved_head_dim
+    wk, wv = params["wk"], params["wv"]
+    if tp is not None and kv_heads_replicated(cfg, dist.get_world_size(tp)):
+        # the one kv head the rank's query heads share; each rank's part of
+        # its gradient summed over the group
+        j = dist.get_rank(tp) * cfg.n_kv_heads // dist.get_world_size(tp)
+        wk = copy_to_model(wk, tp)[:, j * hd:(j + 1) * hd]
+        wv = copy_to_model(wv, tp)[:, j * hd:(j + 1) * hd]
     q = (xq @ params["wq"]).reshape(B, Sq, -1, hd)
-    k = (xkv @ params["wk"]).reshape(B, Skv, -1, hd)
-    v = (xkv @ params["wv"]).reshape(B, Skv, -1, hd)
+    k = (xkv @ wk).reshape(B, Skv, -1, hd)
+    v = (xkv @ wv).reshape(B, Skv, -1, hd)
     if "q_norm" in params:
         qs, ks = params["q_norm"], params["k_norm"]
         if tp is not None:

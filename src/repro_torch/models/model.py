@@ -310,20 +310,35 @@ def _tp_heads(cfg: ModelConfig) -> list[tuple[str, int]]:
     return heads
 
 
+def kv_replicated(cfg: ModelConfig, tp: int) -> tuple[str, ...]:
+    """The ``wk``/``wv`` leaves (every one on the kv-head axis) kept whole
+    over the model group where ``blocks.kv_heads_replicated``; empty
+    otherwise."""
+    if cfg.family == "rwkv" or not blocks.kv_heads_replicated(cfg, tp):
+        return ()
+    return tuple(path for path, spec in flatten_specs(param_specs(cfg))
+                 if "kv_heads" in spec.axes)
+
+
 def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec],
                     sizes: dict[str, int]) -> bool:
     """What the port's sharded model can run; returns whether the blocks are
     tensor-parallel.  The model axis may sit only on the dims of
     :func:`tp_dims`, on all of those leaves or none, on whole heads (given
     the mesh ``sizes``), and on the vocab dim of the embedding and lm_head;
-    anything else raises, naming the leaf."""
+    the leaves of :func:`kv_replicated` stay whole; anything else raises,
+    naming the leaf."""
     where = "(see ROADMAP.md, Queue 1)"
-    expected = tp_dims(cfg)
+    whole = kv_replicated(cfg, sizes["model"])
+    expected = {k: v for k, v in tp_dims(cfg).items() if k not in whole}
     block = {}
     for path, spec in specs.items():
         dim = _model_dim(spec)
         if dim is None:
             continue
+        if path in whole:
+            raise NotImplementedError(f"{path}: split over tp={sizes['model']}, above the "
+                                      f"{cfg.n_kv_heads} kv heads, where it is kept whole")
         if path in ("embed", "lm_head"):
             if dim != (0 if path == "embed" else 1):
                 raise NotImplementedError(f"{path}: the model axis on dim {dim} {where}")
@@ -336,7 +351,7 @@ def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec],
         return False
     tp = sizes["model"]
     for leaf, heads in _tp_heads(cfg):
-        if heads % tp:
+        if heads % tp and leaf not in whole:
             what = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads" if leaf.endswith(".wk")
                     else f"{heads} heads")
             raise NotImplementedError(f"{leaf}: {what} do not split over tp={tp} {where}")
@@ -410,7 +425,10 @@ class Model(nn.Module):
         """Draw every weight with the JAX package's init rules, leaf by leaf
         in state_dict order, from ``generator`` (on the model's device),
         into the Parameters themselves; a sharded model draws each leaf
-        whole and keeps its block."""
+        whole and keeps its block.  A model on the meta device has no data
+        to draw: it is left as it is."""
+        if self.device.type == "meta":
+            return self
         params = dict(self.named_parameters())
         for path, spec in flatten_specs(self.param_specs()):
             if self.shardings is None:

@@ -36,8 +36,10 @@ the aux loss and the drop fraction are computed alike on every model rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -226,6 +228,30 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if tp is not None:
         out = reduce_from_model(out, tp)
     return x + out, aux.float(), drop
+
+
+def simulated_drop_fraction(cfg: ModelConfig, batch: int, seq: int,
+                            seed: int = 0, samples: int = 4) -> float:
+    """Measured drop fraction of the router itself (:func:`_route`) at the
+    run's (G, g, E, C), under softmax-of-Gaussian gates: what the dry run
+    reports beside the analytic ``expertplan.predicted_drop_fraction``
+    without running a train step.  Sample i draws its gates from
+    ``numpy.random.default_rng(seed + i)`` (the reference draws them with
+    ``jax.random``).  The result is cached by (batch, seq, the router's
+    fields): a production shape takes tens of seconds on the CPU."""
+    G, g = group_shape(batch, seq)
+    return _drop_fraction(G, g, cfg.n_experts, cfg.top_k, moe_capacity(g, cfg), seed, samples)
+
+
+@functools.lru_cache(maxsize=64)
+def _drop_fraction(G: int, g: int, E: int, top_k: int, C: int, seed: int,
+                   samples: int) -> float:
+    fracs = []
+    for i in range(samples):
+        z = np.random.default_rng(seed + i).standard_normal((G, g, E), dtype=np.float32)
+        _, _, slot_valid, _ = _route(torch.softmax(torch.from_numpy(z), -1), top_k, C)
+        fracs.append(1.0 - float(slot_valid.sum()) / (G * g * max(top_k, 1)))
+    return float(np.mean(fracs))
 
 
 def _index(tree: dict, j: int) -> dict:

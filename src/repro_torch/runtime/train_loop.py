@@ -102,7 +102,8 @@ from repro_torch.core import stage_program as sp
 from repro_torch.core.compute import DEFAULT_POLICY, ComputePolicy
 from repro_torch.core.pipeline import schedule
 from repro_torch.models.common import ModelConfig, flatten_specs
-from repro_torch.models.model import Model, param_specs, stage_units, tp_pieces
+from repro_torch.models.model import (Model, kv_replicated, param_specs, stage_units,
+                                      tp_pieces)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.runtime import pipeline
 from repro_torch.runtime.collectives import (
@@ -243,7 +244,9 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     than dense at tp = 1, which run replicated over the model group as one
     device runs them (embedding and CE included).  The moe family's expert
     leaves are on the data axis at ep = 1 and on the expert axis above (the
-    reference's rules); ZeRO adds the data axis, and at node > 1 the node
+    reference's rules); where tp exceeds the kv heads, ``wk``/``wv``
+    stay whole over the model axis (``models/model.py:kv_replicated``; the
+    reference splits their columns below a head); ZeRO adds the data axis, and at node > 1 the node
     axis (``sharding.zero_partition_spec``).  zamba2's in_proj and conv leaves (``tp_pieces``) take the
     model axis on their head dim whatever its width divides: the rank's
     block is its heads' columns and the shared B and C ones.  At pp > 1
@@ -277,6 +280,8 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     for k in tp_pieces(cfg):
         base[k] = tuple(rules.mesh_axis("ssm_heads") if a == "ssm_heads" else e
                         for a, e in zip(axes[k], base[k]))
+    for k in kv_replicated(cfg, plan.tp):
+        base[k] = tuple(None if "model" in shd.spec_axes((e,)) else e for e in base[k])
     mp = plan.memory_plan()
     psh = mp.param_shardings(shapes, axes, base, sizes)
     return (shapes, psh, mp.optimizer_shardings(shapes, axes, psh, sizes),
@@ -299,16 +304,36 @@ def train_state_bytes(cfg: ModelConfig, plan: ParallelPlan) -> dict:
             "opt_bytes": 2 * mpl.sharded_bytes(shapes, opt_sh, sizes, 4, pieces)}
 
 
+def check_activation_rules(plan: ParallelPlan) -> None:
+    """The activation layout the executor runs: the residual stream whole
+    over the sequence and the model group, the heads' and the MLP's
+    activations where their weights are.  ``rule_overrides`` that ask for
+    another (the reference's sequence-parallel ``seq``, an ``act_*`` axis
+    off its weights') raise: the executor would not carry them out."""
+    rules = plan.sharding_rules().rules
+    want = {"seq": None, "act_embed": None, "act_heads": rules.get("heads"),
+            "act_mlp": rules.get("mlp")}
+    for axis, mesh_axis in want.items():
+        if rules.get(axis) != mesh_axis:
+            raise NotImplementedError(
+                f"rule_overrides put the activations' {axis!r} on {rules.get(axis)!r}: the "
+                "executor keeps the residual stream whole over the sequence and the model "
+                "group and the heads' and MLP's activations where their weights are "
+                "(sequence parallelism is not ported yet; see ROADMAP.md, Queue 1)")
+
+
 def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype = torch.float32,
                 compute: ComputePolicy | None = None) -> Model:
     """The rank's sharded model on ``mesh`` (a DeviceMesh from
-    ``launch/mesh.py:mesh_for_plan``), on the mesh's device."""
+    ``launch/mesh.py:mesh_for_plan``), on the mesh's device (the dry run's
+    on the meta device)."""
     groups = MeshGroups.from_mesh(mesh)
     if groups.sizes != plan.mesh_sizes():
         raise ValueError(f"mesh {groups.sizes} is not the plan's {plan.mesh_sizes()}")
+    check_activation_rules(plan)
     _, psh, _, _ = plan_state_shardings(cfg, plan)
     device = (torch.device("cuda", torch.cuda.current_device())
-              if mesh.device_type == "cuda" else torch.device("cpu"))
+              if mesh.device_type == "cuda" else torch.device(mesh.device_type))
     return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups,
                  virtual_stages=plan.virtual_stages if plan.pp > 1 else 1,
                  comm=plan.comm_plan())

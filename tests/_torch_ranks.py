@@ -13,7 +13,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.utils.flop_counter import FlopCounterMode
 
+from repro_torch.checkpointing import (latest_step, restore_checkpoint, save_checkpoint,
+                                       state_shardings)
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.interop import from_jax_params, gather_params, mesh_axes, shard_params
@@ -44,15 +47,21 @@ def config(arch: str, overrides: dict):
 
 def trajectory(step, state, bs, comm: list | None = None,
                walks: list | None = None, moe: list | None = None,
-               phases: list | None = None) -> list[tuple]:
+               phases: list | None = None, flops: list | None = None) -> list[tuple]:
     """(loss, grad_norm, grads_finite, loss_scale) of each step; ``comm``
     takes each step's collective bytes (``runtime/collectives.py``),
     ``walks`` its pipeline sweep's times (``runtime/pipeline.py``), ``moe``
-    its (moe_aux, moe_drop), ``phases`` its ZeRO gather bytes by phase."""
+    its (moe_aux, moe_drop), ``phases`` its ZeRO gather bytes by phase,
+    ``flops`` its ``FlopCounterMode`` total."""
     out = []
     for b in bs:
         collectives.reset_comm_bytes()
-        state, m = step(state, b)
+        if flops is None:
+            state, m = step(state, b)
+        else:
+            with FlopCounterMode(display=False) as counter:
+                state, m = step(state, b)
+            flops.append(counter.get_total_flops())
         if comm is not None:
             comm.append(collectives.comm_bytes())
         if phases is not None:
@@ -93,7 +102,9 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
         m.requires_grad_(True)
         m.zero_grad(set_to_none=True)
         m.with_policy(m.compute, torch.float32).loss(batch)[0].backward()
-        return {k: p.grad.numpy().copy() for k, p in m.named_parameters()}
+        # a leaf the loss does not reach (llama4's shared expert's ln) has none
+        return {k: np.zeros(tuple(p.shape), np.float32) if p.grad is None
+                else p.grad.numpy().copy() for k, p in m.named_parameters()}
 
     mine = grads(model)
     blocks = {k: p.detach().numpy().copy() for k, p in model.named_parameters()}
@@ -220,18 +231,38 @@ def _rank(rank: int, world: int, init_file: str, jobs: list, weights: dict, out:
                 shard_params(weights[job["weights"]], cfg, plan, coord), model))
             opt = AdamWConfig(lr=LR)
             state = init_train_state(model, opt, plan)
+            if "ckpt_restore" in job:       # a save of any plan, this plan's blocks
+                state = restore_checkpoint(job["ckpt_restore"], latest_step(job["ckpt_restore"]),
+                                           state, state_shardings(model, plan))
+            skip = job.get("skip", 0)
             comm: list = []
             walks: list = []
             moe: list = []
             phases: list = []
+            flops: list | None = [] if job.get("flops") else None
             res = {"trajectory": trajectory(build_train_step(model, opt, plan, mesh), state,
-                                            batches(cfg.vocab_size, job.get("steps", STEPS), cfg),
-                                            comm, walks, moe, phases),
+                                            batches(cfg.vocab_size, skip + job.get("steps", STEPS),
+                                                    cfg)[skip:],
+                                            comm, walks, moe, phases, flops),
                    "comm_bytes": comm, "walks": walks, "moe": moe, "coord": coord,
-                   "gather_phases": phases,
+                   "gather_phases": phases, "flops": flops,
                    "blocks": {k: p.detach().numpy().copy()
                               for k, p in model.state_dict().items()},
                    "moments": {k: tuple(m.shape) for k, m in state["opt"]["mu"].items()}}
+            if "ckpt_save" in job:      # and the bytes this rank receives
+                received: list = []
+                recv = dist.recv
+
+                def counted(t, *a, **kw):
+                    received.append(t.numel() * t.element_size())
+                    return recv(t, *a, **kw)
+                dist.recv = counted
+                try:
+                    save_checkpoint(job["ckpt_save"], state["step"], state,
+                                    state_shardings(model, plan))
+                finally:
+                    dist.recv = recv
+                res["ckpt_received"] = sum(received)
             if "check" in job:
                 res["check"] = globals()[job["check"]](model, plan)
         except Exception as e:  # noqa: BLE001 - handed back to the test

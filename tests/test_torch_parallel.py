@@ -22,8 +22,11 @@ patches ahead of the prompt), and yi-6b again
 with arrivals 20 ms apart and the ranks' clocks 50 ms apart (admission on
 data rank 0's clock): each rank's tokens
 equal the single-device engine's and the JAX package's greedy streams, and
-each rank holds half the single-device cache.  Two ranks run every plan in
-one spawn."""
+each rank holds half the single-device cache.  The dry run's trace of the
+dp = 2, ZeRO 3 plan counts rank 0's FLOPs and collective bytes; a
+checkpoint saved at dp = 2, ZeRO 3 and restored at tp = 2 continues the
+single device's losses, and rank 0 receives each distinct block of a save
+once (nothing at ZeRO 0).  Two ranks run every plan in one spawn."""
 import dataclasses
 
 import jax
@@ -37,11 +40,15 @@ import _torch_ranks as ranks
 from repro.configs import get_config as jax_get_config
 from repro.models.model import Model as JaxModel
 from repro.runtime.serve_loop import greedy_generate as jax_greedy_generate
+from repro_torch.configs.shapes import InputShape
+from repro_torch.checkpointing import restore_checkpoint
 from repro_torch.core import commplan, costmodel
+from repro_torch.launch import dryrun
 from repro_torch.interop import flatten_tree, gather_params
 from repro_torch.models.common import flatten_specs
-from repro_torch.models.model import param_specs
-from repro_torch.runtime.train_loop import ParallelPlan, plan_state_shardings
+from repro_torch.models.model import Model, param_specs
+from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.train_loop import ParallelPlan, init_train_state, plan_state_shardings
 
 torch.set_num_threads(1)
 
@@ -94,6 +101,19 @@ def runs(tmp_path_factory):
         single[k] = ranks.single_device("yi-6b", ranks.YI, weights["yi"], _plan(kernels=k))
     jobs = [{"name": f"z{z} k{k}", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
              "plan": _plan(dp=2, zero=z, kernels=k)} for z in STAGES for k in (False, True)]
+    ckpt, ckpt_z0 = (str(tmp_path_factory.mktemp(n)) for n in ("ckpt", "ckpt_z0"))
+    # FlopCounterMode moves fp32 rounding (~1e-5 in the weights after 3
+    # steps), so the counted step runs apart
+    jobs += [{"name": "flops dp2 z3", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
+              "plan": _plan(dp=2, zero=3), "steps": 1, "flops": True},
+             {"name": "ckpt save dp2 z3", "arch": "yi-6b", "overrides": ranks.YI,
+              "weights": "yi", "plan": _plan(dp=2, zero=3), "steps": 1, "ckpt_save": ckpt},
+             {"name": "ckpt save dp2 z0", "arch": "yi-6b", "overrides": ranks.YI,
+              "weights": "yi", "plan": _plan(dp=2, zero=0), "steps": 1,
+              "ckpt_save": ckpt_z0},
+             {"name": "ckpt restore tp2", "arch": "yi-6b", "overrides": ranks.YI,
+              "weights": "yi", "plan": _plan(tp=2), "skip": 1, "steps": ranks.STEPS - 1,
+              "ckpt_restore": ckpt}]
     jobs += [{"name": f"z3 {remat} k{k}", "arch": "yi-6b", "overrides": ranks.YI,
               "weights": "yi", "plan": _plan(dp=2, zero=3, kernels=k, remat=remat)}
              for remat, k in (("selective", False), ("selective", True), ("none", False))]
@@ -122,11 +142,61 @@ def runs(tmp_path_factory):
     for name, by_rank in res.items():
         for r, v in by_rank.items():
             assert "error" not in v, (name, r, v.get("error"))
-    return {"ref": ref, "single": single, "ranks": res, "serve": serve}
+    return {"ref": ref, "single": single, "ranks": res, "serve": serve, "ckpt_z0": ckpt_z0}
 
 
 def _losses(traj):
     return np.array([t[:2] for t in traj])
+
+
+def test_trace_equals_the_gloo_run(runs):
+    """The dry run's trace of the dp 2, ZeRO 3 plan (rank 0 of a fake group
+    on the meta device, ``launch/dryrun.py``) counts the FLOPs and the
+    collective bytes by kind that rank 0 counted in the gloo run's first
+    step."""
+    plan = ParallelPlan(**_plan(dp=2, zero=3))
+    rec = dryrun.dryrun_one("yi-6b", InputShape("ranks", "train", ranks.SEQ, ranks.BATCH),
+                            multi_pod=False, plan=plan, cfg=ranks.config("yi-6b", ranks.YI),
+                            verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    rank0 = runs["ranks"]["flops dp2 z3"][0]
+    assert rec["flops_per_device"] == rank0["flops"][0] > 0
+    assert rec["comm_bytes"] == {k: float(v) for k, v in rank0["comm_bytes"][0].items()}
+    assert rec["comm_bytes"]["zero3_gather"] > 0
+
+
+def test_resume_across_plans(runs):
+    """Saved under dp 2, ZeRO 3 after one step (``save_checkpoint`` of the
+    ranks' blocks), restored under tp 2: the next steps' losses and grad
+    norms equal the single device's straight run within 1e-5."""
+    single = _losses(runs["single"][False][0])
+    saved = runs["ranks"]["ckpt save dp2 z3"]
+    for res in saved.values():
+        np.testing.assert_allclose(_losses(res["trajectory"]), single[:1], rtol=RTOL_PLANS, atol=0)
+    for res in runs["ranks"]["ckpt restore tp2"].values():
+        np.testing.assert_allclose(_losses(res["trajectory"]), single[1:], rtol=RTOL_PLANS,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("zero", [0, 3])
+def test_checkpoint_save_receives_each_block_once(runs, zero):
+    """Rank 0 writes a sharded save, receiving one copy of each block it
+    does not hold: at dp 2, ZeRO 3 rank 1's half of every parameter and of
+    both moments, at ZeRO 0 (every leaf replicated over the data ranks)
+    nothing.  The ZeRO 0 save restores on one device to the ranks'
+    parameters."""
+    saved = runs["ranks"][f"ckpt save dp2 z{zero}"]
+    cfg = ranks.config("yi-6b", ranks.YI)
+    shapes, *_ = plan_state_shardings(cfg, ParallelPlan(**_plan(dp=2, zero=zero)))
+    whole = sum(int(np.prod(s)) for s in shapes.values())
+    assert saved[0]["ckpt_received"] == (3 * 4 * whole // 2 if zero == 3 else 0)
+    assert saved[1]["ckpt_received"] == 0
+    if zero == 0:
+        model = Model(cfg, torch.float32, device="cpu")
+        state = init_train_state(model, AdamWConfig(lr=ranks.LR), ParallelPlan(**_plan()))
+        restore_checkpoint(runs["ckpt_z0"], 1, state)
+        for k, p in model.state_dict().items():
+            np.testing.assert_array_equal(p.numpy(), saved[0]["blocks"][k], err_msg=k)
 
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])

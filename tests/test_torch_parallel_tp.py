@@ -22,7 +22,10 @@ held to the reference's own quantized plans run live in a subprocess of
 4 virtual devices (step 0 within 1e-4, later steps within
 ``QUANT_LATER_RTOL``, every step within 5% of the fp trajectory), and
 every CommPlan plan's gather bytes, intra and inter, to
-``costmodel.predict_comm_bytes``.
+``costmodel.predict_comm_bytes``; tp above the kv heads, wk and wv whole
+on every model rank (``KV_REPLICATED``: yi and llama4 at tp 4, yi at one
+kv head under dp 2 x tp 2 with ZeRO 3, zamba2's shared block at tp 4),
+with their gradients and weights after the steps.
 Losses and grad norms within rtol 1e-5, atol 0 of the port's single device
 and 1e-4 of the reference's; rwkv6's grad norms after the first update
 within 1e-4 of both (see ``RWKV_LATER_NORMS``).  Two spawns (2 and 4 ranks)
@@ -35,8 +38,9 @@ against the reference's per-token CE over the whole vocab.  On one process:
 zamba2's regrouped in_proj and conv blocks ([z_k | x_k | B | C | dt_k],
 [x_k | B | C]) round-trip exactly through ``shard_params`` /
 ``gather_params``, and ``train_state_bytes`` counts the rank's tensors.
-Also what tp refuses: heads that do not split (yi's kv heads, zamba2's SSM
-and shared-block heads, rwkv6's heads), prefill of a tp model."""
+Also what tp refuses: heads that do not split (kv heads that tp neither
+divides nor is a multiple of, yi's and zamba2's shared block's, zamba2's
+SSM heads, rwkv6's heads), prefill of a tp model."""
 import numpy as np
 import pytest
 import torch
@@ -47,7 +51,7 @@ import _torch_jax_ref
 import _torch_ranks as ranks
 from repro.kernels import ops as jops
 from repro_torch.core import costmodel
-from repro_torch.interop import gather_params, shard_params
+from repro_torch.interop import gather_params, mesh_axes, shard_params
 from repro_torch.models import model, moe, ssm
 from repro_torch.models import vocab_parallel as vp
 from repro_torch.models.model import Model
@@ -66,6 +70,34 @@ PADDED = dict(ranks.YI, vocab_size=120, vocab_pad_multiple=256)
 RECURRENT = ranks.RECURRENT
 MOE = ranks.MOE
 MOE_KERNELS = ("ep2 dp2 z3", "ep2 tp2")    # the moe plans run with kernels on
+# tp above the kv heads (``blocks.kv_heads_replicated``): wk and wv whole on
+# every model rank.  name -> (weights, plan fields, kernels); the weights
+# name the model as KV_MODELS does
+KV_REPLICATED = {"kv yi tp4": ("yi", dict(tp=4), False),
+                 "kv yi tp4 kernels": ("yi", dict(tp=4), True),
+                 "kv yi tp4 z3": ("yi", dict(tp=4, zero=3), False),
+                 "kv1 yi dp2 tp2 z3": ("yi kv1", dict(dp=2, tp=2, zero=3), False),
+                 "kv zamba2 tp4": ("zamba2-2.7b", dict(tp=4), False),
+                 "kv llama4 tp4": ("llama4-maverick-400b-a17b", dict(tp=4), False)}
+# zamba2 at tp 4: the SSM decay A_log takes the largest gradient error
+# (1.4e-5 of its largest element against the single device; its gradient
+# sums the scan over every token), and the grad norm after the second
+# update moves 1.6e-5 from the single device's, which sits 0.9e-5 from the
+# reference's (the tp 4 run 0.7e-5): held at the reference's bar, as
+# rwkv6's (RWKV_LATER_NORMS)
+KV_ZAMBA2_LATER_NORMS = RTOL_REF
+# Adam's normalised step turns fp32 noise in a near-zero gradient into a
+# change of up to 2 lr a step, and the model group sums a gradient in
+# another order than one device: at most 27 elements of a leaf of 1.1M
+# (zamba2's in_proj) leave tests/test_torch_parallel.py's weight bar
+# (rtol 1e-4, atol 1e-5), the largest by 3.4e-4 (zamba2's embed).  Every
+# element within half of lr, at most one in 1000 of a leaf outside that bar
+KV_WEIGHTS_ATOL = 0.5 * ranks.LR
+KV_WEIGHTS_OUTSIDE = 1e-3
+KV_MODELS = {"yi": ("yi-6b", ranks.YI), "yi kv1": ("yi-6b", dict(ranks.YI, n_kv_heads=1)),
+             "zamba2-2.7b": ("zamba2-2.7b", RECURRENT["zamba2-2.7b"]),
+             "llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b",
+                                           MOE["llama4-maverick-400b-a17b"])}
 # rwkv6 reduced: its bonus u takes a gradient of ~500 at step 0 against
 # 1e-2 to 1e-1 for every other leaf, and Adam's first step moves each
 # weight by +-lr whatever its gradient's size, so an element whose sign is
@@ -85,14 +117,15 @@ def _plan(**kw):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    weights, ref, single = {}, {}, {}
+    weights, ref, single, after = {}, {}, {}, {}
     for name, arch, ov, kernels in (("yi", "yi-6b", ranks.YI, (False, True)),
                                     ("gpt", "gpt-1.4b", GPT, (True,)),
-                                    ("padded", "yi-6b", PADDED, (True,))):
+                                    ("padded", "yi-6b", PADDED, (True,)),
+                                    ("yi kv1", *KV_MODELS["yi kv1"], (False,))):
         for k in kernels:
             weights[name], ref[name, k] = _torch_jax_ref.reference(arch, ov, _plan(kernels=k))
-            single[name, k], _ = ranks.single_device(arch, ov, weights[name],
-                                                     _plan(kernels=k))
+            single[name, k], after[name, k] = ranks.single_device(arch, ov, weights[name],
+                                                                  _plan(kernels=k))
     two = [{"name": f"tp2 k{k}", "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
             "plan": _plan(tp=2, kernels=k), "check": "prefill_refused"}
            for k in (False, True)]
@@ -113,8 +146,8 @@ def runs(tmp_path_factory):
         weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan())
         for k in (False, True):
             moe = []
-            single[arch, k], _ = ranks.single_device(arch, ov, weights[arch],
-                                                     _plan(kernels=k), moe=moe)
+            single[arch, k], after[arch, k] = ranks.single_device(arch, ov, weights[arch],
+                                                                  _plan(kernels=k), moe=moe)
             single[arch, k, "moe"] = moe
         four += [{"name": f"{arch} {name}", "arch": arch, "overrides": ov, "weights": arch,
                   "plan": _plan(kernels=name in MOE_KERNELS, **plan)}
@@ -122,7 +155,8 @@ def runs(tmp_path_factory):
     for arch, ov in RECURRENT.items():
         weights[arch], ref[arch] = _torch_jax_ref.reference(arch, ov, _plan())
         for k in (False, True):
-            single[arch, k], _ = ranks.single_device(arch, ov, weights[arch], _plan(kernels=k))
+            single[arch, k], after[arch, k] = ranks.single_device(arch, ov, weights[arch],
+                                                                  _plan(kernels=k))
             two.append({"name": f"{arch} tp2 k{k}", "arch": arch, "overrides": ov,
                         "weights": arch, "plan": _plan(tp=2, kernels=k)})
         four += [{"name": f"{arch} dp2 tp2 z{z}", "arch": arch, "overrides": ov,
@@ -133,6 +167,9 @@ def runs(tmp_path_factory):
              for name, plan in ranks.MOE_NODE_PLANS.items()]
     four += [{"name": name, "arch": "yi-6b", "overrides": ranks.YI, "weights": "yi",
               "plan": _plan(**plan)} for name, plan in ranks.COMM_PLANS.items()]
+    four += [{"name": name, "arch": KV_MODELS[w][0], "overrides": KV_MODELS[w][1],
+              "weights": w, "plan": _plan(kernels=k, **plan), "check": "grads_check"}
+             for name, (w, plan, k) in KV_REPLICATED.items()]
     live = _start_quantized_reference(tmp_path_factory.mktemp("live"))
     checks = {"zamba2-2.7b tp2 kFalse": "split_norm_check",
               "zamba2-2.7b tp2 kTrue": "grads_check", "rwkv6-1.6b tp2 kFalse": "grads_check"}
@@ -146,7 +183,8 @@ def runs(tmp_path_factory):
     for name, by_rank in res.items():
         for r, v in by_rank.items():
             assert "error" not in v, (name, r, v.get("error"))
-    return {"ref": ref, "single": single, "ranks": res, "live": _finish(live)}
+    return {"ref": ref, "single": single, "after": after, "ranks": res,
+            "live": _finish(live)}
 
 
 # the reference's quantized plans, live on 4 virtual CPU devices (ZeRO 3,
@@ -269,6 +307,41 @@ def test_rules_presets_match_single_device(runs, rules):
 
 def test_vocab_shard_all_padding(runs):
     _check(runs, "padded", ("padded", True))
+
+
+@pytest.mark.parametrize("job", sorted(KV_REPLICATED))
+def test_kv_heads_replicated_match_single_device(runs, job):
+    """tp above the kv heads (yi and llama4 reduced: 4 query / 2 kv heads
+    at tp 4, llama4's dense sub-stack too; yi at 1 kv head under dp 2 x tp
+    2, ZeRO 3; zamba2's shared block at tp 4): every model rank holds wk
+    and wv whole and projects the kv head its query heads share, where the
+    reference's rules split wk's columns below a head.  Losses and grad
+    norms as ``_check`` holds them, zamba2's grad norms after the first
+    update at the reference's bar (``KV_ZAMBA2_LATER_NORMS``); one loss's
+    gradients of every leaf, put together from the ranks' blocks, within
+    1e-4 of the leaf's largest element of the single device's
+    (``test_tp2_gradients_equal_single_device``'s bar); the weights after
+    the 3 steps, put together, as ``KV_WEIGHTS_*`` hold them."""
+    w, fields, k = KV_REPLICATED[job]
+    arch, ov = KV_MODELS[w]
+    _check(runs, job, (w, k), ref_key=(w, k) if w.startswith("yi") else w,
+           later_norms=KV_ZAMBA2_LATER_NORMS if arch == "zamba2-2.7b" else RTOL_PLANS)
+    cfg = ranks.config(arch, ov)
+    plan = ParallelPlan(**_plan(kernels=k, **fields))
+    by_rank = runs["ranks"][job]
+    wk = next(p for p in model.kv_replicated(cfg, plan.tp) if p.endswith("wk"))
+    for r, res in by_rank.items():
+        # whole over the model axis
+        assert res["blocks"][wk].shape[-1] == cfg.n_kv_heads * cfg.resolved_head_dim
+        for leaf, (diff, top) in res["check"].items():
+            assert diff <= 1e-4 * top, (r, leaf, diff, top)
+    gathered = gather_params({tuple(r["coord"][a] for a in mesh_axes(plan)): r["blocks"]
+                              for r in by_rank.values()}, cfg, plan)
+    for key, single in runs["after"][w, k].items():
+        err = np.abs(gathered[key] - single)
+        assert err.max() <= KV_WEIGHTS_ATOL, (key, err.max())
+        outside = err > 1e-5 + 1e-4 * np.abs(single)
+        assert outside.mean() <= KV_WEIGHTS_OUTSIDE, (key, int(outside.sum()), single.size)
 
 
 @pytest.mark.parametrize("tp,valid", [(2, 256), (4, 197), (2, 120)],
@@ -604,17 +677,19 @@ def test_train_state_bytes_are_the_ranks_tensors(arch, zero):
 
 
 @pytest.mark.parametrize("arch,overrides,tp,leaf", [
-    ("yi-6b", ranks.YI, 4, "layers.attn.wk"),
+    ("yi-6b", {**ranks.YI, "n_heads": 6, "n_kv_heads": 3}, 2, "layers.attn.wk"),
     ("zamba2-2.7b", dict(n_layers=4, ssm_head_dim=128), 8, "layers.in_proj"),
-    ("zamba2-2.7b", RECURRENT["zamba2-2.7b"], 4, "shared.attn.wk"),
+    ("zamba2-2.7b", dict(RECURRENT["zamba2-2.7b"], n_heads=6, n_kv_heads=3), 2,
+     "shared.attn.wk"),
     ("rwkv6-1.6b", RECURRENT["rwkv6-1.6b"], 8, "layers.tm.wr"),
 ], ids=["yi_kv_heads", "zamba2_ssm_heads", "zamba2_shared_kv_heads", "rwkv6_heads"])
 def test_tp_refuses_heads_that_do_not_split(arch, overrides, tp, leaf):
     """The reference's lenient rules shard a dim that tp divides, mid-head
-    or not: yi reduced has 2 kv heads (tp 4 splits its wk mid-head), zamba2
-    at SSM head dim 128 has 4 SSM heads (tp 8), its shared block 2 kv heads
-    (tp 4), rwkv6 reduced 4 heads of 64 (tp 8: 32 columns a rank).  The
-    model refuses, naming the leaf."""
+    or not: yi reduced at 6 heads has 3 kv heads (tp 2 splits its wk
+    mid-head; tp 4 at its 2 kv heads keeps wk whole, ``kv_replicated``),
+    zamba2 at SSM head dim 128 has 4 SSM heads (tp 8), its shared block at 6
+    heads 3 kv heads (tp 2), rwkv6 reduced 4 heads of 64 (tp 8: 32 columns
+    a rank).  The model refuses, naming the leaf."""
     cfg = ranks.config(arch, overrides)
     plan = ParallelPlan(tp=tp)
     _, psh, _, _ = plan_state_shardings(cfg, plan)
