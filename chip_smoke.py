@@ -75,7 +75,12 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      heads, and both families' CE on vocab shards of 16000 / 8000 and
      32768 / 16384; CE on each vocab shard with labels outside it and a
      local valid vocab, the shards merged as the vocab-parallel CE merges
-     them; the dense serving paths' own shapes (``phase_kernels_serve``):
+     them; the flash forward and backward at the query shards of sequence
+     parallelism (``phase_kernels_seq``: qwen3-32b's 64q/8kv of 128 on one
+     4096-position row split 16 and 4 ways, each shard at its q_offset
+     against the whole K/V and the plain version, the shards put together
+     against the unsplit call, each timed beside SDPA with the offset
+     mask); the dense serving paths' own shapes (``phase_kernels_serve``):
      h2o-danube-1.8b's windowed flash forward (32q/8kv of 80, window 4096)
      at its 8192-token prefill bucket against SDPA with a boolean window
      mask, qwen3-32b's flash forward (64q/8kv of 128), swiglu at qwen3's
@@ -177,7 +182,13 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      plans at node 2 x dp = ranks / 2 and dp = ranks against the
      single-device port and the gather-bytes predictor, and yi-6b at all
      32 layers, ZeRO 3, at both layouts, fp, qcomm gather, overlap and
-     both; over the one-rank group also the dp serve engine
+     both; then (``_rules_ranks``) the reference's rule overrides: the
+     reduced yi-6b's and arctic's fp32 plans (seq_shard, fsdp_seq,
+     moe_dp_attn+seq, moe_dp_attn, ep_model) against the single-device
+     port, and yi-6b (TRAIN_LAYERS) under seq_shard and fsdp_seq and
+     arctic (2 layers of 8 experts) under moe_dp_attn and ep_model at full
+     width against phase 4's step 0 (TP_STEP0_RTOL); over the one-rank
+     group also the dp serve engine
      (``_serve_dp_one_rank``: yi-6b at TRAIN_LAYERS through
      ``ServeEngine(mesh=, plan=)`` at dp 1), its tokens equal to the
      meshless engine's and its logits all-gather bytes exact;
@@ -200,7 +211,10 @@ Phases (each prints JSON lines; any failure ends the run non-zero):
      on the card (``--measure``): ``FlopCounterMode``'s totals equal, the
      traced peak within DRYRUN_PEAK_BAND of ``max_memory_allocated``; then
      the trace of one 256-rank production record (qwen3-32b train_4k on
-     "16x16", a fake group of 256 ranks), its ``trace_s`` printed;
+     "16x16", a fake group of 256 ranks), its ``trace_s`` printed, and of
+     two hillclimb plans on "16x16" that need the port's per-block tensor
+     parallelism and sequence parallelism (DRYRUN_HILLCLIMB: arctic
+     baseline, qwen3 fsdp_seq), each ``ok``;
   8. checkpoint (``phase_checkpoint``): gpt-1.4b at full width and
      CKPT_LAYERS layers, TRAIN's plan (kernels on): 4 steps straight,
      twice, then 2 steps, ``save_checkpoint``, ``restore_checkpoint`` into
@@ -2953,6 +2967,169 @@ def recurrent_kernels_tp(timer: Timer) -> dict:
     return out
 
 
+# phase 2j: the flash kernels at the shard shapes of sequence parallelism:
+# qwen3-32b's attention (64q/8kv heads of 128, causal, bf16) on one row of
+# train_4k's 4096 positions, its queries split over the model group of tp 16
+# (fsdp_seq at tp 16: 256-query shards) and tp 4 (1024), each shard's
+# queries at q_offset r S / tp against the whole sequence's K and V, as a
+# whole attention block runs under sequence parallelism
+# (models/blocks.py:self_attn_block)
+SEQ_SHARD_ARCH, SEQ_SHARD_S, SEQ_SHARD_WAYS = "qwen3-32b", 4096, (16, 4)
+
+
+def seq_shard_pairs(B: int, Hq: int, s: int, off: int) -> int:
+    """The unmasked (q, k) pairs of one causal query shard of ``s`` rows at
+    absolute position ``off`` against the keys [0, off + s)."""
+    return B * Hq * (s * off + s * (s + 1) // 2)
+
+
+def seq_shard_rows(timer: Timer, q, k, v, o, lse, do, off: int, errs: tuple, **tags
+                   ) -> tuple[dict, dict, dict]:
+    """The timed forward, dQ and dK/dV rows of one query shard at ``off``:
+    each beside its bound and SDPA's time with the explicit offset mask
+    (a boolean (s, S) mask, ``enable_gqa``), forward and backward."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    B, s, Hq, hd = q.shape
+    Skv = k.shape[1]
+    kw = dict(causal=True, q_offset=off)
+    pairs = seq_shard_pairs(B, Hq, s, off)
+    el = q.element_size()
+    qt, kt, vt, ot, dot = (t.transpose(1, 2) for t in (q, k, v, o, do))
+    mask = (torch.arange(Skv, device=q.device)[None, :]
+            <= torch.arange(off, off + s, device=q.device)[:, None])
+    try:
+        sdpa_fwd = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                enable_gqa=True))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, enable_gqa=True)
+        sdpa_bwd = timer(lambda: torch.autograd.grad(lo, (ql, kl, vl), dot, retain_graph=True))
+        del lo
+    except TypeError:                           # torch without enable_gqa
+        sdpa_fwd = sdpa_bwd = None
+    shape = (f"q/o/dO ({B}, {s}, {Hq}, {hd}) at q_offset {off}, k/v ({B}, {Skv}, "
+             f"{k.shape[2]}, {hd}) bf16 causal")
+    common = {"shape": shape, **tags, "library_call": "F.scaled_dot_product_attention("
+              "attn_mask=the shard's causal offset mask, enable_gqa=True)"}
+    b, by = bound_ms(2 * q.numel() * el + 2 * k.numel() * el + B * Hq * s * 4,
+                     4 * hd * pairs, q.dtype)
+    fwd = {**common, "max_abs_err": errs[0],
+           "ms": timer(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw)),
+           "plain_ms": timer(lambda: flash_attention_ref(qt, kt, vt, **kw)),
+           "library_ms": sdpa_fwd, "bound_ms": b, "bound_by": by}
+    args, _ = fa.bwd_args(q, k, v, o, lse, do, **kw)
+    plain_bwd = timer(lambda: flash_attention_bwd_ref(qt, kt, vt, ot, lse, dot, **kw))
+    b, by = bound_ms(el * (3 * q.numel() + 2 * k.numel()) + 8 * B * Hq * s,
+                     3 * 2 * hd * pairs, q.dtype)
+    dq = {**common, "max_abs_err": errs[1], "ms": timer(lambda: fa.launch_bwd_dq(args)),
+          "plain_ms": plain_bwd, "plain_call": "flash_attention_bwd_ref (dq, dk, dv)",
+          "library_ms": sdpa_bwd, "bound_ms": b, "bound_by": by}
+    b, by = bound_ms(el * (2 * q.numel() + 4 * k.numel()) + 8 * B * Hq * s,
+                     4 * 2 * hd * pairs, q.dtype)
+    dkv = {**common, "max_abs_err": max(errs[2:]),
+           "ms": timer(lambda: fa.launch_bwd_dkv(args)), "plain_ms": plain_bwd,
+           "plain_call": "flash_attention_bwd_ref (dq, dk, dv)", "library_ms": sdpa_bwd,
+           "bound_ms": b, "bound_by": by}
+    return fwd, dq, dkv
+
+
+def phase_kernels_seq(timer: Timer) -> dict:
+    """Phase 2j (SEQ_SHARD_*): each query shard's forward and backward
+    against the plain versions on the same tensors at the flash limits of
+    phase 2 (the P@|V| term of the forward; |dS|@|K|, |dS|^T@|Q|, P^T@|dO|
+    and the cancelling C terms of the backward); then the shards put
+    together (the outputs and dQ concatenated, dK and dV summed in fp32 over
+    the shards, as the sequence's reduce-scatter sums the ranks' parts)
+    against the unsplit kernel call on the same tensors, within the same
+    limits (their terms the shards' concatenated or summed).  Each shard's
+    forward, dQ and dK/dV timed beside its bound and SDPA with the offset
+    mask: rows to join the flash kernels' cases."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+
+    cfg = get_config(SEQ_SHARD_ARCH)
+    Hq, Hkv, hd, S = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, SEQ_SHARD_S
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (randn(gen, 1, S, Hq, hd, dtype=bf16) for _ in range(2))
+    k, v = (randn(gen, 1, S, Hkv, hd, dtype=bf16) for _ in range(2))
+    whole = fa.flash_attention_fwd_cuda(q, k, v, causal=True)
+    whole_grads = fa.flash_attention_bwd_cuda(q, k, v, *whole, do, causal=True)
+    rtol, atol = TOL["flash_attention"][bf16]
+    brtol, stol = FLASH_BWD_TOL[bf16]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    kf, vf = kt.float(), vt.float()
+    out = {n: [] for n in ("flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")}
+    for ways in SEQ_SHARD_WAYS:
+        s = S // ways
+        outs, pv, dqs, dq_terms = [], [], [], [[], []]
+        dkv = [torch.zeros(kt.shape, dtype=torch.float32, device=k.device) for _ in range(2)]
+        dkv_terms = [torch.zeros_like(dkv[0]) for _ in range(3)]   # |dS|^T|Q|, C^T|Q|, P^T|dO|
+        for r in range(ways):
+            off = r * s
+            kw = dict(causal=True, q_offset=off)
+            qr, dor = q[:, off:off + s], do[:, off:off + s]
+            name = f"flash seq {ways}-way shard {r} (1, {s}, {Hq}q/{Hkv}kv, {hd}) q_offset {off}"
+            o, lse = fa.flash_attention_fwd_cuda(qr, k, v, **kw)
+            qt = qr.transpose(1, 2)
+            scale = flash_attention_ref(qt.float(), kf, vf.abs(), **kw)
+            e_fwd = check_close(name, o, flash_attention_ref(qt, kt, vt, **kw).transpose(1, 2),
+                                rtol=rtol, atol=atol, why=TOL["flash_attention"]["why"],
+                                terms=((scale.transpose(1, 2), FLASH_P_TOL, "P@|V|"),))
+            grads = fa.flash_attention_bwd_cuda(qr, k, v, o, lse, dor, **kw)
+            ref, scales, cancel = flash_attention_bwd_ref(
+                qt.float(), kf, vf, o.float().transpose(1, 2), lse,
+                dor.float().transpose(1, 2), return_scales=True, **kw)
+            terms = (((scales[0], stol, "|dS|@|K|*scale"),
+                      (cancel[0], FLASH_BWD_CANCEL_TOL, "C@|K|*scale")),
+                     ((scales[1], stol, "|dS|^T@|Q|*scale"),
+                      (cancel[1], FLASH_BWD_CANCEL_TOL, "C^T@|Q|*scale")),
+                     ((scales[2], stol, "P^T@|dO|"),))
+            errs = [check_close(f"{name} {g}", got, want.transpose(1, 2), rtol=brtol,
+                                atol=1e-6, why=FLASH_BWD_WHY,
+                                terms=tuple((sc.transpose(1, 2), tol, sn)
+                                            for sc, tol, sn in gterms))
+                    for g, got, want, gterms in zip(("dq", "dk", "dv"), grads, ref, terms)]
+            tags = {"seq_ways": ways, "shard": r, "q_offset": off}
+            for key, row in zip(out, seq_shard_rows(timer, qr, k, v, o, lse, dor, off,
+                                                    (e_fwd, *errs), **tags)):
+                out[key].append(row)
+            outs.append(o)
+            pv.append(scale)
+            dqs.append(grads[0])
+            dq_terms[0].append(scales[0])
+            dq_terms[1].append(cancel[0])
+            for acc, g in zip(dkv, grads[1:]):
+                acc += g.float().transpose(1, 2)
+            for acc, t in zip(dkv_terms, (scales[1], cancel[1], scales[2])):
+                acc += t
+            del ref, scales, cancel, grads, o, lse
+            torch.cuda.empty_cache()
+        name = f"flash seq {ways}-way shards put together vs the unsplit call"
+        check_close(f"{name}: o", torch.cat(outs, 1), whole[0], rtol=rtol, atol=atol,
+                    why=TOL["flash_attention"]["why"],
+                    terms=((torch.cat(pv, 2).transpose(1, 2), FLASH_P_TOL, "P@|V|"),))
+        check_close(f"{name}: dq", torch.cat(dqs, 1), whole_grads[0], rtol=brtol, atol=1e-6,
+                    why=FLASH_BWD_WHY,
+                    terms=((torch.cat(dq_terms[0], 2).transpose(1, 2), stol, "|dS|@|K|*scale"),
+                           (torch.cat(dq_terms[1], 2).transpose(1, 2), FLASH_BWD_CANCEL_TOL,
+                            "C@|K|*scale")))
+        for g, got, want, gterms in (
+                ("dk", dkv[0], whole_grads[1],
+                 ((dkv_terms[0], stol, "|dS|^T@|Q|*scale"),
+                  (dkv_terms[1], FLASH_BWD_CANCEL_TOL, "C^T@|Q|*scale"))),
+                ("dv", dkv[1], whole_grads[2], ((dkv_terms[2], stol, "P^T@|dO|"),))):
+            check_close(f"{name}: {g} summed over the shards", got.transpose(1, 2), want,
+                        rtol=brtol, atol=1e-6, why=FLASH_BWD_WHY,
+                        terms=tuple((t.transpose(1, 2), tol, n) for t, tol, n in gterms))
+        del outs, pv, dqs, dq_terms, dkv, dkv_terms
+        torch.cuda.empty_cache()
+    return out
+
+
 def ce_shards(timer: Timer, gen, tp: int, N: int, d: int, V: int, dtype) -> list[dict]:
     """CE over ``tp`` vocab shards of (d, V) through the vocab-parallel CE's
     own shard and merge steps (``models/vocab_parallel.py``: ``shard_terms``
@@ -4919,6 +5096,7 @@ def _parallel_rank(rank: int, world: int, init_method: str, step0: dict) -> None
     _recurrent_tp(rank, world, step0)
     _moe_ranks(rank, world)
     _comm_ranks(rank, world)
+    _rules_ranks(rank, world, step0)
     dist.destroy_process_group()
 
 
@@ -4949,7 +5127,17 @@ TP_STEPS = 2
 # d 256, 4 x 32 tokens, bf16, kernels' plain versions): tp 2 and 4 vs one
 # process read up to 1.4e-4 (loss) and 1.3e-2 (grad norm) for zamba2, 2.9e-4
 # and 3.3e-2 for rwkv6; the larger of that and STEP0_RTOL.
-TP_STEP0_RTOL = {ZAMBA: STEP0_RTOL[ZAMBA], RWKV: {"loss": 5e-4, "grad_norm": 5e-2}}
+# The rules plans (RULES_FULL), by the same rule, stated before their first
+# card run (``tools/rules_step0_standins.py``: seeds 0-4, kernels off and
+# on): yi-6b reduced to 2 and 4 layers of d 256 under seq_shard at tp 4 and
+# fsdp_seq at dp 2 x tp 2 read up to 5.5e-5 (loss) and 1.5e-3 (grad norm)
+# against one process; arctic reduced to 2 layers of d 256, 8 experts,
+# under moe_dp_attn and ep_model at tp 4 up to 3.9e-4 and 4.4e-3 (bf16
+# routing: an expert's partial outputs summed over the group in bf16 move
+# the next layer's gates).
+TP_STEP0_RTOL = {ZAMBA: STEP0_RTOL[ZAMBA], RWKV: {"loss": 5e-4, "grad_norm": 5e-2},
+                 "yi-6b": {"loss": 8.2e-5, "grad_norm": 2.2e-3},
+                 ARCTIC: {"loss": 5.9e-4, "grad_norm": 6.6e-3}}
 
 
 def _recurrent_tp(rank: int, world: int, step0: dict) -> None:
@@ -5121,6 +5309,100 @@ def _moe_ranks(rank: int, world: int) -> None:
     if any(r["all_to_all_bytes"] != a2a for r in steps):
         raise AssertionError(f"rank {rank}: arctic ep=4 all-to-all "
                              f"{[r['all_to_all_bytes'] for r in steps]} vs {a2a}")
+
+
+# the reference's sharding rules on the cards (``rule_overrides`` of
+# launch/hillclimb.py): name -> (arch, the variant's overrides, whether the
+# plan takes dp 2 x tp = ranks / 2 at 4 ranks rather than tp = ranks)
+RULES_PLANS = {"yi-6b seq_shard": ("yi-6b", "seq_shard", False),
+               "yi-6b fsdp_seq": ("yi-6b", "fsdp_seq", True),
+               "yi-6b moe_dp_attn+seq": ("yi-6b", "moe_dp_attn+seq", False),
+               f"{ARCTIC} moe_dp_attn": (ARCTIC, "moe_dp_attn", False),
+               f"{ARCTIC} ep_model": (ARCTIC, "ep_model", False),
+               f"{ARCTIC} seq_shard": (ARCTIC, "seq_shard", False)}
+# the reduced fp32 models of the rules plans, at the flash kernels' head dim
+# 64: yi-6b as PARALLEL_REDUCED[True], arctic at 8 experts (2 a rank at
+# ep_model over 4)
+RULES_REDUCED = {"yi-6b": PARALLEL_REDUCED[True], ARCTIC: dict(n_layers=2, n_experts=8)}
+# the full-width plans (yi-6b at TRAIN_LAYERS, arctic at its train phase's 2
+# layers of 8 experts), step 0 against phase 4's
+RULES_FULL = ("yi-6b seq_shard", "yi-6b fsdp_seq", f"{ARCTIC} moe_dp_attn",
+              f"{ARCTIC} ep_model")
+
+
+def rules_plan(name: str, world: int, **kw):
+    """The ParallelPlan of RULES_PLANS[name] on ``world`` ranks."""
+    from repro_torch.launch.hillclimb import VARIANTS
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    _, variant, dp2 = RULES_PLANS[name]
+    shape = dict(dp=2, tp=world // 2) if dp2 and world == 4 else dict(tp=world)
+    return VARIANTS[variant]["plan"](ParallelPlan(**shape, **kw))
+
+
+def _rules_ranks(rank: int, world: int, step0: dict) -> None:
+    """The reference's sharding rules on ``world`` nccl ranks (2 or 4; the
+    default group is up), kernels on: each of RULES_PLANS on its reduced
+    fp32 model (RULES_REDUCED) against the single-device port (losses and
+    grad norms at PARALLEL_RTOL, moe_drop within MOE_DROP_ATOL), then
+    RULES_FULL at full width, bf16, step 0 within TP_STEP0_RTOL of phase
+    4's single-device step (``step0``: {arch: step 0})."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.train_loop import ParallelPlan
+
+    kw = dict(gas=2, precision="fp32", kernels=True)
+    singles = {}
+    for name, (arch, _, _) in RULES_PLANS.items():
+        red = get_config(arch).reduced(**RULES_REDUCED[arch])
+        rb = _batches(red.vocab_size, 32, 8, 3)
+        if arch not in singles:
+            singles[arch] = _run_steps(Model(red, torch.float32, device="cuda"),
+                                       ParallelPlan(**kw), rb, 0)
+        plan = rules_plan(name, world, **kw)
+        steps, _ = _sharded_steps(red, plan, rb, 0)
+        rel = [_rel(a, b) for a, b in zip(steps, singles[arch])]
+        drop = [abs(a.get("moe_drop", 0.0) - b.get("moe_drop", 0.0))
+                for a, b in zip(steps, singles[arch])]
+        emit({"phase": "parallel_ranks_rules_reduced", "rank": rank, "plan": name,
+              "tp": plan.tp, "dp": plan.dp, "rule_overrides": plan.rule_overrides,
+              "rel_diff": rel, "rtol": PARALLEL_RTOL, "moe_drop_diff": drop})
+        if any(v > PARALLEL_RTOL for r in rel for v in r.values()) or max(drop) > MOE_DROP_ATOL:
+            raise AssertionError(f"rank {rank} {name} (reduced): {rel}, drop {drop}")
+    kw = dict(gas=TRAIN["gas"], precision="bf16", remat="full", kernels=True)
+    gb, S = TRAIN["global_batch"], TRAIN["seq_len"]
+    for name in RULES_FULL:
+        arch = RULES_PLANS[name][0]
+        cfg = train_config(arch)
+        plan = rules_plan(name, world, **kw)
+        steps, peak = _sharded_steps(cfg, plan, _batches(cfg.vocab_size, S, gb, TP_STEPS, cfg),
+                                     0, tele=True)
+        rel0 = None if arch not in step0 else _rel(steps[0], step0[arch])
+        emit({"phase": "parallel_ranks_rules", "rank": rank, "plan": name,
+              "arch": cfg.name, "layers": cfg.n_layers, "tp": plan.tp, "dp": plan.dp,
+              "steps": steps, "train_step0": step0.get(arch), "rel_diff": rel0,
+              "rtol": TP_STEP0_RTOL[arch], "peak_mem_gb": peak})
+        if rel0 is None or any(rel0[k] > TP_STEP0_RTOL[arch][k] for k in rel0):
+            raise AssertionError(f"rank {rank}: {name} step 0 vs phase 4's: {rel0}")
+        torch.cuda.empty_cache()
+
+
+def _rules_rank(rank: int, world: int, init_method: str, step0: dict) -> None:
+    """One nccl rank of ``_rules_ranks`` alone (``tools/parallel_ranks.py
+    rules``)."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(torch.device("cuda"), init_method, rank, world,
+                     timeout=datetime.timedelta(minutes=5))
+    _rules_ranks(rank, world, step0)
+    dist.destroy_process_group()
 
 
 def _moe_rank(rank: int, world: int, init_method: str, step0: dict | None = None) -> None:
@@ -5521,15 +5803,20 @@ DRYRUN_ARCH, DRYRUN_LAYERS = "yi-6b", 8
 DRYRUN_PEAK_BAND = (0.9, 1.1)
 # a production record, traced on the host only (kept while under 60 s)
 DRYRUN_PRODUCTION = ("qwen3-32b", "train_4k")
+# hillclimb plans on "16x16" (the meta device, 256 fake ranks) that the
+# port's sharding rules run since per-block tensor parallelism and sequence
+# parallelism: (pair, variant) of launch/hillclimb.py, each must trace ok
+DRYRUN_HILLCLIMB = (("arctic", "baseline"), ("qwen3", "fsdp_seq"))
 
 
 def phase_dryrun(card: str) -> None:
     """``dryrun_one`` with ``measure``: the traced FLOPs must equal the
     card's step's and the traced peak lie in DRYRUN_PEAK_BAND of the
-    card's; the production record must trace ``ok``."""
+    card's; the production record and DRYRUN_HILLCLIMB's must trace
+    ``ok``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import InputShape
-    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun, hillclimb
     from repro_torch.runtime.train_loop import ParallelPlan
 
     cfg = dataclasses.replace(get_config(DRYRUN_ARCH), n_layers=DRYRUN_LAYERS)
@@ -5542,6 +5829,8 @@ def phase_dryrun(card: str) -> None:
                              f"{rec.get('traceback')}")
     torch.cuda.empty_cache()
     prod = dryrun.dryrun_one(*DRYRUN_PRODUCTION, multi_pod=False, verbose=False)
+    climbed = {f"{pair}:{variant}": hillclimb.run_variant(pair, variant)
+               for pair, variant in DRYRUN_HILLCLIMB}
     m, peak = rec["measured"], rec["memory_analysis"]["peak_bytes"]
     ratio = peak / m["peak_bytes"]
     emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "layers": DRYRUN_LAYERS, "plan": "1x1 " +
@@ -5555,6 +5844,10 @@ def phase_dryrun(card: str) -> None:
               "arch", "shape", "mesh", "chips", "status", "error", "trace_s",
               "flops_per_device", "bytes_per_device", "collective_bytes",
               "memory_analysis", "state_bytes", "roofline", "useful_flops_ratio")},
+          "hillclimb": {tag: {k: r.get(k) for k in (
+              "mesh", "chips", "status", "error", "trace_s", "flops_per_device",
+              "bytes_per_device", "collective_bytes", "memory_analysis", "state_bytes",
+              "roofline")} for tag, r in climbed.items()},
           "card": card, "measured_card": m["card"]})
     if rec["flops_per_device"] != m["flops"]:
         raise AssertionError(f"traced FLOPs {rec['flops_per_device']} != the card's "
@@ -5564,6 +5857,10 @@ def phase_dryrun(card: str) -> None:
                              f"{m['peak_bytes']}, outside {DRYRUN_PEAK_BAND}")
     if prod["status"] != "ok":
         raise AssertionError(f"production dry run {DRYRUN_PRODUCTION}: {prod.get('error')}")
+    for tag, r in climbed.items():
+        if r["status"] != "ok" or r["mesh"] != "16x16":
+            raise AssertionError(f"hillclimb {tag} on {r.get('mesh')}: {r['status']} "
+                                 f"{r.get('error')}")
 
 
 # phase "checkpoint": gpt-1.4b at full width, 2 of 24 layers (323M
@@ -5698,6 +5995,8 @@ def main() -> int:
     for name, extra in timed("flash hd80", lambda: flash_hd80(timer)).items():
         rows[name]["cases"] += extra
     for name, extra in timed("kernels tp", lambda: phase_kernels_tp(timer)).items():
+        rows[name]["cases"] += extra
+    for name, extra in timed("kernels seq", lambda: phase_kernels_seq(timer)).items():
         rows[name]["cases"] += extra
     for name, extra in timed("kernels serve", lambda: phase_kernels_serve(timer)).items():
         rows[name]["cases"] += extra

@@ -21,8 +21,29 @@ share, the weights through ``copy_to_model``.  Norms,
 RoPE and qk-norm stay replicated; the qk-norm scales pass through
 ``copy_to_model`` as well, since each rank's heads give part of their
 gradient, and so does a cross block's memory on its way into ``wk``/``wv``.
+A block without ``tp`` runs whole on every model rank.
+
+``sp`` (the model group, where the plan puts the sequence on the model
+axis) runs the block on the rank's shard of the sequence, positions
+[r S/tp, (r + 1) S/tp), as Megatron's sequence parallelism does: the norm
+and the residual add on the shard; a Megatron-split block gathers the
+sequence in front of its column-parallel products
+(``collectives.all_gather_to_model``, whose backward reduce-scatters) and
+reduce-scatters the row-parallel partial sums back onto the shard
+(``reduce_scatter_to_model``) in place of the all-reduce; a whole MLP runs
+on the shard as it is; a whole attention takes the shard's queries, RoPE'd
+at their absolute positions, against K and V gathered over the sequence
+(``q_offset`` r S/tp; the backward reduce-scatters dK and dV).  Under
+``sp`` no weight passes ``copy_to_model``: every leaf that is whole over
+the model group takes a partial gradient, which the train step sums over
+the group (``runtime/train_loop.py``).  :class:`Parallel` carries a
+stack's blocks' groups and ``sp`` to its layer bodies.
 """
 from __future__ import annotations
+
+import dataclasses
+from collections.abc import Mapping
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -30,7 +51,58 @@ import torch.distributed as dist
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.models import layers
 from repro_torch.models.common import ModelConfig, Spec
-from repro_torch.runtime.collectives import copy_to_model, reduce_from_model
+from repro_torch.runtime.collectives import (
+    all_gather_to_model, copy_to_model, reduce_from_model, reduce_scatter_to_model,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """How a layer stack's blocks run over the model group: ``split``
+    {block: the model group} of its Megatron-split blocks, by the block's
+    path under the stack ("attn", "mlp", "cross", "dense.attn",
+    "dense.mlp", "moe" for the experts' d_ff, "moe.shared", "moe.dense");
+    a block it does not name runs whole.  ``experts`` is the model group
+    where the moe experts themselves are on the model axis (E/tp whole
+    experts a rank, ``models/moe.py:moe_block``), ``seq`` the model group
+    where the sequence is (the module docstring's ``sp``)."""
+    split: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    experts: Any = None
+    seq: Any = None
+
+    def tp(self, block: str):
+        """The group of ``block`` if it is Megatron-split, else None."""
+        return self.split.get(block)
+
+
+def enter(h: torch.Tensor, tp, sp) -> torch.Tensor:
+    """A split block's input to its column-parallel products: ``h`` itself
+    through ``copy_to_model``, or under ``sp`` the sequence gathered; a
+    whole block's (``tp`` None) as it is."""
+    if tp is None:
+        return h
+    return copy_to_model(h, tp) if sp is None else all_gather_to_model(h, 1, tp)
+
+
+def leave(out: torch.Tensor, tp, sp) -> torch.Tensor:
+    """A split block's row-parallel partial sums all-reduced, or under
+    ``sp`` reduce-scattered onto the rank's shard of the sequence."""
+    if tp is None:
+        return out
+    return reduce_from_model(out, tp) if sp is None else reduce_scatter_to_model(out, 1, tp)
+
+
+def weight(w: torch.Tensor, tp, sp) -> torch.Tensor:
+    """A whole weight that a split block's ranks each use in part: through
+    ``copy_to_model`` (its gradient summed over the group here), or under
+    ``sp`` as it is (the train step sums every whole leaf's gradient)."""
+    return w if tp is None or sp is not None else copy_to_model(w, tp)
+
+
+def seq_offset(sp, s: int) -> int:
+    """The absolute position of the rank's first token under ``sp``
+    (shards of ``s`` positions), 0 without it."""
+    return 0 if sp is None else dist.get_rank(sp) * s
 
 
 def norm_spec(d: int, kind: str, axis: str = "embed") -> dict:
@@ -67,7 +139,7 @@ def kv_heads_replicated(cfg: ModelConfig, tp: int) -> bool:
 
 
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
-                 cfg: ModelConfig, use_kernel: bool = False, tp=None):
+                 cfg: ModelConfig, use_kernel: bool = False, tp=None, sp=None):
     """q, k, v over the heads the weights hold (all, or the rank's under tp)."""
     B, Sq, _ = xq.shape
     Skv = xkv.shape[1]
@@ -77,15 +149,14 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
         # the one kv head the rank's query heads share; each rank's part of
         # its gradient summed over the group
         j = dist.get_rank(tp) * cfg.n_kv_heads // dist.get_world_size(tp)
-        wk = copy_to_model(wk, tp)[:, j * hd:(j + 1) * hd]
-        wv = copy_to_model(wv, tp)[:, j * hd:(j + 1) * hd]
+        wk = weight(wk, tp, sp)[:, j * hd:(j + 1) * hd]
+        wv = weight(wv, tp, sp)[:, j * hd:(j + 1) * hd]
     q = (xq @ params["wq"]).reshape(B, Sq, -1, hd)
     k = (xkv @ wk).reshape(B, Skv, -1, hd)
     v = (xkv @ wv).reshape(B, Skv, -1, hd)
     if "q_norm" in params:
         qs, ks = params["q_norm"], params["k_norm"]
-        if tp is not None:
-            qs, ks = copy_to_model(qs, tp), copy_to_model(ks, tp)
+        qs, ks = weight(qs, tp, sp), weight(ks, tp, sp)
         q = layers.apply_norm(q, {"scale": qs}, "rmsnorm", cfg.rms_eps, use_kernel)
         k = layers.apply_norm(k, {"scale": ks}, "rmsnorm", cfg.rms_eps, use_kernel)
     return q, k, v
@@ -94,28 +165,30 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
 def self_attn_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
                     return_kv: bool = False,
-                    policy: ComputePolicy | None = None, tp=None):
+                    policy: ComputePolicy | None = None, tp=None, sp=None):
     """Full-sequence (prefill) self attention with residual; with
-    ``return_kv`` also the RoPE'd K and V that prefill places in the cache."""
+    ``return_kv`` also the RoPE'd K and V that prefill places in the cache.
+    ``tp`` and ``sp`` as the module docstring says."""
     pol = resolve_policy(policy)
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
-    if tp is not None:
-        h = copy_to_model(h, tp)
-    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels, tp)
+    whole_sp = tp is None and sp is not None
+    h = enter(h, tp, sp)
+    q, k, v = _project_qkv(params, h, h, cfg, pol.kernels, tp, sp)
+    # under sp a whole block's queries are the shard's, at its positions
+    off = seq_offset(sp, x.shape[1]) if whole_sp else 0
     if cfg.pos == "rope":
         pos = positions if positions is not None else torch.arange(
-            x.shape[1], device=x.device)
+            off, off + q.shape[1], device=x.device)
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k = layers.apply_rope(k, pos, cfg.rope_theta)
+    if whole_sp:
+        k, v = all_gather_to_model(k, 1, sp), all_gather_to_model(v, 1, sp)
     out = layers.attention(
-        q, k, v, causal=causal,
+        q, k, v, causal=causal, q_offset=off,
         sliding_window=cfg.sliding_window if causal else None,
         softcap=cfg.attn_logit_softcap, policy=pol)
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, -1) @ params["wo"]
-    if tp is not None:
-        out = reduce_from_model(out, tp)
+    out = leave(out.reshape(*q.shape[:2], -1) @ params["wo"], tp, sp)
     out = x + out
     if return_kv:
         return out, k, v
@@ -230,15 +303,11 @@ def cross_attn_block(params: dict, x: torch.Tensor, memory: torch.Tensor,
     pol = resolve_policy(policy)
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
-    if tp is not None:
-        h, memory = copy_to_model(h, tp), copy_to_model(memory, tp)
-    q, k, v = _project_qkv(params, h, memory, cfg, pol.kernels, tp)
+    q, k, v = _project_qkv(params, enter(h, tp, None), enter(memory, tp, None), cfg,
+                           pol.kernels, tp)
     out = layers.attention(q, k, v, causal=False, policy=pol)
     B, S = x.shape[:2]
-    out = out.reshape(B, S, -1) @ params["wo"]
-    if tp is not None:
-        out = reduce_from_model(out, tp)
-    return x + out
+    return x + leave(out.reshape(B, S, -1) @ params["wo"], tp, None)
 
 
 def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
@@ -254,27 +323,32 @@ def mlp_specs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              policy: ComputePolicy | None = None, tp=None) -> torch.Tensor:
+              policy: ComputePolicy | None = None, tp=None, sp=None) -> torch.Tensor:
+    """The MLP with residual: whole (on the shard under ``sp``) or on the
+    rank's d_ff columns under ``tp``."""
     pol = resolve_policy(policy)
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
-    if tp is None:
-        return x + layers.mlp(h, params, cfg.act, use_kernel=pol.kernels)
-    out = layers.mlp(copy_to_model(h, tp), params, cfg.act, use_kernel=pol.kernels)
-    return x + reduce_from_model(out, tp)
+    out = layers.mlp(enter(h, tp, sp), params, cfg.act, use_kernel=pol.kernels)
+    return x + leave(out, tp, sp)
 
 
 def segment_body(cfg: ModelConfig, policy: ComputePolicy | None, *, causal: bool = True,
-                 cross: bool = False, tp=None):
+                 cross: bool = False, par: Parallel | None = None):
     """The layer body of a training stack (``repro/models/blocks.py:
     segment_body``): attention block then MLP block, on one layer's slice of
-    the stacked weights (its Megatron shards under ``tp``).  The encdec
-    encoder takes ``causal=False``; its decoder takes ``cross=True`` and a
-    cross-attention block over ``memory`` between the two, which the body
-    then takes as a third argument (the program's ``memory`` carry)."""
+    the stacked weights (each block on its Megatron shards where ``par``
+    splits it, and on the rank's sequence shard under ``par.seq``).  The
+    encdec encoder takes ``causal=False``; its decoder takes ``cross=True``
+    and a cross-attention block over ``memory`` between the two, which the
+    body then takes as a third argument (the program's ``memory`` carry)."""
+    par = par or Parallel()
+
     def body(lp: dict, x: torch.Tensor, memory: torch.Tensor | None = None) -> torch.Tensor:
-        x = self_attn_block(lp["attn"], x, cfg, causal=causal, policy=policy, tp=tp)
+        x = self_attn_block(lp["attn"], x, cfg, causal=causal, policy=policy,
+                            tp=par.tp("attn"), sp=par.seq)
         if cross:
-            x = cross_attn_block(lp["cross"], x, memory, cfg, policy=policy, tp=tp)
-        return mlp_block(lp["mlp"], x, cfg, policy=policy, tp=tp)
+            x = cross_attn_block(lp["cross"], x, memory, cfg, policy=policy,
+                                 tp=par.tp("cross"))
+        return mlp_block(lp["mlp"], x, cfg, policy=policy, tp=par.tp("mlp"), sp=par.seq)
     return body

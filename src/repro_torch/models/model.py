@@ -57,19 +57,32 @@ run_program``); the embedding in the storage dtype (its duplicate-token
 rows then sum in fp32, as unsharded), the rest in the compute dtype.  The
 zamba2 shared block is gathered at each application and its uses'
 gradients summed before one reduce-scatter.
-Under the model axis the blocks run Megatron tensor parallelism (the dense
-blocks and zamba2's shared block in ``blocks.py``, the mamba layers in
-``ssm.py``, rwkv's blocks in ``rwkv.py``, the expert MLPs, the shared
-expert and the dense residual in ``moe.py``; ``tp_dims`` names the leaves and
-their dims, ``tp_pieces`` the zamba2 leaves whose block is not one even
-cut), the embedding lookup is vocab-parallel (rows outside the shard are
-zero, then all-reduced over the model group) and the lm_head
-column-parallel into the vocab-parallel CE
-(``models/vocab_parallel.py``).  Under the pipe axis the model stores the
-layers of its rank's logical stages only (with ``virtual_stages`` v > 1 a
-round-robin set, ``core/sharding.py:shard_slices``), and the embedding,
-final norm, lm_head and the zamba2 shared block whole, as the reference's
-specs keep them; its stack runs through ``runtime/pipeline.py``.  Under
+Under the model axis each block (:func:`block_name`: an attention, an MLP,
+the experts, the embedding, the lm_head; the recurrent families' mixers as
+one) runs Megatron tensor parallelism where the plan's specs split it and
+whole on every model rank where they do not (:func:`check_shardings`; the
+dense blocks and zamba2's shared block in ``blocks.py``, the mamba layers
+in ``ssm.py``, rwkv's blocks in ``rwkv.py``, the expert MLPs, the shared
+expert and the dense residual in ``moe.py``; ``tp_dims`` names the leaves
+and their dims, ``tp_pieces`` the zamba2 leaves whose block is not one even
+cut); the moe experts may instead sit on the model axis whole, E/tp a rank
+(the reference's ``ep_model``).  A split embedding's lookup is
+vocab-parallel (rows outside the shard are zero, then all-reduced over the
+model group) and a split lm_head column-parallel into the vocab-parallel
+CE (``models/vocab_parallel.py``); a whole one takes the CE's whole-vocab
+branch.  With ``seq_parallel`` (the plan's ``seq`` on the model axis; the
+dense and moe families at pp = 1) each microbatch row's positions split
+over the model group, rank r holding [r S/tp, (r + 1) S/tp): the
+residual stream, the norms and the whole blocks run on the shard, a split
+block gathers the sequence and reduce-scatters its output
+(``blocks.py``), the moe block routes the gathered sequence
+(``moe.py``), the labels shift before the split, and each whole leaf's
+gradient is the shard's part, which the train step sums over the group.
+Under the pipe axis the model stores the layers of its rank's logical
+stages only (with ``virtual_stages`` v > 1 a round-robin set,
+``core/sharding.py:shard_slices``), and the embedding, final norm, lm_head
+and the zamba2 shared block whole, as the reference's specs keep them; its
+stack runs through ``runtime/pipeline.py``.  Under
 the expert axis (ep > 1) the model stores the rank's E/ep experts of each
 expert leaf and its MoE blocks dispatch tokens to them
 (``moe.ExpertDispatch``); at ep = 1 the expert leaves are on the data
@@ -99,6 +112,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
@@ -117,7 +131,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.core.commplan import CommPlan
 from repro_torch.runtime.collectives import (
-    LeafGather, MeshGroups, all_reduce_, copy_to_model, reduce_from_model,
+    LeafGather, MeshGroups, all_gather_to_model, all_reduce_, copy_to_model,
 )
 from repro_torch.runtime.qcollect import CommExec
 
@@ -302,7 +316,8 @@ def _tp_heads(cfg: ModelConfig) -> list[tuple[str, int]]:
     if cfg.family == "rwkv":
         return [("layers.tm.wr", rwkv.n_rwkv_heads(cfg))]
     attns = {"hybrid": ["shared.attn"],
-             "encdec": ["layers.attn", "layers.cross", "encoder.layers.attn"]}
+             "encdec": ["layers.attn", "layers.cross", "encoder.layers.attn"],
+             "moe": ["layers.attn"] + (["layers.dense.attn"] if cfg.moe_every > 1 else [])}
     heads = [(f"{attn}.{w}", n) for attn in attns.get(cfg.family, ["layers.attn"])
              for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads))]
     if cfg.family == "hybrid":
@@ -320,46 +335,87 @@ def kv_replicated(cfg: ModelConfig, tp: int) -> tuple[str, ...]:
                  if "kv_heads" in spec.axes)
 
 
+def whole_heads(cfg: ModelConfig, tp: int) -> tuple[str, ...]:
+    """The attention leaves (``wq``, ``wk``, ``wv`` and ``wo`` of every
+    attention block) kept whole over a model group of ``tp`` ranks because
+    the heads do not split into whole heads: query heads that tp does not
+    divide, or kv heads that tp neither divides nor is a multiple of
+    (arctic's 56 query heads over 16).  The reference's rules split such a
+    leaf's columns wherever tp divides them, mid-head; the port's
+    attention runs whole on every model rank instead, with the same
+    numbers.  The recurrent families keep their all-or-none rule (none
+    here: :func:`check_shardings` refuses their heads that do not split)."""
+    if cfg.family in ("hybrid", "rwkv") or (
+            cfg.n_heads % tp == 0
+            and (cfg.n_kv_heads % tp == 0 or blocks.kv_heads_replicated(cfg, tp))):
+        return ()
+    return tuple(path for path, spec in flatten_specs(param_specs(cfg))
+                 if {"heads", "kv_heads"} & set(spec.axes))
+
+
+def block_name(cfg: ModelConfig, path: str) -> str:
+    """The block leaf ``path`` belongs to, which tensor parallelism splits or
+    keeps whole as one: the path without the leaf's name ("layers.attn",
+    "layers.moe" for the experts, "layers.moe.dense", "encoder.layers.mlp");
+    the embedding and the lm_head each their own; every leaf of the
+    recurrent families one "mixer" block (they keep the all-or-none rule)."""
+    if path in ("embed", "lm_head"):
+        return path
+    if cfg.family in ("hybrid", "rwkv"):
+        return "mixer"
+    return path.rsplit(".", 1)[0]
+
+
 def check_shardings(cfg: ModelConfig, specs: dict[str, shd.Spec],
-                    sizes: dict[str, int]) -> bool:
-    """What the port's sharded model can run; returns whether the blocks are
-    tensor-parallel.  The model axis may sit only on the dims of
-    :func:`tp_dims`, on all of those leaves or none, on whole heads (given
-    the mesh ``sizes``), and on the vocab dim of the embedding and lm_head;
-    the leaves of :func:`kv_replicated` stay whole; anything else raises,
-    naming the leaf."""
+                    sizes: dict[str, int]) -> dict[str, str]:
+    """What the port's sharded model can run: {block: "split" or
+    "experts"} of the blocks (:func:`block_name`) on the model axis; a block
+    it does not name runs whole on every model rank.  A split block is
+    Megatron's: the model axis on the dim of :func:`tp_dims` of every leaf
+    of the block that has one (the vocab dim of the embedding and the
+    lm_head), on whole heads given the mesh ``sizes``, the leaves of
+    :func:`kv_replicated` whole.  "experts" is the moe experts' block with
+    the model axis on the experts dim of each expert leaf (E/tp whole
+    experts a model rank, the reference's ``ep_model``).  Anything else
+    raises, naming the leaf: a block whose leaves disagree, a split that is
+    neither, heads that do not split."""
     where = "(see ROADMAP.md, Queue 1)"
-    whole = kv_replicated(cfg, sizes["model"])
+    tp = sizes["model"]
+    whole = kv_replicated(cfg, tp)
     expected = {k: v for k, v in tp_dims(cfg).items() if k not in whole}
-    block = {}
+    expected.update(embed=0, lm_head=1)
+    axes = {k: s.axes for k, s in flatten_specs(param_specs(cfg))}
+    layout: dict[str, str] = {}
+    on = set()
     for path, spec in specs.items():
         dim = _model_dim(spec)
         if dim is None:
             continue
         if path in whole:
-            raise NotImplementedError(f"{path}: split over tp={sizes['model']}, above the "
+            raise NotImplementedError(f"{path}: split over tp={tp}, above the "
                                       f"{cfg.n_kv_heads} kv heads, where it is kept whole")
-        if path in ("embed", "lm_head"):
-            if dim != (0 if path == "embed" else 1):
-                raise NotImplementedError(f"{path}: the model axis on dim {dim} {where}")
+        mode = "split"
+        if cfg.family == "moe" and axes[path][dim] == "experts":
+            mode = "experts"
         elif expected.get(path) != dim:
             raise NotImplementedError(f"{path}: the model axis on dim {dim} is not "
                                       f"Megatron's split {where}")
-        else:
-            block[path] = dim
-    if not block:
-        return False
-    tp = sizes["model"]
+        block = block_name(cfg, path)
+        if layout.setdefault(block, mode) != mode:
+            raise NotImplementedError(f"{path}: its block {block} is on the model axis "
+                                      f"both by experts and by columns {where}")
+        on.add(path)
     for leaf, heads in _tp_heads(cfg):
-        if heads % tp and leaf not in whole:
+        if block_name(cfg, leaf) in layout and heads % tp and leaf not in whole:
             what = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads" if leaf.endswith(".wk")
                     else f"{heads} heads")
             raise NotImplementedError(f"{leaf}: {what} do not split over tp={tp} {where}")
-    if set(block) != {k for k in expected if k in specs}:
-        missing = sorted(k for k in expected if k not in block and k in specs)
-        raise NotImplementedError(f"{missing[0]}: replicated while the other "
-                                  f"block leaves are tensor-parallel {where}")
-    return True
+    for path in specs:
+        block = block_name(cfg, path)
+        if block in layout and path in expected and path not in on:
+            raise NotImplementedError(f"{path}: whole over the model axis while the other "
+                                      f"leaves of its block ({block}) are split {where}")
+    return layout
 
 
 class _Tree(nn.Module):
@@ -379,7 +435,7 @@ class Model(nn.Module):
                  device: str | torch.device | None = None,
                  shardings: dict[str, shd.Spec] | None = None,
                  mesh: MeshGroups | None = None, virtual_stages: int = 1,
-                 comm: CommPlan | None = None):
+                 comm: CommPlan | None = None, seq_parallel: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype                # storage
@@ -391,11 +447,34 @@ class Model(nn.Module):
             raise ValueError("a sharded model needs both its shardings and its mesh")
         self.shardings, self.mesh = shardings, mesh
         self.virtual_stages = virtual_stages     # logical stages per pipe rank
-        self._tp = self._ep = None
+        # the model group of each split block, of the experts on the model
+        # axis, of the recurrent families' mixers, of the sequence
+        self._split: dict[str, Any] = {}
+        self._tp = self._ep = self._experts = self._seq = None
         self.pieces = tp_pieces(cfg)
-        if shardings is not None and check_shardings(cfg, shardings, mesh.sizes):
-            self._tp = mesh.groups["model"]
+        if shardings is not None:
+            group = mesh.groups["model"]
+            layout = check_shardings(cfg, shardings, mesh.sizes)
+            self._split = {b: group for b, m in layout.items() if m == "split"}
+            if layout.get("layers.moe") == "experts":
+                self._experts = group
+            if "mixer" in layout:
+                self._tp = group
+            if seq_parallel:
+                if cfg.family not in ("dense", "moe") or mesh.sizes["pipe"] > 1:
+                    raise NotImplementedError(
+                        f"sequence parallelism runs the dense and moe families at pp = 1; "
+                        f"{cfg.family} at pp = {mesh.sizes['pipe']} is not ported yet "
+                        "(see ROADMAP.md, Queue 1)")
+                self._seq = group
+        elif seq_parallel:
+            raise ValueError("sequence parallelism splits the sequence over a mesh's "
+                             "model group: a sharded model")
         if mesh is not None and mesh.sizes["expert"] > 1:
+            if self._experts is not None or self._seq is not None:
+                raise NotImplementedError(
+                    "ep > 1 with the experts or the sequence on the model axis is not "
+                    "ported yet (see ROADMAP.md, Queue 1)")
             self._ep = moe.ExpertDispatch(mesh.groups["expert"], mesh.sizes["expert"])
         # the CommPlan's per-leaf gathers (runtime/qcollect.py)
         self.comm = None if shardings is None else CommExec(
@@ -447,6 +526,29 @@ class Model(nn.Module):
         return shd.shard_slices(shape, self.shardings[path], self.mesh.sizes, self.mesh.coord,
                                 self.virtual_stages if pipe_interleaved(path) else 1,
                                 self.pieces.get(path))
+
+    def _parallel(self, stack: str) -> blocks.Parallel:
+        """How the blocks of the layer stack ``stack`` ("layers" or
+        "encoder.layers") run over the model group."""
+        n = len(stack) + 1
+        return blocks.Parallel({b[n:]: g for b, g in self._split.items()
+                                if b.startswith(stack + ".")}, self._experts, self._seq)
+
+    @property
+    def seq_ways(self) -> int:
+        """The ranks a microbatch row's sequence splits over (1 without
+        sequence parallelism)."""
+        return 1 if self._seq is None else self.mesh.sizes["model"]
+
+    def _seq_shard(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's positions of a (B, S, ...) tensor under sequence
+        parallelism: [r S/tp, (r + 1) S/tp)."""
+        n = self.seq_ways
+        if t.shape[1] % n:
+            raise ValueError(f"the sequence of {t.shape[1]} does not split over the "
+                             f"{n} ranks of the model group")
+        s = t.shape[1] // n
+        return t.narrow(1, self.mesh.coord["model"] * s, s)
 
     def _refuse_sharded(self, what: str) -> None:
         if self.shardings is not None and any(shd.spec_axes(s)
@@ -628,18 +730,21 @@ class Model(nn.Module):
         """The token embeddings in the compute dtype (B, S, d), and for vlm
         the projected patches ahead of them (B, P + S, d).  Under tp the
         token lookup is vocab-parallel and the patch product whole on every
-        model rank."""
+        model rank; under sequence parallelism the rank's positions only
+        (B, S/tp, d): a whole table looks them up, a vocab-parallel lookup
+        reduce-scatters its partial sums over the sequence."""
         tokens = batch["tokens"].long()
+        mine = tokens if self._seq is None else self._seq_shard(tokens)
         table = _cast_floating(self._uses({"embed": params["embed"]})["embed"], self.dtype)
         if _model_dim(self.shardings["embed"] if self.shardings else ()) is None:
-            x = table[tokens].to(self.compute_dtype)
+            x = table[mine].to(self.compute_dtype)
         else:
             # vocab-parallel: this rank's rows, zero elsewhere, summed over the group
             rows = table.shape[0]
             local = tokens - self.mesh.coord["model"] * rows
             own = (local >= 0) & (local < rows)
             x = table[torch.where(own, local, 0)] * own[..., None]
-            x = reduce_from_model(x.to(self.compute_dtype), self.mesh.groups["model"])
+            x = blocks.leave(x.to(self.compute_dtype), self.mesh.groups["model"], self._seq)
         if self.cfg.family == "vlm":
             params = self._uses({"proj": params["proj"]})
         return self._with_patches(x, params, batch)
@@ -670,7 +775,7 @@ class Model(nn.Module):
                for lp in _unstack(params["layers"], stack.shape[0])]
         if cfg.family == "moe":
             body = moe.segment_body(cfg, self.compute, lambda t: _cast_floating(t, cdt),
-                                    tp=self._tp, ep=self._ep)
+                                    par=self._parallel("layers"), ep=self._ep)
             return sp.StageProgram((sp.Segment("moe_unit", lps, len(lps), body),),
                                    (sp.CarrySpec("aux"), sp.CarrySpec("moe_drop")))
         if cfg.family == "hybrid":
@@ -683,7 +788,8 @@ class Model(nn.Module):
                                            lambda t: _cast_floating(t, cdt), tp=self._tp)
             name = "super"
         elif cfg.family == "encdec":
-            layer = blocks.segment_body(cfg, self.compute, cross=True, tp=self._tp)
+            layer = blocks.segment_body(cfg, self.compute, cross=True,
+                                        par=self._parallel("layers"))
             step = self.compute.checkpoint(
                 lambda lp, x, memory: layer(_cast_floating(lp, cdt), x, memory))
             return sp.StageProgram(
@@ -694,7 +800,8 @@ class Model(nn.Module):
             if cfg.family == "rwkv":
                 name, layer = "rwkv", rwkv.segment_body(cfg, self.compute, tp=self._tp)
             else:
-                name, layer = "block", blocks.segment_body(cfg, self.compute, tp=self._tp)
+                name, layer = "block", blocks.segment_body(cfg, self.compute,
+                                                           par=self._parallel("layers"))
             # lp in the storage dtype: cast inside the remat
             step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
             units = lps
@@ -711,7 +818,8 @@ class Model(nn.Module):
         tree = self.params()["encoder"]["layers"] if layers_tree is None else layers_tree
         lps = [self._uses(lp, "encoder.layers", stacked=True)
                for lp in _unstack(tree, cfg.enc_layers)]
-        layer = blocks.segment_body(cfg, self.compute, causal=False, tp=self._tp)
+        layer = blocks.segment_body(cfg, self.compute, causal=False,
+                                    par=self._parallel("encoder.layers"))
         step = self.compute.checkpoint(lambda lp, x: layer(_cast_floating(lp, cdt), x))
         return sp.StageProgram((sp.Segment("encoder", lps, len(lps),
                                            lambda lp, x, carry: (step(lp, x), carry)),), ())
@@ -792,8 +900,21 @@ class Model(nn.Module):
         (``MOE_AUX_COEF * aux / n_layers``, the reference's), as this rank's
         share: ``aux`` is the mean over its groups, and every batch rank
         holds as many, so the mean over all of them is the sum of the ranks'
-        shares."""
-        return MOE_AUX_COEF * aux / max(self.cfg.n_layers, 1) / self.loss_ranks
+        shares.  Under sequence parallelism every model rank routes the same
+        whole sequence and its gradients are summed over the group, so each
+        takes 1/tp of the term."""
+        return (MOE_AUX_COEF * aux / max(self.cfg.n_layers, 1) / self.loss_ranks
+                / self.seq_ways)
+
+    @property
+    def ce_group(self):
+        """The group the CE metric is summed over besides the batch ranks:
+        the model group where each model rank's CE covers its own sequence
+        shard (a whole vocab under sequence parallelism), else None."""
+        if self._seq is None:
+            return None
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return self._seq if _model_dim(self.shardings[name]) is None else None
 
     def _loss_from_hidden(self, h: torch.Tensor, batch: dict, aux: torch.Tensor,
                           drop: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -812,20 +933,25 @@ class Model(nn.Module):
                         count: torch.Tensor | None = None) -> torch.Tensor:
         """The CE sum over the rows of ``batch`` divided by ``count``, or by
         the token count of the batch (sharded: over every batch rank's
-        rows)."""
+        rows).  Under sequence parallelism ``h`` is the rank's shard of
+        the positions: the labels are shifted before the split (a shard's
+        last position takes the next shard's first token, the sequence's
+        last none), and a vocab-parallel CE gathers the sequence first
+        (every model rank then takes the whole loss), while a whole vocab's
+        CE covers the shard (:attr:`ce_group` sums the metric)."""
         cfg = self.cfg
         h = grad_cast(h, self.compute_dtype)
         h = h[:, self.patch_offset:, :]          # vlm: the text positions only
         tokens = batch["tokens"]
         labels = tokens[:, 1:]
-        h = h[:, :-1, :]
         mask = batch.get("loss_mask")
         mask = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
                 if mask is None else mask[:, 1:].float())
         if self.shardings is None:
             W = self._unembed_matrix(self.params()).to(self.compute_dtype)
-            return _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
-                                          policy=self.compute, count=count)
+            return _chunked_cross_entropy(h[:, :-1, :], W, labels, mask,
+                                          valid_vocab=cfg.vocab_size, policy=self.compute,
+                                          count=count)
         # sharded: the loss sum over this rank's rows over the token count of
         # every batch rank's rows (the microbatch's mean once summed over them)
         name = "embed" if cfg.tie_embeddings else "lm_head"
@@ -836,9 +962,17 @@ class Model(nn.Module):
         if count is None:
             count = self.sum_over_batch(mask.sum())
         if vocab_dim is None:
+            if self._seq is None:
+                h = h[:, :-1, :]
+            else:       # the shard's labels: shifted, then split
+                labels, mask = (self._seq_shard(F.pad(t, (0, 1))) for t in (labels, mask))
             return _chunked_cross_entropy(h, W, labels, mask, valid_vocab=cfg.vocab_size,
                                           policy=self.compute, count=count)
-        hf = copy_to_model(h.reshape(-1, h.shape[-1]), group)
+        if self._seq is not None:
+            h = all_gather_to_model(h, 1, self._seq)
+        hf = h[:, :-1, :].reshape(-1, h.shape[-1])
+        if self._seq is None:
+            hf = copy_to_model(hf, group)
         losses = vocab_parallel_tokens(hf, W, labels.reshape(-1), cfg.vocab_size,
                                        self.mesh.coord["model"] * W.shape[1], group,
                                        plain=not self.compute.kernels)

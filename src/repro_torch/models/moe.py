@@ -25,12 +25,25 @@ experts, the groups of every rank of the group), and combine the inverse
 one (``runtime/collectives.py:all_to_all_dim``; each one's backward is the
 other).  Under tensor parallelism (``tp``, the model group) the expert
 MLPs run on the rank's d_ff columns (w1, w3) and rows (w2), as do the
-shared expert and the dense residual: their input passes
-``copy_to_model``, and the sum of their partial outputs, after the
-combine, one ``reduce_from_model``.  The combine weights pass
-``copy_to_model`` too: their gradient is a product with the partial
-expert outputs, so each rank holds a part of it.  The router, its gates,
-the aux loss and the drop fraction are computed alike on every model rank.
+shared expert and the dense residual where their own blocks are split
+(``shared_tp``, ``dense_tp``): their input passes ``copy_to_model``, and
+the sum of the partial outputs, after the combine, one
+``reduce_from_model``; a whole shared expert or dense residual adds its
+output after that.  With the experts themselves on the model axis
+(``experts``, the reference's ``ep_model`` override) a model rank holds
+E/tp whole experts, consecutive ones as :class:`ExpertDispatch`'s expert
+ranks do, routes the tokens (the same on every model rank) with the whole
+router, and runs only its own experts' slots: its combine is a partial sum
+as under ``tp``.  The combine weights pass ``copy_to_model`` too: their
+gradient is a product with the partial expert outputs, so each rank holds
+a part of it.  The router, its gates, the aux loss and the drop fraction
+are computed alike on every model rank.  Under sequence parallelism
+(``sp``) the block takes the rank's shard of the sequence and gathers it
+(``collectives.all_gather_to_model``) before routing, so that the groups,
+C, the drops and the aux loss are the single device's; the partial sums
+are reduce-scattered back onto the shard, a whole shared expert or dense
+residual runs on the shard itself, and no tensor passes
+``copy_to_model``: the gather's backward sums the ranks' parts.
 :func:`segment_body` is the StageProgram body of one MoE stack unit.
 """
 from __future__ import annotations
@@ -41,15 +54,16 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import expertplan as epl
 from repro_torch.core.compute import ComputePolicy, resolve as resolve_policy
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
-from repro_torch.models.blocks import mlp_specs, norm_spec
+from repro_torch.models.blocks import enter, leave, mlp_specs, norm_spec, seq_offset
 from repro_torch.models.common import ModelConfig, Spec
-from repro_torch.runtime.collectives import all_to_all_dim, copy_to_model, reduce_from_model
+from repro_torch.runtime.collectives import all_gather_to_model, all_to_all_dim, copy_to_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,30 +190,50 @@ def _expert_mlps(params: dict, expert_in: torch.Tensor, slot_valid: torch.Tensor
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
               policy: ComputePolicy | None = None, ep: ExpertDispatch | None = None,
-              tp: Any = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              tp: Any = None, experts: Any = None, shared_tp: Any = None,
+              dense_tp: Any = None, sp: Any = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (x + MoE(x), aux_loss, drop_fraction), the last two
     fp32 scalars over the rank's groups; ``drop_fraction`` is the share of
     routed (token, k) assignments dropped at the capacity limit.  ``ep``
     runs the expert MLPs on the rank's experts between the two all-to-alls,
-    ``tp`` on the rank's d_ff shard (the module docstring)."""
+    ``tp`` on the rank's d_ff shard, ``experts`` on the rank's E/tp whole
+    experts, ``shared_tp``/``dense_tp`` the shared expert and the dense
+    residual on their d_ff shards, ``sp`` on the rank's sequence shard
+    (the module docstring)."""
     pol = resolve_policy(policy)
-    B, S, d = x.shape
     h = layers.apply_norm(x, params["ln"], cfg.norm, cfg.rms_eps,
                           use_kernel=pol.kernels)
+    # the routing's rows: the whole sequence, gathered under sp
+    hr = h if sp is None else all_gather_to_model(h, 1, sp)
+    B, S, d = hr.shape
     G, g = group_shape(B, S)
     C = moe_capacity(g, cfg)
     E = cfg.n_experts
-    xg = h.reshape(G, g, d)
+    xg = hr.reshape(G, g, d)
 
     gates = torch.softmax((xg @ params["router"]).float(), dim=-1)   # (G, g, E)
     assignments, slot_to_token, slot_valid, aux = _route(gates, cfg.top_k, C)
     drop = 1.0 - slot_valid.sum().float() / float(G * g * max(cfg.top_k, 1))
 
-    # dispatch: gather token activations into (G, E*C, d) expert slots
-    xe = xg if tp is None else copy_to_model(xg, tp)
-    expert_in = torch.gather(xe, 1, slot_to_token[..., None].expand(G, E * C, d))
-    expert_in = torch.where(slot_valid[..., None], expert_in, 0).reshape(G, E, C, d)
-    valid = slot_valid.reshape(G, E, C)
+    # the group the expert outputs are partial sums over, and the rank's
+    # experts [lo, lo + n) (all of them but under ``experts``)
+    grp = tp if experts is None else experts
+    lo, n = 0, E
+    if experts is not None:
+        n = E // dist.get_world_size(experts)
+        lo = dist.get_rank(experts) * n
+
+    def part(t):            # a tensor each rank uses for its part of the work
+        return t if grp is None or sp is not None else copy_to_model(t, grp)
+
+    # dispatch: gather token activations into the (G, n*C, d) slots of the
+    # rank's experts
+    slots = slice(lo * C, (lo + n) * C)
+    xe = part(xg)
+    expert_in = torch.gather(xe, 1, slot_to_token[:, slots, None].expand(G, n * C, d))
+    expert_in = torch.where(slot_valid[:, slots, None], expert_in, 0).reshape(G, n, C, d)
+    valid = slot_valid[:, slots].reshape(G, n, C)
     if ep is not None:
         expert_in = ep.dispatch(expert_in)
         # the grouped kernel's slot mask follows its slots (the plain
@@ -209,25 +243,43 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     expert_out = _expert_mlps(params, expert_in, valid, cfg, pol)
     if ep is not None:
         expert_out = ep.combine(expert_out)
-    expert_out = expert_out.reshape(G, E * C, d)
+    expert_out = expert_out.reshape(G, n * C, d)
 
     # combine: each token's expert outputs, weighted, in x's dtype, k in order
     out = torch.zeros((G, g, d), dtype=x.dtype, device=x.device)
     for e_k, p_k, keep, w_k in assignments:
-        s = torch.where(keep, e_k * C + p_k, 0)     # dropped: weight 0
+        wk = part((w_k * keep).to(x.dtype))
+        if experts is not None:     # another rank's expert: weight 0 here
+            mine = (e_k >= lo) & (e_k < lo + n)
+            keep, wk = keep & mine, wk * mine
+        s = torch.where(keep, (e_k - lo) * C + p_k, 0)     # dropped: weight 0
         vals = torch.gather(expert_out, 1, s[..., None].expand(G, g, d))
-        wk = (w_k * keep).to(x.dtype)
-        out = out + vals * (wk if tp is None else copy_to_model(wk, tp))[..., None]
-
+        out = out + vals * wk[..., None]
     out = out.reshape(B, S, d)
-    hs = h if tp is None else copy_to_model(h, tp)
-    if cfg.shared_expert:
-        out = out + layers.mlp(hs, params["shared"], cfg.act, use_kernel=pol.kernels)
-    if cfg.moe_dense_residual:
-        out = out + layers.mlp(hs, params["dense"], cfg.act, use_kernel=pol.kernels)
-    if tp is not None:
-        out = reduce_from_model(out, tp)
-    return x + out, aux.float(), drop
+
+    # the partial sums over the model group, and the rest on x's own rows
+    partial = rest = None
+    if grp is not None:
+        partial = out
+    else:                   # computed alike on every model rank: the rank's rows
+        rest = out if sp is None else out.narrow(1, seq_offset(sp, x.shape[1]), x.shape[1])
+    for name, on, btp in (("shared", cfg.shared_expert, shared_tp),
+                          ("dense", cfg.moe_dense_residual, dense_tp)):
+        if not on:
+            continue
+        if btp is None:     # whole: on the rank's own rows
+            y = layers.mlp(h, params[name], cfg.act, use_kernel=pol.kernels)
+            rest = y if rest is None else rest + y
+        else:
+            y = layers.mlp(hr if sp is not None else enter(h, btp, None), params[name],
+                           cfg.act, use_kernel=pol.kernels)
+            partial = y if partial is None else partial + y
+            grp = btp if grp is None else grp
+    if partial is not None:
+        x = x + leave(partial, grp, sp)
+    if rest is not None:
+        x = x + rest
+    return x, aux.float(), drop
 
 
 def simulated_drop_fraction(cfg: ModelConfig, batch: int, seq: int,
@@ -259,26 +311,33 @@ def _index(tree: dict, j: int) -> dict:
 
 
 def segment_body(cfg: ModelConfig, policy: ComputePolicy | None,
-                 cast: Callable[[dict], dict], tp: Any = None,
+                 cast: Callable[[dict], dict], par: Any = None,
                  ep: ExpertDispatch | None = None):
     """The StageProgram body of one MoE stack unit
     (``repro/models/moe.py:segment_body``): the nested ``moe_every - 1``
     dense sub-stack (llama4), attention, then :func:`moe_block`, whose aux
-    loss and drop fraction add into the ``aux`` and ``moe_drop`` carries.
+    loss and drop fraction add into the ``aux`` and ``moe_drop`` carries;
+    each block on the model group as ``par`` (``blocks.Parallel``) says.
     The unit runs under the policy's remat wrapper with the cast of its
     storage-dtype weights (``cast``) inside, as the other families' bodies."""
     from repro_torch.models import blocks
 
     pol = resolve_policy(policy)
+    par = par or blocks.Parallel()
 
     def unit(lp: dict, x: torch.Tensor):
         lp = cast(lp)
         for j in range(cfg.moe_every - 1):
             dlp = _index(lp["dense"], j)
-            x = blocks.self_attn_block(dlp["attn"], x, cfg, causal=True, policy=pol, tp=tp)
-            x = blocks.mlp_block(dlp["mlp"], x, cfg, policy=pol, tp=tp)
-        x = blocks.self_attn_block(lp["attn"], x, cfg, causal=True, policy=pol, tp=tp)
-        return moe_block(lp["moe"], x, cfg, policy=pol, ep=ep, tp=tp)
+            x = blocks.self_attn_block(dlp["attn"], x, cfg, causal=True, policy=pol,
+                                       tp=par.tp("dense.attn"), sp=par.seq)
+            x = blocks.mlp_block(dlp["mlp"], x, cfg, policy=pol, tp=par.tp("dense.mlp"),
+                                 sp=par.seq)
+        x = blocks.self_attn_block(lp["attn"], x, cfg, causal=True, policy=pol,
+                                   tp=par.tp("attn"), sp=par.seq)
+        return moe_block(lp["moe"], x, cfg, policy=pol, ep=ep, tp=par.tp("moe"),
+                         experts=par.experts, shared_tp=par.tp("moe.shared"),
+                         dense_tp=par.tp("moe.dense"), sp=par.seq)
 
     step = pol.checkpoint(unit)
 

@@ -192,7 +192,8 @@ def hybrid_segment_body(cfg: ModelConfig, policy: ComputePolicy | None,
     pair (``blocks.segment_body``)."""
     pol = resolve_policy(policy)
     mamba = segment_body(cfg, pol, tp)
-    shared = blocks.segment_body(cfg, pol, tp=tp)
+    shared = blocks.segment_body(
+        cfg, pol, par=blocks.Parallel({} if tp is None else {"attn": tp, "mlp": tp}))
     mamba_step = pol.checkpoint(lambda lp, x: mamba(cast(lp), x))
     shared_step = pol.checkpoint(lambda sp, x: shared(cast(sp), x))
 

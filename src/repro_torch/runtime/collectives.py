@@ -14,6 +14,13 @@ explicit ``torch.distributed`` calls on the mesh's process groups.
     the replicated whole (backward: the rank's block of the gradient), the
     two halves of an all-reduce with a product on the rank's block between
     them (rwkv's channel-mix);
+  * :func:`all_gather_to_model`, the blocks all-gathered into the whole
+    that each rank then uses for its own part of the work, so that the
+    ranks' gradients of it are partial sums: its backward reduce-scatters
+    them (sequence parallelism: the sequence gathered in front of a
+    column-parallel product, the vocab-parallel CE or a routing, and a
+    whole attention's K and V; :func:`reduce_scatter_to_model` after a
+    row-parallel product is its other half);
   * ZeRO stage 3's gather-on-use (:class:`LeafGather`): a leaf's block
     all-gathered in the compute dtype at each use, and the fp32 sum of the
     uses' gradients reduce-scattered into the block.  Under the
@@ -329,6 +336,17 @@ class _AllGatherFromModel(torch.autograd.Function):
         return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.n, ctx.n), None, None
 
 
+class _AllGatherToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
 def reduce_scatter_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The sum over ``group`` of the ranks' partial ``x``, this rank's block
     along ``dim``; the backward all-gathers the blocks' gradients."""
@@ -340,6 +358,14 @@ def all_gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     every rank then uses alike; the backward takes the rank's block of the
     gradient."""
     return _AllGatherFromModel.apply(x, dim % x.ndim, group)
+
+
+def all_gather_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks ``x`` along ``dim`` gathered into the whole, of
+    which each rank computes its own part (its heads, columns, experts or
+    queries); the backward reduce-scatters the ranks' partial gradients
+    into this rank's block."""
+    return _AllGatherToModel.apply(x, dim % x.ndim, group)
 
 
 def _scatter(g: torch.Tensor, phases, quant) -> torch.Tensor:

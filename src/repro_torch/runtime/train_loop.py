@@ -39,9 +39,17 @@ over a ``torch.distributed`` mesh.
     reduce-scatter), and at pp = 1 ``overlap`` (a segment's layers cut into
     chunks whose gathers are issued a chunk ahead, ``core/stage_program.py:
     run_program``); and ``rule_overrides``, the reference's ((logical
-    axis, mesh axis), ...) applied after the preset.
+    axis, mesh axis), ...) applied after the preset, in full: each block
+    split over the model group or whole by its own leaves' specs (the
+    lenient divisibility; ``moe_dp_attn``, ``embed_replicated``), the moe
+    experts on the model axis (``ep_model``), and the sequence on it
+    (``seq_shard``, ``fsdp_seq``, ``moe_dp_attn+seq``: sequence parallelism
+    for the dense and moe families at pp = 1 and ep = 1,
+    ``models/model.py``).
 
-What still raises, naming ROADMAP.md: ``multi_segment`` and fp16 kernels;
+What still raises, naming ROADMAP.md: ``multi_segment``, fp16 kernels, and
+the sequence on the model axis under pp > 1, at ep > 1 or for the hybrid,
+rwkv, encdec and vlm families;
 as in the reference, ``qcomm`` or ``overlap`` at a ZeRO stage other than 3
 and ``overlap`` at pp > 1 raise ValueError.
 
@@ -69,6 +77,10 @@ one), and then reduced over the data group as above, stage 2 by one
 reduce-scatter after the sweep.  At ep > 1 every leaf but the experts' is
 then summed over the expert group too (each expert rank holds other
 experts, whose gradients are whole over the group's tokens already).
+Under sequence parallelism every leaf whole over the model group is summed
+over it too (each model rank's gradient is its sequence shard's part; the
+all-reduce runs on the rank's block, after ZeRO's reduce-scatters), and
+the CE metric where each rank's CE covers its shard (``Model.ce_group``).
 Then the gradients are divided by ``gas``
 (pp = 1 only) and unscaled in place, checked for finiteness (a flag
 all-reduced over every rank, so all ranks skip an overflowed fp16 step
@@ -103,7 +115,7 @@ from repro_torch.core.compute import DEFAULT_POLICY, ComputePolicy
 from repro_torch.core.pipeline import schedule
 from repro_torch.models.common import ModelConfig, flatten_specs
 from repro_torch.models.model import (Model, kv_replicated, param_specs, stage_units,
-                                      tp_pieces)
+                                      tp_pieces, whole_heads)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm
 from repro_torch.runtime import pipeline
 from repro_torch.runtime.collectives import (
@@ -191,6 +203,12 @@ class ParallelPlan:
         return shd.axis_size(self.mesh_sizes(), self.sharding_rules().mesh_axis("batch"))
 
     @property
+    def seq_parallel(self) -> bool:
+        """Whether the rules put the activations' sequence on the model axis
+        (the reference's ``seq_shard``, ``fsdp_seq``, ``moe_dp_attn+seq``)."""
+        return self.sharding_rules().mesh_axis("seq") == "model"
+
+    @property
     def n_stages(self) -> int:
         """Logical pipeline depth (interleaving included)."""
         return self.pp * self.virtual_stages
@@ -246,18 +264,21 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     leaves are on the data axis at ep = 1 and on the expert axis above (the
     reference's rules); where tp exceeds the kv heads, ``wk``/``wv``
     stay whole over the model axis (``models/model.py:kv_replicated``; the
-    reference splits their columns below a head); ZeRO adds the data axis, and at node > 1 the node
+    reference splits their columns below a head), and where the heads do
+    not split into whole heads over tp the attention blocks stay whole
+    (``models/model.py:whole_heads``: arctic's 56 query heads at tp 16; the
+    reference splits those leaves' columns mid-head).  Every other dim
+    follows the reference's lenient rule: a mesh axis that does not divide
+    it leaves it whole (seamless-m4t-medium's vocab of 256206 at tp 4: the
+    embedding and lm_head whole on every model rank, its CE over the whole
+    vocab).  ZeRO adds the data axis, and at node > 1 the node
     axis (``sharding.zero_partition_spec``).  zamba2's in_proj and conv leaves (``tp_pieces``) take the
     model axis on their head dim whatever its width divides: the rank's
     block is its heads' columns and the shared B and C ones.  At pp > 1
     the layer stack is on the pipe axis, and its units must split into the
     plan's logical stages (the reference's ``split_stages`` error
     otherwise), and ep must divide the expert count
-    (``expertplan.ExpertDivisibilityError`` otherwise).  Where the rules
-    put the vocab on the model axis, tp must divide the padded vocab: a
-    vocab-parallel embedding and lm_head that fell back to replication
-    would change the plan's memory silently, so that raises, naming the
-    leaf (seamless-m4t-medium's 256206 at tp = 4)."""
+    (``expertplan.ExpertDivisibilityError`` otherwise)."""
     if plan.pp > 1:
         name, n = stage_units(cfg)
         if n % plan.n_stages:
@@ -268,10 +289,6 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
         rules = rules.with_overrides(**{k: None for k, v in rules.rules.items()
                                         if "model" in shd.spec_axes((v,))})
     sizes = plan.mesh_sizes()
-    if "model" in shd.spec_axes((rules.mesh_axis("vocab"),)) and cfg.padded_vocab % plan.tp:
-        raise NotImplementedError(
-            f"{'embed' if cfg.tie_embeddings else 'embed, lm_head'}: the vocab of {cfg.padded_vocab} "
-            f"does not split over tp={plan.tp} (see ROADMAP.md, Queue 1)")
     leaves = list(flatten_specs(param_specs(cfg)))
     shapes = {k: s.shape for k, s in leaves}
     axes = {k: s.axes for k, s in leaves}
@@ -280,7 +297,7 @@ def plan_state_shardings(cfg: ModelConfig, plan: ParallelPlan
     for k in tp_pieces(cfg):
         base[k] = tuple(rules.mesh_axis("ssm_heads") if a == "ssm_heads" else e
                         for a, e in zip(axes[k], base[k]))
-    for k in kv_replicated(cfg, plan.tp):
+    for k in kv_replicated(cfg, plan.tp) + whole_heads(cfg, plan.tp):
         base[k] = tuple(None if "model" in shd.spec_axes((e,)) else e for e in base[k])
     mp = plan.memory_plan()
     psh = mp.param_shardings(shapes, axes, base, sizes)
@@ -304,22 +321,32 @@ def train_state_bytes(cfg: ModelConfig, plan: ParallelPlan) -> dict:
             "opt_bytes": 2 * mpl.sharded_bytes(shapes, opt_sh, sizes, 4, pieces)}
 
 
-def check_activation_rules(plan: ParallelPlan) -> None:
-    """The activation layout the executor runs: the residual stream whole
-    over the sequence and the model group, the heads' and the MLP's
-    activations where their weights are.  ``rule_overrides`` that ask for
-    another (the reference's sequence-parallel ``seq``, an ``act_*`` axis
-    off its weights') raise: the executor would not carry them out."""
+def check_activation_rules(plan: ParallelPlan, cfg: ModelConfig) -> None:
+    """The activation layout the executor runs: the heads' and the MLP's
+    activations where their weights are, the residual stream whole over
+    the model group, and the sequence whole or, under sequence
+    parallelism (``seq`` on the model axis), split over the model group for
+    the dense and moe families at pp = 1 and ep = 1.  ``rule_overrides``
+    that ask for another layout raise: the executor would not carry it
+    out."""
     rules = plan.sharding_rules().rules
-    want = {"seq": None, "act_embed": None, "act_heads": rules.get("heads"),
-            "act_mlp": rules.get("mlp")}
+    where = "(see ROADMAP.md, Queue 1)"
+    want = {"act_embed": None, "act_heads": rules.get("heads"), "act_mlp": rules.get("mlp")}
     for axis, mesh_axis in want.items():
         if rules.get(axis) != mesh_axis:
             raise NotImplementedError(
                 f"rule_overrides put the activations' {axis!r} on {rules.get(axis)!r}: the "
-                "executor keeps the residual stream whole over the sequence and the model "
-                "group and the heads' and MLP's activations where their weights are "
-                "(sequence parallelism is not ported yet; see ROADMAP.md, Queue 1)")
+                "executor keeps the residual stream whole over the model group and the "
+                f"heads' and MLP's activations where their weights are {where}")
+    seq = rules.get("seq")
+    if seq not in (None, "model"):
+        raise NotImplementedError(f"rule_overrides put the activations' 'seq' on {seq!r}: "
+                                  f"the executor splits the sequence over 'model' only {where}")
+    if seq == "model" and (plan.pp > 1 or plan.ep > 1 or cfg.family not in ("dense", "moe")):
+        raise NotImplementedError(
+            f"rule_overrides put the activations' 'seq' on 'model': sequence parallelism "
+            f"runs the dense and moe families at pp = 1 and ep = 1; {cfg.family} at "
+            f"pp = {plan.pp}, ep = {plan.ep} is not ported yet {where}")
 
 
 def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype = torch.float32,
@@ -330,13 +357,13 @@ def build_model(cfg: ModelConfig, plan: ParallelPlan, mesh, dtype: torch.dtype =
     groups = MeshGroups.from_mesh(mesh)
     if groups.sizes != plan.mesh_sizes():
         raise ValueError(f"mesh {groups.sizes} is not the plan's {plan.mesh_sizes()}")
-    check_activation_rules(plan)
+    check_activation_rules(plan, cfg)
     _, psh, _, _ = plan_state_shardings(cfg, plan)
     device = (torch.device("cuda", torch.cuda.current_device())
               if mesh.device_type == "cuda" else torch.device(mesh.device_type))
     return Model(cfg, dtype, compute=compute, device=device, shardings=psh, mesh=groups,
                  virtual_stages=plan.virtual_stages if plan.pp > 1 else 1,
-                 comm=plan.comm_plan())
+                 comm=plan.comm_plan(), seq_parallel=plan.seq_parallel)
 
 
 # the data-parallel axes a gradient is reduced over
@@ -354,6 +381,9 @@ class _Leaf:
     counted: bool          # its block enters this rank's grad-norm sum
     on_pipe: bool          # split over the pipe ranks (the layer stack at pp > 1)
     on_expert: bool = False  # split over the expert ranks (the experts at ep > 1)
+    # whole over the model group under sequence parallelism: each model
+    # rank's gradient is its sequence shard's part, summed over the group
+    model_sum: bool = False
     # (dim, [(offset, length)]): the parts of its block this rank counts,
     # where other model ranks hold the rest whole as well (tp_pieces); None: all
     own: tuple | None = None
@@ -393,7 +423,8 @@ def _leaves(model: Model, plan: ParallelPlan) -> dict[str, _Leaf]:
                        counted=all(coord[a] == 0 for a in (NODE, "pipe", "data", "expert",
                                                            "model") if a not in block),
                        on_pipe="pipe" in shd.spec_axes(spec),
-                       on_expert="expert" in shd.spec_axes(spec), own=own(k, spec))
+                       on_expert="expert" in shd.spec_axes(spec), own=own(k, spec),
+                       model_sum=plan.seq_parallel and "model" not in shd.spec_axes(spec))
     return out
 
 
@@ -519,7 +550,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
                     part = scatter_phases(p.grad, _groups(leaves[k].grad, mesh))
                     gsum[k] = part if i == 0 else gsum[k].add_(part)
                     p.grad = None
-        return _sum(_sum(ce_sum, data), expert) / gas
+        return _sum(_sum(_sum(ce_sum, data), expert), model.ce_group) / gas
 
     def backward_pipelined(params: dict, micro: list[dict], ls: dict, gsum: dict,
                            count: torch.Tensor, sums: dict) -> torch.Tensor:
@@ -568,6 +599,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, plan: ParallelPlan, mes
                 _sum(g, mesh.group_over(leaf.reduce))
             if not leaf.on_expert:              # ep > 1: every expert rank's tokens
                 _sum(g, expert)
+            if leaf.model_sum:                  # every sequence shard's part
+                _sum(g, mesh.groups["model"])
             if not staged:
                 g = _block(g, leaf.update, mesh)
             grads[k] = g.div_(div).mul_(inv)

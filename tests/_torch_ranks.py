@@ -18,6 +18,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.checkpointing import (latest_step, restore_checkpoint, save_checkpoint,
                                        state_shardings)
 from repro_torch.configs import get_config
+from repro_torch.core import sharding as shd
 from repro_torch.data import SyntheticCorpus, make_batch_iterator
 from repro_torch.interop import from_jax_params, gather_params, mesh_axes, shard_params
 from repro_torch.launch.mesh import init_distributed, mesh_for_plan
@@ -94,7 +95,10 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
     """The gradients of one fp32 loss (the first batch's first 4 rows) on
     the rank's blocks, put together over every rank (``gather_params``),
     against the single-device port's on the same whole weights and rows:
-    {leaf: (max |difference|, max |single-device gradient|)}."""
+    {leaf: (max |difference|, max |single-device gradient|)}.  Under
+    sequence parallelism a leaf whole over the model group takes each
+    rank's shard's part, summed over the group first, as the train step
+    sums it."""
     cfg = model.cfg
     batch = {k: torch.from_numpy(v[:4]) for k, v in batches(cfg.vocab_size, 1, cfg)[0].items()}
 
@@ -107,6 +111,12 @@ def grads_check(model: Model, plan: ParallelPlan) -> dict:
                 else p.grad.numpy().copy() for k, p in m.named_parameters()}
 
     mine = grads(model)
+    if plan.seq_parallel:
+        for k, spec in model.shardings.items():
+            if "model" not in shd.spec_axes(spec):
+                t = torch.from_numpy(mine[k])
+                dist.all_reduce(t, group=model.mesh.groups["model"])
+                mine[k] = t.numpy()
     blocks = {k: p.detach().numpy().copy() for k, p in model.named_parameters()}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, (dict(model.mesh.coord), blocks, mine))

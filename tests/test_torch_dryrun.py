@@ -181,17 +181,18 @@ def test_analytic_fields_equal_the_reference():
 
 def test_statuses_skipped_and_error():
     """``applicable``'s skip is a ``skipped`` record; a plan the executor
-    refuses (kv heads that do not split, the reference's sequence-parallel
-    override) and ``kernels=True`` are ``error`` records with the refusal's
-    message; the hillclimb writes its error records."""
+    refuses (the zamba2 shared block's kv heads that do not split, the
+    reference's sequence-parallel override under pp 2) and ``kernels=True``
+    are ``error`` records with the refusal's message; the hillclimb writes
+    its error records."""
     skip = dryrun.dryrun_one("yi-6b", "long_500k", multi_pod=False, verbose=False)
     assert skip["status"] == "skipped" and "long_500k skipped" in skip["reason"]
-    cfg = get_config("yi-6b").reduced(n_heads=6, n_kv_heads=3)
-    bad = dryrun.dryrun_one("yi-6b", SMALL, multi_pod=False, cfg=cfg, verbose=False,
+    cfg = get_config("zamba2-2.7b").reduced(n_layers=4, n_heads=6, n_kv_heads=3)
+    bad = dryrun.dryrun_one("zamba2-2.7b", SMALL, multi_pod=False, cfg=cfg, verbose=False,
                             plan=ParallelPlan(tp=2))
-    assert bad["status"] == "error" and "layers.attn.wk" in bad["error"]
-    seq = _traced(ParallelPlan(dp=2, tp=2, rule_overrides=(("seq", "model"),)))
-    assert seq["status"] == "error" and "'seq'" in seq["error"]
+    assert bad["status"] == "error" and "shared.attn.wk" in bad["error"]
+    seq = _traced(ParallelPlan(dp=2, tp=2, pp=2, rule_overrides=(("seq", "model"),)))
+    assert seq["status"] == "error" and "'seq'" in seq["error"] and "pp = 2" in seq["error"]
     fused = _traced(ParallelPlan(kernels=True))
     assert fused["status"] == "error" and "kernels=True" in fused["error"]
     assert not dist.is_initialized()
@@ -254,3 +255,30 @@ def test_new_modules_import_no_jax_msgpack_or_ml_dtypes():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 roots.add(node.module.split(".")[0])
         assert not roots & {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}, (f, roots)
+
+
+# the new layouts of the hillclimb's plans on a fake group of 16 ranks (dp 4
+# x tp 4): arctic reduced at 6 heads (the attention whole over tp 4) and 8
+# experts, and qwen3 reduced
+NEW_LAYOUTS = {"arctic baseline": ("arctic-480b", "baseline"),
+               "arctic ep_model": ("arctic-480b", "ep_model"),
+               "qwen3 fsdp_seq": ("qwen3-32b", "fsdp_seq")}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LAYOUTS))
+def test_new_layouts_trace_on_sixteen_fake_ranks(name):
+    """Each layout the port refused before it ran per-block tensor
+    parallelism, experts on the model axis and sequence parallelism traces
+    ``ok`` as rank 0 of a fake group of 16, its state bytes the plan's."""
+    arch, variant = NEW_LAYOUTS[name]
+    cfg = get_config(arch).reduced(
+        **(dict(n_heads=6, n_kv_heads=2, head_dim=32, n_experts=8) if arch == "arctic-480b"
+           else {}))
+    fn = hillclimb.VARIANTS[variant]["plan"]
+    plan = (fn or (lambda p: p))(ParallelPlan(dp=4, tp=4, precision="bf16"))
+    rec = dryrun.dryrun_one(arch, SMALL, multi_pod=False, plan=plan, cfg=cfg, verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["chips"] == 16 and rec["mesh"] == "4x4"
+    assert rec["state_bytes"] == train_state_bytes(cfg, plan)
+    assert rec["collective_bytes_total"] > 0
+    assert not dist.is_initialized()

@@ -50,9 +50,10 @@ import jax.numpy as jnp
 import _torch_jax_ref
 import _torch_ranks as ranks
 from repro.kernels import ops as jops
-from repro_torch.core import costmodel
+from repro_torch.core import costmodel, sharding
 from repro_torch.interop import gather_params, mesh_axes, shard_params
 from repro_torch.models import model, moe, ssm
+from repro_torch.models.common import flatten_specs
 from repro_torch.models import vocab_parallel as vp
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamWConfig
@@ -689,10 +690,19 @@ def test_tp_refuses_heads_that_do_not_split(arch, overrides, tp, leaf):
     mid-head; tp 4 at its 2 kv heads keeps wk whole, ``kv_replicated``),
     zamba2 at SSM head dim 128 has 4 SSM heads (tp 8), its shared block at 6
     heads 3 kv heads (tp 2), rwkv6 reduced 4 heads of 64 (tp 8: 32 columns
-    a rank).  The model refuses, naming the leaf."""
+    a rank).  The port's own plan keeps yi's attention whole there
+    (``model.whole_heads``; tests/test_torch_parallel_rules.py runs it), so
+    yi's leaves take the reference's lenient specs here; the recurrent
+    families keep the all-or-none rule.  Given a split below a head, the
+    model refuses, naming the leaf."""
     cfg = ranks.config(arch, overrides)
     plan = ParallelPlan(tp=tp)
     _, psh, _, _ = plan_state_shardings(cfg, plan)
+    for k in model.whole_heads(cfg, tp):
+        assert "model" not in psh[k]
+        spec = dict(flatten_specs(model.param_specs(cfg)))[k]
+        psh[k] = sharding.partition_spec(spec.shape, spec.axes, plan.mesh_sizes(),
+                                         plan.sharding_rules(), unit_axes=True)
     assert "model" in psh[leaf]
     mesh = _fake_mesh(plan, {"pipe": 0, "data": 0, "model": 0})
     with pytest.raises(NotImplementedError, match=leaf):

@@ -4,7 +4,7 @@ single-device step 0 of yi-6b, zamba2-2.7b and rwkv6-1.6b, or phase 5's of
 gpt-1.4b) on card 0, then chip_smoke._parallel_rank, _recurrent_tp_rank or
 _pipeline_rank on min(count, 4) ranks.
 
-  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline|serve|encdec|vlm]
+  python3 tools/parallel_ranks.py [parallel|recurrent|moe|comm|pipeline|serve|encdec|vlm|rules]
                                        (default: parallel; a host with 2 or
                                         more CUDA cards, from the repo root)
 
@@ -42,8 +42,15 @@ step 0 held to its single-device step 0.  "vlm" runs it for internvl2:
 the reduced internvl2's fp32 plans (dp at ZeRO 3, tp, pp with the patch
 positions on the ring) held to the single-device port, then internvl2-2b
 at full width at pp = ranks and dp = ranks (ZeRO 3), step 0 held to its
-single-device step 0.  Each reading is a JSON line, and a failed check ends
-the run non-zero."""
+single-device step 0.  "rules" runs chip_smoke._rules_ranks, the last part
+of "parallel": the reference's sharding rules (``rule_overrides`` of
+launch/hillclimb.py: seq_shard, fsdp_seq and moe_dp_attn+seq for yi-6b,
+moe_dp_attn, ep_model and seq_shard for arctic) on the reduced fp32
+models, kernels on, held to the single-device port, then yi-6b
+(TRAIN_LAYERS) under seq_shard at tp = ranks and fsdp_seq (dp 2 x tp 2 at
+4 ranks) and arctic (2 layers of 8 experts) under moe_dp_attn and ep_model
+at full width, bf16, step 0 held to phase 4's (TP_STEP0_RTOL).  Each
+reading is a JSON line, and a failed check ends the run non-zero."""
 import functools, subprocess, sys, time
 from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -55,14 +62,15 @@ from repro_torch.models.model import Model
 from repro_torch.runtime.train_loop import ParallelPlan
 
 # branch -> (the archs whose single-device step 0 it is compared with, its rank)
-BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV), cs._parallel_rank),
+BRANCHES = {"parallel": (("yi-6b", cs.ZAMBA, cs.RWKV, cs.ARCTIC), cs._parallel_rank),
             "recurrent": ((cs.ZAMBA, cs.RWKV), cs._recurrent_tp_rank),
             "moe": ((), cs._moe_rank),
             "comm": ((), cs._comm_rank),
             "pipeline": ((cs.PIPELINE_ARCH,), cs._pipeline_rank),
             "serve": ((), cs._serve_rank),
             "encdec": ((cs.SEAMLESS,), functools.partial(cs._family_rank, arch=cs.SEAMLESS)),
-            "vlm": ((cs.INTERNVL,), functools.partial(cs._family_rank, arch=cs.INTERNVL))}
+            "vlm": ((cs.INTERNVL,), functools.partial(cs._family_rank, arch=cs.INTERNVL)),
+            "rules": (("yi-6b", cs.ARCTIC), cs._rules_rank)}
 
 if __name__ == "__main__":
     branch = sys.argv[1] if len(sys.argv) > 1 else "parallel"
